@@ -1,0 +1,222 @@
+"""The style-transfer network's inference path — ``rerevst_tpu/models/transformer.py``.
+
+This slice ports the two-pass global graph: the content and style encoders,
+Pass 1 (``collect_stats`` freezes 11 ``NormStats`` and 6 filters over the
+sampled frames) and Pass 2 (``decode_global`` under those frozen statistics).
+All conditioning state is explicit:
+
+* ``StyleFeatures`` — everything derived from a style image;
+* ``SeqStats`` — everything derived from a (style, sampled frames) pair.
+
+On the card the 11 normalization sites of ``decode_global`` run the
+``norm_affine_clamp`` kernel and its three filter chains the
+``dynamic_filter_pair`` kernel; on the CPU the same wrappers compute their
+plain versions.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from rerevst_torch.config import ModelConfig
+from rerevst_torch.kernels import dynamic_filter_pair, norm_affine_clamp
+from rerevst_torch.models import vgg
+from rerevst_torch.models.layers import (
+    apply_dynamic_filter,
+    conv2d,
+    leaky_relu,
+    linear,
+    upsample2x_conv1x1,
+    upsample2x_conv3x3,
+)
+from rerevst_torch.ops.image import rgb_to_luma_reversed
+from rerevst_torch.ops.stats import channel_minmax, instance_moments, mean_std
+
+
+class StyleFeatures(NamedTuple):
+    """The style encoder's output: the raw relu4_1 map and the per-tap
+    (relu1_1..relu4_1) channel mean/std, each [N,1,1,C] in the storage
+    dtype."""
+    map: torch.Tensor
+    means: Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+    stds: Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+class NormStats(NamedTuple):
+    """Frozen global InstanceNorm state, fp32 [1,1,1,C] each."""
+    mean: torch.Tensor
+    rstd: torch.Tensor
+    xmin: torch.Tensor  # extrema of the *normalized* activations
+    xmax: torch.Tensor
+
+
+class SeqStats(NamedTuple):
+    """Per-(sequence, style) frozen decoder state.
+
+    norms keys: 'pre', 'ada4'..'ada1', 'res{4,3,2}{a,b}' (11 sites).
+    filters keys: 'f{1,2,3}{a,b}' — six fp32 [1,P,Q] filter matrices.
+    """
+    norms: Dict[str, NormStats]
+    filters: Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Encoders
+# ---------------------------------------------------------------------------
+
+def encode_content(params: Dict, frame: torch.Tensor, cfg: ModelConfig,
+                   desaturate: bool = True) -> torch.Tensor:
+    """Content branch: reversed-luma desaturation (inference), then
+    VGG -> relu4_1 in the storage dtype."""
+    x = rgb_to_luma_reversed(frame) if desaturate else frame
+    return vgg.encode(params["encoder"], x.to(cfg.dtype))
+
+
+def encode_style(params: Dict, style: torch.Tensor,
+                 cfg: ModelConfig) -> StyleFeatures:
+    """EncoderStyle: per-tap (mean, std) + the raw relu4_1 map."""
+    feats = vgg.vgg_features(params["encoder_style"], style.to(cfg.dtype),
+                             "relu4_1")
+    means, stds = [], []
+    for tap in feats:
+        m, s = mean_std(tap, eps=cfg.mean_std_eps)
+        means.append(m)
+        stds.append(s)
+    return StyleFeatures(feats.relu4_1, tuple(means), tuple(stds))
+
+
+# ---------------------------------------------------------------------------
+# Global (frozen statistics) graph — Pass 2
+# ---------------------------------------------------------------------------
+
+def _norm_apply(st: NormStats, x: torch.Tensor,
+                style_std: Optional[torch.Tensor] = None,
+                style_mean: Optional[torch.Tensor] = None,
+                leaky: bool = False) -> torch.Tensor:
+    """Frozen-stats normalize + clamp, optionally after a leaky-relu and
+    followed by the style affine — one ``norm_affine_clamp`` call, computed
+    in fp32 and stored in x's dtype."""
+    return norm_affine_clamp(x, st, style_std, style_mean, leaky)
+
+
+def _kernel_filter_frozen(p: Dict, content: torch.Tensor, fa: torch.Tensor,
+                          fb: torch.Tensor) -> torch.Tensor:
+    """KernelFilter.forward with frozen filters; the filter pair between the
+    down and up convs is one ``dynamic_filter_pair`` call."""
+    h = conv2d(p["down"], content, padding=1)
+    h = dynamic_filter_pair(h, fa, fb)
+    return content + conv2d(p["up"], h, padding=1)
+
+
+def _resblock_global(p: Dict, x: torch.Tensor, sa: NormStats,
+                     sb: NormStats) -> torch.Tensor:
+    """ResidualBlock.forward under frozen norms; the nearest-2x upsample
+    feeds both the shortcut and conv1."""
+    xs = upsample2x_conv1x1(p["shortcut"], x)
+    h = upsample2x_conv3x3(p["conv1"], x)
+    h = _norm_apply(sa, h, leaky=True)
+    h = conv2d(p["conv2"], h, padding=1)
+    h = _norm_apply(sb, h, leaky=True)
+    return xs + h
+
+
+def decode_global(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
+                  stats: SeqStats, cfg: ModelConfig) -> torch.Tensor:
+    """Global decoder graph: every norm uses frozen sequence statistics with
+    min/max clamping; the filter chain's output is re-normalized at the extra
+    'ada4' site before the style affine; filters come frozen from `stats`."""
+    m1, m2, m3, m4 = style.means
+    s1, s2, s3, s4 = style.stds
+    norms, filt = stats.norms, stats.filters
+
+    h = _norm_apply(norms["pre"], x)
+    h = _kernel_filter_frozen(params_dec["filter1"], h, filt["f1a"], filt["f1b"])
+    h = _kernel_filter_frozen(params_dec["filter2"], h, filt["f2a"], filt["f2b"])
+    h = _kernel_filter_frozen(params_dec["filter3"], h, filt["f3a"], filt["f3b"])
+
+    h = _norm_apply(norms["ada4"], h, s4, m4)
+    h = _resblock_global(params_dec["res4"], h, norms["res4a"], norms["res4b"])
+    h = _norm_apply(norms["ada3"], h, s3, m3)
+    h = _resblock_global(params_dec["res3"], h, norms["res3a"], norms["res3b"])
+    h = _norm_apply(norms["ada2"], h, s2, m2)
+    h = _resblock_global(params_dec["res2"], h, norms["res2a"], norms["res2b"])
+    h = _norm_apply(norms["ada1"], h, s1, m1)
+    return conv2d(params_dec["out"], h, padding=1)
+
+
+# ---------------------------------------------------------------------------
+# Global statistics collection — Pass 1
+# ---------------------------------------------------------------------------
+
+def _norm_compute(x: torch.Tensor, eps: float
+                  ) -> Tuple[torch.Tensor, NormStats]:
+    """InstanceNorm.compute over (N,H,W): (normalized batch, NormStats), with
+    the two-pass variance of ``instance_moments``."""
+    xf = x.to(torch.float32)
+    mean, rstd = instance_moments(xf, (0, 1, 2), eps)
+    xn = (xf - mean) * rstd
+    xmin, xmax = channel_minmax(xn, (0, 1, 2))
+    return xn.to(x.dtype), NormStats(mean, rstd, xmin, xmax)
+
+
+def _filter_compute(p: Dict, content_batch: torch.Tensor,
+                    style_map: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """FilterPredictor.compute: content pooled over the whole sampled batch ->
+    one fp32 [1,P,Q] filter per sequence.  The pooling and the FC run in fp32
+    in every storage dtype: the frozen filters stay fp32."""
+    pc = conv2d(p["down"], content_batch, padding=1).float().mean((1, 2))
+    pc = pc.mean(0, keepdim=True)
+    ps = conv2d(p["down"], style_map, padding=1).float().mean((1, 2))
+    fc = {k: v.float() for k, v in p["fc"].items()}
+    f = linear(fc, torch.cat([pc, ps], dim=1))
+    ic = cfg.filter_channels
+    return f.reshape(-1, ic, ic)
+
+
+def collect_stats(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
+                  cfg: ModelConfig) -> SeqStats:
+    """Decoder.compute: run the global graph over the sampled-frame batch
+    ``x`` ([N, H/8, W/8, 512] content features), freezing every norm and
+    filter."""
+    eps = cfg.norm_eps
+    norms: Dict[str, NormStats] = {}
+    filters: Dict[str, torch.Tensor] = {}
+    m1, m2, m3, m4 = style.means
+    s1, s2, s3, s4 = style.stds
+
+    h, norms["pre"] = _norm_compute(x, eps)
+    ns = (style.map - m4) / s4
+
+    for i, name in ((1, "filter1"), (2, "filter2"), (3, "filter3")):
+        p = params_dec[name]
+        inner = conv2d(p["down"], h, padding=1)
+        fa = _filter_compute(p["p1"], h, ns, cfg)
+        filters[f"f{i}a"] = fa
+        inner = leaky_relu(apply_dynamic_filter(inner, fa))
+        fb = _filter_compute(p["p2"], h, ns, cfg)
+        filters[f"f{i}b"] = fb
+        inner = apply_dynamic_filter(inner, fb)
+        h = h + conv2d(p["up"], inner, padding=1)
+
+    def ada_compute(h, key, m, s):
+        hn, norms[key] = _norm_compute(h, eps)
+        return hn * s + m
+
+    def res_compute(h, p, ka, kb):
+        xs = upsample2x_conv1x1(p["shortcut"], h)
+        t = upsample2x_conv3x3(p["conv1"], h)
+        t, norms[ka] = _norm_compute(leaky_relu(t), eps)
+        t = conv2d(p["conv2"], t, padding=1)
+        t, norms[kb] = _norm_compute(leaky_relu(t), eps)
+        return xs + t
+
+    h = ada_compute(h, "ada4", m4, s4)
+    h = res_compute(h, params_dec["res4"], "res4a", "res4b")
+    h = ada_compute(h, "ada3", m3, s3)
+    h = res_compute(h, params_dec["res3"], "res3a", "res3b")
+    h = ada_compute(h, "ada2", m2, s2)
+    h = res_compute(h, params_dec["res2"], "res2a", "res2b")
+    ada_compute(h, "ada1", m1, s1)  # freezes 'ada1'; output discarded
+    return SeqStats(norms, filters)

@@ -1,0 +1,178 @@
+"""rerevst_torch.api.Stylization vs rerevst_tpu.api.Stylization.
+
+The whole two-pass pipeline — style prep, Pass 1 on the sampled unpadded
+frames, Pass 2 on reflect-padded batches with a ragged last batch — runs on
+a seeded 9-frame 64x112 clip (padded to 192x256) with the bundled checkpoint
+in fp32 through both sessions.  Tolerance: uint8 frames within 1 count
+everywhere (the ROADMAP's end-to-end bar): the fp32 pipelines differ by
+about 1e-6 of the pixel scale, which flips an occasional rounding.
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from flax import serialization
+
+from rerevst_torch import kernels
+from rerevst_torch.api import Stylization
+from rerevst_torch.config import InferenceConfig
+from rerevst_tpu.api import Stylization as JaxStylization
+
+REPO = Path(__file__).resolve().parent.parent
+CKPT = REPO / "models" / "demo_plum_4000.msgpack"
+
+
+def _clip(n=9, h=64, w=112, seed=0):
+    """A smooth pattern that moves a few pixels per frame (BGR uint8)."""
+    rng = np.random.default_rng(seed)
+    f = rng.uniform(0.05, 0.2, (3, 2))
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = []
+    for i in range(n):
+        img = np.stack([128 + 100 * np.sin((xx + 3 * i) * f[c, 0]
+                                           + (yy + i) * f[c, 1] + c)
+                        for c in range(3)], -1)
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+    return frames
+
+
+def _style(seed=1, size=64):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    img = np.stack([128 + 90 * np.sin(xx / 5 + c) * np.cos(yy / 7 - c)
+                    for c in range(3)], -1)
+    img += rng.normal(0, 10, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+@pytest.fixture(scope="module")
+def params():
+    return serialization.msgpack_restore(CKPT.read_bytes())
+
+
+@pytest.fixture(scope="module")
+def jax_frames(params):
+    s = JaxStylization(params=params)
+    s.prepare_style(_style())
+    return list(s.stylize_video(_clip(), batch_size=4))
+
+
+@pytest.fixture
+def session(params):
+    s = Stylization(params=params, device="cpu")
+    s.prepare_style(_style())
+    return s
+
+
+def test_stylize_video_matches_jax(session, jax_frames):
+    got = list(session.stylize_video(_clip(), batch_size=4))
+    assert len(got) == len(jax_frames) == 9
+    for a, b in zip(got, jax_frames):
+        assert a.shape == b.shape == (64, 112, 3) and a.dtype == np.uint8
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        assert d.max() <= 1
+    assert np.stack(got).std() > 1.0  # not a constant image
+    assert session.pass1_mode == "batched"
+
+
+def test_from_checkpoint_path_equals_from_params(session):
+    s = Stylization(str(CKPT), device="cpu")
+    s.prepare_style(_style())
+    clip = _clip(n=3)
+    a = list(s.stylize_video(clip, batch_size=2))
+    b = list(session.stylize_video(clip, batch_size=2))
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_uploads_fetches_and_geometry(session):
+    """Pass-1 frames go up unpadded in one upload per chunk; Pass-2 batches
+    go up padded to the locked geometry, one upload per batch (the ragged
+    tail padded to the batch shape); every fetch is cropped on the device
+    to the real frames."""
+    ups, fetches = [], []
+    up, fetch = session._upload, session._fetch
+    session._upload = lambda x: ups.append(x.shape) or up(x)
+    session._fetch = lambda x: fetches.append(tuple(x.shape)) or fetch(x)
+    kernels.reset_launches()
+    out = list(session.stylize_video(_clip(), batch_size=4))
+    assert len(out) == 9
+    # sampled frames 0 and 8, raw geometry
+    assert ups[0] == (2, 64, 112, 3)
+    assert ups[1:] == [(4, 192, 256, 3)] * 3
+    assert fetches == [(4, 64, 112, 3), (4, 64, 112, 3), (1, 64, 112, 3)]
+    assert session._pad_hw == (192, 256)
+    assert kernels.launch_counts() == {"norm_affine_clamp": 0,
+                                       "dynamic_filter_pair": 0}
+
+
+def test_first_frame_locks_geometry(session):
+    clip = _clip(n=3)
+    for f in clip:
+        session.add(f)
+    session.compute()
+    out = session.transfer(clip[0])
+    assert out.shape == (64, 112, 3) and session._pad_hw == (192, 256)
+    # A later, smaller frame is padded to the LOCKED geometry.
+    small = clip[1][:60, :100]
+    session.transfer_batch([small])
+    assert session._pad_hw == (192, 256)
+    # clean() re-locks on the next clip's first frame.
+    session.clean()
+    assert session._pad_hw is None
+
+
+def test_reference_surface_equals_batched(session):
+    clip = _clip()
+    batched = list(session.stylize_video(clip, batch_size=4))
+    session.clean()
+    for i in (0, 8):
+        session.add(clip[i])
+    session.compute()
+    for i in (0, 5):
+        d = np.abs(session.transfer(clip[i]).astype(np.int16)
+                   - batched[i].astype(np.int16))
+        assert d.max() <= 1
+    pair = session.transfer_batch(clip[:2], pad_to=4)
+    assert len(pair) == 2
+
+
+def test_too_many_samples_raises(session):
+    clip = _clip(n=1) * (8 * 65 + 1)  # 66 sampled frames
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        list(session.stylize_video(clip, batch_size=4))
+    session.clean()
+    frame = _clip(n=1)[0]
+    for _ in range(Stylization.STREAMING_THRESHOLD):
+        session.add(frame)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        session.add(frame)
+
+
+def test_default_device_raises_without_cuda(params, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Stylization(params=params)
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"use_global": False}, "Queue 1 item 7"),
+    ({"mesh": object()}, "Queue 1 item 13"),
+    ({"checkpoint": "x.pth", "params": None}, "Queue 1 item 1"),
+])
+def test_later_slices_raise(params, kw, match):
+    args = {"params": params, "device": "cpu", **kw}
+    with pytest.raises(NotImplementedError, match=match):
+        Stylization(**args)
+
+
+def test_file_inputs_and_order_raise(session):
+    with pytest.raises(NotImplementedError, match="cv2"):
+        list(session.stylize_video("clip/*.png"))
+    fresh = Stylization(params={"decoder": {}}, device="cpu",
+                        infer=InferenceConfig())
+    with pytest.raises(RuntimeError, match="prepare_style"):
+        fresh.compute()
