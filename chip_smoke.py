@@ -11,22 +11,31 @@ Phases, each printing one JSON line (any failure exits non-zero):
              main path's shapes (batch 16, 512x512 content padded to 640x640)
              plus ragged ones, in f16, bf16 and fp32;
 4. e2e     — ``Stylization.stylize_video`` on a seeded 33-frame 512x512 clip
-             with the bundled checkpoint, in f16 and in fp32: shapes, launch
-             counts per Pass-2 batch, f16-vs-fp32 pixel error, and a small
-             clip held against the port's plain CPU path;
+             with the bundled checkpoint: the default path in f16 and in
+             fp32, and the pair-lane path (``ModelConfig(pairlane=True)``)
+             in f16 — shapes, launch counts, each low-precision session's
+             pixel error against fp32, and a small clip held against the
+             port's plain CPU path; then ``conv3x3_implicit_gemm``, which
+             no model path runs, driven alone at the shapes of the JAX
+             package's conv benchmark (``scripts/bench_conv3x3.py``);
 5. times   — each kernel and its plain version at every main-path site
              (device time from CUDA events, and the host's own cost per
-             call), the bound, Pass-2 frames/s, and torch.profiler traces
-             of one f16 stylize_video (device busy vs wall clock) and of
-             Pass 2 alone (where a batch's device time goes);
+             call), the bound, one ``F.conv2d`` call beside each conv as a
+             yardstick, Pass-2 frames/s of both paths, and torch.profiler
+             traces of one f16 stylize_video (device busy vs wall clock)
+             and of Pass 2 alone on both paths (where a batch's time goes);
 6. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 Tolerances: a kernel agrees with its plain version to 1e-5 of the output's
 scale in fp32, and within one ulp of the storage dtype in f16/bf16 (both
-compute in fp32 and round once).  End to end, f16 stays within 1e-3 mean
-|delta| per pixel ([0,1] scale) of fp32, the repository's precision bar,
-and the card's fp32 frames stay within 1 count of the CPU path's.
+compute in fp32 and round once).  The 3x3 convs sum K = 9 C products in
+other orders on the two sides, each within K 2^-23 of sum |x||w| (the
+standard bound, doubled for the tensor cores' accumulation): they agree to
+K 2^-22 sum |x||w| (+ |b|), plus one ulp of the storage dtype in f16/bf16.
+End to end, f16 stays within 1e-3 mean |delta| per pixel ([0,1] scale) of
+fp32, the repository's precision bar, on both paths, and the card's fp32
+frames stay within 1 count of the CPU path's.
 
 Needs one CUDA card and the repository beside this file; imports nothing
 of JAX.  Detailed results go to ``chiprun_out/chip_smoke.json``.
@@ -44,6 +53,7 @@ HERE = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+F16_FLOP_PER_S = 989e12        # H100 SXM dense f16/bf16 tensor cores
 BATCH = 16
 PAD_HW = 640                   # 512x512 content, reflect-padded to 640x640
 CLIP_FRAMES = 33
@@ -61,6 +71,12 @@ NORM_SITES = [
     ("ada1", 64, 1, "affine"),
 ]
 FILTER_SITES = 3  # filter1..3, each at [B, H/8, W/8, 32]
+#: The pair-lane conv sites per Pass-2 batch: (sites, O), all at
+#: [B, 640, 640, 64].
+PAIRLANE_SITES = [("conv1_2, res2.conv2", 2, 64), ("out", 1, 3)]
+#: The shapes of rerevst_tpu's scripts/bench_conv3x3.py, the implicit-GEMM
+#: conv's only driver in the JAX package: (x shape, O).
+IGEMM_BENCH = [((BATCH, PAD_HW, PAD_HW, 64), 64), ((BATCH, PAD_HW, PAD_HW, 64), 3)]
 
 RESULTS: dict = {"checks": [], "times": []}
 
@@ -108,6 +124,71 @@ def within_tolerance(torch, got, want) -> bool:
     # error (sums of products cancel near zero).
     slack = 1e-5 * w.abs().max()
     return bool(((g - w).abs() <= ulp + slack).all())
+
+
+def conv_within_tolerance(torch, got, want, x, w, b) -> bool:
+    """K 2^-22 sum |x||w| (+|b|), plus one ulp of a 16-bit storage dtype."""
+    from rerevst_torch.kernels import conv3x3_implicit_gemm_plain
+
+    k = 9 * x.shape[-1]
+    scale = conv3x3_implicit_gemm_plain(
+        x.abs().float(), w.abs().float(), None if b is None else b.abs().float())
+    tol = k * 2.0 ** -22 * scale
+    del scale
+    g, v = got.float(), want.float()
+    if not (torch.isfinite(g) == torch.isfinite(v)).all():
+        return False
+    if got.dtype != torch.float32:
+        mant = {torch.float16: 10, torch.bfloat16: 7}[got.dtype]
+        tiny = {torch.float16: 2.0 ** -24, torch.bfloat16: 2.0 ** -133}[got.dtype]
+        tol += torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(1e-30)))
+                          - mant).clamp_min(tiny)
+    fin = torch.isfinite(v)
+    return bool(((g - v).abs()[fin] <= tol[fin]).all())
+
+
+def conv_inputs(torch, shape, o, dtype, gen, bias=True):
+    dev = torch.device("cuda")
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    w = (torch.randn((3, 3, shape[-1], o), generator=gen, device=dev)
+         * (1.0 / (3 * shape[-1] ** 0.5))).to(dtype)
+    b = torch.randn(o, generator=gen, device=dev).to(dtype) if bias else None
+    return x, w, b
+
+
+def check_convs(torch, gen, errs):
+    from rerevst_torch import kernels
+
+    p = PAD_HW
+    igemm = [((BATCH, p, p, 64), 64), ((BATCH, p, p, 64), 3),
+             ((2, 64, 64, 3), 64), ((2, 80, 80, 128), 128),
+             ((2, 40, 40, 256), 512),
+             ((3, 37, 53, 64), 64), ((2, 13, 7, 128), 5)]  # the last two ragged
+    pair = [((BATCH, p, p, 64), 64), ((BATCH, p, p, 64), 3),
+            ((3, 37, 53, 64), 64), ((2, 19, 150, 64), 32)]
+    cases = [("conv3x3_implicit_gemm", s, o) for s, o in igemm] \
+        + [("conv3x3_pairlane", s, o) for s, o in pair]
+    for name, shape, o in cases:
+        kern = getattr(kernels, name)
+        plain = getattr(kernels, name + "_plain")
+        for dtype in (torch.float16, torch.bfloat16, torch.float32):
+            x, w, b = conv_inputs(torch, shape, o, dtype, gen,
+                                  bias=shape[-1] != 128)
+            got = kern(x, w, b)
+            torch.cuda.synchronize()
+            want = plain(x, w, b)
+            err = (got.float() - want.float()).abs().max().item()
+            ok = conv_within_tolerance(torch, got, want, x, w, b)
+            RESULTS["checks"].append(
+                {"kernel": name, "shape": shape, "O": o, "dtype": str(dtype),
+                 "bias": b is not None, "max_abs_err": err,
+                 "scale": want.float().abs().max().item(), "ok": ok})
+            if not ok:
+                fail(f"{name} {shape}->{o} {dtype}: max |kernel - plain| = "
+                     f"{err}")
+            errs[name] = max(errs.get(name, 0.0), err)
+            del x, w, b, got, want
+    torch.cuda.empty_cache()
 
 
 def norm_inputs(torch, shape, variant, dtype, gen):
@@ -189,6 +270,7 @@ def check_kernels(torch):
                 fail(f"dynamic_filter_pair {shape} {dtype}: max |kernel - "
                      f"plain| = {err} at scale {scale}")
             errs["dynamic_filter_pair"] = max(errs["dynamic_filter_pair"], err)
+    check_convs(torch, gen, errs)
     return errs, len(RESULTS["checks"])
 
 
@@ -305,6 +387,74 @@ def time_kernels(torch):
     return tot, bound_by
 
 
+def conv_bound(x, w, o):
+    """Least device time of one f16 conv call: each input read once and the
+    output written once over HBM, or its 2 M K O flops over the dense f16
+    tensor-core peak, whichever is larger."""
+    m = x.numel() // x.shape[-1]
+    nbytes = (x.numel() + w.numel() + o + m * o) * x.element_size()
+    flops = 2 * m * w.shape[0] * w.shape[1] * w.shape[2] * o
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), t_bytes, t_ops
+
+
+def time_convs(torch):
+    """The conv kernels at the f16 shapes: the pair-lane sites of one Pass-2
+    batch, and the implicit-GEMM conv at the JAX conv benchmark's shapes.
+    Beside each, its plain version and one F.conv2d call on the same inputs
+    (channels_last, bias fused into the call, the OIHW weight made once
+    before timing), the yardstick the port does not call."""
+    import torch.nn.functional as F
+
+    from rerevst_torch import kernels
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    dtype = torch.float16
+    tot = {}
+    sites = [("conv3x3_pairlane", site, n, (BATCH, PAD_HW, PAD_HW, 64), o)
+             for site, n, o in PAIRLANE_SITES] \
+        + [("conv3x3_implicit_gemm", "scripts/bench_conv3x3.py", 1, shape, o)
+           for shape, o in IGEMM_BENCH]
+    for name, site, n, shape, o in sites:
+        kern = getattr(kernels, name)
+        plain = getattr(kernels, name + "_plain")
+        x, w, b = conv_inputs(torch, shape, o, dtype, gen)
+        wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        xl = x.permute(0, 3, 1, 2)
+        k = time_ms(torch, lambda: kern(x, w, b), iters=10, warmup=2)
+        pl = time_ms(torch, lambda: plain(x, w, b), iters=5, warmup=1)
+        lib = time_ms(torch, lambda: F.conv2d(xl, wl, b, padding=1),
+                      iters=10, warmup=2)
+        bound, by, t_bytes, t_ops = conv_bound(x, w, o)
+        row = {"kernel": name, "site": site, "shape": shape, "O": o,
+               "dtype": "float16", "launches_per_batch": n, "ms": k["ms"],
+               "plain_ms": pl["ms"], "library_ms": lib["ms"],
+               "bound_ms": bound, "bound_by": by, "bound_bytes_ms": t_bytes,
+               "bound_ops_ms": t_ops,
+               "tflops": 2 * x.numel() * 9 * o / k["ms"] / 1e9,
+               "host_ms": k["host_ms"], "plain_host_ms": pl["host_ms"],
+               "host_paced": k["host_paced"] or pl["host_paced"]
+               or lib["host_paced"]}
+        RESULTS["times"].append(row)
+        emit({"phase": "time", **row})
+        acc = tot.setdefault(name, {"ms": 0.0, "plain_ms": 0.0,
+                                    "bound_ms": 0.0, "library_ms": 0.0,
+                                    "bytes_ms": 0.0, "ops_ms": 0.0})
+        for key, v in (("ms", k["ms"]), ("plain_ms", pl["ms"]),
+                       ("bound_ms", bound), ("library_ms", lib["ms"]),
+                       ("bytes_ms", t_bytes), ("ops_ms", t_ops)):
+            acc[key] += n * v
+        del x, w, b, wl, xl
+    torch.cuda.empty_cache()
+    for acc in tot.values():
+        acc["bound_by"] = ("operations" if acc["ops_ms"] >= acc["bytes_ms"]
+                           else "bytes")
+    return tot
+
+
 # ---------------------------------------------------------------------------
 # End to end
 # ---------------------------------------------------------------------------
@@ -360,10 +510,21 @@ def run_e2e(torch):
     clip = synth_clip(CLIP_FRAMES, CONTENT, CONTENT, seed=0)
     style = synth_style(CONTENT, CONTENT, seed=1)
     n_batches = -(-CLIP_FRAMES // BATCH)
-    outs, sessions, main_counts = {}, {}, None
-    for dtype in (torch.float16, torch.float32):
+    n_pass1_chunks = 1  # 5 sampled frames, one Pass-1 chunk
+    default = {"norm_affine_clamp": 11 * n_batches,
+               "dynamic_filter_pair": 3 * n_batches,
+               "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0}
+    # The pair-lane path: conv1_2 in every encoder call (Pass-1 chunks and
+    # Pass-2 batches), res2.conv2 and the out conv in every Pass-2 batch.
+    pairlane = dict(default, conv3x3_pairlane=n_pass1_chunks + 3 * n_batches)
+    runs = [("f16", torch.float16, False, default),
+            ("fp32", torch.float32, False, default),
+            ("f16_pairlane", torch.float16, True, pairlane)]
+    outs, sessions, counts_by = {}, {}, {}
+    for key, dtype, pl, want in runs:
         t0 = time.perf_counter()
-        s = Stylization(ckpt, cfg=ModelConfig(dtype=dtype), device="cuda")
+        s = Stylization(ckpt, cfg=ModelConfig(dtype=dtype, pairlane=pl),
+                        device="cuda")
         s.prepare_style(style)
         torch.cuda.synchronize()
         t_setup = time.perf_counter() - t0
@@ -374,20 +535,17 @@ def run_e2e(torch):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
-        want = {"norm_affine_clamp": 11 * n_batches,
-                "dynamic_filter_pair": 3 * n_batches}
         if counts != want:
-            fail(f"{dtype}: kernel launches {counts}, expected {want} "
+            fail(f"{key}: kernel launches {counts}, expected {want} "
                  f"({n_batches} Pass-2 batches)")
         if len(frames) != CLIP_FRAMES:
-            fail(f"{dtype}: {len(frames)} frames out of {CLIP_FRAMES}")
+            fail(f"{key}: {len(frames)} frames out of {CLIP_FRAMES}")
         for f in frames:
             if f.shape != (CONTENT, CONTENT, 3) or f.dtype != np.uint8:
-                fail(f"{dtype}: frame {f.shape} {f.dtype}")
+                fail(f"{key}: frame {f.shape} {f.dtype}")
         if np.stack(frames).std() < 1.0:
-            fail(f"{dtype}: constant output")
-        if dtype == torch.float16:
-            main_counts = counts
+            fail(f"{key}: constant output")
+        counts_by[key] = counts
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         # The same clip again: the first call above includes cuDNN's
         # algorithm choice and CUDA module loading.
@@ -396,19 +554,48 @@ def run_e2e(torch):
             pass
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
-        emit({"phase": "e2e", "dtype": str(dtype), "frames": len(frames),
+        emit({"phase": "e2e", "session": key, "dtype": str(dtype),
+              "pairlane": pl, "frames": len(frames),
               "launches": counts, "pass2_batches": n_batches,
               "setup_s": t_setup, "stylize_video_wall_s": wall,
               "stylize_video_fps_wall": CLIP_FRAMES / wall,
               "warm_wall_s": warm, "warm_fps_wall": CLIP_FRAMES / warm,
               "peak_mem_gb": peak_gb, "pass1_mode": s.pass1_mode})
-        outs[dtype], sessions[dtype] = frames, s
-    err = pixel_error(outs[torch.float16], outs[torch.float32])
-    emit({"phase": "e2e", "f16_vs_fp32": err, "bar_mean_01": 1e-3})
-    RESULTS["f16_vs_fp32"] = err
-    if not err["mean_01"] <= 1e-3:
-        fail(f"f16 vs fp32 mean |delta| {err['mean_01']} > 1e-3")
-    return sessions, main_counts, err
+        outs[key], sessions[key] = frames, s
+    for key in ("f16", "f16_pairlane"):
+        err = pixel_error(outs[key], outs["fp32"])
+        emit({"phase": "e2e", f"{key}_vs_fp32": err, "bar_mean_01": 1e-3})
+        RESULTS[f"{key}_vs_fp32"] = err
+        if not err["mean_01"] <= 1e-3:
+            fail(f"{key} vs fp32 mean |delta| {err['mean_01']} > 1e-3")
+    err = pixel_error(outs["f16_pairlane"], outs["f16"])
+    emit({"phase": "e2e", "f16_pairlane_vs_f16": err})
+    RESULTS["f16_pairlane_vs_f16"] = err
+    return sessions, counts_by
+
+
+def drive_implicit_gemm(torch):
+    """conv3x3_implicit_gemm has no model path in either package; its one
+    driver in the JAX package is scripts/bench_conv3x3.py.  Drive it once
+    at those shapes, counts at 0 before and read after."""
+    from rerevst_torch import kernels
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    kernels.reset_launches()
+    for shape, o in IGEMM_BENCH:
+        x, w, b = conv_inputs(torch, shape, o, torch.float16, gen)
+        y = kernels.conv3x3_implicit_gemm(x, w, b)
+        torch.cuda.synchronize()
+        if tuple(y.shape) != shape[:3] + (o,) or not torch.isfinite(y).all():
+            fail(f"conv3x3_implicit_gemm {shape}->{o}: bad output")
+        del x, w, b, y
+    counts = kernels.launch_counts()
+    emit({"phase": "e2e", "path": "conv3x3_implicit_gemm standalone",
+          "launches": counts})
+    if counts["conv3x3_implicit_gemm"] != len(IGEMM_BENCH):
+        fail(f"conv3x3_implicit_gemm standalone launches {counts}")
+    return counts
 
 
 def check_against_cpu(torch):
@@ -447,7 +634,8 @@ def time_pass2(torch, session):
 
 def _category(name: str) -> str:
     low = name.lower()
-    if "norm_affine_kernel" in low or "filter_pair_kernel" in low:
+    if any(k in low for k in ("norm_affine_kernel", "filter_pair_kernel",
+                              "conv3x3_")):
         return "port kernels"
     if any(k in low for k in ("conv", "cudnn", "xmma", "implicit", "wgrad",
                               "dgrad", "fprop", "sm90")):
@@ -564,37 +752,60 @@ def main() -> int:
     emit({"phase": "check", "checks": n_checks, "max_abs_err": errs})
 
     # 4. end to end
-    sessions, main_counts, err = run_e2e(torch)
+    sessions, counts_by = run_e2e(torch)
     check_against_cpu(torch)
+    igemm_counts = drive_implicit_gemm(torch)
 
     # 5. times
     tot, filter_bound_by = time_kernels(torch)
-    p2 = time_pass2(torch, sessions[torch.float16])
-    p2["card"] = smi
-    RESULTS["pass2"] = p2
-    emit({"phase": "time", **p2})
-    for key, trace in (("trace", trace_stylize_video),
-                       ("trace_pass2", trace_pass2)):
-        tr = trace(torch, sessions[torch.float16])
+    conv_tot = time_convs(torch)
+    for key, sess in (("pass2", "f16"), ("pass2_pairlane", "f16_pairlane")):
+        p2 = time_pass2(torch, sessions[sess])
+        p2["card"] = smi
+        RESULTS[key] = p2
+        emit({"phase": "time", "session": sess, **p2})
+    for key, trace, sess in (("trace", trace_stylize_video, "f16"),
+                             ("trace_pass2", trace_pass2, "f16"),
+                             ("trace_pass2_pairlane", trace_pass2,
+                              "f16_pairlane")):
+        tr = trace(torch, sessions[sess])
         tr["card"] = smi
         RESULTS[key] = tr
-        emit({"phase": key, **{k: v for k, v in tr.items()
-                               if k != "top_kernels"}})
+        emit({"phase": key, "session": sess,
+              **{k: v for k, v in tr.items() if k != "top_kernels"}})
 
-    # 6. summary lines
+    # 6. summary lines.  Times are per Pass-2 batch (summed over the
+    # kernel's sites), or per pair of conv benchmark calls for the
+    # implicit-GEMM conv; launches are counted over one run of each path.
     meta = {
         "norm_affine_clamp": ("rerevst_torch/csrc/norm_affine.cu",
-                              "rerevst_tpu/kernels/norm_affine.py:41", "bytes"),
+                              "rerevst_tpu/kernels/norm_affine.py:41", "bytes",
+                              "stylize_video f16", counts_by["f16"]),
         "dynamic_filter_pair": ("rerevst_torch/csrc/filter_chain.cu",
                                 "rerevst_tpu/kernels/filter_chain.py:55",
-                                filter_bound_by),
+                                filter_bound_by, "stylize_video f16",
+                                counts_by["f16"]),
+        "conv3x3_implicit_gemm": (
+            "rerevst_torch/csrc/conv3x3.cu",
+            "rerevst_tpu/kernels/conv3x3.py:81",
+            conv_tot["conv3x3_implicit_gemm"]["bound_by"],
+            "standalone at scripts/bench_conv3x3.py's shapes (no model path)",
+            igemm_counts),
+        "conv3x3_pairlane": ("rerevst_torch/csrc/conv3x3.cu",
+                             "rerevst_tpu/kernels/conv3x3.py:210",
+                             conv_tot["conv3x3_pairlane"]["bound_by"],
+                             "stylize_video f16 pairlane",
+                             counts_by["f16_pairlane"]),
     }
+    times = {k: (v[0], v[1], v[2], None) for k, v in tot.items()}
+    times.update({k: (v["ms"], v["plain_ms"], v["bound_ms"], v["library_ms"])
+                  for k, v in conv_tot.items()})
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": main_counts[k], "max_abs_err": errs[k],
-         "ms": tot[k][0], "plain_ms": tot[k][1], "bound_ms": tot[k][2],
-         "bound_by": by, "library_ms": None}
-        for k, (src, rep, by) in meta.items()]}
+         "launches": counts[k], "max_abs_err": errs[k],
+         "ms": times[k][0], "plain_ms": times[k][1], "bound_ms": times[k][2],
+         "bound_by": by, "library_ms": times[k][3], "path": path}
+        for k, (src, rep, by, path, counts) in meta.items()]}
     RESULTS["kernels"] = line["kernels"]
     _save()
     emit(line)

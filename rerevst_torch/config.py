@@ -59,8 +59,13 @@ class ModelConfig:
     mix_precision: str = "default"
     #: TPU layout variants of the same functions (not ported).
     parity_packed: bool = False
-    pairlane: bool = False
     luma_fold: bool = False
+    #: Route the full-resolution 64-channel convs (encoder conv1_2, decoder
+    #: res2.conv2 and the out conv) through the ``conv3x3_pairlane`` kernel
+    #: in f16/bf16 sessions where the geometry allows it; fp32 sessions keep
+    #: the default path.  The TPU's W-pair lane layout is not ported: the
+    #: region stays NHWC in the session's storage dtype.
+    pairlane: bool = False
     #: H-tiling of the full-resolution regions (1 = off).
     spatial_tiles: int = 1
     #: Accepted with any value and ignored: on the TPU it only picks a
@@ -70,8 +75,6 @@ class ModelConfig:
 
     def __post_init__(self):
         unsupported = [
-            (self.pairlane, "pairlane=True",
-             "ROADMAP.md Queue 2 item 4 (conv3x3_pairlane)"),
             (self.parity_packed, "parity_packed=True",
              "ROADMAP.md Queue 1 item 14 (config variants)"),
             (self.luma_fold, "luma_fold=True",

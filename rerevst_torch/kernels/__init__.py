@@ -4,11 +4,19 @@
 |---|---|---|
 | ``norm_affine_clamp`` | ``csrc/norm_affine.cu`` | ``rerevst_tpu/kernels/norm_affine.py:norm_affine_clamp`` |
 | ``dynamic_filter_pair`` | ``csrc/filter_chain.cu`` | ``rerevst_tpu/kernels/filter_chain.py:dynamic_filter_pair`` |
+| ``conv3x3_implicit_gemm`` | ``csrc/conv3x3.cu`` (``rr_conv3x3``) | ``rerevst_tpu/kernels/conv3x3.py:conv3x3_implicit_gemm`` |
+| ``conv3x3_pairlane`` | ``csrc/conv3x3.cu`` (``rr_conv3x3_c64``) | ``rerevst_tpu/kernels/conv3x3.py:conv3x3_pairlane`` |
 
 The kernels build at first use (``kernels/_build.py``).  Each wrapper keeps an
 integer ``launches`` count of its kernel launches.
 """
 
+from rerevst_torch.kernels.conv3x3 import (  # noqa: F401
+    conv3x3_implicit_gemm,
+    conv3x3_implicit_gemm_plain,
+    conv3x3_pairlane,
+    conv3x3_pairlane_plain,
+)
 from rerevst_torch.kernels.filter_chain import (  # noqa: F401
     dynamic_filter_pair,
     dynamic_filter_pair_plain,
@@ -19,7 +27,8 @@ from rerevst_torch.kernels.norm_affine import (  # noqa: F401
 )
 
 #: Every kernel wrapper of the port.
-WRAPPERS = (norm_affine_clamp, dynamic_filter_pair)
+WRAPPERS = (norm_affine_clamp, dynamic_filter_pair, conv3x3_implicit_gemm,
+            conv3x3_pairlane)
 
 
 def reset_launches() -> None:

@@ -10,8 +10,10 @@ All conditioning state is explicit:
 
 On the card the 11 normalization sites of ``decode_global`` run the
 ``norm_affine_clamp`` kernel and its three filter chains the
-``dynamic_filter_pair`` kernel; on the CPU the same wrappers compute their
-plain versions.
+``dynamic_filter_pair`` kernel; with ``ModelConfig(pairlane=True)`` the
+full-resolution 64-channel convs (encoder conv1_2, res2.conv2, the out conv)
+run the ``conv3x3_pairlane`` kernel in f16/bf16 sessions.  On the CPU the
+same wrappers compute their plain versions.
 """
 
 from __future__ import annotations
@@ -21,7 +23,11 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from rerevst_torch.config import ModelConfig
-from rerevst_torch.kernels import dynamic_filter_pair, norm_affine_clamp
+from rerevst_torch.kernels import (
+    conv3x3_pairlane,
+    dynamic_filter_pair,
+    norm_affine_clamp,
+)
 from rerevst_torch.models import vgg
 from rerevst_torch.models.layers import (
     apply_dynamic_filter,
@@ -71,7 +77,8 @@ def encode_content(params: Dict, frame: torch.Tensor, cfg: ModelConfig,
     """Content branch: reversed-luma desaturation (inference), then
     VGG -> relu4_1 in the storage dtype."""
     x = rgb_to_luma_reversed(frame) if desaturate else frame
-    return vgg.encode(params["encoder"], x.to(cfg.dtype))
+    return vgg.encode(params["encoder"], x.to(cfg.dtype),
+                      pairlane=cfg.pairlane)
 
 
 def encode_style(params: Dict, style: torch.Tensor,
@@ -110,14 +117,23 @@ def _kernel_filter_frozen(p: Dict, content: torch.Tensor, fa: torch.Tensor,
     return content + conv2d(p["up"], h, padding=1)
 
 
+def _conv3x3(p: Dict, x: torch.Tensor, pairlane: bool) -> torch.Tensor:
+    """A full-resolution 64-channel SAME 3x3 conv: the ``conv3x3_pairlane``
+    kernel on the pair-lane route, ``conv2d`` otherwise."""
+    if pairlane:
+        return conv3x3_pairlane(x, p["w"], p.get("b"))
+    return conv2d(p, x, padding=1)
+
+
 def _resblock_global(p: Dict, x: torch.Tensor, sa: NormStats,
-                     sb: NormStats) -> torch.Tensor:
+                     sb: NormStats, pairlane: bool = False) -> torch.Tensor:
     """ResidualBlock.forward under frozen norms; the nearest-2x upsample
-    feeds both the shortcut and conv1."""
+    feeds both the shortcut and conv1; ``pairlane`` runs conv2 through the
+    ``conv3x3_pairlane`` kernel (res2 only)."""
     xs = upsample2x_conv1x1(p["shortcut"], x)
     h = upsample2x_conv3x3(p["conv1"], x)
     h = _norm_apply(sa, h, leaky=True)
-    h = conv2d(p["conv2"], h, padding=1)
+    h = _conv3x3(p["conv2"], h, pairlane)
     h = _norm_apply(sb, h, leaky=True)
     return xs + h
 
@@ -126,7 +142,15 @@ def decode_global(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
                   stats: SeqStats, cfg: ModelConfig) -> torch.Tensor:
     """Global decoder graph: every norm uses frozen sequence statistics with
     min/max clamping; the filter chain's output is re-normalized at the extra
-    'ada4' site before the style affine; filters come frozen from `stats`."""
+    'ada4' site before the style affine; filters come frozen from `stats`.
+
+    ``cfg.pairlane`` runs res2.conv2 and the out conv through the
+    ``conv3x3_pairlane`` kernel under the JAX package's gate for its
+    pair-lane tail: 16-bit storage, and res2's input with H divisible by 4
+    and even W.  One deliberate difference: there an f16 session runs that
+    region (and the pair-lane encoder head) in bf16, only because Mosaic has
+    no f16; the card's kernel takes f16, so the region stays in the
+    session's storage dtype."""
     m1, m2, m3, m4 = style.means
     s1, s2, s3, s4 = style.stds
     norms, filt = stats.norms, stats.filters
@@ -141,9 +165,12 @@ def decode_global(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
     h = _norm_apply(norms["ada3"], h, s3, m3)
     h = _resblock_global(params_dec["res3"], h, norms["res3a"], norms["res3b"])
     h = _norm_apply(norms["ada2"], h, s2, m2)
-    h = _resblock_global(params_dec["res2"], h, norms["res2a"], norms["res2b"])
+    pl = (cfg.pairlane and cfg.dtype != torch.float32
+          and h.shape[1] % 4 == 0 and h.shape[2] % 2 == 0)
+    h = _resblock_global(params_dec["res2"], h, norms["res2a"], norms["res2b"],
+                         pl)
     h = _norm_apply(norms["ada1"], h, s1, m1)
-    return conv2d(params_dec["out"], h, padding=1)
+    return _conv3x3(params_dec["out"], h, pl)
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,10 @@
 The content encoder, the style encoder and the loss network share this
 backbone with separate weights: which weights are passed in decides which
 network runs.  Pools come before conv2_1, conv3_1 and conv4_1.
+
+With ``pairlane=True`` the content encoder's conv1_2 (the full-resolution
+64->64 conv) runs the ``conv3x3_pairlane`` kernel, under the JAX package's
+gates: 16-bit storage and a geometry the TPU kernel tiles.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from rerevst_torch.kernels import conv3x3_pairlane
 from rerevst_torch.models.layers import conv2d, max_pool_2x2
 
 #: (name, cin, cout) of the 9 convs through conv4_1, in order.
@@ -44,15 +49,21 @@ class VggFeatures(NamedTuple):
     relu4_1: Optional[torch.Tensor]
 
 
-def vgg_features(params: Dict, x: torch.Tensor,
-                 upto: str = "relu4_1") -> VggFeatures:
-    """Run the backbone, returning every relu tap up to `upto`."""
+def vgg_features(params: Dict, x: torch.Tensor, upto: str = "relu4_1",
+                 pairlane: bool = False) -> VggFeatures:
+    """Run the backbone, returning every relu tap up to `upto`.
+    ``pairlane`` runs conv1_2 through the ``conv3x3_pairlane`` kernel."""
     taps = {}
     h = x
     for name, _, _ in VGG_CONVS:
         if name in _POOL_BEFORE:
             h = max_pool_2x2(h)
-        h = torch.relu(conv2d(params[name], h, padding=1))
+        p = params[name]
+        if pairlane and name == "conv1_2":
+            h = conv3x3_pairlane(h, p["w"], p.get("b"))
+        else:
+            h = conv2d(p, h, padding=1)
+        h = torch.relu(h)
         for tap, conv_name in RELU_TAPS.items():
             if conv_name == name:
                 taps[tap] = h
@@ -62,6 +73,19 @@ def vgg_features(params: Dict, x: torch.Tensor,
                        taps.get("relu3_1"), taps.get("relu4_1"))
 
 
-def encode(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    """Content encoder: the relu4_1 map only."""
-    return vgg_features(params, x, "relu4_1").relu4_1
+def encode_pairlane_ok(x: torch.Tensor) -> bool:
+    """Geometry gate of the pair-lane encoder head, as in the JAX package
+    (``rerevst_tpu/models/vgg.py:encode_pairlane_ok``): H divisible by 8 and
+    even W.  The card's kernel needs neither; the gate keeps the routing,
+    and so the launch counts, the same in both packages."""
+    return x.shape[1] % 8 == 0 and x.shape[2] % 2 == 0
+
+
+def encode(params: Dict, x: torch.Tensor,
+           pairlane: bool = False) -> torch.Tensor:
+    """Content encoder: the relu4_1 map only.  ``pairlane`` routes conv1_2
+    through the ``conv3x3_pairlane`` kernel for 16-bit storage and a
+    geometry that passes ``encode_pairlane_ok``, as the JAX package gates
+    its pair-lane head; otherwise it is ignored."""
+    pairlane = pairlane and x.dtype != torch.float32 and encode_pairlane_ok(x)
+    return vgg_features(params, x, "relu4_1", pairlane).relu4_1

@@ -106,7 +106,9 @@ def test_uploads_fetches_and_geometry(session):
     assert fetches == [(4, 64, 112, 3), (4, 64, 112, 3), (1, 64, 112, 3)]
     assert session._pad_hw == (192, 256)
     assert kernels.launch_counts() == {"norm_affine_clamp": 0,
-                                       "dynamic_filter_pair": 0}
+                                       "dynamic_filter_pair": 0,
+                                       "conv3x3_implicit_gemm": 0,
+                                       "conv3x3_pairlane": 0}
 
 
 def test_first_frame_locks_geometry(session):

@@ -159,7 +159,7 @@ def test_no_forbidden_imports_anywhere():
 
 
 @pytest.mark.parametrize("kw", [
-    {"pairlane": True}, {"parity_packed": True}, {"luma_fold": True},
+    {"parity_packed": True}, {"luma_fold": True},
     {"spatial_tiles": 2}, {"fp32_mix": "dec"}, {"dynamic_filter": False},
     {"both_sty_con": False}, {"precision": "high"},
 ])

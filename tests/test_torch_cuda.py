@@ -10,7 +10,11 @@ has only PyTorch; there, skip the JAX-only ``tests/conftest.py``:
 Tolerances: a kernel and its plain version both compute in fp32 and round
 once, so they agree to 1e-5 of the output's scale in fp32 and within one ulp
 of the storage dtype in f16/bf16 (plus 1e-5 of the scale, for the other
-order of the filter pair's sums).  The card's fp32 frames stay within 1
+order of the filter pair's sums).  The 3x3 convs sum K = 9 C products in
+other orders on the two sides: each side's fp32 sum is within K 2^-23 of
+the sum of |products| (the standard bound, doubled for the tensor cores'
+accumulation), so they agree to K 2^-22 sum|x||w| (+ |b|), plus one ulp
+of the storage dtype in f16/bf16.  The card's fp32 frames stay within 1
 uint8 count of the CPU path's (cuDNN and the CPU sum in other orders).
 """
 
@@ -22,7 +26,12 @@ import torch
 
 from rerevst_torch import kernels
 from rerevst_torch.api import Stylization
+from rerevst_torch.config import ModelConfig
 from rerevst_torch.kernels import (
+    conv3x3_implicit_gemm,
+    conv3x3_implicit_gemm_plain,
+    conv3x3_pairlane,
+    conv3x3_pairlane_plain,
     dynamic_filter_pair,
     dynamic_filter_pair_plain,
     norm_affine_clamp,
@@ -129,6 +138,77 @@ def test_wrappers_refuse_on_card(rng, cuda):
     assert kernels.launch_counts() == before
 
 
+def _conv_ok(got, want, x, w, b):
+    """Within K 2^-22 sum|x||w| (+|b|), plus one ulp of the storage dtype."""
+    k = 9 * x.shape[-1]
+    absb = None if b is None else b.abs()
+    scale = conv3x3_implicit_gemm_plain(x.abs().float(), w.abs().float(),
+                                        None if absb is None else absb.float())
+    tol = k * 2.0 ** -22 * scale
+    g, v = got.float(), want.float()
+    if got.dtype != torch.float32:
+        mant = {torch.float16: 10, torch.bfloat16: 7}[got.dtype]
+        tiny = {torch.float16: 2.0 ** -24,
+                torch.bfloat16: 2.0 ** -133}[got.dtype]
+        tol = tol + torch.exp2(torch.floor(torch.log2(
+            v.abs().clamp_min(1e-30))) - mant).clamp_min(tiny)
+    return bool(((g - v).abs() <= tol).all())
+
+
+def _conv_on_card(rng, cuda, dtype, shape, o, bias):
+    x = torch.from_numpy(rng.standard_normal(shape)).to(cuda, dtype)
+    w = torch.from_numpy(rng.standard_normal((3, 3, shape[-1], o)) * 0.1) \
+        .to(cuda, dtype)
+    b = torch.from_numpy(rng.standard_normal(o)).to(cuda, dtype) \
+        if bias else None
+    return x, w, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,o,bias", [
+    ((2, 13, 7, 128), 5, True), ((3, 37, 53, 64), 64, True),
+    ((1, 9, 11, 3), 64, True), ((1, 6, 10, 64), 128, False),
+    ((2, 8, 16, 64), 3, True), ((1, 5, 9, 256), 40, True),
+])
+def test_conv3x3_implicit_gemm_kernel_on_card(rng, cuda, dtype, shape, o,
+                                              bias):
+    x, w, b = _conv_on_card(rng, cuda, dtype, shape, o, bias)
+    before = conv3x3_implicit_gemm.launches
+    got = conv3x3_implicit_gemm(x, w, b)
+    torch.cuda.synchronize()
+    assert conv3x3_implicit_gemm.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == shape[:3] + (o,)
+    assert _conv_ok(got, conv3x3_implicit_gemm_plain(x, w, b), x, w, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("o", [64, 32, 3, 8])
+def test_conv3x3_pairlane_kernel_on_card(rng, cuda, dtype, o):
+    """W = 150: two row segments of the kernel, the second ragged."""
+    x, w, b = _conv_on_card(rng, cuda, dtype, (2, 19, 150, 64), o, True)
+    before = conv3x3_pairlane.launches
+    got = conv3x3_pairlane(x, w, b)
+    torch.cuda.synchronize()
+    assert conv3x3_pairlane.launches == before + 1
+    assert _conv_ok(got, conv3x3_pairlane_plain(x, w, b), x, w, b)
+
+
+@pytest.mark.cuda
+def test_conv_wrappers_refuse_on_card(rng, cuda):
+    x, w, b = _conv_on_card(rng, cuda, torch.float16, (1, 4, 6, 64), 64, True)
+    before = kernels.launch_counts()
+    flat = torch.zeros(x.numel() + 1, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="aligned"):
+        conv3x3_pairlane(flat[1:].view(x.shape), w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3_implicit_gemm(x, w.cpu(), b)
+    with pytest.raises(ValueError, match="C=64"):
+        conv3x3_pairlane(x[..., :32].contiguous(), w[:, :, :32].contiguous())
+    assert kernels.launch_counts() == before
+
+
 def _clip(n=9, h=64, w=112, seed=0):
     rng = np.random.default_rng(seed)
     f = rng.uniform(0.05, 0.2, (3, 2))
@@ -155,7 +235,35 @@ def test_stylize_video_on_card_matches_cpu(cuda):
         outs[dev] = list(s.stylize_video(clip, batch_size=4))
         if dev == "cuda":
             assert kernels.launch_counts() == {"norm_affine_clamp": 33,
-                                               "dynamic_filter_pair": 9}
+                                               "dynamic_filter_pair": 9,
+                                               "conv3x3_implicit_gemm": 0,
+                                               "conv3x3_pairlane": 0}
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert a.shape == (64, 112, 3) and a.dtype == np.uint8
         assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
+
+
+@pytest.mark.cuda
+def test_stylize_video_pairlane_on_card(cuda):
+    """The pair-lane path on the card: conv1_2 once in Pass 1 and conv1_2,
+    res2.conv2 and the out conv in each of the 3 Pass-2 batches go through
+    the kernel (10 launches); the f16 frames stay within the repository's
+    1e-3 mean |delta| of the fp32 default path."""
+    rng = np.random.default_rng(1)
+    style = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    clip = _clip()
+    outs = {}
+    for dtype, pairlane in ((torch.float32, False), (torch.float16, True)):
+        s = Stylization(str(CKPT), cfg=ModelConfig(dtype=dtype,
+                                                   pairlane=pairlane))
+        s.prepare_style(style)
+        kernels.reset_launches()
+        outs[dtype] = list(s.stylize_video(clip, batch_size=4))
+        if pairlane:
+            assert kernels.launch_counts() == {"norm_affine_clamp": 33,
+                                               "dynamic_filter_pair": 9,
+                                               "conv3x3_implicit_gemm": 0,
+                                               "conv3x3_pairlane": 10}
+    d = np.mean([np.abs(a.astype(np.int16) - b.astype(np.int16)).mean()
+                 for a, b in zip(outs[torch.float16], outs[torch.float32])])
+    assert d / 255.0 <= 1e-3
