@@ -6,7 +6,9 @@
 Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device  — the card's name, compute capability (must be 9.0) and power limit;
-2. build   — compiles ``rerevst_torch/csrc/*.cu`` for sm_90a (first use);
+2. build   — compiles ``rerevst_torch/csrc/*.cu`` for sm_90a (first use),
+             and reports the streamed conv kernels' registers and spills
+             (``nvcc -Xptxas -v``);
 3. check   — each kernel against its plain PyTorch version on the card, at the
              main path's shapes (batch 16, 512x512 content padded to 640x640)
              plus ragged ones, in f16, bf16 and fp32;
@@ -160,32 +162,54 @@ def check_convs(torch, gen, errs):
     from rerevst_torch import kernels
 
     p = PAD_HW
-    igemm = [((BATCH, p, p, 64), 64), ((BATCH, p, p, 64), 3),
-             ((2, 64, 64, 3), 64), ((2, 80, 80, 128), 128),
-             ((2, 40, 40, 256), 512),
-             ((3, 37, 53, 64), 64), ((2, 13, 7, 128), 5)]  # the last two ragged
-    pair = [((BATCH, p, p, 64), 64), ((BATCH, p, p, 64), 3),
-            ((3, 37, 53, 64), 64), ((2, 19, 150, 64), 32)]
-    cases = [("conv3x3_implicit_gemm", s, o) for s, o in igemm] \
-        + [("conv3x3_pairlane", s, o) for s, o in pair]
-    for name, shape, o in cases:
+    # (x shape, O, bias).  The cases after the main-path shapes stress the
+    # streamed C = 64 kernel's work split (its plan on 132 SMs): a last band
+    # shorter than the rest (H % R != 0), a last strip narrower than 128
+    # columns, W < 128, B = 1, and O = 128 as two channel tiles; C != 64
+    # takes the cp.async implicit GEMM.
+    igemm = [((BATCH, p, p, 64), 64, True), ((BATCH, p, p, 64), 3, True),
+             ((2, 64, 64, 3), 64, True), ((2, 80, 80, 128), 128, False),
+             ((2, 40, 40, 256), 512, True),
+             ((3, 37, 53, 64), 64, True), ((2, 13, 7, 128), 5, False),
+             ((1, 75, 300, 64), 128, True), ((1, 75, 300, 64), 128, False)]
+    pair = [((BATCH, p, p, 64), 64, True), ((BATCH, p, p, 64), 3, True),
+            ((3, 37, 53, 64), 64, True), ((2, 19, 150, 64), 32, True),
+            ((1, 131, 200, 64), 64, False), ((1, 130, 257, 64), 5, True),
+            ((2, 97, 129, 64), 32, False), ((1, 37, 100, 64), 8, True),
+            ((3, 5, 7, 64), 3, False), ((1, 200, 64, 64), 3, True)]
+    cases = [("conv3x3_implicit_gemm", s, o, bias, False)
+             for s, o, bias in igemm] \
+        + [("conv3x3_pairlane", s, o, bias, False) for s, o, bias in pair] \
+        + [(name, (2, 19, 150, 64), o, True, True)  # inf and NaN inputs
+           for name in ("conv3x3_implicit_gemm", "conv3x3_pairlane")
+           for o in (64, 3)]
+    for name, shape, o, bias, nonfinite in cases:
         kern = getattr(kernels, name)
         plain = getattr(kernels, name + "_plain")
         for dtype in (torch.float16, torch.bfloat16, torch.float32):
-            x, w, b = conv_inputs(torch, shape, o, dtype, gen,
-                                  bias=shape[-1] != 128)
+            x, w, b = conv_inputs(torch, shape, o, dtype, gen, bias=bias)
+            if nonfinite:
+                # The interior, both sides of a strip's edge, image edges.
+                x[0, 3, 5, 7] = float("inf")
+                x[0, 10, 127, 1] = float("-inf")
+                x[0, 10, 128, 2] = float("nan")
+                x[1, 0, 149, 0] = float("nan")
+                x[1, 18, 0, 63] = float("inf")
             got = kern(x, w, b)
             torch.cuda.synchronize()
             want = plain(x, w, b)
-            err = (got.float() - want.float()).abs().max().item()
+            fin = torch.isfinite(want)
+            err = (got.float() - want.float()).abs()[fin].max().item()
             ok = conv_within_tolerance(torch, got, want, x, w, b)
             RESULTS["checks"].append(
                 {"kernel": name, "shape": shape, "O": o, "dtype": str(dtype),
-                 "bias": b is not None, "max_abs_err": err,
-                 "scale": want.float().abs().max().item(), "ok": ok})
+                 "bias": b is not None, "nonfinite_inputs": nonfinite,
+                 "nonfinite_outputs": int((~fin).sum()),
+                 "max_abs_err": err,
+                 "scale": want.float()[fin].abs().max().item(), "ok": ok})
             if not ok:
                 fail(f"{name} {shape}->{o} {dtype}: max |kernel - plain| = "
-                     f"{err}")
+                     f"{err}, or non-finite outputs differ")
             errs[name] = max(errs.get(name, 0.0), err)
             del x, w, b, got, want
     torch.cuda.empty_cache()
@@ -707,6 +731,23 @@ def trace_pass2(torch, session, batches=3):
     return _device_breakdown(prof, wall_ms, per=batches)
 
 
+def stream_kernel_resources(build) -> dict:
+    """Registers, spills and ptxas's notes (a serialized wgmma shows here)
+    of each instance of the streamed C = 64 conv kernel."""
+    import re
+
+    out = {}
+    for name, info in build.ptxas_report("conv3x3.cu").items():
+        m = re.search(r"conv3x3_stream_kernelI(6__half|13__nv_bfloat16)Li(\d+)E",
+                      name)
+        if m:
+            dt = "f16" if m.group(1) == "6__half" else "bf16"
+            out[f"conv3x3_stream_kernel<{dt}, N={m.group(2)}>"] = info
+    if not out:
+        fail("ptxas reported no streamed conv kernel")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -741,11 +782,13 @@ def main() -> int:
     if tuple(cap) != (9, 0):
         fail(f"compute capability {cap}, the kernels are built for sm_90a")
 
-    # 2. build
+    # 2. build, and what ptxas says of the streamed conv kernels
     t0 = time.perf_counter()
     _build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(_build.library_path().relative_to(HERE))})
+    RESULTS["ptxas"] = stream_kernel_resources(_build)
+    emit({"phase": "ptxas", "kernels": RESULTS["ptxas"]})
 
     # 3. kernels vs plain on the card
     errs, n_checks = check_kernels(torch)

@@ -5,69 +5,113 @@
 // (x is zero outside each image), accumulated in fp32, the bias added in
 // fp32, and the sum rounded once to the storage dtype.  The weights are read
 // in the HWIO [3, 3, C, O] layout the checkpoints hold, with no relayout per
-// call.  Two entry points, one implicit-GEMM design (M = output pixels,
-// N = O, K = 9 C, the K loop over the nine taps and over channel chunks):
+// call.  Two entry points:
 //
 // rr_conv3x3 replaces rerevst_tpu/kernels/conv3x3.py:conv3x3_implicit_gemm
 // (nine accumulated [tile_h W, C] x [C, O] MXU products over a halo'd row
-// slab).  It takes any C and any O.  A block computes 128 consecutive output
-// pixels (flattened over batch, rows and columns, so a tile may span rows
-// and images) by up to 64 output channels.  Each K step stages a 128 x 32
-// input chunk, gathered straight from x with the halo's zeros, and a 32 x N
-// weight chunk in shared memory, double-buffered with cp.async (16-byte
-// copies whose out-of-image and past-C parts are zero-filled by the copy
-// itself; scalar loads where C or O is not a multiple of 8, as for VGG's
-// conv1_1 with C = 3).  C is zero-padded to the chunk depth and O to the
-// tile width in shared memory; the ragged M and N edges are masked.
-//
+// slab): any C, any O.
 // rr_conv3x3_c64 replaces rerevst_tpu/kernels/conv3x3.py:conv3x3_pairlane,
 // the same function for C = 64, O <= 64 (the full-resolution 64-channel
 // layers: encoder conv1_2, decoder res2.conv2 and the 64->3 out conv).  The
 // TPU kernel's lane pairing of two W-adjacent pixels only fills the MXU's
-// 128 lanes and has no counterpart here.  What carries over is the
-// specialisation: all nine 64 x O weight taps stay in shared memory for the
-// block's life (72 KB at O = 64, so the launch raises the block's dynamic
-// shared-memory limit), the grid is persistent, and each block walks over
-// row segments of 128 output pixels, staging for each a 3-row halo slab
-// (3 x 130 x 64 values, 56 KB) with cp.async while it computes the previous
-// one.  Every input value the nine taps need is then read from device memory
-// or L2 once per segment instead of nine times.
+// 128 lanes and has no counterpart here.
 //
-// 16-bit storage (f16, bf16): tensor-core products through mma.sync
-// m16n8k16 with fp32 accumulation, operands from shared memory through
-// ldmatrix (rows padded by 16 bytes, so neither the copies nor ldmatrix
-// conflict on banks).  O <= 8 pads N to 8 and O <= 32 to 32, so the out
-// conv's O = 3 computes one 8-wide column of products, not 64.  The
-// epilogue adds the bias in fp32, rounds once, stages the tile in shared
-// memory, and stores it with 16-byte vectors where O % 8 = 0 (scalar
-// stores otherwise).
+// Which design takes which call (by shape, in the launcher):
+// * 16-bit (f16, bf16) with C = 64 -- both entry points, every O: the
+//   streamed design below (conv3x3_stream_kernel).
+// * 16-bit with C != 64 -- rr_conv3x3 only (VGG's conv1_1 with C = 3, whose
+//   6-byte pixel stride no tensor map takes, and the wide layers): the
+//   cp.async implicit GEMM (conv3x3_igemm_kernel).
+// * fp32: true fp32 CUDA-core FMAs (the counterpart of the JAX package's
+//   HIGHEST precision) in one kernel that both entry points use.
 //
-// fp32 storage: true fp32 CUDA-core FMAs (the counterpart of the JAX
-// package's HIGHEST precision), in one 64 x 64-tile kernel that both entry
-// points use; no model path runs the pair-lane conv in fp32.
+// What bounds the C = 64 convs on the H100 (989 TFLOP/s dense f16/bf16,
+// 3.35 TB/s): at 64 -> 64 a pixel costs 2 x 576 x 64 = 73.7 kflop against
+// 256 bytes moved, 288 flop/byte, so bytes and operations nearly tie (0.50
+// ms each for 16 frames of 640^2).  At 64 -> 3 the 134 bytes per pixel bound
+// it (0.26 ms): the input must be read from device memory about once and the
+// products must keep up with it.
 //
-// What bounds it on the H100 (989 TFLOP/s dense f16/bf16, 3.35 TB/s): at
-// 64 -> 64 channels a pixel costs 2 x 576 x 64 = 73.7 kflop against 256
-// bytes moved in f16, 288 flop/byte, so bytes and operations nearly tie
-// (0.50 ms each for a batch of 16 frames of 640^2).  At 64 -> 3 the
-// 134 bytes per pixel bound it.  This first design reaches neither: it uses
-// mma.sync rather than wgmma and TMA, one block of 8 warps per SM, and
-// re-reads each input row for three output rows (from L2).  Its times stand
-// in PERF.md beside the bound; wgmma, TMA and row reuse are later work.
+// The streamed design.  A work unit is one image x a strip of 128 output
+// columns x a band of R output rows.  The wrapper's plan
+// (kernels/conv3x3.py: conv_plan) picks R and the grid: one persistent block
+// per SM in all, walking units u = blockIdx.x, + gridDim.x, ...; for each it
+// streams the band's R + 2 input rows, top to bottom, one 130-pixel halo row
+// at a time:
+// * One producer thread loads each row with TMA, a box of {64 channels, 130
+//   pixels} from a 4-D tensor map over x with the 128-byte swizzle (one
+//   pixel of 64 16-bit channels is one 128-byte swizzle row).  Coordinates
+//   of -1 or past the edge are zero-filled by the hardware: that is the SAME
+//   padding, with no branch and no padded copy.  Six 1024-byte-aligned row
+//   slots, each with a full and an empty mbarrier, keep up to six rows in
+//   flight.
+// * Two consumer warpgroups, one m64 tile of 64 pixels each, read each
+//   arriving row once into registers with ldmatrix (16-byte chunk j of box
+//   pixel p sits at chunk j ^ (p % 8), so every dx shift is free of bank
+//   conflicts) and release the slot (after a proxy fence: the next TMA write
+//   into it must not overtake these reads).  Each A fragment then serves the
+//   three output rows the row feeds: input row r adds tap dy into output row
+//   r + 1 - dy, through three rolling fp32 accumulators (the row loop is
+//   unrolled by three so that each accumulator has a fixed register name).
+//   After input row r, output row r - 1 is complete and is stored.  Each
+//   input value is read from device memory (R + 2) / R x 130 / 128 times,
+//   1.06x at the benchmark's R = 50.
+// * Products are wgmma.mma_async m64nNk16, A from registers, B from the
+//   nine 64 x N weight taps, laid out once per block in wgmma's K-major
+//   128-byte-swizzled layout and resident for the block's life (73.7 KB at
+//   N = 64).  N is 8, 16, 32 or 64 (O <= 8, 16, 32, else 64; below about 48
+//   channels the conv is bound by bytes, so the padded columns cost no
+//   time); larger O tiles by 64 over the grid's y, each tile with its own
+//   resident taps.  The two warpgroups issue their rows' products on their
+//   own, so the tensor cores run one's products while the other stores its
+//   finished row and loads its next one.  Three m64n64 accumulators and a
+//   row's A fragments need more registers than an even split of 384
+//   threads gives: setmaxnreg moves them from the producer warpgroup (40)
+//   to the consumers (232); with fewer, ptxas serializes the wgmmas.
+// * The epilogue adds the bias in fp32, rounds once, stages the row in
+//   shared memory and stores it with 16-byte vectors where O % 8 = 0, or
+//   with coalesced scalar stores (the out conv's 6-byte pixels, which no
+//   tensor map takes).  The products of the band's first and last input
+//   rows for rows outside the band go into accumulators that are never
+//   stored: 2 rows' worth of products in R + 2.
+
+// The cp.async implicit GEMM (C != 64).  A block computes 128 consecutive
+// output pixels (flattened over batch, rows and columns) by up to 64 output
+// channels.  Each K step stages a 128 x 32 input chunk, gathered straight
+// from x with the halo's zeros, and a 32 x N weight chunk in shared memory,
+// double-buffered with cp.async (16-byte copies whose out-of-image and
+// past-C parts are zero-filled by the copy itself; scalar loads where C or O
+// is not a multiple of 8).  mma.sync m16n8k16 with fp32 accumulation,
+// operands through ldmatrix (rows padded by 16 bytes).  Every input value is
+// gathered nine times per call, from L2.
 //
 // Offsets are 64-bit: a batch of 16 frames of 640^2 x 64 holds 4.2e8
 // values.
 #include "common.cuh"
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
+
+#include <type_traits>
+#include <utility>
+
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kBM = 128;       // output pixels per block tile (16-bit)
-constexpr int kKC = 32;        // channels per K step (rr_conv3x3, 16-bit)
+constexpr int kThreads = 256;  // 8 warps (implicit GEMM, fp32)
+constexpr int kBM = 128;       // output pixels per block tile (implicit GEMM)
+constexpr int kKC = 32;        // channels per K step (implicit GEMM)
 constexpr int kLDA = kKC + 8;  // padded row of the staged input chunk
-constexpr int kC64 = 64;       // channels of rr_conv3x3_c64
-constexpr int kLDS = kC64 + 8; // padded pixel row of the halo slab
-constexpr int kTW = kBM;       // output pixels per row segment (c64)
+
+// The streamed design.
+constexpr int kC = 64;                     // input channels it takes
+constexpr int kTW = 128;                   // output pixels per strip
+constexpr int kBoxPix = kTW + 2;           // pixels per TMA row box
+constexpr int kBoxBytes = kBoxPix * kC * 2;                   // 16640
+constexpr int kSlotBytes = (kBoxBytes + 1023) / 1024 * 1024;  // 17408
+constexpr int kSlots = 6;                  // input rows in flight
+constexpr int kConsumerThreads = 256;      // two warpgroups
+// + a producer warpgroup: one thread issues the loads, but setmaxnreg hands
+// registers over by whole warpgroups.
+constexpr int kStreamThreads = kConsumerThreads + 128;
 
 // Padded row length of a [k][BN] weight tile: 16 bytes of padding keeps
 // ldmatrix free of bank conflicts; an 8-wide row is already conflict-free.
@@ -100,13 +144,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// A fragment of m16n8k16: a 16 x 16 row-major tile; lane l names row l % 16,
-// columns 8 (l / 16) .. +7.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+// A fragment of m16n8k16 (and, per warp, of wgmma's register A): a 16 x 16
+// row-major tile; lane l names row l % 16, columns 8 (l / 16) .. +7.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  ldsm_x4(r, smem_addr(p));
 }
 
 // B fragment of m16n8k16 from a [k][n] row-major tile: lane l (< 16) names
@@ -142,6 +190,472 @@ __device__ __forceinline__ void mma16816<__nv_bfloat16>(
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
+
+// mbarriers, TMA and fences (shared-memory addresses as 32-bit integers).
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Waits until the phase of parity `parity` has completed.  A wait of more
+// than 10 s traps: a row that never arrives becomes a launch error rather
+// than a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t t0 = 0;
+  for (uint32_t i = 0; !done; ++i) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && (i & 1023) == 1023) {
+      if (t0 == 0) t0 = global_ns();
+      else if (global_ns() - t0 > 10000000000ull) __trap();
+    }
+  }
+}
+
+// One box of a 4-D tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Orders this thread's generic-proxy accesses to shared memory before later
+// async-proxy ones (wgmma's operand reads, TMA's writes).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier of one warpgroup (ids 1 and 2; 0 is __syncthreads).
+__device__ __forceinline__ void bar_sync_wg(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// Registers move between warpgroups: the producer gives its up, the
+// consumer warpgroups take them (the launch grants every warp the same).
+__device__ __forceinline__ void regs_release() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void regs_claim() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pins accumulators at this point of the instruction stream: the compiler
+// may not move a read or copy of them across it (into the span where an
+// in-flight wgmma is still writing them).
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(float (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+f"(r[i][j])::"memory");
+}
+
+// Shared-memory matrix descriptor of a K-major operand with the 128-byte
+// swizzle: start address >> 4, leading offset 1 (unused), stride 1024 bytes
+// between 8-row groups, layout 1 (128B swizzle).  The base must be
+// 1024-byte aligned; a k16 step adds 32 bytes to the start address.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+// wgmma.mma_async m64nNk16, fp32 accumulators d (N / 2 per thread), A from
+// registers (4 x 2 values), B through the descriptor desc + Off (Off in
+// 16-byte units, added inside the asm so that the compiler does not keep
+// every tap's descriptor live in registers), K-major; scale_d = 0 starts d
+// afresh (d = A B, the old d unread).
+#define RR_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define RR_D8(i) RR_D4(i), RR_D4(i + 4)
+#define RR_D16(i) RR_D8(i), RR_D8(i + 8)
+#define RR_D32(i) RR_D16(i), RR_D16(i + 16)
+#define RR_WGMMA_IN \
+  "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(Off), "r"(scale_d)
+
+#define RR_WGMMA_N8(TY)                                               \
+  asm volatile(                                                       \
+      "{\n.reg .pred p;\n.reg .b64 dd;\nsetp.ne.b32 p, %10, 0;\n"     \
+      "add.s64 dd, %8, %9;\n"                                         \
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32." TY "." TY " "      \
+      "{%0, %1, %2, %3}, "                                            \
+      "{%4, %5, %6, %7}, dd, p, 1, 1, 0;\n}\n"                        \
+      : RR_D4(0)                                                      \
+      : RR_WGMMA_IN)
+
+#define RR_WGMMA_N16(TY)                                              \
+  asm volatile(                                                       \
+      "{\n.reg .pred p;\n.reg .b64 dd;\nsetp.ne.b32 p, %14, 0;\n"     \
+      "add.s64 dd, %12, %13;\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " "     \
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "                            \
+      "{%8, %9, %10, %11}, dd, p, 1, 1, 0;\n}\n"                      \
+      : RR_D8(0)                                                      \
+      : RR_WGMMA_IN)
+
+#define RR_WGMMA_N32(TY)                                              \
+  asm volatile(                                                       \
+      "{\n.reg .pred p;\n.reg .b64 dd;\nsetp.ne.b32 p, %22, 0;\n"     \
+      "add.s64 dd, %20, %21;\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "     \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                             \
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "                       \
+      "{%16, %17, %18, %19}, dd, p, 1, 1, 0;\n}\n"                    \
+      : RR_D16(0)                                                     \
+      : RR_WGMMA_IN)
+
+#define RR_WGMMA_N64(TY)                                              \
+  asm volatile(                                                       \
+      "{\n.reg .pred p;\n.reg .b64 dd;\nsetp.ne.b32 p, %38, 0;\n"     \
+      "add.s64 dd, %36, %37;\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "     \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                             \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                        \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                      \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                     \
+      "{%32, %33, %34, %35}, dd, p, 1, 1, 0;\n}\n"                    \
+      : RR_D32(0)                                                     \
+      : RR_WGMMA_IN)
+
+template <typename T, int N, int Off>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4],
+                                      uint64_t desc, int scale_d) {
+  constexpr bool f16 = std::is_same<T, __half>::value;
+  if constexpr (N == 8) {
+    if constexpr (f16) RR_WGMMA_N8("f16"); else RR_WGMMA_N8("bf16");
+  } else if constexpr (N == 16) {
+    if constexpr (f16) RR_WGMMA_N16("f16"); else RR_WGMMA_N16("bf16");
+  } else if constexpr (N == 32) {
+    if constexpr (f16) RR_WGMMA_N32("f16"); else RR_WGMMA_N32("bf16");
+  } else {
+    static_assert(N == 64, "wgmma width");
+    if constexpr (f16) RR_WGMMA_N64("f16"); else RR_WGMMA_N64("bf16");
+  }
+}
+
+// Two fp32 values rounded to the storage dtype, packed low first.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// 16-bit, C = 64: rows streamed down column strips (the design above)
+// ---------------------------------------------------------------------------
+
+template <int BN>
+constexpr size_t stream_smem_bytes() {
+  return 1024                        // slack to align the base to 1024 bytes
+         + 9 * BN * 128              // the nine weight taps
+         + kSlots * kSlotBytes       // input row slots
+         + 2 * 64 * (BN + 8) * 2     // output staging, one tile per warpgroup
+         + BN * 4                    // the bias, fp32
+         + 2 * kSlots * 8;           // full and empty mbarriers
+}
+
+// Work unit u: image b, output rows y0 .. y0 + rows - 1, columns x0 .. +127.
+// The order (strip fastest, then band, then image) is the wrapper's plan's
+// (kernels/conv3x3.py: ConvPlan.unit).
+struct Unit {
+  int b, y0, x0, rows;
+};
+
+__device__ __forceinline__ Unit unit_of(long long u, int strips, int bands,
+                                        int R, int H) {
+  Unit t;
+  t.x0 = (int)(u % strips) * kTW;
+  const long long q = u / strips;
+  t.y0 = (int)(q % bands) * R;
+  t.b = (int)(q / bands);
+  t.rows = min(R, H - t.y0);
+  return t;
+}
+
+// What a consumer thread keeps across the rows of its units.
+struct Consumer {
+  uint32_t slots, full, empty;  // shared addresses of slot 0 and barriers
+  uint64_t desc0;               // wgmma descriptor of weight tap 0
+  int p0;                       // this lane's ldmatrix pixel at dx = 0
+  int hi;                       // this lane's 8-channel half of a k16 step
+  int lane, warp, wg, tid;      // tid within the warpgroup
+  int s;                        // the next slot
+  uint32_t ph;                  // its phase parity
+};
+
+// One finished output row (this warpgroup's 64 pixels from pixel index
+// `pix`, `npx` of them inside the image): + bias, rounded once,
+// staged in shared memory, stored with 16-byte vectors (O % 8 = 0) or
+// coalesced scalars.
+template <typename T, int BN>
+__device__ __forceinline__ void stream_store(const float (&acc)[BN / 2],
+                                             const Consumer& c, T* st,
+                                             const float* bias_s,
+                                             T* __restrict__ y, long long pix,
+                                             int npx, int O, int n0) {
+  constexpr int LDO = BN + 8;
+  bar_sync_wg(1 + c.wg);  // the previous row's copy-out has read `st`
+  const int r = c.warp * 16 + (c.lane >> 2);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = j * 8 + (c.lane & 3) * 2;
+    const float b0 = bias_s[col], b1 = bias_s[col + 1];
+    *reinterpret_cast<uint32_t*>(st + r * LDO + col) =
+        pack2<T>(acc[4 * j] + b0, acc[4 * j + 1] + b1);
+    *reinterpret_cast<uint32_t*>(st + (r + 8) * LDO + col) =
+        pack2<T>(acc[4 * j + 2] + b0, acc[4 * j + 3] + b1);
+  }
+  bar_sync_wg(1 + c.wg);
+  const int oc = min(BN, O - n0);
+  if (O % 8 == 0) {
+    constexpr int VPR = BN / 8;
+    for (int i = c.tid; i < 64 * VPR; i += 128) {
+      const int px = i / VPR, v = i % VPR;
+      if (px < npx && v * 8 < oc)
+        *reinterpret_cast<uint4*>(y + (pix + px) * O + n0 + v * 8) =
+            *reinterpret_cast<const uint4*>(st + px * LDO + v * 8);
+    }
+  } else {
+    for (int i = c.tid; i < npx * oc; i += 128) {
+      const int px = i / oc, ch = i % oc;
+      y[(pix + px) * O + n0 + ch] = st[px * LDO + ch];
+    }
+  }
+}
+
+// One k16 step of a row's products: A fragment (dx, k) times the taps
+// (dy, dx), channels 16 k .. 16 k + 15, for dy = 0, 1, 2 into acc[F],
+// acc[M], acc[D]; tap (0, 0) of k = 0 starts acc[F] afresh.
+template <typename T, int BN, int F, int M, int D, int I>
+__device__ __forceinline__ void issue_k16(float (&acc)[3][BN / 2],
+                                          const uint32_t (&a)[3][4][4],
+                                          uint64_t desc0) {
+  constexpr int dx = I / 4, k = I % 4;
+  constexpr int off = dx * BN * 8 + 2 * k;  // 16-byte units into the taps
+  wgmma<T, BN, off>(acc[F], a[dx][k], desc0, I > 0);
+  wgmma<T, BN, 3 * BN * 8 + off>(acc[M], a[dx][k], desc0, 1);
+  wgmma<T, BN, 6 * BN * 8 + off>(acc[D], a[dx][k], desc0, 1);
+}
+
+template <typename T, int BN, int F, int M, int D, int... I>
+__device__ __forceinline__ void issue_row(float (&acc)[3][BN / 2],
+                                          const uint32_t (&a)[3][4][4],
+                                          uint64_t desc0,
+                                          std::integer_sequence<int, I...>) {
+  (issue_k16<T, BN, F, M, D, I>(acc, a, desc0), ...);
+}
+
+// Input row t of a unit (image row y0 - 1 + t), as the P-th of three
+// consecutive rows (P = t % 3): its taps dy = 0, 1, 2 go into output rows
+// t, t - 1, t - 2 of the unit, held in acc[P], acc[(P + 2) % 3] and
+// acc[(P + 1) % 3]; tap dy = 0 starts its accumulator afresh.  After it,
+// output row t - 2 is complete and is stored (t >= 2).
+template <typename T, int BN, int P>
+__device__ __forceinline__ void stream_row(float (&acc)[3][BN / 2],
+                                           Consumer& c, int t, T* st,
+                                           const float* bias_s,
+                                           T* __restrict__ y, long long pix,
+                                           int W, int npx, int O, int n0) {
+  constexpr int kFresh = P, kMid = (P + 2) % 3, kDone = (P + 1) % 3;
+  mbar_wait(c.full + 8 * c.s, c.ph);
+  const uint32_t slot = c.slots + c.s * kSlotBytes;
+  const uint32_t empty = c.empty + 8 * c.s;
+  uint32_t a[3][4][4];
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) {
+    const int p = c.p0 + dx;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      ldsm_x4(a[dx][k], slot + p * 128 + (((2 * k + c.hi) ^ (p & 7)) << 4));
+  }
+  // The row is in registers: release the slot.  The fence orders these
+  // generic-proxy reads before the next TMA (async-proxy) write into it;
+  // without it the last pixels of a row could be overwritten before they
+  // were read.
+  fence_async_shared();
+  __syncwarp();
+  if (c.lane == 0) mbar_arrive(empty);
+  if (++c.s == kSlots) {
+    c.s = 0;
+    c.ph ^= 1;
+  }
+  fence_regs(acc);
+  wgmma_fence();
+  issue_row<T, BN, kFresh, kMid, kDone>(acc, a, c.desc0,
+                                        std::make_integer_sequence<int, 12>{});
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(acc);
+  if (t >= 2)
+    stream_store<T, BN>(acc[kDone], c, st, bias_s, y,
+                        pix + (long long)(t - 2) * W, npx, O, n0);
+}
+
+template <typename T, int BN>
+__global__ void __launch_bounds__(kStreamThreads, 1) conv3x3_stream_kernel(
+    const __grid_constant__ CUtensorMap xmap, const T* __restrict__ w,
+    const T* __restrict__ bias, T* __restrict__ y, int B, int H, int W, int O,
+    int R) {
+  constexpr int LDO = BN + 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ws =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  unsigned char* slots = ws + 9 * BN * 128;
+  T* stage = reinterpret_cast<T*>(slots + kSlots * kSlotBytes);
+  float* bias_s = reinterpret_cast<float*>(stage + 2 * 64 * LDO);
+  const uint32_t full = smem_addr(bias_s + BN), empty = full + 8 * kSlots;
+
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.y * BN;
+  const T zero = rr_from_float<T>(0.f);
+
+  // The nine taps of output channels n0 .. n0 + BN - 1, once per block:
+  // tap t, channel n, input channel c at t BN 128 + n 128 + 16 ((c / 8) ^
+  // (n % 8)) + 2 (c % 8) bytes, wgmma's K-major 128B-swizzled layout (the
+  // HWIO layout's O-contiguous rows transposed on the way in).
+  for (int i = tid; i < 9 * kC * BN; i += kStreamThreads) {
+    const int n = i % BN, ch = (i / BN) % kC, tap = i / (BN * kC);
+    const int o = n0 + n;
+    T* dst = reinterpret_cast<T*>(ws + tap * BN * 128 + n * 128 +
+                                  (((ch >> 3) ^ (n & 7)) << 4)) +
+             (ch & 7);
+    *dst = o < O ? w[((long long)tap * kC + ch) * O + o] : zero;
+  }
+  for (int n = tid; n < BN; n += kStreamThreads)
+    bias_s[n] = bias != nullptr && n0 + n < O ? rr_to_float(bias[n0 + n]) : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerThreads / 32);
+    }
+    fence_barrier_init();
+  }
+  fence_async_shared();
+  __syncthreads();
+
+  const int strips = (W + kTW - 1) / kTW;
+  const int bands = (H + R - 1) / R;
+  const long long units = (long long)B * bands * strips;
+
+  if (tid >= kConsumerThreads) {
+    // The producer warpgroup: one thread streams every unit's rows y0 - 1 ..
+    // y0 + rows, pixels x0 - 1 .. x0 + 128, into the ring of slots.
+    regs_release();
+    if (tid == kConsumerThreads) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit un = unit_of(u, strips, bands, R, H);
+        for (int t = 0; t < un.rows + 2; ++t) {
+          mbar_wait(empty + 8 * s, ph ^ 1);
+          mbar_expect_tx(full + 8 * s, kBoxBytes);
+          tma_load_4d(smem_addr(slots) + s * kSlotBytes, &xmap, full + 8 * s,
+                      0, un.x0 - 1, un.y0 - 1 + t, un.b);
+          if (++s == kSlots) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumers: warpgroup wg computes pixels x0 + 64 wg .. + 63.
+  regs_claim();
+  Consumer c;
+  c.slots = smem_addr(slots);
+  c.full = full;
+  c.empty = empty;
+  c.desc0 = wgmma_desc(smem_addr(ws));
+  c.lane = tid & 31;
+  c.warp = (tid >> 5) & 3;
+  c.wg = tid >> 7;
+  c.tid = tid & 127;
+  c.p0 = c.wg * 64 + c.warp * 16 + (c.lane & 15);
+  c.hi = c.lane >> 4;
+  c.s = 0;
+  c.ph = 0;
+  T* st = stage + c.wg * 64 * LDO;
+  float acc[3][BN / 2];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[i][j] = 0.f;
+
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+    const Unit un = unit_of(u, strips, bands, R, H);
+    const int xw = un.x0 + c.wg * 64;
+    const long long pix = ((long long)un.b * H + un.y0) * W + xw;
+    const int npx = min(64, W - xw);
+    const int nt = un.rows + 2;
+    for (int t = 0; t < nt; t += 3) {
+      stream_row<T, BN, 0>(acc, c, t, st, bias_s, y, pix, W, npx, O, n0);
+      if (t + 1 < nt)
+        stream_row<T, BN, 1>(acc, c, t + 1, st, bias_s, y, pix, W, npx, O, n0);
+      if (t + 2 < nt)
+        stream_row<T, BN, 2>(acc, c, t + 2, st, bias_s, y, pix, W, npx, O, n0);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 16-bit, C != 64 (rr_conv3x3): tiles of 128 pixels x BN channels, K in
+// 32-wide chunks
+// ---------------------------------------------------------------------------
 
 // Warp tiling of a 128 x BN block tile over 8 warps: 4 x 2 warps of 32 x 32
 // at BN = 64, else 8 x 1 warps of 16 x BN.
@@ -226,10 +740,6 @@ __device__ __forceinline__ void store_out(const T* os, T* __restrict__ y,
     }
   }
 }
-
-// ---------------------------------------------------------------------------
-// rr_conv3x3, 16-bit: tiles of 128 pixels x BN channels, K in 32-wide chunks
-// ---------------------------------------------------------------------------
 
 template <typename T, int BN, bool VX, bool VO>
 __global__ void __launch_bounds__(kThreads, 2) conv3x3_igemm_kernel(
@@ -331,114 +841,6 @@ __global__ void __launch_bounds__(kThreads, 2) conv3x3_igemm_kernel(
   __syncthreads();
   store_out<T, BN, VO>(
       os, y, [&](int r) { return m0 + r < M ? m0 + r : -1LL; }, n0, O);
-}
-
-// ---------------------------------------------------------------------------
-// rr_conv3x3_c64, 16-bit: resident weights, persistent 3-row halo slabs
-// ---------------------------------------------------------------------------
-
-template <typename T, int BN>
-constexpr size_t c64_smem_bytes() {
-  return sizeof(T) * (9 * kC64 * ldw<BN>()          // weights
-                      + 2 * 3 * (kTW + 2) * kLDS    // two halo slabs
-                      + kBM * (BN + 8));            // epilogue tile
-}
-
-template <typename T, int BN, bool VO>
-__global__ void __launch_bounds__(kThreads, 1) conv3x3_c64_kernel(
-    const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ bias,
-    T* __restrict__ y, int B, int H, int W, int O) {
-  using WT = WarpTile<BN>;
-  constexpr int LDW = ldw<BN>();
-  constexpr int kSlab = 3 * (kTW + 2) * kLDS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ws = reinterpret_cast<T*>(smem_raw);
-  T* slabs = ws + 9 * kC64 * LDW;
-  T* os = slabs + 2 * kSlab;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % WT::kWarpsM, wn = warp / WT::kWarpsM;
-  const int segs_w = (W + kTW - 1) / kTW;
-  const long long nseg = (long long)B * H * segs_w;
-  const T zero = rr_from_float<T>(0.f);
-
-  // All nine taps, [tap * 64 + c][o], O zero-padded to BN: once per block.
-  {
-    constexpr int VPR = BN / 8;
-    for (int i = tid; i < 9 * kC64 * VPR; i += kThreads) {
-      const int r = i / VPR, o = (i % VPR) * 8;
-      const T* src = w + (long long)r * O + o;
-      T* dst = ws + r * LDW + o;
-      if (VO) {
-        cp_async16(dst, o < O ? src : w, o < O);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) dst[j] = o + j < O ? src[j] : zero;
-      }
-    }
-  }
-
-  // Rows y-1, y, y+1 of pixels x0-1 .. x0+128 of one segment, zero outside
-  // the image (the halo never reads across rows or images).
-  auto load_slab = [&](int buf, long long seg) {
-    const int x0 = (int)(seg % segs_w) * kTW;
-    const long long q = seg / segs_w;
-    const int yq = (int)(q % H);
-    const long long bq = q / H;
-    T* dst = slabs + buf * kSlab;
-    constexpr int kVecs = 3 * (kTW + 2) * (kC64 / 8);
-    for (int i = tid; i < kVecs; i += kThreads) {
-      const int r = i / ((kTW + 2) * 8), rem = i % ((kTW + 2) * 8);
-      const int p = rem >> 3, v = rem & 7;
-      const int yy = yq + r - 1, xx = x0 + p - 1;
-      const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
-      const T* src = x + ((bq * H + yy) * W + xx) * kC64 + v * 8;
-      cp_async16(dst + (r * (kTW + 2) + p) * kLDS + v * 8, ok ? src : x, ok);
-    }
-  };
-
-  long long seg = blockIdx.x;
-  if (seg < nseg) load_slab(0, seg);
-  cp_async_commit();  // group 0: the weights and the first slab
-  for (int it = 0; seg < nseg; seg += gridDim.x, ++it) {
-    const long long nxt = seg + gridDim.x;
-    if (nxt < nseg) load_slab((it + 1) & 1, nxt);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    float acc[WT::kMI][WT::kNI][4];
-#pragma unroll
-    for (int i = 0; i < WT::kMI; ++i)
-#pragma unroll
-      for (int j = 0; j < WT::kNI; ++j)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-
-    const T* slab = slabs + (it & 1) * kSlab;
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-      const T* wt = ws + tap * kC64 * LDW + wn * WT::kWN;
-#pragma unroll
-      for (int kk = 0; kk < kC64; kk += 16) {
-        auto a_row = [&](int i) {
-          const int p = wm * WT::kWM + i * 16 + (lane & 15) + dx;
-          return slab + (dy * (kTW + 2) + p) * kLDS + kk;
-        };
-        warp_k16<T, BN>(acc, a_row, wt + kk * LDW, lane);
-      }
-    }
-
-    stage_out<T, BN>(acc, os, bias, 0, O, wm, wn, lane);
-    __syncthreads();
-    const int x0 = (int)(seg % segs_w) * kTW;
-    const long long row0 = (seg / segs_w) * W + x0;  // (b H + y) W + x0
-    store_out<T, BN, VO>(
-        os, y, [&](int r) { return x0 + r < W ? row0 + r : -1LL; }, 0, O);
-    __syncthreads();  // the next iteration's copies and epilogue reuse smem
-  }
-  cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
@@ -579,74 +981,110 @@ cudaError_t igemm(const void* x, const void* w, const void* b, void* y, int B,
   return igemm_vec<T, 64>(x, w, b, y, B, H, W, C, O, st);
 }
 
-template <typename T, int BN, bool VO>
-cudaError_t launch_c64(const void* x, const void* w, const void* b, void* y,
-                       int B, int H, int W, int O, int grid, cudaStream_t st) {
-  constexpr size_t bytes = c64_smem_bytes<T, BN>();
+// cuTensorMapEncodeTiled is a driver-API function; the library links only
+// the static runtime, so it is fetched through the runtime once.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The streamed C = 64 kernel: `grid` persistent blocks per tile of BN output
+// channels, bands of R rows.  The tensor map holds x's pointer, so it is
+// encoded at every call.
+template <typename T, int BN>
+cudaError_t launch_stream(const void* x, const void* w, const void* b, void* y,
+                          int B, int H, int W, int O, int R, int grid,
+                          cudaStream_t st) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap map;
+  const cuuint64_t dims[4] = {(cuuint64_t)kC, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {kC * 2ull, kC * 2ull * W, kC * 2ull * W * H};
+  const cuuint32_t box[4] = {(cuuint32_t)kC, (cuuint32_t)kBoxPix, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      &map,
+      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(x), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  constexpr size_t bytes = stream_smem_bytes<BN>();
   // Above 48 KB a block gets dynamic shared memory only after this call
   // (on the current device); without it the launch is refused.
-  cudaError_t e = cudaFuncSetAttribute(
-      conv3x3_c64_kernel<T, BN, VO>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const cudaError_t e = cudaFuncSetAttribute(
+      conv3x3_stream_kernel<T, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
   if (e != cudaSuccess) return e;
-  conv3x3_c64_kernel<T, BN, VO><<<grid, kThreads, bytes, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(b), static_cast<T*>(y), B, H, W, O);
+  const dim3 g((unsigned)grid, (unsigned)((O + BN - 1) / BN));
+  conv3x3_stream_kernel<T, BN><<<g, kStreamThreads, bytes, st>>>(
+      map, static_cast<const T*>(w), static_cast<const T*>(b),
+      static_cast<T*>(y), B, H, W, O, R);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t c64(const void* x, const void* w, const void* b, void* y, int B,
-                int H, int W, int O, int grid, cudaStream_t st) {
-  const bool vo = O % 8 == 0;
-  if (O <= 8)
-    return vo ? launch_c64<T, 8, true>(x, w, b, y, B, H, W, O, grid, st)
-              : launch_c64<T, 8, false>(x, w, b, y, B, H, W, O, grid, st);
-  if (O <= 32)
-    return vo ? launch_c64<T, 32, true>(x, w, b, y, B, H, W, O, grid, st)
-              : launch_c64<T, 32, false>(x, w, b, y, B, H, W, O, grid, st);
-  return vo ? launch_c64<T, 64, true>(x, w, b, y, B, H, W, O, grid, st)
-            : launch_c64<T, 64, false>(x, w, b, y, B, H, W, O, grid, st);
+cudaError_t stream(const void* x, const void* w, const void* b, void* y, int B,
+                   int H, int W, int O, int R, int grid, cudaStream_t st) {
+  if (R <= 0 || grid <= 0) return cudaErrorInvalidValue;
+  if (O <= 8) return launch_stream<T, 8>(x, w, b, y, B, H, W, O, R, grid, st);
+  if (O <= 16) return launch_stream<T, 16>(x, w, b, y, B, H, W, O, R, grid, st);
+  if (O <= 32) return launch_stream<T, 32>(x, w, b, y, B, H, W, O, R, grid, st);
+  return launch_stream<T, 64>(x, w, b, y, B, H, W, O, R, grid, st);
 }
 
 }  // namespace
 
 // x [B,H,W,C], w [3,3,C,O], b [O] or null (all in the storage dtype),
-// y [B,H,W,O]; every pointer 16-byte aligned.
+// y [B,H,W,O]; every pointer 16-byte aligned.  `R` and `grid` are the
+// wrapper's plan for the streamed C = 64 kernel (read only there).
 extern "C" int rr_conv3x3(int dtype, const void* x, const void* w,
                           const void* b, void* y, int B, int H, int W, int C,
-                          int O, void* stream) {
+                          int O, int R, int grid, void* stream_) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0)
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream_);
   switch (dtype) {
     case RR_F32:
       return launch_f32(x, w, b, y, B, H, W, C, O, st);
     case RR_F16:
-      return igemm<__half>(x, w, b, y, B, H, W, C, O, st);
+      return C == kC ? stream<__half>(x, w, b, y, B, H, W, O, R, grid, st)
+                     : igemm<__half>(x, w, b, y, B, H, W, C, O, st);
     case RR_BF16:
-      return igemm<__nv_bfloat16>(x, w, b, y, B, H, W, C, O, st);
+      return C == kC
+                 ? stream<__nv_bfloat16>(x, w, b, y, B, H, W, O, R, grid, st)
+                 : igemm<__nv_bfloat16>(x, w, b, y, B, H, W, C, O, st);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// The same with C = 64 and O <= 64; `grid` persistent blocks (at most one
-// per row segment of 128 pixels).
+// The same with C = 64 and O <= 64.
 extern "C" int rr_conv3x3_c64(int dtype, const void* x, const void* w,
                               const void* b, void* y, int B, int H, int W,
-                              int O, int grid, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || O <= 0 || O > kC64 || grid <= 0)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case RR_F32:
-      return launch_f32(x, w, b, y, B, H, W, kC64, O, st);
-    case RR_F16:
-      return c64<__half>(x, w, b, y, B, H, W, O, grid, st);
-    case RR_BF16:
-      return c64<__nv_bfloat16>(x, w, b, y, B, H, W, O, grid, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+                              int O, int R, int grid, void* stream_) {
+  if (O > kC) return cudaErrorInvalidValue;
+  return rr_conv3x3(dtype, x, w, b, y, B, H, W, kC, O, R, grid, stream_);
 }

@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -45,10 +46,10 @@ SIGNATURES = {
                        _I, _P],
     # dtype, x, y, rows, f1, f2, grid, stream
     "rr_filter_pair": [_I, _P, _P, _L, _P, _P, _I, _P],
-    # dtype, x, w, b (or None), y, B, H, W, C, O, stream
-    "rr_conv3x3": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # dtype, x, w, b (or None), y, B, H, W, O, grid, stream
-    "rr_conv3x3_c64": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dtype, x, w, b (or None), y, B, H, W, C, O, rows, grid, stream
+    "rr_conv3x3": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, x, w, b (or None), y, B, H, W, O, rows, grid, stream
+    "rr_conv3x3_c64": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -109,6 +110,41 @@ def build() -> Path:
         for obj in objs:
             obj.unlink(missing_ok=True)
     return so
+
+
+def ptxas_report(source: str) -> dict:
+    """What ptxas says of each kernel of one source (``nvcc -Xptxas -v``):
+    registers, spill stores and loads in bytes, and its performance notes
+    (such as wgmma serialization), by mangled entry name."""
+    obj = BUILD_DIR / f"report.{os.getpid()}.o"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        res = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c",
+             str(SRC_DIR / source), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    finally:
+        obj.unlink(missing_ok=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{res.stdout}")
+    out, entry = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = out.setdefault(m.group(1), {"notes": []})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry is not None:
+            entry["spill_stores"], entry["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            entry["registers"] = int(m.group(1))
+        m = re.search(r"\((C\d+)\) (.*) for the function '(\w+)'", line)
+        if m:
+            out.setdefault(m.group(3), {"notes": []})["notes"].append(
+                f"{m.group(1)} {m.group(2)}")
+    return out
 
 
 @functools.lru_cache(maxsize=None)

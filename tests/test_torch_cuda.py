@@ -170,6 +170,8 @@ def _conv_on_card(rng, cuda, dtype, shape, o, bias):
     ((2, 13, 7, 128), 5, True), ((3, 37, 53, 64), 64, True),
     ((1, 9, 11, 3), 64, True), ((1, 6, 10, 64), 128, False),
     ((2, 8, 16, 64), 3, True), ((1, 5, 9, 256), 40, True),
+    # C = 64, O = 128: two 64-wide channel tiles of the streamed kernel.
+    ((1, 75, 300, 64), 128, True), ((1, 75, 300, 64), 128, False),
 ])
 def test_conv3x3_implicit_gemm_kernel_on_card(rng, cuda, dtype, shape, o,
                                               bias):
@@ -182,17 +184,58 @@ def test_conv3x3_implicit_gemm_kernel_on_card(rng, cuda, dtype, shape, o,
     assert _conv_ok(got, conv3x3_implicit_gemm_plain(x, w, b), x, w, b)
 
 
+#: Shapes that stress the streamed C = 64 kernel's work split (its plan on
+#: an H100's 132 SMs): a last band shorter than the others (H % R != 0), a
+#: last strip narrower than 128 columns, W < 128, B = 1.
+STREAMED = [
+    ((1, 131, 200, 64), 64),   # R = 2: a 1-row last band; strips 128 + 72
+    ((1, 130, 257, 64), 5),    # R = 3: a 1-row last band; a 1-column strip
+    ((2, 97, 129, 64), 32),    # R = 2; a 1-column strip
+    ((1, 37, 100, 64), 8),     # W < 128
+    ((3, 5, 7, 64), 3),        # W < 128, H < 8
+    ((1, 200, 64, 64), 3),     # W = 64: warpgroup 1 has no pixel
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("o", [64, 32, 3, 8])
-def test_conv3x3_pairlane_kernel_on_card(rng, cuda, dtype, o):
-    """W = 150: two row segments of the kernel, the second ragged."""
-    x, w, b = _conv_on_card(rng, cuda, dtype, (2, 19, 150, 64), o, True)
+@pytest.mark.parametrize("shape,o,bias", [
+    # W = 150: two column strips, the second ragged.
+    *(((2, 19, 150, 64), o, True) for o in (64, 32, 3, 8)),
+    *((s, o, bias) for s, o in STREAMED for bias in (True, False)),
+])
+def test_conv3x3_pairlane_kernel_on_card(rng, cuda, dtype, shape, o, bias):
+    x, w, b = _conv_on_card(rng, cuda, dtype, shape, o, bias)
     before = conv3x3_pairlane.launches
     got = conv3x3_pairlane(x, w, b)
     torch.cuda.synchronize()
     assert conv3x3_pairlane.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == shape[:3] + (o,)
     assert _conv_ok(got, conv3x3_pairlane_plain(x, w, b), x, w, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("o", [64, 3])
+def test_conv3x3_nonfinite_inputs_on_card(rng, cuda, dtype, o):
+    """inf and NaN inputs, in the interior, on a strip's halo and at the
+    image's edges: the kernel's non-finite outputs are the plain version's,
+    and the finite ones agree as usual."""
+    x, w, b = _conv_on_card(rng, cuda, dtype, (2, 19, 150, 64), o, True)
+    x[0, 3, 5, 7] = float("inf")
+    x[0, 10, 127, 1] = float("-inf")
+    x[0, 10, 128, 2] = float("nan")
+    x[1, 0, 149, 0] = float("nan")
+    x[1, 18, 0, 63] = float("inf")
+    got = conv3x3_pairlane(x, w, b)
+    torch.cuda.synchronize()
+    want = conv3x3_pairlane_plain(x, w, b)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin) and not fin.all()
+    # A finite output saw no non-finite input: bound it with those zeroed.
+    xz = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    assert _conv_ok(torch.where(fin, got, 0), torch.where(fin, want, 0),
+                    xz, w, b)
 
 
 @pytest.mark.cuda
