@@ -7,11 +7,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device  — the card's name, compute capability (must be 9.0) and power limit;
 2. build   — compiles ``rerevst_torch/csrc/*.cu`` for sm_90a (first use),
-             and reports the streamed conv kernels' registers and spills
-             (``nvcc -Xptxas -v``);
+             and reports the registers and spills of the streamed conv
+             kernels and the filter pair kernel (``nvcc -Xptxas -v``; a
+             spill fails);
 3. check   — each kernel against its plain PyTorch version on the card, at the
              main path's shapes (batch 16, 512x512 content padded to 640x640)
-             plus ragged ones, in f16, bf16 and fp32;
+             plus ragged ones and inf/NaN inputs, in f16, bf16 and fp32;
 4. e2e     — ``Stylization.stylize_video`` on a seeded 33-frame 512x512 clip
              with the bundled checkpoint: the default path in f16 and in
              fp32, and the pair-lane path (``ModelConfig(pairlane=True)``)
@@ -22,7 +23,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
              package's conv benchmark (``scripts/bench_conv3x3.py``);
 5. times   — each kernel and its plain version at every main-path site
              (device time from CUDA events, and the host's own cost per
-             call), the bound, one ``F.conv2d`` call beside each conv as a
+             call), the bound (the filter pair's products as three TF32
+             passes), one ``F.conv2d`` call beside each conv as a
              yardstick, Pass-2 frames/s of both paths, and torch.profiler
              traces of one f16 stylize_video (device busy vs wall clock)
              and of Pass 2 alone on both paths (where a batch's time goes);
@@ -56,6 +58,7 @@ HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 F16_FLOP_PER_S = 989e12        # H100 SXM dense f16/bf16 tensor cores
+TF32_FLOP_PER_S = 495e12       # H100 SXM dense TF32 tensor cores
 BATCH = 16
 PAD_HW = 640                   # 512x512 content, reflect-padded to 640x640
 CLIP_FRAMES = 33
@@ -277,22 +280,36 @@ def check_kernels(torch):
                          f"max |kernel - plain| = {err}")
                 errs["norm_affine_clamp"] = max(errs["norm_affine_clamp"], err)
                 del x, got, want
-    for shape in [(BATCH, p // 8, p // 8, 32), (3, 7, 11, 32)]:
+    # The main path's shape; row counts that are not a multiple of the
+    # kernel's 16-row tile (231 and 10,282), below it (13) and 1; and inf
+    # and NaN inputs, in rows of a ragged last tile too.
+    filter_cases = [((BATCH, p // 8, p // 8, 32), False),
+                    ((3, 7, 11, 32), False), ((2, 53, 97, 32), False),
+                    ((1, 1, 13, 32), False), ((1, 1, 1, 32), False),
+                    ((3, 7, 11, 32), True)]
+    for shape, nonfinite in filter_cases:
         for dtype in dtypes:
             x, f1, f2 = filter_inputs(torch, shape, dtype, gen)
+            if nonfinite:
+                x[0, 0, 3, 5] = float("inf")
+                x[1, 4, 2, 0] = float("-inf")
+                x[2, 6, 10, 31] = float("nan")
             got = kernels.dynamic_filter_pair(x, f1, f2)
             torch.cuda.synchronize()
             want = kernels.dynamic_filter_pair_plain(x, f1, f2)
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
+            fin = torch.isfinite(want)
+            err = (got.float() - want.float()).abs()[fin].max().item()
+            scale = want.float()[fin].abs().max().item()
             ok = within_tolerance(torch, got, want)
             RESULTS["checks"].append(
                 {"kernel": "dynamic_filter_pair", "shape": shape,
-                 "dtype": str(dtype), "max_abs_err": err, "scale": scale,
-                 "ok": ok})
+                 "dtype": str(dtype), "nonfinite_inputs": nonfinite,
+                 "nonfinite_outputs": int((~fin).sum()),
+                 "max_abs_err": err, "scale": scale, "ok": ok})
             if not ok:
                 fail(f"dynamic_filter_pair {shape} {dtype}: max |kernel - "
-                     f"plain| = {err} at scale {scale}")
+                     f"plain| = {err} at scale {scale}, or non-finite "
+                     f"outputs differ")
             errs["dynamic_filter_pair"] = max(errs["dynamic_filter_pair"], err)
     check_convs(torch, gen, errs)
     return errs, len(RESULTS["checks"])
@@ -393,8 +410,10 @@ def time_kernels(torch):
     k = time_ms(torch, lambda: kernels.dynamic_filter_pair(x, f1, f2))
     pl = time_ms(torch, lambda: kernels.dynamic_filter_pair_plain(x, f1, f2))
     rows = x.numel() // 32
+    flops = rows * 2 * (2 * 32 * 32)
     t_bytes = (2 * x.numel() * 2 + 2 * 32 * 32 * 4) / HBM_BYTES_PER_S * 1e3
-    t_ops = rows * 2 * (2 * 32 * 32) / FP32_FLOP_PER_S * 1e3
+    # fp32-accurate products on the tensor cores: three TF32 passes.
+    t_ops = 3 * flops / TF32_FLOP_PER_S * 1e3
     bound = max(t_bytes, t_ops)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     row = {"kernel": "dynamic_filter_pair", "site": "filter1..3 (each)",
@@ -402,6 +421,7 @@ def time_kernels(torch):
            "launches_per_batch": FILTER_SITES, "ms": k["ms"],
            "plain_ms": pl["ms"], "bound_ms": bound, "bound_by": bound_by,
            "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+           "bound_fp32_cores_ms": flops / FP32_FLOP_PER_S * 1e3,
            "host_ms": k["host_ms"], "plain_host_ms": pl["host_ms"],
            "host_paced": k["host_paced"] or pl["host_paced"]}
     RESULTS["times"].append(row)
@@ -731,20 +751,34 @@ def trace_pass2(torch, session, batches=3):
     return _device_breakdown(prof, wall_ms, per=batches)
 
 
-def stream_kernel_resources(build) -> dict:
+def kernel_resources(build) -> dict:
     """Registers, spills and ptxas's notes (a serialized wgmma shows here)
-    of each instance of the streamed C = 64 conv kernel."""
+    of each instance of the streamed C = 64 conv kernel and of the filter
+    pair kernel.  A spill fails the phase: both designs count on keeping
+    their fragments in registers."""
     import re
 
+    dts = {"f": "fp32", "6__half": "f16", "13__nv_bfloat16": "bf16"}
     out = {}
     for name, info in build.ptxas_report("conv3x3.cu").items():
         m = re.search(r"conv3x3_stream_kernelI(6__half|13__nv_bfloat16)Li(\d+)E",
                       name)
         if m:
-            dt = "f16" if m.group(1) == "6__half" else "bf16"
-            out[f"conv3x3_stream_kernel<{dt}, N={m.group(2)}>"] = info
-    if not out:
+            out[f"conv3x3_stream_kernel<{dts[m.group(1)]}, N={m.group(2)}>"] \
+                = info
+    n_conv = len(out)
+    for name, info in build.ptxas_report("filter_chain.cu").items():
+        m = re.search(r"filter_pair_kernelI(f|6__half|13__nv_bfloat16)E", name)
+        if m:
+            out[f"filter_pair_kernel<{dts[m.group(1)]}>"] = info
+    if not n_conv:
         fail("ptxas reported no streamed conv kernel")
+    if len(out) - n_conv != 3:
+        fail(f"ptxas reported {len(out) - n_conv} filter pair kernels, not 3")
+    spilled = [k for k, v in out.items()
+               if v.get("spill_stores", 0) or v.get("spill_loads", 0)]
+    if spilled:
+        fail(f"ptxas: registers spilled in {spilled}: {out}")
     return out
 
 
@@ -782,12 +816,12 @@ def main() -> int:
     if tuple(cap) != (9, 0):
         fail(f"compute capability {cap}, the kernels are built for sm_90a")
 
-    # 2. build, and what ptxas says of the streamed conv kernels
+    # 2. build, and what ptxas says of the streamed conv and filter kernels
     t0 = time.perf_counter()
     _build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(_build.library_path().relative_to(HERE))})
-    RESULTS["ptxas"] = stream_kernel_resources(_build)
+    RESULTS["ptxas"] = kernel_resources(_build)
     emit({"phase": "ptxas", "kernels": RESULTS["ptxas"]})
 
     # 3. kernels vs plain on the card

@@ -119,30 +119,8 @@ template <int BN>
 __host__ __device__ constexpr int ldw() { return BN == 8 ? 8 : BN + 8; }
 
 // ---------------------------------------------------------------------------
-// PTX helpers
+// PTX helpers (the cp.async ones are in common.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; with valid = false it writes 16 zero bytes
-// and reads nothing (`src` must still be a mapped address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // A fragment of m16n8k16 (and, per warp, of wgmma's register A): a 16 x 16
 // row-major tile; lane l names row l % 16, columns 8 (l / 16) .. +7.

@@ -3,12 +3,16 @@
 The port of ``rerevst_tpu/kernels/filter_chain.py:dynamic_filter_pair`` — the
 middle of the global decoder's ``_kernel_filter_frozen``, between the 512->32
 ``down`` conv and the 32->512 ``up`` conv, three times per decode.  The kernel
-is ``csrc/filter_chain.cu``: both filters stay fp32 in every storage dtype and
-the intermediate stays fp32 in shared memory, never in device memory.  A CUDA tensor launches the
-kernel (or the wrapper raises); a CPU tensor takes the plain version.
+is ``csrc/filter_chain.cu``: tensor-core products (mma.sync TF32) made
+fp32-accurate by a hi/lo split, both filters fp32 in every storage dtype and
+the intermediate fp32 in registers, never in memory; its persistent grid
+takes 16-row tiles as :func:`row_plan` splits them.  A CUDA tensor launches
+the kernel (or the wrapper raises); a CPU tensor takes the plain version.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -18,8 +22,45 @@ from rerevst_torch.models.layers import _fp32_products_exact
 
 _CODES = _build.DTYPE_CODES
 _C = 32          # csrc/filter_chain.cu kC
-_TILE = 128      # csrc/filter_chain.cu kTile: rows per block per step
-_BLOCKS_PER_SM = 2  # csrc/filter_chain.cu __launch_bounds__
+TILE_ROWS = 16   # csrc/filter_chain.cu kTileRows: rows per mma tile
+WARPS = 8        # csrc/filter_chain.cu kWarps: warps per block
+
+
+@dataclass(frozen=True)
+class RowPlan:
+    """The kernel's split of ``rows`` rows over ``grid`` persistent blocks.
+
+    Rows go in tiles of ``TILE_ROWS`` (the last one ragged); block ``bx``
+    takes a contiguous share of whole tiles, and its ``WARPS`` warps take
+    that share's tiles in turn.
+    """
+
+    rows: int
+    grid: int
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.rows // TILE_ROWS)
+
+    def block_tiles(self, bx: int) -> range:
+        """The kernel's ``[bx T / grid, (bx + 1) T / grid)``."""
+        return range(bx * self.tiles // self.grid,
+                     (bx + 1) * self.tiles // self.grid)
+
+    def warp_tiles(self, bx: int, warp: int) -> range:
+        share = self.block_tiles(bx)
+        return range(share.start + warp, share.stop, WARPS)
+
+    def tile_rows(self, tile: int) -> range:
+        """The rows of ``tile`` that exist (the kernel reads and writes no
+        other)."""
+        return range(tile * TILE_ROWS, min((tile + 1) * TILE_ROWS, self.rows))
+
+
+def row_plan(rows: int, sms: int) -> RowPlan:
+    """One block per SM (the kernel's registers allow no second), never more
+    blocks than tiles."""
+    return RowPlan(rows, min(-(-rows // TILE_ROWS), sms))
 
 
 def _square(f: torch.Tensor, c: int) -> torch.Tensor:
@@ -59,24 +100,25 @@ def dynamic_filter_pair(x: torch.Tensor, f1: torch.Tensor,
     if c != _C:
         raise ValueError(f"dynamic_filter_pair: the kernel takes C={_C}, "
                          f"got {c}")
-    if x.data_ptr() % 16:
-        raise ValueError("dynamic_filter_pair: x must be 16-byte aligned")
     for name, f in (("f1", a), ("f2", b)):
         if f.dtype != torch.float32 or f.device != x.device \
                 or not f.is_contiguous():
             raise ValueError(f"dynamic_filter_pair: {name} must be a "
                              f"contiguous fp32 tensor on {x.device}")
+    for name, t in (("x", x), ("f1", a), ("f2", b)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"dynamic_filter_pair: {name} must be 16-byte "
+                             f"aligned")
     y = torch.empty_like(x)
     rows = x.numel() // c
     if rows == 0:
         return y
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    # Persistent: as many blocks as fit on the card at once
-    # (__launch_bounds__(256, 2)), each staging the filters once.
-    grid = min(-(-rows // _TILE), sms * _BLOCKS_PER_SM)
+    plan = row_plan(rows, sms)
     err = _build.library().rr_filter_pair(
         _CODES[x.dtype], x.data_ptr(), y.data_ptr(), rows, a.data_ptr(),
-        b.data_ptr(), grid, torch.cuda.current_stream(x.device).cuda_stream)
+        b.data_ptr(), plan.grid,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "dynamic_filter_pair")
     dynamic_filter_pair.launches += 1
     return y

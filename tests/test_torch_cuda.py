@@ -101,22 +101,61 @@ def test_norm_affine_kernel_on_card(rng, cuda, dtype, variant):
     assert _ulp_ok(got, norm_affine_clamp_plain(x, st, s, m, leaky=leaky))
 
 
+def _filters(rng, cuda):
+    """f1 at magnitude 1e3 and f2 at 1e-3, far outside f16's range."""
+    return tuple(torch.from_numpy(rng.standard_normal((1, 32, 32)) * s)
+                 .float().to(cuda) for s in (1e3, 1e-3))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_filter_pair_kernel_on_card(rng, cuda, dtype):
     """Filters of magnitude 1e3 under every storage dtype: the kernel keeps
     them and the intermediate in fp32."""
     x = torch.from_numpy(rng.standard_normal((2, 13, 11, 32))).to(cuda, dtype)
-    f1 = torch.from_numpy(rng.standard_normal((1, 32, 32)) * 1e3) \
-        .float().to(cuda)
-    f2 = torch.from_numpy(rng.standard_normal((1, 32, 32)) * 1e-3) \
-        .float().to(cuda)
+    f1, f2 = _filters(rng, cuda)
     before = dynamic_filter_pair.launches
     got = dynamic_filter_pair(x, f1, f2)
     torch.cuda.synchronize()
     assert dynamic_filter_pair.launches == before + 1
     assert torch.isfinite(got).all()
     assert _ulp_ok(got, dynamic_filter_pair_plain(x, f1, f2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 1, 1, 32), (1, 1, 13, 32),
+                                   (2, 53, 97, 32), (1, 1, 10007, 32)])
+def test_filter_pair_ragged_rows_on_card(rng, cuda, dtype, shape):
+    """Row counts off the kernel's 16-row tile (1, 13, 10,282 and the prime
+    10,007): the last tile is masked, every row is written."""
+    x = torch.from_numpy(rng.standard_normal(shape)).to(cuda, dtype)
+    f1, f2 = _filters(rng, cuda)
+    got = dynamic_filter_pair(x, f1, f2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _ulp_ok(got, dynamic_filter_pair_plain(x, f1, f2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_filter_pair_nonfinite_inputs_on_card(rng, cuda, dtype):
+    """inf and NaN inputs, one in the ragged last tile: the kernel's
+    non-finite outputs are the plain version's (inf splits into inf and
+    NaN), and every other row agrees as usual."""
+    x = torch.from_numpy(rng.standard_normal((3, 7, 11, 32))).to(cuda, dtype)
+    x[0, 0, 3, 5] = float("inf")
+    x[1, 4, 2, 0] = float("-inf")
+    x[2, 6, 10, 31] = float("nan")
+    f1, f2 = _filters(rng, cuda)
+    got = dynamic_filter_pair(x, f1, f2)
+    torch.cuda.synchronize()
+    want = dynamic_filter_pair_plain(x, f1, f2)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin) and not fin.all()
+    rows = fin.all(dim=-1)
+    assert int((~rows).sum()) == 3
+    assert _ulp_ok(got[rows], want[rows])
 
 
 @pytest.mark.cuda
