@@ -14,20 +14,28 @@ Phases, each printing one JSON line (any failure exits non-zero):
              main path's shapes (batch 16, 512x512 content padded to 640x640)
              plus ragged ones and inf/NaN inputs, in f16, bf16 and fp32;
 4. e2e     — ``Stylization.stylize_video`` on a seeded 33-frame 512x512 clip
-             with the bundled checkpoint: the default path in f16 and in
-             fp32, and the pair-lane path (``ModelConfig(pairlane=True)``)
-             in f16 — shapes, launch counts, each low-precision session's
-             pixel error against fp32, and a small clip held against the
-             port's plain CPU path; then ``conv3x3_implicit_gemm``, which
-             no model path runs, driven alone at the shapes of the JAX
-             package's conv benchmark (``scripts/bench_conv3x3.py``);
+             with the bundled checkpoint: the global (two-pass) default
+             path in f16 and in fp32 and its pair-lane route
+             (``ModelConfig(pairlane=True)``) in f16, then the same three
+             sessions in per-frame mode (``use_global=False``) — shapes,
+             launch counts, each low-precision session's pixel error
+             against fp32; small clips held against the port's plain CPU
+             path (global fp32, per-frame fp32, and per-frame under both
+             ablation switches); a ``.pth`` written by the port read back
+             into a session bit-equal to the ``.msgpack`` one; E_warp and
+             temporal SSIM of both modes on a seeded exact-translation clip
+             (exact flows, no cv2), on the card and on the CPU; then
+             ``conv3x3_implicit_gemm``, which no model path runs, driven
+             alone at the shapes of the JAX package's conv benchmark
+             (``scripts/bench_conv3x3.py``);
 5. times   — each kernel and its plain version at every main-path site
              (device time from CUDA events, and the host's own cost per
              call), the bound (the filter pair's products as three TF32
              passes), one ``F.conv2d`` call beside each conv as a
-             yardstick, Pass-2 frames/s of both paths, and torch.profiler
-             traces of one f16 stylize_video (device busy vs wall clock)
-             and of Pass 2 alone on both paths (where a batch's time goes);
+             yardstick, Pass-2 frames/s of the global default, global
+             pair-lane and per-frame f16 paths, and torch.profiler traces
+             of one f16 stylize_video (device busy vs wall clock) and of
+             Pass 2 alone on those three paths (where a batch's time goes);
 6. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -37,9 +45,12 @@ compute in fp32 and round once).  The 3x3 convs sum K = 9 C products in
 other orders on the two sides, each within K 2^-23 of sum |x||w| (the
 standard bound, doubled for the tensor cores' accumulation): they agree to
 K 2^-22 sum |x||w| (+ |b|), plus one ulp of the storage dtype in f16/bf16.
-End to end, f16 stays within 1e-3 mean |delta| per pixel ([0,1] scale) of
-fp32, the repository's precision bar, on both paths, and the card's fp32
-frames stay within 1 count of the CPU path's.
+End to end, global-mode f16 stays within 1e-3 mean |delta| per pixel ([0,1]
+scale) of fp32, the repository's precision bar, on both routes (per-frame
+mode's is recorded, not barred: the bar is the global pipeline's); the
+card's fp32 frames stay within 1 count of the CPU path's in every mode and
+ablation; the ``.pth`` session's frames equal the ``.msgpack`` session's;
+the card's E_warp and temporal SSIM match the CPU's to 1e-4 relative.
 
 Needs one CUDA card and the repository beside this file; imports nothing
 of JAX.  Detailed results go to ``chiprun_out/chip_smoke.json``.
@@ -532,23 +543,13 @@ def synth_style(h, w, seed):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def pixel_error(a, b) -> dict:
-    """Per-pixel uint8 error of two rendered clips ([0,1] units = counts/255),
-    as rerevst_tpu's eval/parity.py reports it."""
-    import numpy as np
-
-    d = np.concatenate([np.abs(x.astype(np.int16) - y.astype(np.int16)).ravel()
-                        for x, y in zip(a, b)])
-    return {"mean_01": float(d.mean() / 255.0), "max_counts": int(d.max()),
-            "frac_gt1": float((d > 1).mean())}
-
-
 def run_e2e(torch):
     import numpy as np
 
     from rerevst_torch import kernels
     from rerevst_torch.api import Stylization
     from rerevst_torch.config import ModelConfig
+    from rerevst_torch.eval.parity import pixel_error
 
     ckpt = str(HERE / "models" / "demo_plum_4000.msgpack")
     clip = synth_clip(CLIP_FRAMES, CONTENT, CONTENT, seed=0)
@@ -561,14 +562,23 @@ def run_e2e(torch):
     # The pair-lane path: conv1_2 in every encoder call (Pass-1 chunks and
     # Pass-2 batches), res2.conv2 and the out conv in every Pass-2 batch.
     pairlane = dict(default, conv3x3_pairlane=n_pass1_chunks + 3 * n_batches)
-    runs = [("f16", torch.float16, False, default),
-            ("fp32", torch.float32, False, default),
-            ("f16_pairlane", torch.float16, True, pairlane)]
+    # Per-frame mode: no Pass 1, no frozen statistics, so neither the norm
+    # nor the filter kernel runs; on the pair-lane route conv1_2 runs the
+    # conv kernel once per Pass-2 batch (the per-frame decoder has no
+    # pair-lane tail, in either package).
+    per_frame = {k: 0 for k in default}
+    per_frame_pl = dict(per_frame, conv3x3_pairlane=n_batches)
+    runs = [("f16", torch.float16, False, True, default),
+            ("fp32", torch.float32, False, True, default),
+            ("f16_pairlane", torch.float16, True, True, pairlane),
+            ("pf_f16", torch.float16, False, False, per_frame),
+            ("pf_fp32", torch.float32, False, False, per_frame),
+            ("pf_f16_pairlane", torch.float16, True, False, per_frame_pl)]
     outs, sessions, counts_by = {}, {}, {}
-    for key, dtype, pl, want in runs:
+    for key, dtype, pl, use_global, want in runs:
         t0 = time.perf_counter()
         s = Stylization(ckpt, cfg=ModelConfig(dtype=dtype, pairlane=pl),
-                        device="cuda")
+                        use_global=use_global, device="cuda")
         s.prepare_style(style)
         torch.cuda.synchronize()
         t_setup = time.perf_counter() - t0
@@ -599,12 +609,14 @@ def run_e2e(torch):
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
         emit({"phase": "e2e", "session": key, "dtype": str(dtype),
-              "pairlane": pl, "frames": len(frames),
+              "pairlane": pl, "use_global": use_global,
+              "frames": len(frames),
               "launches": counts, "pass2_batches": n_batches,
               "setup_s": t_setup, "stylize_video_wall_s": wall,
               "stylize_video_fps_wall": CLIP_FRAMES / wall,
               "warm_wall_s": warm, "warm_fps_wall": CLIP_FRAMES / warm,
-              "peak_mem_gb": peak_gb, "pass1_mode": s.pass1_mode})
+              "peak_mem_gb": peak_gb, "pass1_mode": s.pass1_mode,
+              "pass2_mode": s.pass2_mode})
         outs[key], sessions[key] = frames, s
     for key in ("f16", "f16_pairlane"):
         err = pixel_error(outs[key], outs["fp32"])
@@ -612,9 +624,15 @@ def run_e2e(torch):
         RESULTS[f"{key}_vs_fp32"] = err
         if not err["mean_01"] <= 1e-3:
             fail(f"{key} vs fp32 mean |delta| {err['mean_01']} > 1e-3")
-    err = pixel_error(outs["f16_pairlane"], outs["f16"])
-    emit({"phase": "e2e", "f16_pairlane_vs_f16": err})
-    RESULTS["f16_pairlane_vs_f16"] = err
+    for key in ("pf_f16", "pf_f16_pairlane"):
+        # Recorded, not barred: the 1e-3 bar is the global pipeline's.
+        err = pixel_error(outs[key], outs["pf_fp32"])
+        emit({"phase": "e2e", f"{key}_vs_pf_fp32": err})
+        RESULTS[f"{key}_vs_pf_fp32"] = err
+    for a, b in (("f16_pairlane", "f16"), ("pf_f16_pairlane", "pf_f16")):
+        err = pixel_error(outs[a], outs[b])
+        emit({"phase": "e2e", f"{a}_vs_{b}": err})
+        RESULTS[f"{a}_vs_{b}"] = err
     return sessions, counts_by
 
 
@@ -642,31 +660,190 @@ def drive_implicit_gemm(torch):
     return counts
 
 
+def ablation_params(which: str) -> dict:
+    """The bundled checkpoint's tree under an ablation switch (no ablation
+    checkpoint exists): ``no_filter`` drops the decoder's three filter
+    blocks (``dynamic_filter=False``); ``style_only`` gives each filter
+    predictor the style-only FC, ic -> 9 ic ic, with seeded normal(0, 0.1)
+    weights and zero bias, the JAX package's init scaled x5
+    (``both_sty_con=False``)."""
+    import numpy as np
+
+    from rerevst_torch.io.checkpoint import read_msgpack
+
+    params = read_msgpack(str(HERE / "models" / "demo_plum_4000.msgpack"))
+    dec = params["decoder"]
+    if which == "no_filter":
+        for i in (1, 2, 3):
+            del dec[f"filter{i}"]
+    else:
+        rng = np.random.default_rng(5)
+        for i in (1, 2, 3):
+            for p in ("p1", "p2"):
+                dec[f"filter{i}"][p]["fc"] = {
+                    "w": (rng.standard_normal((32, 9 * 32 * 32)) * 0.1)
+                    .astype(np.float32),
+                    "b": np.zeros(9 * 32 * 32, np.float32)}
+    return params
+
+
 def check_against_cpu(torch):
     """The card's fp32 path (kernels + cuDNN) against the port's plain CPU
-    path on a small clip: uint8 within 1 count."""
+    path on a small clip, uint8 within 1 count: the global mode, the
+    per-frame mode, and the per-frame mode under each ablation switch."""
     import numpy as np
 
     from rerevst_torch.api import Stylization
+    from rerevst_torch.config import ModelConfig
 
     ckpt = str(HERE / "models" / "demo_plum_4000.msgpack")
     clip = synth_clip(9, 64, 112, seed=2)
     style = synth_style(64, 64, seed=3)
-    outs = []
-    for dev in ("cuda", "cpu"):
-        s = Stylization(ckpt, device=dev)
-        s.prepare_style(style)
-        outs.append(list(s.stylize_video(clip, batch_size=4)))
-    d = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
-            for a, b in zip(*outs))
-    emit({"phase": "e2e", "cuda_fp32_vs_cpu_fp32_max_counts": d})
-    if d > 1:
-        fail(f"card vs CPU path differ by {d} counts")
+    cases = [("global", {"checkpoint": ckpt}, True),
+             ("per_frame", {"checkpoint": ckpt}, False)]
+    for which, kw in (("no_filter", {"dynamic_filter": False}),
+                      ("style_only", {"both_sty_con": False})):
+        cases.append((f"per_frame_{which}",
+                      {"params": ablation_params(which),
+                       "cfg": ModelConfig(**kw)}, False))
+    for name, kw, use_global in cases:
+        outs = []
+        for dev in ("cuda", "cpu"):
+            s = Stylization(use_global=use_global, device=dev, **kw)
+            s.prepare_style(style)
+            outs.append(list(s.stylize_video(clip, batch_size=4)))
+        d = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+                for a, b in zip(*outs))
+        std = float(np.stack(outs[0]).std())
+        emit({"phase": "e2e", "cuda_vs_cpu_fp32": name, "max_counts": d,
+              "output_std": std})
+        RESULTS[f"cuda_vs_cpu_fp32_{name}"] = d
+        if d > 1 or std < 1.0:
+            fail(f"{name}: card vs CPU path differ by {d} counts "
+                 f"(output std {std})")
+
+
+def check_pth(torch):
+    """The bundled weights written by the port as a reference ``.pth`` and
+    read back: the session's fp32 frames equal the ``.msgpack`` session's
+    bit for bit, and its global path launches both kernels (11 norm and 3
+    filter-pair launches per Pass-2 batch)."""
+    import tempfile
+
+    import numpy as np
+
+    from rerevst_torch import kernels
+    from rerevst_torch.api import Stylization
+    from rerevst_torch.io.checkpoint import read_msgpack
+    from rerevst_torch.io.torch_compat import to_reference_state_dict
+
+    ckpt = str(HERE / "models" / "demo_plum_4000.msgpack")
+    clip = synth_clip(9, 64, 112, seed=2)
+    style = synth_style(64, 64, seed=3)
+    n_batches = 3
+    outs, counts = [], None
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = str(Path(tmp) / "style_net.pth")
+        torch.save(to_reference_state_dict(read_msgpack(ckpt)), pth)
+        for path in (pth, ckpt):
+            s = Stylization(path, device="cuda")
+            s.prepare_style(style)
+            kernels.reset_launches()
+            outs.append(list(s.stylize_video(clip, batch_size=4)))
+            counts = counts or kernels.launch_counts()
+    same = all(np.array_equal(a, b) for a, b in zip(*outs))
+    want = {"norm_affine_clamp": 11 * n_batches,
+            "dynamic_filter_pair": 3 * n_batches,
+            "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0}
+    emit({"phase": "e2e", "pth_session_bit_equal": same, "launches": counts})
+    RESULTS["pth_session_bit_equal"] = same
+    if not same:
+        fail(".pth session frames differ from the .msgpack session's")
+    if counts != want:
+        fail(f".pth session launches {counts}, expected {want}")
+
+
+def pan_windows(tex, n, size, dx, dy):
+    """`n` size x size windows of `tex` moving (-dx, -dy) per frame (dx, dy
+    >= 0), so frame t+1 at p is frame t at p - (dx, dy): an exact pan with
+    the constant flow (dx, dy)."""
+    oy, ox = (n - 1) * dy, (n - 1) * dx
+    return [tex[oy - t * dy:oy - t * dy + size, ox - t * dx:ox - t * dx + size]
+            for t in range(n)]
+
+
+def blob_texture(h, w, size, seed):
+    """A seeded h x w texture (BGR u8) of broad colour blobs, about a
+    `size`-window across, under finer detail, so what a window holds, and
+    its channel statistics, drift as it moves."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    tex = np.full((h, w, 3), 128.0, np.float32)
+    for _ in range(6):
+        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+        r = rng.uniform(0.15, 0.35) * size
+        tex += (np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * r * r))
+                [..., None] * rng.uniform(-90, 90, 3))
+    f = rng.uniform(0.04, 0.15, (3, 4))
+    tex += np.stack([30 * np.sin(xx * f[c, 0] + yy * f[c, 1] + c)
+                     + 20 * np.cos(xx * f[c, 2] - yy * f[c, 3])
+                     for c in range(3)], -1)
+    return np.clip(tex + rng.normal(0, 6, tex.shape), 0, 255).astype(np.uint8)
+
+
+def pan_clip(n, size, dx, dy, seed):
+    """An exact pan of `n` frames over a ``blob_texture``."""
+    tex = blob_texture(size + (n - 1) * dy, size + (n - 1) * dx, size, seed)
+    return pan_windows(tex, n, size, dx, dy)
+
+
+def temporal(torch, sessions):
+    """E_warp and temporal SSIM of both inference modes (f16) on a seeded
+    17-frame 512x512 exact pan, with the exact flows (no cv2): on the card,
+    and on the CPU from the same frames (they must agree to 1e-4 relative).
+    The pan moves 8 px a frame, a multiple of the encoder's stride, so the
+    convolutional network is shift-equivariant away from the border and
+    E_warp reads what the per-frame statistics add (a 3-px pan reads the
+    encoder's aliasing, common to both modes).  The margin between the
+    modes is recorded, not barred."""
+    import numpy as np
+
+    from rerevst_torch.eval.ewarp import ewarp
+    from rerevst_torch.eval.ssim import temporal_ssim
+
+    dx, dy, n = 8, 8, 17
+    clip = pan_clip(n, CONTENT, dx, dy, seed=6)
+    flow = np.zeros((CONTENT, CONTENT, 2), np.float32)
+    flow[..., 0], flow[..., 1] = dx, dy
+    flows = [flow] * (n - 1)
+    out = {"clip": f"{n} frames {CONTENT}x{CONTENT}, pan ({dx}, {dy}) px "
+                   f"per frame", "dtype": "float16"}
+    for mode, key in (("global", "f16"), ("per_frame", "pf_f16")):
+        styled = list(sessions[key].stylize_video(clip, batch_size=BATCH))
+        t0 = time.perf_counter()
+        card = {**ewarp(styled, clip, flows=flows, device="cuda"),
+                **temporal_ssim(styled, clip, flows=flows, device="cuda")}
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        cpu = {**ewarp(styled, clip, flows=flows, device="cpu"),
+               **temporal_ssim(styled, clip, flows=flows, device="cpu")}
+        for k, v in cpu.items():
+            if abs(card[k] - v) > 1e-4 * max(abs(v), 1e-12):
+                fail(f"temporal {mode}: card {k} {card[k]} vs CPU {v}")
+        out[mode] = {**card, "eval_s_card": t_card,
+                     "cpu_ewarp": cpu["ewarp"], "cpu_tssim": cpu["tssim"]}
+    out["ewarp_improvement_pct"] = 100 * (
+        1 - out["global"]["ewarp"] / out["per_frame"]["ewarp"])
+    RESULTS["temporal"] = out
+    emit({"phase": "temporal", **out})
 
 
 def time_pass2(torch, session):
     """Device time of one Pass-2 batch (16 padded 640x640 frames, f16):
-    encode + decode_global, CUDA events around the stylize call."""
+    encode + the session's decoder (decode_global, or decode in per-frame
+    mode), CUDA events around the stylize call."""
     clip = synth_clip(BATCH, CONTENT, CONTENT, seed=4)
     x = session._upload(session._prep_batch_host(clip))
     t = time_ms(torch, lambda: session._stylize(x), iters=10, warmup=2)
@@ -831,12 +1008,15 @@ def main() -> int:
     # 4. end to end
     sessions, counts_by = run_e2e(torch)
     check_against_cpu(torch)
+    check_pth(torch)
+    temporal(torch, sessions)
     igemm_counts = drive_implicit_gemm(torch)
 
     # 5. times
     tot, filter_bound_by = time_kernels(torch)
     conv_tot = time_convs(torch)
-    for key, sess in (("pass2", "f16"), ("pass2_pairlane", "f16_pairlane")):
+    for key, sess in (("pass2", "f16"), ("pass2_pairlane", "f16_pairlane"),
+                      ("pass2_per_frame", "pf_f16")):
         p2 = time_pass2(torch, sessions[sess])
         p2["card"] = smi
         RESULTS[key] = p2
@@ -844,7 +1024,9 @@ def main() -> int:
     for key, trace, sess in (("trace", trace_stylize_video, "f16"),
                              ("trace_pass2", trace_pass2, "f16"),
                              ("trace_pass2_pairlane", trace_pass2,
-                              "f16_pairlane")):
+                              "f16_pairlane"),
+                             ("trace_pass2_per_frame", trace_pass2,
+                              "pf_f16")):
         tr = trace(torch, sessions[sess])
         tr["card"] = smi
         RESULTS[key] = tr
@@ -881,7 +1063,9 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[k], "max_abs_err": errs[k],
          "ms": times[k][0], "plain_ms": times[k][1], "bound_ms": times[k][2],
-         "bound_by": by, "library_ms": times[k][3], "path": path}
+         "bound_by": by, "library_ms": times[k][3], "path": path,
+         "launches_per_frame_path": counts_by[
+             "pf_f16_pairlane" if k == "conv3x3_pairlane" else "pf_f16"][k]}
         for k, (src, rep, by, path, counts) in meta.items()]}
     RESULTS["kernels"] = line["kernels"]
     _save()

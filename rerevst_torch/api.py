@@ -2,35 +2,40 @@
 
 The reference's ``framework.Stylization`` surface (``prepare_style`` /
 ``clean`` / ``add`` / ``compute`` / ``transfer``) plus the batched
-``stylize_video`` path, on one device.  Geometry is fixed by the first frame
-(the reference's ReshapeTool contract); Pass-1 frames stay unpadded, Pass-2
+``stylize_video`` path, on one device, in both inference modes: two-pass
+global (``use_global=True``: Pass 1 freezes the sequence statistics, Pass 2
+decodes under them) and per-frame (``use_global=False``: Pass 2 alone, the
+stateless ``decode``).  Geometry is fixed by the first frame (the
+reference's ReshapeTool contract); Pass-1 frames stay unpadded, Pass-2
 frames are reflect-padded; each chunk is one host-to-device copy, and frames
-are cropped on the device before the device-to-host copy.
+are cropped on the device before the device-to-host copy.  Weights come from
+a native ``.msgpack`` or a reference ``.pth`` checkpoint, or a parameter
+tree.
 
-Not in this slice (each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item): per-frame mode (``use_global=False``), a device mesh,
-AOT bundles, reference ``.pth`` checkpoints, frame-glob / video-file inputs
-(they need cv2, which the card's machine lacks), and Pass 1 above
+Not ported yet (each raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item): a device mesh, AOT bundles, and Pass 1 above
 ``STREAMING_THRESHOLD`` sampled frames (the host spool).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from rerevst_torch.config import InferenceConfig, ModelConfig, resolve_device
+from rerevst_torch.data.source import as_source
 from rerevst_torch.data.transforms import bgr_to_model, model_to_bgr
 from rerevst_torch.io.convert import from_jax_params
 from rerevst_torch.models.transformer import (
     SeqStats,
     StyleFeatures,
     collect_stats,
-    decode_global,
     encode_content,
     encode_style,
+    stylize,
 )
 from rerevst_torch.ops.image import (
     crop_back,
@@ -50,10 +55,15 @@ class Stylization:
     Parameters
     ----------
     checkpoint:
-        Path to a native ``.msgpack`` checkpoint, or None when `params` given.
+        Path to a reference ``.pth`` checkpoint or a native ``.msgpack``
+        one, or None when `params` given.
     params:
         A parameter tree as ``rerevst_tpu`` holds it (nested dicts of numpy
         arrays) or as the port holds it (tensors); cast to ``cfg.dtype``.
+    use_global:
+        Sequence-level global feature sharing (two-pass) or per-frame mode.
+        The global graph exists only for the default architecture: under
+        either ablation switch of ``cfg`` it raises ``ValueError``.
     device:
         The card by default; pass ``"cpu"`` for the plain PyTorch path.
     """
@@ -66,24 +76,33 @@ class Stylization:
                  cfg: Optional[ModelConfig] = None, use_global: bool = True,
                  infer: Optional[InferenceConfig] = None, mesh=None,
                  device="cuda"):
-        if not use_global:
-            raise _not_ported("per-frame mode (use_global=False)",
-                              "Queue 1 item 7")
         if mesh is not None:
             raise _not_ported("a device mesh", "Queue 1 item 13")
         self.device = resolve_device(device)
         self.cfg = cfg or ModelConfig()
+        if use_global and not (self.cfg.dynamic_filter
+                               and self.cfg.both_sty_con):
+            raise ValueError(
+                f"the global (two-pass) graph exists only for the default "
+                f"architecture: ModelConfig(dynamic_filter="
+                f"{self.cfg.dynamic_filter}, both_sty_con="
+                f"{self.cfg.both_sty_con}) has no frozen-filter decoder; "
+                f"use use_global=False")
         self.infer = infer or InferenceConfig(use_global=use_global)
         self.use_global = use_global
         if params is None:
             if checkpoint is None:
                 raise ValueError("need checkpoint or params")
             if checkpoint.endswith(".pth"):
-                raise _not_ported("reference .pth checkpoints",
-                                  "Queue 1 item 1")
-            from rerevst_torch.io.checkpoint import read_msgpack
+                from rerevst_torch.io.torch_compat import (
+                    load_reference_checkpoint,
+                )
 
-            params = read_msgpack(checkpoint)
+                params = load_reference_checkpoint(checkpoint)
+            else:
+                from rerevst_torch.io.checkpoint import read_msgpack
+
+                params = read_msgpack(checkpoint)
         # Inference never needs the loss net.
         params = {k: v for k, v in params.items() if k != "vgg_loss"}
         self.params: Dict = from_jax_params(params, dtype=self.cfg.dtype,
@@ -96,6 +115,8 @@ class Stylization:
         self._orig_hw = None
         #: How the last Pass 1 collected its statistics ('batched').
         self.pass1_mode: Optional[str] = None
+        #: Which graph the last Pass-2 call ran: 'global' or 'per-frame'.
+        self.pass2_mode: Optional[str] = None
 
     # ------------------------------------------------------------------
     # Geometry (ReshapeTool contract: fixed after the first frame)
@@ -176,11 +197,14 @@ class Stylization:
         raise _not_ported("AOT bundles", "Queue 1 item 13")
 
     def _stylize(self, x: torch.Tensor) -> torch.Tensor:
-        if self.stats is None:
-            raise RuntimeError("compute() first")
+        if self.use_global and self.stats is None:
+            raise RuntimeError("compute() first (or use_global=False)")
+        if self.style is None:
+            raise RuntimeError("prepare_style first")
+        self.pass2_mode = "global" if self.use_global else "per-frame"
         with torch.inference_mode():
-            return decode_global(self.params["decoder"], self._encode(x),
-                                 self.style, self.stats, self.cfg)
+            return stylize(self.params, x, self.style, self.cfg,
+                           self.stats if self.use_global else None)
 
     def transfer(self, frame_bgr: np.ndarray) -> np.ndarray:
         """Pass 2: stylize one frame, return BGR uint8."""
@@ -241,29 +265,37 @@ class Stylization:
             raise ValueError("prepare_global got no frames")
         self.compute()
 
-    def stylize_video(self, frames_bgr: Sequence[np.ndarray],
-                      batch_size: Optional[int] = None) -> Iterator[np.ndarray]:
-        """The full pipeline over an in-memory clip: Pass 1 on every
-        ``sample_interval``-th frame plus the last, then Pass 2 in
-        `batch_size`-frame chunks; yields BGR uint8 frames.
+    def stylize_video(self, frames_bgr, batch_size: Optional[int] = None
+                      ) -> Iterator[np.ndarray]:
+        """The full pipeline over a clip: in global mode Pass 1 on every
+        ``sample_interval``-th frame plus the last, then (both modes) Pass 2
+        in `batch_size`-frame chunks; yields BGR uint8 frames.
 
-        While the card stylizes chunk k, the host prepares chunk k+1; the
-        ragged last chunk is padded to the batch shape by repeating its last
-        row, and the pad rows are dropped on the device."""
-        if isinstance(frames_bgr, (str, bytes)):
-            raise _not_ported("frame-glob and video-file inputs (they need "
-                              "cv2)", "Queue 1 item 5")
-        n = len(frames_bgr)
+        `frames_bgr` is anything ``data.source.as_source`` accepts: a
+        ``FrameSource``, a frame-glob or video-file path (read with cv2), or
+        an in-memory sequence.  Pass 1 reads only the sampled frames; Pass 2
+        reads the clip once, a chunk at a time.  While the card stylizes
+        chunk k, the host prepares chunk k+1; the ragged last chunk is
+        padded to the batch shape by repeating its last row, and the pad
+        rows are dropped on the device."""
+        src = as_source(frames_bgr)
+        n = len(src)
         if n == 0:
             return
         bs = batch_size or self.infer.batch_size
-        interval = self.infer.sample_interval
-        idx = [s * interval for s in range((n - 1) // interval)] + [n - 1]
-        self.prepare_global([frames_bgr[i] for i in idx], total=len(idx))
+        if self.use_global:
+            interval = self.infer.sample_interval
+            idx = [s * interval for s in range((n - 1) // interval)] + [n - 1]
+            self.prepare_global(src.read_indices(idx), total=len(idx))
+        else:
+            self.clean()  # a new clip: geometry re-locks on its first frame
 
         def chunks():
-            for start in range(0, n, bs):
-                chunk = frames_bgr[start:start + bs]
+            frames = iter(src)
+            while True:
+                chunk = list(itertools.islice(frames, bs))
+                if not chunk:
+                    return
                 xs = self._prep_batch_host(chunk)
                 if xs.shape[0] < bs and n > bs:
                     reps = bs - xs.shape[0]

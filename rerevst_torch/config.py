@@ -1,10 +1,11 @@
 """Typed configuration of the model and of the video pipeline.
 
-Mirrors ``rerevst_tpu/config.py`` field for field, with torch dtypes.  This
-slice of the port supports the default architecture switches; a switch that
-selects a path the port does not have yet raises ``NotImplementedError``
-naming the ``ROADMAP.md`` item that ports it, so no setting is silently
-ignored (``outpairs`` excepted, see its comment).
+Mirrors ``rerevst_tpu/config.py`` field for field, with torch dtypes.  The
+port supports the default architecture and both ablation switches
+(``dynamic_filter``, ``both_sty_con``; per-frame mode only, as in the JAX
+package); a switch that selects a path the port does not have yet raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it, so no
+setting is silently ignored (``outpairs`` excepted, see its comment).
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ class ModelConfig:
 
     #: Dynamic (content, style)-predicted 1x1 filter chain at relu4_1 scale.
     dynamic_filter: bool = True
-    #: Filters predicted from content AND style (KernelFilter).
+    #: Filters predicted from content AND style (KernelFilter); False gives
+    #: the style-only 3x3 filters of KernelFilter_S.
     both_sty_con: bool = True
     #: Channel width of the dynamic-filter bottleneck.
     filter_channels: int = 32
@@ -86,10 +88,6 @@ class ModelConfig:
             (self.precision not in ("auto", "highest"),
              f"precision={self.precision!r}",
              "ROADMAP.md Queue 1 item 14 (config variants)"),
-            (not self.dynamic_filter, "dynamic_filter=False",
-             "ROADMAP.md Queue 1 item 7 (per-frame graph and ablations)"),
-            (not self.both_sty_con, "both_sty_con=False",
-             "ROADMAP.md Queue 1 item 7 (per-frame graph and ablations)"),
         ]
         for bad, what, item in unsupported:
             if bad:
@@ -120,3 +118,12 @@ class InferenceConfig:
     fps: int = 24
     #: Pass-1 encode chunk (sampled frames encoded this many at a time).
     pass1_chunk: int = 8
+
+
+#: CLI dtype names (``rerevst_tpu.config.DTYPES``).
+DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
+
+
+def dtype_from_name(name: str) -> torch.dtype:
+    """'bf16' | 'f16' | 'f32' -> torch dtype (shared by the CLIs)."""
+    return DTYPES[name]

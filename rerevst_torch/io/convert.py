@@ -16,7 +16,8 @@ import torch
 from rerevst_torch.config import resolve_device
 
 
-def _leaf_to_tensor(a: Any) -> torch.Tensor:
+def leaf_to_tensor(a: Any) -> torch.Tensor:
+    """A tensor, or an array (numpy's bf16 included) as a CPU tensor."""
     if isinstance(a, torch.Tensor):
         return a
     a = np.asarray(a)
@@ -47,7 +48,7 @@ def from_jax_params(tree: Dict, dtype=None, device="cuda") -> Dict:
     def walk(node: Any, path: str) -> Any:
         if isinstance(node, dict):
             return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
-        t = _leaf_to_tensor(node)
+        t = leaf_to_tensor(node)
         _check_layout(path, t)
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)

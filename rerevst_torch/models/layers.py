@@ -9,6 +9,8 @@ layout.  Weights are HWIO at the API, as in the JAX package.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -25,6 +27,26 @@ def _fp32_products_exact(x: torch.Tensor) -> None:
     if x.is_cuda and x.dtype == torch.float32:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def from_torch_conv(weight_oihw, bias=None,
+                    dtype: Optional[torch.dtype] = torch.float32):
+    """torch Conv2d [O,I,kH,kW] -> HWIO param dict (`dtype` None keeps the
+    stored dtype)."""
+    p = {"w": torch.as_tensor(weight_oihw).permute(2, 3, 1, 0).contiguous()
+         .to(dtype)}
+    if bias is not None:
+        p["b"] = torch.as_tensor(bias).to(dtype)
+    return p
+
+
+def from_torch_linear(weight_oi, bias=None,
+                      dtype: Optional[torch.dtype] = torch.float32):
+    """torch Linear [O,I] -> [I,O] param dict."""
+    p = {"w": torch.as_tensor(weight_oi).T.contiguous().to(dtype)}
+    if bias is not None:
+        p["b"] = torch.as_tensor(bias).to(dtype)
+    return p
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -74,8 +96,9 @@ def upsample2x_conv1x1(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_dynamic_filter(x: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
-    """Per-sample predicted 1x1 conv: out[b,h,w,p] = sum_q x[b,h,w,q] f[b,p,q],
-    with a [1,P,Q] filter broadcast over the batch.
+    """Per-sample predicted 1x1 conv: out[b,h,w,p] = sum_q x[b,h,w,q] f[b,p,q]
+    with [B,P,Q] filters (per-frame mode), or a [1,P,Q] filter broadcast over
+    the batch (the frozen filters of Pass 1; at B = 1 the same product).
 
     f16 guard: the frozen filters are unbounded FC outputs that f16's exponent
     cannot hold, so under f16 storage the operands are fp32 and only the
@@ -87,3 +110,26 @@ def apply_dynamic_filter(x: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
     if f.shape[0] == 1:
         return x @ f[0].T
     return torch.einsum("bhwq,bpq->bhwp", x, f)
+
+
+def apply_dynamic_filter_3x3(x: torch.Tensor,
+                             filt: torch.Tensor) -> torch.Tensor:
+    """Per-sample predicted 3x3 SAME conv (the KernelFilter_S ablation):
+    out[b] = conv(x[b], filt[b]) with ``filt`` [B,P,Q,3,3] (or [1,P,Q,3,3]
+    broadcast over the batch), ``filt[b]`` already OIHW with O = P, I = Q.
+    One grouped conv, a group per sample.
+
+    f16 guard as in ``apply_dynamic_filter``: the predicted kernels are
+    unbounded FC outputs, so under f16 storage the conv runs in fp32 and
+    only the output is rounded to f16."""
+    if x.dtype == torch.float16:
+        return apply_dynamic_filter_3x3(x.float(), filt.float()).to(x.dtype)
+    _fp32_products_exact(x)
+    b, h, w, q = x.shape
+    f = filt.to(x.dtype)
+    if f.shape[0] == 1 and b != 1:
+        f = f.expand(b, *f.shape[1:])
+    p = f.shape[1]
+    y = F.conv2d(_nchw(x).reshape(1, b * q, h, w), f.reshape(b * p, q, 3, 3),
+                 padding=1, groups=b)
+    return y.reshape(b, p, h, w).permute(0, 2, 3, 1).contiguous()

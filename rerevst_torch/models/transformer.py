@@ -1,8 +1,16 @@
 """The style-transfer network's inference path — ``rerevst_tpu/models/transformer.py``.
 
-This slice ports the two-pass global graph: the content and style encoders,
-Pass 1 (``collect_stats`` freezes 11 ``NormStats`` and 6 filters over the
-sampled frames) and Pass 2 (``decode_global`` under those frozen statistics).
+Two graphs share the content and style encoders:
+
+* the per-frame graph, ``decode``: stateless instance norms and filters
+  predicted for each frame (and its two ablations: plain AdaIN without the
+  filter chain, ``dynamic_filter=False``; style-only 3x3 filters,
+  ``both_sty_con=False``);
+* the two-pass global graph: Pass 1 (``collect_stats`` freezes 11
+  ``NormStats`` and 6 filters over the sampled frames) and Pass 2
+  (``decode_global`` under those frozen statistics).  It exists for the
+  default architecture only, as in the JAX package.
+
 All conditioning state is explicit:
 
 * ``StyleFeatures`` — everything derived from a style image;
@@ -13,7 +21,10 @@ On the card the 11 normalization sites of ``decode_global`` run the
 ``dynamic_filter_pair`` kernel; with ``ModelConfig(pairlane=True)`` the
 full-resolution 64-channel convs (encoder conv1_2, res2.conv2, the out conv)
 run the ``conv3x3_pairlane`` kernel in f16/bf16 sessions.  On the CPU the
-same wrappers compute their plain versions.
+same wrappers compute their plain versions.  The per-frame graph computes
+its norms and filters in plain PyTorch, as the JAX package computes them
+outside its kernels; on the pair-lane route only its encoder's conv1_2 runs
+``conv3x3_pairlane``.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from rerevst_torch.kernels import (
 from rerevst_torch.models import vgg
 from rerevst_torch.models.layers import (
     apply_dynamic_filter,
+    apply_dynamic_filter_3x3,
     conv2d,
     leaky_relu,
     linear,
@@ -92,6 +104,102 @@ def encode_style(params: Dict, style: torch.Tensor,
         means.append(m)
         stds.append(s)
     return StyleFeatures(feats.relu4_1, tuple(means), tuple(stds))
+
+
+# ---------------------------------------------------------------------------
+# Per-frame (stateless) graph
+# ---------------------------------------------------------------------------
+
+def _instance_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Per-sample InstanceNorm over (H, W): moments in fp32, the result
+    stored in x's dtype."""
+    mean, rstd = instance_moments(x, (1, 2), eps)
+    return ((x.float() - mean) * rstd).to(x.dtype)
+
+
+def _predict_filter(p: Dict, content: torch.Tensor, style_map: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """FilterPredictor.forward: pooled content and style features -> one
+    [P,Q] filter per content sample, [B,P,Q] in the storage dtype (the
+    style's pooled features broadcast over the content batch)."""
+    pc = conv2d(p["down"], content, padding=1).mean((1, 2))
+    ps = conv2d(p["down"], style_map, padding=1).mean((1, 2))
+    if ps.shape[0] == 1 and pc.shape[0] != 1:
+        ps = ps.expand(pc.shape)
+    f = linear(p["fc"], torch.cat([pc, ps], dim=1))
+    ic = cfg.filter_channels
+    return f.reshape(-1, ic, ic)
+
+
+def _predict_filter_s(p: Dict, style_map: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """FilterPredictor_S.forward: the style alone -> [N,P,Q,3,3] filters."""
+    ps = conv2d(p["down"], style_map, padding=1).mean((1, 2))
+    f = linear(p["fc"], ps)
+    ic = cfg.filter_channels
+    return f.reshape(-1, ic, ic, 3, 3)
+
+
+def _kernel_filter(p: Dict, content: torch.Tensor, style_map: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """KernelFilter.forward (KernelFilter_S under ``both_sty_con=False``)
+    with filters predicted for this batch."""
+    h = conv2d(p["down"], content, padding=1)
+    if cfg.both_sty_con:
+        h = apply_dynamic_filter(
+            h, _predict_filter(p["p1"], content, style_map, cfg))
+        h = leaky_relu(h)
+        h = apply_dynamic_filter(
+            h, _predict_filter(p["p2"], content, style_map, cfg))
+    else:
+        h = apply_dynamic_filter_3x3(h, _predict_filter_s(p["p1"], style_map,
+                                                          cfg))
+        h = leaky_relu(h)
+        h = apply_dynamic_filter_3x3(h, _predict_filter_s(p["p2"], style_map,
+                                                          cfg))
+    return content + conv2d(p["up"], h, padding=1)
+
+
+def _resblock(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """ResidualBlock.forward with stateless norms; the nearest-2x upsample
+    feeds both the shortcut (1x1 conv, then the upsample) and conv1."""
+    xs = upsample2x_conv1x1(p["shortcut"], x)
+    h = upsample2x_conv3x3(p["conv1"], x)
+    h = _instance_norm(leaky_relu(h), cfg.norm_eps)
+    h = conv2d(p["conv2"], h, padding=1)
+    h = _instance_norm(leaky_relu(h), cfg.norm_eps)
+    return xs + h
+
+
+def decode(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
+           cfg: ModelConfig) -> torch.Tensor:
+    """Per-frame decoder graph: the filter chain runs on the instance-normed
+    content, then the relu4_1 style affine is re-applied (no norm site
+    between the filters and res4, unlike the global graph); under
+    ``dynamic_filter=False`` plain AdaIN takes the chain's place."""
+    m1, m2, m3, m4 = style.means
+    s1, s2, s3, s4 = style.stds
+
+    def adain(h, m, s):
+        return _instance_norm(h, cfg.norm_eps) * s + m
+
+    if cfg.dynamic_filter:
+        nc = _instance_norm(x, cfg.norm_eps)
+        ns = (style.map - m4) / s4
+        h = _kernel_filter(params_dec["filter1"], nc, ns, cfg)
+        h = _kernel_filter(params_dec["filter2"], h, ns, cfg)
+        h = _kernel_filter(params_dec["filter3"], h, ns, cfg)
+        h = h * s4 + m4
+    else:
+        h = adain(x, m4, s4)
+
+    h = _resblock(params_dec["res4"], h, cfg)
+    h = adain(h, m3, s3)
+    h = _resblock(params_dec["res3"], h, cfg)
+    h = adain(h, m2, s2)
+    h = _resblock(params_dec["res2"], h, cfg)
+    h = adain(h, m1, s1)
+    return conv2d(params_dec["out"], h, padding=1)
 
 
 # ---------------------------------------------------------------------------
@@ -247,3 +355,14 @@ def collect_stats(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
     h = res_compute(h, params_dec["res2"], "res2a", "res2b")
     ada_compute(h, "ada1", m1, s1)  # freezes 'ada1'; output discarded
     return SeqStats(norms, filters)
+
+
+def stylize(params: Dict, frame: torch.Tensor, style: StyleFeatures,
+            cfg: ModelConfig, stats: Optional[SeqStats] = None
+            ) -> torch.Tensor:
+    """Full forward: desaturate -> encode -> decode, the global graph iff
+    ``stats`` is given (``rerevst_tpu``'s ``TransformerNet.stylize``)."""
+    f = encode_content(params, frame, cfg, desaturate=True)
+    if stats is None:
+        return decode(params["decoder"], f, style, cfg)
+    return decode_global(params["decoder"], f, style, stats, cfg)

@@ -160,20 +160,22 @@ def test_default_device_raises_without_cuda(params, monkeypatch):
         Stylization(params=params)
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"use_global": False}, "Queue 1 item 7"),
-    ({"mesh": object()}, "Queue 1 item 13"),
-    ({"checkpoint": "x.pth", "params": None}, "Queue 1 item 1"),
+@pytest.mark.parametrize("call,match", [
+    (lambda p: Stylization(params=p, mesh=object(), device="cpu"),
+     "Queue 1 item 13"),
+    (lambda p: Stylization(params=p, device="cpu").use_aot("x.rvaot"),
+     "Queue 1 item 13"),
+    (lambda p: Stylization(params=p, device="cpu").prepare_global(
+        iter(_clip(n=2))), "Queue 1 item 8"),
 ])
-def test_later_slices_raise(params, kw, match):
-    args = {"params": params, "device": "cpu", **kw}
+def test_later_slices_raise(params, call, match):
     with pytest.raises(NotImplementedError, match=match):
-        Stylization(**args)
+        call(params)
 
 
-def test_file_inputs_and_order_raise(session):
-    with pytest.raises(NotImplementedError, match="cv2"):
-        list(session.stylize_video("clip/*.png"))
+def test_file_inputs_and_order_raise(session, tmp_path):
+    with pytest.raises(FileNotFoundError, match="no frames match"):
+        list(session.stylize_video(str(tmp_path / "clip" / "*.png")))
     fresh = Stylization(params={"decoder": {}}, device="cpu",
                         infer=InferenceConfig())
     with pytest.raises(RuntimeError, match="prepare_style"):

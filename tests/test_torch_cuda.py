@@ -1,5 +1,7 @@
 """rerevst_torch on a CUDA card: each kernel against its plain version, the
-wrappers' refusals, and a stylized clip against the port's CPU path.
+wrappers' refusals, stylized clips of both inference modes against the
+port's CPU path, and the per-frame graph's ops and the evaluation on the
+card against the CPU path.
 
 Every test here is marked ``cuda`` and skips without a card (the kernels
 have no CPU mode).  The file imports no JAX, so it runs on a machine that
@@ -349,3 +351,149 @@ def test_stylize_video_pairlane_on_card(cuda):
     d = np.mean([np.abs(a.astype(np.int16) - b.astype(np.int16)).mean()
                  for a, b in zip(outs[torch.float16], outs[torch.float32])])
     assert d / 255.0 <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# Per-frame graph and evaluation on the card
+# ---------------------------------------------------------------------------
+
+def _decode_inputs():
+    """Content features [2,8,14,512] and style features from the trained
+    encoders, on the CPU in fp32."""
+    from rerevst_torch.data.transforms import bgr_to_model
+    from rerevst_torch.io.checkpoint import load_params
+    from rerevst_torch.models import transformer as T
+
+    params = load_params(str(CKPT), dtype=torch.float32, device="cpu")
+    cfg = ModelConfig()
+    clip = _clip(n=2)
+    x = torch.from_numpy(np.concatenate([bgr_to_model(f) for f in clip]))
+    style = T.encode_style(params, torch.from_numpy(bgr_to_model(clip[0][:, :64])),
+                           cfg)
+    return params, T.encode_content(params, x, cfg), style
+
+
+def _to(tree, dev, dtype):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev, dtype) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to(v, dev, dtype) for v in tree)
+    return tree.to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_on_card_matches_cpu(cuda, dtype):
+    """Per-frame decode on the card in each storage dtype against the CPU's
+    fp32 decode: 1e-4 of the output's scale in fp32 (other summation
+    orders), and the 16-bit dtypes within the storage error the global
+    graph's f16 test allows (mean |delta| below 2% of mean |out|)."""
+    from rerevst_torch.models import transformer as T
+
+    params, x, style = _decode_inputs()
+    want = T.decode(params["decoder"], x, style, ModelConfig())
+    kernels.reset_launches()
+    got = T.decode(_to(params["decoder"], cuda, dtype), x.to(cuda, dtype),
+                   T.StyleFeatures(*_to(tuple(style), cuda, dtype)),
+                   ModelConfig(dtype=dtype)).cpu()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert set(kernels.launch_counts().values()) == {0}
+    scale = want.abs().max()
+    if dtype == torch.float32:
+        assert (got - want).abs().max() <= 1e-4 * scale
+    else:
+        assert (got.float() - want).abs().mean() < 2e-2 * want.abs().mean()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("fbatch,xbatch", [(1, 1), (1, 3), (3, 3)])
+def test_per_sample_filters_on_card(rng, cuda, dtype, fbatch, xbatch):
+    """apply_dynamic_filter_3x3 and per-sample apply_dynamic_filter on the
+    card against the CPU's fp32 version of the same (rounded) inputs: fp32
+    products on both sides in fp32 and f16 (1e-5 of the scale, plus one f16
+    ulp), 16-bit products in bf16 (2e-2 of the scale)."""
+    from rerevst_torch.models.layers import (
+        apply_dynamic_filter,
+        apply_dynamic_filter_3x3,
+    )
+
+    x = torch.from_numpy(rng.standard_normal((xbatch, 9, 11, 32))
+                         .astype(np.float32)).to(dtype)
+    f3 = torch.from_numpy(rng.standard_normal((fbatch, 32, 32, 3, 3))
+                          .astype(np.float32) * 0.1).to(dtype)
+    f1 = torch.from_numpy(rng.standard_normal((xbatch, 32, 32))
+                          .astype(np.float32) * 0.1).to(dtype)
+    for fn, f in ((apply_dynamic_filter_3x3, f3), (apply_dynamic_filter, f1)):
+        want = fn(x.float(), f.float())
+        got = fn(x.to(cuda), f.to(cuda)).cpu()
+        assert got.dtype == dtype and got.shape == want.shape
+        if dtype == torch.bfloat16:
+            assert (got.float() - want).abs().max() <= 2e-2 * want.abs().max()
+        else:
+            assert _ulp_ok(got, want.to(dtype))
+
+
+@pytest.mark.cuda
+def test_eval_on_card_matches_cpu(rng, cuda):
+    """Warps, masks, E_warp and SSIM on the card against the CPU path:
+    warps equal at an integer flow and within 1e-4 of a pixel at sub-pixel
+    ones, the metrics within 1e-5 relative (fp64 sums on both sides)."""
+    from rerevst_torch.eval import ewarp as E
+    from rerevst_torch.eval import ssim as S
+
+    frames = _clip(n=4)
+    styled = [np.ascontiguousarray(f[:, ::-1]) for f in frames]
+    h, w = frames[0].shape[:2]
+    integer = np.zeros((h, w, 2), np.float32)
+    integer[..., 0], integer[..., 1] = 3, -2
+    sub = rng.uniform(-3, 3, (h, w, 2)).astype(np.float32)
+    for flow, atol in ((integer, 0.0), (sub, 1e-4)):
+        a = E.backward_warp(frames[0], flow, cuda).cpu()
+        b = E.backward_warp(frames[0], flow, "cpu")
+        assert (a - b).abs().max() <= atol
+        assert torch.equal(E.occlusion_mask(frames[0], frames[1], flow,
+                                            device=cuda).cpu(),
+                           E.occlusion_mask(frames[0], frames[1], flow,
+                                            device="cpu"))
+    flows = [integer, sub, integer]
+    for fn in (E.ewarp, S.temporal_ssim):
+        got = fn(styled, frames, flows=flows, device=cuda)
+        want = fn(styled, frames, flows=flows, device="cpu")
+        for k, v in want.items():
+            assert got[k] == pytest.approx(v, rel=1e-5, abs=1e-9), k
+    assert S.ssim(frames[0], styled[1], device=cuda) == pytest.approx(
+        S.ssim(frames[0], styled[1], device="cpu"), rel=1e-5)
+
+
+@pytest.mark.cuda
+def test_stylize_video_per_frame_on_card(cuda):
+    """Per-frame mode on the card: fp32 frames within 1 count of the CPU
+    path's and no kernel launched; on the pair-lane route (f16) conv1_2 goes
+    through conv3x3_pairlane once per Pass-2 batch (3 on 9 frames at batch
+    4) and nothing else does."""
+    rng = np.random.default_rng(1)
+    style = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    clip = _clip()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        s = Stylization(str(CKPT), use_global=False, device=dev)
+        s.prepare_style(style)
+        kernels.reset_launches()
+        outs[dev] = list(s.stylize_video(clip, batch_size=4))
+        assert set(kernels.launch_counts().values()) == {0}
+        assert s.pass2_mode == "per-frame"
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
+    s = Stylization(str(CKPT), use_global=False,
+                    cfg=ModelConfig(dtype=torch.float16, pairlane=True))
+    s.prepare_style(style)
+    kernels.reset_launches()
+    out = list(s.stylize_video(clip, batch_size=4))
+    assert kernels.launch_counts() == {"norm_affine_clamp": 0,
+                                       "dynamic_filter_pair": 0,
+                                       "conv3x3_implicit_gemm": 0,
+                                       "conv3x3_pairlane": 3}
+    d = np.mean([np.abs(a.astype(np.int16) - b.astype(np.int16)).mean()
+                 for a, b in zip(out, outs["cpu"])])
+    assert d / 255.0 <= 5e-3
