@@ -27,7 +27,22 @@ Phases, each printing one JSON line (any failure exits non-zero):
              (exact flows, no cv2), on the card and on the CPU; then
              ``conv3x3_implicit_gemm``, which no model path runs, driven
              alone at the shapes of the JAX package's conv benchmark
-             (``scripts/bench_conv3x3.py``);
+             (``scripts/bench_conv3x3.py``); every global session's Pass-2
+             host prep must have gone through the native library;
+   long_clip   — f16 and fp32 ``stylize_video`` of a seeded 65-frame 512x512
+             clip at ``sample_interval=1``: 65 samples spill to the host
+             spool and stream ('streaming-spill'); launches of the path and
+             of Pass 1 alone against the count the stage plan gives, Pass 1's
+             wall time, f16 against fp32, and the streamed SeqStats against
+             the batched ``collect_stats`` over the same features;
+   native_prep — the native host library loads; one 16-frame batch's prep,
+             native and numpy, timed and compared; frames of both paths;
+   multistyle  — ``MultiStylization.interpolate_video`` of the 33-frame clip
+             under two seeded styles (linear sweep, batch 16: the
+             per-sample route), f16 and fp32, launches counted; the card's
+             fp32 against the CPU's on a 9-frame 64x112 clip; the per-sample
+             kernels against their plain versions at batch 16; one decode
+             on the shared and on the per-sample route;
 5. times   — each kernel and its plain version at every main-path site
              (device time from CUDA events, and the host's own cost per
              call), the bound (the filter pair's products as three TF32
@@ -36,6 +51,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
              pair-lane and per-frame f16 paths, and torch.profiler traces
              of one f16 stylize_video (device busy vs wall clock) and of
              Pass 2 alone on those three paths (where a batch's time goes);
+             ``rr_conv3x3`` at VGG conv2_1 and conv2_2 beside ``F.conv2d``;
+             and (phase pipeline) the warm f16 stylize_video's wall time
+             and idle share;
 6. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -50,7 +68,10 @@ scale) of fp32, the repository's precision bar, on both routes (per-frame
 mode's is recorded, not barred: the bar is the global pipeline's); the
 card's fp32 frames stay within 1 count of the CPU path's in every mode and
 ablation; the ``.pth`` session's frames equal the ``.msgpack`` session's;
-the card's E_warp and temporal SSIM match the CPU's to 1e-4 relative.
+the card's E_warp and temporal SSIM match the CPU's to 1e-4 relative; the
+streamed statistics match the batched ones at rtol = atol = 2e-4 (the JAX
+package's bar: the sums run in other orders); native prep matches numpy
+to 1e-6; the long-clip and multi-style f16 frames stay within 1e-3 of fp32.
 
 Needs one CUDA card and the repository beside this file; imports nothing
 of JAX.  Detailed results go to ``chiprun_out/chip_smoke.json``.
@@ -58,7 +79,9 @@ of JAX.  Detailed results go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -549,6 +572,7 @@ def run_e2e(torch):
     from rerevst_torch import kernels
     from rerevst_torch.api import Stylization
     from rerevst_torch.config import ModelConfig
+    from rerevst_torch.data import native
     from rerevst_torch.eval.parity import pixel_error
 
     ckpt = str(HERE / "models" / "demo_plum_4000.msgpack")
@@ -583,6 +607,7 @@ def run_e2e(torch):
         torch.cuda.synchronize()
         t_setup = time.perf_counter() - t0
         kernels.reset_launches()
+        native.reset_calls()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         frames = list(s.stylize_video(clip, batch_size=BATCH))
@@ -592,6 +617,10 @@ def run_e2e(torch):
         if counts != want:
             fail(f"{key}: kernel launches {counts}, expected {want} "
                  f"({n_batches} Pass-2 batches)")
+        # Each Pass-2 batch's host prep is one native call.
+        if native.preprocess_batch.calls != n_batches:
+            fail(f"{key}: {native.preprocess_batch.calls} native prep "
+                 f"calls, expected {n_batches} (the native path did not run)")
         if len(frames) != CLIP_FRAMES:
             fail(f"{key}: {len(frames)} frames out of {CLIP_FRAMES}")
         for f in frames:
@@ -928,6 +957,481 @@ def trace_pass2(torch, session, batches=3):
     return _device_breakdown(prof, wall_ms, per=batches)
 
 
+def streaming_launches(n_samples: int, chunk: int) -> dict:
+    """Kernel launches of one streaming Pass 1 over `n_samples` features in
+    chunks of `chunk`: every stage runs the frozen prefix over every chunk
+    (a filter stage twice, once per predictor); the prefix to a norm stage
+    applies the norm sites before it and, past the filters, the three
+    filter pairs."""
+    from rerevst_torch.parallel.streaming import STAGES
+
+    sites = [st for st in STAGES if st not in ("f1", "f2", "f3")]
+    norm = filt = 0
+    for stage in STAGES:
+        if stage in ("f1", "f2", "f3"):
+            norm += 2 * 1
+            filt += 2 * (int(stage[1]) - 1)
+        else:
+            norm += sites.index(stage)
+            filt += 0 if stage == "pre" else 3
+    chunks = -(-n_samples // chunk)
+    return {"norm_affine_clamp": chunks * norm,
+            "dynamic_filter_pair": chunks * filt,
+            "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0}
+
+
+def _max_excess(a, b, rtol, atol) -> float:
+    """max(|a - b| - atol - rtol |b|): <= 0 where assert_allclose passes."""
+    a, b = a.double(), b.double()
+    return ((a - b).abs() - atol - rtol * b.abs()).max().item()
+
+
+def long_clip(torch):
+    """Long-clip Pass 1 on the card: f16 and fp32 stylize_video of a seeded
+    65-frame 512x512 clip at sample_interval=1, so Pass 1 has 65 samples,
+    spills them to the host spool and streams the statistics
+    ('streaming-spill').  Launch counts of the whole path and of Pass 1
+    alone, each from 0; Pass 1's wall time and device busy time
+    (torch.profiler); f16 against fp32 frames; and the streamed SeqStats
+    against the batched collect_stats over the same features, on the card,
+    at rtol = atol = 2e-4."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from rerevst_torch import kernels
+    from rerevst_torch.api import Stylization
+    from rerevst_torch.config import InferenceConfig, ModelConfig
+    from rerevst_torch.data.transforms import bgr_to_model
+    from rerevst_torch.eval.parity import pixel_error
+    from rerevst_torch.models.transformer import collect_stats
+    from rerevst_torch.parallel.streaming import collect_stats_streaming
+
+    ckpt = str(HERE / "models" / "demo_plum_4000.msgpack")
+    n = 65
+    clip = synth_clip(n, CONTENT, CONTENT, seed=7)
+    style = synth_style(CONTENT, CONTENT, seed=1)
+    infer = InferenceConfig(sample_interval=1)
+    chunk = infer.pass1_chunk
+    pass1 = streaming_launches(n, chunk)
+    n_batches = -(-n // BATCH)
+    path = {k: v + {"norm_affine_clamp": 11 * n_batches,
+                    "dynamic_filter_pair": 3 * n_batches}.get(k, 0)
+            for k, v in pass1.items()}
+    outs, res, sess = {}, {}, {}
+    for key, dtype in (("fp32", torch.float32), ("f16", torch.float16)):
+        s = Stylization(ckpt, cfg=ModelConfig(dtype=dtype), infer=infer,
+                        device="cuda")
+        s.prepare_style(style)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        frames = list(s.stylize_video(clip, batch_size=BATCH))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        if s.pass1_mode != "streaming-spill":
+            fail(f"long_clip {key}: pass1_mode {s.pass1_mode}")
+        if counts != path:
+            fail(f"long_clip {key}: launches {counts}, expected {path}")
+        if len(frames) != n or np.stack(frames).std() < 1.0:
+            fail(f"long_clip {key}: {len(frames)} frames or constant output")
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            s.prepare_global(clip)
+            torch.cuda.synchronize()
+            t_pass1 = time.perf_counter() - t0
+        counts1 = kernels.launch_counts()
+        trace1 = _device_breakdown(prof, t_pass1 * 1e3)
+        if counts1 != pass1 or s.pass1_mode != "streaming-spill":
+            fail(f"long_clip {key} Pass 1: launches {counts1}, expected "
+                 f"{pass1} ({s.pass1_mode})")
+        res[key] = {"stylize_video_wall_s": wall,
+                    "pass1_wall_s_profiled": t_pass1,
+                    "pass1_device_busy_ms": trace1["device_busy_ms"],
+                    "pass1_device_idle_share": trace1["device_idle_share"],
+                    "pass1_busy_by_category_ms":
+                        trace1["busy_by_category_ms"],
+                    "launches": counts, "launches_pass1": counts1,
+                    "pass1_mode": s.pass1_mode, "samples": n,
+                    "pass1_chunks": -(-n // chunk)}
+        emit({"phase": "long_clip", "session": key, **res[key]})
+        outs[key], sess[key] = frames, s
+    err = pixel_error(outs["f16"], outs["fp32"])
+    res["f16_vs_fp32"] = err
+    emit({"phase": "long_clip", "f16_vs_fp32": err, "bar_mean_01": 1e-3})
+    if not err["mean_01"] <= 1e-3:
+        fail(f"long_clip f16 vs fp32 mean |delta| {err['mean_01']} > 1e-3")
+    s = sess["fp32"]
+    with torch.inference_mode():
+        feats = np.concatenate([
+            s._encode(s._upload(np.concatenate(
+                [bgr_to_model(f) for f in clip[i:i + chunk]]))).cpu().numpy()
+            for i in range(0, n, chunk)])
+        streamed = collect_stats_streaming(s.params["decoder"], feats,
+                                           s.style, s.cfg, chunk_size=chunk)
+        batched = collect_stats(s.params["decoder"],
+                                torch.from_numpy(feats).cuda(), s.style,
+                                s.cfg)
+    worst = {}
+    for k, st in batched.norms.items():
+        for f in st._fields:
+            worst[f"{k}.{f}"] = _max_excess(getattr(streamed.norms[k], f),
+                                            getattr(st, f), 2e-4, 2e-4)
+    for k, f in batched.filters.items():
+        worst[k] = _max_excess(streamed.filters[k], f, 2e-4, 2e-4)
+    del feats, batched, streamed
+    torch.cuda.empty_cache()
+    bad = {k: v for k, v in worst.items() if v > 0}
+    res["streamed_vs_batched_max_excess"] = max(worst.values())
+    emit({"phase": "long_clip", "streamed_vs_batched": "rtol=atol=2e-4",
+          "leaves": len(worst), "max_excess": max(worst.values()),
+          "failing": bad})
+    if bad:
+        fail(f"long_clip: streamed SeqStats differ from batched: {bad}")
+    RESULTS["long_clip"] = res
+    return res
+
+
+@contextlib.contextmanager
+def numpy_prep():
+    """Run the session's host prep on its numpy path (the native library
+    hidden) inside the block."""
+    from rerevst_torch.data import native
+
+    saved = native._lib, native._tried
+    native._lib, native._tried = None, True
+    try:
+        yield
+    finally:
+        native._lib, native._tried = saved
+
+
+def native_prep(torch, session):
+    """The native host library: it must load; one 16-frame 512x512 batch's
+    host prep (BGR -> normalized RGB + reflect pad to 640x640) timed on the
+    native and the numpy path; the two prepped batches within 1e-6; the f16
+    session's frames from both paths within 1 count; and the host's cost
+    of converting one fetched batch back to uint8 frames."""
+    import numpy as np
+
+    from rerevst_torch.data import native
+    from rerevst_torch.data.transforms import model_to_bgr
+
+    if not native.available():
+        fail("native host library did not build or load")
+    clip = synth_clip(BATCH, CONTENT, CONTENT, seed=4)
+
+    def prep_ms(reps=5):
+        session._prep_batch_host(clip)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = session._prep_batch_host(clip)
+        return (time.perf_counter() - t0) * 1e3 / reps, out
+
+    t_native, a = prep_ms()
+    with numpy_prep():
+        t_numpy, b = prep_ms()
+        frames_numpy = list(session.stylize_video(
+            synth_clip(CLIP_FRAMES, CONTENT, CONTENT, seed=0),
+            batch_size=BATCH))
+    frames_native = list(session.stylize_video(
+        synth_clip(CLIP_FRAMES, CONTENT, CONTENT, seed=0), batch_size=BATCH))
+    # The drain's host work on one fetched batch (16 frames of 512x512):
+    # stylize_video's model_to_bgr per frame, and the native postprocess
+    # that transfer uses, both from the same fp32 array.
+    host = np.ascontiguousarray(a[:, 64:64 + CONTENT, 64:64 + CONTENT])
+    drain = {}
+    for name, post in (("model_to_bgr", model_to_bgr),
+                       ("native_postprocess",
+                        lambda f: native.postprocess(f, CONTENT, CONTENT, 0))):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            for i in range(BATCH):
+                post(host[i:i + 1])
+        drain[name] = (time.perf_counter() - t0) * 1e3 / 3
+    prep_err = float(np.abs(a - b).max())
+    d = max(int(np.abs(x.astype(np.int16) - y.astype(np.int16)).max())
+            for x, y in zip(frames_native, frames_numpy))
+    res = {"library": str(native.library_path().relative_to(HERE)),
+           "prep_ms_per_batch_native": t_native,
+           "prep_ms_per_batch_numpy": t_numpy, "batch": BATCH,
+           "frame_hw": [CONTENT, CONTENT], "padded_hw": list(a.shape[1:3]),
+           "drain_ms_per_batch_model_to_bgr": drain["model_to_bgr"],
+           "drain_ms_per_batch_native_postprocess":
+               drain["native_postprocess"],
+           "prep_max_abs_diff": prep_err, "frames_max_counts": d,
+           "host_cpus": os.cpu_count()}
+    RESULTS["native_prep"] = res
+    emit({"phase": "native_prep", **res})
+    if prep_err > 1e-6 or d > 1:
+        fail(f"native prep differs from numpy: {prep_err} (prep), {d} counts")
+    return res
+
+
+def check_per_sample_kernels(torch, errs):
+    """The per-sample route of both wrappers (one launch per sample, each
+    with its own conditioning) against their plain versions at the
+    multi-style batch-16 shapes, in f16 and fp32."""
+    from rerevst_torch import kernels
+    from rerevst_torch.models.transformer import NormStats
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    dev = torch.device("cuda")
+    p = PAD_HW
+    for dtype in (torch.float16, torch.float32):
+        for site, c, div, variant in NORM_SITES:
+            shape = (BATCH, p // div, p // div, c)
+            x, st, s, m = norm_inputs(torch, shape, variant, dtype, gen)
+            st = NormStats(*(v * (1 + 0.1 * torch.rand(
+                BATCH, 1, 1, c, generator=gen, device=dev)) for v in st))
+            if s is not None:
+                s = (1 + torch.rand(BATCH, 1, 1, c, generator=gen,
+                                    device=dev))
+                m = torch.randn(BATCH, 1, 1, c, generator=gen, device=dev)
+            leaky = variant == "leaky"
+            before = kernels.norm_affine_clamp.launches
+            got = kernels.norm_affine_clamp(x, st, s, m, leaky)
+            torch.cuda.synchronize()
+            if kernels.norm_affine_clamp.launches - before != BATCH:
+                fail("per-sample norm_affine_clamp: not one launch a sample")
+            want = kernels.norm_affine_clamp_plain(x, st, s, m, leaky)
+            err = (got.float() - want.float()).abs().max().item()
+            ok = within_tolerance(torch, got, want)
+            RESULTS["checks"].append(
+                {"kernel": "norm_affine_clamp", "per_sample": True,
+                 "shape": shape, "dtype": str(dtype), "variant": variant,
+                 "max_abs_err": err, "ok": ok})
+            if not ok:
+                fail(f"per-sample norm_affine_clamp {shape} {dtype} "
+                     f"{variant}: max |kernel - plain| = {err}")
+            errs["norm_affine_clamp"] = max(errs["norm_affine_clamp"], err)
+            del x, got, want
+        shape = (BATCH, p // 8, p // 8, 32)
+        x, f1, f2 = filter_inputs(torch, shape, dtype, gen)
+        f1 = f1 * (1 + torch.rand(BATCH, 32, 32, generator=gen, device=dev))
+        f2 = f2 * (1 + torch.rand(BATCH, 32, 32, generator=gen, device=dev))
+        got = kernels.dynamic_filter_pair(x, f1, f2)
+        torch.cuda.synchronize()
+        want = kernels.dynamic_filter_pair_plain(x, f1, f2)
+        err = (got.float() - want.float()).abs().max().item()
+        ok = within_tolerance(torch, got, want)
+        RESULTS["checks"].append(
+            {"kernel": "dynamic_filter_pair", "per_sample": True,
+             "shape": shape, "dtype": str(dtype), "max_abs_err": err,
+             "ok": ok})
+        if not ok:
+            fail(f"per-sample dynamic_filter_pair {shape} {dtype}: max "
+                 f"|kernel - plain| = {err}")
+        errs["dynamic_filter_pair"] = max(errs["dynamic_filter_pair"], err)
+    torch.cuda.empty_cache()
+
+
+def multistyle(torch, errs):
+    """Multi-style interpolation on the card: two seeded styles over the
+    33-frame 512x512 clip with the linear sweep at batch 16 (every batch on
+    the per-sample route), in f16 and fp32, launches counted from 0; f16
+    against fp32; the card's fp32 against the CPU's on a 9-frame 64x112
+    clip (within 1 count); the per-sample kernels against their plain
+    versions; and one decode of a 16-frame batch on the shared route (one
+    blend for the batch) and on the per-sample route (a blend per frame)."""
+    import numpy as np
+
+    from rerevst_torch import kernels
+    from rerevst_torch.config import InferenceConfig, ModelConfig
+    from rerevst_torch.eval.parity import pixel_error
+    from rerevst_torch.models.transformer import (
+        blend_pytrees,
+        blend_pytrees_batched,
+        decode_global,
+    )
+    from rerevst_torch.multistyle import (
+        MultiStylization,
+        linear_sweep_weights,
+    )
+
+    ckpt = str(HERE / "models" / "demo_plum_4000.msgpack")
+    clip = synth_clip(CLIP_FRAMES, CONTENT, CONTENT, seed=0)
+    styles = [synth_style(CONTENT, CONTENT, seed=1),
+              synth_style(CONTENT, CONTENT, seed=9)]
+    n_batches = -(-CLIP_FRAMES // BATCH)
+    want = {"norm_affine_clamp": 11 * BATCH * n_batches,
+            "dynamic_filter_pair": 3 * BATCH * n_batches,
+            "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0}
+    outs, res, sessions = {}, {}, {}
+    for key, dtype in (("f16", torch.float16), ("fp32", torch.float32)):
+        ms = MultiStylization(ckpt, cfg=ModelConfig(dtype=dtype),
+                              device="cuda")
+        ms.prepare_styles(styles)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        frames = list(ms.interpolate_video(clip, batch_size=BATCH))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        if counts != want:
+            fail(f"multistyle {key}: launches {counts}, expected {want}")
+        if len(frames) != CLIP_FRAMES or np.stack(frames).std() < 1.0:
+            fail(f"multistyle {key}: {len(frames)} frames or constant")
+        res[key] = {"interpolate_video_wall_s": wall, "launches": counts,
+                    "batches": n_batches}
+        emit({"phase": "multistyle", "session": key, **res[key]})
+        outs[key], sessions[key] = frames, ms
+    err = pixel_error(outs["f16"], outs["fp32"])
+    res["f16_vs_fp32"] = err
+    emit({"phase": "multistyle", "f16_vs_fp32": err, "bar_mean_01": 1e-3})
+    if not err["mean_01"] <= 1e-3:
+        fail(f"multistyle f16 vs fp32 mean |delta| {err['mean_01']} > 1e-3")
+    small = synth_clip(9, 64, 112, seed=2)
+    small_styles = [synth_style(64, 64, seed=3), synth_style(64, 64, seed=5)]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        ms = MultiStylization(ckpt, device=dev)
+        ms.prepare_styles(small_styles)
+        got[dev] = list(ms.interpolate_video(small, batch_size=4))
+    d = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+            for a, b in zip(got["cuda"], got["cpu"]))
+    res["cuda_vs_cpu_fp32_max_counts"] = d
+    emit({"phase": "multistyle", "cuda_vs_cpu_fp32": "9 frames 64x112",
+          "max_counts": d})
+    if d > 1:
+        fail(f"multistyle: card vs CPU fp32 differ by {d} counts")
+    check_per_sample_kernels(torch, errs)
+    ms = sessions["f16"]
+    feats = ms.encode_frames(clip[:BATCH])
+    ms.prepare_global(feats)
+    rows = linear_sweep_weights(BATCH, 2)
+    dec = ms.params["decoder"]
+    with torch.inference_mode():
+        shared = (blend_pytrees(ms.styles, rows[BATCH // 2]),
+                  blend_pytrees(ms.stats, rows[BATCH // 2]))
+        per = (blend_pytrees_batched(ms.styles, rows),
+               blend_pytrees_batched(ms.stats, rows))
+        for route, (sf, st) in (("shared", shared), ("per_sample", per)):
+            t = time_ms(torch, lambda: decode_global(dec, feats, sf, st,
+                                                     ms.cfg),
+                        iters=10, warmup=2)
+            res[f"decode_{route}_ms_per_batch"] = t["ms"]
+            res[f"decode_{route}_host_paced"] = t["host_paced"]
+    res["decode_note"] = ("decode_global of 16 encoded 640x640 frames, f16, "
+                          "CUDA events")
+    emit({"phase": "multistyle", **{k: v for k, v in res.items()
+                                    if k.startswith("decode")}})
+    RESULTS["multistyle"] = res
+    return res
+
+
+def fetch_overlap(torch, session, clip):
+    """One stylize_video with timing events: after each chunk's launch (on
+    the compute stream) and after each fetch's copy (on the session's copy
+    stream).  For each chunk k-1 whose fetch follows chunk k's launch, the
+    milliseconds from the end of k-1's copy to the end of chunk k's work: a
+    positive value means the copy did not wait for chunk k's kernels."""
+    stylize, fetch = session._stylize, session._fetch
+    done, copied = [], []
+
+    def _stylize(x):
+        out = stylize(x)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        done.append(ev)
+        return out
+
+    def _fetch(out, *ready):
+        host = fetch(out, *ready)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(session._streams["fetch"])
+        copied.append(ev)
+        return host
+
+    session._stylize, session._fetch = _stylize, _fetch
+    try:
+        for _ in session.stylize_video(clip, batch_size=BATCH):
+            pass
+        torch.cuda.synchronize()
+    finally:
+        del session._stylize, session._fetch
+    return [copied[k].elapsed_time(done[k + 1])
+            for k in range(len(done) - 1)]
+
+
+def pipeline(torch, session):
+    """Pass 2 of the warm f16 stylize_video on the 33-frame clip: the wall
+    time of three unprofiled runs, the device's busy time against the wall
+    clock under torch.profiler (the idle share), and whether each fetch's
+    copy ended before the next chunk's kernels did."""
+    clip = synth_clip(CLIP_FRAMES, CONTENT, CONTENT, seed=0)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in session.stylize_video(clip, batch_size=BATCH):
+            pass
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    tr = trace_stylize_video(torch, session)
+    lead = fetch_overlap(torch, session, clip)
+    res = {"warm_wall_ms": walls, "warm_wall_ms_median": sorted(walls)[1],
+           "profiled_wall_ms": tr["wall_ms_profiled"],
+           "device_busy_ms": tr["device_busy_ms"],
+           "device_idle_share": tr["device_idle_share"],
+           "copy_k_minus_1_ends_before_chunk_k_ms": lead}
+    RESULTS["pipeline"] = res
+    emit({"phase": "pipeline", "session": "f16", **res})
+    return res
+
+
+def time_vgg_convs(torch):
+    """rr_conv3x3 at two VGG shapes, f16, beside one F.conv2d call: conv2_1
+    ([16,320,320,64] -> 128: C = 64, so the streamed TMA + wgmma kernel in
+    two channel tiles) and conv2_2 ([16,320,320,128] -> 128: C != 64, the
+    cp.async + mma.sync implicit GEMM).  Each is checked against its plain
+    version first."""
+    import torch.nn.functional as F
+
+    from rerevst_torch import kernels
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    rows = []
+    for site, shape, o in (("VGG conv2_1 (C = 64: streamed)",
+                            (BATCH, 320, 320, 64), 128),
+                           ("VGG conv2_2 (C = 128: cp.async + mma.sync)",
+                            (BATCH, 320, 320, 128), 128)):
+        x, w, b = conv_inputs(torch, shape, o, torch.float16, gen)
+        got = kernels.conv3x3_implicit_gemm(x, w, b)
+        want = kernels.conv3x3_implicit_gemm_plain(x, w, b)
+        if not conv_within_tolerance(torch, got, want, x, w, b):
+            fail(f"conv3x3_implicit_gemm {shape}->{o}: disagrees with plain")
+        err = (got.float() - want.float()).abs().max().item()
+        del got, want
+        wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        xl = x.permute(0, 3, 1, 2)
+        k = time_ms(torch, lambda: kernels.conv3x3_implicit_gemm(x, w, b),
+                    iters=10, warmup=2)
+        pl = time_ms(torch,
+                     lambda: kernels.conv3x3_implicit_gemm_plain(x, w, b),
+                     iters=3, warmup=1)
+        lib = time_ms(torch, lambda: F.conv2d(xl, wl, b, padding=1),
+                      iters=10, warmup=2)
+        bound, by, t_bytes, t_ops = conv_bound(x, w, o)
+        row = {"kernel": "conv3x3_implicit_gemm", "site": site,
+               "shape": shape, "O": o, "dtype": "float16",
+               "max_abs_err": err, "ms": k["ms"], "plain_ms": pl["ms"],
+               "library_ms": lib["ms"], "bound_ms": bound, "bound_by": by,
+               "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+               "tflops": 2 * x.numel() * 9 * o / k["ms"] / 1e9,
+               "host_paced": k["host_paced"] or lib["host_paced"]}
+        rows.append(row)
+        RESULTS["times"].append(row)
+        emit({"phase": "time", **row})
+        del x, w, b, wl, xl
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_resources(build) -> dict:
     """Registers, spills and ptxas's notes (a serialized wgmma shows here)
     of each instance of the streamed C = 64 conv kernel and of the filter
@@ -1011,10 +1515,15 @@ def main() -> int:
     check_pth(torch)
     temporal(torch, sessions)
     igemm_counts = drive_implicit_gemm(torch)
+    long = long_clip(torch)
+    native_prep(torch, sessions["f16"])
+    ms = multistyle(torch, errs)
 
     # 5. times
     tot, filter_bound_by = time_kernels(torch)
     conv_tot = time_convs(torch)
+    time_vgg_convs(torch)
+    pipeline(torch, sessions["f16"])
     for key, sess in (("pass2", "f16"), ("pass2_pairlane", "f16_pairlane"),
                       ("pass2_per_frame", "pf_f16")):
         p2 = time_pass2(torch, sessions[sess])
@@ -1065,7 +1574,10 @@ def main() -> int:
          "ms": times[k][0], "plain_ms": times[k][1], "bound_ms": times[k][2],
          "bound_by": by, "library_ms": times[k][3], "path": path,
          "launches_per_frame_path": counts_by[
-             "pf_f16_pairlane" if k == "conv3x3_pairlane" else "pf_f16"][k]}
+             "pf_f16_pairlane" if k == "conv3x3_pairlane" else "pf_f16"][k],
+         "launches_long_clip": long["f16"]["launches"][k],
+         "launches_long_clip_pass1": long["f16"]["launches_pass1"][k],
+         "launches_multistyle": ms["f16"]["launches"][k]}
         for k, (src, rep, by, path, counts) in meta.items()]}
     RESULTS["kernels"] = line["kernels"]
     _save()

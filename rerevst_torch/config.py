@@ -78,16 +78,16 @@ class ModelConfig:
     def __post_init__(self):
         unsupported = [
             (self.parity_packed, "parity_packed=True",
-             "ROADMAP.md Queue 1 item 14 (config variants)"),
+             "ROADMAP.md Queue 1 item 8 (config variants)"),
             (self.luma_fold, "luma_fold=True",
-             "ROADMAP.md Queue 1 item 14 (config variants)"),
+             "ROADMAP.md Queue 1 item 8 (config variants)"),
             (self.spatial_tiles > 1, f"spatial_tiles={self.spatial_tiles}",
-             "ROADMAP.md Queue 1 item 13 (ops/tiling.py)"),
+             "ROADMAP.md Queue 1 item 7 (ops/tiling.py)"),
             (self.fp32_mix != "none", f"fp32_mix={self.fp32_mix!r}",
-             "ROADMAP.md Queue 1 item 14 (config variants)"),
+             "ROADMAP.md Queue 1 item 8 (config variants)"),
             (self.precision not in ("auto", "highest"),
              f"precision={self.precision!r}",
-             "ROADMAP.md Queue 1 item 14 (config variants)"),
+             "ROADMAP.md Queue 1 item 8 (config variants)"),
         ]
         for bad, what, item in unsupported:
             if bad:

@@ -16,7 +16,7 @@ state_dict naming (from the reference module trees):
   Decoder.slice1.*                       final 64->3 conv
   Decoder.Filter{1,2,3}.{down_sample.0,upsample.0,F1.down_sample.0,F1.FC,F2...}
 
-Not here yet (ROADMAP.md Queue 1 item 12, training): the pretrained graft
+Not here yet (ROADMAP.md Queue 1 item 6, training): the pretrained graft
 with its three-stage fallback, and the optimizer, discriminator and
 training-checkpoint interop.
 """

@@ -8,6 +8,12 @@ fp32-accurate by a hi/lo split, both filters fp32 in every storage dtype and
 the intermediate fp32 in registers, never in memory; its persistent grid
 takes 16-row tiles as :func:`row_plan` splits them.  A CUDA tensor launches
 the kernel (or the wrapper raises); a CPU tensor takes the plain version.
+
+The filters are shared, ``[1,C,C]``, or per sample, ``[B,C,C]`` with B
+equal to x's leading dim (multi-style blending gives each frame its own).
+On the card the per-sample case launches the kernel once per sample, on
+that sample's slice of x with its own filters, each launch counted; the
+plain version multiplies batch by batch.
 """
 
 from __future__ import annotations
@@ -63,12 +69,17 @@ def row_plan(rows: int, sms: int) -> RowPlan:
     return RowPlan(rows, min(-(-rows // TILE_ROWS), sms))
 
 
-def _square(f: torch.Tensor, c: int) -> torch.Tensor:
-    if f.shape not in ((1, c, c), (c, c)):
-        raise ValueError(
-            f"dynamic_filter_pair takes one shared [1,{c},{c}] filter; got "
-            f"shape {tuple(f.shape)} (per-sample filters are not supported)")
-    return f.reshape(c, c)
+def _filters(f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A shared filter as [1,C,C] or per-sample filters as [B,C,C]."""
+    c = x.shape[-1]
+    if f.shape in ((1, c, c), (c, c)):
+        return f.reshape(1, c, c)
+    if x.dim() > 1 and f.shape == (x.shape[0], c, c):
+        return f
+    raise ValueError(
+        f"dynamic_filter_pair takes one shared [1,{c},{c}] filter or "
+        f"per-sample [B,{c},{c}] filters with B = x's leading dim "
+        f"{x.shape[0]}; got shape {tuple(f.shape)}")
 
 
 def dynamic_filter_pair_plain(x: torch.Tensor, f1: torch.Tensor,
@@ -76,23 +87,27 @@ def dynamic_filter_pair_plain(x: torch.Tensor, f1: torch.Tensor,
     """The plain PyTorch version: fp32 operands and intermediate, output
     rounded once to x's dtype."""
     c = x.shape[-1]
-    a, b = _square(f1, c).float(), _square(f2, c).float()
-    xf = x.reshape(-1, c).float()
+    a, b = _filters(f1, x).float(), _filters(f2, x).float()
+    if a.shape[0] == b.shape[0] == 1:
+        xf = x.reshape(-1, c).float()
+        a, b = a[0], b[0]
+    else:
+        xf = x.reshape(x.shape[0], -1, c).float()
     _fp32_products_exact(xf)
-    h = F.leaky_relu(xf @ a.T, 0.2)
-    return (h @ b.T).to(x.dtype).reshape(x.shape)
+    h = F.leaky_relu(xf @ a.transpose(-1, -2), 0.2)
+    return (h @ b.transpose(-1, -2)).to(x.dtype).reshape(x.shape)
 
 
 def dynamic_filter_pair(x: torch.Tensor, f1: torch.Tensor,
                         f2: torch.Tensor) -> torch.Tensor:
-    """x: contiguous [..., C]; f1, f2: shared [1,C,C] (or [C,C]) filters with
-    out_p = sum_q h_q f[p, q]."""
+    """x: contiguous [..., C]; f1, f2: shared [1,C,C] (or [C,C]) filters, or
+    per-sample [B,C,C] ones, with out_p = sum_q h_q f[p, q]."""
     if x.dtype not in _CODES:
         raise TypeError(f"dynamic_filter_pair: unsupported dtype {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("dynamic_filter_pair: x must be contiguous NHWC")
     c = x.shape[-1]
-    a, b = _square(f1, c), _square(f2, c)
+    a, b = _filters(f1, x), _filters(f2, x)
     if x.device.type == "cpu":
         return dynamic_filter_pair_plain(x, f1, f2)
     if x.device.type != "cuda":
@@ -110,9 +125,21 @@ def dynamic_filter_pair(x: torch.Tensor, f1: torch.Tensor,
             raise ValueError(f"dynamic_filter_pair: {name} must be 16-byte "
                              f"aligned")
     y = torch.empty_like(x)
-    rows = x.numel() // c
-    if rows == 0:
+    if x.numel() == 0:
         return y
+    if a.shape[0] == b.shape[0] == 1:
+        _launch(x, y, a, b)
+        return y
+    for i in range(x.shape[0]):
+        _launch(x[i], y[i], a[i if a.shape[0] > 1 else 0],
+                b[i if b.shape[0] > 1 else 0])
+    return y
+
+
+def _launch(x: torch.Tensor, y: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor) -> None:
+    """One kernel launch over contiguous x -> y with one filter pair."""
+    rows = x.numel() // _C
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = row_plan(rows, sms)
     err = _build.library().rr_filter_pair(
@@ -121,7 +148,6 @@ def dynamic_filter_pair(x: torch.Tensor, f1: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "dynamic_filter_pair")
     dynamic_filter_pair.launches += 1
-    return y
 
 
 #: Kernel launches so far (CPU calls and empty inputs launch nothing).

@@ -11,6 +11,13 @@ stored once in x's dtype.  The kernel is ``csrc/norm_affine.cu``; the plain
 PyTorch version below has the same arithmetic, step for step.  A CUDA tensor
 launches the kernel (or the wrapper raises); a CPU tensor takes the plain
 version.
+
+The conditioning (each statistic and the style affine) is either shared,
+``[1,1,1,C]``, or per sample, ``[B,1,1,C]`` with B equal to x's leading dim
+(multi-style blending gives each frame its own).  On the card the
+per-sample case launches the kernel once per sample, on that sample's slice
+of x (contiguous in NHWC) with its own conditioning, each launch counted;
+the plain version broadcasts.
 """
 
 from __future__ import annotations
@@ -26,7 +33,17 @@ _CODES = _build.DTYPE_CODES
 _THREADS = 256  # csrc/norm_affine.cu kThreads
 
 
-def _vec(t: torch.Tensor, c: int) -> torch.Tensor:
+def _per_sample(t: Optional[torch.Tensor], x: torch.Tensor) -> bool:
+    """True for a [B,1,1,C] tensor with B > 1 (x's leading dim B)."""
+    return t is not None and t.numel() != x.shape[-1]
+
+
+def _vec(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A conditioning tensor as fp32, shaped to broadcast against x."""
+    c = x.shape[-1]
+    if _per_sample(t, x):
+        return t.reshape((x.shape[0],) + (1,) * (x.dim() - 2) + (c,)) \
+            .to(torch.float32)
     return t.reshape(c).to(torch.float32)
 
 
@@ -35,15 +52,26 @@ def norm_affine_clamp_plain(x: torch.Tensor, st,
                             style_mean: Optional[torch.Tensor] = None,
                             leaky: bool = False) -> torch.Tensor:
     """The plain PyTorch version: same semantics and the same fp32 steps."""
-    c = x.shape[-1]
     v = x.to(torch.float32)
     if leaky:
         v = F.leaky_relu(v, 0.2)
-    t = (v - _vec(st.mean, c)) * _vec(st.rstd, c)
-    t = torch.minimum(torch.maximum(t, _vec(st.xmin, c)), _vec(st.xmax, c))
+    t = (v - _vec(st.mean, x)) * _vec(st.rstd, x)
+    t = torch.minimum(torch.maximum(t, _vec(st.xmin, x)), _vec(st.xmax, x))
     if style_std is not None:
-        t = t * _vec(style_std, c) + _vec(style_mean, c)
+        t = t * _vec(style_std, x) + _vec(style_mean, x)
     return t.to(x.dtype)
+
+
+def _check_shape(name: str, v: torch.Tensor, x: torch.Tensor) -> None:
+    """One shared [1,1,1,C] or one per-sample [B,1,1,C] conditioning."""
+    c, b = x.shape[-1], x.shape[0] if x.dim() > 1 else 1
+    if v.numel() == c or (x.dim() > 1 and v.numel() == b * c
+                          and v.shape[0] == b):
+        return
+    raise ValueError(f"norm_affine_clamp: {name} must be a shared [1,1,1,C] "
+                     f"or a per-sample [B,1,1,C] tensor for x of shape "
+                     f"{tuple(x.shape)}; got shape {tuple(v.shape)} for {c} "
+                     f"channels")
 
 
 def _validate(x: torch.Tensor, st, style_std, style_mean) -> None:
@@ -51,12 +79,9 @@ def _validate(x: torch.Tensor, st, style_std, style_mean) -> None:
         raise TypeError(f"norm_affine_clamp: unsupported dtype {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("norm_affine_clamp: x must be contiguous NHWC")
-    c = x.shape[-1]
     for name in ("mean", "rstd", "xmin", "xmax"):
         v = getattr(st, name)
-        if v.numel() != c:
-            raise ValueError(f"norm_affine_clamp: stats.{name} has {v.numel()}"
-                             f" values for {c} channels")
+        _check_shape(f"stats.{name}", v, x)
         if v.dtype != torch.float32 or v.device != x.device \
                 or not v.is_contiguous():
             raise ValueError(f"norm_affine_clamp: stats.{name} must be a "
@@ -66,10 +91,7 @@ def _validate(x: torch.Tensor, st, style_std, style_mean) -> None:
                          "style_mean, or neither")
     if style_std is not None:
         for name, v in (("style_std", style_std), ("style_mean", style_mean)):
-            if v.numel() != c:
-                raise ValueError(
-                    f"norm_affine_clamp: {name} must be one shared [1,1,1,C] "
-                    f"affine; got shape {tuple(v.shape)} for {c} channels")
+            _check_shape(name, v, x)
             if v.dtype not in _CODES or v.device != x.device \
                     or not v.is_contiguous():
                 raise ValueError(f"norm_affine_clamp: {name} must be a "
@@ -83,9 +105,10 @@ def norm_affine_clamp(x: torch.Tensor, st,
                       style_std: Optional[torch.Tensor] = None,
                       style_mean: Optional[torch.Tensor] = None,
                       leaky: bool = False) -> torch.Tensor:
-    """x: contiguous [..., C]; st: NormStats of fp32 [1,1,1,C] tensors;
-    style_std/style_mean: one shared [1,1,1,C] affine, or None for the
-    identity; leaky: apply leaky_relu(0.2) to x first."""
+    """x: contiguous [..., C]; st: NormStats of fp32 tensors; style_std /
+    style_mean: the style affine, or None for the identity; each
+    conditioning tensor shared [1,1,1,C] or per sample [B,1,1,C];
+    leaky: apply leaky_relu(0.2) to x first."""
     _validate(x, st, style_std, style_mean)
     if x.device.type == "cpu":
         return norm_affine_clamp_plain(x, st, style_std, style_mean, leaky)
@@ -99,22 +122,35 @@ def norm_affine_clamp(x: torch.Tensor, st,
     if x.data_ptr() % 16:
         raise ValueError("norm_affine_clamp: x must be 16-byte aligned")
     y = torch.empty_like(x)
-    rows = x.numel() // c
-    if rows == 0:
+    if x.numel() == 0:
         return y
-    rows_per_block = _THREADS // (c // v)
+    cond = (st.mean, st.rstd, st.xmin, st.xmax, style_std, style_mean)
+    if not any(_per_sample(t, x) for t in cond):
+        _launch(x, y, cond, leaky)
+        return y
+    for b in range(x.shape[0]):
+        _launch(x[b], y[b], [t[b] if _per_sample(t, x) else t for t in cond],
+                leaky)
+    return y
+
+
+def _launch(x: torch.Tensor, y: torch.Tensor, cond, leaky: bool) -> None:
+    """One kernel launch over contiguous x -> y with shared conditioning."""
+    mean, rstd, xmin, xmax, s, m = cond
+    c = x.shape[-1]
+    rows = x.numel() // c
+    rows_per_block = _THREADS // (c // (16 // x.element_size()))
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     grid = min(-(-rows // rows_per_block), sms * (2048 // _THREADS))
-    affine = 0 if style_std is None else _CODES[style_std.dtype]
+    affine = 0 if s is None else _CODES[s.dtype]
     err = _build.library().rr_norm_affine(
         _CODES[x.dtype], affine, int(leaky), x.data_ptr(), y.data_ptr(),
-        rows, c, st.mean.data_ptr(), st.rstd.data_ptr(), st.xmin.data_ptr(),
-        st.xmax.data_ptr(), style_std.data_ptr() if affine else None,
-        style_mean.data_ptr() if affine else None, grid,
+        rows, c, mean.data_ptr(), rstd.data_ptr(), xmin.data_ptr(),
+        xmax.data_ptr(), s.data_ptr() if affine else None,
+        m.data_ptr() if affine else None, grid,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "norm_affine_clamp")
     norm_affine_clamp.launches += 1
-    return y
 
 
 #: Kernel launches so far (CPU calls and empty inputs launch nothing).

@@ -16,6 +16,11 @@ All conditioning state is explicit:
 * ``StyleFeatures`` — everything derived from a style image;
 * ``SeqStats`` — everything derived from a (style, sampled frames) pair.
 
+``blend_pytrees`` and ``blend_pytrees_batched`` blend several of either
+(multi-style interpolation); ``decode_global`` takes the per-sample state
+the batched blend gives ([B,1,1,C] statistics, [B,P,Q] filters) as it
+takes the shared one.
+
 On the card the 11 normalization sites of ``decode_global`` run the
 ``norm_affine_clamp`` kernel and its three filter chains the
 ``dynamic_filter_pair`` kernel; with ``ModelConfig(pairlane=True)`` the
@@ -29,8 +34,9 @@ outside its kernels; on the pair-lane route only its encoder's conv1_2 runs
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from rerevst_torch.config import ModelConfig
@@ -78,6 +84,49 @@ class SeqStats(NamedTuple):
     """
     norms: Dict[str, NormStats]
     filters: Dict[str, torch.Tensor]
+
+
+def _tree_map(fn, *trees):
+    """``jax.tree.map`` over the conditioning trees: NamedTuples, tuples,
+    dicts and tensors."""
+    t = trees[0]
+    if isinstance(t, torch.Tensor):
+        return fn(*trees)
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, *(tr[k] for tr in trees)) for k in t}
+    if isinstance(t, tuple):
+        out = [_tree_map(fn, *leaves) for leaves in zip(*trees)]
+        return type(t)(*out) if hasattr(t, "_fields") else tuple(out)
+    raise TypeError(f"cannot blend a {type(t).__name__}")
+
+
+def blend_pytrees(trees: Sequence, weights: Sequence[float]):
+    """Weighted sum of identically-structured conditioning trees (multi-style
+    blending), in fp32: leaf shapes are kept."""
+    w = [float(v) for v in weights]
+
+    def combine(*leaves):
+        out = leaves[0].float() * w[0]
+        for leaf, wi in zip(leaves[1:], w[1:]):
+            out = out + leaf.float() * wi
+        return out
+
+    return _tree_map(combine, *trees)
+
+
+def blend_pytrees_batched(trees: Sequence, weights):
+    """Per-sample weighted sums: `weights` is [B, n_trees], one blend per
+    batch row, in fp32.  A leaf of leading dim 1 comes back with leading dim
+    B (NormStats [1,1,1,C] -> [B,1,1,C]; filters [1,P,Q] -> [B,P,Q]): the
+    per-sample shapes ``decode_global`` takes."""
+    w = torch.as_tensor(np.asarray(weights, np.float32))
+
+    def combine(*leaves):
+        stacked = torch.stack([leaf.float() for leaf in leaves])  # [S,1,...]
+        out = torch.tensordot(w.to(stacked.device), stacked, dims=1)
+        return out.reshape((w.shape[0],) + tuple(stacked.shape[2:]))
+
+    return _tree_map(combine, *trees)
 
 
 # ---------------------------------------------------------------------------

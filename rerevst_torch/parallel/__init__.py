@@ -1,0 +1,5 @@
+"""Pass-1 collection beyond one batch — ``rerevst_tpu/parallel``.
+
+Only the single-device streaming collection (``streaming.py``) is ported;
+the mesh-sharded paths wait for ROADMAP.md Queue 1 item 7.
+"""

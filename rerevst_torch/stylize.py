@@ -89,7 +89,7 @@ def main(argv=None):
     if args.devices:
         raise NotImplementedError(
             "--devices (a device mesh) is not ported yet: ROADMAP.md Queue 1 "
-            "item 13")
+            "item 7")
     use_global = not args.no_global
 
     cfg = ModelConfig(dtype=dtype_from_name(args.dtype), fp32_mix=args.mix,

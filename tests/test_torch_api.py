@@ -96,7 +96,8 @@ def test_uploads_fetches_and_geometry(session):
     ups, fetches = [], []
     up, fetch = session._upload, session._fetch
     session._upload = lambda x: ups.append(x.shape) or up(x)
-    session._fetch = lambda x: fetches.append(tuple(x.shape)) or fetch(x)
+    session._fetch = lambda x, *ready: (fetches.append(tuple(x.shape))
+                                        or fetch(x, *ready))
     kernels.reset_launches()
     out = list(session.stylize_video(_clip(), batch_size=4))
     assert len(out) == 9
@@ -142,16 +143,25 @@ def test_reference_surface_equals_batched(session):
     assert len(pair) == 2
 
 
-def test_too_many_samples_raises(session):
-    clip = _clip(n=1) * (8 * 65 + 1)  # 66 sampled frames
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        list(session.stylize_video(clip, batch_size=4))
+def test_too_many_samples_raises(session, monkeypatch):
+    """Above STREAMING_THRESHOLD sampled frames Pass 1 no longer raises: it
+    spills to the host spool and streams the statistics, in stylize_video
+    and in an add() session (the threshold lowered to 2 to keep the clip
+    small; tests/test_torch_streaming.py runs 65 samples)."""
+    monkeypatch.setattr(Stylization, "STREAMING_THRESHOLD", 2)
+    clip = _clip(n=1) * (8 * 3 + 1)  # 4 sampled frames
+    out = list(session.stylize_video(clip, batch_size=4))
+    assert len(out) == len(clip) and session.pass1_mode == "streaming-spill"
     session.clean()
     frame = _clip(n=1)[0]
     for _ in range(Stylization.STREAMING_THRESHOLD):
         session.add(frame)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        session.add(frame)
+    assert session._patch_spill is None
+    session.add(frame)
+    assert session._patch_spill is not None and not session._patches
+    session.compute()
+    assert session.pass1_mode == "streaming-spill"
+    assert session._patch_spill is None
 
 
 def test_default_device_raises_without_cuda(params, monkeypatch):
@@ -162,13 +172,25 @@ def test_default_device_raises_without_cuda(params, monkeypatch):
 
 @pytest.mark.parametrize("call,match", [
     (lambda p: Stylization(params=p, mesh=object(), device="cpu"),
-     "Queue 1 item 13"),
+     "Queue 1 item 7"),
     (lambda p: Stylization(params=p, device="cpu").use_aot("x.rvaot"),
-     "Queue 1 item 13"),
+     "Queue 1 item 7"),
     (lambda p: Stylization(params=p, device="cpu").prepare_global(
-        iter(_clip(n=2))), "Queue 1 item 8"),
+        iter(_clip(n=2))), None),
 ])
 def test_later_slices_raise(params, call, match):
+    """The mesh and AOT bundles raise, naming their ROADMAP item; an unsized
+    iterable passed to prepare_global (once a raise, now ported) spills and
+    streams instead."""
+    if match is None:
+        s = Stylization(params=params, device="cpu")
+        s.prepare_style(_style())
+        s.prepare_global(iter(_clip(n=2)))
+        assert s.pass1_mode == "streaming-spill"
+        assert set(s.stats.norms) == {"pre", "ada4", "ada3", "ada2", "ada1",
+                                      "res4a", "res4b", "res3a", "res3b",
+                                      "res2a", "res2b"}
+        return
     with pytest.raises(NotImplementedError, match=match):
         call(params)
 

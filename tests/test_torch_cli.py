@@ -89,9 +89,9 @@ def test_cli_rejects_unported_options(inputs):
     frames, style = inputs
     base = ["--style", style, "--frames", frames, "--checkpoint", CKPT,
             "--device", "cpu", "--no-video"]
-    for extra, item in ((["--devices", "2"], "Queue 1 item 13"),
-                        (["--tiles", "2"], "Queue 1 item 13"),
-                        (["--mix", "dec"], "Queue 1 item 14")):
+    for extra, item in ((["--devices", "2"], "Queue 1 item 7"),
+                        (["--tiles", "2"], "Queue 1 item 7"),
+                        (["--mix", "dec"], "Queue 1 item 8")):
         with pytest.raises(NotImplementedError, match=item):
             stylize.main(base + extra)
     with pytest.raises(SystemExit):

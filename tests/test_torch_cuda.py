@@ -497,3 +497,64 @@ def test_stylize_video_per_frame_on_card(cuda):
     d = np.mean([np.abs(a.astype(np.int16) - b.astype(np.int16)).mean()
                  for a, b in zip(out, outs["cpu"])])
     assert d / 255.0 <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_norm_affine_per_sample_on_card(rng, cuda, dtype, variant):
+    """Per-sample [B,1,1,C] statistics and style affine: one launch per
+    sample, each against the plain version's broadcast."""
+    x, st, s, m = _norm_inputs(rng, (3, 17, 19, 128), variant, cuda, dtype)
+    st = NormStats(*(v * torch.from_numpy(1 + 0.1 * rng.random(
+        (3, 1, 1, 128))).float().to(cuda) for v in st))
+    if s is not None:
+        s = torch.from_numpy(1 + rng.random((3, 1, 1, 128))).float().to(cuda)
+        m = torch.from_numpy(rng.standard_normal((3, 1, 1, 128))).float() \
+            .to(cuda)
+    leaky = variant == "leaky"
+    before = norm_affine_clamp.launches
+    got = norm_affine_clamp(x, st, s, m, leaky=leaky)
+    torch.cuda.synchronize()
+    assert norm_affine_clamp.launches == before + 3
+    assert _ulp_ok(got, norm_affine_clamp_plain(x, st, s, m, leaky=leaky))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_filter_pair_per_sample_on_card(rng, cuda, dtype):
+    x = torch.from_numpy(rng.standard_normal((3, 13, 11, 32))).to(cuda, dtype)
+    f1 = torch.from_numpy(rng.standard_normal((3, 32, 32)) * 1e3).float() \
+        .to(cuda)
+    f2 = torch.from_numpy(rng.standard_normal((3, 32, 32)) * 1e-3).float() \
+        .to(cuda)
+    before = dynamic_filter_pair.launches
+    got = dynamic_filter_pair(x, f1, f2)
+    torch.cuda.synchronize()
+    assert dynamic_filter_pair.launches == before + 3
+    assert _ulp_ok(got, dynamic_filter_pair_plain(x, f1, f2))
+
+
+@pytest.mark.cuda
+def test_long_clip_and_multistyle_on_card(cuda):
+    """A spilled Pass 1 (threshold lowered to 1, below the clip's 2
+    samples) and a two-style interpolation on the card, each within 1 count
+    of the CPU path."""
+    from rerevst_torch.multistyle import MultiStylization
+
+    rng = np.random.default_rng(1)
+    style = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    clip = _clip()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        s = Stylization(str(CKPT), device=dev)
+        s.STREAMING_THRESHOLD = 1
+        s.prepare_style(style)
+        outs[dev] = list(s.stylize_video(clip, batch_size=4))
+        assert s.pass1_mode == "streaming-spill"
+        ms = MultiStylization(str(CKPT), device=dev)
+        ms.prepare_styles([style, style[::-1].copy()])
+        outs[dev + "_ms"] = list(ms.interpolate_video(clip, batch_size=4))
+    for key in ("", "_ms"):
+        for a, b in zip(outs["cuda" + key], outs["cpu" + key]):
+            assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1

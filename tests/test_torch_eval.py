@@ -199,8 +199,8 @@ def test_parity_pipeline_and_unported_flags(frames):
     want = jparity.run_pipeline(params, JaxModelConfig(), clip, style, 2, 2)
     err = parity.pixel_error(got, want)
     assert err["n_frames"] == 3 and err["max_counts"] <= 1
-    for flags, item in ((["--fast_packed"], "item 14"),
-                        (["--fast_tail", "out"], "item 14"),
-                        (["--fast_precision", "high"], "item 14")):
+    for flags, item in ((["--fast_packed"], "item 8"),
+                        (["--fast_tail", "out"], "item 8"),
+                        (["--fast_precision", "high"], "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             parity.main(flags + ["--device", "cpu"])

@@ -169,7 +169,8 @@ class TestWrappers:
     def test_norm_affine_rejects(self, rng):
         x, st, s, m = _inputs(rng, (2, 3, 4, 64), "affine")
         xt, pst = torch.from_numpy(x), _port_st(st)
-        per_sample = torch.ones(2, 1, 1, 64)
+        # Per-sample conditioning must have x's batch (2) as its leading dim.
+        per_sample = torch.ones(3, 1, 1, 64)
         with pytest.raises(ValueError, match="shared"):
             norm_affine_clamp(xt, pst, per_sample, per_sample)
         with pytest.raises(ValueError, match="channels"):
@@ -186,8 +187,8 @@ class TestWrappers:
     def test_filter_pair_rejects(self, rng):
         x = torch.zeros(2, 3, 4, 32)
         with pytest.raises(ValueError, match="per-sample"):
-            dynamic_filter_pair(x, torch.zeros(2, 32, 32),
-                                torch.zeros(2, 32, 32))
+            dynamic_filter_pair(x, torch.zeros(3, 32, 32),
+                                torch.zeros(3, 32, 32))
         with pytest.raises(ValueError, match="contiguous"):
             dynamic_filter_pair(x.transpose(1, 2), torch.zeros(1, 32, 32),
                                 torch.zeros(1, 32, 32))
