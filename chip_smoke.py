@@ -7,9 +7,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device  — the card's name, compute capability (must be 9.0) and power limit;
 2. build   — compiles ``rerevst_torch/csrc/*.cu`` for sm_90a (first use),
-             and reports the registers and spills of the streamed conv
-             kernels and the filter pair kernel (``nvcc -Xptxas -v``; a
-             spill fails);
+             and reports the registers and spills of the streamed and
+             wide conv kernels and the filter pair kernel (``nvcc -Xptxas
+             -v``; a spill fails, and so does a serialized wgmma in the
+             wide kernel);
 3. check   — each kernel against its plain PyTorch version on the card, at the
              main path's shapes (batch 16, 512x512 content padded to 640x640)
              plus ragged ones and inf/NaN inputs, in f16, bf16 and fp32;
@@ -27,8 +28,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
              (exact flows, no cv2), on the card and on the CPU; then
              ``conv3x3_implicit_gemm``, which no model path runs, driven
              alone at the shapes of the JAX package's conv benchmark
-             (``scripts/bench_conv3x3.py``); every global session's Pass-2
-             host prep must have gone through the native library;
+             (``scripts/bench_conv3x3.py``) and at VGG conv2_2 and conv1_1,
+             so that each of its three 16-bit designs (streamed, wide,
+             cp.async) launches; every global session's Pass-2 host prep
+             must have gone through the native library;
    long_clip   — f16 and fp32 ``stylize_video`` of a seeded 65-frame 512x512
              clip at ``sample_interval=1``: 65 samples spill to the host
              spool and stream ('streaming-spill'); launches of the path and
@@ -51,7 +54,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
              pair-lane and per-frame f16 paths, and torch.profiler traces
              of one f16 stylize_video (device busy vs wall clock) and of
              Pass 2 alone on those three paths (where a batch's time goes);
-             ``rr_conv3x3`` at VGG conv2_1 and conv2_2 beside ``F.conv2d``;
+             ``rr_conv3x3`` at the VGG shapes conv1_1 (C = 3), conv2_1
+             (C = 64) and conv2_2, conv3_1, conv3_2 and conv4_1 (C >= 128,
+             the wide kernel) beside ``F.conv2d``;
              and (phase pipeline) the warm f16 stylize_video's wall time
              and idle share;
 6. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
@@ -116,6 +121,17 @@ PAIRLANE_SITES = [("conv1_2, res2.conv2", 2, 64), ("out", 1, 3)]
 #: The shapes of rerevst_tpu's scripts/bench_conv3x3.py, the implicit-GEMM
 #: conv's only driver in the JAX package: (x shape, O).
 IGEMM_BENCH = [((BATCH, PAD_HW, PAD_HW, 64), 64), ((BATCH, PAD_HW, PAD_HW, 64), 3)]
+#: The VGG encoder's convs of one 16-frame batch of 640^2 that run
+#: ``rr_conv3x3`` standalone: (site, x shape, O).  conv1_1 takes the cp.async
+#: implicit GEMM (C = 3), conv2_1 the streamed kernel (C = 64), the rest the
+#: wide kernel (conv2_2 also stands for the decoder's res3.conv2, conv3_2
+#: for conv3_3, conv3_4 and res4.conv2).
+VGG_CONVS = [("VGG conv1_1", (BATCH, PAD_HW, PAD_HW, 3), 64),
+             ("VGG conv2_1", (BATCH, 320, 320, 64), 128),
+             ("VGG conv2_2", (BATCH, 320, 320, 128), 128),
+             ("VGG conv3_1", (BATCH, 160, 160, 128), 256),
+             ("VGG conv3_2", (BATCH, 160, 160, 256), 256),
+             ("VGG conv4_1", (BATCH, 80, 80, 256), 512)]
 
 RESULTS: dict = {"checks": [], "times": []}
 
@@ -202,13 +218,22 @@ def check_convs(torch, gen, errs):
     # (x shape, O, bias).  The cases after the main-path shapes stress the
     # streamed C = 64 kernel's work split (its plan on 132 SMs): a last band
     # shorter than the rest (H % R != 0), a last strip narrower than 128
-    # columns, W < 128, B = 1, and O = 128 as two channel tiles; C != 64
-    # takes the cp.async implicit GEMM.
+    # columns, W < 128, B = 1, and O = 128 as two channel tiles.  C = 128,
+    # 256 and 512 take the wide kernel: every tile width its plan picks,
+    # ragged bands and strips, B = 1, O = 5 (a zero-padded weight copy), 16,
+    # 64, 192 (a half-empty tile), 256 and 512 (two 256-wide tiles).  C = 3
+    # and 32 take the cp.async implicit GEMM.
     igemm = [((BATCH, p, p, 64), 64, True), ((BATCH, p, p, 64), 3, True),
              ((2, 64, 64, 3), 64, True), ((2, 80, 80, 128), 128, False),
              ((2, 40, 40, 256), 512, True),
              ((3, 37, 53, 64), 64, True), ((2, 13, 7, 128), 5, False),
-             ((1, 75, 300, 64), 128, True), ((1, 75, 300, 64), 128, False)]
+             ((1, 75, 300, 64), 128, True), ((1, 75, 300, 64), 128, False),
+             ((1, 37, 53, 128), 64, True), ((1, 9, 33, 128), 16, True),
+             ((2, 11, 9, 128), 192, True), ((1, 5, 640, 128), 128, True),
+             ((2, 6, 320, 256), 256, False), ((1, 19, 150, 256), 256, True),
+             ((1, 23, 45, 512), 128, False), ((2, 12, 80, 256), 512, True),
+             ((1, 3, 161, 512), 512, True), ((2, 13, 7, 512), 5, True),
+             ((2, 21, 19, 32), 24, True)]
     pair = [((BATCH, p, p, 64), 64, True), ((BATCH, p, p, 64), 3, True),
             ((3, 37, 53, 64), 64, True), ((2, 19, 150, 64), 32, True),
             ((1, 131, 200, 64), 64, False), ((1, 130, 257, 64), 5, True),
@@ -219,7 +244,9 @@ def check_convs(torch, gen, errs):
         + [("conv3x3_pairlane", s, o, bias, False) for s, o, bias in pair] \
         + [(name, (2, 19, 150, 64), o, True, True)  # inf and NaN inputs
            for name in ("conv3x3_implicit_gemm", "conv3x3_pairlane")
-           for o in (64, 3)]
+           for o in (64, 3)] \
+        + [("conv3x3_implicit_gemm", (2, 19, 150, 128), o, True, True)
+           for o in (128, 5)]  # the same through the wide kernel
     for name, shape, o, bias, nonfinite in cases:
         kern = getattr(kernels, name)
         plain = getattr(kernels, name + "_plain")
@@ -668,13 +695,16 @@ def run_e2e(torch):
 def drive_implicit_gemm(torch):
     """conv3x3_implicit_gemm has no model path in either package; its one
     driver in the JAX package is scripts/bench_conv3x3.py.  Drive it once
-    at those shapes, counts at 0 before and read after."""
+    at those shapes and at VGG conv2_2 and conv1_1, counts at 0 before and
+    read after: each 16-bit design of csrc/conv3x3.cu must have launched."""
     from rerevst_torch import kernels
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
+    shapes = IGEMM_BENCH + [(shape, o) for site, shape, o in VGG_CONVS
+                            if site in ("VGG conv2_2", "VGG conv1_1")]
     kernels.reset_launches()
-    for shape, o in IGEMM_BENCH:
+    for shape, o in shapes:
         x, w, b = conv_inputs(torch, shape, o, torch.float16, gen)
         y = kernels.conv3x3_implicit_gemm(x, w, b)
         torch.cuda.synchronize()
@@ -682,10 +712,14 @@ def drive_implicit_gemm(torch):
             fail(f"conv3x3_implicit_gemm {shape}->{o}: bad output")
         del x, w, b, y
     counts = kernels.launch_counts()
+    by_design = dict(kernels.conv3x3_implicit_gemm.launches_by_design)
     emit({"phase": "e2e", "path": "conv3x3_implicit_gemm standalone",
-          "launches": counts})
-    if counts["conv3x3_implicit_gemm"] != len(IGEMM_BENCH):
-        fail(f"conv3x3_implicit_gemm standalone launches {counts}")
+          "launches": counts, "launches_by_design": by_design})
+    if counts["conv3x3_implicit_gemm"] != len(shapes) \
+            or by_design != {"streamed": 2, "wide": 1, "igemm": 1, "fp32": 0}:
+        fail(f"conv3x3_implicit_gemm standalone launches {counts}, "
+             f"by design {by_design}")
+    RESULTS["implicit_gemm_launches_by_design"] = by_design
     return counts
 
 
@@ -1384,22 +1418,20 @@ def pipeline(torch, session):
 
 
 def time_vgg_convs(torch):
-    """rr_conv3x3 at two VGG shapes, f16, beside one F.conv2d call: conv2_1
-    ([16,320,320,64] -> 128: C = 64, so the streamed TMA + wgmma kernel in
-    two channel tiles) and conv2_2 ([16,320,320,128] -> 128: C != 64, the
-    cp.async + mma.sync implicit GEMM).  Each is checked against its plain
-    version first."""
+    """rr_conv3x3 at the VGG shapes of VGG_CONVS, f16, beside its plain
+    version and one F.conv2d call: conv1_1 (C = 3: the cp.async +
+    mma.sync implicit GEMM), conv2_1 (C = 64: the streamed kernel in two
+    channel tiles) and the C >= 128 shapes (the wide kernel).  Each is
+    checked against its plain version first."""
     import torch.nn.functional as F
 
     from rerevst_torch import kernels
+    from rerevst_torch.kernels.conv3x3 import design
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
     rows = []
-    for site, shape, o in (("VGG conv2_1 (C = 64: streamed)",
-                            (BATCH, 320, 320, 64), 128),
-                           ("VGG conv2_2 (C = 128: cp.async + mma.sync)",
-                            (BATCH, 320, 320, 128), 128)):
+    for site, shape, o in VGG_CONVS:
         x, w, b = conv_inputs(torch, shape, o, torch.float16, gen)
         got = kernels.conv3x3_implicit_gemm(x, w, b)
         want = kernels.conv3x3_implicit_gemm_plain(x, w, b)
@@ -1418,36 +1450,47 @@ def time_vgg_convs(torch):
                       iters=10, warmup=2)
         bound, by, t_bytes, t_ops = conv_bound(x, w, o)
         row = {"kernel": "conv3x3_implicit_gemm", "site": site,
+               "design": design(shape[-1], x.dtype),
                "shape": shape, "O": o, "dtype": "float16",
                "max_abs_err": err, "ms": k["ms"], "plain_ms": pl["ms"],
                "library_ms": lib["ms"], "bound_ms": bound, "bound_by": by,
                "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+               "of_bound": bound / k["ms"],
                "tflops": 2 * x.numel() * 9 * o / k["ms"] / 1e9,
                "host_paced": k["host_paced"] or lib["host_paced"]}
         rows.append(row)
         RESULTS["times"].append(row)
         emit({"phase": "time", **row})
         del x, w, b, wl, xl
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return rows
 
 
 def kernel_resources(build) -> dict:
     """Registers, spills and ptxas's notes (a serialized wgmma shows here)
-    of each instance of the streamed C = 64 conv kernel and of the filter
-    pair kernel.  A spill fails the phase: both designs count on keeping
-    their fragments in registers."""
+    of each instance of the streamed C = 64 and the wide conv kernels and
+    of the filter pair kernel.  A spill fails the phase: the designs count
+    on keeping their fragments and accumulators in registers; so does a
+    note that the wide kernel's wgmmas are serialized."""
     import re
 
     dts = {"f": "fp32", "6__half": "f16", "13__nv_bfloat16": "bf16"}
     out = {}
     for name, info in build.ptxas_report("conv3x3.cu").items():
-        m = re.search(r"conv3x3_stream_kernelI(6__half|13__nv_bfloat16)Li(\d+)E",
-                      name)
+        m = re.search(r"conv3x3_(stream|wide)_kernelI(6__half|13__nv_bfloat16)"
+                      r"Li(\d+)E", name)
         if m:
-            out[f"conv3x3_stream_kernel<{dts[m.group(1)]}, N={m.group(2)}>"] \
-                = info
+            out[f"conv3x3_{m.group(1)}_kernel<{dts[m.group(2)]}, "
+                f"N={m.group(3)}>"] = info
     n_conv = len(out)
+    n_wide = sum(k.startswith("conv3x3_wide") for k in out)
+    if n_wide != 12:
+        fail(f"ptxas reported {n_wide} wide conv kernels, not 12")
+    serialized = [k for k, v in out.items() if k.startswith("conv3x3_wide")
+                  and any("wgmma" in n and "serializ" in n
+                          for n in v["notes"])]
+    if serialized:
+        fail(f"ptxas serialized the wgmmas of {serialized}: {out}")
     for name, info in build.ptxas_report("filter_chain.cu").items():
         m = re.search(r"filter_pair_kernelI(f|6__half|13__nv_bfloat16)E", name)
         if m:
@@ -1579,6 +1622,10 @@ def main() -> int:
          "launches_long_clip_pass1": long["f16"]["launches_pass1"][k],
          "launches_multistyle": ms["f16"]["launches"][k]}
         for k, (src, rep, by, path, counts) in meta.items()]}
+    for entry in line["kernels"]:
+        if entry["name"] == "conv3x3_implicit_gemm":
+            entry["launches_by_design"] = \
+                RESULTS["implicit_gemm_launches_by_design"]
     RESULTS["kernels"] = line["kernels"]
     _save()
     emit(line)

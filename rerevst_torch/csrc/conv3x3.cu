@@ -16,14 +16,19 @@
 // TPU kernel's lane pairing of two W-adjacent pixels only fills the MXU's
 // 128 lanes and has no counterpart here.
 //
-// Which design takes which call (by shape, in the launcher):
+// Which design takes which call (by shape, in the launcher; no switch):
 // * 16-bit (f16, bf16) with C = 64 -- both entry points, every O: the
 //   streamed design below (conv3x3_stream_kernel).
-// * 16-bit with C != 64 -- rr_conv3x3 only (VGG's conv1_1 with C = 3, whose
-//   6-byte pixel stride no tensor map takes, and the wide layers): the
-//   cp.async implicit GEMM (conv3x3_igemm_kernel).
+// * 16-bit with C % 64 = 0 and C >= 128 -- rr_conv3x3 (VGG conv2_2 to
+//   conv4_1, the decoder's res3/res4 convs): the wide design below
+//   (conv3x3_wide_kernel).
+// * 16-bit with any other C -- rr_conv3x3 only (VGG's conv1_1 with C = 3,
+//   whose 6-byte pixel stride no tensor map takes, C = 32, and C that fill
+//   no 64-channel slice): the cp.async implicit GEMM (conv3x3_igemm_kernel).
 // * fp32: true fp32 CUDA-core FMAs (the counterpart of the JAX package's
 //   HIGHEST precision) in one kernel that both entry points use.
+// A tensor map that cannot be encoded or a refused launch is returned as
+// an error: nothing retries on another design.
 //
 // What bounds the C = 64 convs on the H100 (989 TFLOP/s dense f16/bf16,
 // 3.35 TB/s): at 64 -> 64 a pixel costs 2 x 576 x 64 = 73.7 kflop against
@@ -75,7 +80,48 @@
 //   rows for rows outside the band go into accumulators that are never
 //   stored: 2 rows' worth of products in R + 2.
 
-// The cp.async implicit GEMM (C != 64).  A block computes 128 consecutive
+// The wide design (C = 128 .. 512 and beyond, C % 64 = 0).  At C >= 128 a
+// pixel costs 2 x 9C x O >= 295 kflop against at most 4 C bytes moved, so
+// the tensor cores bound it; each input value is needed by nine taps and
+// every output channel tile, and L2 has to feed them.
+// * Work split (kernels/conv3x3.py: wide_plan).  Output tiles of M pixels
+//   x N output channels: N = 128, or 256 where O >= 256, or O rounded up
+//   to 8, 16, 32 or 64 below 64; M = 256 (each consumer warpgroup two m64
+//   blocks) where N <= 128, else 128 (the accumulators of two m64n256
+//   blocks would not fit).  Either way a stage moves 48 KB (or less) for
+//   4.2 MFLOP: fewer bytes staged per flop than 128 x 128 tiles.  A tile's
+//   pixels are a rectangle of `rows` x `cols` (cols = 16, 32, 64 or 128,
+//   rows = M / cols): one TMA box, whatever W is; the plan picks the shape
+//   that wastes the fewest pixels past the image's edges.  One
+//   persistent block per SM walks tiles t = blockIdx.x, + gridDim.x, ...
+//   with the channel tile fastest, then the strip, the band and the image:
+//   the blocks at work at any moment read neighbouring rows, so a tile's
+//   taps re-read rows that are still in L2.
+// * K loop: 9 taps x C / 64 channel slices, tap-major (k = tap (C / 64) +
+//   slice, the row order of the [9C, O] view of HWIO).  Step k stages
+//   A, one TMA box {64 channels, cols, rows, 1} of x at (c0, x0 + dx - 1,
+//   y0 + dy - 1, b): the hardware zero-fills coordinates outside the image,
+//   which is the SAME padding; it lands as [M px][64 ch], 128-byte
+//   swizzled, wgmma's K-major A layout.  B, the tap's [64 c][N o] slice of
+//   the [9C, O] weights, as N / 64 boxes of 64 columns (one box, zero-filled
+//   past O, for N < 64), lands O-contiguous and swizzled; wgmma reads it
+//   with its B-transpose flag (MN-major), so the HWIO weights need no
+//   relayout.  O % 8 != 0 gives no 16-byte row stride for a tensor map: the
+//   wrapper then passes a copy of w padded with zeros to a multiple of 8.
+// * A ring of four stages (up to 192 KB), each with a full and an empty
+//   mbarrier.  One producer thread issues the loads; its warpgroup gives
+//   its registers to the consumers (setmaxnreg).  Two consumer warpgroups,
+//   one half of the tile each, issue a stage's wgmma.mma_async m64nNk16
+//   (four k16 steps for each m64 block, A and B from shared memory) as one
+//   group, keep it in flight, and release the previous stage once
+//   wgmma.wait_group 1 says its group is done.
+// * The epilogue adds the bias in fp32, rounds once, stages 64 pixels x 64
+//   channels at a time in shared memory and stores 16-byte vectors
+//   (coalesced scalars where O % 8 != 0).  Meanwhile the producer is
+//   already loading the next tile's stages, but the tensor cores wait:
+//   scripts/probe_wide_conv.py measures what that costs.
+
+// The cp.async implicit GEMM (other C).  A block computes 128 consecutive
 // output pixels (flattened over batch, rows and columns) by up to 64 output
 // channels.  Each K step stages a 128 x 32 input chunk, gathered straight
 // from x with the halo's zeros, and a 32 x N weight chunk in shared memory,
@@ -110,8 +156,30 @@ constexpr int kSlotBytes = (kBoxBytes + 1023) / 1024 * 1024;  // 17408
 constexpr int kSlots = 6;                  // input rows in flight
 constexpr int kConsumerThreads = 256;      // two warpgroups
 // + a producer warpgroup: one thread issues the loads, but setmaxnreg hands
-// registers over by whole warpgroups.
-constexpr int kStreamThreads = kConsumerThreads + 128;
+// registers over by whole warpgroups.  The wide design has the same roles.
+constexpr int kSpecThreads = kConsumerThreads + 128;
+
+// The wide design.
+constexpr int kBChunk = 64 * 64 * 2;       // 8192: 64 k x 64 o of B
+constexpr int kRingBytes = 196608;         // all stages of the ring
+
+template <int BN>
+struct Wide {
+  // Output pixels per tile: 256 (two m64 blocks per consumer warpgroup)
+  // where the accumulators fit, 128 at N = 256.
+  static constexpr int kM = BN <= 128 ? 256 : 128;
+  static constexpr int kMB = kM / 128;                    // m64 blocks a WG
+  static constexpr int kASlot = kM * 64 * 2;              // one A box
+  static constexpr int kChunks = BN >= 64 ? BN / 64 : 1;  // B boxes a stage
+  static constexpr int kStageBytes = kASlot + kChunks * kBChunk;
+  static constexpr int kStages = kRingBytes / kStageBytes;  // 4
+  static constexpr int kCW = BN < 64 ? BN : 64;  // epilogue chunk width
+  static constexpr int kLDS = kCW + 8;           // its padded row
+  static constexpr size_t kSmem = 1024                    // base alignment
+                                  + (size_t)kStages * kStageBytes
+                                  + 2 * 64 * kLDS * 2     // output staging
+                                  + 2 * kStages * 8;      // mbarriers
+};
 
 // Padded row length of a [k][BN] weight tile: 16 bytes of padding keeps
 // ldmatrix free of bank conflicts; an 8-wide row is already conflict-free.
@@ -274,6 +342,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[M][N]) {
     for (int j = 0; j < N; ++j) asm volatile("" : "+f"(r[i][j])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
 // Shared-memory matrix descriptor of a K-major operand with the 128-byte
 // swizzle: start address >> 4, leading offset 1 (unused), stride 1024 bytes
 // between 8-row groups, layout 1 (128B swizzle).  The base must be
@@ -352,6 +426,96 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4],
   } else {
     static_assert(N == 64, "wgmma width");
     if constexpr (f16) RR_WGMMA_N64("f16"); else RR_WGMMA_N64("bf16");
+  }
+}
+
+// One box of a 2-D tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Waits until at most N of this warpgroup's committed wgmma groups are
+// still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory matrix descriptor of an N-contiguous (MN-major) B operand
+// with the 128-byte swizzle, as TMA lands 64-column boxes of a [k][o]
+// row-major matrix: each k row of a box is one 128-byte swizzle row, eight
+// rows make a 1024-byte group.  Leading offset: 8192 bytes from one
+// 64-column box to the next along N; stride offset: 1024 bytes from one
+// group of eight k rows to the next.  A k16 step adds 2048 bytes.
+__device__ __forceinline__ uint64_t wgmma_desc_mn(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>(kBChunk >> 4) << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// wgmma.mma_async m64nNk16 with A and B from shared memory: A K-major
+// (descriptor da), B MN-major (db, the transpose flag set); fp32
+// accumulators d; scale_d = 0 starts d afresh.
+#define RR_ACC4 "%0, %1, %2, %3"
+#define RR_ACC8 RR_ACC4 ", %4, %5, %6, %7"
+#define RR_ACC16 RR_ACC8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define RR_ACC32                                                       \
+  RR_ACC16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, " \
+           "%27, %28, %29, %30, %31"
+#define RR_ACC64                                                       \
+  RR_ACC32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
+           "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
+           "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define RR_ACC128                                                      \
+  RR_ACC64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, " \
+           "%75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "   \
+           "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, "   \
+           "%97, %98, %99, %100, %101, %102, %103, %104, %105, %106, " \
+           "%107, %108, %109, %110, %111, %112, %113, %114, %115, "    \
+           "%116, %117, %118, %119, %120, %121, %122, %123, %124, "    \
+           "%125, %126, %127"
+#define RR_D64(i) RR_D32(i), RR_D32(i + 32)
+#define RR_D128(i) RR_D64(i), RR_D64(i + 64)
+
+// N, TY: the shape's width and the type as PTX strings; ACC, D: the
+// accumulators' operand list and constraints; IA, IB, IS: the operand
+// numbers of da, db and scale_d (N / 2, N / 2 + 1, N / 2 + 2).
+#define RR_WGMMA_SS(N, TY, ACC, D, IA, IB, IS)                          \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IS ", 0;\n"         \
+               "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." \
+               TY " {" ACC "}, %" IA ", %" IB ", p, 1, 1, 0, 1;\n}\n"   \
+               : D                                                      \
+               : "l"(da), "l"(db), "r"(scale_d))
+
+#define RR_WGMMA_SS_ALL(TY)                                                  \
+  if constexpr (N == 8)                                                      \
+    RR_WGMMA_SS("8", TY, RR_ACC4, RR_D4(0), "4", "5", "6");                  \
+  else if constexpr (N == 16)                                                \
+    RR_WGMMA_SS("16", TY, RR_ACC8, RR_D8(0), "8", "9", "10");                \
+  else if constexpr (N == 32)                                                \
+    RR_WGMMA_SS("32", TY, RR_ACC16, RR_D16(0), "16", "17", "18");            \
+  else if constexpr (N == 64)                                                \
+    RR_WGMMA_SS("64", TY, RR_ACC32, RR_D32(0), "32", "33", "34");            \
+  else if constexpr (N == 128)                                               \
+    RR_WGMMA_SS("128", TY, RR_ACC64, RR_D64(0), "64", "65", "66");           \
+  else                                                                       \
+    RR_WGMMA_SS("256", TY, RR_ACC128, RR_D128(0), "128", "129", "130")
+
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128 ||
+                    N == 256,
+                "wgmma width");
+  if constexpr (std::is_same<T, __half>::value) {
+    RR_WGMMA_SS_ALL("f16");
+  } else {
+    RR_WGMMA_SS_ALL("bf16");
   }
 }
 
@@ -523,7 +687,7 @@ __device__ __forceinline__ void stream_row(float (&acc)[3][BN / 2],
 }
 
 template <typename T, int BN>
-__global__ void __launch_bounds__(kStreamThreads, 1) conv3x3_stream_kernel(
+__global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_stream_kernel(
     const __grid_constant__ CUtensorMap xmap, const T* __restrict__ w,
     const T* __restrict__ bias, T* __restrict__ y, int B, int H, int W, int O,
     int R) {
@@ -544,7 +708,7 @@ __global__ void __launch_bounds__(kStreamThreads, 1) conv3x3_stream_kernel(
   // tap t, channel n, input channel c at t BN 128 + n 128 + 16 ((c / 8) ^
   // (n % 8)) + 2 (c % 8) bytes, wgmma's K-major 128B-swizzled layout (the
   // HWIO layout's O-contiguous rows transposed on the way in).
-  for (int i = tid; i < 9 * kC * BN; i += kStreamThreads) {
+  for (int i = tid; i < 9 * kC * BN; i += kSpecThreads) {
     const int n = i % BN, ch = (i / BN) % kC, tap = i / (BN * kC);
     const int o = n0 + n;
     T* dst = reinterpret_cast<T*>(ws + tap * BN * 128 + n * 128 +
@@ -552,7 +716,7 @@ __global__ void __launch_bounds__(kStreamThreads, 1) conv3x3_stream_kernel(
              (ch & 7);
     *dst = o < O ? w[((long long)tap * kC + ch) * O + o] : zero;
   }
-  for (int n = tid; n < BN; n += kStreamThreads)
+  for (int n = tid; n < BN; n += kSpecThreads)
     bias_s[n] = bias != nullptr && n0 + n < O ? rr_to_float(bias[n0 + n]) : 0.f;
   if (tid == 0) {
     for (int s = 0; s < kSlots; ++s) {
@@ -631,7 +795,217 @@ __global__ void __launch_bounds__(kStreamThreads, 1) conv3x3_stream_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// 16-bit, C != 64 (rr_conv3x3): tiles of 128 pixels x BN channels, K in
+// 16-bit, C % 64 = 0, C >= 128 (rr_conv3x3): the wide design (above)
+// ---------------------------------------------------------------------------
+
+// Tile t: image b, output rows y0 .. y0 + rows - 1, columns x0 .. x0 + cols
+// - 1, output channels n0 .. n0 + BN - 1.  The order (channel tile
+// fastest, then strip, band, image) is the wrapper's plan's
+// (kernels/conv3x3.py: WidePlan.tile).
+struct WideTile {
+  int b, y0, x0, n0;
+};
+
+__device__ __forceinline__ WideTile wide_tile(long long t, int n_tiles,
+                                              int strips, int bands, int rows,
+                                              int cols, int bn) {
+  WideTile u;
+  u.n0 = (int)(t % n_tiles) * bn;
+  long long q = t / n_tiles;
+  u.x0 = (int)(q % strips) * cols;
+  q /= strips;
+  u.y0 = (int)(q % bands) * rows;
+  u.b = (int)(q / bands);
+  return u;
+}
+
+// One stage's products for a warpgroup: four k16 steps (A + 32 i bytes,
+// B + 2048 i bytes: 2 i and 128 i in 16-byte units) into each of its kMB
+// m64 blocks (A + 8192 bytes a block); `fresh` starts the sums afresh.
+template <typename T, int BN>
+__device__ __forceinline__ void wide_stage(float (&acc)[Wide<BN>::kMB][BN / 2],
+                                           uint64_t da, uint64_t db,
+                                           bool fresh) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int m = 0; m < Wide<BN>::kMB; ++m)
+      wgmma_ss<T, BN>(acc[m], da + 512 * m + 2 * i, db + 128 * i,
+                      !(fresh && i == 0));
+}
+
+// A finished m64 block of a warpgroup, tile pixels p0 .. p0 + 63 (pixel p
+// sits at row p / cols, column p % cols of the tile): + bias, rounded
+// once, staged kCW channels at a time in shared memory, stored with 16-byte
+// vectors (O % 8 = 0) or coalesced scalars.  `bar`: the warpgroup's named
+// barrier.
+template <typename T, int BN>
+__device__ __forceinline__ void wide_store(const float (&acc)[BN / 2], T* st,
+                                           const T* __restrict__ bias,
+                                           T* __restrict__ y,
+                                           const WideTile& u, int H, int W,
+                                           int O, int lc, int p0, int bar,
+                                           int wtid) {
+  constexpr int CW = Wide<BN>::kCW, LDS = Wide<BN>::kLDS, VPR = CW / 8;
+  const int lane = wtid & 31;
+  const int r = (wtid >> 5) * 16 + (lane >> 2);
+  const int cmask = (1 << lc) - 1;
+#pragma unroll
+  for (int c = 0; c < BN / CW; ++c) {
+    const int nc = u.n0 + c * CW;  // the chunk's first output channel
+    bar_sync_wg(bar);  // the previous chunk's copy-out has read `st`
+#pragma unroll
+    for (int j = 0; j < CW / 8; ++j) {
+      const int col = j * 8 + (lane & 3) * 2;
+      const int o = nc + col;
+      const float b0 = bias != nullptr && o < O ? rr_to_float(bias[o]) : 0.f;
+      const float b1 =
+          bias != nullptr && o + 1 < O ? rr_to_float(bias[o + 1]) : 0.f;
+      const int a = 4 * (c * CW / 8 + j);
+      *reinterpret_cast<uint32_t*>(st + r * LDS + col) =
+          pack2<T>(acc[a] + b0, acc[a + 1] + b1);
+      *reinterpret_cast<uint32_t*>(st + (r + 8) * LDS + col) =
+          pack2<T>(acc[a + 2] + b0, acc[a + 3] + b1);
+    }
+    bar_sync_wg(bar);
+    const int oc = O - nc;  // channels of this chunk inside O (may be <= 0)
+    if (O % 8 == 0) {
+      for (int i = wtid; i < 64 * VPR; i += 128) {
+        const int px = i / VPR, v = i % VPR;
+        const int p = p0 + px;
+        const int yy = u.y0 + (p >> lc), xx = u.x0 + (p & cmask);
+        if (yy < H && xx < W && v * 8 < oc)
+          *reinterpret_cast<uint4*>(
+              y + (((long long)u.b * H + yy) * W + xx) * O + nc + v * 8) =
+              *reinterpret_cast<const uint4*>(st + px * LDS + v * 8);
+      }
+    } else {
+      for (int i = wtid; i < 64 * CW; i += 128) {
+        const int px = i / CW, ch = i % CW;
+        const int p = p0 + px;
+        const int yy = u.y0 + (p >> lc), xx = u.x0 + (p & cmask);
+        if (yy < H && xx < W && ch < oc)
+          y[(((long long)u.b * H + yy) * W + xx) * O + nc + ch] =
+              st[px * LDS + ch];
+      }
+    }
+  }
+}
+
+// xmap: x as [B][H][W][C], boxes {64, cols, kM / cols, 1}; wmap: the
+// [9C, ld] weights (ld = O rounded up to 8), boxes {64, 64}; both with the
+// 128-byte swizzle.  `lc` = log2(cols).
+template <typename T, int BN>
+__global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_wide_kernel(
+    const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap wmap, const T* __restrict__ bias,
+    T* __restrict__ y, int B, int H, int W, int C, int O, int lc) {
+  using P = Wide<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const uint32_t a_ring = smem_addr(base);                  // A slots
+  const uint32_t b_ring = a_ring + P::kStages * P::kASlot;  // B slots
+  T* stage = reinterpret_cast<T*>(base + P::kStages * P::kStageBytes);
+  const uint32_t full = smem_addr(stage + 2 * 64 * P::kLDS);
+  const uint32_t empty = full + 8 * P::kStages;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < P::kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerThreads / 32);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int cols = 1 << lc, rows = P::kM >> lc;
+  const int strips = (W + cols - 1) >> lc;
+  const int bands = (H + rows - 1) / rows;
+  const int n_tiles = (O + BN - 1) / BN;
+  const long long tiles = (long long)n_tiles * strips * bands * B;
+  const int slices = C / 64;
+  const int ksteps = 9 * slices;
+
+  if (tid >= kConsumerThreads) {
+    // The producer warpgroup: one thread streams every tile's K steps.
+    regs_release();
+    if (tid == kConsumerThreads) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const WideTile u = wide_tile(t, n_tiles, strips, bands, rows, cols, BN);
+        for (int k = 0; k < ksteps; ++k) {
+          const int tap = k / slices, c0 = (k - tap * slices) * 64;
+          mbar_wait(empty + 8 * s, ph ^ 1);
+          mbar_expect_tx(full + 8 * s, P::kStageBytes);
+          tma_load_4d(a_ring + s * P::kASlot, &xmap, full + 8 * s, c0,
+                      u.x0 + tap % 3 - 1, u.y0 + tap / 3 - 1, u.b);
+#pragma unroll
+          for (int j = 0; j < P::kChunks; ++j)
+            tma_load_2d(b_ring + (s * P::kChunks + j) * kBChunk, &wmap,
+                        full + 8 * s, u.n0 + 64 * j, tap * C + c0);
+          if (++s == P::kStages) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumers: warpgroup wg computes tile pixels kM / 2 wg .. in kMB
+  // m64 blocks.
+  regs_claim();
+  const int wg = tid >> 7, wtid = tid & 127, lane = tid & 31;
+  T* st = stage + wg * 64 * P::kLDS;
+  float acc[P::kMB][BN / 2];
+#pragma unroll
+  for (int m = 0; m < P::kMB; ++m)
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[m][j] = 0.f;
+  int s = 0;
+  uint32_t ph = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const WideTile u = wide_tile(t, n_tiles, strips, bands, rows, cols, BN);
+    int prev = 0;
+    for (int k = 0; k < ksteps; ++k) {
+      mbar_wait(full + 8 * s, ph);
+      const uint64_t da =
+          wgmma_desc(a_ring + s * P::kASlot + wg * P::kMB * 64 * 128);
+      const uint64_t db = wgmma_desc_mn(b_ring + s * P::kChunks * kBChunk);
+      fence_regs(acc);
+      wgmma_fence();
+      wide_stage<T, BN>(acc, da, db, k == 0);
+      wgmma_commit();
+      if (k > 0) {
+        // The previous step's group is done: its stage may be refilled.
+        wgmma_wait<1>();
+        fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * prev);
+      }
+      prev = s;
+      if (++s == P::kStages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * prev);
+#pragma unroll
+    for (int m = 0; m < P::kMB; ++m)
+      wide_store<T, BN>(acc[m], st, bias, y, u, H, W, O, lc,
+                        (wg * P::kMB + m) * 64, 1 + wg, wtid);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 16-bit, other C (rr_conv3x3): tiles of 128 pixels x BN channels, K in
 // 32-wide chunks
 // ---------------------------------------------------------------------------
 
@@ -986,38 +1360,48 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// The streamed C = 64 kernel: `grid` persistent blocks per tile of BN output
-// channels, bands of R rows.  The tensor map holds x's pointer, so it is
+// A tiled tensor map over 16-bit data with the 128-byte swizzle and
+// zero fill out of bounds.  The map holds the data's pointer, so it is
 // encoded at every call.
+template <typename T>
+cudaError_t encode_map(CUtensorMap* map, const void* p, cuuint32_t rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map,
+      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      rank, const_cast<void*>(p), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The streamed C = 64 kernel: `grid` persistent blocks per tile of BN output
+// channels, bands of R rows.
 template <typename T, int BN>
 cudaError_t launch_stream(const void* x, const void* w, const void* b, void* y,
                           int B, int H, int W, int O, int R, int grid,
                           cudaStream_t st) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap map;
   const cuuint64_t dims[4] = {(cuuint64_t)kC, (cuuint64_t)W, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {kC * 2ull, kC * 2ull * W, kC * 2ull * W * H};
   const cuuint32_t box[4] = {(cuuint32_t)kC, (cuuint32_t)kBoxPix, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      &map,
-      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      4, const_cast<void*>(x), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  cudaError_t e = encode_map<T>(&map, x, 4, dims, strides, box);
+  if (e != cudaSuccess) return e;
   constexpr size_t bytes = stream_smem_bytes<BN>();
   // Above 48 KB a block gets dynamic shared memory only after this call
   // (on the current device); without it the launch is refused.
-  const cudaError_t e = cudaFuncSetAttribute(
-      conv3x3_stream_kernel<T, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  e = cudaFuncSetAttribute(conv3x3_stream_kernel<T, BN>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
   if (e != cudaSuccess) return e;
   const dim3 g((unsigned)grid, (unsigned)((O + BN - 1) / BN));
-  conv3x3_stream_kernel<T, BN><<<g, kStreamThreads, bytes, st>>>(
+  conv3x3_stream_kernel<T, BN><<<g, kSpecThreads, bytes, st>>>(
       map, static_cast<const T*>(w), static_cast<const T*>(b),
       static_cast<T*>(y), B, H, W, O, R);
   return cudaGetLastError();
@@ -1033,14 +1417,79 @@ cudaError_t stream(const void* x, const void* w, const void* b, void* y, int B,
   return launch_stream<T, 64>(x, w, b, y, B, H, W, O, R, grid, st);
 }
 
+// The wide kernel: `grid` persistent blocks over tiles of Wide<BN>::kM
+// pixels (cols = 1 << lc wide) x BN output channels.  w is [9C, ld] with ld = O
+// rounded up to 8 (the wrapper's zero-padded copy where O % 8 != 0).
+template <typename T, int BN>
+cudaError_t launch_wide(const void* x, const void* w, const void* b, void* y,
+                        int B, int H, int W, int C, int O, int lc, int grid,
+                        cudaStream_t st) {
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xd[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                            (cuuint64_t)B};
+  const cuuint64_t xs[3] = {C * 2ull, C * 2ull * W, C * 2ull * W * H};
+  const cuuint32_t xb[4] = {64, 1u << lc, (cuuint32_t)(Wide<BN>::kM >> lc),
+                            1};
+  cudaError_t e = encode_map<T>(&xmap, x, 4, xd, xs, xb);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t ld = (cuuint64_t)(O + 7) / 8 * 8;
+  const cuuint64_t wd[2] = {ld, 9ull * C};
+  const cuuint64_t ws[1] = {ld * 2};
+  const cuuint32_t wb[2] = {64, 64};
+  e = encode_map<T>(&wmap, w, 2, wd, ws, wb);
+  if (e != cudaSuccess) return e;
+  constexpr size_t bytes = Wide<BN>::kSmem;
+  e = cudaFuncSetAttribute(conv3x3_wide_kernel<T, BN>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e != cudaSuccess) return e;
+  conv3x3_wide_kernel<T, BN><<<grid, kSpecThreads, bytes, st>>>(
+      xmap, wmap, static_cast<const T*>(b), static_cast<T*>(y), B, H, W, C, O,
+      lc);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t wide(const void* x, const void* w, const void* b, void* y, int B,
+                 int H, int W, int C, int O, int cols, int n, int grid,
+                 cudaStream_t st) {
+  const int lc = cols == 16 ? 4 : cols == 32 ? 5 : cols == 64 ? 6
+               : cols == 128 ? 7 : -1;
+  if (lc < 0 || grid <= 0) return cudaErrorInvalidValue;
+  switch (n) {
+    case 8: return launch_wide<T, 8>(x, w, b, y, B, H, W, C, O, lc, grid, st);
+    case 16: return launch_wide<T, 16>(x, w, b, y, B, H, W, C, O, lc, grid, st);
+    case 32: return launch_wide<T, 32>(x, w, b, y, B, H, W, C, O, lc, grid, st);
+    case 64: return launch_wide<T, 64>(x, w, b, y, B, H, W, C, O, lc, grid, st);
+    case 128: return launch_wide<T, 128>(x, w, b, y, B, H, W, C, O, lc, grid, st);
+    case 256: return launch_wide<T, 256>(x, w, b, y, B, H, W, C, O, lc, grid, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// 16-bit dispatch by shape (the header's table).
+template <typename T>
+cudaError_t conv16(const void* x, const void* w, const void* b, void* y,
+                   int B, int H, int W, int C, int O, int R, int cols, int n,
+                   int grid, cudaStream_t st) {
+  if (C == kC) return stream<T>(x, w, b, y, B, H, W, O, R, grid, st);
+  if (C % 64 == 0 && C >= 128)
+    return wide<T>(x, w, b, y, B, H, W, C, O, cols, n, grid, st);
+  return igemm<T>(x, w, b, y, B, H, W, C, O, st);
+}
+
 }  // namespace
 
 // x [B,H,W,C], w [3,3,C,O], b [O] or null (all in the storage dtype),
-// y [B,H,W,O]; every pointer 16-byte aligned.  `R` and `grid` are the
-// wrapper's plan for the streamed C = 64 kernel (read only there).
+// y [B,H,W,O]; every pointer 16-byte aligned.  The wrapper's plan: `R` and
+// `grid` for the streamed kernel (16-bit, C = 64); `cols`, `n` (the tile's
+// columns and output channels) and `grid` for the wide kernel (16-bit, C %
+// 64 = 0, C >= 128), which takes w as [3,3,C,ld], ld = O rounded up to 8;
+// the other designs read none of them.
 extern "C" int rr_conv3x3(int dtype, const void* x, const void* w,
                           const void* b, void* y, int B, int H, int W, int C,
-                          int O, int R, int grid, void* stream_) {
+                          int O, int R, int cols, int n, int grid,
+                          void* stream_) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream_);
@@ -1048,12 +1497,10 @@ extern "C" int rr_conv3x3(int dtype, const void* x, const void* w,
     case RR_F32:
       return launch_f32(x, w, b, y, B, H, W, C, O, st);
     case RR_F16:
-      return C == kC ? stream<__half>(x, w, b, y, B, H, W, O, R, grid, st)
-                     : igemm<__half>(x, w, b, y, B, H, W, C, O, st);
+      return conv16<__half>(x, w, b, y, B, H, W, C, O, R, cols, n, grid, st);
     case RR_BF16:
-      return C == kC
-                 ? stream<__nv_bfloat16>(x, w, b, y, B, H, W, O, R, grid, st)
-                 : igemm<__nv_bfloat16>(x, w, b, y, B, H, W, C, O, st);
+      return conv16<__nv_bfloat16>(x, w, b, y, B, H, W, C, O, R, cols, n,
+                                   grid, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1064,5 +1511,6 @@ extern "C" int rr_conv3x3_c64(int dtype, const void* x, const void* w,
                               const void* b, void* y, int B, int H, int W,
                               int O, int R, int grid, void* stream_) {
   if (O > kC) return cudaErrorInvalidValue;
-  return rr_conv3x3(dtype, x, w, b, y, B, H, W, kC, O, R, grid, stream_);
+  return rr_conv3x3(dtype, x, w, b, y, B, H, W, kC, O, R, 0, 0, grid,
+                    stream_);
 }

@@ -34,6 +34,8 @@ WRAPPERS = (norm_affine_clamp, dynamic_filter_pair, conv3x3_implicit_gemm,
 def reset_launches() -> None:
     for w in WRAPPERS:
         w.launches = 0
+    conv3x3_implicit_gemm.launches_by_design = dict.fromkeys(
+        conv3x3_implicit_gemm.launches_by_design, 0)
 
 
 def launch_counts() -> dict:

@@ -12,11 +12,22 @@ The ports of the two TPU conv kernels of ``rerevst_tpu/kernels/conv3x3.py``:
 Both compute ``y = conv(x, w) + b`` with fp32 accumulation and the bias added
 in fp32, rounded once to x's dtype.  ``x`` is contiguous NHWC, ``w`` the HWIO
 ``[3, 3, C, O]`` weights as the checkpoints hold them, ``b`` ``[O]``, all in
-one storage dtype.  The kernels are ``csrc/conv3x3.cu``: for f16/bf16 with
-C = 64 (both entry points) the streamed TMA + wgmma design, whose work
-split :func:`conv_plan` computes here; for f16/bf16 with other C the
-cp.async implicit GEMM; for fp32 CUDA-core FMAs.  A CUDA tensor launches the
-kernel (or the wrapper raises); a CPU tensor takes the plain version.
+one storage dtype.  The kernels are ``csrc/conv3x3.cu``, one design per
+shape (:func:`design` names it):
+
+* f16/bf16 with C = 64 (both entry points): the streamed TMA + wgmma
+  design, whose work split :func:`conv_plan` computes here;
+* f16/bf16 with C % 64 = 0 and C >= 128: the wide design, a TMA-fed ring of
+  64-channel tap slices into wgmma, whose work split :func:`wide_plan`
+  computes here (where O % 8 != 0 the wrapper hands it a copy of ``w``
+  padded with zeros to a multiple of 8 channels: no tensor map takes the
+  weights' row stride otherwise);
+* f16/bf16 with any other C (VGG conv1_1's C = 3, C = 32, ...): the
+  cp.async + mma.sync implicit GEMM;
+* fp32: CUDA-core FMAs.
+
+A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
+takes the plain version.
 """
 
 from __future__ import annotations
@@ -109,6 +120,121 @@ def conv_plan(batch: int, height: int, width: int, o: int,
     return ConvPlan(batch, height, width, r, grid, n_tiles)
 
 
+#: The tile widths the wide design takes (rows = pixels per tile // cols),
+#: widest first: the order that breaks a tie between shapes that waste
+#: alike.
+WIDE_COLS = (128, 64, 32, 16)
+
+
+def design(c: int, dtype: torch.dtype) -> str:
+    """Which kernel of ``csrc/conv3x3.cu`` takes a call with C input
+    channels in ``dtype`` (the launcher's dispatch by shape)."""
+    if dtype == torch.float32:
+        return "fp32"
+    if c == _C64:
+        return "streamed"
+    if c % 64 == 0 and c >= 128:
+        return "wide"
+    return "igemm"
+
+
+def wide_tile_n(o: int) -> int:
+    """The wide kernel's wgmma width N for O output channels: O rounded up
+    to 8, 16, 32 or 64 below 64, else 128, or 256 from O = 256 on (fewer
+    bytes staged per flop; 128 fp32 accumulators a thread fit the consumer
+    warpgroups' 232 registers)."""
+    if o <= 64:
+        return out_tile(o)
+    return 128 if o < 256 else 256
+
+
+def wide_tile_m(n: int) -> int:
+    """Output pixels per tile of the wide kernel at width N (csrc/conv3x3.cu
+    Wide::kM): 256, two m64 blocks per consumer warpgroup, where their
+    accumulators fit (N <= 128); 128 at N = 256."""
+    return 256 if n <= 128 else 128
+
+
+@dataclass(frozen=True)
+class WidePlan:
+    """The wide kernel's work split for one call.
+
+    A tile is ``rows x cols`` output pixels (``m`` of them, one TMA box of
+    the input per tap and channel slice) x ``n`` output channels; ``grid``
+    persistent blocks take tiles ``bx, bx + grid, ...`` in the order of
+    :meth:`tile`.
+    """
+
+    batch: int
+    height: int
+    width: int
+    o: int
+    cols: int
+    n: int
+    grid: int
+
+    @property
+    def m(self) -> int:
+        return wide_tile_m(self.n)
+
+    @property
+    def rows(self) -> int:
+        return self.m // self.cols
+
+    @property
+    def strips(self) -> int:
+        return -(-self.width // self.cols)
+
+    @property
+    def bands(self) -> int:
+        return -(-self.height // self.rows)
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.o // self.n)
+
+    @property
+    def tiles(self) -> int:
+        return self.n_tiles * self.strips * self.bands * self.batch
+
+    def tile(self, t: int):
+        """(image, first output row, first output column, first output
+        channel) of tile ``t``: the kernel's ``wide_tile`` (channel tile
+        fastest, then strip, band, image; blocks at work together read
+        neighbouring rows, which L2 still holds for the taps that re-read
+        them)."""
+        n0 = (t % self.n_tiles) * self.n
+        q = t // self.n_tiles
+        x0 = (q % self.strips) * self.cols
+        q //= self.strips
+        y0 = (q % self.bands) * self.rows
+        return q // self.bands, y0, x0, n0
+
+    def block_tiles(self, bx: int) -> range:
+        return range(bx, self.tiles, self.grid)
+
+
+def wide_cols(height: int, width: int, m: int) -> int:
+    """The tile width that pads the image least (tiles of m pixels, rows x
+    cols, over height x width), the widest on a tie."""
+    def padded(cols):
+        rows = m // cols
+        return -(-width // cols) * cols * (-(-height // rows) * rows)
+    return min(WIDE_COLS, key=padded)  # min keeps the first of equals
+
+
+@functools.lru_cache(maxsize=256)
+def wide_plan(batch: int, height: int, width: int, o: int,
+              sms: int) -> WidePlan:
+    """Tile shape, width N and grid for a [batch, height, width, C] -> o
+    conv (C % 64 = 0, C >= 128) on a card with ``sms`` SMs: one block per
+    SM, or one per tile where there are fewer tiles."""
+    n = wide_tile_n(o)
+    cols = wide_cols(height, width, wide_tile_m(n))
+    plan = WidePlan(batch, height, width, o, cols, n, 1)
+    return WidePlan(batch, height, width, o, cols, n, min(plan.tiles, sms))
+
+
 def _plain(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor]) -> torch.Tensor:
     xf = x.float()
@@ -159,11 +285,21 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
     y = torch.empty((bb, h, wd, o), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    rows = grid = 0  # read only by the streamed kernel (16-bit, C = 64)
-    if c == _C64 and x.dtype != torch.float32:
+    rows = cols = n = grid = 0  # the plan of the streamed or wide kernel
+    kind = design(c, x.dtype)
+    if kind in ("streamed", "wide"):
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    if kind == "streamed":
         plan = conv_plan(bb, h, wd, o, sms)
         rows, grid = plan.rows, plan.grid
+    elif kind == "wide":
+        plan = wide_plan(bb, h, wd, o, sms)
+        cols, n, grid = plan.cols, plan.n, plan.grid
+        if o % 8:
+            # TMA needs a 16-byte row stride: zero-pad the channels to 8.
+            wp = w.new_zeros(3, 3, c, -(-o // 8) * 8)
+            wp[..., :o] = w
+            w = wp
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bias = None if b is None else b.data_ptr()
     lib = _build.library()
@@ -173,8 +309,8 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
                                  stream)
     else:
         err = lib.rr_conv3x3(_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-                             bias, y.data_ptr(), bb, h, wd, c, o, rows, grid,
-                             stream)
+                             bias, y.data_ptr(), bb, h, wd, c, o, rows, cols,
+                             n, grid, stream)
     _build.check(err, name)
     return y
 
@@ -197,6 +333,8 @@ def conv3x3_implicit_gemm(x: torch.Tensor, w: torch.Tensor,
     y = _launch("conv3x3_implicit_gemm", x, w, b, c64=False)
     if y.numel():
         conv3x3_implicit_gemm.launches += 1
+        conv3x3_implicit_gemm.launches_by_design[
+            design(x.shape[-1], x.dtype)] += 1
     return y
 
 
@@ -220,6 +358,11 @@ def conv3x3_pairlane(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
-#: Kernel launches so far (CPU calls and empty inputs launch nothing).
+#: The kernel designs of csrc/conv3x3.cu, as :func:`design` names them.
+DESIGNS = ("streamed", "wide", "igemm", "fp32")
+
+#: Kernel launches so far (CPU calls and empty inputs launch nothing); the
+#: implicit-GEMM wrapper's also by design.
 conv3x3_implicit_gemm.launches = 0
+conv3x3_implicit_gemm.launches_by_design = dict.fromkeys(DESIGNS, 0)
 conv3x3_pairlane.launches = 0

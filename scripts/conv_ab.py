@@ -1,0 +1,112 @@
+#!/usr/bin/env python3
+"""Device time of ``conv3x3_implicit_gemm`` at the VGG shapes of one
+16-frame batch of 640^2, f16, for the ``rerevst_torch`` package under a
+given root — one side of an A/B of two trees' conv kernels in one call.
+
+    python3 scripts/conv_ab.py --root ROOT [--label NAME]
+
+ROOT holds the ``rerevst_torch`` to measure (this repository, or an unpacked
+``git archive`` of another commit); its kernels build from its own sources.
+The shapes are ``chip_smoke.py``'s VGG_CONVS: conv1_1 [16,640,640,3]->64,
+conv2_2 [16,320,320,128]->128, conv3_1 [16,160,160,128]->256, conv3_2
+[16,160,160,256]->256 and conv4_1 [16,80,80,256]->512.  Inputs are seeded
+randoms made on the card; each call is checked once against ``F.conv2d`` in
+fp32 (max |diff| reported), then timed with CUDA events over 20 calls
+queued behind a sleep kernel, after 3 warm-up calls.  Prints one JSON line
+with the card's name and power limit.  Run the two trees in turns (A, B,
+B, A) in one call: the card and its host differ from call to call.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SHAPES = [("conv1_1", (16, 640, 640, 3), 64),
+          ("conv2_2", (16, 320, 320, 128), 128),
+          ("conv3_1", (16, 160, 160, 128), 256),
+          ("conv3_2", (16, 160, 160, 256), 256),
+          ("conv4_1", (16, 80, 80, 256), 512)]
+
+
+def device_ms(torch, fn, iters=20, warmup=3) -> float:
+    """Milliseconds per call on the card: the calls queue behind a sleep
+    kernel longer than their enqueue, so the events read device time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    end.synchronize()
+    cycles_per_ms = 10 ** 7 / start.elapsed_time(end)
+    torch.cuda._sleep(int(cycles_per_ms * (2 * host_ms + 2)))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--label", default=None)
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("conv_ab: CUDA is not available", file=sys.stderr)
+        return 2
+    import rerevst_torch
+    from rerevst_torch.kernels import conv3x3_implicit_gemm
+
+    if Path(rerevst_torch.__file__).resolve().parent.parent != root:
+        print(f"conv_ab: imported rerevst_torch from "
+              f"{rerevst_torch.__file__}, not {root}", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    rows = {}
+    for site, shape, o in SHAPES:
+        x = torch.randn(shape, generator=gen, device="cuda").half()
+        w = (torch.randn((3, 3, shape[-1], o), generator=gen, device="cuda")
+             / (3 * shape[-1] ** 0.5)).half()
+        b = torch.randn(o, generator=gen, device="cuda").half()
+        got = conv3x3_implicit_gemm(x, w, b).float()
+        want = F.conv2d(x.float().permute(0, 3, 1, 2),
+                        w.float().permute(3, 2, 0, 1), b.float(),
+                        padding=1).permute(0, 2, 3, 1)
+        err = (got - want).abs().max().item()
+        del got, want
+        rows[site] = {"ms": device_ms(torch,
+                                      lambda: conv3x3_implicit_gemm(x, w, b)),
+                      "max_abs_diff_vs_fp32": err}
+        del x, w, b
+        torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(json.dumps({"label": args.label or str(root), "convs": rows,
+                      "card": smi}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

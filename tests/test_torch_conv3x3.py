@@ -72,6 +72,8 @@ def _j(a):
     ((2, 16, 24, 64), 64, True), ((1, 8, 16, 64), 3, True),   # test_kernels
     ((1, 8, 16, 3), 64, True),                                 # VGG conv1_1
     ((1, 8, 16, 64), 128, True), ((1, 8, 12, 32), 16, False),
+    # The wide design's widths (C % 64 = 0, C >= 128).
+    ((1, 8, 16, 128), 128, True), ((1, 8, 8, 256), 64, False),
 ])
 def test_implicit_gemm_plain_matches_pallas(rng, shape, o, bias):
     x, w, b = _conv_inputs(rng, shape, o, bias)

@@ -1,14 +1,18 @@
-"""The streamed C = 64 conv kernel's index math, on the CPU (no card).
+"""The TMA conv kernels' index math, on the CPU (no card).
 
-``csrc/conv3x3.cu``'s streamed design splits a conv into work units (image x
-a strip of 128 output columns x a band of R output rows) that persistent
-blocks take in turn, streams each unit's R + 2 input rows through three
-rolling accumulators, and reads TMA rows stored with the 128-byte swizzle.
-These tests hold that index math, as the wrapper's plan
-(``rerevst_torch.kernels.conv3x3.conv_plan``) and a numpy emulation of the
-kernel's row order state it, to the plain conv.
+``csrc/conv3x3.cu``'s streamed design (C = 64) splits a conv into work units
+(image x a strip of 128 output columns x a band of R output rows) that
+persistent blocks take in turn, streams each unit's R + 2 input rows
+through three rolling accumulators, and reads TMA rows stored with the
+128-byte swizzle.  Its wide design (C % 64 = 0, C >= 128) splits the output
+into tiles of rows x cols pixels x N channels, and runs a K loop of tap-
+shifted TMA boxes of 64 channels against 64-row weight slices that wgmma
+reads N-contiguous through the same swizzle.  These tests hold that index
+math, as the wrapper's plans (``conv_plan``, ``wide_plan`` in
+``rerevst_torch.kernels.conv3x3``) and numpy emulations of the kernels'
+order of work state it, to the plain conv.
 
-Tolerance of the emulation: it and the plain version sum K = 9 C fp32
+Tolerance of the emulations: each and the plain version sum K = 9 C fp32
 products in other orders, each within K 2^-24 sum|x||w| of the exact sum,
 so they agree to K 2^-22 sum|x||w| (+ |b|), the card tests' conv bound.
 """
@@ -19,10 +23,14 @@ import torch
 
 from rerevst_torch.kernels.conv3x3 import (
     TW,
+    WIDE_COLS,
     ConvPlan,
+    WidePlan,
     conv3x3_implicit_gemm_plain,
     conv_plan,
+    design,
     out_tile,
+    wide_plan,
 )
 
 H100_SMS = 132
@@ -136,3 +144,189 @@ def test_swizzle_spreads_ldmatrix_rows_over_banks():
             for q0 in range(0, TW, 8):
                 groups = {swizzle_chunk(q0 + i + dx, j) for i in range(8)}
                 assert len(groups) == 8
+
+
+# ---------------------------------------------------------------------------
+# The wide design (C % 64 = 0, C >= 128)
+# ---------------------------------------------------------------------------
+
+#: csrc/conv3x3.cu wgmma_desc_mn: the B operand's leading offset (one
+#: 64-column box to the next along N) and stride offset (one group of 8 k
+#: rows to the next), in bytes, and the start address step of a k16 step.
+B_LBO, B_SBO, B_K16 = 8192, 1024, 2048
+
+#: The VGG shapes the wide kernel takes (x shape, O), 16 frames of 640^2.
+VGG_WIDE = [((16, 320, 320, 128), 128), ((16, 160, 160, 128), 256),
+            ((16, 160, 160, 256), 256), ((16, 80, 80, 256), 512)]
+
+
+def test_design_by_shape():
+    """The launcher's dispatch: C = 64 streamed, C % 64 = 0 with C >= 128
+    wide, other C the cp.async implicit GEMM, fp32 its own kernel."""
+    for dt in (torch.float16, torch.bfloat16):
+        assert design(64, dt) == "streamed"
+        for c in (128, 192, 256, 512, 1024):
+            assert design(c, dt) == "wide"
+        for c in (3, 8, 32, 96, 100, 160, 200):
+            assert design(c, dt) == "igemm"
+    for c in (3, 64, 128, 512):
+        assert design(c, torch.float32) == "fp32"
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("height", [1, 7, 37, 130, 640])
+@pytest.mark.parametrize("width", [1, 7, 37, 130, 640])
+def test_wide_plan_covers_every_output_once(batch, height, width):
+    """Every output pixel x channel belongs to exactly one tile, the blocks
+    take every tile once, the grid never exceeds the tiles or the SMs, and
+    the tile is one TMA box of 256 pixels (128 at N = 256)."""
+    for o in (5, 64, 128, 192, 512):
+        for sms in (H100_SMS, 7):
+            plan = wide_plan(batch, height, width, o, sms)
+            assert plan.cols in WIDE_COLS
+            assert plan.rows * plan.cols == plan.m
+            assert plan.m == (256 if plan.n <= 128 else 128)
+            assert plan.n >= 8 and plan.n % 8 == 0
+            assert 1 <= plan.grid <= min(plan.tiles, sms)
+            taken = np.sort(np.concatenate(
+                [np.asarray(plan.block_tiles(bx)) for bx in range(plan.grid)]))
+            assert (taken == np.arange(plan.tiles)).all()
+            cover = np.zeros((plan.n_tiles, batch, height, width), np.int32)
+            chans = np.zeros(plan.n_tiles * plan.n, np.int32)
+            for t in range(plan.tiles):
+                b, y0, x0, n0 = plan.tile(t)
+                assert 0 <= b < batch and 0 <= y0 < height \
+                    and 0 <= x0 < width and 0 <= n0 < o
+                assert y0 % plan.rows == 0 and x0 % plan.cols == 0
+                cover[n0 // plan.n, b, y0:y0 + plan.rows,
+                      x0:x0 + plan.cols] += 1
+                if b == 0 and y0 == 0 and x0 == 0:
+                    chans[n0:n0 + plan.n] += 1
+            assert (cover == 1).all(), (o, sms)
+            assert (chans == 1).all() and chans.size >= o
+
+
+def test_wide_plan_order_and_vgg_tiles():
+    """The channel tile runs fastest, then the strip, band and image; the
+    chosen tile shape wastes no pixel at the four VGG shapes the wide kernel
+    takes (N = 128: 4 x 64 at W = 320; N = 256: 4 x 32 at 160, 8 x 16 at
+    80; and 2 x 128 at 640), and each shape fills the H100's 132 SMs."""
+    plan = WidePlan(2, 9, 40, 300, cols=16, n=256, grid=3)
+    assert [plan.tile(t) for t in range(5)] == [
+        (0, 0, 0, 0), (0, 0, 0, 256), (0, 0, 16, 0), (0, 0, 16, 256),
+        (0, 0, 32, 0)]
+    assert plan.tile(2 * 3) == (0, 8, 0, 0)          # the next band
+    assert plan.tile(2 * 3 * 2) == (1, 0, 0, 0)      # the next image
+    assert wide_plan(16, 640, 640, 128, H100_SMS).cols == 128
+    assert wide_plan(16, 640, 640, 128, H100_SMS).rows == 2
+    for (b, h, w, _), o in VGG_WIDE:
+        plan = wide_plan(b, h, w, o, H100_SMS)
+        assert plan.cols == {320: 64, 160: 32, 80: 16}[w]
+        assert plan.strips * plan.cols == w and plan.bands * plan.rows == h
+        assert plan.n == (128 if o < 256 else 256)
+        assert plan.rows == {320: 4, 160: 4, 80: 8}[w]
+        assert plan.grid == H100_SMS
+
+
+def _emulate_wide(x, w, b, plan):
+    """The wide kernel's order of work in numpy (fp32): for each tile, K
+    steps k = tap (C / 64) + slice; step k's A is the TMA box of channels
+    64 slice .. + 63 at rows y0 + dy - 1 .., columns x0 + dx - 1 .. (zero
+    outside the image), flattened to [128 px][64 ch] row by row; its B the
+    [64 c][N o] slice of the [9C, O] weights (zero past O); the product of
+    each step is added in turn (a warpgroup's m64 blocks sum alike, each
+    row on its own).  Only pixels and channels inside the output
+    are stored, each once; the output starts as NaN."""
+    bsz, h, wd, c = x.shape
+    o = w.shape[-1]
+    wk = np.zeros((9 * c, plan.n_tiles * plan.n), np.float32)
+    wk[:, :o] = w.reshape(9 * c, o)
+    y = np.full((bsz, h, wd, o), np.nan, np.float32)
+    rows, cols = plan.rows, plan.cols
+    for bx in range(plan.grid):
+        for t in plan.block_tiles(bx):
+            bi, y0, x0, n0 = plan.tile(t)
+            acc = np.zeros((plan.m, plan.n), np.float32)
+            for k in range(9 * (c // 64)):
+                tap, sl = divmod(k, c // 64)
+                dy, dx = divmod(tap, 3)
+                box = np.zeros((rows, cols, 64), np.float32)
+                ys, xs = y0 + dy - 1, x0 + dx - 1
+                ylo, yhi = max(ys, 0), min(ys + rows, h)
+                xlo, xhi = max(xs, 0), min(xs + cols, wd)
+                if ylo < yhi and xlo < xhi:
+                    box[ylo - ys:yhi - ys, xlo - xs:xhi - xs] = \
+                        x[bi, ylo:yhi, xlo:xhi, 64 * sl:64 * sl + 64]
+                acc += box.reshape(plan.m, 64) @ \
+                    wk[k * 64:k * 64 + 64, n0:n0 + plan.n]
+            out = (acc + np.pad(b, (0, plan.n_tiles * plan.n - o))
+                   [n0:n0 + plan.n]).reshape(rows, cols, plan.n)
+            nh, nw, nc = min(rows, h - y0), min(cols, wd - x0), \
+                min(plan.n, o - n0)
+            assert np.isnan(y[bi, y0:y0 + nh, x0:x0 + nw, n0:n0 + nc]).all()
+            y[bi, y0:y0 + nh, x0:x0 + nw, n0:n0 + nc] = out[:nh, :nw, :nc]
+    return y
+
+
+@pytest.mark.parametrize("c,o,shape,cols", [
+    (128, 5, (2, 9, 11), None), (128, 72, (1, 13, 7), 16),
+    (256, 40, (1, 5, 19), 32), (256, 192, (2, 3, 9), None),
+])
+def test_wide_k_loop_matches_plain(c, o, shape, cols):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal(shape + (c,)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, c, o)) / np.sqrt(9 * c)).astype(
+        np.float32)
+    b = rng.standard_normal(o).astype(np.float32)
+    plan = wide_plan(shape[0], shape[1], shape[2], o, H100_SMS)
+    if cols is not None:
+        plan = WidePlan(plan.batch, plan.height, plan.width, o, cols,
+                        plan.n, grid=2)
+    got = _emulate_wide(x, w, b, plan)
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    want = conv3x3_implicit_gemm_plain(*tt).numpy()
+    scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want) <= 9 * c * 2.0 ** -22 * scale).all()
+
+
+def tma_b_offset(k, n):
+    """Byte offset at which TMA's 128-byte swizzle lands element (k, n) of
+    a stage's B tile: 64-column box n // 64 (8192 bytes each), row k of it
+    (128 bytes), 16-byte chunk (n % 64) // 8 at chunk ^ (k % 8)."""
+    box, col = divmod(n, 64)
+    return (box * 8192 + k * 128 + ((((col // 8) ^ (k % 8))) << 4)
+            + 2 * (col % 8))
+
+
+def wgmma_b_offset(step, kk, n):
+    """Where wgmma, given wgmma_desc_mn's start address (+ B_K16 per k16
+    step) and offsets, reads element (kk, n) of a k16 step's 16 x N B
+    operand (MN-major, 128-byte swizzle): the canonical layout puts 8
+    consecutive n in one 16-byte unit, 64 n in a 128-byte row, the 8 k rows
+    of a group 128 bytes apart; the next 64 n at the leading offset, the
+    next 8 k at the stride offset; then the swizzle XORs address bits 4-6
+    with bits 7-9."""
+    lin = (step * B_K16 + (n // 64) * B_LBO + (kk // 8) * B_SBO
+           + (kk % 8) * 128 + (n % 64) * 2)
+    return lin ^ (((lin >> 7) & 7) << 4)
+
+
+@pytest.mark.parametrize("n", [8, 16, 32, 64, 128, 256])
+def test_wgmma_reads_b_where_tma_lands_it(n):
+    """For every k16 step and element of the [64 c][N o] tile, the address
+    wgmma reads through the MN-major descriptor is the one TMA wrote, and a
+    box's 64 x 64 elements land on distinct addresses; the 8 k rows of a
+    group spread each 16-byte column chunk over 8 distinct bank groups."""
+    for step in range(4):
+        for kk in range(16):
+            for col in range(n):
+                assert wgmma_b_offset(step, kk, col) == \
+                    tma_b_offset(16 * step + kk, col)
+    offs = {tma_b_offset(k, col) for k in range(64) for col in range(64)}
+    assert len(offs) == 64 * 64 and max(offs) < 8192
+    for j in range(8):
+        for g in range(8):
+            groups = {(tma_b_offset(8 * g + r, 8 * j) >> 4) % 8
+                      for r in range(8)}
+            assert len(groups) == 8

@@ -225,6 +225,54 @@ def test_conv3x3_implicit_gemm_kernel_on_card(rng, cuda, dtype, shape, o,
     assert _conv_ok(got, conv3x3_implicit_gemm_plain(x, w, b), x, w, b)
 
 
+#: Shapes of the wide kernel (16-bit, C % 64 = 0, C >= 128): every tile
+#: width the plan picks (W = 640, 320, 160, 80 and ragged widths), ragged
+#: bands and strips, B = 1, O below 8 (a zero-padded weight copy), below 64,
+#: not a multiple of the tile (192) and two 256-wide tiles.
+WIDE = [
+    ((2, 13, 7, 128), 5), ((1, 37, 53, 128), 64), ((1, 9, 33, 128), 16),
+    ((2, 11, 9, 128), 192), ((1, 5, 640, 128), 128), ((2, 6, 320, 256), 256),
+    ((1, 19, 150, 256), 256), ((1, 23, 45, 512), 128),
+    ((2, 12, 80, 256), 512), ((1, 3, 161, 512), 512),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape,o", WIDE)
+@pytest.mark.parametrize("bias", [True, False])
+def test_conv3x3_wide_kernel_on_card(rng, cuda, dtype, shape, o, bias):
+    x, w, b = _conv_on_card(rng, cuda, dtype, shape, o, bias)
+    before = conv3x3_implicit_gemm.launches
+    got = conv3x3_implicit_gemm(x, w, b)
+    torch.cuda.synchronize()
+    assert conv3x3_implicit_gemm.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == shape[:3] + (o,)
+    assert _conv_ok(got, conv3x3_implicit_gemm_plain(x, w, b), x, w, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("o", [128, 5])
+def test_conv3x3_wide_nonfinite_inputs_on_card(rng, cuda, dtype, o):
+    """The wide kernel (C = 128) under inf and NaN inputs, in the interior,
+    on a tile's edge and at the image's edges."""
+    x, w, b = _conv_on_card(rng, cuda, dtype, (2, 19, 150, 128), o, True)
+    x[0, 3, 5, 7] = float("inf")
+    x[0, 10, 63, 1] = float("-inf")
+    x[0, 10, 64, 100] = float("nan")
+    x[1, 0, 149, 0] = float("nan")
+    x[1, 18, 0, 127] = float("inf")
+    got = conv3x3_implicit_gemm(x, w, b)
+    torch.cuda.synchronize()
+    want = conv3x3_implicit_gemm_plain(x, w, b)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin) and not fin.all()
+    xz = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    assert _conv_ok(torch.where(fin, got, 0), torch.where(fin, want, 0),
+                    xz, w, b)
+
+
 #: Shapes that stress the streamed C = 64 kernel's work split (its plan on
 #: an H100's 132 SMs): a last band shorter than the others (H % R != 0), a
 #: last strip narrower than 128 columns, W < 128, B = 1.
