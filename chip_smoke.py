@@ -7,10 +7,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device  — the card's name, compute capability (must be 9.0) and power limit;
 2. build   — compiles ``rerevst_torch/csrc/*.cu`` for sm_90a (first use),
-             and reports the registers and spills of the streamed and
-             wide conv kernels and the filter pair kernel (``nvcc -Xptxas
-             -v``; a spill fails, and so does a serialized wgmma in the
-             wide kernel);
+             and reports the registers and spills of the streamed, wide
+             and narrow conv kernels and the filter pair kernel (``nvcc
+             -Xptxas -v``; a spill fails, and so does a serialized wgmma in
+             the wide kernel);
 3. check   — each kernel against its plain PyTorch version on the card, at the
              main path's shapes (batch 16, 512x512 content padded to 640x640)
              plus ragged ones and inf/NaN inputs, in f16, bf16 and fp32;
@@ -28,10 +28,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
              (exact flows, no cv2), on the card and on the CPU; then
              ``conv3x3_implicit_gemm``, which no model path runs, driven
              alone at the shapes of the JAX package's conv benchmark
-             (``scripts/bench_conv3x3.py``) and at VGG conv2_2 and conv1_1,
-             so that each of its three 16-bit designs (streamed, wide,
-             cp.async) launches; every global session's Pass-2 host prep
-             must have gone through the native library;
+             (``scripts/bench_conv3x3.py``), at VGG conv2_2 and conv1_1 and
+             at C = 32, so that each of its four 16-bit designs (streamed,
+             wide, narrow, cp.async) launches; every global session's Pass-2
+             host prep must have gone through the native library;
    long_clip   — f16 and fp32 ``stylize_video`` of a seeded 65-frame 512x512
              clip at ``sample_interval=1``: 65 samples spill to the host
              spool and stream ('streaming-spill'); launches of the path and
@@ -54,9 +54,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
              pair-lane and per-frame f16 paths, and torch.profiler traces
              of one f16 stylize_video (device busy vs wall clock) and of
              Pass 2 alone on those three paths (where a batch's time goes);
-             ``rr_conv3x3`` at the VGG shapes conv1_1 (C = 3), conv2_1
-             (C = 64) and conv2_2, conv3_1, conv3_2 and conv4_1 (C >= 128,
-             the wide kernel) beside ``F.conv2d``;
+             ``rr_conv3x3`` at the VGG shapes conv1_1 (C = 3, the narrow
+             kernel), conv2_1 (C = 64) and conv2_2, conv3_1, conv3_2 and
+             conv4_1 (C >= 128, the wide kernel), and the cp.async kernel at
+             C = 32, beside ``F.conv2d``;
              and (phase pipeline) the warm f16 stylize_video's wall time
              and idle share;
 6. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
@@ -122,16 +123,25 @@ PAIRLANE_SITES = [("conv1_2, res2.conv2", 2, 64), ("out", 1, 3)]
 #: conv's only driver in the JAX package: (x shape, O).
 IGEMM_BENCH = [((BATCH, PAD_HW, PAD_HW, 64), 64), ((BATCH, PAD_HW, PAD_HW, 64), 3)]
 #: The VGG encoder's convs of one 16-frame batch of 640^2 that run
-#: ``rr_conv3x3`` standalone: (site, x shape, O).  conv1_1 takes the cp.async
-#: implicit GEMM (C = 3), conv2_1 the streamed kernel (C = 64), the rest the
-#: wide kernel (conv2_2 also stands for the decoder's res3.conv2, conv3_2
-#: for conv3_3, conv3_4 and res4.conv2).
+#: ``rr_conv3x3`` standalone: (site, x shape, O).  conv1_1 takes the narrow
+#: kernel (C = 3), conv2_1 the streamed kernel (C = 64), the rest the wide
+#: kernel (conv2_2 also stands for the decoder's res3.conv2, conv3_2 for
+#: conv3_3, conv3_4 and res4.conv2).
 VGG_CONVS = [("VGG conv1_1", (BATCH, PAD_HW, PAD_HW, 3), 64),
              ("VGG conv2_1", (BATCH, 320, 320, 64), 128),
              ("VGG conv2_2", (BATCH, 320, 320, 128), 128),
              ("VGG conv3_1", (BATCH, 160, 160, 128), 256),
              ("VGG conv3_2", (BATCH, 160, 160, 256), 256),
              ("VGG conv4_1", (BATCH, 80, 80, 256), 512)]
+#: One call of the cp.async implicit GEMM (C = 32, no VGG site) at conv2_x
+#: scale: it is driven and timed beside F.conv2d so that the remaining
+#: igemm design keeps a launch and a yardstick.
+IGEMM_C32 = ("igemm C = 32", (BATCH, 320, 320, 32), 64)
+#: inf and NaN inputs of the C = 3 checks, at [2, 19, 70, 3]: (index, value).
+NARROW_NONFINITE = [((0, 3, 31, 2), "inf"), ((0, 3, 32, 0), "-inf"),
+                    ((0, 7, 10, 1), "nan"), ((0, 8, 40, 2), "inf"),
+                    ((1, 0, 69, 2), "inf"), ((1, 18, 0, 0), "-inf"),
+                    ((1, 15, 63, 1), "inf"), ((1, 16, 64, 2), "nan")]
 
 RESULTS: dict = {"checks": [], "times": []}
 
@@ -221,8 +231,10 @@ def check_convs(torch, gen, errs):
     # columns, W < 128, B = 1, and O = 128 as two channel tiles.  C = 128,
     # 256 and 512 take the wide kernel: every tile width its plan picks,
     # ragged bands and strips, B = 1, O = 5 (a zero-padded weight copy), 16,
-    # 64, 192 (a half-empty tile), 256 and 512 (two 256-wide tiles).  C = 3
-    # and 32 take the cp.async implicit GEMM.
+    # 64, 192 (a half-empty tile), 256 and 512 (two 256-wide tiles).  C = 32
+    # takes the cp.async implicit GEMM.  C = 1 .. 7 take the narrow kernel
+    # (8 x 32 tiles): ragged last bands and strips, W narrower than a tile,
+    # B = 1, O = 3 and 5 (scalar stores), 16, 64 and 128 (two channel tiles).
     igemm = [((BATCH, p, p, 64), 64, True), ((BATCH, p, p, 64), 3, True),
              ((2, 64, 64, 3), 64, True), ((2, 80, 80, 128), 128, False),
              ((2, 40, 40, 256), 512, True),
@@ -233,7 +245,12 @@ def check_convs(torch, gen, errs):
              ((2, 6, 320, 256), 256, False), ((1, 19, 150, 256), 256, True),
              ((1, 23, 45, 512), 128, False), ((2, 12, 80, 256), 512, True),
              ((1, 3, 161, 512), 512, True), ((2, 13, 7, 512), 5, True),
-             ((2, 21, 19, 32), 24, True)]
+             ((2, 21, 19, 32), 24, True)] \
+        + [((2, 13, 45, 3), 64, True), ((2, 13, 45, 3), 64, False),
+           ((1, 9, 7, 1), 5, True), ((1, 37, 70, 4), 128, True),
+           ((1, 37, 70, 4), 128, False), ((3, 5, 33, 7), 16, True),
+           ((1, 40, 33, 3), 3, False), ((1, 21, 100, 7), 64, True),
+           ((1, 8, 20, 1), 3, True), ((2, 17, 64, 4), 5, False)]
     pair = [((BATCH, p, p, 64), 64, True), ((BATCH, p, p, 64), 3, True),
             ((3, 37, 53, 64), 64, True), ((2, 19, 150, 64), 32, True),
             ((1, 131, 200, 64), 64, False), ((1, 130, 257, 64), 5, True),
@@ -246,13 +263,20 @@ def check_convs(torch, gen, errs):
            for name in ("conv3x3_implicit_gemm", "conv3x3_pairlane")
            for o in (64, 3)] \
         + [("conv3x3_implicit_gemm", (2, 19, 150, 128), o, True, True)
-           for o in (128, 5)]  # the same through the wide kernel
+           for o in (128, 5)] \
+        + [("conv3x3_implicit_gemm", (2, 19, 70, 3), o, True, True)
+           for o in (64, 5)]  # the same through the narrow kernel
     for name, shape, o, bias, nonfinite in cases:
         kern = getattr(kernels, name)
         plain = getattr(kernels, name + "_plain")
         for dtype in (torch.float16, torch.bfloat16, torch.float32):
             x, w, b = conv_inputs(torch, shape, o, dtype, gen, bias=bias)
-            if nonfinite:
+            if nonfinite and shape[-1] == 3:
+                # Both sides of a narrow tile's edge columns (31 | 32) and
+                # rows (7 | 8), image edges, a halo's corner.
+                for idx, v in NARROW_NONFINITE:
+                    x[idx] = float(v)
+            elif nonfinite:
                 # The interior, both sides of a strip's edge, image edges.
                 x[0, 3, 5, 7] = float("inf")
                 x[0, 10, 127, 1] = float("-inf")
@@ -265,6 +289,8 @@ def check_convs(torch, gen, errs):
             fin = torch.isfinite(want)
             err = (got.float() - want.float()).abs()[fin].max().item()
             ok = conv_within_tolerance(torch, got, want, x, w, b)
+            if shape[-1] <= 7:  # and the narrow kernel's NaNs are plain's
+                ok = ok and bool((torch.isnan(got) == torch.isnan(want)).all())
             RESULTS["checks"].append(
                 {"kernel": name, "shape": shape, "O": o, "dtype": str(dtype),
                  "bias": b is not None, "nonfinite_inputs": nonfinite,
@@ -695,14 +721,16 @@ def run_e2e(torch):
 def drive_implicit_gemm(torch):
     """conv3x3_implicit_gemm has no model path in either package; its one
     driver in the JAX package is scripts/bench_conv3x3.py.  Drive it once
-    at those shapes and at VGG conv2_2 and conv1_1, counts at 0 before and
-    read after: each 16-bit design of csrc/conv3x3.cu must have launched."""
+    at those shapes, at VGG conv2_2 and conv1_1 and at IGEMM_C32, counts at
+    0 before and read after: each 16-bit design of csrc/conv3x3.cu must have
+    launched."""
     from rerevst_torch import kernels
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     shapes = IGEMM_BENCH + [(shape, o) for site, shape, o in VGG_CONVS
-                            if site in ("VGG conv2_2", "VGG conv1_1")]
+                            if site in ("VGG conv2_2", "VGG conv1_1")] \
+        + [IGEMM_C32[1:]]
     kernels.reset_launches()
     for shape, o in shapes:
         x, w, b = conv_inputs(torch, shape, o, torch.float16, gen)
@@ -716,7 +744,8 @@ def drive_implicit_gemm(torch):
     emit({"phase": "e2e", "path": "conv3x3_implicit_gemm standalone",
           "launches": counts, "launches_by_design": by_design})
     if counts["conv3x3_implicit_gemm"] != len(shapes) \
-            or by_design != {"streamed": 2, "wide": 1, "igemm": 1, "fp32": 0}:
+            or by_design != {"streamed": 2, "wide": 1, "narrow": 1,
+                             "igemm": 1, "fp32": 0}:
         fail(f"conv3x3_implicit_gemm standalone launches {counts}, "
              f"by design {by_design}")
     RESULTS["implicit_gemm_launches_by_design"] = by_design
@@ -1419,10 +1448,10 @@ def pipeline(torch, session):
 
 def time_vgg_convs(torch):
     """rr_conv3x3 at the VGG shapes of VGG_CONVS, f16, beside its plain
-    version and one F.conv2d call: conv1_1 (C = 3: the cp.async +
-    mma.sync implicit GEMM), conv2_1 (C = 64: the streamed kernel in two
-    channel tiles) and the C >= 128 shapes (the wide kernel).  Each is
-    checked against its plain version first."""
+    version and one F.conv2d call: conv1_1 (C = 3: the narrow kernel),
+    conv2_1 (C = 64: the streamed kernel in two channel tiles) and the C >=
+    128 shapes (the wide kernel); then IGEMM_C32 (the cp.async + mma.sync
+    implicit GEMM).  Each is checked against its plain version first."""
     import torch.nn.functional as F
 
     from rerevst_torch import kernels
@@ -1431,7 +1460,7 @@ def time_vgg_convs(torch):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
     rows = []
-    for site, shape, o in VGG_CONVS:
+    for site, shape, o in VGG_CONVS + [IGEMM_C32]:
         x, w, b = conv_inputs(torch, shape, o, torch.float16, gen)
         got = kernels.conv3x3_implicit_gemm(x, w, b)
         want = kernels.conv3x3_implicit_gemm_plain(x, w, b)
@@ -1468,10 +1497,10 @@ def time_vgg_convs(torch):
 
 def kernel_resources(build) -> dict:
     """Registers, spills and ptxas's notes (a serialized wgmma shows here)
-    of each instance of the streamed C = 64 and the wide conv kernels and
-    of the filter pair kernel.  A spill fails the phase: the designs count
-    on keeping their fragments and accumulators in registers; so does a
-    note that the wide kernel's wgmmas are serialized."""
+    of each instance of the streamed C = 64, the wide and the narrow conv
+    kernels and of the filter pair kernel.  A spill fails the phase: the
+    designs count on keeping their fragments and accumulators in registers;
+    so does a note that the wide kernel's wgmmas are serialized."""
     import re
 
     dts = {"f": "fp32", "6__half": "f16", "13__nv_bfloat16": "bf16"}
@@ -1482,10 +1511,18 @@ def kernel_resources(build) -> dict:
         if m:
             out[f"conv3x3_{m.group(1)}_kernel<{dts[m.group(2)]}, "
                 f"N={m.group(3)}>"] = info
+        m = re.search(r"conv3x3_narrow_kernelI(6__half|13__nv_bfloat16)"
+                      r"Li(\d+)ELi(\d+)E", name)
+        if m:
+            out[f"conv3x3_narrow_kernel<{dts[m.group(1)]}, C={m.group(2)}, "
+                f"N={m.group(3)}>"] = info
     n_conv = len(out)
     n_wide = sum(k.startswith("conv3x3_wide") for k in out)
     if n_wide != 12:
         fail(f"ptxas reported {n_wide} wide conv kernels, not 12")
+    n_narrow = sum(k.startswith("conv3x3_narrow") for k in out)
+    if n_narrow != 28:
+        fail(f"ptxas reported {n_narrow} narrow conv kernels, not 28")
     serialized = [k for k, v in out.items() if k.startswith("conv3x3_wide")
                   and any("wgmma" in n and "serializ" in n
                           for n in v["notes"])]
@@ -1565,7 +1602,7 @@ def main() -> int:
     # 5. times
     tot, filter_bound_by = time_kernels(torch)
     conv_tot = time_convs(torch)
-    time_vgg_convs(torch)
+    vgg_rows = time_vgg_convs(torch)
     pipeline(torch, sessions["f16"])
     for key, sess in (("pass2", "f16"), ("pass2_pairlane", "f16_pairlane"),
                       ("pass2_per_frame", "pf_f16")):
@@ -1626,6 +1663,13 @@ def main() -> int:
         if entry["name"] == "conv3x3_implicit_gemm":
             entry["launches_by_design"] = \
                 RESULTS["implicit_gemm_launches_by_design"]
+            # Each 16-bit design at its VGG (or IGEMM_C32) sites.
+            entry["designs"] = {}
+            for r in vgg_rows:
+                entry["designs"].setdefault(r["design"], []).append(
+                    {k: r[k] for k in ("site", "shape", "O", "ms",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "max_abs_err")})
     RESULTS["kernels"] = line["kernels"]
     _save()
     emit(line)

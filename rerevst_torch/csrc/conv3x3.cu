@@ -22,8 +22,10 @@
 // * 16-bit with C % 64 = 0 and C >= 128 -- rr_conv3x3 (VGG conv2_2 to
 //   conv4_1, the decoder's res3/res4 convs): the wide design below
 //   (conv3x3_wide_kernel).
-// * 16-bit with any other C -- rr_conv3x3 only (VGG's conv1_1 with C = 3,
-//   whose 6-byte pixel stride no tensor map takes, C = 32, and C that fill
+// * 16-bit with 1 <= C <= 7 -- rr_conv3x3 only (VGG's conv1_1 with C = 3,
+//   whose 6-byte pixel stride no tensor map takes): the narrow design below
+//   (conv3x3_narrow_kernel).
+// * 16-bit with any other C -- rr_conv3x3 only (C = 8, 32, and C that fill
 //   no 64-channel slice): the cp.async implicit GEMM (conv3x3_igemm_kernel).
 // * fp32: true fp32 CUDA-core FMAs (the counterpart of the JAX package's
 //   HIGHEST precision) in one kernel that both entry points use.
@@ -120,6 +122,60 @@
 //   (coalesced scalars where O % 8 != 0).  Meanwhile the producer is
 //   already loading the next tile's stages, but the tensor cores wait:
 //   scripts/probe_wide_conv.py measures what that costs.
+
+// The narrow design (16-bit, 1 <= C <= 7: VGG conv1_1's C = 3).  K = 9C <=
+// 63 is small: at C = 3 -> 64 a pixel costs 2 x 27 x 64 = 3.5 kflop against
+// 134 bytes moved (6 read, 128 written), 26 flop/byte, far below the card's
+// ridge of about 295.  The output stream bounds it (95% of the bytes are
+// stores: 0.262 ms for 16 frames of 640^2); the products take about a tenth
+// of that even on mma.sync, so wgmma would buy nothing here.
+// * Work split (kernels/conv3x3.py: narrow_plan).  Tiles of 8 rows x 32
+//   columns of output pixels of one image, x N output channels (N = 64, or
+//   8 where O <= 8; larger O tiles by 64 over the grid's y, as the streamed
+//   design does).  Two persistent blocks per SM in all, split over the
+//   channel tiles, walk tiles t = blockIdx.x, + gridDim.x, ... (strip
+//   fastest, then band, image).
+// * Input: the tile's 10 x 34 x C halo is read from device memory once per
+//   tile (1.33x the input in all) with 2-byte loads, coalesced along each
+//   halo row (one contiguous run of 34 C values in NHWC; its start is not
+//   even 4-byte aligned at C = 3), zero outside the image: the SAME
+//   padding.  The loads of tile t + 1 are issued into registers before tile
+//   t's products and land in shared memory after them, in the other of two
+//   halo buffers: one barrier per tile hands a halo to the warps.  A tensor
+//   map over the input would need W C 2 % 16 = 0, which C = 3 rarely gives;
+//   the input is 4.5% of the bytes.
+// * K = 9C in one pass, padded to the next multiple of 16 (C = 3: 27 -> 32,
+//   two k16 steps).  K index k is tap k / C, channel k % C (the row order of
+//   HWIO's [9C, O] view), at offset (dy 34 + dx) C + c from the pixel in
+//   the halo.  Each lane reads the offsets of its four k columns per step
+//   from a table made once per block, and builds its m16n8k16 A fragments
+//   straight from the halo with 2-byte loads.  A padded column's offset
+//   points past the halo into a zeroed tail: A holds true zeros there, so
+//   a non-finite input never meets a padded weight (inf x 0 = NaN).
+// * The [K, N] weights are laid out once per block as m16n8k16 B fragments
+//   in shared memory (one 8-byte load per lane, n8 tile and k16 step).
+//   Eight warps, one tile row of 32 pixels each (two m16 tiles x N); each
+//   tile's fp32 sums start from the bias.
+// * The output stream.  Each warp rounds its row once and stages it in
+//   shared memory with stmatrix as a TMA box {N, 32, 1, 1} of y (the
+//   128-byte swizzle at N = 64, which also keeps those writes free of bank
+//   conflicts; 4 KB, one contiguous run of y), and where O % 8 = 0 its lane
+//   0 stores
+//   the box with a TMA bulk tensor store (cp.async.bulk.tensor, shared ->
+//   global): the hardware drops what falls past the image or past O.  No
+//   barrier of the block waits for a store.  Each warp's staging is
+//   double-buffered: its store of tile t drains while the block stages tile
+//   t + 1's halo and runs its products, and the buffer is rewritten only
+//   after cp.async.bulk.wait_group.read says that store has read it.  O %
+//   8 != 0 (no 16-byte row stride for a tensor map): coalesced scalar
+//   stores by the warp.
+// * What holds it above the byte bound (scripts/probe_narrow_conv.py): the
+//   output stream alone, through the same barriers and stores, runs near
+//   the card's write rate, and so does the kernel without its halo reads;
+//   the reads, 6% of the bytes, slow the stream by about a quarter.
+//   Issuing them three tiles ahead (TMA bulk copies of each halo row's
+//   aligned span) or steering L2 (evict-first stores, an evict-last
+//   prefetch of x) did not recover it.
 
 // The cp.async implicit GEMM (other C).  A block computes 128 consecutive
 // output pixels (flattened over batch, rows and columns) by up to 64 output
@@ -1196,6 +1252,300 @@ __global__ void __launch_bounds__(kThreads, 2) conv3x3_igemm_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// 16-bit, 1 <= C <= 7 (rr_conv3x3): the narrow design (above)
+// ---------------------------------------------------------------------------
+
+constexpr int kNR = 8, kNC = 32;                // output rows x columns a tile
+constexpr int kNHC = kNC + 2;                   // halo columns
+constexpr int kNThreads = 256;                  // 8 warps, one tile row each
+
+template <int C, int BN>
+struct Narrow {
+  static constexpr int kHalo = (kNR + 2) * kNHC * C;  // halo values
+  // The zeroed tail that padded K columns read: a pixel sits up to
+  // ((kNR - 1) kNHC + kNC - 1) C values past the halo's start.
+  static constexpr int kTail = ((kNR - 1) * kNHC + kNC) * C;
+  static constexpr int kHStride = kHalo + kTail;  // one halo buffer + tail
+  static constexpr int kKS = (9 * C + 15) / 16;  // k16 steps
+  // The k16 loop is unrolled where it is short; unrolled at KS >= 3 the
+  // compiler's hoisted loads spill registers.
+  static constexpr int kUnroll = kKS <= 2 ? kKS : 1;
+  static constexpr int kNT = BN / 8;             // n8 tiles
+  static constexpr int kLoads = (kHalo + kNThreads - 1) / kNThreads;
+  static constexpr int kWOut = kNC * BN * 2;     // a warp's staged row, bytes
+  static constexpr int kBFrag = kKS * kNT * 32;  // B fragments (8 bytes)
+  static constexpr size_t kSmem = 1024           // base alignment
+                                  + 2 * kNR * kWOut  // staging, 2 per warp
+                                  + kBFrag * 8 + kKS * 16 * 4 + BN * 4 +
+                                  2 * kHStride * 2;  // two halo buffers
+};
+
+// Byte offset of (pixel p, channel n) in a warp's staged row: a TMA box {BN,
+// 32, 1, 1} of y, with the 128-byte swizzle at BN = 64 (16-byte chunk j of
+// a 128-byte pixel row at j ^ (p % 8)) and none at BN = 8.
+template <int BN>
+__device__ __forceinline__ int narrow_out_offset(int p, int n) {
+  const int lin = (p * BN + n) * 2;
+  return BN == 64 ? lin ^ (((lin >> 7) & 7) << 4) : lin;
+}
+
+// Four 8 x 8 matrices of 16-bit values into shared memory, each lane's
+// registers in the m16n8 accumulator layout (row lane / 4, columns 2 (lane %
+// 4), + 1); lanes 8 i .. 8 i + 7 give the row addresses of matrix i.
+__device__ __forceinline__ void stsm_x4(uint32_t addr, uint32_t r0,
+                                        uint32_t r1, uint32_t r2,
+                                        uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
+// One TMA box of shared memory into a 4-D tensor map; completes as a bulk
+// group of this thread.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read their
+// shared-memory source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until all of this thread's bulk groups are complete.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Tile t: image b, output rows y0 .. y0 + 7, columns x0 .. x0 + 31.  The
+// order (strip fastest, then band, image) is the wrapper's plan's
+// (kernels/conv3x3.py: NarrowPlan.tile).
+struct NarrowTile {
+  int b, y0, x0;
+};
+
+__device__ __forceinline__ NarrowTile narrow_tile(long long t, int strips,
+                                                  int bands) {
+  NarrowTile u;
+  u.x0 = (int)(t % strips) * kNC;
+  const long long q = t / strips;
+  u.y0 = (int)(q % bands) * kNR;
+  u.b = (int)(q / bands);
+  return u;
+}
+
+// ymap: y as [B][H][W][O], boxes {BN, 32, 1, 1} (unused where O % 8 != 0).
+// x and w are read as raw 16-bit values.  Grid: (persistent blocks, channel
+// tiles of BN).
+template <typename T, int C, int BN>
+__global__ void __launch_bounds__(kNThreads, 2) conv3x3_narrow_kernel(
+    const __grid_constant__ CUtensorMap ymap,
+    const unsigned short* __restrict__ x, const unsigned short* __restrict__ w,
+    const T* __restrict__ bias, T* __restrict__ y, int B, int H, int W,
+    int O) {
+  using P = Narrow<C, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* out_s =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint2* bfrag = reinterpret_cast<uint2*>(out_s + 2 * kNR * P::kWOut);
+  int4* koff = reinterpret_cast<int4*>(bfrag + P::kBFrag);
+  float2* bias_s = reinterpret_cast<float2*>(koff + P::kKS * 4);
+  unsigned short* halo = reinterpret_cast<unsigned short*>(bias_s + BN / 2);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.y * BN;
+  const bool tma = O % 8 == 0;
+
+  // Once per block.  B fragments of the [9C, O] weights, channels n0 .. +
+  // BN - 1, zero past K and past O: lane (g, t) of n8 tile nt and k16 step s
+  // holds B[k][n0 + 8 nt + g] for k = 16 s + 2 t + {0, 1} and {8, 9}.
+  for (int i = tid; i < P::kBFrag; i += kNThreads) {
+    const int l = i & 31, nt = (i >> 5) % P::kNT, s = i / (32 * P::kNT);
+    const int o = n0 + nt * 8 + (l >> 2), k = 16 * s + 2 * (l & 3);
+    auto wv = [&](int kk) -> uint32_t {
+      return kk < 9 * C && o < O ? w[(long long)kk * O + o] : 0u;
+    };
+    bfrag[i] = make_uint2(wv(k) | wv(k + 1) << 16, wv(k + 8) | wv(k + 9) << 16);
+  }
+  // Byte offsets into the halo of the four K columns a lane reads per k16
+  // step, koff[4 s + t] = k = 16 s + 2 t + {0, 1, 8, 9}; a padded column
+  // points into the zeroed tail.
+  for (int i = tid; i < P::kKS * 16; i += kNThreads) {
+    const int j = i & 3, k = 16 * (i >> 4) + 2 * ((i >> 2) & 3) + (j & 1) +
+                             8 * (j >> 1);
+    const int tap = k / C;
+    reinterpret_cast<int*>(koff)[i] =
+        2 * (k < 9 * C ? ((tap / 3) * kNHC + tap % 3) * C + k % C : P::kHalo);
+  }
+  // The bias of channel pairs (n, n + 1), fp32: each tile's sums start
+  // from it.
+  for (int n = 2 * tid; n < BN; n += 2 * kNThreads) {
+    auto bv = [&](int o) {
+      return bias != nullptr && o < O ? rr_to_float(bias[o]) : 0.f;
+    };
+    bias_s[n / 2] = make_float2(bv(n0 + n), bv(n0 + n + 1));
+  }
+  for (int i = tid; i < P::kTail; i += kNThreads)
+    halo[P::kHalo + i] = halo[P::kHStride + P::kHalo + i] = 0;
+
+  const int strips = (W + kNC - 1) / kNC;
+  const int bands = (H + kNR - 1) / kNR;
+  const long long tiles = (long long)B * bands * strips;
+
+  // Halo value e of tile t (row e / (34 C), value e % (34 C) of it, from
+  // pixel x0 - 1) into this thread's registers, zero outside the image;
+  // the thread's j-th value in half j % 2 of pf[j / 2].
+  uint32_t pf[(P::kLoads + 1) / 2];
+  const long long wc = (long long)W * C;  // values in an image row
+  auto fetch = [&](long long t) {
+    const NarrowTile u = narrow_tile(t, strips, bands);
+    // The tile's first halo value (row y0 - 1, pixel x0 - 1), as an offset
+    // into x: it lies outside x at the top or left edge, but only values
+    // inside the image are read.
+    const long long base = ((long long)u.b * H + u.y0 - 1) * wc +
+                           (long long)(u.x0 - 1) * C;
+#pragma unroll
+    for (int j = 0; j < P::kLoads; ++j) {
+      const int e = tid + j * kNThreads;
+      const int r = e / (kNHC * C), q = e - r * (kNHC * C);
+      const uint32_t v =
+          e < P::kHalo && (unsigned)(u.y0 - 1 + r) < (unsigned)H &&
+                  (unsigned)(u.x0 - 1 + q / C) < (unsigned)W
+              ? __ldg(x + (base + r * wc + q))
+              : 0u;
+      pf[j / 2] = j % 2 ? pf[j / 2] | v << 16 : v;
+    }
+  };
+
+  // This lane's pixel g = lane / 4 of m16 tile 0 (tile row `warp`, column
+  // g), as a byte offset into halo buffer 0 at dy = dx = 0.
+  const unsigned char* hp = reinterpret_cast<const unsigned char*>(halo) +
+                            2 * (warp * kNHC + (lane >> 2)) * C;
+  // Where the accumulators land in the warp's staged row.  BN = 64: the
+  // 16-byte row of 8 channels that this lane addresses for stmatrix (matrix
+  // lane / 8 of the four that n8 tiles nt, nt + 1 of an m16 tile make:
+  // pixel 8 (matrix % 2) + lane % 8, channel chunk nt + matrix / 2), at nt =
+  // 0 with the swizzle's XOR by the pixel folded in; an even nt XORs its
+  // index into bits 4-6, m16 tile 1 is 2048 bytes on.  BN = 8: this lane's
+  // pair (pixel g, channels 2 t, + 1), unswizzled; pixel g + 8 is 128 bytes
+  // on, m16 tile 1 256.
+  const int lr = lane & 7, lm = lane >> 3;
+  const int so = BN == 64
+                     ? (((lm & 1) * 8 + lr) * 128) | (((lm >> 1) ^ lr) << 4)
+                     : (lane >> 2) * 16 + 4 * (lane & 3);
+  if (blockIdx.x < tiles) fetch(blockIdx.x);
+  int i = 0;  // tiles done by this block
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
+    const NarrowTile u = narrow_tile(t, strips, bands);
+    // Halo buffer i % 2 was last read for tile i - 2, before the previous
+    // tile's barrier.
+    unsigned short* hb = halo + (i & 1) * P::kHStride;
+#pragma unroll
+    for (int j = 0; j < P::kLoads; ++j) {
+      const int e = tid + j * kNThreads;
+      if (e < P::kHalo) hb[e] = (unsigned short)(pf[j / 2] >> 16 * (j % 2));
+    }
+    __syncthreads();
+    if (t + gridDim.x < tiles) fetch(t + gridDim.x);  // in flight meanwhile
+
+    // The sums start from the bias (fp32).
+    float acc[2][P::kNT][4];
+#pragma unroll
+    for (int nt = 0; nt < P::kNT; ++nt) {
+      const float2 bv = bias_s[4 * nt + (lane & 3)];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        acc[mi][nt][0] = acc[mi][nt][2] = bv.x;
+        acc[mi][nt][1] = acc[mi][nt][3] = bv.y;
+      }
+    }
+    const unsigned char* hpb = hp + (i & 1) * 2 * P::kHStride;
+#pragma unroll (P::kUnroll)
+    for (int s = 0; s < P::kKS; ++s) {
+      const int4 ko = koff[4 * s + (lane & 3)];
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        // Rows g and g + 8 of m16 tile mi: tile columns 16 mi + g, + 8.
+        const unsigned char* p = hpb + 2 * 16 * C * mi;
+        const unsigned char* q = p + 2 * 8 * C;
+        auto ld = [](const unsigned char* b, int off) -> uint32_t {
+          return *reinterpret_cast<const unsigned short*>(b + off);
+        };
+        a[mi][0] = ld(p, ko.x) | ld(p, ko.y) << 16;
+        a[mi][1] = ld(q, ko.x) | ld(q, ko.y) << 16;
+        a[mi][2] = ld(p, ko.z) | ld(p, ko.w) << 16;
+        a[mi][3] = ld(q, ko.z) | ld(q, ko.w) << 16;
+      }
+#pragma unroll
+      for (int nt = 0; nt < P::kNT; ++nt) {
+        const uint2 bv = bfrag[(s * P::kNT + nt) * 32 + lane];
+        const uint32_t b[2] = {bv.x, bv.y};
+        mma16816<T>(acc[0][nt], a[0], b);
+        mma16816<T>(acc[1][nt], a[1], b);
+      }
+    }
+
+    // The warp's row, rounded once, into its staging buffer i % 2, which
+    // its store of two tiles ago must have read.
+    unsigned char* ws = out_s + (2 * warp + (i & 1)) * P::kWOut;
+    if (tma && lane == 0) bulk_wait_read<1>();
+    __syncwarp();
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      if constexpr (BN == 64) {
+#pragma unroll
+        for (int nt = 0; nt < P::kNT; nt += 2)
+          stsm_x4(smem_addr(ws) + 2048 * mi + (so ^ (nt << 4)),
+                  pack2<T>(acc[mi][nt][0], acc[mi][nt][1]),
+                  pack2<T>(acc[mi][nt][2], acc[mi][nt][3]),
+                  pack2<T>(acc[mi][nt + 1][0], acc[mi][nt + 1][1]),
+                  pack2<T>(acc[mi][nt + 1][2], acc[mi][nt + 1][3]));
+      } else {
+        unsigned char* d = ws + 256 * mi + so;
+        *reinterpret_cast<uint32_t*>(d) =
+            pack2<T>(acc[mi][0][0], acc[mi][0][1]);
+        *reinterpret_cast<uint32_t*>(d + 128) =
+            pack2<T>(acc[mi][0][2], acc[mi][0][3]);
+      }
+    }
+    const int yy = u.y0 + warp;
+    if (tma) {
+      fence_async_shared();  // the TMA store (async proxy) reads these
+      __syncwarp();
+      if (lane == 0) {
+        tma_store_4d(&ymap, smem_addr(ws), n0, u.x0, yy, u.b);
+        bulk_commit();
+      }
+    } else {
+      __syncwarp();
+      const int oc = min(BN, O - n0), nx = min(kNC, W - u.x0);
+      if (yy < H)
+        for (int k = lane; k < nx * oc; k += 32) {
+          const int p = k / oc, ch = k - p * oc;
+          y[(((long long)u.b * H + yy) * W + u.x0 + p) * O + n0 + ch] =
+              *reinterpret_cast<const T*>(ws + narrow_out_offset<BN>(p, ch));
+        }
+    }
+  }
+  // The block's shared memory must outlive the stores that read it.
+  if (tma && lane == 0) bulk_wait_all();
+}
+
+// ---------------------------------------------------------------------------
 // fp32: CUDA-core FMAs, tiles of 64 pixels x 64 channels, 4 x 4 per thread
 // ---------------------------------------------------------------------------
 
@@ -1360,13 +1710,14 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A tiled tensor map over 16-bit data with the 128-byte swizzle and
-// zero fill out of bounds.  The map holds the data's pointer, so it is
-// encoded at every call.
+// A tiled tensor map over 16-bit data with the 128-byte swizzle (or
+// `swizzle`) and zero fill out of bounds.  The map holds the data's
+// pointer, so it is encoded at every call.
 template <typename T>
-cudaError_t encode_map(CUtensorMap* map, const void* p, cuuint32_t rank,
-                       const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box) {
+cudaError_t encode_map(
+    CUtensorMap* map, const void* p, cuuint32_t rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem[4] = {1, 1, 1, 1};
@@ -1375,7 +1726,7 @@ cudaError_t encode_map(CUtensorMap* map, const void* p, cuuint32_t rank,
       std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       rank, const_cast<void*>(p), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -1467,6 +1818,64 @@ cudaError_t wide(const void* x, const void* w, const void* b, void* y, int B,
   }
 }
 
+// The narrow kernel: `grid` persistent blocks per tile of BN output
+// channels.  Where O % 8 = 0 the output goes out through a tensor map of
+// y, boxes {BN, 32, 1, 1} (the 128-byte swizzle at BN = 64).
+template <typename T, int C, int BN>
+cudaError_t launch_narrow(const void* x, const void* w, const void* b,
+                          void* y, int B, int H, int W, int O, int grid,
+                          cudaStream_t st) {
+  CUtensorMap map = {};
+  cudaError_t e;
+  if (O % 8 == 0) {
+    const cuuint64_t dims[4] = {(cuuint64_t)O, (cuuint64_t)W, (cuuint64_t)H,
+                                (cuuint64_t)B};
+    const cuuint64_t strides[3] = {O * 2ull, O * 2ull * W, O * 2ull * W * H};
+    const cuuint32_t box[4] = {(cuuint32_t)BN, kNC, 1, 1};
+    e = encode_map<T>(&map, y, 4, dims, strides, box,
+                      BN == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                               : CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (e != cudaSuccess) return e;
+  }
+  constexpr size_t bytes = Narrow<C, BN>::kSmem;
+  e = cudaFuncSetAttribute(conv3x3_narrow_kernel<T, C, BN>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 g((unsigned)grid, (unsigned)((O + BN - 1) / BN));
+  conv3x3_narrow_kernel<T, C, BN><<<g, kNThreads, bytes, st>>>(
+      map, static_cast<const unsigned short*>(x),
+      static_cast<const unsigned short*>(w), static_cast<const T*>(b),
+      static_cast<T*>(y), B, H, W, O);
+  return cudaGetLastError();
+}
+
+template <typename T, int BN>
+cudaError_t narrow_c(const void* x, const void* w, const void* b, void* y,
+                     int B, int H, int W, int C, int O, int grid,
+                     cudaStream_t st) {
+  switch (C) {
+    case 1: return launch_narrow<T, 1, BN>(x, w, b, y, B, H, W, O, grid, st);
+    case 2: return launch_narrow<T, 2, BN>(x, w, b, y, B, H, W, O, grid, st);
+    case 3: return launch_narrow<T, 3, BN>(x, w, b, y, B, H, W, O, grid, st);
+    case 4: return launch_narrow<T, 4, BN>(x, w, b, y, B, H, W, O, grid, st);
+    case 5: return launch_narrow<T, 5, BN>(x, w, b, y, B, H, W, O, grid, st);
+    case 6: return launch_narrow<T, 6, BN>(x, w, b, y, B, H, W, O, grid, st);
+    case 7: return launch_narrow<T, 7, BN>(x, w, b, y, B, H, W, O, grid, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t narrow(const void* x, const void* w, const void* b, void* y,
+                   int B, int H, int W, int C, int O, int n, int grid,
+                   cudaStream_t st) {
+  if (grid <= 0) return cudaErrorInvalidValue;
+  if (n == 8) return narrow_c<T, 8>(x, w, b, y, B, H, W, C, O, grid, st);
+  if (n == 64) return narrow_c<T, 64>(x, w, b, y, B, H, W, C, O, grid, st);
+  return cudaErrorInvalidValue;
+}
+
 // 16-bit dispatch by shape (the header's table).
 template <typename T>
 cudaError_t conv16(const void* x, const void* w, const void* b, void* y,
@@ -1475,6 +1884,7 @@ cudaError_t conv16(const void* x, const void* w, const void* b, void* y,
   if (C == kC) return stream<T>(x, w, b, y, B, H, W, O, R, grid, st);
   if (C % 64 == 0 && C >= 128)
     return wide<T>(x, w, b, y, B, H, W, C, O, cols, n, grid, st);
+  if (C <= 7) return narrow<T>(x, w, b, y, B, H, W, C, O, n, grid, st);
   return igemm<T>(x, w, b, y, B, H, W, C, O, st);
 }
 
@@ -1485,7 +1895,8 @@ cudaError_t conv16(const void* x, const void* w, const void* b, void* y,
 // `grid` for the streamed kernel (16-bit, C = 64); `cols`, `n` (the tile's
 // columns and output channels) and `grid` for the wide kernel (16-bit, C %
 // 64 = 0, C >= 128), which takes w as [3,3,C,ld], ld = O rounded up to 8;
-// the other designs read none of them.
+// `n` and `grid` for the narrow kernel (16-bit, C <= 7); the other designs
+// read none of them.
 extern "C" int rr_conv3x3(int dtype, const void* x, const void* w,
                           const void* b, void* y, int B, int H, int W, int C,
                           int O, int R, int cols, int n, int grid,

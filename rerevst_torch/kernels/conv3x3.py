@@ -22,8 +22,12 @@ shape (:func:`design` names it):
   computes here (where O % 8 != 0 the wrapper hands it a copy of ``w``
   padded with zeros to a multiple of 8 channels: no tensor map takes the
   weights' row stride otherwise);
-* f16/bf16 with any other C (VGG conv1_1's C = 3, C = 32, ...): the
-  cp.async + mma.sync implicit GEMM;
+* f16/bf16 with 1 <= C <= 7 (VGG conv1_1's C = 3): the narrow design, one
+  halo read per tile of 8 x 32 pixels, K = 9 C in one mma.sync pass and
+  the output staged for TMA bulk stores, whose work split
+  :func:`narrow_plan` computes here;
+* f16/bf16 with any other C (C = 8, 32, ...): the cp.async + mma.sync
+  implicit GEMM;
 * fp32: CUDA-core FMAs.
 
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
@@ -135,6 +139,8 @@ def design(c: int, dtype: torch.dtype) -> str:
         return "streamed"
     if c % 64 == 0 and c >= 128:
         return "wide"
+    if 1 <= c <= NARROW_MAX_C:
+        return "narrow"
     return "igemm"
 
 
@@ -235,6 +241,78 @@ def wide_plan(batch: int, height: int, width: int, o: int,
     return WidePlan(batch, height, width, o, cols, n, min(plan.tiles, sms))
 
 
+#: The narrow design (csrc/conv3x3.cu conv3x3_narrow_kernel): the widest C
+#: it takes, its tile of output pixels (kNR x kNC) and its blocks per SM.
+NARROW_MAX_C = 7
+NARROW_ROWS, NARROW_COLS = 8, 32
+NARROW_BLOCKS_PER_SM = 2
+
+
+def narrow_tile_n(o: int) -> int:
+    """The narrow kernel's output channels per tile: 8 where O <= 8, else
+    64 (larger O tiles by 64 over the grid's y)."""
+    return 8 if o <= 8 else 64
+
+
+@dataclass(frozen=True)
+class NarrowPlan:
+    """The narrow kernel's work split for one call.
+
+    A tile is ``NARROW_ROWS x NARROW_COLS`` output pixels of one image;
+    ``grid`` persistent blocks per tile of ``n`` output channels take tiles
+    ``bx, bx + grid, ...`` in the order of :meth:`tile`.
+    """
+
+    batch: int
+    height: int
+    width: int
+    o: int
+    n: int
+    grid: int
+
+    @property
+    def strips(self) -> int:
+        return -(-self.width // NARROW_COLS)
+
+    @property
+    def bands(self) -> int:
+        return -(-self.height // NARROW_ROWS)
+
+    @property
+    def tiles(self) -> int:
+        """Pixel tiles (each is taken once per channel tile)."""
+        return self.batch * self.bands * self.strips
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.o // self.n)
+
+    def tile(self, t: int):
+        """(image, first output row, first output column) of tile ``t``:
+        the kernel's ``narrow_tile`` (strip fastest, then band, image)."""
+        x0 = (t % self.strips) * NARROW_COLS
+        q = t // self.strips
+        return q // self.bands, (q % self.bands) * NARROW_ROWS, x0
+
+    def block_tiles(self, bx: int) -> range:
+        return range(bx, self.tiles, self.grid)
+
+
+@functools.lru_cache(maxsize=256)
+def narrow_plan(batch: int, height: int, width: int, c: int, o: int,
+                sms: int) -> NarrowPlan:
+    """Channel tile and grid for a [batch, height, width, c] -> o conv with
+    1 <= c <= 7 on a card with ``sms`` SMs: two blocks per SM in all (split
+    over the channel tiles), or one per tile where there are fewer."""
+    if not 1 <= c <= NARROW_MAX_C:
+        raise ValueError(f"the narrow design takes 1 <= C <= "
+                         f"{NARROW_MAX_C}; got C={c}")
+    n = narrow_tile_n(o)
+    plan = NarrowPlan(batch, height, width, o, n, 1)
+    per_tile = max(1, NARROW_BLOCKS_PER_SM * sms // plan.n_tiles)
+    return NarrowPlan(batch, height, width, o, n, min(plan.tiles, per_tile))
+
+
 def _plain(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor]) -> torch.Tensor:
     xf = x.float()
@@ -285,9 +363,9 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
     y = torch.empty((bb, h, wd, o), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    rows = cols = n = grid = 0  # the plan of the streamed or wide kernel
+    rows = cols = n = grid = 0  # the plan of a persistent design
     kind = design(c, x.dtype)
-    if kind in ("streamed", "wide"):
+    if kind in ("streamed", "wide", "narrow"):
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if kind == "streamed":
         plan = conv_plan(bb, h, wd, o, sms)
@@ -300,6 +378,9 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
             wp = w.new_zeros(3, 3, c, -(-o // 8) * 8)
             wp[..., :o] = w
             w = wp
+    elif kind == "narrow":
+        plan = narrow_plan(bb, h, wd, c, o, sms)
+        n, grid = plan.n, plan.grid
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bias = None if b is None else b.data_ptr()
     lib = _build.library()
@@ -359,7 +440,7 @@ def conv3x3_pairlane(x: torch.Tensor, w: torch.Tensor,
 
 
 #: The kernel designs of csrc/conv3x3.cu, as :func:`design` names them.
-DESIGNS = ("streamed", "wide", "igemm", "fp32")
+DESIGNS = ("streamed", "wide", "narrow", "igemm", "fp32")
 
 #: Kernel launches so far (CPU calls and empty inputs launch nothing); the
 #: implicit-GEMM wrapper's also by design.

@@ -71,6 +71,9 @@ def _j(a):
 @pytest.mark.parametrize("shape,o,bias", [
     ((2, 16, 24, 64), 64, True), ((1, 8, 16, 64), 3, True),   # test_kernels
     ((1, 8, 16, 3), 64, True),                                 # VGG conv1_1
+    # The narrow design's other widths (C <= 7).
+    ((1, 8, 16, 1), 64, True), ((1, 8, 12, 4), 5, True),
+    ((2, 8, 16, 7), 128, False),
     ((1, 8, 16, 64), 128, True), ((1, 8, 12, 32), 16, False),
     # The wide design's widths (C % 64 = 0, C >= 128).
     ((1, 8, 16, 128), 128, True), ((1, 8, 8, 256), 64, False),

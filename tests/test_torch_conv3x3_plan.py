@@ -7,10 +7,12 @@ through three rolling accumulators, and reads TMA rows stored with the
 128-byte swizzle.  Its wide design (C % 64 = 0, C >= 128) splits the output
 into tiles of rows x cols pixels x N channels, and runs a K loop of tap-
 shifted TMA boxes of 64 channels against 64-row weight slices that wgmma
-reads N-contiguous through the same swizzle.  These tests hold that index
-math, as the wrapper's plans (``conv_plan``, ``wide_plan`` in
-``rerevst_torch.kernels.conv3x3``) and numpy emulations of the kernels'
-order of work state it, to the plain conv.
+reads N-contiguous through the same swizzle.  Its narrow design (C <= 7)
+stages each 8 x 32 tile's zero-filled halo once and multiplies K = 9 C,
+padded to a multiple of 16 with zeros, in one pass.  These tests hold that
+index math, as the wrapper's plans (``conv_plan``, ``wide_plan``,
+``narrow_plan`` in ``rerevst_torch.kernels.conv3x3``) and numpy emulations
+of the kernels' order of work state it, to the plain conv.
 
 Tolerance of the emulations: each and the plain version sum K = 9 C fp32
 products in other orders, each within K 2^-24 sum|x||w| of the exact sum,
@@ -22,13 +24,17 @@ import pytest
 import torch
 
 from rerevst_torch.kernels.conv3x3 import (
+    NARROW_COLS,
+    NARROW_ROWS,
     TW,
     WIDE_COLS,
     ConvPlan,
+    NarrowPlan,
     WidePlan,
     conv3x3_implicit_gemm_plain,
     conv_plan,
     design,
+    narrow_plan,
     out_tile,
     wide_plan,
 )
@@ -162,14 +168,17 @@ VGG_WIDE = [((16, 320, 320, 128), 128), ((16, 160, 160, 128), 256),
 
 def test_design_by_shape():
     """The launcher's dispatch: C = 64 streamed, C % 64 = 0 with C >= 128
-    wide, other C the cp.async implicit GEMM, fp32 its own kernel."""
+    wide, 1 <= C <= 7 narrow, other C the cp.async implicit GEMM, fp32 its
+    own kernel."""
     for dt in (torch.float16, torch.bfloat16):
         assert design(64, dt) == "streamed"
         for c in (128, 192, 256, 512, 1024):
             assert design(c, dt) == "wide"
-        for c in (3, 8, 32, 96, 100, 160, 200):
+        for c in range(1, 8):
+            assert design(c, dt) == "narrow"
+        for c in (8, 32, 96, 100, 160, 200):
             assert design(c, dt) == "igemm"
-    for c in (3, 64, 128, 512):
+    for c in (1, 3, 7, 64, 128, 512):
         assert design(c, torch.float32) == "fp32"
 
 
@@ -330,3 +339,185 @@ def test_wgmma_reads_b_where_tma_lands_it(n):
             groups = {(tma_b_offset(8 * g + r, 8 * j) >> 4) % 8
                       for r in range(8)}
             assert len(groups) == 8
+
+
+# ---------------------------------------------------------------------------
+# The narrow design (1 <= C <= 7)
+# ---------------------------------------------------------------------------
+
+#: csrc/conv3x3.cu Narrow: halo columns of a tile.
+NARROW_HC = NARROW_COLS + 2
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("height", [1, 7, 9, 37, 640])
+@pytest.mark.parametrize("width", [1, 7, 33, 130, 640])
+def test_narrow_plan_covers_every_output_once(batch, height, width):
+    """Every output pixel x channel belongs to exactly one tile of one
+    channel tile, the blocks of a channel tile take every tile once, and
+    the grid never exceeds the tiles or two blocks per SM in all."""
+    for o in (3, 5, 64, 72, 128):
+        for sms in (H100_SMS, 7):
+            plan = narrow_plan(batch, height, width, 3, o, sms)
+            assert plan.n == (8 if o <= 8 else 64)
+            assert 1 <= plan.grid <= plan.tiles
+            assert plan.grid * plan.n_tiles <= max(2 * sms, plan.n_tiles)
+            taken = np.sort(np.concatenate(
+                [np.asarray(plan.block_tiles(bx)) for bx in range(plan.grid)]))
+            assert (taken == np.arange(plan.tiles)).all()
+            cover = np.zeros((batch, height, width), np.int32)
+            for t in range(plan.tiles):
+                b, y0, x0 = plan.tile(t)
+                assert 0 <= b < batch and 0 <= y0 < height \
+                    and 0 <= x0 < width
+                assert y0 % NARROW_ROWS == 0 and x0 % NARROW_COLS == 0
+                cover[b, y0:y0 + NARROW_ROWS, x0:x0 + NARROW_COLS] += 1
+            assert (cover == 1).all(), (o, sms)
+            chans = np.zeros(plan.n_tiles * plan.n, np.int32)
+            for ny in range(plan.n_tiles):
+                chans[ny * plan.n:(ny + 1) * plan.n] += 1
+            assert (chans == 1).all() and chans.size >= o
+
+
+def test_narrow_plan_at_conv1_1():
+    """VGG conv1_1, 16 frames of 640^2 -> 64 on 132 SMs: 25,600 tiles with
+    no pixel padded, two blocks per SM, the busiest block within one tile of
+    the mean; the halo reads 1.33x the input."""
+    plan = narrow_plan(16, 640, 640, 3, 64, H100_SMS)
+    assert plan.tiles == 16 * 80 * 20 and plan.n_tiles == 1
+    assert plan.grid == 2 * H100_SMS
+    assert len(plan.block_tiles(0)) - plan.tiles / plan.grid < 1
+    halo = (NARROW_ROWS + 2) * NARROW_HC
+    assert halo / (NARROW_ROWS * NARROW_COLS) < 1.6
+    assert NarrowPlan(2, 9, 40, 3, 8, 3).tile(1) == (0, 0, 32)
+    assert NarrowPlan(2, 9, 40, 3, 8, 3).tile(4) == (1, 0, 0)
+
+
+def narrow_k_offsets(c):
+    """The kernel's per-block offset table: for each K column k of the
+    padded K (16 per k16 step), the halo offset (in values) of A[p][k] from
+    pixel p's own offset, tap k // c = 3 dy + dx, channel k % c; a padded
+    column (k >= 9 c) points at the first value past the halo, the start of
+    the zeroed tail."""
+    ks = -(-9 * c // 16)
+    halo = (NARROW_ROWS + 2) * NARROW_HC * c
+    offs = []
+    for k in range(16 * ks):
+        tap = k // c
+        offs.append(((tap // 3) * NARROW_HC + tap % 3) * c + k % c
+                    if k < 9 * c else halo)
+    return np.asarray(offs)
+
+
+def _emulate_narrow(x, w, b, plan):
+    """The narrow kernel's order of work in numpy (fp32): for each channel
+    tile and tile, the 10 x 34 x C halo staged flat as the kernel's threads
+    load it (value e: halo row e // (34 C), pixel x0 - 1 + (e % (34 C)) // C,
+    zero outside the image), followed by the zeroed tail; A[p][k] read at
+    pixel p's offset + the offset table; B the [9C, O] weights' rows and
+    channels n0 .. n0 + N - 1, zero past K and past O; + bias.  Only pixels
+    and channels inside the output are stored, each once; the output
+    starts as NaN."""
+    bsz, h, wd, c = x.shape
+    o = w.shape[-1]
+    koff = narrow_k_offsets(c)
+    kp = koff.size
+    halo = (NARROW_ROWS + 2) * NARROW_HC * c
+    tail = ((NARROW_ROWS - 1) * NARROW_HC + NARROW_COLS) * c
+    wk = np.zeros((kp, plan.n_tiles * plan.n), np.float32)
+    wk[:9 * c, :o] = w.reshape(9 * c, o)
+    bk = np.zeros(plan.n_tiles * plan.n, np.float32)
+    bk[:o] = b
+    pix = np.arange(NARROW_ROWS * NARROW_COLS)
+    pbase = ((pix // NARROW_COLS) * NARROW_HC + pix % NARROW_COLS) * c
+    y = np.full((bsz, h, wd, o), np.nan, np.float32)
+    for ny in range(plan.n_tiles):
+        n0 = ny * plan.n
+        for bx in range(plan.grid):
+            for t in plan.block_tiles(bx):
+                bi, y0, x0 = plan.tile(t)
+                buf = np.zeros(halo + tail, np.float32)
+                e = np.arange(halo)
+                r, q = e // (NARROW_HC * c), e % (NARROW_HC * c)
+                yy, xx = y0 - 1 + r, x0 - 1 + q // c
+                ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < wd)
+                buf[e[ok]] = x[bi, yy[ok], xx[ok], q[ok] % c]
+                a = buf[pbase[:, None] + koff[None, :]]
+                acc = a @ wk[:, n0:n0 + plan.n] + bk[n0:n0 + plan.n]
+                out = acc.reshape(NARROW_ROWS, NARROW_COLS, plan.n)
+                nh, nw = min(NARROW_ROWS, h - y0), min(NARROW_COLS, wd - x0)
+                nc = min(plan.n, o - n0)
+                blk = y[bi, y0:y0 + nh, x0:x0 + nw, n0:n0 + nc]
+                assert np.isnan(blk).all()
+                y[bi, y0:y0 + nh, x0:x0 + nw, n0:n0 + nc] = out[:nh, :nw, :nc]
+    return y
+
+
+def _narrow_case(c, o, shape, seed=2):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape + (c,)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, c, o)) / np.sqrt(9 * c)).astype(
+        np.float32)
+    b = rng.standard_normal(o).astype(np.float32)
+    return x, w, b
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 7])
+@pytest.mark.parametrize("o", [3, 5, 64, 128])
+def test_narrow_tile_walk_matches_plain(c, o):
+    """Ragged last band and strip (H = 11, W = 45), B = 2, and a grid of 3
+    blocks per channel tile; O = 128 takes two channel tiles."""
+    x, w, b = _narrow_case(c, o, (2, 11, 45))
+    plan = narrow_plan(2, 11, 45, c, o, H100_SMS)
+    plan = NarrowPlan(plan.batch, plan.height, plan.width, o, plan.n, grid=3)
+    got = _emulate_narrow(x, w, b, plan)
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    want = conv3x3_implicit_gemm_plain(*tt).numpy()
+    scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want) <= 9 * c * 2.0 ** -22 * scale).all()
+
+
+def test_narrow_offsets_pad_k_with_the_zero_tail():
+    """Each real K column reads its own (dy, dx, c) once; the padded columns
+    (C = 3: 27 -> 32) all read the zeroed tail, which every pixel's offset
+    keeps inside the buffer."""
+    for c in range(1, 8):
+        koff = narrow_k_offsets(c)
+        halo = (NARROW_ROWS + 2) * NARROW_HC * c
+        tail = ((NARROW_ROWS - 1) * NARROW_HC + NARROW_COLS) * c
+        assert koff.size % 16 == 0 and koff.size - 9 * c < 16
+        assert len(set(koff[:9 * c])) == 9 * c and koff[:9 * c].max() < halo
+        assert (koff[9 * c:] == halo).all()
+        last = ((NARROW_ROWS - 1) * NARROW_HC + NARROW_COLS - 1) * c
+        assert last + koff.max() < halo + tail
+        assert last + koff[:9 * c].max() == halo - 1
+
+
+def test_narrow_nonfinite_inputs_stay_in_their_field():
+    """inf and NaN on a tile's edge columns (31 | 32) and rows (7 | 8), at
+    the image's edges and in a halo's corner: the emulation's non-finite
+    outputs are exactly the plain conv's (the padded K columns read true
+    zeros, so no inf meets a padded weight), and the finite ones agree."""
+    c, o = 3, 64
+    x, w, b = _narrow_case(c, o, (2, 19, 70), seed=3)
+    for idx, v in [((0, 3, 31, 2), np.inf), ((0, 3, 32, 0), -np.inf),
+                   ((0, 7, 10, 1), np.nan), ((0, 8, 40, 2), np.inf),
+                   ((1, 0, 69, 2), np.inf), ((1, 18, 0, 0), -np.inf),
+                   ((1, 15, 63, 1), np.inf), ((1, 16, 64, 2), np.nan)]:
+        x[idx] = v
+    plan = narrow_plan(2, 19, 70, c, o, H100_SMS)
+    with np.errstate(invalid="ignore"):  # inf - inf and inf x 0 are NaN
+        got = _emulate_narrow(x, w, b, plan)
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    want = conv3x3_implicit_gemm_plain(*tt).numpy()
+    assert (np.isnan(got) == np.isnan(want)).all()
+    assert (np.isinf(got) == np.isinf(want)).all()
+    fin = np.isfinite(want)
+    assert not fin.all()
+    xz = np.where(np.isfinite(x), x, 0).astype(np.float32)
+    scale = conv3x3_implicit_gemm_plain(
+        torch.from_numpy(np.abs(xz)), torch.from_numpy(np.abs(w)),
+        torch.from_numpy(np.abs(b))).numpy()
+    assert (np.abs(got[fin] - want[fin])
+            <= 9 * c * 2.0 ** -22 * scale[fin]).all()

@@ -273,6 +273,56 @@ def test_conv3x3_wide_nonfinite_inputs_on_card(rng, cuda, dtype, o):
                     xz, w, b)
 
 
+#: Shapes of the narrow kernel (16-bit, 1 <= C <= 7): ragged last bands and
+#: strips of its 8 x 32 tiles, W narrower than one tile, B = 1, O below 8
+#: and not a multiple of 8 (scalar stores), 16, 64, 72 and 128 (two channel
+#: tiles, the second ragged at 72).
+NARROW = [
+    ((2, 13, 45, 3), 64), ((1, 9, 7, 1), 5), ((1, 37, 70, 4), 128),
+    ((3, 5, 33, 7), 16), ((1, 40, 33, 3), 3), ((2, 11, 96, 2), 72),
+    ((1, 8, 32, 6), 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape,o", NARROW)
+@pytest.mark.parametrize("bias", [True, False])
+def test_conv3x3_narrow_kernel_on_card(rng, cuda, dtype, shape, o, bias):
+    x, w, b = _conv_on_card(rng, cuda, dtype, shape, o, bias)
+    before = dict(conv3x3_implicit_gemm.launches_by_design)
+    got = conv3x3_implicit_gemm(x, w, b)
+    torch.cuda.synchronize()
+    after = conv3x3_implicit_gemm.launches_by_design
+    assert after["narrow"] == before["narrow"] + 1
+    assert got.dtype == dtype and tuple(got.shape) == shape[:3] + (o,)
+    assert _conv_ok(got, conv3x3_implicit_gemm_plain(x, w, b), x, w, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("o", [64, 5])
+def test_conv3x3_narrow_nonfinite_inputs_on_card(rng, cuda, dtype, o):
+    """The narrow kernel (C = 3) under inf and NaN inputs on a tile's edge
+    columns (31 | 32) and rows (7 | 8), at the image's edges and in a
+    halo's corner: the padded K columns must read true zeros."""
+    x, w, b = _conv_on_card(rng, cuda, dtype, (2, 19, 70, 3), o, True)
+    for idx, v in [((0, 3, 31, 2), "inf"), ((0, 3, 32, 0), "-inf"),
+                   ((0, 7, 10, 1), "nan"), ((0, 8, 40, 2), "inf"),
+                   ((1, 0, 69, 2), "inf"), ((1, 18, 0, 0), "-inf"),
+                   ((1, 15, 63, 1), "inf"), ((1, 16, 64, 2), "nan")]:
+        x[idx] = float(v)
+    got = conv3x3_implicit_gemm(x, w, b)
+    torch.cuda.synchronize()
+    want = conv3x3_implicit_gemm_plain(x, w, b)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin) and not fin.all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    xz = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    assert _conv_ok(torch.where(fin, got, 0), torch.where(fin, want, 0),
+                    xz, w, b)
+
+
 #: Shapes that stress the streamed C = 64 kernel's work split (its plan on
 #: an H100's 132 SMs): a last band shorter than the others (H % R != 0), a
 #: last strip narrower than 128 columns, W < 128, B = 1.
