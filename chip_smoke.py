@@ -46,6 +46,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
              fp32 against the CPU's on a 9-frame 64x112 clip; the per-sample
              kernels against their plain versions at batch 16; one decode
              on the shared and on the per-sample route;
+   serve       — the HTTP service (``rerevst_torch.serve``) in f16 on the
+             33-frame clip: warmup, style and Pass 1, 8 concurrent
+             micro-batched /stylize calls (within 1 count of
+             ``transfer_batch``), a lone call, /video over HTTP and an async
+             clip session (both bit-equal to a direct ``stylize_video``),
+             /styles + /interpolate (equal to ``MultiStylization``) and a
+             pair-lane /video; launches per endpoint; one ``{"serve": ...}``
+             line;
 5. times   — each kernel and its plain version at every main-path site
              (device time from CUDA events, and the host's own cost per
              call), the bound (the filter pair's products as three TF32
@@ -1386,6 +1394,379 @@ def multistyle(torch, errs):
     return res
 
 
+def _http(url, body=None, method="POST"):
+    """(status, body) of one request to the local server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _npz_bytes(frames, **extra):
+    import io
+
+    import numpy as np
+
+    bio = io.BytesIO()
+    np.savez(bio, **{f"f{i:05d}": f for i, f in enumerate(frames)}, **extra)
+    return bio.getvalue()
+
+
+def _npz_frames(body):
+    import io
+
+    import numpy as np
+
+    with np.load(io.BytesIO(body)) as z:
+        return [z[k] for k in sorted(z.files)]
+
+
+def _start_server(server):
+    import threading
+
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    host, port = server.server_address[:2]
+    return f"http://{host}:{port}", t
+
+
+def _stop_server(server, thread):
+    server.shutdown()
+    server.server_close()
+    thread.join(60)
+
+
+def serve_phase(torch):
+    """The HTTP service (``rerevst_torch.serve``) on the card, f16, with the
+    bundled checkpoint, the 33-frame 512x512 clip and its style: a server on
+    127.0.0.1 (port 0) with a 5 ms micro-batch window and batch_max 8; its
+    warmup timed; style and Pass 1 through the service methods (the image
+    endpoints need cv2); 8 concurrent /stylize calls, coalesced and within
+    1 count of the session's transfer_batch; a lone call; /video over HTTP
+    bit-equal to a direct stylize_video; a chunked, async clip session equal
+    to /video; /styles + /interpolate equal to MultiStylization; one /video
+    on a pair-lane service.  Each endpoint's kernel launches are counted
+    from 0 around its own calls only (the direct comparisons do not
+    count).  The cold first /stylize runs on a second service without
+    warmup, before the server's warmup, in this process: the kernels are
+    built and the card is in use by then, so it shows the session's
+    first-call costs at new batch shapes, not the builds."""
+    import io
+    import threading
+
+    import numpy as np
+
+    from rerevst_torch import kernels
+    from rerevst_torch.api import Stylization
+    from rerevst_torch.config import InferenceConfig, ModelConfig
+    from rerevst_torch.multistyle import MultiStylization
+    from http.server import ThreadingHTTPServer
+
+    from rerevst_torch.serve import StylizeService, make_handler, serve
+
+    if torch.backends.cudnn.benchmark:
+        fail("serve: cudnn.benchmark is on; the bit-equality checks need "
+             "cuDNN's fixed algorithm choice")
+    ckpt = str(HERE / "models" / "demo_plum_4000.msgpack")
+    clip = synth_clip(CLIP_FRAMES, CONTENT, CONTENT, seed=0)
+    style = synth_style(CONTENT, CONTENT, seed=1)
+    interval = 8
+    sampled = [clip[i] for i in range(0, CLIP_FRAMES - 1, interval)] \
+        + [clip[-1]]
+    res, launches = {}, {}
+    t_phase = time.perf_counter()
+
+    def counted(endpoint, fn):
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        c = kernels.launch_counts()
+        launches[endpoint] = {k: launches.get(endpoint, {}).get(k, 0) + v
+                              for k, v in c.items()}
+        return out
+
+    def ms_since(t0):
+        return (time.perf_counter() - t0) * 1e3
+
+    def two_pass(svc):
+        svc.set_style(style)
+        for i, f in enumerate(sampled):
+            svc.pass1(f, last=i == len(sampled) - 1)
+
+    # Cold: a service without warmup, its first /stylize and a second.
+    cold = StylizeService(ckpt, dtype="f16")
+    two_pass(cold)
+    t0 = time.perf_counter()
+    cold.stylize(clip[0])
+    res["cold_first_stylize_ms"] = ms_since(t0)
+    t0 = time.perf_counter()
+    cold.stylize(clip[0])
+    res["cold_second_stylize_ms"] = ms_since(t0)
+    del cold
+    torch.cuda.empty_cache()
+
+    server = serve(ckpt, port=0, host="127.0.0.1", dtype="f16",
+                   batch_window_ms=5, batch_max=8)
+    url, thread = _start_server(server)
+    svc = server.service
+    try:
+        t0 = time.perf_counter()
+        counted("warmup", lambda: svc.warmup((CONTENT, CONTENT)))
+        res["warmup_s"] = time.perf_counter() - t0
+        status, body = _http(url + "/healthz", method="GET")
+        hz = json.loads(body)
+        if status != 200 or hz["has_style"] or hz["has_stats"]:
+            fail(f"serve: healthz after warmup {status} {hz}")
+        res["healthz"] = hz
+        counted("style+pass1", lambda: two_pass(svc))
+        t0 = time.perf_counter()
+        counted("stylize", lambda: svc.stylize(clip[0]))
+        res["warm_first_stylize_ms"] = ms_since(t0)
+
+        # 8 concurrent /stylize calls, three rounds.
+        conc = clip[:8]
+        per_frame, outs = [], None
+        n0 = svc.batcher.n_calls
+        for _ in range(3):
+            got = [None] * len(conc)
+            barrier = threading.Barrier(len(conc) + 1, timeout=60)
+
+            def call(i):
+                barrier.wait()
+                got[i] = svc.stylize(conc[i])
+
+            ts = [threading.Thread(target=call, args=(i,), daemon=True)
+                  for i in range(len(conc))]
+            for t in ts:
+                t.start()
+
+            def round_():
+                barrier.wait()
+                for t in ts:
+                    t.join(120)
+
+            t0 = time.perf_counter()
+            counted("stylize", round_)
+            per_frame.append(ms_since(t0) / len(conc))
+            if any(t.is_alive() for t in ts) or any(g is None for g in got):
+                fail("serve: a concurrent /stylize call did not return")
+            outs = got
+        calls = list(svc.batcher.calls)[n0:]
+        want = svc._transfer_batch(conc)
+        d = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+                for a, b in zip(outs, want))
+        res["concurrent"] = {
+            "threads": len(conc), "rounds": 3,
+            "ms_per_frame": per_frame,
+            "batcher_calls": calls,
+            "max_counts_vs_transfer_batch": d}
+        if max(calls) <= 1:
+            fail(f"serve: concurrent /stylize never coalesced: {calls}")
+        if d > 1:
+            fail(f"serve: micro-batched frames differ from transfer_batch "
+                 f"by {d} counts")
+        lone = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            counted("stylize", lambda: svc.stylize(clip[1]))
+            lone.append(ms_since(t0))
+        res["batch1_ms"] = lone
+        res["batch1_ms_median"] = sorted(lone)[2]
+
+        # /video over HTTP against a direct stylize_video.
+        body = _npz_bytes(clip)
+        t0 = time.perf_counter()
+        status, reply = counted("video", lambda: _http(
+            url + f"/video?interval={interval}", body))
+        res["video_http_wall_ms"] = ms_since(t0)
+        if status != 200:
+            fail(f"serve: /video answered {status}: {reply[:300]}")
+        t0 = time.perf_counter()
+        video = _npz_frames(reply)
+        res["video_reply_decode_ms"] = ms_since(t0)
+        # The host work the HTTP route adds: the server's compressed reply
+        # (timed here alone), the request's encode and the reply's decode.
+        t0 = time.perf_counter()
+        np.savez_compressed(io.BytesIO(), *video)
+        res["video_reply_encode_ms"] = ms_since(t0)
+        direct = Stylization(ckpt, cfg=ModelConfig(dtype=torch.float16),
+                             infer=InferenceConfig(
+                                 sample_interval=interval,
+                                 batch_size=min(CLIP_FRAMES, 8)))
+        direct.prepare_style(style)
+        t0 = time.perf_counter()
+        want = list(direct.stylize_video(clip))
+        res["video_direct_wall_ms"] = ms_since(t0)
+        if len(video) != CLIP_FRAMES or any(
+                not np.array_equal(a, b) for a, b in zip(video, want)):
+            fail("serve: /video frames differ from direct stylize_video")
+        del direct
+
+        # Where the session calls run: on the service's device thread, or
+        # on each request's own handler thread under the lock alone (PyTorch
+        # keeps cuDNN's plans per thread).  One 8-frame /video, in turns.
+        def caller_run(fn):
+            with svc.lock:
+                return fn()
+
+        body8 = _npz_bytes(clip[:8])
+        by_thread = {"caller": [], "device": []}
+        for variant in ("caller", "device", "device", "caller"):
+            if variant == "caller":
+                svc._run = caller_run
+            t0 = time.perf_counter()
+            status, b = _http(url + f"/video?interval={interval}", body8)
+            by_thread[variant].append(ms_since(t0))
+            vars(svc).pop("_run", None)
+            if status != 200:
+                fail(f"serve: 8-frame /video ({variant}) answered {status}")
+        res["video8_http_ms_by_thread"] = by_thread
+
+        # The clip session: 3 chunks, async finish, two result ranges.
+        t0 = time.perf_counter()
+
+        def clip_session():
+            status, b = _http(url + f"/clip/open?interval={interval}", b"")
+            if status != 200:
+                fail(f"serve: /clip/open answered {status}: {b[:300]}")
+            token = json.loads(b)["clip"]
+            for lo, hi in ((0, 11), (11, 22), (22, CLIP_FRAMES)):
+                status, b = _http(url + f"/clip/{token}/frames",
+                                  _npz_bytes(clip[lo:hi]))
+                if status != 200:
+                    fail(f"serve: /clip frames answered {status}")
+            status, b = _http(url + f"/clip/{token}/finish?async=1", b"")
+            if status != 202:
+                fail(f"serve: async finish answered {status}: {b[:300]}")
+            deadline = time.monotonic() + 300
+            polls = 0
+            while True:
+                st = json.loads(_http(url + f"/clip/{token}/status",
+                                      method="GET")[1])
+                polls += 1
+                if st["status"] == "done":
+                    break
+                if st["status"] != "running" or time.monotonic() > deadline:
+                    fail(f"serve: clip session status {st}")
+                time.sleep(0.01)
+            frames = []
+            for start, count in ((0, 17), (17, 16)):
+                status, b = _http(url + f"/clip/{token}/result?start="
+                                  f"{start}&count={count}", method="GET")
+                if status != 200:
+                    fail(f"serve: /clip result answered {status}")
+                frames += _npz_frames(b)
+            _http(url + f"/clip/{token}/close", b"")
+            return frames, polls
+
+        session_frames, polls = counted("clip", clip_session)
+        res["clip_session_wall_ms"] = ms_since(t0)
+        res["clip_session_status_polls"] = polls
+        if len(session_frames) != CLIP_FRAMES or any(
+                not np.array_equal(a, b)
+                for a, b in zip(session_frames, video)):
+            fail("serve: clip-session frames differ from /video's")
+        status, metrics = _http(url + "/metrics", method="GET")
+        text = metrics.decode()
+        for series in ('rerevst_requests_total{endpoint="clip"}',
+                       'rerevst_requests_total{endpoint="video"}',
+                       "rerevst_open_clip_sessions 0",
+                       "rerevst_microbatch_calls_total",
+                       "rerevst_microbatch_frames_total"):
+            if series not in text:
+                fail(f"serve: /metrics lacks {series!r}: {text}")
+        res["metrics"] = [line for line in text.splitlines()
+                          if line and not line.startswith("#")]
+
+        # Multi-style: /styles, then /interpolate on 8 frames (linear
+        # sweep: a blend per frame, the per-sample route).
+        styles = [style, synth_style(CONTENT, CONTENT, seed=9)]
+        t0 = time.perf_counter()
+        status, b = counted("styles", lambda: _http(url + "/styles",
+                                                    _npz_bytes(styles)))
+        res["styles_ms"] = ms_since(t0)
+        if status != 200:
+            fail(f"serve: /styles answered {status}: {b[:300]}")
+        t0 = time.perf_counter()
+        status, b = counted("interpolate", lambda: _http(
+            url + "/interpolate", _npz_bytes(clip[:8])))
+        res["interpolate_http_wall_ms"] = ms_since(t0)
+        if status != 200:
+            fail(f"serve: /interpolate answered {status}: {b[:300]}")
+        ms = MultiStylization(ckpt, cfg=ModelConfig(dtype=torch.float16))
+        ms.prepare_styles(styles)
+        want = list(ms.interpolate_video(clip[:8]))
+        got = _npz_frames(b)
+        if len(got) != 8 or any(not np.array_equal(a, b)
+                                for a, b in zip(got, want)):
+            fail("serve: /interpolate differs from MultiStylization")
+        del ms
+    finally:
+        _stop_server(server, thread)
+
+    # Pair-lane: one /video on a StylizeService(pairlane=True).
+    pl = StylizeService(ckpt, dtype="f16", pairlane=True)
+    pl_server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(pl))
+    pl_server.daemon_threads = True
+    pl_url, pl_thread = _start_server(pl_server)
+    try:
+        pl.set_style(style)
+        t0 = time.perf_counter()
+        status, b = counted("video_pairlane", lambda: _http(
+            pl_url + f"/video?interval={interval}", _npz_bytes(clip[:8])))
+        res["video_pairlane_http_wall_ms"] = ms_since(t0)
+        if status != 200:
+            fail(f"serve: pair-lane /video answered {status}: {b[:300]}")
+        direct = Stylization(ckpt, cfg=ModelConfig(dtype=torch.float16,
+                                                   pairlane=True),
+                             infer=InferenceConfig(sample_interval=interval,
+                                                   batch_size=8))
+        direct.prepare_style(style)
+        want = list(direct.stylize_video(clip[:8]))
+        if any(not np.array_equal(a, b)
+               for a, b in zip(_npz_frames(b), want)):
+            fail("serve: pair-lane /video differs from direct stylize_video")
+    finally:
+        _stop_server(pl_server, pl_thread)
+
+    # Launches: each endpoint's own, against what its calls must launch.
+    n_video_batches = -(-CLIP_FRAMES // 8)
+    n_stylize_calls = svc.batcher.n_calls  # warmup calls the session
+    expect = {
+        "warmup": (44, 12, 0),  # transfer + buckets 2, 4, 8
+        "style+pass1": (0, 0, 0),
+        "stylize": (11 * n_stylize_calls, 3 * n_stylize_calls, 0),
+        "video": (11 * n_video_batches, 3 * n_video_batches, 0),
+        "clip": (11 * n_video_batches, 3 * n_video_batches, 0),
+        "styles": (0, 0, 0),
+        "interpolate": (11 * 8, 3 * 8, 0),  # one launch per sample
+        "video_pairlane": (11, 3, 1 + 3),   # Pass 1 conv1_2; 3 per batch
+    }
+    for ep, (norm, filt, pair) in expect.items():
+        want = {"norm_affine_clamp": norm, "dynamic_filter_pair": filt,
+                "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": pair}
+        if launches[ep] != want:
+            fail(f"serve: {ep} launched {launches[ep]}, expected {want}")
+    total = {k: sum(c[k] for c in launches.values())
+             for k in launches["video"]}
+    for k in ("norm_affine_clamp", "dynamic_filter_pair",
+              "conv3x3_pairlane"):
+        if total[k] <= 0:
+            fail(f"serve: {k} never launched on the serving path")
+    res["launches_by_endpoint"] = launches
+    res["launches_serve"] = total
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["card"] = nvidia_smi()
+    RESULTS["serve"] = res
+    emit({"serve": res})
+    return res
+
+
 def fetch_overlap(torch, session, clip):
     """One stylize_video with timing events: after each chunk's launch (on
     the compute stream) and after each fetch's copy (on the session's copy
@@ -1598,6 +1979,7 @@ def main() -> int:
     long = long_clip(torch)
     native_prep(torch, sessions["f16"])
     ms = multistyle(torch, errs)
+    served = serve_phase(torch)
 
     # 5. times
     tot, filter_bound_by = time_kernels(torch)
@@ -1657,7 +2039,8 @@ def main() -> int:
              "pf_f16_pairlane" if k == "conv3x3_pairlane" else "pf_f16"][k],
          "launches_long_clip": long["f16"]["launches"][k],
          "launches_long_clip_pass1": long["f16"]["launches_pass1"][k],
-         "launches_multistyle": ms["f16"]["launches"][k]}
+         "launches_multistyle": ms["f16"]["launches"][k],
+         "launches_serve": served["launches_serve"][k]}
         for k, (src, rep, by, path, counts) in meta.items()]}
     for entry in line["kernels"]:
         if entry["name"] == "conv3x3_implicit_gemm":

@@ -1,8 +1,9 @@
 """Frame sources: streaming and sampled access to a clip's frames —
 ``rerevst_tpu/data/source.py``.
 
-A ``FrameSource`` gives an in-memory list, a glob of frame files and a
-container video file the same three operations:
+A ``FrameSource`` gives an in-memory list, a glob of frame files (image
+files through cv2, or ``.npy`` arrays) and a container video file the same
+three operations:
 
 * ``len(source)``       — the frame count (Pass 1 samples every
   ``interval``-th frame plus the last);
@@ -70,16 +71,29 @@ class PathsSource(FrameSource):
     def __init__(self, paths: Sequence[str]):
         self.paths = list(paths)
 
+    @staticmethod
+    def read(path: str) -> np.ndarray:
+        return video.read_frame(path)
+
     def __len__(self) -> int:
         return len(self.paths)
 
     def __iter__(self) -> Iterator[np.ndarray]:
         for p in self.paths:
-            yield video.read_frame(p)
+            yield self.read(p)
 
     def read_indices(self, indices: Sequence[int]) -> Iterator[np.ndarray]:
         for i in indices:
-            yield video.read_frame(self.paths[i])
+            yield self.read(self.paths[i])
+
+
+class NpySource(PathsSource):
+    """One ``.npy`` file per frame (BGR uint8 HxWx3): a lossless spool that
+    needs no image codec (the serving layer's clip sessions)."""
+
+    @staticmethod
+    def read(path: str) -> np.ndarray:
+        return np.load(path)
 
 
 class VideoSource(FrameSource):

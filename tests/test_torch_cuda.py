@@ -656,3 +656,55 @@ def test_long_clip_and_multistyle_on_card(cuda):
     for key in ("", "_ms"):
         for a, b in zip(outs["cuda" + key], outs["cpu" + key]):
             assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
+
+
+@pytest.mark.cuda
+def test_microbatched_service_on_card_matches_transfer_batch(cuda):
+    """Eight concurrent /stylize calls through the micro-batcher on the
+    card coalesce (some call runs more than one frame) and give the
+    session's transfer_batch frames within 1 count (cuDNN may choose
+    another algorithm for another batch size)."""
+    import threading
+
+    from rerevst_torch.serve import StylizeService
+
+    rng = np.random.default_rng(1)
+    style = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    clip = _clip()[:8]
+    svc = StylizeService(str(CKPT), dtype="f16", batch_window_ms=50.0,
+                         batch_max=8)
+    svc.set_style(style)
+    for i, f in enumerate(clip):
+        svc.pass1(f, last=i == len(clip) - 1)
+    outs = [None] * len(clip)
+    barrier = threading.Barrier(len(clip), timeout=60)
+
+    def call(i):
+        barrier.wait()
+        outs[i] = svc.stylize(clip[i])
+
+    ts = [threading.Thread(target=call, args=(i,)) for i in range(len(clip))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(120)
+        assert not t.is_alive()
+    assert max(svc.batcher.calls) > 1, svc.batcher.calls
+    want = svc.session.transfer_batch(clip)
+    for a, b in zip(outs, want):
+        assert a.shape == (64, 112, 3) and a.dtype == np.uint8
+        assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
+
+
+@pytest.mark.cuda
+def test_warmup_on_card_leaves_healthz_clean(cuda):
+    """warmup on the card (each batch bucket with micro-batching on) leaves
+    no style and no statistics, and healthz names the card."""
+    from rerevst_torch.serve import StylizeService
+
+    svc = StylizeService(str(CKPT), dtype="f16", batch_window_ms=5.0,
+                         batch_max=4)
+    assert svc.warmup((64, 112)) > 0
+    hz = svc.healthz()
+    assert hz["ok"] and not hz["has_style"] and not hz["has_stats"]
+    assert hz["device"] == f"cuda:0 ({torch.cuda.get_device_name(0)})"
