@@ -54,6 +54,24 @@ Phases, each printing one JSON line (any failure exits non-zero):
              /styles + /interpolate (equal to ``MultiStylization``) and a
              pair-lane /video; launches per endpoint; one ``{"serve": ...}``
              line;
+   train       — the trainer (``rerevst_torch.train``): eight
+             ``TrainConfig()`` steps (batch 4 of 256x256 crops, fp32, every
+             default loss, the 16-step relaxed loop) from the bundled
+             checkpoint through ``load_pretrained`` (``vgg_loss``
+             regenerated, he_relu), on seeded batches in the loader's
+             format; each step's metrics (finite), ``vgg_loss`` bit-equal
+             and the encoders and decoder moved, the median step ms of
+             steps 2-8 (CUDA events), images/s and peak memory; one step
+             each with ``remat=True`` and ``grad_accum=2`` and their peak
+             memory; the card's step against the CPU's (64x64, flow_iter 2,
+             an injected fake pair, deterministic algorithms: losses to
+             1e-4 relative, selected gradients to 1e-3 of their max-abs);
+             a checkpoint saved after step 2 and resumed into a fresh
+             state, one more step on both (params to 1e-6 relative); 0
+             launches of the hand-written kernels over the timed steps; a
+             profile of one step (device busy share, the relaxed inner
+             loop's share); the decoder's upsample conv at res3 in its
+             plain and its parity-folded form, timed;
 5. times   — each kernel and its plain version at every main-path site
              (device time from CUDA events, and the host's own cost per
              call), the bound (the filter pair's products as three TF32
@@ -68,7 +86,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
              C = 32, beside ``F.conv2d``;
              and (phase pipeline) the warm f16 stylize_video's wall time
              and idle share;
-6. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
+6. a ``{"phase": "done", "seconds": ...}`` line (the script's wall time),
+   the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
    line ``{"ok": true, "device": {...}}``.
 
 Tolerances: a kernel agrees with its plain version to 1e-5 of the output's
@@ -970,13 +989,15 @@ def _category(name: str) -> str:
     return "other elementwise"
 
 
-def _device_breakdown(prof, wall_ms: float, per: int = 1) -> dict:
+def _device_breakdown(prof, wall_ms: float, per: int = 1,
+                      skip=()) -> dict:
     """Device busy time by kernel category (divided by `per`) against the
-    host wall clock, and the top kernels by device time."""
+    host wall clock, and the top kernels by device time; the ranges named
+    in `skip` are annotations, not kernels."""
     by_cat, kernels_ms = {}, []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0)
-        if dev_us <= 0 or e.key.startswith("aten::"):
+        if dev_us <= 0 or e.key.startswith("aten::") or e.key in skip:
             continue
         kernels_ms.append((e.key[:160], dev_us / 1e3 / per, e.count / per))
         cat = _category(e.key)
@@ -1767,6 +1788,386 @@ def serve_phase(torch):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase train: the trainer on the card
+# ---------------------------------------------------------------------------
+
+#: TrainConfig() defaults: batch 4 of 256x256 crops, fp32, flow_iter 16.
+TRAIN_STEPS = 8
+#: Rows of torch.profiler's own buffer handling, which long traces show
+#: beside the kernels.
+PROFILER_ROWS = ("Buffer Flush", "Activity Buffer Request")
+#: The selected gradients held card against CPU (tests/test_grad_parity.py's).
+TRAIN_GRAD_SITES = [("decoder", "out", "w"), ("decoder", "res2", "conv2", "w"),
+                    ("decoder", "filter1", "p1", "fc", "w"),
+                    ("encoder", "conv4_1", "w"),
+                    ("encoder_style", "conv1_1", "w")]
+
+
+def train_batches(n, b, hw, seed):
+    """`n` seeded batches in the loader's format: {"Content", "Style"},
+    float32 NHWC, ImageNet-normalized RGB (no cv2: the synthetic clips)."""
+    import numpy as np
+
+    from rerevst_torch.data.transforms import bgr_to_model
+
+    out = []
+    for i in range(n):
+        frames = synth_clip(b, hw, hw, seed=seed + i)
+        styles = [synth_style(hw, hw, seed=seed + 1000 * (i + 1) + j)
+                  for j in range(b)]
+        out.append({"Content": np.concatenate([bgr_to_model(f)
+                                               for f in frames]),
+                    "Style": np.concatenate([bgr_to_model(s)
+                                             for s in styles])})
+    return out
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.detach().to(dev, copy=True)
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _train_step_run(torch, cfg, host_params, dev, batch, gen=None,
+                    extra=None):
+    """A fresh state from `host_params` on `dev`, one step: (state,
+    metrics as floats)."""
+    from rerevst_torch.train.state import init_train_state
+    from rerevst_torch.train.step import make_train_step
+
+    state = init_train_state(_tree_to(host_params, dev), cfg)
+    c, s = (torch.from_numpy(batch[k]).to(dev) for k in ("Content", "Style"))
+    state, m = make_train_step(cfg)(state, c, s, gen, extra)
+    return state, {k: float(v) for k, v in m.items()}
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """cuDNN's deterministic algorithms and PyTorch's (by default cuDNN may
+    pick algorithms that sum a gradient in another order on each run)."""
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+        torch.use_deterministic_algorithms(False)
+
+
+def train_card_vs_cpu(torch, host_params):
+    """One state, an injected fake pair, 64x64 and flow_iter 2: the card's
+    step (deterministic algorithms) against the port's CPU step.  Losses to
+    1e-4 relative; the selected gradients to 1e-3 of each tensor's
+    max-abs.  Beside it, the spread of two card steps under the default
+    algorithms."""
+    from rerevst_torch.config import LossConfig, TrainConfig
+    from rerevst_torch.ops.warp import flow_warp
+
+    cfg = TrainConfig(loss=LossConfig(flow_iter=2, data_sigma=False))
+    batch = train_batches(1, 2, 64, seed=300)[0]
+    gen = torch.Generator().manual_seed(5)
+    flow = torch.randn((2, 64, 64, 2), generator=gen) * 2
+    second = flow_warp(torch.from_numpy(batch["Content"]), flow, "nearest")
+
+    def run(name):
+        dev = torch.device(name)
+        extra = {"Second": second.to(dev), "FakeFlow": flow.to(dev)}
+        state, m = _train_step_run(torch, cfg, host_params, dev, batch,
+                                   extra=extra)
+        return m, {p: _leaf(state.params, p).grad.cpu()
+                   for p in TRAIN_GRAD_SITES}
+
+    def rel(a, b):
+        return {".".join(p): float((a[p] - b[p]).abs().max()
+                                   / b[p].abs().max()) for p in b}
+
+    mh, gh = run("cpu")
+    spread = rel(run("cuda")[1], run("cuda")[1])
+    with deterministic(torch):
+        mc, gc = run("cuda")
+    loss_rel = {k: abs(mc[k] - mh[k]) / max(abs(mh[k]), 1e-12) for k in mh}
+    grad_rel = rel(gc, gh)
+    res = {"max_loss_rel": max(loss_rel.values()),
+           "max_grad_rel_of_maxabs": max(grad_rel.values()),
+           "loss_rel": loss_rel, "grad_rel": grad_rel,
+           "card_repeat_default_algorithms": spread}
+    emit({"phase": "train", "check": "card_vs_cpu", **res})
+    if res["max_loss_rel"] > 1e-4 or res["max_grad_rel_of_maxabs"] > 1e-3:
+        fail(f"train step: card vs CPU beyond 1e-4 / 1e-3: {res}")
+    return res
+
+
+def train_checkpoint(torch, cfg, host_params, batches):
+    """Save after step k = 2, restore into a fresh state, one more step on
+    both from the same inputs and the same generator seed, with
+    deterministic cuDNN and PyTorch's deterministic algorithms: the params
+    agree to 1e-6 relative."""
+    import tempfile
+
+    from rerevst_torch.io.checkpoint import (
+        restore_train_state,
+        save_train_state,
+    )
+    from rerevst_torch.train.state import (
+        init_train_state,
+        load_train_state,
+        opt_state_tree,
+        tree_leaves,
+    )
+    from rerevst_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    with deterministic(torch):
+        step = make_train_step(cfg)
+        up = [tuple(torch.from_numpy(b[k]).to(dev) for k in ("Content",
+                                                            "Style"))
+              for b in batches[:3]]
+        a = init_train_state(_tree_to(host_params, dev), cfg)
+        gen = torch.Generator(device=dev).manual_seed(41)
+        for c, s in up[:2]:
+            a, _ = step(a, c, s, gen)
+        with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+            path = save_train_state(tmp, a.step, a.params, opt_state_tree(a))
+            size_mb = os.path.getsize(path) / 2 ** 20
+            b = init_train_state(_tree_to(host_params, dev), cfg)
+            p, o = restore_train_state(path, b.params)
+            load_train_state(b, p, o, a.step)
+        for st in (a, b):
+            st, _ = step(st, *up[2],
+                         torch.Generator(device=dev).manual_seed(7))
+        worst = 0.0
+        for k in a.params:
+            for path_, la in tree_leaves(a.params[k]):
+                lb = _leaf(b.params[k], path_)
+                la, lb = la.detach(), lb.detach()
+                scale = float(la.abs().max().clamp_min(1e-30))
+                worst = max(worst, float((la - lb).abs().max()) / scale)
+    res = {"checkpoint_mb": size_mb, "resumed_step": b.step,
+           "max_param_rel": worst}
+    emit({"phase": "train", "check": "checkpoint", **res})
+    if worst > 1e-6 or b.step != 3:
+        fail(f"train checkpoint: resumed state diverged: {res}")
+    return res
+
+
+def train_profile(torch, cfg, state, step, batch, gen, step_ms):
+    """torch.profiler over one step: the device's busy share of the wall
+    clock and the relaxed inner loop's share of the device time (its
+    profiler range), plus the relaxed loss alone by CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rerevst_torch.losses.relaxed import (
+        INNER_LOOP_RANGE,
+        relaxed_style_loss,
+    )
+    from rerevst_torch.models.vgg import vgg_features
+
+    dev = torch.device("cuda")
+    c, s = (torch.from_numpy(batch[k]).to(dev) for k in ("Content", "Style"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, c, s, gen)
+        float(m["total"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # The inner loop's range is an annotation, not a kernel.
+    bd = _device_breakdown(prof, wall_ms,
+                           skip=(INNER_LOOP_RANGE,) + PROFILER_ROWS)
+    inner_ms = max((getattr(e, "device_time_total",
+                            getattr(e, "cuda_time_total", 0))
+                    for e in prof.key_averages()
+                    if e.key == INNER_LOOP_RANGE), default=0) / 1e3
+    # The relaxed loss alone (inner loop, ori and final forward) on the
+    # same batch, by CUDA events.
+    # The content batch stands in for the styled one: the loop's cost does
+    # not depend on the image.
+    vgg = state.params["vgg_loss"]
+    with torch.no_grad():
+        feats = vgg_features(vgg, c, "relu4_1")
+    relaxed = time_ms(torch, lambda: relaxed_style_loss(
+        vgg, s, feats, cfg.loss, cfg.model), iters=3, warmup=1)["ms"]
+    res = {**{k: v for k, v in bd.items() if k != "top_kernels"},
+           "top_kernels": bd["top_kernels"][:8],
+           "inner_loop_device_ms": inner_ms,
+           # None where the profiler saw no device time (then the events'
+           # share below is the reading).
+           "inner_loop_share_of_busy": (inner_ms / bd["device_busy_ms"]
+                                        if bd["device_busy_ms"] else None),
+           "relaxed_loss_events_ms": relaxed,
+           "relaxed_loss_share_of_step": relaxed / step_ms}
+    return res
+
+
+def time_upsample_conv_forms(torch):
+    """The decoder's res3.conv1 of a train step (fp32, [4, 64, 64, 256] ->
+    128 through the nearest-2x upsample): the plain composition (upsample,
+    then the 3x3 conv) against ``layers.upsample2x_conv3x3``'s
+    parity-folded 2x2 conv, forward and forward + backward (CUDA events),
+    and the kernels one forward launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rerevst_torch.models.layers import conv2d, upsample2x_conv3x3
+    from rerevst_torch.ops.resize import upsample_nearest_2x
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((4, 64, 64, 256), generator=gen, device=dev)
+    p = {"w": torch.randn((3, 3, 256, 128), generator=gen, device=dev)
+         * 0.02, "b": torch.zeros(128, device=dev)}
+    x.requires_grad_(True)
+    p["w"].requires_grad_(True)
+    forms = {"plain": lambda: conv2d(p, upsample_nearest_2x(x), padding=1),
+             "parity_folded": lambda: upsample2x_conv3x3(p, x)}
+    out = {}
+    for name, fwd in forms.items():
+        def fwd_bwd():
+            torch.autograd.grad(fwd().sum(), (x, p["w"]))
+
+        out[name] = {"fwd_ms": time_ms(torch, fwd, iters=3, warmup=1)["ms"],
+                     "fwd_bwd_ms": time_ms(torch, fwd_bwd, iters=3,
+                                           warmup=1)["ms"]}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fwd()
+            torch.cuda.synchronize()
+        out[name]["fwd_kernel_launches"] = sum(
+            e.count for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0
+            and not e.key.startswith("aten::") and e.key not in PROFILER_ROWS)
+    emit({"phase": "train", "upsample_conv_res3": out})
+    return out
+
+
+def train_phase(torch):
+    """Phase train: ``TrainConfig()`` steps on the card (batch 4 of 256x256
+    crops, fp32, every default loss, flow_iter 16) from the bundled
+    checkpoint through ``load_pretrained`` (``vgg_loss`` regenerated with
+    he_relu, seed 0); the memory options; the card against the CPU; a
+    checkpoint resumed; no hand-written kernel launched; a profile."""
+    import dataclasses
+
+    import numpy as np
+
+    from rerevst_torch import kernels
+    from rerevst_torch.config import TrainConfig
+    from rerevst_torch.io.torch_compat import load_pretrained
+    from rerevst_torch.models.transformer import init_transformer_params
+    from rerevst_torch.train.state import init_train_state, tree_leaves
+    from rerevst_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    cfg = TrainConfig()
+    t_phase = t_setup = time.perf_counter()
+    template = init_transformer_params(
+        torch.Generator().manual_seed(cfg.seed), cfg.model,
+        with_loss_net=True, vgg_scheme="he_relu")
+    host, stage = load_pretrained(
+        str(HERE / "models" / "demo_plum_4000.msgpack"), template)
+    if stage != "subtree" or host["decoder"]["out"]["w"].dtype != \
+            torch.float32:
+        fail(f"train: load_pretrained gave stage {stage!r}")
+    batches = train_batches(TRAIN_STEPS, cfg.batch_size, cfg.fine_size,
+                            seed=500)
+    up = [tuple(torch.from_numpy(b[k]).to(dev) for k in ("Content", "Style"))
+          for b in batches]
+    state = init_train_state(_tree_to(host, dev), cfg)
+    before = {(k,) + p: leaf.detach().clone() for k in state.params
+              for p, leaf in tree_leaves(state.params[k])}
+    step = make_train_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 17)
+    setup_s = time.perf_counter() - t_setup
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    rows = []
+    for i, (c, s) in enumerate(up):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        state, m = step(state, c, s, gen)
+        e1.record()
+        vals = {k: float(v) for k, v in m.items()}  # waits for the step
+        row = {"step": i + 1, "ms": e0.elapsed_time(e1),
+               "wall_ms": (time.perf_counter() - t0) * 1e3, **vals}
+        rows.append(row)
+        emit({"phase": "train", **row})
+        if not all(np.isfinite(v) for v in vals.values()):
+            fail(f"train step {i + 1}: non-finite metrics {vals}")
+    launches = kernels.launch_counts()
+    peak = {"plain": torch.cuda.max_memory_allocated()}
+    step_ms = float(np.median([r["ms"] for r in rows[1:]]))
+    wall_ms = float(np.median([r["wall_ms"] for r in rows[1:]]))
+    vgg_equal = all(torch.equal(leaf, before[("vgg_loss",) + p])
+                    for p, leaf in tree_leaves(state.params["vgg_loss"]))
+    moved = {k: any(not torch.equal(leaf, before[(k,) + p])
+                    for p, leaf in tree_leaves(state.params[k]))
+             for k in ("encoder", "encoder_style", "decoder")}
+    if not vgg_equal or not all(moved.values()):
+        fail(f"train: vgg_loss bit-equal {vgg_equal}, moved {moved}")
+    if any(launches.values()):
+        fail(f"train: hand-written kernels launched in a train step: "
+             f"{launches}")
+    del before
+    prof = train_profile(torch, cfg, state, step, batches[0], gen, step_ms)
+    emit({"phase": "train", "profile": {k: v for k, v in prof.items()
+                                        if k != "top_kernels"}})
+    del state
+    torch.cuda.empty_cache()
+
+    options = {}
+    for name, kw in (("remat", {"remat": True}),
+                     ("grad_accum_2", {"grad_accum": 2})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st, m = _train_step_run(torch, dataclasses.replace(cfg, **kw), host,
+                                dev, batches[0],
+                                torch.Generator(device=dev).manual_seed(3))
+        options[name] = {"wall_ms_first_step": (time.perf_counter() - t0)
+                         * 1e3, "total": m["total"]}
+        peak[name] = torch.cuda.max_memory_allocated()
+        if not np.isfinite(m["total"]):
+            fail(f"train {name}: non-finite loss {m}")
+        del st
+        torch.cuda.empty_cache()
+
+    cpu = train_card_vs_cpu(torch, host)
+    ck = train_checkpoint(torch, cfg, host, batches)
+    forms = time_upsample_conv_forms(torch)
+    res = {"config": {"batch": cfg.batch_size, "crop": cfg.fine_size,
+                      "dtype": "float32", "flow_iter": cfg.loss.flow_iter,
+                      "lr": cfg.lr, "steps": TRAIN_STEPS,
+                      "pretrained_stage": stage},
+           "setup_s": setup_s, "step_ms_median_2_to_8": step_ms,
+           "step_wall_ms_median_2_to_8": wall_ms,
+           "images_per_s": cfg.batch_size / step_ms * 1e3,
+           "peak_gb": {k: v / 1e9 for k, v in peak.items()},
+           "options": options, "launches": launches,
+           "vgg_loss_bit_equal": vgg_equal, "moved": moved,
+           "card_vs_cpu": cpu, "checkpoint": ck, "profile": prof,
+           "upsample_conv_res3": forms,
+           "steps": rows, "card": nvidia_smi(),
+           "phase_s": time.perf_counter() - t_phase}
+    RESULTS["train"] = res
+    emit({"phase": "train", "summary": {
+        k: res[k] for k in ("step_ms_median_2_to_8",
+                            "step_wall_ms_median_2_to_8", "images_per_s",
+                            "peak_gb", "launches", "setup_s", "phase_s")}})
+    return res
+
+
 def fetch_overlap(torch, session, clip):
     """One stylize_video with timing events: after each chunk's launch (on
     the compute stream) and after each fetch's copy (on the session's copy
@@ -1925,6 +2326,7 @@ def kernel_resources(build) -> dict:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1980,6 +2382,7 @@ def main() -> int:
     native_prep(torch, sessions["f16"])
     ms = multistyle(torch, errs)
     served = serve_phase(torch)
+    trained = train_phase(torch)
 
     # 5. times
     tot, filter_bound_by = time_kernels(torch)
@@ -2040,7 +2443,8 @@ def main() -> int:
          "launches_long_clip": long["f16"]["launches"][k],
          "launches_long_clip_pass1": long["f16"]["launches_pass1"][k],
          "launches_multistyle": ms["f16"]["launches"][k],
-         "launches_serve": served["launches_serve"][k]}
+         "launches_serve": served["launches_serve"][k],
+         "launches_train": trained["launches"][k]}
         for k, (src, rep, by, path, counts) in meta.items()]}
     for entry in line["kernels"]:
         if entry["name"] == "conv3x3_implicit_gemm":
@@ -2054,7 +2458,9 @@ def main() -> int:
                                        "plain_ms", "bound_ms", "bound_by",
                                        "library_ms", "max_abs_err")})
     RESULTS["kernels"] = line["kernels"]
+    RESULTS["seconds"] = time.perf_counter() - t_main
     _save()
+    emit({"phase": "done", "seconds": RESULTS["seconds"]})
     emit(line)
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,4 +1,4 @@
-"""Typed configuration of the model and of the video pipeline.
+"""Typed configuration of the model, the video pipeline and training.
 
 Mirrors ``rerevst_tpu/config.py`` field for field, with torch dtypes.  The
 port supports the default architecture and both ablation switches
@@ -127,3 +127,115 @@ DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
 def dtype_from_name(name: str) -> torch.dtype:
     """'bf16' | 'f16' | 'f32' -> torch dtype (shared by the CLIs)."""
     return DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Loss toggles and weights (``rerevst_tpu.config.LossConfig``)."""
+
+    style_content_loss: bool = True
+    recon_loss: bool = True
+    tv_loss: bool = True
+    temporal_loss: bool = True
+    relax_style: bool = True
+    old_style_loss: bool = False
+    #: The adversarial path is not ported (ROADMAP.md Queue 1 item 6b).
+    adversarial_loss: bool = False
+    gan_mode: str = "lsgan"
+
+    content_weight: float = 1.0
+    style_weight: float = 20.0
+    recon_weight: float = 20.0
+    tv_weight: float = 10.0
+    temporal_weight: float = 60.0
+    gan_weight: float = 1.0
+    old_weight: float = 10.0
+
+    #: Compound Regularization: pixel noise and fake motion.
+    data_sigma: bool = True
+    data_w: bool = True
+    noise_level: float = 0.001
+    motion_level: float = 8.0
+    shift_level: int = 10
+
+    #: Relaxed style loss: the inner flow optimization.
+    flow_scale: int = 8
+    flow_iter: int = 16
+    flow_max: float = 20.0
+    flow_lr: float = 16.0
+    flow_momentum: float = 0.9
+
+    #: 'same' or 'bf16': the dtype of the inner loop's VGG passes (the flow,
+    #: momentum and loss bookkeeping and the final loss stay fp32).
+    relaxed_inner_dtype: str = "same"
+    #: Smooth the relaxed flow at 1/N resolution (1 = the reference recipe).
+    relaxed_blur_scale: int = 1
+
+    def __post_init__(self):
+        if self.adversarial_loss:
+            raise NotImplementedError(
+                "LossConfig(adversarial_loss=True) is not ported yet: "
+                "ROADMAP.md Queue 1 item 6b (adversarial path)")
+        if self.relaxed_inner_dtype not in ("same", "bf16"):
+            raise ValueError(
+                f"relaxed_inner_dtype {self.relaxed_inner_dtype!r}: "
+                f"'same' or 'bf16'")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training settings (``rerevst_tpu.config.TrainConfig``)."""
+
+    batch_size: int = 4
+    epochs: int = 2
+    lr: float = 1e-4
+    log_every: int = 1000
+    scalar_every: int = 10
+    num_workers: int = 4
+    load_size: int = 512
+    fine_size: int = 256
+    flip: bool = True
+    seed: int = 0
+    content_data: str = "./data/content/"
+    style_data: str = "./data/style/"
+    out_dir: str = "result"
+    val_dir: str = "val"
+    log_dir: str = "log"
+    train_only_decoder: bool = False
+    #: Figure-16 ablation datasets (not ported: ROADMAP.md Queue 1 item 6b).
+    use_mpi: bool = False
+    use_video: bool = False
+    #: Discriminator init scheme (the adversarial path, item 6b).
+    d_init: str = "normal"
+    #: Data-parallel training over this many devices (0 or 1 = one card;
+    #: more is ROADMAP.md Queue 1 item 7).
+    data_parallel: int = 0
+    #: Recompute each decode in the backward pass
+    #: (``torch.utils.checkpoint``): less activation memory, more FLOPs.
+    remat: bool = False
+    #: Split each batch into this many micro-batches and average their
+    #: gradients (fp32 sums) before the optimizer update.
+    grad_accum: int = 1
+
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+
+    def __post_init__(self):
+        unsupported = [
+            (self.use_mpi, "use_mpi=True",
+             "ROADMAP.md Queue 1 item 6b (Figure-16 ablations)"),
+            (self.use_video, "use_video=True",
+             "ROADMAP.md Queue 1 item 6b (Figure-16 ablations)"),
+            (self.data_parallel > 1, f"data_parallel={self.data_parallel}",
+             "ROADMAP.md Queue 1 item 7 (torch.distributed)"),
+        ]
+        for bad, what, item in unsupported:
+            if bad:
+                raise NotImplementedError(
+                    f"TrainConfig({what}) is not ported yet: {item}")
+        if self.model.pairlane:
+            # The pair-lane conv kernel has no backward: a trainable tensor
+            # through it would lose its gradient without an error.
+            raise ValueError(
+                "TrainConfig(model=ModelConfig(pairlane=True)): the "
+                "pair-lane kernel is forward-only, training cannot run it")

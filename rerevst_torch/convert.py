@@ -14,14 +14,28 @@ Conversion is file I/O on the host: no tensor reaches a device.
 
 A bf16 ``.msgpack`` (the bundled checkpoints) converts to a ``.pth`` of bf16
 tensors; the JAX CLI cannot (``torch.from_numpy`` takes no bf16 array).
+
+The train state, as ``rerevst_tpu.convert`` moves it:
+
+    # ckpt-stepN.msgpack -> style_net-epoch-N.pth + optimizer-epoch-N.pth
+    python -m rerevst_torch.convert --train-export \
+        out/ckpt-step00000042.msgpack torch_out/
+    # the reference's files -> ckpt-stepN.msgpack
+    python -m rerevst_torch.convert --train-import style_net-epoch-1.pth \
+        native_out/ --optimizer optimizer-epoch-1.pth
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``--train-export`` and ``--train-import`` (training-state interop,
-Queue 1 item 6) and ``--export-aot`` (Queue 1 item 7).
+item): the discriminator's files (``--netd``, or a ``netD-step*.msgpack``
+beside the exported checkpoint; Queue 1 item 6b) and ``--export-aot``
+(Queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
+import os
+import re
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,15 +48,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--train-export", action="store_true",
                     help="src = native ckpt-stepN.msgpack: write the "
                          "reference training trio (style_net/optimizer/netD "
-                         "-epoch-N.pth) into dst/ (not ported: raises)")
+                         "-epoch-N.pth) into dst/")
     ap.add_argument("--train-import", action="store_true",
                     help="src = reference style_net-epoch-N.pth: write a "
-                         "native train-state checkpoint into dst/ (not "
-                         "ported: raises)")
+                         "native train-state checkpoint into dst/")
     ap.add_argument("--optimizer", default=None,
                     help="with --train-import: optimizer-epoch-N.pth")
     ap.add_argument("--netd", default=None,
-                    help="discriminator checkpoint (either direction)")
+                    help="discriminator checkpoint (either direction; not "
+                         "ported: raises)")
     ap.add_argument("--epoch", type=int, default=None,
                     help="with --train-export: epoch tag for the filenames "
                          "(default: the native checkpoint's step)")
@@ -62,18 +76,60 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _train_export(args) -> None:
+    from rerevst_torch.io.checkpoint import restore_train_state
+    from rerevst_torch.io.torch_compat import export_train_checkpoint
+
+    m = re.search(r"step(\d+)", os.path.basename(args.src))
+    src_dir = os.path.dirname(args.src) or "."
+    if glob.glob(os.path.join(src_dir, "netD-step*.msgpack")):
+        raise NotImplementedError(
+            f"{src_dir} holds discriminator checkpoints, whose export is "
+            f"not ported yet: ROADMAP.md Queue 1 item 6b")
+    params, opt_state = restore_train_state(args.src)
+    epoch = args.epoch if args.epoch is not None else (
+        int(m.group(1)) if m else 0)
+    out = export_train_checkpoint(args.dst, epoch, params,
+                                  opt_state=opt_state, lr=args.lr)
+    print(f"exported train state -> {sorted(out.values())}")
+
+
+def _train_import(args) -> None:
+    import torch
+
+    from rerevst_torch.config import TrainConfig
+    from rerevst_torch.io.checkpoint import save_train_state
+    from rerevst_torch.io.torch_compat import import_train_checkpoint
+    from rerevst_torch.models.transformer import init_transformer_params
+    from rerevst_torch.train.state import init_train_state, opt_state_tree
+
+    # The paper recipe's (default) architecture, as the reference files it
+    # reads; subtrees the files lack keep this seeded init.
+    cfg = TrainConfig(lr=args.lr)
+    template = init_transformer_params(
+        torch.Generator().manual_seed(cfg.seed), cfg.model,
+        with_loss_net=True)
+    params, opt_state, step, _ = import_train_checkpoint(
+        args.src, template, opt_state_tree(init_train_state(template, cfg)),
+        optimizer_pth=args.optimizer)
+    path = save_train_state(args.dst, step, params, opt_state)
+    print(f"imported train state @ step {step} -> {[path]}")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, what, item in (
-            (args.train_export, "--train-export (training-state export)",
-             "Queue 1 item 6"),
-            (args.train_import, "--train-import (training-state import)",
-             "Queue 1 item 6"),
-            (args.export_aot, "--export-aot (AOT bundles)",
-             "Queue 1 item 7")):
-        if flag:
-            raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP.md {item}")
+    if args.export_aot:
+        raise NotImplementedError(
+            "--export-aot (AOT bundles) is not ported yet: ROADMAP.md "
+            "Queue 1 item 7")
+    if args.netd is not None:
+        raise NotImplementedError(
+            "--netd (discriminator checkpoints) is not ported yet: "
+            "ROADMAP.md Queue 1 item 6b")
+    if args.train_export:
+        return _train_export(args)
+    if args.train_import:
+        return _train_import(args)
 
     from rerevst_torch.io.checkpoint import read_msgpack, save_params
     from rerevst_torch.io.torch_compat import (

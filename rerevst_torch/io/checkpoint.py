@@ -14,13 +14,22 @@ bf16).  ``load_params`` then hands the tree to ``io.convert.from_jax_params``.
 str and bin encodings msgpack picks, maps in insertion order, arrays above
 ``MAX_CHUNK_SIZE`` split into flax's chunked form), from tensors (bf16
 included) or numpy arrays.
+
+The train-state half (``save_train_state`` ... ``restore_train_state``)
+writes and reads the JAX package's step-tagged checkpoints,
+``ckpt-step%08d.msgpack`` holding ``{"params", "opt_state"}`` with the
+optimizer in the layout flax writes for optax's state
+(``train.state.opt_state_tree``), so a run of either package resumes in the
+other.
 """
 
 from __future__ import annotations
 
+import glob
 import os
+import re
 import struct
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -339,3 +348,63 @@ def save_params(path: str, params: Dict) -> None:
     with open(tmp, "wb") as f:
         f.write(blob)
     os.replace(tmp, path)  # never leave a torn checkpoint
+
+
+# ---------------------------------------------------------------------------
+# Train state
+# ---------------------------------------------------------------------------
+
+_STEP_RE = re.compile(r"-step(\d+)\.msgpack$")
+
+
+def save_train_state(out_dir: str, step: int, params: Dict, opt_state: Dict,
+                     keep: int = 3) -> str:
+    """Write ``ckpt-step{step:08d}.msgpack`` (params + optimizer tree) and
+    keep only the newest `keep` of them."""
+    path = os.path.join(out_dir, f"ckpt-step{step:08d}.msgpack")
+    save_params(path, {"params": params, "opt_state": opt_state})
+    old = sorted(glob.glob(os.path.join(out_dir, "ckpt-step*.msgpack")))
+    for p in old[:-keep]:
+        os.remove(p)
+    return path
+
+
+def checkpoint_at_step(out_dir: str, step: int
+                       ) -> Optional[Tuple[str, int]]:
+    """A specific step's checkpoint (the reference's ``--load_epoch``)."""
+    path = os.path.join(out_dir, f"ckpt-step{step:08d}.msgpack")
+    return (path, step) if os.path.exists(path) else None
+
+
+def latest_checkpoint(out_dir: str) -> Optional[Tuple[str, int]]:
+    paths = sorted(glob.glob(os.path.join(out_dir, "ckpt-step*.msgpack")))
+    if not paths:
+        return None
+    m = _STEP_RE.search(paths[-1])
+    return paths[-1], int(m.group(1)) if m else 0
+
+
+def _like(template: Any, saved: Any, path: str = "") -> Any:
+    """`saved` with every leaf cast to its `template` leaf's dtype and
+    device; the keys and shapes must match."""
+    if isinstance(template, dict):
+        if not isinstance(saved, dict) or set(saved) != set(template):
+            raise ValueError(f"checkpoint tree differs from the model's at "
+                             f"{path or '/'}")
+        return {k: _like(v, saved[k], f"{path}/{k}")
+                for k, v in template.items()}
+    if tuple(saved.shape) != tuple(template.shape):
+        raise ValueError(f"checkpoint leaf {path}: shape "
+                         f"{tuple(saved.shape)} != {tuple(template.shape)}")
+    return saved.to(dtype=template.dtype, device=template.device)
+
+
+def restore_train_state(path: str, params_template: Optional[Dict] = None
+                        ) -> Tuple[Dict, Dict]:
+    """(params, optimizer tree) of a train-state checkpoint; with a
+    template, the params come in its dtypes and on its devices."""
+    blob = read_msgpack(path)
+    params = blob["params"]
+    if params_template is not None:
+        params = _like(params_template, params)
+    return params, blob["opt_state"]

@@ -16,14 +16,17 @@ state_dict naming (from the reference module trees):
   Decoder.slice1.*                       final 64->3 conv
   Decoder.Filter{1,2,3}.{down_sample.0,upsample.0,F1.down_sample.0,F1.FC,F2...}
 
-Not here yet (ROADMAP.md Queue 1 item 6, training): the pretrained graft
-with its three-stage fallback, and the optimizer, discriminator and
-training-checkpoint interop.
+The training half: ``load_pretrained`` (a ``.pth`` through the reference's
+three-stage ``LoadPretrained`` graft, or a native ``.msgpack``), the Adam
+state in the reference's ``optimizer-epoch-N.pth`` layout, and the
+reference's training-checkpoint files.  The discriminator's interop is
+ROADMAP.md Queue 1 item 6b.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import os
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -157,3 +160,227 @@ def load_reference_checkpoint(path: str,
     tensors; ``Stylization`` moves and casts them)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return from_reference_state_dict(sd, dtype)
+
+
+# --- LoadPretrained: the reference's three-stage fallback -------------------
+
+#: The ancient schema's extra 512->512 1x1 conv, which the reference
+#: tolerates by attaching a dummy module (``train/train.py:144-146``).
+_LEGACY_KEYS = ("Decoder.conv_kernel.weight", "Decoder.conv_kernel.bias")
+
+
+def _covers(partial: Any, template: Any) -> bool:
+    """Does `partial` provide every subtree and leaf of `template`?"""
+    if isinstance(template, dict):
+        return isinstance(partial, dict) and all(
+            k in partial and _covers(partial[k], template[k])
+            for k in template)
+    return (isinstance(partial, torch.Tensor)
+            and tuple(partial.shape) == tuple(template.shape))
+
+
+def _graft(template: Any, partial: Any, path: str = "") -> Any:
+    """Overlay `partial` on `template` (template keys only, shapes must
+    match); each leaf takes its template leaf's dtype and device."""
+    if isinstance(template, dict):
+        part = partial if isinstance(partial, dict) else {}
+        return {k: _graft(v, part.get(k), f"{path}.{k}" if path else k)
+                for k, v in template.items()}
+    if partial is None:
+        return template
+    p = leaf_to_tensor(partial)
+    if tuple(p.shape) != tuple(template.shape):
+        raise ValueError(f"pretrained leaf {path}: shape {tuple(p.shape)} "
+                         f"!= model {tuple(template.shape)}")
+    return p.to(dtype=template.dtype, device=template.device)
+
+
+def graft_pretrained_state_dict(state_dict: Dict, template: Dict,
+                                dtype: torch.dtype = torch.float32
+                                ) -> Tuple[Dict, str]:
+    """The reference's three-stage ``LoadPretrained`` as a graft onto
+    `template` (a freshly initialised tree): 'direct' (the checkpoint covers
+    the whole tree), 'subtree' (a flags-off or half-pretrained checkpoint:
+    the template keeps the rest) or 'legacy' (the ``Decoder.conv_kernel``
+    schema, its extra keys dropped).  Returns ``(params, stage)``."""
+    sd = dict(state_dict)
+    stage = "direct"
+    if any(k in sd for k in _LEGACY_KEYS):
+        stage = "legacy"
+        for k in _LEGACY_KEYS:
+            sd.pop(k, None)
+    partial = from_reference_state_dict(sd, dtype)
+    if not partial:
+        raise ValueError("state_dict contains no recognizable ReReVST keys")
+    if stage == "direct" and not _covers(partial, template):
+        stage = "subtree"
+    return _graft(template, partial), stage
+
+
+def load_pretrained(path: str, template: Dict,
+                    dtype: torch.dtype = torch.float32) -> Tuple[Dict, str]:
+    """Initialise training from a checkpoint: a reference ``.pth`` (through
+    the three-stage graft) or a native ``.msgpack`` (bare params or a
+    train-state blob; missing subtrees keep the template's).  Returns
+    ``(params, stage)`` in the template's dtypes and devices."""
+    if path.endswith(".msgpack"):
+        from rerevst_torch.io.checkpoint import read_msgpack
+
+        raw = read_msgpack(path)
+        if "params" in raw and "opt_state" in raw:
+            raw = raw["params"]
+        stage = "direct" if _covers(raw, template) else "subtree"
+        return _graft(template, raw), stage
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return graft_pretrained_state_dict(sd, template, dtype)
+
+
+# --- Train-state interop ---------------------------------------------------
+#
+# The reference saves ``optimizer-epoch-N.pth`` (torch Adam's state_dict),
+# ``style_net-epoch-N.pth`` and ``netD-epoch-N.pth`` at each best-loss log
+# point (``train/train.py:446-457``).  The port's optimizer IS torch Adam, so
+# the optimizer file is its state in the reference's parameter order; the
+# port keeps it as the optax-layout tree of ``train.state.opt_state_tree``,
+# which the JAX package reads too.
+
+_TRAINABLE_SUBTREES = ("decoder", "encoder", "encoder_style")
+
+
+def reference_trainable_param_order() -> List[str]:
+    """The reference training net's trainable parameters in registration
+    order (Decoder, Encoder, EncoderStyle; Vgg19 is frozen): the index
+    order of ``optim.Adam(filter(requires_grad, style_net.parameters()))``
+    (``train/train.py:175``)."""
+    names = []
+    for s in ("slice4", "slice3", "slice2"):
+        names += [f"Decoder.{s}.conv1.weight", f"Decoder.{s}.conv1.bias",
+                  f"Decoder.{s}.conv2.weight", f"Decoder.{s}.conv2.bias",
+                  f"Decoder.{s}.conv_shortcut.weight"]
+    names += ["Decoder.slice1.weight", "Decoder.slice1.bias"]
+    for i in (1, 2, 3):
+        p = f"Decoder.Filter{i}"
+        names += [f"{p}.down_sample.0.weight", f"{p}.down_sample.0.bias",
+                  f"{p}.upsample.0.weight", f"{p}.upsample.0.bias"]
+        for fp in ("F1", "F2"):
+            names += [f"{p}.{fp}.down_sample.0.weight",
+                      f"{p}.{fp}.down_sample.0.bias",
+                      f"{p}.{fp}.FC.weight", f"{p}.{fp}.FC.bias"]
+    for _, idx in _VGG_SLICED.values():
+        names += [f"Encoder.slice.{idx}.weight", f"Encoder.slice.{idx}.bias"]
+    for slc, idx in _VGG_SLICED.values():
+        names += [f"EncoderStyle.{slc}.{idx}.weight",
+                  f"EncoderStyle.{slc}.{idx}.bias"]
+    return names
+
+
+def _adam_node(opt_state: Dict) -> Dict:
+    """The ScaleByAdamState (count, mu, nu) of an optax-layout tree."""
+    return opt_state["inner_states"]["train"]["inner_state"]["0"]
+
+
+def adam_state_to_torch(opt_state: Dict, lr: float = 1e-4) -> Dict:
+    """An optax-layout optimizer tree -> a ``torch.optim.Adam.state_dict()``
+    with the parameters in the reference's trainable order."""
+    adam = _adam_node(opt_state)
+    step = int(adam["count"])
+    order = reference_trainable_param_order()
+    mom_sd = {}
+    for which, tree in (("exp_avg", adam["mu"]), ("exp_avg_sq", adam["nu"])):
+        sub = {k: tree[k] for k in _TRAINABLE_SUBTREES if k in tree}
+        if any(not v for v in sub.values()):
+            raise ValueError(
+                "optimizer state has frozen encoder subtrees "
+                "(train_only_decoder?): the reference's Adam covers "
+                "Decoder+Encoder+EncoderStyle, cannot export")
+        mom_sd[which] = to_reference_state_dict(sub)
+    state = {i: {"step": torch.tensor(float(step)),
+                 "exp_avg": mom_sd["exp_avg"][name],
+                 "exp_avg_sq": mom_sd["exp_avg_sq"][name]}
+             for i, name in enumerate(order)}
+    group = {"lr": lr, "betas": (0.9, 0.999), "eps": 1e-8,
+             "weight_decay": 0, "amsgrad": False, "maximize": False,
+             "foreach": None, "capturable": False, "differentiable": False,
+             "fused": None, "params": list(range(len(order)))}
+    return {"state": state, "param_groups": [group]}
+
+
+def _merge(old: Any, new: Any) -> Any:
+    if isinstance(old, dict):
+        part = new if isinstance(new, dict) else {}
+        return {k: _merge(v, part.get(k)) for k, v in old.items()}
+    return old if new is None else new.to(dtype=old.dtype, device=old.device)
+
+
+def adam_state_from_torch(torch_sd: Dict, opt_state_template: Dict
+                          ) -> Tuple[Dict, int]:
+    """Inverse of ``adam_state_to_torch``: a torch Adam state_dict's moments
+    in the template optimizer tree (frozen subtrees stay empty); returns
+    ``(opt_state, step)``."""
+    order = reference_trainable_param_order()
+    state = torch_sd["state"]
+
+    def get(i):  # torch picklers give int or str keys
+        return state[i] if i in state else state[str(i)]
+
+    count = int(float(get(0)["step"]))
+    parts = {which: from_reference_state_dict(
+        {order[i]: get(i)[which] for i in range(len(order))})
+        for which in ("exp_avg", "exp_avg_sq")}
+    adam = _adam_node(opt_state_template)
+    new_adam = {"count": torch.tensor(count, dtype=torch.int32),
+                "mu": _merge(adam["mu"], parts["exp_avg"]),
+                "nu": _merge(adam["nu"], parts["exp_avg_sq"])}
+    return {"inner_states": {
+        "freeze": {"inner_state": {}},
+        "train": {"inner_state": {"0": new_adam, "1": {}}}}}, count
+
+
+def _no_discriminator(what: str) -> None:
+    raise NotImplementedError(
+        f"{what}: the discriminator's interop is not ported yet: ROADMAP.md "
+        f"Queue 1 item 6b (adversarial path)")
+
+
+def export_train_checkpoint(out_dir: str, epoch: int, params: Dict,
+                            opt_state: Optional[Dict] = None,
+                            d_params: Optional[Dict] = None,
+                            lr: float = 1e-4) -> Dict[str, str]:
+    """Write the reference's training files so that a torch run of the
+    reference resumes drop-in: ``style_net-epoch-{N}.pth`` and, with an
+    optimizer tree, ``optimizer-epoch-{N}.pth``.  Returns {artifact:
+    path}."""
+    if d_params is not None:
+        _no_discriminator("export_train_checkpoint(d_params=...)")
+    os.makedirs(out_dir, exist_ok=True)
+    out = {}
+
+    def save(name, blob):
+        path = os.path.join(out_dir, name)
+        torch.save(blob, path)
+        out[name.split("-")[0]] = path
+
+    save(f"style_net-epoch-{epoch}.pth", to_reference_state_dict(params))
+    if opt_state is not None:
+        save(f"optimizer-epoch-{epoch}.pth",
+             adam_state_to_torch(opt_state, lr))
+    return out
+
+
+def import_train_checkpoint(style_pth: str, params_template: Dict,
+                            opt_state_template: Dict,
+                            optimizer_pth: Optional[str] = None,
+                            netd_pth: Optional[str] = None,
+                            dtype: torch.dtype = torch.float32):
+    """The inverse: the reference's files -> (params, opt_state, step,
+    d_params).  Missing pieces keep the templates' values; `step` is the
+    torch Adam step (0 without an optimizer file); `d_params` is None."""
+    if netd_pth is not None:
+        _no_discriminator("import_train_checkpoint(netd_pth=...)")
+    params, _ = load_pretrained(style_pth, params_template, dtype)
+    opt_state, step = opt_state_template, 0
+    if optimizer_pth is not None:
+        sd = torch.load(optimizer_pth, map_location="cpu",
+                        weights_only=False)
+        opt_state, step = adam_state_from_torch(sd, opt_state_template)
+    return params, opt_state, step, None

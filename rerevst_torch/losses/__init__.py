@@ -1,0 +1,15 @@
+"""Training losses — ``rerevst_tpu/losses`` (the GAN objective and the
+Figure-16 ablation losses are ROADMAP.md Queue 1 item 6b)."""
+
+from rerevst_torch.losses.perceptual import (  # noqa: F401
+    content_loss,
+    style_loss,
+    tv_loss,
+)
+from rerevst_torch.losses.relaxed import relaxed_style_loss  # noqa: F401
+from rerevst_torch.losses.temporal import (  # noqa: F401
+    fake_flow_from_noise,
+    generate_fake_data,
+    generate_fake_flow,
+    temporal_loss,
+)

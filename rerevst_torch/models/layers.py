@@ -5,10 +5,17 @@ Activations are contiguous NHWC tensors.  Convolutions permute them to
 NCHW *views* — channels_last in memory — for ``F.conv2d``, and permute the
 (channels_last) result back, so no activation is ever copied to another
 layout.  Weights are HWIO at the API, as in the JAX package.
+
+The initializers draw from an explicit ``torch.Generator`` (the JAX
+package's PRNG key), on the generator's device, with the JAX package's
+distributions: normal(0, 0.02) weights and zero bias for the decoder, and
+torch's ``nn.Conv2d`` default (kaiming-uniform a=sqrt(5), fan-in uniform
+bias) for the VGG scheme 'torch'.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -27,6 +34,44 @@ def _fp32_products_exact(x: torch.Tensor) -> None:
     if x.is_cuda and x.dtype == torch.float32:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def init_conv_normal(gen: torch.Generator, kh: int, kw: int, cin: int,
+                     cout: int, gain: float = 0.02, bias: bool = True,
+                     dtype: torch.dtype = torch.float32):
+    """normal(0, gain) HWIO weights, zero bias — the reference decoder's
+    init."""
+    w = torch.randn((kh, kw, cin, cout), generator=gen, device=gen.device,
+                    dtype=dtype) * gain
+    p = {"w": w}
+    if bias:
+        p["b"] = torch.zeros((cout,), dtype=dtype, device=gen.device)
+    return p
+
+
+def init_conv_torch_default(gen: torch.Generator, kh: int, kw: int,
+                            cin: int, cout: int, bias: bool = True,
+                            dtype: torch.dtype = torch.float32):
+    """torch ``nn.Conv2d``'s default init (kaiming-uniform a=sqrt(5), fan-in
+    uniform bias), HWIO."""
+    fan_in = kh * kw * cin
+    bound = math.sqrt(6.0 / ((1 + 5.0) * fan_in))  # gain^2 = 2/(1+a^2)
+    w = torch.empty((kh, kw, cin, cout), dtype=dtype, device=gen.device)
+    p = {"w": w.uniform_(-bound, bound, generator=gen)}
+    if bias:
+        bb = 1.0 / math.sqrt(fan_in)
+        b = torch.empty((cout,), dtype=dtype, device=gen.device)
+        p["b"] = b.uniform_(-bb, bb, generator=gen)
+    return p
+
+
+def init_linear_normal(gen: torch.Generator, cin: int, cout: int,
+                       gain: float = 0.02,
+                       dtype: torch.dtype = torch.float32):
+    """normal(0, gain) ``[in, out]`` weights, zero bias."""
+    w = torch.randn((cin, cout), generator=gen, device=gen.device,
+                    dtype=dtype) * gain
+    return {"w": w, "b": torch.zeros((cout,), dtype=dtype, device=gen.device)}
 
 
 def from_torch_conv(weight_oihw, bias=None,
@@ -83,10 +128,40 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
 
 
 def upsample2x_conv3x3(p, x: torch.Tensor) -> torch.Tensor:
-    """conv3x3(nearest_upsample_2x(x)).  The JAX package pre-sums the kernel
-    into one input-dilated conv, a TPU layout choice; this computes the plain
-    composition — the same function, reassociated."""
-    return conv2d(p, upsample_nearest_2x(x), padding=1)
+    """conv3x3(nearest_upsample_2x(x)) without the 2x intermediate: each
+    output parity (a, b) reads a 2x2 window of `x` with the 3x3 taps
+    pre-summed (the JAX package's parity-sliced form), so one 2x2 conv over
+    the zero-padded input gives the four parities as channel groups, which
+    interleave into the 2x output.  The same function, its taps
+    reassociated, at 4/9 of the products.
+
+    The plain composition (upsample, then the 3x3 conv) is not used: cuDNN
+    ran that fp32 conv at [4, 256, 128, 128] -> 128, the decoder's
+    res3.conv1 in a train step of 256x256 crops, as an FFT of 33024
+    launches, over 300 ms against 0.73 ms for this form on an H100
+    (PERF.md section 6).  A transposed conv of the spread 4x4 kernel was faster still,
+    but cuDNN's algorithms for it accumulate in another order from run to
+    run, forward and backward."""
+    n, h, w, _ = x.shape
+    wt = p["w"].float()  # [3, 3, Cin, Cout]
+    cin, o = wt.shape[2:]
+    # Parity 0 reads rows (i-1, i) with taps (W0, W1+W2), parity 1 reads
+    # (i, i+1) with (W0+W1, W2); the same for columns.
+    w0, w1, w2 = wt.unbind(0)
+    rows = torch.stack([torch.stack([w0, w1 + w2]),
+                        torch.stack([w0 + w1, w2])])  # [a, t, 3, Cin, Cout]
+    c0, c1, c2 = rows.unbind(2)
+    k = torch.stack([torch.stack([c0, c1 + c2]),
+                     torch.stack([c0 + c1, c2])])  # [b, u, a, t, Cin, Cout]
+    k = k.permute(3, 1, 4, 2, 0, 5).reshape(2, 2, cin, 4 * o)  # (a, b, Cout)
+    kp = {"w": k}
+    if "b" in p:
+        kp["b"] = p["b"].float().repeat(4)
+    y = conv2d(kp, x, padding=1)  # [N, H+1, W+1, 4 Cout]
+    y = y.reshape(n, h + 1, w + 1, 2, 2, o)
+    out = torch.stack([torch.stack([y[:, a:a + h, c:c + w, a, c]
+                                    for c in (0, 1)], 3) for a in (0, 1)], 2)
+    return out.reshape(n, 2 * h, 2 * w, o)
 
 
 def upsample2x_conv1x1(p, x: torch.Tensor) -> torch.Tensor:

@@ -50,6 +50,8 @@ from rerevst_torch.models.layers import (
     apply_dynamic_filter,
     apply_dynamic_filter_3x3,
     conv2d,
+    init_conv_normal,
+    init_linear_normal,
     leaky_relu,
     linear,
     upsample2x_conv1x1,
@@ -127,6 +129,74 @@ def blend_pytrees_batched(trees: Sequence, weights):
         return out.reshape((w.shape[0],) + tuple(stacked.shape[2:]))
 
     return _tree_map(combine, *trees)
+
+
+# ---------------------------------------------------------------------------
+# Parameter initialization (``rerevst_tpu``'s tree, drawn from a
+# torch.Generator: the same distributions, other values)
+# ---------------------------------------------------------------------------
+
+def _init_predictor(gen: torch.Generator, cfg: ModelConfig,
+                    style_only: bool) -> Dict:
+    ic, vc = cfg.filter_channels, cfg.vgg_channels
+    down = init_conv_normal(gen, 3, 3, vc, ic, dtype=cfg.dtype)
+    if style_only:  # FilterPredictor_S: FC(ic -> 9 ic ic)
+        fc = init_linear_normal(gen, ic, 9 * ic * ic, dtype=cfg.dtype)
+    else:  # FilterPredictor: FC(2 ic -> ic ic)
+        fc = init_linear_normal(gen, 2 * ic, ic * ic, dtype=cfg.dtype)
+    return {"down": down, "fc": fc}
+
+
+def _init_kernel_filter(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+    ic, vc = cfg.filter_channels, cfg.vgg_channels
+    style_only = not cfg.both_sty_con
+    return {
+        "down": init_conv_normal(gen, 3, 3, vc, ic, dtype=cfg.dtype),
+        "up": init_conv_normal(gen, 3, 3, ic, vc, dtype=cfg.dtype),
+        "p1": _init_predictor(gen, cfg, style_only),
+        "p2": _init_predictor(gen, cfg, style_only),
+    }
+
+
+def _init_resblock(gen: torch.Generator, cin: int, cout: int,
+                   dtype: torch.dtype) -> Dict:
+    return {
+        "conv1": init_conv_normal(gen, 3, 3, cin, cout, dtype=dtype),
+        "conv2": init_conv_normal(gen, 3, 3, cout, cout, dtype=dtype),
+        "shortcut": init_conv_normal(gen, 1, 1, cin, cout, bias=False,
+                                     dtype=dtype),
+    }
+
+
+def init_decoder_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+    """The decoder's tree: normal(0, 0.02) weights, zero biases."""
+    params = {
+        "res4": _init_resblock(gen, 512, 256, cfg.dtype),
+        "res3": _init_resblock(gen, 256, 128, cfg.dtype),
+        "res2": _init_resblock(gen, 128, 64, cfg.dtype),
+        "out": init_conv_normal(gen, 3, 3, 64, 3, dtype=cfg.dtype),
+    }
+    if cfg.dynamic_filter:
+        for i in (1, 2, 3):
+            params[f"filter{i}"] = _init_kernel_filter(gen, cfg)
+    return params
+
+
+def init_transformer_params(gen: torch.Generator, cfg: ModelConfig,
+                            with_loss_net: bool = True,
+                            vgg_scheme: str = "torch") -> Dict:
+    """The whole tree — ``encoder``, ``encoder_style``, ``decoder`` and, with
+    `with_loss_net`, the frozen loss network ``vgg_loss`` — on the
+    generator's device.  ``vgg_scheme='he_relu'`` gives magnitude-preserving
+    VGG features (see ``vgg.init_vgg_params``)."""
+    params = {
+        "encoder": vgg.init_vgg_params(gen, cfg.dtype, vgg_scheme),
+        "encoder_style": vgg.init_vgg_params(gen, cfg.dtype, vgg_scheme),
+        "decoder": init_decoder_params(gen, cfg),
+    }
+    if with_loss_net:
+        params["vgg_loss"] = vgg.init_vgg_params(gen, cfg.dtype, vgg_scheme)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -415,3 +485,19 @@ def stylize(params: Dict, frame: torch.Tensor, style: StyleFeatures,
     if stats is None:
         return decode(params["decoder"], f, style, cfg)
     return decode_global(params["decoder"], f, style, stats, cfg)
+
+
+class TransformerNet:
+    """A model config and the training loop's validation pass
+    (``rerevst_tpu.models.transformer.TransformerNet``)."""
+
+    def __init__(self, cfg: Optional[ModelConfig] = None):
+        self.cfg = cfg or ModelConfig()
+
+    def validation(self, params: Dict, frame: torch.Tensor,
+                   style_img: torch.Tensor) -> torch.Tensor:
+        """The training-time validation pass: the COLOR content through the
+        per-frame graph (no desaturation)."""
+        f = encode_content(params, frame, self.cfg, desaturate=False)
+        return decode(params["decoder"], f,
+                      encode_style(params, style_img, self.cfg), self.cfg)

@@ -11,12 +11,18 @@ gates: 16-bit storage and a geometry the TPU kernel tiles.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from rerevst_torch.kernels import conv3x3_pairlane
-from rerevst_torch.models.layers import conv2d, max_pool_2x2
+from rerevst_torch.models.layers import (
+    conv2d,
+    from_torch_conv,
+    init_conv_torch_default,
+    max_pool_2x2,
+)
 
 #: (name, cin, cout) of the 9 convs through conv4_1, in order.
 VGG_CONVS = (
@@ -30,6 +36,13 @@ VGG_CONVS = (
     ("conv3_4", 256, 256),
     ("conv4_1", 256, 512),
 )
+
+#: torchvision vgg19.features index of each conv (checkpoint conversion).
+TORCH_FEATURE_INDEX = {
+    "conv1_1": 0, "conv1_2": 2, "conv2_1": 5, "conv2_2": 7,
+    "conv3_1": 10, "conv3_2": 12, "conv3_3": 14, "conv3_4": 16,
+    "conv4_1": 19,
+}
 
 _POOL_BEFORE = {"conv2_1", "conv3_1", "conv4_1"}
 
@@ -47,6 +60,45 @@ class VggFeatures(NamedTuple):
     relu2_1: Optional[torch.Tensor]
     relu3_1: Optional[torch.Tensor]
     relu4_1: Optional[torch.Tensor]
+
+
+def init_vgg_params(gen: torch.Generator, dtype: torch.dtype = torch.float32,
+                    scheme: str = "torch") -> Dict:
+    """scheme='torch': ``nn.Conv2d``'s default init (an untrained reference;
+    deep features shrink to ~1e-4).  scheme='he_relu': ReLU-gain He-normal
+    weights and zero bias, which keep the features O(1) through all nine
+    convs — the choice when no pretrained VGG weights exist."""
+    if scheme == "torch":
+        return {name: init_conv_torch_default(gen, 3, 3, cin, cout,
+                                              dtype=dtype)
+                for name, cin, cout in VGG_CONVS}
+    if scheme != "he_relu":
+        raise ValueError(scheme)
+    params = {}
+    for name, cin, cout in VGG_CONVS:
+        std = math.sqrt(2.0 / (9 * cin))
+        params[name] = {
+            "w": torch.randn((3, 3, cin, cout), generator=gen,
+                             device=gen.device, dtype=dtype) * std,
+            "b": torch.zeros((cout,), dtype=dtype, device=gen.device),
+        }
+    return params
+
+
+def from_torch_features(state_dict, prefix: str = "",
+                        dtype: Optional[torch.dtype] = torch.float32) -> Dict:
+    """A torchvision ``vgg19().features`` state_dict slice
+    (``{prefix}0.weight`` -> OIHW) -> the backbone's parameters; works for
+    the reference checkpoints' ``Encoder.slice.<i>`` and the torchvision
+    layout alike."""
+    params = {}
+    for name, idx in TORCH_FEATURE_INDEX.items():
+        wkey = f"{prefix}{idx}.weight"
+        if wkey in state_dict:
+            params[name] = from_torch_conv(
+                state_dict[wkey], state_dict.get(f"{prefix}{idx}.bias"),
+                dtype)
+    return params
 
 
 def vgg_features(params: Dict, x: torch.Tensor, upto: str = "relu4_1",

@@ -708,3 +708,82 @@ def test_warmup_on_card_leaves_healthz_clean(cuda):
     hz = svc.healthz()
     assert hz["ok"] and not hz["has_style"] and not hz["has_stats"]
     assert hz["device"] == f"cuda:0 ({torch.cuda.get_device_name(0)})"
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step (64x64, flow_iter 2, an injected fake pair) on the card
+    against the CPU from the same state: losses to 1e-4 relative, the
+    selected gradients to 1e-3 of their max-abs, no hand-written kernel
+    launched, the loss network untouched."""
+    from rerevst_torch.config import LossConfig, TrainConfig
+    from rerevst_torch.data.transforms import bgr_to_model
+    from rerevst_torch.io.torch_compat import load_pretrained
+    from rerevst_torch.models.transformer import init_transformer_params
+    from rerevst_torch.ops.warp import flow_warp
+
+    cfg = TrainConfig(loss=LossConfig(flow_iter=2, data_sigma=False))
+    host, _ = load_pretrained(str(CKPT), init_transformer_params(
+        torch.Generator().manual_seed(0), cfg.model, vgg_scheme="he_relu"))
+    # Smooth synthetic images, as chip_smoke.py's phase train uses: on
+    # white noise the relaxed loop's two chained flow steps (lr 16) carry
+    # the two devices' rounding to 1.5e-4 in the relaxed loss.
+    content, style = (torch.from_numpy(np.concatenate(
+        [bgr_to_model(f) for f in _clip(2, 64, 64, seed)])) for seed in (3, 4))
+    gen = torch.Generator().manual_seed(1)
+    # Whole-pixel flows: no nearest-warp coordinate sits at a .5 tie, where
+    # the card's and the CPU's last bits could pick other neighbours.
+    flow = torch.randint(-3, 4, (2, 64, 64, 2), generator=gen).float()
+    extra = {"Second": flow_warp(content, flow, "nearest"), "FakeFlow": flow}
+    sites = [("decoder", "out", "w"), ("decoder", "filter1", "p1", "fc", "w"),
+             ("encoder", "conv4_1", "w"), ("encoder_style", "conv1_1", "w")]
+    # Deterministic algorithms: cuDNN may otherwise pick ones that sum a
+    # gradient in another order on each run (chip_smoke.py phase train
+    # reports that spread beside the same comparison).
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out = {dev.type: _train_step_on(cfg, host, content, style, extra,
+                                        sites, dev)
+               for dev in (cuda, torch.device("cpu"))}
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+        torch.use_deterministic_algorithms(False)
+    (mc, gc), (mh, gh) = out["cuda"], out["cpu"]
+    for k in mh:
+        assert abs(mc[k] - mh[k]) <= 1e-4 * max(abs(mh[k]), 1e-12), \
+            (k, mc[k], mh[k])
+    for site in sites:
+        err = (gc[site] - gh[site]).abs().max() / gh[site].abs().max()
+        assert err <= 1e-3, (site, float(err))
+
+
+def _train_step_on(cfg, host, content, style, extra, sites, dev):
+    """One train step on `dev` from `host`: (metrics, the sites' grads);
+    no hand-written kernel launched, the loss network untouched."""
+    from rerevst_torch.train.state import init_train_state, tree_leaves
+    from rerevst_torch.train.step import make_train_step
+
+    state = init_train_state(_copy_to(host, dev), cfg)
+    vgg = [t.clone() for _, t in tree_leaves(state.params["vgg_loss"])]
+    kernels.reset_launches()
+    state, m = make_train_step(cfg)(
+        state, content.to(dev), style.to(dev), None,
+        {k: v.to(dev) for k, v in extra.items()})
+    assert not any(kernels.launch_counts().values())
+    assert all(torch.equal(a, b) for a, (_, b) in
+               zip(vgg, tree_leaves(state.params["vgg_loss"])))
+    grads = {}
+    for site in sites:
+        t = state.params
+        for k in site:
+            t = t[k]
+        grads[site] = t.grad.cpu()
+    return {k: float(v) for k, v in m.items()}, grads
+
+
+def _copy_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _copy_to(v, dev) for k, v in tree.items()}
+    return tree.detach().to(dev, copy=True)
