@@ -72,6 +72,33 @@ Phases, each printing one JSON line (any failure exits non-zero):
              profile of one step (device busy share, the relaxed inner
              loop's share); the decoder's upsample conv at res3 in its
              plain and its parity-folded form, timed;
+   adversarial — eight ``LossConfig(adversarial_loss=True)`` steps (batch
+             4 of 256x256, fp32, flow_iter 16) from the same generator and
+             a seeded PatchGAN (ndf 64, 3 layers, 'normal'): the median
+             step ms, images/s, peak memory, D's share of a profiled step
+             (its profiler range), the first and last loss_d and
+             loss_G_GAN (finite); each gan_mode's step at 64x64 (flow_iter
+             2, an injected pair, deterministic algorithms) against the
+             CPU's, part by part on the same inputs: losses to 1e-4
+             relative, every D gradient, G's GAN cotangent and the
+             selected G gradients to 1e-3 of their max-abs, or to twice
+             the largest change of the CPU's own result over four draws
+             of 2^-20 relative noise at every conv output where the
+             step's conditioning makes that larger, on phase train's
+             check batch; a second batch's parts and whole step
+             recorded, not held); G's checkpoint and
+             D's ``netD-step*.msgpack`` saved after one step and restored,
+             the next step's D bit-equal to the uninterrupted one (G's
+             params to 1e-6 relative); 0 kernel launches;
+   ablation    — a ``use_mpi`` and a ``use_video`` step at 4 x 256x256 on
+             synthetic pairs made on the host (seeded frames, smooth
+             whole-pixel flows, disc occlusion masks), each run twice and
+             the second timed; each at 64x64
+             against the CPU (the bars and the allowance above, on
+             phase train's check batch; a second batch recorded); one
+             U-Net forward at
+             256x256 (num_downs 8, ngf 64) against the CPU, to 1e-4 of its
+             max-abs, timed; 0 kernel launches;
 5. times   — each kernel and its plain version at every main-path site
              (device time from CUDA events, and the host's own cost per
              call), the bound (the filter pair's products as three TF32
@@ -2048,26 +2075,15 @@ def time_upsample_conv_forms(torch):
     return out
 
 
-def train_phase(torch):
-    """Phase train: ``TrainConfig()`` steps on the card (batch 4 of 256x256
-    crops, fp32, every default loss, flow_iter 16) from the bundled
-    checkpoint through ``load_pretrained`` (``vgg_loss`` regenerated with
-    he_relu, seed 0); the memory options; the card against the CPU; a
-    checkpoint resumed; no hand-written kernel launched; a profile."""
-    import dataclasses
-
-    import numpy as np
-
-    from rerevst_torch import kernels
+def train_host_params(torch):
+    """The generator every train-like phase starts from, on the host: the
+    bundled checkpoint through ``load_pretrained`` onto a seeded template
+    (``vgg_loss`` regenerated with he_relu, seed 0), fp32."""
     from rerevst_torch.config import TrainConfig
     from rerevst_torch.io.torch_compat import load_pretrained
     from rerevst_torch.models.transformer import init_transformer_params
-    from rerevst_torch.train.state import init_train_state, tree_leaves
-    from rerevst_torch.train.step import make_train_step
 
-    dev = torch.device("cuda")
     cfg = TrainConfig()
-    t_phase = t_setup = time.perf_counter()
     template = init_transformer_params(
         torch.Generator().manual_seed(cfg.seed), cfg.model,
         with_loss_net=True, vgg_scheme="he_relu")
@@ -2076,6 +2092,29 @@ def train_phase(torch):
     if stage != "subtree" or host["decoder"]["out"]["w"].dtype != \
             torch.float32:
         fail(f"train: load_pretrained gave stage {stage!r}")
+    return host, stage
+
+
+def train_phase(torch, host=None, stage="subtree"):
+    """Phase train: ``TrainConfig()`` steps on the card (batch 4 of 256x256
+    crops, fp32, every default loss, flow_iter 16) from the bundled
+    checkpoint (``train_host_params``); the memory options; the card
+    against the CPU; a checkpoint resumed; no hand-written kernel
+    launched; a profile."""
+    import dataclasses
+
+    import numpy as np
+
+    from rerevst_torch import kernels
+    from rerevst_torch.config import TrainConfig
+    from rerevst_torch.train.state import init_train_state, tree_leaves
+    from rerevst_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    cfg = TrainConfig()
+    t_phase = t_setup = time.perf_counter()
+    if host is None:
+        host, stage = train_host_params(torch)
     batches = train_batches(TRAIN_STEPS, cfg.batch_size, cfg.fine_size,
                             seed=500)
     up = [tuple(torch.from_numpy(b[k]).to(dev) for k in ("Content", "Style"))
@@ -2165,6 +2204,634 @@ def train_phase(torch):
         k: res[k] for k in ("step_ms_median_2_to_8",
                             "step_wall_ms_median_2_to_8", "images_per_s",
                             "peak_gb", "launches", "setup_s", "phase_s")}})
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phases adversarial and ablation: the PatchGAN step and the Figure-16 pairs
+# ---------------------------------------------------------------------------
+
+#: Steps of the adversarial phase (batch 4 of 256x256 crops, fp32,
+#: flow_iter 16, an ndf-64 3-layer PatchGAN).
+ADV_STEPS = 8
+#: The selected G gradients held card against CPU in both phases.
+ADV_G_SITES = [("decoder", "out", "w"), ("decoder", "res2", "conv2", "w"),
+               ("decoder", "filter1", "p1", "fc", "w"),
+               ("encoder", "conv4_1", "w")]
+
+
+def _fake_pair(torch, content, seed):
+    """An injected fake pair: a whole-pixel flow (no nearest-warp tie at
+    .5, where the card's and the CPU's last bits could pick other
+    neighbours) and the content warped by it."""
+    from rerevst_torch.ops.warp import flow_warp
+
+    n, h, w, _ = content.shape
+    flow = torch.randint(-3, 4, (n, h, w, 2),
+                         generator=torch.Generator().manual_seed(seed)) \
+        .float()
+    return {"Second": flow_warp(content, flow, "nearest"), "FakeFlow": flow}
+
+
+def _rel_errs(a, b):
+    """max |a - b| / max |b| per key (b the CPU's)."""
+    return {".".join(k): float((a[k] - b[k]).abs().max()
+                               / b[k].abs().max().clamp_min(1e-30))
+            for k in b}
+
+
+def _adv_step_on(torch, cfg, host, d_host, batch, extra, dev):
+    """One adversarial step on `dev` from fresh states: (metrics, the
+    selected G gradients and every D gradient, on the host)."""
+    from rerevst_torch.train.state import (
+        init_d_state,
+        init_train_state,
+        tree_leaves,
+    )
+    from rerevst_torch.train.step import make_adversarial_train_step
+
+    g = init_train_state(_tree_to(host, dev), cfg)
+    d = init_d_state(_tree_to(d_host, dev))
+    c, s = (torch.from_numpy(batch[k]).to(dev) for k in ("Content", "Style"))
+    g, d, m = make_adversarial_train_step(cfg)(
+        g, d, c, s, None, {k: v.to(dev) for k, v in extra.items()})
+    grads = {("G",) + p: _leaf(g.params, p).grad.cpu() for p in ADV_G_SITES}
+    grads.update({("D",) + p: leaf.grad.cpu()
+                  for p, leaf in tree_leaves(d.params)})
+    return {k: float(v) for k, v in m.items()}, grads
+
+
+def _worst(errs, prefix=""):
+    return max(v for k, v in errs.items() if k.startswith(prefix))
+
+
+def _full_step_errors(torch, cfg, host, d_host, batch, extra, other):
+    """The CPU's full adversarial step against `other`'s ('cuda': the card
+    under deterministic algorithms; 'ulp': the CPU again with each style
+    pixel moved by one ulp): the largest relative loss error and the
+    largest G and D gradient errors over each tensor's max-abs."""
+    import numpy as np
+
+    mh, gh = _adv_step_on(torch, cfg, host, d_host, batch, extra,
+                          torch.device("cpu"))
+    if other == "cuda":
+        with deterministic(torch):
+            mo, go = _adv_step_on(torch, cfg, host, d_host, batch, extra,
+                                  torch.device("cuda"))
+    else:
+        st = batch["Style"]
+        sign = np.random.default_rng(3).choice([-1.0, 1.0], st.shape)
+        moved = {**batch, "Style": np.nextafter(
+            st, st + sign.astype(np.float32)).astype(np.float32)}
+        mo, go = _adv_step_on(torch, cfg, host, d_host, moved, extra,
+                              torch.device("cpu"))
+    rel = _rel_errs(go, gh)
+    return {"max_loss_rel": max(abs(mo[k] - mh[k]) / max(abs(mh[k]), 1e-12)
+                                for k in mh),
+            "max_g_grad_rel_of_maxabs": _worst(rel, "G."),
+            "max_d_grad_rel_of_maxabs": _worst(rel, "D.")}
+
+
+#: The relative size of the rounding noise of ``conv_noise``: about what
+#: an fp32 sum of a few hundred products moves when its order changes
+#: (sqrt(K) ulps of 2^-24 for K near 256), the card's convs against the
+#: CPU's.
+CONV_NOISE = 2.0 ** -20
+
+
+@contextlib.contextmanager
+def conv_noise(torch, seed):
+    """Every fp32 conv output of the models (``layers.conv2d`` wherever it
+    is imported) multiplied by 1 +- CONV_NOISE, the sign drawn per element
+    from `seed`: the CPU's stand-in for the card's other summation
+    orders, to measure how far a result moves under them."""
+    from rerevst_torch.models import discriminator, layers, transformer, vgg
+
+    real = layers.conv2d
+    gen = torch.Generator().manual_seed(seed)
+
+    def noisy(p, x, stride=1, padding=0):
+        y = real(p, x, stride, padding)
+        if y.dtype != torch.float32:
+            return y
+        sign = torch.randint(0, 2, y.shape, generator=gen, device="cpu")
+        return y * (1 + CONV_NOISE * (2 * sign - 1).to(y))
+
+    mods = (layers, vgg, transformer, discriminator)
+    for m in mods:
+        m.conv2d = noisy
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.conv2d = real
+
+
+#: Draws of ``conv_noise`` whose largest effect sets the allowance.
+NOISE_SEEDS = (0, 1, 2, 3)
+
+
+def _noise_spread(torch, run, errs):
+    """The largest error, key by key, of ``errs(run())`` ({group: {key:
+    error}}) over the draws of ``conv_noise`` (NOISE_SEEDS): how far the
+    CPU's own result moves under rounding-level noise."""
+    spread = {}
+    for seed in NOISE_SEEDS:
+        with conv_noise(torch, seed):
+            for group, e in errs(run()).items():
+                into = spread.setdefault(group, {})
+                for k, v in e.items():
+                    into[k] = max(into.get(k, 0.0), v)
+    return spread
+
+
+#: The allowance never exceeds this (relative, or of the max-abs).
+ALLOWANCE_CAP = 5e-2
+
+
+def _allowed(card, noisy, base):
+    """Keys whose card error exceeds max(base, min(2 x the CPU's own
+    spread under ``conv_noise``, ALLOWANCE_CAP)): {key: [card error,
+    spread]}."""
+    return {k: [v, noisy[k]] for k, v in card.items()
+            if v > max(base, min(2 * noisy[k], ALLOWANCE_CAP))}
+
+
+def _rel_errs_floored(a, b, floor=1e-5):
+    """max |a - b| over max |b| per key, the max-abs floored at `floor`
+    times the largest max-abs of the key's group (its first element: D,
+    G, cot): a gradient that is exactly zero in exact arithmetic (wgangp's
+    output bias) is rounding noise, not a scale."""
+    group = {}
+    for k, t in b.items():
+        group[k[0]] = max(group.get(k[0], 0.0), float(t.abs().max()))
+    return {".".join(k): float((a[k] - b[k]).abs().max())
+            / max(float(b[k].abs().max()), floor * group[k[0]], 1e-30)
+            for k in b}
+
+
+def _adv_parts(torch, cfg, host, d_host, batch, extra, dev, ref=None):
+    """The adversarial step's parts on `dev`: ``compute_losses``, D's step
+    (``discriminator_step``), G's GAN term (``gan_cotangent``) and G's
+    backward to the selected sites.  Without `ref` each part takes the
+    previous part's output; with `ref` (the CPU's parts) each part takes
+    the CPU's input instead: the styled batch, the updated D, the
+    cotangent.  Returns the losses, the tensors to compare (D's
+    gradients, the cotangent, G's gradients) and the inputs of the next
+    parts."""
+    from rerevst_torch.train.state import (
+        init_d_state,
+        init_train_state,
+        tree_leaves,
+    )
+    from rerevst_torch.train.step import (
+        compute_losses,
+        discriminator_step,
+        gan_cotangent,
+    )
+
+    mode, weight = cfg.loss.gan_mode, cfg.loss.gan_weight
+    c, s = (torch.from_numpy(batch[k]).to(dev) for k in ("Content", "Style"))
+    g = init_train_state(_tree_to(host, dev), cfg)
+    total, (m, aux) = compute_losses(
+        g.params, c, s, None, cfg, {k: v.to(dev) for k, v in extra.items()})
+    styled = aux["styled"] if ref is None else ref["styled"].to(dev)
+    d = init_d_state(_tree_to(d_host, dev))
+    loss_d = discriminator_step(d, styled.detach(), s, mode)
+    d_new = d.params if ref is None else _tree_to(ref["d_new"], dev)
+    g_gan, cot = gan_cotangent(d_new, styled, mode)
+    cot_in = cot if ref is None else ref["cot"].to(dev)
+    g_grads = torch.autograd.grad(
+        [total, aux["styled"]], [_leaf(g.params, p) for p in ADV_G_SITES],
+        grad_outputs=[torch.ones_like(total), cot_in * weight])
+    tensors = {("D",) + p: leaf.grad.cpu() for p, leaf in tree_leaves(d.params)}
+    tensors[("cot",)] = cot.detach().cpu()
+    tensors.update({("G",) + p: t.cpu() for p, t in zip(ADV_G_SITES,
+                                                        g_grads)})
+    return {"losses": {**{k: float(v.detach()) for k, v in m.items()},
+                       "loss_d": float(loss_d.detach()),
+                       "loss_G_GAN": float(g_gan.detach())},
+            "tensors": tensors, "styled": styled.detach().cpu(),
+            "d_new": _tree_to(d.params, torch.device("cpu")),
+            "cot": cot.detach().cpu()}
+
+
+def adversarial_parts_card_vs_cpu(torch, cfg, host, d_host, batch, extra):
+    """The step's parts on the card (deterministic algorithms) against the
+    CPU, each fed the CPU's inputs, with bars that allow for the step's
+    conditioning: each loss within max(1e-4, 2 e) relative and each tensor
+    within max(1e-3, 2 e) of its max-abs (floored, ``_rel_errs_floored``),
+    where e is the largest change of the CPU's own result over the draws
+    of ``conv_noise``; the allowance 2 e is capped at ALLOWANCE_CAP.
+    Where the parts are well-conditioned, e is far below the base
+    bars."""
+    cpu = torch.device("cpu")
+    ref = _adv_parts(torch, cfg, host, d_host, batch, extra, cpu)
+
+    def loss_errs(run):
+        return {k: abs(run["losses"][k] - v) / max(abs(v), 1e-12)
+                for k, v in ref["losses"].items()}
+
+    def errs(run):
+        return {"loss": loss_errs(run),
+                "tensor": _rel_errs_floored(run["tensors"], ref["tensors"])}
+
+    spread = _noise_spread(torch, lambda: _adv_parts(
+        torch, cfg, host, d_host, batch, extra, cpu, ref), errs)
+    noise_l, noise_t = spread["loss"], spread["tensor"]
+    with deterministic(torch):
+        card = _adv_parts(torch, cfg, host, d_host, batch, extra,
+                          torch.device("cuda"), ref)
+    card_l = loss_errs(card)
+    card_t = _rel_errs_floored(card["tensors"], ref["tensors"])
+    return {"max_loss_rel": max(card_l.values()),
+            "max_tensor_rel_of_maxabs": max(card_t.values()),
+            "worst_tensor": max(card_t, key=card_t.get),
+            "noise_max_loss_rel": max(noise_l.values()),
+            "noise_max_tensor_rel_of_maxabs": max(noise_t.values()),
+            "tensors_over_1e-3": {k: [v, noise_t[k]]
+                                  for k, v in card_t.items() if v > 1e-3},
+            "over_bar": {**_allowed(card_l, noise_l, 1e-4),
+                         **_allowed(card_t, noise_t, 1e-3)},
+            "loss_d": card["losses"]["loss_d"],
+            "loss_G_GAN": card["losses"]["loss_G_GAN"]}
+
+
+def adversarial_card_vs_cpu(torch, host, d_host):
+    """Each gan_mode at 64x64, flow_iter 2, an injected fake pair, the
+    phase's PatchGAN, on phase train's check batch (seed 300): the step's
+    parts on the card against the CPU, each part fed the same inputs
+    (``adversarial_parts_card_vs_cpu``): losses to 1e-4 relative, D's
+    gradients, G's GAN cotangent and the selected G gradients to 1e-3 of
+    each tensor's max-abs, or to twice the largest change of the CPU's own
+    result over the draws of ``conv_noise`` where that is larger.
+
+    Why the allowance: at this size some results are ill-conditioned.
+    D's gradients pass through batch norms over 2 x 16 x 16 values behind
+    leaky ReLUs, so a pre-activation at the rounding floor that changes
+    side moves a gradient by percents of its max-abs (bn1's bias), and a
+    ReLU kink ahead of the filter predictor moves its and the content
+    encoder's gradients by about 1e-3 of their max-abs.  Recorded beside
+    the check, not held to
+    it: the same parts and the whole step on a second batch (seed 710),
+    and the CPU's own change there when each style pixel moves by one
+    ulp."""
+    from rerevst_torch.config import LossConfig, TrainConfig
+
+    def case(seed, flow_seed):
+        batch = train_batches(1, 2, 64, seed=seed)[0]
+        return batch, _fake_pair(torch, torch.from_numpy(batch["Content"]),
+                                 flow_seed)
+
+    batch, extra = case(300, 5)
+    out = {}
+    for mode in ("lsgan", "vanilla", "wgangp"):
+        cfg = TrainConfig(loss=LossConfig(flow_iter=2, data_sigma=False,
+                                          adversarial_loss=True,
+                                          gan_mode=mode))
+        out[mode] = adversarial_parts_card_vs_cpu(torch, cfg, host, d_host,
+                                                  batch, extra)
+        if out[mode]["over_bar"]:
+            fail(f"adversarial {mode}: card vs CPU beyond the bars: "
+                 f"{out[mode]}")
+    cfg = TrainConfig(loss=LossConfig(flow_iter=2, data_sigma=False,
+                                      adversarial_loss=True))
+    batch, extra = case(710, 11)
+    out["recorded_seed_710_lsgan"] = {
+        "parts": adversarial_parts_card_vs_cpu(torch, cfg, host, d_host,
+                                               batch, extra),
+        **{f"whole_step_{other}": _full_step_errors(
+            torch, cfg, host, d_host, batch, extra, other)
+           for other in ("cuda", "ulp")}}
+    emit({"phase": "adversarial", "check": "card_vs_cpu", **out})
+    return out
+
+
+def adversarial_resume(torch, host, d_host):
+    """Two adversarial steps at 64x64 (flow_iter 2, injected pairs) under
+    deterministic algorithms, with G's ``ckpt-step*`` and D's
+    ``netD-step*.msgpack`` saved after the first and restored into fresh
+    states: the resumed D after the second step is bit-equal to the
+    uninterrupted one; G's params agree to 1e-6 relative (its backward
+    gathers through the warp with atomics)."""
+    import tempfile
+
+    from rerevst_torch.config import LossConfig, TrainConfig
+    from rerevst_torch.io.checkpoint import (
+        restore_train_state,
+        save_train_state,
+    )
+    from rerevst_torch.train.loop import _restore_d_state, _save_d_state
+    from rerevst_torch.train.state import (
+        init_d_state,
+        init_train_state,
+        load_train_state,
+        opt_state_tree,
+        tree_leaves,
+    )
+    from rerevst_torch.train.step import make_adversarial_train_step
+
+    dev = torch.device("cuda")
+    cfg = TrainConfig(loss=LossConfig(flow_iter=2, data_sigma=False,
+                                      adversarial_loss=True))
+    batches = train_batches(2, 2, 64, seed=720)
+    up = [(torch.from_numpy(b["Content"]).to(dev),
+           torch.from_numpy(b["Style"]).to(dev),
+           {k: v.to(dev) for k, v in _fake_pair(
+               torch, torch.from_numpy(b["Content"]), 20 + i).items()})
+          for i, b in enumerate(batches)]
+    step = make_adversarial_train_step(cfg)
+    with deterministic(torch):
+        g = init_train_state(_tree_to(host, dev), cfg)
+        d = init_d_state(_tree_to(d_host, dev))
+        g, d, _ = step(g, d, *up[0][:2], None, up[0][2])
+        with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+            save_train_state(tmp, g.step, g.params, opt_state_tree(g))
+            d_path = _save_d_state(tmp, d)
+            d_mb = os.path.getsize(d_path) / 2 ** 20
+            g2 = init_train_state(_tree_to(host, dev), cfg)
+            p, o = restore_train_state(
+                os.path.join(tmp, f"ckpt-step{g.step:08d}.msgpack"),
+                g2.params)
+            load_train_state(g2, p, o, g.step)
+            d2 = init_d_state(_tree_to(d_host, dev))
+            if not _restore_d_state(tmp, d2):
+                fail("adversarial: no netD-step file to restore")
+        for gs, ds in ((g, d), (g2, d2)):
+            step(gs, ds, *up[1][:2], None, up[1][2])
+    d_equal = all(torch.equal(a, b) for (_, a), (_, b) in
+                  zip(tree_leaves(d.params), tree_leaves(d2.params)))
+    g_rel = 0.0
+    for k in g.params:
+        for path, la in tree_leaves(g.params[k]):
+            lb = _leaf(g2.params[k], path)
+            scale = float(la.detach().abs().max().clamp_min(1e-30))
+            g_rel = max(g_rel, float((la - lb).detach().abs().max()) / scale)
+    res = {"netD_msgpack_mb": d_mb, "resumed_d_step": d2.step,
+           "d_params_bit_equal": d_equal, "g_max_param_rel": g_rel}
+    emit({"phase": "adversarial", "check": "resume", **res})
+    if not d_equal or d2.step != 2 or g_rel > 1e-6:
+        fail(f"adversarial: the resumed step diverged: {res}")
+    return res
+
+
+def adversarial_phase(torch, host):
+    """Phase adversarial: ``TrainConfig(loss=LossConfig(adversarial_loss=
+    True))`` steps on the card (batch 4 of 256x256 crops, fp32, flow_iter
+    16) from the bundled generator and a seeded PatchGAN (ndf 64, 3
+    layers, 'normal'): the median step, images/s, peak memory and D's
+    share of a profiled step (its profiler range); every metric finite; no
+    hand-written kernel launched; the card against the CPU in each
+    gan_mode; G's and D's checkpoints resumed."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from rerevst_torch import kernels
+    from rerevst_torch.config import LossConfig, TrainConfig
+    from rerevst_torch.models.discriminator import init_discriminator_params
+    from rerevst_torch.train.state import init_d_state, init_train_state
+    from rerevst_torch.train.step import D_RANGE, make_adversarial_train_step
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cfg = TrainConfig(loss=LossConfig(adversarial_loss=True))
+    d_host = init_discriminator_params(
+        torch.Generator().manual_seed(cfg.seed + 99), ndf=64, n_layers=3,
+        scheme="normal")
+    batches = train_batches(ADV_STEPS, cfg.batch_size, cfg.fine_size,
+                            seed=700)
+    up = [tuple(torch.from_numpy(b[k]).to(dev) for k in ("Content", "Style"))
+          for b in batches]
+    g = init_train_state(_tree_to(host, dev), cfg)
+    d = init_d_state(_tree_to(d_host, dev))
+    step = make_adversarial_train_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 17)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    rows = []
+    for i, (c, s) in enumerate(up):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g, d, m = step(g, d, c, s, gen)
+        e1.record()
+        vals = {k: float(v) for k, v in m.items()}
+        rows.append({"step": i + 1, "ms": e0.elapsed_time(e1), **vals})
+        if not all(np.isfinite(v) for v in vals.values()):
+            fail(f"adversarial step {i + 1}: non-finite metrics {vals}")
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()):
+        fail(f"adversarial: hand-written kernels launched: {launches}")
+    step_ms = float(np.median([r["ms"] for r in rows[1:]]))
+
+    # D's share: its profiler range's device time over the step's.
+    c, s = up[0]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        g, d, m = step(g, d, c, s, gen)
+        float(m["total"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    bd = _device_breakdown(prof, wall_ms, skip=(D_RANGE,) + PROFILER_ROWS)
+    d_ms = max((getattr(e, "device_time_total",
+                        getattr(e, "cuda_time_total", 0))
+                for e in prof.key_averages() if e.key == D_RANGE),
+               default=0) / 1e3
+    del g, d
+    torch.cuda.empty_cache()
+
+    cpu = adversarial_card_vs_cpu(torch, host, d_host)
+    resume = adversarial_resume(torch, host, d_host)
+    res = {"config": {"batch": cfg.batch_size, "crop": cfg.fine_size,
+                      "dtype": "float32", "flow_iter": cfg.loss.flow_iter,
+                      "gan_mode": cfg.loss.gan_mode, "ndf": 64,
+                      "d_init": "normal", "steps": ADV_STEPS},
+           "step_ms_median_2_to_8": step_ms,
+           "images_per_s": cfg.batch_size / step_ms * 1e3,
+           "peak_gb": peak / 1e9,
+           "d_range_device_ms": d_ms,
+           "d_share_of_busy": (d_ms / bd["device_busy_ms"]
+                               if bd["device_busy_ms"] else None),
+           "profiled_step": {k: v for k, v in bd.items()
+                             if k != "top_kernels"},
+           "first": {k: rows[0][k] for k in ("loss_d", "loss_G_GAN")},
+           "last": {k: rows[-1][k] for k in ("loss_d", "loss_G_GAN")},
+           "launches": launches, "card_vs_cpu": cpu, "resume": resume,
+           "steps": rows, "card": nvidia_smi(),
+           "phase_s": time.perf_counter() - t_phase}
+    RESULTS["adversarial"] = res
+    emit({"phase": "adversarial", "summary": {
+        k: res[k] for k in ("step_ms_median_2_to_8", "images_per_s",
+                            "peak_gb", "d_range_device_ms",
+                            "d_share_of_busy", "first", "last", "launches",
+                            "phase_s")}})
+    return res
+
+
+def ablation_batch(torch, frames, seed, which):
+    """A synthetic Figure-16 batch in the loaders' format, made on the
+    host from `frames` (``{"Content", "Style"}``, as ``train_batches``
+    gives them): a smooth whole-pixel flow (a global shift plus a slow
+    swirl), the next frame warped by it plus noise, and occlusion masks
+    of random discs (3-D, as the loaders give them)."""
+    import numpy as np
+
+    from rerevst_torch.ops.warp import flow_warp
+
+    rng = np.random.default_rng(seed)
+    content, style = frames["Content"], frames["Style"]
+    n, hw = content.shape[:2]
+    yy, xx = np.mgrid[0:hw, 0:hw].astype(np.float32)
+    flow = np.empty((n, hw, hw, 2), np.float32)
+    mask = np.ones((n, hw, hw), np.float32)
+    for i in range(n):
+        sx, sy = rng.integers(-6, 7, 2)
+        a = rng.uniform(2, 5)
+        flow[i, ..., 0] = np.round(sx + a * np.sin(yy / hw * 2 * np.pi))
+        flow[i, ..., 1] = np.round(sy + a * np.cos(xx / hw * 2 * np.pi))
+        for _ in range(6):
+            cy, cx, r = rng.uniform(0, hw, 2).tolist() + [rng.uniform(4, 20)]
+            mask[i][(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = 0.0
+    nxt = flow_warp(torch.from_numpy(content), torch.from_numpy(flow),
+                    "nearest").numpy()
+    nxt = nxt + rng.standard_normal(nxt.shape).astype(np.float32) * 0.02
+    flow_key, mask_key = (("BackwardFlow", "BackwardMask") if which == "mpi"
+                          else ("ForwardFlow", "ForwardMask"))
+    return {"Content": content, "Style": style, "NextContent": nxt,
+            flow_key: flow, mask_key: mask}
+
+
+def _ablation_step_on(torch, cfg, host, batch, dev, gen=None):
+    """One train step on an ablation batch on `dev` from a fresh state:
+    (metrics, the selected gradients, the step's ms by CUDA events or None
+    on the CPU)."""
+    from rerevst_torch.train.state import init_train_state
+    from rerevst_torch.train.step import make_train_step
+
+    state = init_train_state(_tree_to(host, dev), cfg)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    extra = {k: v for k, v in t.items() if k not in ("Content", "Style")}
+    step = make_train_step(cfg)
+    if dev.type == "cpu":
+        state, m = step(state, t["Content"], t["Style"], gen, extra)
+        ms = None
+    else:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step(state, t["Content"], t["Style"], gen, extra)
+        e1.record()
+        e1.synchronize()
+        ms = e0.elapsed_time(e1)
+    grads = {p: _leaf(state.params, p).grad.cpu() for p in ADV_G_SITES}
+    return {k: float(v) for k, v in m.items()}, grads, ms
+
+
+def ablation_phase(torch, host):
+    """Phase ablation: a ``use_mpi`` and a ``use_video`` train step at 4 x
+    256x256 (fp32, flow_iter 16; each run twice from the same state, the
+    second timed warm) on synthetic pairs made on the host
+    (the card's machine has no cv2 and no Sintel); each ablation at 64x64
+    (flow_iter 2) on the card against the CPU, losses to 1e-4 relative
+    and the selected gradients to 1e-3 of their max-abs, or to twice the
+    largest change of the CPU's own result over the draws of
+    ``conv_noise`` where that is larger (a ReLU kink at the rounding
+    floor moves the filter predictor's and the content encoder's
+    gradients by about 1e-3 of their max-abs), held on phase train's check
+    batch (seed 300) and recorded on a second one (seed 810); one U-Net
+    forward at 256x256 (num_downs 8, ngf 64, seeded weights) on the card
+    against the CPU.  No hand-written kernel launches."""
+    import numpy as np
+
+    from rerevst_torch import kernels
+    from rerevst_torch.config import LossConfig, TrainConfig
+    from rerevst_torch.models.unet import init_unet_params, unet
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    res = {"steps": {}, "card_vs_cpu": {}}
+    for which in ("mpi", "video"):
+        cfg = TrainConfig(use_mpi=which == "mpi", use_video=which == "video")
+        batch = ablation_batch(torch, train_batches(
+            1, cfg.batch_size, cfg.fine_size, seed=800)[0], 800, which)
+        # Two steps from the same state; the second's time is the warm one.
+        runs = [_ablation_step_on(torch, cfg, host, batch, dev,
+                                  torch.Generator(device=dev).manual_seed(1))
+                for _ in range(2)]
+        m, ms = runs[1][0], runs[1][2]
+        if not all(np.isfinite(v) for v in m.values()) or \
+                m["temporal_gt"] <= 0:
+            fail(f"ablation {which}: metrics {m}")
+        res["steps"][which] = {"ms": ms, "first_ms": runs[0][2],
+                               "images_per_s": cfg.batch_size / ms * 1e3,
+                               **m}
+        emit({"phase": "ablation", "step": which, **res["steps"][which]})
+
+        cfg = TrainConfig(loss=LossConfig(flow_iter=2, data_sigma=False))
+        for seed, held in ((300, True), (810, False)):
+            small = ablation_batch(
+                torch, train_batches(1, 2, 64, seed=seed)[0], seed, which)
+            cpu = torch.device("cpu")
+            mh, gh, _ = _ablation_step_on(torch, cfg, host, small, cpu)
+            with deterministic(torch):
+                mc, gc, _ = _ablation_step_on(torch, cfg, host, small, dev)
+
+            def loss_errs(m):
+                return {k: abs(m[k] - v) / max(abs(v), 1e-12)
+                        for k, v in mh.items()}
+
+            card_l, card_g = loss_errs(mc), _rel_errs(gc, gh)
+            r = {"max_loss_rel": max(card_l.values()),
+                 "max_grad_rel_of_maxabs": max(card_g.values()),
+                 "grad_rel": card_g}
+            if not held:
+                res["card_vs_cpu"][f"{which}_recorded_seed_{seed}"] = r
+                continue
+
+            def errs(run):
+                m, g, _ = run
+                return {"loss": loss_errs(m), "grad": _rel_errs(g, gh)}
+
+            spread = _noise_spread(torch, lambda: _ablation_step_on(
+                torch, cfg, host, small, cpu), errs)
+            noise_l, noise_g = spread["loss"], spread["grad"]
+            r["noise_grad_rel"] = noise_g
+            r["over_bar"] = {**_allowed(card_l, noise_l, 1e-4),
+                             **_allowed(card_g, noise_g, 1e-3)}
+            res["card_vs_cpu"][which] = r
+            if r["over_bar"]:
+                fail(f"ablation {which}: card vs CPU beyond the bars: {r}")
+
+    # The seeded normal(0, 0.02) init: its tanh output stays below 0.1,
+    # far from saturation (weights x2 already saturate 97% of it).
+    params = init_unet_params(torch.Generator().manual_seed(5), ngf=64,
+                              num_downs=8)
+    x = torch.randn((1, 256, 256, 3),
+                    generator=torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        want = unet(params, x, num_downs=8)
+        on_card = _tree_to(params, dev)
+        xc = x.to(dev)
+        got = unet(on_card, xc, num_downs=8).cpu()
+        t = time_ms(torch, lambda: unet(on_card, xc, num_downs=8), iters=5,
+                    warmup=1)
+    unet_err = float((got - want).abs().max() / want.abs().max())
+    res["unet"] = {"shape": list(got.shape), "max_rel_of_maxabs": unet_err,
+                   "ms": t["ms"], "out_absmax": float(want.abs().max())}
+    if tuple(got.shape) != (1, 256, 256, 3) or not unet_err <= 1e-4:
+        fail(f"ablation: unet card vs CPU {res['unet']}")
+    res["launches"] = kernels.launch_counts()
+    if any(res["launches"].values()):
+        fail(f"ablation: hand-written kernels launched: {res['launches']}")
+    res["card"] = nvidia_smi()
+    res["phase_s"] = time.perf_counter() - t_phase
+    RESULTS["ablation"] = res
+    emit({"phase": "ablation", "summary": res})
     return res
 
 
@@ -2382,7 +3049,11 @@ def main() -> int:
     native_prep(torch, sessions["f16"])
     ms = multistyle(torch, errs)
     served = serve_phase(torch)
-    trained = train_phase(torch)
+    host, stage = train_host_params(torch)
+    trained = train_phase(torch, host, stage)
+    adv = adversarial_phase(torch, host)
+    abl = ablation_phase(torch, host)
+    del host
 
     # 5. times
     tot, filter_bound_by = time_kernels(torch)
@@ -2444,7 +3115,9 @@ def main() -> int:
          "launches_long_clip_pass1": long["f16"]["launches_pass1"][k],
          "launches_multistyle": ms["f16"]["launches"][k],
          "launches_serve": served["launches_serve"][k],
-         "launches_train": trained["launches"][k]}
+         "launches_train": trained["launches"][k],
+         "launches_adversarial": adv["launches"][k],
+         "launches_ablation": abl["launches"][k]}
         for k, (src, rep, by, path, counts) in meta.items()]}
     for entry in line["kernels"]:
         if entry["name"] == "conv3x3_implicit_gemm":

@@ -11,6 +11,34 @@ This package imports ``torch`` and ``numpy`` only — never JAX, flax, or the
 ``rerevst_tpu`` package.
 """
 
-from rerevst_torch.config import InferenceConfig, ModelConfig, resolve_device
+__version__ = "0.1.0"
 
-__all__ = ["InferenceConfig", "ModelConfig", "resolve_device"]
+from rerevst_torch.config import (  # noqa: F401
+    InferenceConfig,
+    LossConfig,
+    ModelConfig,
+    TrainConfig,
+    resolve_device,
+)
+
+__all__ = ["InferenceConfig", "LossConfig", "ModelConfig", "TrainConfig",
+           "resolve_device", "Stylization", "MultiStylization",
+           "TransformerNet"]
+
+
+def __getattr__(name):
+    # The sessions and the network on first use: importing the package
+    # loads neither the kernels' wrappers nor the data modules.
+    if name == "Stylization":
+        from rerevst_torch.api import Stylization
+
+        return Stylization
+    if name == "MultiStylization":
+        from rerevst_torch.multistyle import MultiStylization
+
+        return MultiStylization
+    if name == "TransformerNet":
+        from rerevst_torch.models.transformer import TransformerNet
+
+        return TransformerNet
+    raise AttributeError(f"module 'rerevst_torch' has no attribute {name!r}")

@@ -104,7 +104,9 @@ class Stylization:
         one, or None when `params` given.
     params:
         A parameter tree as ``rerevst_tpu`` holds it (nested dicts of numpy
-        arrays) or as the port holds it (tensors); cast to ``cfg.dtype``.
+        arrays) or as the port holds it (tensors), kept in its stored
+        dtype as the JAX package keeps it (activations run in
+        ``cfg.dtype``).
     use_global:
         Sequence-level global feature sharing (two-pass) or per-frame mode.
         The global graph exists only for the default architecture: under
@@ -144,15 +146,18 @@ class Stylization:
                     load_reference_checkpoint,
                 )
 
-                params = load_reference_checkpoint(checkpoint)
+                params = load_reference_checkpoint(checkpoint, dtype=None)
             else:
                 from rerevst_torch.io.checkpoint import read_msgpack
 
                 params = read_msgpack(checkpoint)
-        # Inference never needs the loss net.
+        # Inference never needs the loss net.  The weights keep the dtype
+        # they are stored in, as in the JAX package's session: every op
+        # casts a weight to the activations' dtype where it uses it, and
+        # the decoder's upsample convs sum their taps in the stored dtype
+        # (``layers.upsample2x_conv3x3``).
         params = {k: v for k, v in params.items() if k != "vgg_loss"}
-        self.params: Dict = from_jax_params(params, dtype=self.cfg.dtype,
-                                            device=self.device)
+        self.params: Dict = from_jax_params(params, device=self.device)
 
         self.style: Optional[StyleFeatures] = None
         self.stats: Optional[SeqStats] = None

@@ -120,6 +120,9 @@ class InferenceConfig:
     pass1_chunk: int = 8
 
 
+#: The discriminator's init schemes (``models.discriminator.INIT_SCHEMES``).
+D_INIT_SCHEMES = ("normal", "xavier", "kaiming", "orthogonal")
+
 #: CLI dtype names (``rerevst_tpu.config.DTYPES``).
 DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
 
@@ -139,7 +142,8 @@ class LossConfig:
     temporal_loss: bool = True
     relax_style: bool = True
     old_style_loss: bool = False
-    #: The adversarial path is not ported (ROADMAP.md Queue 1 item 6b).
+    #: The PatchGAN adversarial term (``--adaversarial_loss``) and its
+    #: objective: 'lsgan' (the reference's), 'vanilla' or 'wgangp'.
     adversarial_loss: bool = False
     gan_mode: str = "lsgan"
 
@@ -172,10 +176,8 @@ class LossConfig:
     relaxed_blur_scale: int = 1
 
     def __post_init__(self):
-        if self.adversarial_loss:
-            raise NotImplementedError(
-                "LossConfig(adversarial_loss=True) is not ported yet: "
-                "ROADMAP.md Queue 1 item 6b (adversarial path)")
+        if self.gan_mode not in ("lsgan", "vanilla", "wgangp"):
+            raise ValueError(f"unknown gan_mode {self.gan_mode!r}")
         if self.relaxed_inner_dtype not in ("same", "bf16"):
             raise ValueError(
                 f"relaxed_inner_dtype {self.relaxed_inner_dtype!r}: "
@@ -202,10 +204,13 @@ class TrainConfig:
     val_dir: str = "val"
     log_dir: str = "log"
     train_only_decoder: bool = False
-    #: Figure-16 ablation datasets (not ported: ROADMAP.md Queue 1 item 6b).
+    #: Figure-16 ablation datasets: MPI Sintel pairs with their backward
+    #: flow, or video pairs with their forward flow, in place of the
+    #: synthetic motion (``data.datasets.MPIDataset``/``VideoDataset``).
     use_mpi: bool = False
     use_video: bool = False
-    #: Discriminator init scheme (the adversarial path, item 6b).
+    #: Discriminator weight init: 'normal' | 'xavier' | 'kaiming' |
+    #: 'orthogonal' (``models.discriminator.INIT_SCHEMES``).
     d_init: str = "normal"
     #: Data-parallel training over this many devices (0 or 1 = one card;
     #: more is ROADMAP.md Queue 1 item 7).
@@ -221,18 +226,13 @@ class TrainConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
 
     def __post_init__(self):
-        unsupported = [
-            (self.use_mpi, "use_mpi=True",
-             "ROADMAP.md Queue 1 item 6b (Figure-16 ablations)"),
-            (self.use_video, "use_video=True",
-             "ROADMAP.md Queue 1 item 6b (Figure-16 ablations)"),
-            (self.data_parallel > 1, f"data_parallel={self.data_parallel}",
-             "ROADMAP.md Queue 1 item 7 (torch.distributed)"),
-        ]
-        for bad, what, item in unsupported:
-            if bad:
-                raise NotImplementedError(
-                    f"TrainConfig({what}) is not ported yet: {item}")
+        if self.data_parallel > 1:
+            raise NotImplementedError(
+                f"TrainConfig(data_parallel={self.data_parallel}) is not "
+                f"ported yet: ROADMAP.md Queue 1 item 7 (torch.distributed)")
+        if self.d_init not in D_INIT_SCHEMES:
+            raise ValueError(f"unknown d_init {self.d_init!r} "
+                             f"(choose from {D_INIT_SCHEMES})")
         if self.model.pairlane:
             # The pair-lane conv kernel has no backward: a trainable tensor
             # through it would lose its gradient without an error.

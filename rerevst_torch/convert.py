@@ -17,17 +17,21 @@ tensors; the JAX CLI cannot (``torch.from_numpy`` takes no bf16 array).
 
 The train state, as ``rerevst_tpu.convert`` moves it:
 
-    # ckpt-stepN.msgpack -> style_net-epoch-N.pth + optimizer-epoch-N.pth
+    # ckpt-stepN.msgpack (+ netD-stepN.msgpack) -> style_net-epoch-N.pth
+    # + optimizer-epoch-N.pth (+ netD-epoch-N.pth)
     python -m rerevst_torch.convert --train-export \
         out/ckpt-step00000042.msgpack torch_out/
-    # the reference's files -> ckpt-stepN.msgpack
+    # the reference's files -> ckpt-stepN.msgpack (+ netD-stepN.msgpack)
     python -m rerevst_torch.convert --train-import style_net-epoch-1.pth \
-        native_out/ --optimizer optimizer-epoch-1.pth
+        native_out/ --optimizer optimizer-epoch-1.pth --netd netD-epoch-1.pth
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the discriminator's files (``--netd``, or a ``netD-step*.msgpack``
-beside the exported checkpoint; Queue 1 item 6b) and ``--export-aot``
-(Queue 1 item 7).
+An export takes D from ``--netd``, else from the ``netD-step*.msgpack``
+beside the generator's checkpoint at its step, else the newest one (with a
+warning: the G and D steps then differ).  An import writes D with a fresh
+Adam state: the reference never saves D's optimizer.
+
+Not ported yet: ``--export-aot`` (raises ``NotImplementedError`` naming
+ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import argparse
 import glob
 import os
 import re
+from typing import Optional
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,8 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--optimizer", default=None,
                     help="with --train-import: optimizer-epoch-N.pth")
     ap.add_argument("--netd", default=None,
-                    help="discriminator checkpoint (either direction; not "
-                         "ported: raises)")
+                    help="discriminator checkpoint (either direction)")
     ap.add_argument("--epoch", type=int, default=None,
                     help="with --train-export: epoch tag for the filenames "
                          "(default: the native checkpoint's step)")
@@ -76,21 +80,41 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _netd_beside(src: str, m) -> Optional[str]:
+    """The ``netD-step*.msgpack`` to pair with the generator checkpoint
+    `src`: the one at its step, else the newest (with a warning)."""
+    src_dir = os.path.dirname(src) or "."
+    if m is not None:
+        exact = os.path.join(src_dir,
+                             f"netD-step{int(m.group(1)):08d}.msgpack")
+        if os.path.exists(exact):
+            return exact
+    cands = sorted(glob.glob(os.path.join(src_dir, "netD-step*.msgpack")))
+    if not cands:
+        return None
+    if m is not None:
+        print(f"warning: no netD checkpoint at step {int(m.group(1))}; "
+              f"exporting newest ({cands[-1]}) — G/D steps will not match",
+              flush=True)
+    return cands[-1]
+
+
 def _train_export(args) -> None:
-    from rerevst_torch.io.checkpoint import restore_train_state
+    from rerevst_torch.io.checkpoint import read_msgpack, restore_train_state
     from rerevst_torch.io.torch_compat import export_train_checkpoint
 
     m = re.search(r"step(\d+)", os.path.basename(args.src))
-    src_dir = os.path.dirname(args.src) or "."
-    if glob.glob(os.path.join(src_dir, "netD-step*.msgpack")):
-        raise NotImplementedError(
-            f"{src_dir} holds discriminator checkpoints, whose export is "
-            f"not ported yet: ROADMAP.md Queue 1 item 6b")
+    netd = args.netd if args.netd is not None else _netd_beside(args.src, m)
+    d_params = None
+    if netd is not None:
+        d_blob = read_msgpack(netd)
+        d_params = d_blob.get("params", d_blob)
     params, opt_state = restore_train_state(args.src)
     epoch = args.epoch if args.epoch is not None else (
         int(m.group(1)) if m else 0)
     out = export_train_checkpoint(args.dst, epoch, params,
-                                  opt_state=opt_state, lr=args.lr)
+                                  opt_state=opt_state, d_params=d_params,
+                                  lr=args.lr)
     print(f"exported train state -> {sorted(out.values())}")
 
 
@@ -98,10 +122,15 @@ def _train_import(args) -> None:
     import torch
 
     from rerevst_torch.config import TrainConfig
-    from rerevst_torch.io.checkpoint import save_train_state
+    from rerevst_torch.io.checkpoint import save_params, save_train_state
     from rerevst_torch.io.torch_compat import import_train_checkpoint
     from rerevst_torch.models.transformer import init_transformer_params
-    from rerevst_torch.train.state import init_train_state, opt_state_tree
+    from rerevst_torch.train.state import (
+        d_opt_state_tree,
+        init_d_state,
+        init_train_state,
+        opt_state_tree,
+    )
 
     # The paper recipe's (default) architecture, as the reference files it
     # reads; subtrees the files lack keep this seeded init.
@@ -109,11 +138,19 @@ def _train_import(args) -> None:
     template = init_transformer_params(
         torch.Generator().manual_seed(cfg.seed), cfg.model,
         with_loss_net=True)
-    params, opt_state, step, _ = import_train_checkpoint(
+    params, opt_state, step, d_params = import_train_checkpoint(
         args.src, template, opt_state_tree(init_train_state(template, cfg)),
-        optimizer_pth=args.optimizer)
-    path = save_train_state(args.dst, step, params, opt_state)
-    print(f"imported train state @ step {step} -> {[path]}")
+        optimizer_pth=args.optimizer, netd_pth=args.netd)
+    wrote = [save_train_state(args.dst, step, params, opt_state)]
+    if d_params is not None:
+        # A fresh Adam state: the reference never saves D's optimizer.
+        dpath = os.path.join(args.dst, f"netD-step{step:08d}.msgpack")
+        save_params(dpath, {"params": d_params,
+                            "opt_state": d_opt_state_tree(
+                                init_d_state(d_params)),
+                            "step": step})
+        wrote.append(dpath)
+    print(f"imported train state @ step {step} -> {wrote}")
 
 
 def main(argv=None):
@@ -122,10 +159,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--export-aot (AOT bundles) is not ported yet: ROADMAP.md "
             "Queue 1 item 7")
-    if args.netd is not None:
-        raise NotImplementedError(
-            "--netd (discriminator checkpoints) is not ported yet: "
-            "ROADMAP.md Queue 1 item 6b")
     if args.train_export:
         return _train_export(args)
     if args.train_import:

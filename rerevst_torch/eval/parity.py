@@ -51,7 +51,7 @@ def _load_params(checkpoint: str) -> Dict:
     if checkpoint.endswith(".pth"):
         from rerevst_torch.io.torch_compat import load_reference_checkpoint
 
-        return load_reference_checkpoint(checkpoint)
+        return load_reference_checkpoint(checkpoint, dtype=None)
     from rerevst_torch.io.checkpoint import read_msgpack
 
     return read_msgpack(checkpoint)

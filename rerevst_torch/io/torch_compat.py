@@ -19,8 +19,8 @@ state_dict naming (from the reference module trees):
 The training half: ``load_pretrained`` (a ``.pth`` through the reference's
 three-stage ``LoadPretrained`` graft, or a native ``.msgpack``), the Adam
 state in the reference's ``optimizer-epoch-N.pth`` layout, and the
-reference's training-checkpoint files.  The discriminator's interop is
-ROADMAP.md Queue 1 item 6b.
+reference's training-checkpoint files, and the PatchGAN discriminator's
+``netD-epoch-N.pth`` (``NLayerDiscriminator``'s Sequential indices).
 """
 
 from __future__ import annotations
@@ -336,10 +336,47 @@ def adam_state_from_torch(torch_sd: Dict, opt_state_template: Dict
         "train": {"inner_state": {"0": new_adam, "1": {}}}}}, count
 
 
-def _no_discriminator(what: str) -> None:
-    raise NotImplementedError(
-        f"{what}: the discriminator's interop is not ported yet: ROADMAP.md "
-        f"Queue 1 item 6b (adversarial path)")
+#: The reference ``NLayerDiscriminator``'s Sequential indices
+#: (``train/other_networks.py:300-344``): our conv and BN names -> index.
+_D_CONVS = (("conv0", 0), ("conv1", 2), ("conv2", 5), ("conv3", 8),
+            ("conv_out", 11))
+_D_BNS = (("bn1", 3), ("bn2", 6), ("bn3", 9))
+
+
+def discriminator_to_torch_state(params: Dict) -> Dict[str, torch.Tensor]:
+    """PatchGAN params (n_layers 3) -> the reference's ``NLayerDiscriminator``
+    state_dict, CPU tensors.  BatchNorm running statistics are written as
+    identity (zero mean, unit variance, 0 batches): D always normalizes
+    with the batch's statistics."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, idx in _D_CONVS:
+        for k, v in _conv_to_torch(params[name]).items():
+            sd[f"model.{idx}.{k}"] = v.cpu()
+    for name, idx in _D_BNS:
+        scale = leaf_to_tensor(params[name]["scale"]).cpu()
+        c = scale.shape[0]
+        sd[f"model.{idx}.weight"] = scale
+        sd[f"model.{idx}.bias"] = leaf_to_tensor(params[name]["bias"]).cpu()
+        sd[f"model.{idx}.running_mean"] = torch.zeros(c)
+        sd[f"model.{idx}.running_var"] = torch.ones(c)
+        sd[f"model.{idx}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def discriminator_from_torch_state(state_dict: Dict,
+                                   dtype: Optional[torch.dtype]
+                                   = torch.float32) -> Dict:
+    """A reference ``netD-epoch-N.pth`` state_dict -> PatchGAN params (CPU
+    tensors in `dtype`; the running statistics are dropped)."""
+    sd = {k: leaf_to_tensor(v) for k, v in state_dict.items()}
+    params: Dict = {}
+    for name, idx in _D_CONVS:
+        params[name] = from_torch_conv(sd[f"model.{idx}.weight"],
+                                       sd.get(f"model.{idx}.bias"), dtype)
+    for name, idx in _D_BNS:
+        params[name] = {"scale": sd[f"model.{idx}.weight"].to(dtype),
+                        "bias": sd[f"model.{idx}.bias"].to(dtype)}
+    return params
 
 
 def export_train_checkpoint(out_dir: str, epoch: int, params: Dict,
@@ -348,10 +385,8 @@ def export_train_checkpoint(out_dir: str, epoch: int, params: Dict,
                             lr: float = 1e-4) -> Dict[str, str]:
     """Write the reference's training files so that a torch run of the
     reference resumes drop-in: ``style_net-epoch-{N}.pth`` and, with an
-    optimizer tree, ``optimizer-epoch-{N}.pth``.  Returns {artifact:
-    path}."""
-    if d_params is not None:
-        _no_discriminator("export_train_checkpoint(d_params=...)")
+    optimizer tree, ``optimizer-epoch-{N}.pth``, with D's params
+    ``netD-epoch-{N}.pth``.  Returns {artifact: path}."""
     os.makedirs(out_dir, exist_ok=True)
     out = {}
 
@@ -364,6 +399,9 @@ def export_train_checkpoint(out_dir: str, epoch: int, params: Dict,
     if opt_state is not None:
         save(f"optimizer-epoch-{epoch}.pth",
              adam_state_to_torch(opt_state, lr))
+    if d_params is not None:
+        save(f"netD-epoch-{epoch}.pth",
+             discriminator_to_torch_state(d_params))
     return out
 
 
@@ -374,13 +412,17 @@ def import_train_checkpoint(style_pth: str, params_template: Dict,
                             dtype: torch.dtype = torch.float32):
     """The inverse: the reference's files -> (params, opt_state, step,
     d_params).  Missing pieces keep the templates' values; `step` is the
-    torch Adam step (0 without an optimizer file); `d_params` is None."""
-    if netd_pth is not None:
-        _no_discriminator("import_train_checkpoint(netd_pth=...)")
+    torch Adam step (0 without an optimizer file); `d_params` is None
+    without a ``netD`` file."""
     params, _ = load_pretrained(style_pth, params_template, dtype)
     opt_state, step = opt_state_template, 0
     if optimizer_pth is not None:
         sd = torch.load(optimizer_pth, map_location="cpu",
                         weights_only=False)
         opt_state, step = adam_state_from_torch(sd, opt_state_template)
-    return params, opt_state, step, None
+    d_params = None
+    if netd_pth is not None:
+        d_params = discriminator_from_torch_state(
+            torch.load(netd_pth, map_location="cpu", weights_only=True),
+            dtype)
+    return params, opt_state, step, d_params

@@ -1,6 +1,6 @@
-"""Training losses — ``rerevst_tpu/losses`` (the GAN objective and the
-Figure-16 ablation losses are ROADMAP.md Queue 1 item 6b)."""
+"""Training losses — ``rerevst_tpu/losses``."""
 
+from rerevst_torch.losses.gan import gan_loss  # noqa: F401
 from rerevst_torch.losses.perceptual import (  # noqa: F401
     content_loss,
     style_loss,
@@ -12,4 +12,6 @@ from rerevst_torch.losses.temporal import (  # noqa: F401
     generate_fake_data,
     generate_fake_flow,
     temporal_loss,
+    temporal_loss_mpi,
+    temporal_loss_video,
 )

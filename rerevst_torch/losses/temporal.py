@@ -82,3 +82,29 @@ def temporal_loss(styled_first: torch.Tensor, styled_second: torch.Tensor,
     warped = flow_warp(styled_first, flow, mode="nearest") if use_warp \
         else styled_first
     return torch.mean(torch.abs(warped - styled_second)), warped
+
+
+def temporal_loss_mpi(new_cur_frame: torch.Tensor, pre_frame: torch.Tensor,
+                      backward_flow: torch.Tensor,
+                      backward_mask: torch.Tensor):
+    """Figure-16 ablation on MPI Sintel's ground-truth backward flow
+    (``train/loss_networks.py:117-130``): L1 between the masked
+    nearest-warp of the current frame and the masked previous frame;
+    returns (loss, fake previous frame)."""
+    fake_pre = flow_warp(new_cur_frame, backward_flow, mode="nearest")
+    fake_pre = fake_pre * backward_mask
+    pre = pre_frame * backward_mask
+    return torch.mean(torch.abs(fake_pre - pre)), fake_pre
+
+
+def temporal_loss_video(cur_frame: torch.Tensor, pre_frame: torch.Tensor,
+                        forward_flow: torch.Tensor,
+                        forward_mask: torch.Tensor):
+    """Figure-16 ablation on real-video pairs and their forward flow
+    (``train/loss_networks.py:132-145``): L1 between the masked
+    nearest-warp of the previous frame and the masked current frame;
+    returns (loss, fake current frame)."""
+    fake_cur = flow_warp(pre_frame, forward_flow, mode="nearest")
+    fake_cur = fake_cur * forward_mask
+    cur = cur_frame * forward_mask
+    return torch.mean(torch.abs(fake_cur - cur)), fake_cur

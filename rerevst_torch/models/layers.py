@@ -112,6 +112,14 @@ def conv2d(p, x: torch.Tensor, stride: int = 1, padding: int = 0):
     return _nhwc(F.conv2d(_nchw(x), w, b, stride=stride, padding=padding))
 
 
+def weights_as(p, dtype: torch.dtype):
+    """(w, b or None) of a conv's params cast to `dtype`, for the kernels,
+    which take operands of one dtype (a session keeps the checkpoint's
+    stored dtype)."""
+    b = p.get("b")
+    return p["w"].to(dtype), None if b is None else b.to(dtype)
+
+
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     """x @ w + b with w as [in, out]."""
     _fp32_products_exact(x)
@@ -130,10 +138,16 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
 def upsample2x_conv3x3(p, x: torch.Tensor) -> torch.Tensor:
     """conv3x3(nearest_upsample_2x(x)) without the 2x intermediate: each
     output parity (a, b) reads a 2x2 window of `x` with the 3x3 taps
-    pre-summed (the JAX package's parity-sliced form), so one 2x2 conv over
-    the zero-padded input gives the four parities as channel groups, which
-    interleave into the 2x output.  The same function, its taps
-    reassociated, at 4/9 of the products.
+    pre-summed, so one 2x2 conv over the zero-padded input gives the four
+    parities as channel groups, which interleave into the 2x output.  The
+    same function, its taps reassociated, at 4/9 of the products.
+
+    The taps are summed as the JAX package sums them: into the 4x4 "spread"
+    kernel K = full-conv(W, ones(2, 2)), adding W at the offsets (0, 0),
+    (0, 1), (1, 0), (1, 1) in that order, in the weight's own dtype (a bf16
+    checkpoint's weights are summed in bf16, as ``rerevst_tpu``'s session
+    sums them); parity (a, b) takes the taps K[a::2, b::2].  The conv then
+    runs in x's dtype.
 
     The plain composition (upsample, then the 3x3 conv) is not used: cuDNN
     ran that fp32 conv at [4, 256, 128, 128] -> 128, the decoder's
@@ -143,20 +157,18 @@ def upsample2x_conv3x3(p, x: torch.Tensor) -> torch.Tensor:
     but cuDNN's algorithms for it accumulate in another order from run to
     run, forward and backward."""
     n, h, w, _ = x.shape
-    wt = p["w"].float()  # [3, 3, Cin, Cout]
+    wt = p["w"]  # [3, 3, Cin, Cout]
     cin, o = wt.shape[2:]
-    # Parity 0 reads rows (i-1, i) with taps (W0, W1+W2), parity 1 reads
-    # (i, i+1) with (W0+W1, W2); the same for columns.
-    w0, w1, w2 = wt.unbind(0)
-    rows = torch.stack([torch.stack([w0, w1 + w2]),
-                        torch.stack([w0 + w1, w2])])  # [a, t, 3, Cin, Cout]
-    c0, c1, c2 = rows.unbind(2)
-    k = torch.stack([torch.stack([c0, c1 + c2]),
-                     torch.stack([c0 + c1, c2])])  # [b, u, a, t, Cin, Cout]
-    k = k.permute(3, 1, 4, 2, 0, 5).reshape(2, 2, cin, 4 * o)  # (a, b, Cout)
+    spread = wt.new_zeros((4, 4, cin, o))
+    for t1 in (0, 1):
+        for t2 in (0, 1):
+            spread[t1:t1 + 3, t2:t2 + 3] += wt
+    # K[a + 2t, b + 2u] is tap (t, u) of parity (a, b): dims (t, a, u, b).
+    k = spread.reshape(2, 2, 2, 2, cin, o).permute(0, 2, 4, 1, 3, 5) \
+        .reshape(2, 2, cin, 4 * o)  # output channels ordered (a, b, Cout)
     kp = {"w": k}
     if "b" in p:
-        kp["b"] = p["b"].float().repeat(4)
+        kp["b"] = p["b"].repeat(4)
     y = conv2d(kp, x, padding=1)  # [N, H+1, W+1, 4 Cout]
     y = y.reshape(n, h + 1, w + 1, 2, 2, o)
     out = torch.stack([torch.stack([y[:, a:a + h, c:c + w, a, c]

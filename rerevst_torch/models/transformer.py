@@ -56,9 +56,15 @@ from rerevst_torch.models.layers import (
     linear,
     upsample2x_conv1x1,
     upsample2x_conv3x3,
+    weights_as,
 )
 from rerevst_torch.ops.image import rgb_to_luma_reversed
-from rerevst_torch.ops.stats import channel_minmax, instance_moments, mean_std
+from rerevst_torch.ops.stats import (
+    channel_minmax,
+    instance_moments,
+    instance_norm,
+    mean_std,
+)
 
 
 class StyleFeatures(NamedTuple):
@@ -230,10 +236,8 @@ def encode_style(params: Dict, style: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _instance_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
-    """Per-sample InstanceNorm over (H, W): moments in fp32, the result
-    stored in x's dtype."""
-    mean, rstd = instance_moments(x, (1, 2), eps)
-    return ((x.float() - mean) * rstd).to(x.dtype)
+    """Per-sample InstanceNorm over (H, W) (``ops.stats.instance_norm``)."""
+    return instance_norm(x, (1, 2), eps)
 
 
 def _predict_filter(p: Dict, content: torch.Tensor, style_map: torch.Tensor,
@@ -348,7 +352,7 @@ def _conv3x3(p: Dict, x: torch.Tensor, pairlane: bool) -> torch.Tensor:
     """A full-resolution 64-channel SAME 3x3 conv: the ``conv3x3_pairlane``
     kernel on the pair-lane route, ``conv2d`` otherwise."""
     if pairlane:
-        return conv3x3_pairlane(x, p["w"], p.get("b"))
+        return conv3x3_pairlane(x, *weights_as(p, x.dtype))
     return conv2d(p, x, padding=1)
 
 
@@ -488,11 +492,35 @@ def stylize(params: Dict, frame: torch.Tensor, style: StyleFeatures,
 
 
 class TransformerNet:
-    """A model config and the training loop's validation pass
+    """A model config and pure functions over parameter trees
     (``rerevst_tpu.models.transformer.TransformerNet``)."""
 
     def __init__(self, cfg: Optional[ModelConfig] = None):
         self.cfg = cfg or ModelConfig()
+
+    def init_params(self, gen: torch.Generator,
+                    with_loss_net: bool = True) -> Dict:
+        return init_transformer_params(gen, self.cfg, with_loss_net)
+
+    def encode_content(self, params: Dict, frame: torch.Tensor,
+                       desaturate: bool = True) -> torch.Tensor:
+        return encode_content(params, frame, self.cfg, desaturate)
+
+    def encode_style(self, params: Dict, style: torch.Tensor
+                     ) -> StyleFeatures:
+        return encode_style(params, style, self.cfg)
+
+    def stylize(self, params: Dict, frame: torch.Tensor,
+                style: StyleFeatures, stats: Optional[SeqStats] = None
+                ) -> torch.Tensor:
+        """Full forward: desaturate -> encode -> decode (global iff
+        `stats`)."""
+        return stylize(params, frame, style, self.cfg, stats)
+
+    def collect(self, params: Dict, content_feats: torch.Tensor,
+                style: StyleFeatures) -> SeqStats:
+        return collect_stats(params["decoder"], content_feats, style,
+                             self.cfg)
 
     def validation(self, params: Dict, frame: torch.Tensor,
                    style_img: torch.Tensor) -> torch.Tensor:

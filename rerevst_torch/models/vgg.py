@@ -22,6 +22,7 @@ from rerevst_torch.models.layers import (
     from_torch_conv,
     init_conv_torch_default,
     max_pool_2x2,
+    weights_as,
 )
 
 #: (name, cin, cout) of the 9 convs through conv4_1, in order.
@@ -112,7 +113,7 @@ def vgg_features(params: Dict, x: torch.Tensor, upto: str = "relu4_1",
             h = max_pool_2x2(h)
         p = params[name]
         if pairlane and name == "conv1_2":
-            h = conv3x3_pairlane(h, p["w"], p.get("b"))
+            h = conv3x3_pairlane(h, *weights_as(p, h.dtype))
         else:
             h = conv2d(p, h, padding=1)
         h = torch.relu(h)

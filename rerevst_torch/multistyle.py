@@ -73,14 +73,15 @@ class MultiStylization:
                     load_reference_checkpoint,
                 )
 
-                params = load_reference_checkpoint(checkpoint)
+                params = load_reference_checkpoint(checkpoint, dtype=None)
             else:
                 from rerevst_torch.io.checkpoint import read_msgpack
 
                 params = read_msgpack(checkpoint)
+        # Stored dtypes, as ``api.Stylization`` keeps them.
         self.params = from_jax_params(
             {k: v for k, v in params.items() if k != "vgg_loss"},
-            dtype=self.cfg.dtype, device=self.device)
+            device=self.device)
         self.styles: List[StyleFeatures] = []
         self.stats: List[SeqStats] = []
         self._pad_hw = None

@@ -27,6 +27,15 @@ def instance_moments(x: torch.Tensor, axes: Sequence[int],
     return mean, torch.rsqrt(var + eps)
 
 
+def instance_norm(x: torch.Tensor, axes: Sequence[int] = (1, 2),
+                  eps: float = 1e-8) -> torch.Tensor:
+    """Stateless instance norm, (x - mean) * rsqrt(var + eps): with
+    axes=(1, 2) on NHWC, per (sample, channel) over H, W.  Moments and the
+    normalize in fp32, the result in x's dtype."""
+    mean, rstd = instance_moments(x, axes, eps)
+    return ((x.to(torch.float32) - mean) * rstd).to(x.dtype)
+
+
 def mean_std(feat: torch.Tensor,
              eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(sample, channel) mean/std over H,W of NHWC with torch-var

@@ -5,11 +5,12 @@ The same flags as the JAX CLI (the reference's, ``train/train.py:24-90``),
 plus ``--device`` (the card by default; ``--device cpu`` runs the plain
 PyTorch path).  The proposed model is ``--dynamic_filter --both_sty_con
 --style_content_loss --recon_loss --tv_loss --temporal_loss --relax_style
---data_sigma --data_w``.  Not ported (each raises ``NotImplementedError``
-naming its ROADMAP item): ``--adaversarial_loss`` (the reference's
-spelling), ``--use_mpi`` and ``--use_video`` (Queue 1 item 6b), and
-``--data_parallel`` > 1, ``--coordinator`` and ``--num_processes`` > 1
-(item 7).
+--data_sigma --data_w``; ``--adaversarial_loss`` (the reference's
+spelling) adds the PatchGAN term (``--gan_mode``, ``--ganWeight``,
+``--init_type``), and ``--use_mpi``/``--use_video`` train the Figure-16
+ablations on real pairs.  Not ported (each raises ``NotImplementedError``
+naming its ROADMAP item): ``--data_parallel`` > 1, ``--coordinator`` and
+``--num_processes`` > 1 (Queue 1 item 7).
 """
 
 import argparse
@@ -65,8 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--relax_style", action="store_true")
     p.add_argument("--old_style_loss", action="store_true")
     p.add_argument("--adaversarial_loss", action="store_true",
-                   help="the reference's spelling; the adversarial path is "
-                        "not ported (raises: ROADMAP.md Queue 1 item 6b)")
+                   help="the PatchGAN adversarial term (the reference's "
+                        "spelling)")
 
     p.add_argument("--contentWeight", type=float, default=1.0)
     p.add_argument("--styleWeight", type=float, default=20.0)

@@ -8,6 +8,12 @@ log point, best-loss-gated step-tagged checkpoints every ``log_every``
 iterations, restart-safe resume, and a checkpoint flushed in ``finally``
 when the run dies between log points.
 
+With ``LossConfig(adversarial_loss=True)`` the loop also trains the
+PatchGAN discriminator (seeded from ``cfg.seed + 99`` with ``cfg.d_init``)
+and saves it beside each generator checkpoint as
+``netD-step{step:08d}.msgpack`` (params, Adam state, step), the file the JAX
+package writes; ``resume`` restores it.
+
 Host-side init (the seeded parameters, a pretrained graft) runs on the CPU
 and moves to the device once.  Reading images (the loader, the validation
 grid, the diagnostic dumps) needs cv2, which the card's machine lacks.
@@ -30,7 +36,9 @@ from rerevst_torch.data.transforms import bgr_to_model, model_to_bgr
 from rerevst_torch.io.checkpoint import (
     checkpoint_at_step,
     latest_checkpoint,
+    read_msgpack,
     restore_train_state,
+    save_params,
     save_train_state,
 )
 from rerevst_torch.models.transformer import (
@@ -39,11 +47,19 @@ from rerevst_torch.models.transformer import (
 )
 from rerevst_torch.train.state import (
     TrainState,
+    d_opt_state_tree,
+    init_d_state,
     init_train_state,
+    load_d_opt_state_tree,
     load_train_state,
     opt_state_tree,
+    tree_leaves,
 )
-from rerevst_torch.train.step import compute_losses, make_train_step
+from rerevst_torch.train.step import (
+    compute_losses,
+    make_adversarial_train_step,
+    make_train_step,
+)
 
 _SCALAR_NAMES = {
     "temporal": "temporal", "content": "content", "new_style": "new style",
@@ -162,6 +178,44 @@ def _dump_diagnostics(params: Dict, content: torch.Tensor,
     dump("FakeStyledSecondFrame_1", aux.get("fake_styled_second"))
 
 
+def _save_d_state(out_dir: str, d_state: TrainState, keep: int = 3) -> str:
+    """``netD-step{step:08d}.msgpack``: D's params, its Adam state (plain
+    optax ``adam``'s tree) and step; the newest `keep` are kept.  The
+    reference saves D's weights alone (``netD-epoch-N.pth``)."""
+    path = os.path.join(out_dir, f"netD-step{d_state.step:08d}.msgpack")
+    save_params(path, {"params": d_state.params,
+                       "opt_state": d_opt_state_tree(d_state),
+                       "step": d_state.step})
+    old = sorted(glob.glob(os.path.join(out_dir, "netD-step*.msgpack")))
+    for p in old[:-keep]:
+        os.remove(p)
+    return path
+
+
+def _restore_d_state(out_dir: str, d_state: TrainState) -> bool:
+    """Restore `d_state` in place from the newest ``netD-step*`` file, or
+    from a legacy params-only ``netD.msgpack`` with a fresh optimizer;
+    False when there is neither."""
+    paths = sorted(glob.glob(os.path.join(out_dir, "netD-step*.msgpack")))
+    legacy = os.path.join(out_dir, "netD.msgpack")
+    if paths:
+        blob = read_msgpack(paths[-1])
+        params, step = blob["params"], int(blob["step"])
+    elif os.path.exists(legacy):
+        blob, params, step = None, read_msgpack(legacy), 0
+    else:
+        return False
+    saved = dict(tree_leaves(params))
+    with torch.no_grad():
+        for path, leaf in tree_leaves(d_state.params):
+            leaf.copy_(saved[path])
+    d_state.optimizer.state.clear()
+    if blob is not None:
+        load_d_opt_state_tree(d_state, blob["opt_state"])
+    d_state.step = step
+    return True
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -207,7 +261,26 @@ def train(cfg: TrainConfig, params: Optional[Dict] = None,
             load_train_state(state, p, o, start_step)
             print(f"resumed from {path} @ step {start_step}", flush=True)
 
-    step_fn = make_train_step(cfg)
+    d_state = None
+    if cfg.loss.adversarial_loss:
+        # The PatchGAN's alternating D/G update (train/train.py:275-287).
+        from rerevst_torch.models.discriminator import (
+            init_discriminator_params,
+        )
+
+        d_state = init_d_state(_to_device(init_discriminator_params(
+            torch.Generator().manual_seed(cfg.seed + 99),
+            scheme=cfg.d_init), dev))
+        if resume and _restore_d_state(cfg.out_dir, d_state):
+            print(f"resumed discriminator @ step {d_state.step}", flush=True)
+        adv_step = make_adversarial_train_step(cfg)
+
+        def step_fn(state, content, style, gen, extra=None):
+            state, _, metrics = adv_step(state, d_state, content, style, gen,
+                                         extra)
+            return state, metrics
+    else:
+        step_fn = make_train_step(cfg)
     loader = get_loader(cfg.batch_size, cfg.load_size, cfg.fine_size,
                         cfg.flip, cfg.content_data, cfg.style_data,
                         num_workers=cfg.num_workers, seed=cfg.seed,
@@ -256,6 +329,8 @@ def train(cfg: TrainConfig, params: Optional[Dict] = None,
                         min_total = cur_total
                         save_train_state(cfg.out_dir, it, state.params,
                                          opt_state_tree(state))
+                        if d_state is not None:
+                            _save_d_state(cfg.out_dir, d_state)
                     cur_total = 0.0
                     if validation is not None:
                         validation.save_results(state.params, epoch)
@@ -278,6 +353,8 @@ def train(cfg: TrainConfig, params: Optional[Dict] = None,
             if it > start_step:
                 save_train_state(cfg.out_dir, it, state.params,
                                  opt_state_tree(state))
+                if d_state is not None:
+                    _save_d_state(cfg.out_dir, d_state)
         except Exception as e:  # noqa: BLE001 — keeps the real diagnostic
             print(f"WARNING: crash-flush checkpoint failed: {e!r}",
                   flush=True)

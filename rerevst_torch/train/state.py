@@ -13,6 +13,10 @@ Checkpoints hold the optimizer as flax writes optax's state
 subtree is frozen), so a checkpoint of either package resumes in the other.
 torch's Adam computes the same update as optax's up to rounding:
 ``count``/``mu``/``nu`` are its ``step``/``exp_avg``/``exp_avg_sq``.
+
+The discriminator's state (``init_d_state``) is a second ``TrainState``
+whose Adam is optax's ``adam(1e-4, b1=0.5, b2=0.9)``; its files hold plain
+``optax.adam``'s tree (``d_opt_state_tree``).
 """
 
 from __future__ import annotations
@@ -79,11 +83,52 @@ def _trained_subtrees(state: TrainState) -> Dict[str, bool]:
             for k, sub in state.params.items()}
 
 
+def _adam_moments(opt: torch.optim.Adam, tree: Dict
+                  ) -> Tuple[int, Dict, Dict]:
+    """(count, mu, nu) of the leaves of `tree` as optax's
+    ``ScaleByAdamState`` holds them: zeros for a leaf not yet stepped."""
+    count = 0
+    mu: Dict = {}
+    nu: Dict = {}
+    for path, leaf in tree_leaves(tree):
+        st = opt.state.get(leaf, {})
+        if "step" in st:
+            count = int(st["step"])
+        for out, name in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+            node = out
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = st[name].detach() if name in st \
+                else torch.zeros_like(leaf, requires_grad=False)
+    return count, mu, nu
+
+
+def _load_adam_moments(opt: torch.optim.Adam, tree: Dict, count: int,
+                       mu: Dict, nu: Dict) -> None:
+    """Set the Adam state of the leaves of `tree` from optax's moments."""
+    for path, leaf in tree_leaves(tree):
+        m, v = mu, nu
+        for key in path:
+            m, v = m[key], v[key]
+        if count == 0:
+            opt.state.pop(leaf, None)
+            continue
+        opt.state[leaf] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": m.to(device=leaf.device, dtype=leaf.dtype).clone(),
+            "exp_avg_sq": v.to(device=leaf.device, dtype=leaf.dtype)
+            .clone()}
+
+
+def _adam_node(count: int, mu: Dict, nu: Dict) -> Dict:
+    return {"count": torch.tensor(count, dtype=torch.int32), "mu": mu,
+            "nu": nu}
+
+
 def opt_state_tree(state: TrainState) -> Dict:
     """The optimizer as flax writes optax's ``multi_transform`` Adam state:
     count (int32), mu and nu trees (zeros before the first step; an empty
     map for a frozen subtree)."""
-    opt = state.optimizer
     count = 0
     mu: Dict = {}
     nu: Dict = {}
@@ -91,36 +136,18 @@ def opt_state_tree(state: TrainState) -> Dict:
         if not trained:
             mu[k], nu[k] = {}, {}
             continue
-
-        def moments(name):
-            out: Dict = {}
-            for path, leaf in tree_leaves(state.params[k]):
-                st = opt.state.get(leaf, {})
-                node = out
-                for key in path[:-1]:
-                    node = node.setdefault(key, {})
-                node[path[-1]] = st[name].detach() if name in st \
-                    else torch.zeros_like(leaf, requires_grad=False)
-            return out
-
-        mu[k], nu[k] = moments("exp_avg"), moments("exp_avg_sq")
-        for _, leaf in tree_leaves(state.params[k]):
-            if "step" in opt.state.get(leaf, {}):
-                count = int(opt.state[leaf]["step"])
-                break
-    adam = {"count": torch.tensor(count, dtype=torch.int32), "mu": mu,
-            "nu": nu}
+        c, mu[k], nu[k] = _adam_moments(state.optimizer, state.params[k])
+        count = max(count, c)
     return {"inner_states": {
         "freeze": {"inner_state": {}},
-        "train": {"inner_state": {"0": adam, "1": {}}}}}
+        "train": {"inner_state": {"0": _adam_node(count, mu, nu),
+                                  "1": {}}}}}
 
 
 def load_opt_state_tree(state: TrainState, tree: Dict) -> None:
     """Set the optimizer's moments and step from an ``opt_state_tree``
     layout (the JAX package's or the port's checkpoint)."""
     adam = tree["inner_states"]["train"]["inner_state"]["0"]
-    count = int(adam["count"])
-    opt = state.optimizer
     for k, trained in _trained_subtrees(state).items():
         saved = bool(adam["mu"].get(k))
         if trained != saved:
@@ -129,21 +156,38 @@ def load_opt_state_tree(state: TrainState, tree: Dict) -> None:
                 f"{'trained' if trained else 'frozen'} here but "
                 f"{'trained' if saved else 'frozen'} in the checkpoint "
                 f"(train_only_decoder differs?)")
-        if not trained:
-            continue
-        for path, leaf in tree_leaves(state.params[k]):
-            mu, nu = adam["mu"][k], adam["nu"][k]
-            for key in path:
-                mu, nu = mu[key], nu[key]
-            if count == 0:
-                opt.state.pop(leaf, None)
-                continue
-            opt.state[leaf] = {
-                "step": torch.tensor(float(count), dtype=torch.float32),
-                "exp_avg": mu.to(device=leaf.device, dtype=leaf.dtype)
-                .clone(),
-                "exp_avg_sq": nu.to(device=leaf.device, dtype=leaf.dtype)
-                .clone()}
+        if trained:
+            _load_adam_moments(state.optimizer, state.params[k],
+                               int(adam["count"]), adam["mu"][k],
+                               adam["nu"][k])
+
+
+# ---------------------------------------------------------------------------
+# The discriminator
+# ---------------------------------------------------------------------------
+
+#: D's Adam: optax ``adam(1e-4, b1=0.5, b2=0.9)`` (``train/train.py:287``).
+D_LR, D_BETAS, D_EPS = 1e-4, (0.5, 0.9), 1e-8
+
+
+def init_d_state(d_params: Dict) -> TrainState:
+    """The discriminator's state: every leaf trained by its own Adam."""
+    leaves = [leaf.requires_grad_(True) for _, leaf in tree_leaves(d_params)]
+    return TrainState(d_params, torch.optim.Adam(
+        leaves, lr=D_LR, betas=D_BETAS, eps=D_EPS), 0)
+
+
+def d_opt_state_tree(d_state: TrainState) -> Dict:
+    """D's optimizer as flax writes plain ``optax.adam``'s state,
+    ``(ScaleByAdamState(count, mu, nu), EmptyState())``."""
+    return {"0": _adam_node(*_adam_moments(d_state.optimizer,
+                                           d_state.params)), "1": {}}
+
+
+def load_d_opt_state_tree(d_state: TrainState, tree: Dict) -> None:
+    adam = tree["0"]
+    _load_adam_moments(d_state.optimizer, d_state.params, int(adam["count"]),
+                       adam["mu"], adam["nu"])
 
 
 def load_train_state(state: TrainState, params: Dict, opt_tree: Dict,

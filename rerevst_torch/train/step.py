@@ -11,9 +11,16 @@ networks in plain PyTorch under autograd.  The port's CUDA kernels have no
 backward, so no training path calls them: ``TrainConfig`` refuses
 ``pairlane``, and the step never runs ``decode_global``.
 
-Not here: the adversarial step and the Figure-16 ablation pairs (``extra``
-with ``BackwardFlow`` or ``ForwardFlow``; ROADMAP.md Queue 1 item 6b), and
-the data-parallel step (item 7).  Their configuration flags raise.
+``extra`` carries what the loader gives beside ``Content`` and ``Style``:
+the Figure-16 ablation pairs (``NextContent`` with ``BackwardFlow`` and
+``BackwardMask`` from MPI Sintel, or with ``ForwardFlow`` and
+``ForwardMask`` from video), which replace the synthetic motion, or an
+injected fake pair (``Second``, ``FakeFlow``).
+
+``make_adversarial_train_step`` is the PatchGAN step: one generator
+forward, D's Adam update on the detached output, then G's update through
+the updated D.  Not here: the data-parallel step (ROADMAP.md Queue 1 item
+7), whose configuration flag raises.
 """
 
 from __future__ import annotations
@@ -24,13 +31,30 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from rerevst_torch.config import TrainConfig
+from rerevst_torch.losses.gan import gan_loss
 from rerevst_torch.losses.perceptual import content_loss, style_loss, tv_loss
 from rerevst_torch.losses.relaxed import relaxed_style_loss
-from rerevst_torch.losses.temporal import generate_fake_data, temporal_loss
+from rerevst_torch.losses.temporal import (
+    generate_fake_data,
+    temporal_loss,
+    temporal_loss_mpi,
+    temporal_loss_video,
+)
 from rerevst_torch.models import vgg
+from rerevst_torch.models.discriminator import discriminator
 from rerevst_torch.models.transformer import decode, encode_style
 from rerevst_torch.ops.image import rgb_to_luma_reversed
 from rerevst_torch.train.state import TrainState, trainable_leaves
+
+#: The profiler range around the discriminator's part of an adversarial
+#: step: D's forward, backward and Adam update, and G's GAN term through
+#: the updated D (forward and backward to the styled frame).
+D_RANGE = "adversarial_step.discriminator"
+
+#: The ablation pairs' ``extra`` keys: (flow, mask, loss) for MPI Sintel's
+#: backward flow and for video's forward flow.
+_ABLATIONS = (("BackwardFlow", "BackwardMask", temporal_loss_mpi),
+              ("ForwardFlow", "ForwardMask", temporal_loss_video))
 
 
 def compute_losses(params: Dict, content: torch.Tensor, style: torch.Tensor,
@@ -43,13 +67,11 @@ def compute_losses(params: Dict, content: torch.Tensor, style: torch.Tensor,
     while the content loss's target is VGG of the GRAY content; recon
     encodes the gray style; the temporal pass runs the color fake second
     frame through the per-frame graph.  ``extra={'Second', 'FakeFlow'}``
-    injects the fake pair in place of drawing it from `gen`."""
+    injects the fake pair in place of drawing it from `gen`; an ablation
+    pair in `extra` (see the module's docstring) replaces the fake pair."""
     mcfg, lcfg = cfg.model, cfg.loss
-    if extra is not None and ("BackwardFlow" in extra
-                              or "ForwardFlow" in extra):
-        raise NotImplementedError(
-            "the Figure-16 ablation temporal losses are not ported yet: "
-            "ROADMAP.md Queue 1 item 6b")
+    ablation = None if extra is None else next(
+        (a for a in _ABLATIONS if a[0] in extra), None)
     metrics: Dict = {}
     aux: Dict = {}
     zero = content.new_zeros((), dtype=torch.float32)
@@ -105,7 +127,23 @@ def compute_losses(params: Dict, content: torch.Tensor, style: torch.Tensor,
     else:
         metrics["recon"] = zero
 
-    if lcfg.temporal_loss:
+    if lcfg.temporal_loss and ablation is not None:
+        # Figure-16 ablation: real pairs and their flow (loss M18).
+        flow_key, mask_key, loss_fn = ablation
+        nxt, flow, mask = extra["NextContent"], extra[flow_key], \
+            extra[mask_key]
+        if mask.dim() == 3:
+            mask = mask[..., None]
+        styled_next = decode_(params["decoder"],
+                              vgg.encode(params["encoder"], nxt), sf)
+        t_loss, fake = loss_fn(styled_next, styled, flow, mask)
+        t_gt, _ = loss_fn(nxt, content, flow, mask)
+        total = total + t_loss * lcfg.temporal_weight
+        metrics["temporal"] = t_loss
+        metrics["temporal_gt"] = t_gt.detach()
+        aux["styled_second"] = styled_next
+        aux["fake_styled_second"] = fake
+    elif lcfg.temporal_loss:
         if extra is not None and "Second" in extra:
             second, flow = extra["Second"], extra["FakeFlow"]
         else:
@@ -204,3 +242,82 @@ def make_train_step(cfg: TrainConfig):
         return state, metrics
 
     return train_step
+
+
+def discriminator_step(d_state: TrainState, fake: torch.Tensor,
+                       real: torch.Tensor, mode: str) -> torch.Tensor:
+    """D's Adam step on 0.5 (gan(D(fake), fake) + gan(D(real), real)), in
+    place; returns that loss."""
+    leaves = trainable_leaves(d_state)
+    d_loss = 0.5 * (gan_loss(discriminator(d_state.params, fake), False, mode)
+                    + gan_loss(discriminator(d_state.params, real), True,
+                               mode))
+    for p, g in zip(leaves, _grads(d_loss, leaves)):
+        p.grad = g
+    d_state.optimizer.step()
+    d_state.step += 1
+    return d_loss
+
+
+def gan_cotangent(d_params: Dict, styled: torch.Tensor, mode: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """G's GAN loss gan(D(styled), real) with D held fixed, and its
+    gradient at `styled`."""
+    x = styled.detach().requires_grad_(True)
+    g_gan = gan_loss(discriminator(_detached(d_params), x), True, mode)
+    (cot,) = torch.autograd.grad(g_gan, x)
+    return g_gan, cot
+
+
+def make_adversarial_train_step(cfg: TrainConfig):
+    """(g_state, d_state, content, style, gen, extra=None) -> (g_state,
+    d_state, metrics): the D-then-G update of ``train/train.py:320-415``,
+    both states updated in place.
+
+    The generator runs ONCE, as in the reference: D takes one Adam step on
+    0.5 (gan(D(styled.detach()), fake) + gan(D(style), real)) (the style
+    image is D's real input, the reference's choice); then G's gradient is
+    that of total + gan_weight gan(D'(styled), real) through the UPDATED,
+    frozen D' -- its cotangent at `styled` joins the losses' in one
+    backward over the generator.  The metrics add ``loss_d`` and
+    ``loss_G_GAN``; ``total`` stays the losses' total without the GAN
+    term.  The objective is ``cfg.loss.gan_mode``."""
+    mode, weight = cfg.loss.gan_mode, cfg.loss.gan_weight
+    if cfg.grad_accum > 1:
+        # The D and G updates share the one forward's `styled`: there is
+        # no micro-batched form of it.
+        raise ValueError("grad_accum > 1 is not supported with "
+                         "adversarial_loss; drop one of the two")
+
+    def train_step(g_state: TrainState, d_state: TrainState,
+                   content: torch.Tensor, style: torch.Tensor,
+                   gen: Optional[torch.Generator],
+                   extra: Optional[Dict] = None):
+        total, (metrics, aux) = compute_losses(g_state.params, content,
+                                               style, gen, cfg, extra)
+        styled = aux["styled"]
+        with torch.profiler.record_function(D_RANGE):
+            d_loss = discriminator_step(d_state, styled.detach(), style,
+                                        mode)
+            g_gan, cot = gan_cotangent(d_state.params, styled, mode)
+        g_leaves = trainable_leaves(g_state)
+        grads = torch.autograd.grad(
+            [total, styled], g_leaves,
+            grad_outputs=[torch.ones_like(total), cot * weight],
+            allow_unused=True, materialize_grads=True)
+        for p, g in zip(g_leaves, grads):
+            p.grad = g
+        g_state.optimizer.step()
+        g_state.step += 1
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss_G_GAN"] = g_gan.detach()
+        metrics["loss_d"] = d_loss.detach()
+        return g_state, d_state, metrics
+
+    return train_step
+
+
+def _detached(tree: Dict) -> Dict:
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    return tree.detach()

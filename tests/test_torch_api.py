@@ -202,3 +202,106 @@ def test_file_inputs_and_order_raise(session, tmp_path):
                         infer=InferenceConfig())
     with pytest.raises(RuntimeError, match="prepare_style"):
         fresh.compute()
+
+
+def test_top_level_surface():
+    """The JAX package's top-level names resolve in the port; importing the
+    package loads neither cv2 nor JAX (a fresh process)."""
+    import subprocess
+    import sys
+
+    import rerevst_torch
+    from rerevst_torch.models.transformer import TransformerNet
+    from rerevst_torch.multistyle import MultiStylization
+
+    assert rerevst_torch.Stylization is Stylization
+    assert rerevst_torch.MultiStylization is MultiStylization
+    assert rerevst_torch.TransformerNet is TransformerNet
+    assert rerevst_torch.__version__ == "0.1.0"
+    assert rerevst_torch.LossConfig().gan_mode == "lsgan"
+    assert rerevst_torch.TrainConfig().batch_size == 4
+    with pytest.raises(AttributeError):
+        rerevst_torch.NoSuchThing  # noqa: B018
+    code = ("import sys, rerevst_torch; rerevst_torch.InferenceConfig; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('cv2', 'jax', 'jaxlib', 'flax', 'rerevst_tpu')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("global_stats", [False, True],
+                         ids=["per_frame", "global"])
+def test_transformer_net_stylize_matches_jax(params, global_stats):
+    """``TransformerNet``'s methods against the JAX class's on the same
+    fp32 weights: ``stylize`` (desaturate, encode, then ``decode``, or
+    ``decode_global`` under the statistics that ``collect`` freezes over
+    three encoded frames) within 1 uint8 count."""
+    import jax
+    import jax.numpy as jnp
+
+    from rerevst_torch import TransformerNet
+    from rerevst_torch.data.transforms import bgr_to_model
+    from rerevst_torch.io.convert import from_jax_params
+    from rerevst_torch.ops.image import to_uint8
+    from rerevst_tpu.models.transformer import TransformerNet as JNet
+    from rerevst_tpu.ops.image import to_uint8 as jto_uint8
+
+    jp = jax.tree.map(lambda a: np.asarray(a, np.float32), params)
+    tp = from_jax_params(jax.tree.map(np.array, jp), device="cpu")
+    frames = np.concatenate([bgr_to_model(f)
+                             for f in _clip(n=3, h=64, w=64)])
+    style = bgr_to_model(_style())
+    net, jnet = TransformerNet(), JNet()
+    with torch.no_grad():
+        sf = net.encode_style(tp, torch.from_numpy(style))
+        stats = None
+        if global_stats:
+            feats = net.encode_content(tp, torch.from_numpy(frames))
+            stats = net.collect(tp, feats, sf)
+        got = to_uint8(net.stylize(tp, torch.from_numpy(frames[:1]), sf,
+                                   stats)).numpy()
+    jsf = jnet.encode_style(jp, jnp.asarray(style))
+    jstats = jnet.collect(jp, jnet.encode_content(jp, jnp.asarray(frames)),
+                          jsf) if global_stats else None
+    want = np.asarray(jto_uint8(jnet.stylize(jp, jnp.asarray(frames[:1]),
+                                             jsf, jstats)))
+    assert got.shape == want.shape == (1, 64, 64, 3)
+    assert np.abs(got.astype(np.int16) - want.astype(np.int16)).max() <= 1
+    assert net.init_params(torch.Generator().manual_seed(0),
+                           with_loss_net=False).keys() == {
+        "encoder", "encoder_style", "decoder"}
+
+
+def test_bf16_checkpoint_statistics_match_jax_session(params, session,
+                                                      jax_frames):
+    """The bundled checkpoint's bf16 weights as both sessions keep them:
+    the statistics Pass 1 freezes over five frames match the JAX session's
+    at rtol = atol = 2e-4 (the JAX package's streamed-against-batched bar).
+    The decoder's upsample convs sum their 3x3 taps in the weights' bf16,
+    as the JAX package's ``upsample2x_conv3x3`` does; summed in fp32 the
+    statistics leave this bar from res4a on (``scripts/probe_bf16_fold.py``
+    prints where).  The frames of ``jax_frames`` came from the same JAX
+    session kind."""
+    assert session.params["decoder"]["res4"]["conv1"]["w"].dtype == \
+        torch.bfloat16
+    js = JaxStylization(params=params)
+    js.prepare_style(_style())
+    clip = _clip()
+    session.clean()
+    for f in clip[:5]:
+        session.add(f)
+        js.add(f)
+    session.compute()
+    js.compute()
+    for key, st in js.stats.norms.items():
+        for field in st._fields:
+            np.testing.assert_allclose(
+                getattr(session.stats.norms[key], field).numpy(),
+                np.asarray(getattr(st, field)), rtol=2e-4, atol=2e-4,
+                err_msg=f"{key}.{field}")
+    for key, f in js.stats.filters.items():
+        np.testing.assert_allclose(session.stats.filters[key].numpy(),
+                                   np.asarray(f), rtol=2e-4, atol=2e-4,
+                                   err_msg=key)

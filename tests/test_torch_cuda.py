@@ -787,3 +787,105 @@ def _copy_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _copy_to(v, dev) for k, v in tree.items()}
     return tree.detach().to(dev, copy=True)
+
+
+def _deterministic_on(fn):
+    """fn() under cuDNN's and PyTorch's deterministic algorithms."""
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return fn()
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+        torch.use_deterministic_algorithms(False)
+
+
+def _host_generator(cfg):
+    from rerevst_torch.io.torch_compat import load_pretrained
+    from rerevst_torch.models.transformer import init_transformer_params
+
+    host, _ = load_pretrained(str(CKPT), init_transformer_params(
+        torch.Generator().manual_seed(0), cfg.model, vgg_scheme="he_relu"))
+    return host
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lsgan", "vanilla", "wgangp"])
+def test_adversarial_step_on_card_matches_cpu(cuda, mode):
+    """The adversarial step's parts (64x64, flow_iter 2, an injected
+    whole-pixel fake pair, a seeded ndf-64 discriminator) on the card
+    against the CPU, each part fed the CPU's inputs
+    (``chip_smoke.adversarial_parts_card_vs_cpu``): losses to 1e-4
+    relative; D's gradients, G's GAN cotangent and the selected G
+    gradients to 1e-3 of their max-abs, or to twice the largest change of
+    the CPU's own result over draws of ``chip_smoke.conv_noise`` where the
+    step's conditioning makes that larger (D's batch norms over 2 x 16 x
+    16 values behind leaky ReLUs; ReLU kinks ahead of the filter
+    predictor)."""
+    import chip_smoke
+    from rerevst_torch.config import LossConfig, TrainConfig
+    from rerevst_torch.data.transforms import bgr_to_model
+    from rerevst_torch.models.discriminator import init_discriminator_params
+    from rerevst_torch.ops.warp import flow_warp
+
+    cfg = TrainConfig(loss=LossConfig(flow_iter=2, data_sigma=False,
+                                      adversarial_loss=True, gan_mode=mode))
+    host = _host_generator(cfg)
+    d_host = init_discriminator_params(torch.Generator().manual_seed(99))
+    batch = {k: np.concatenate([bgr_to_model(f)
+                                for f in _clip(2, 64, 64, seed)])
+             for k, seed in (("Content", 3), ("Style", 4))}
+    content = torch.from_numpy(batch["Content"])
+    flow = torch.randint(-3, 4, (2, 64, 64, 2),
+                         generator=torch.Generator().manual_seed(1)).float()
+    extra = {"Second": flow_warp(content, flow, "nearest"), "FakeFlow": flow}
+    kernels.reset_launches()
+    res = chip_smoke.adversarial_parts_card_vs_cpu(torch, cfg, host, d_host,
+                                                   batch, extra)
+    assert not any(kernels.launch_counts().values())
+    assert not res["over_bar"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flow_key,mask_key", [
+    ("BackwardFlow", "BackwardMask"), ("ForwardFlow", "ForwardMask")],
+    ids=["mpi", "video"])
+def test_ablation_step_on_card_matches_cpu(cuda, flow_key, mask_key):
+    """One train step on an ablation pair (64x64, a whole-pixel flow, a
+    3-D mask) on the card against the CPU: losses to 1e-4 relative, the
+    selected gradients to 1e-3 of their max-abs."""
+    from rerevst_torch.config import LossConfig, TrainConfig
+    from rerevst_torch.data.transforms import bgr_to_model
+    from rerevst_torch.ops.warp import flow_warp
+
+    cfg = TrainConfig(loss=LossConfig(flow_iter=2, data_sigma=False))
+    host = _host_generator(cfg)
+    content, style = (torch.from_numpy(np.concatenate(
+        [bgr_to_model(f) for f in _clip(2, 64, 64, seed)])) for seed in (5, 6))
+    gen = torch.Generator().manual_seed(2)
+    flow = torch.randint(-3, 4, (2, 64, 64, 2), generator=gen).float()
+    extra = {"NextContent": flow_warp(content, flow, "nearest")
+             + 0.05 * torch.randn(content.shape, generator=gen),
+             flow_key: flow,
+             mask_key: (torch.rand((2, 64, 64), generator=gen) > 0.2).float()}
+    sites = [("decoder", "out", "w"), ("decoder", "filter1", "p1", "fc", "w"),
+             ("encoder", "conv4_1", "w")]
+    out = _deterministic_on(lambda: {
+        dev.type: _train_step_on(cfg, host, content, style, extra, sites,
+                                 dev)
+        for dev in (cuda, torch.device("cpu"))})
+    (mc, gc), (mh, gh) = out["cuda"], out["cpu"]
+    assert mh["temporal_gt"] > 0
+    for k in mh:
+        assert abs(mc[k] - mh[k]) <= 1e-4 * max(abs(mh[k]), 1e-12), \
+            (k, mc[k], mh[k])
+    for site in sites:
+        err = (gc[site] - gh[site]).abs().max() / gh[site].abs().max()
+        assert err <= 1e-3, (site, float(err))
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree

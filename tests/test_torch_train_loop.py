@@ -155,8 +155,9 @@ def test_metrics_logger_without_tensorboard(tmp_path, monkeypatch):
 
 def test_cli_trains_on_cpu(tiny_world, monkeypatch):
     """``python -m rerevst_torch.train --device cpu``: one step of the
-    proposed model from the bundled checkpoint; then, in process, a resume
-    and the refusal of the adversarial loss."""
+    proposed model from the bundled checkpoint; then, in process, a resume,
+    a resume with the adversarial loss (a fresh D, saved beside the
+    generator), and the refusal of multi-process training."""
     from rerevst_torch.train.__main__ import main
 
     args = ["--device", "cpu", "--batchSize", "1", "--epoches", "1",
@@ -180,8 +181,12 @@ def test_cli_trains_on_cpu(tiny_world, monkeypatch):
     monkeypatch.chdir(tiny_world)
     main(args + ["--continue_training"])
     assert ck.latest_checkpoint("out")[1] == 2
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        main(args + ["--adaversarial_loss"])
+    main(args + ["--continue_training", "--adaversarial_loss",
+                 "--gan_mode", "vanilla", "--ganWeight", "0.5",
+                 "--init_type", "orthogonal"])
+    assert ck.latest_checkpoint("out")[1] == 3
+    assert [os.path.basename(p) for p in glob.glob("out/netD-step*")] == [
+        "netD-step00000001.msgpack"]
     with pytest.raises(NotImplementedError, match="item 7"):
         main(args + ["--num_processes", "2"])
 
@@ -202,8 +207,11 @@ def test_loader_batches_match_jax(tiny_world):
             for k in g:
                 assert g[k].dtype == w[k].dtype == np.float32
                 np.testing.assert_array_equal(g[k], w[k])
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        get_loader(**kw, use_mpi=True)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        get_loader(**kw, use_mpi=True, use_video=True)
+    with pytest.raises(FileNotFoundError):  # no video_data.pickle here
+        get_loader(**kw, use_video=True,
+                   video_pickle=str(tiny_world / "video_data.pickle"))
 
 
 # --- train state across the two packages ------------------------------------

@@ -268,21 +268,29 @@ def test_memory_options_keep_the_gradient(jax_params, batch, kw, tol):
 
 
 def test_refusals(jax_params, batch):
+    """What the step refuses: the pair-lane kernel, data-parallel training
+    (item 7), a batch that micro-batches do not divide, and micro-batches
+    with the adversarial loss; the adversarial and ablation flags are
+    accepted, and an ablation pair without its mask is an error."""
+    from rerevst_torch.train.step import make_adversarial_train_step
+
     with pytest.raises(ValueError, match="pair-lane"):
         TrainConfig(model=ModelConfig(pairlane=True))
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        LossConfig(adversarial_loss=True)
+    assert LossConfig(adversarial_loss=True, gan_mode="wgangp").gan_mode \
+        == "wgangp"
     for kw in ({"use_mpi": True}, {"use_video": True}):
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            TrainConfig(**kw)
+        assert TrainConfig(**kw)
     with pytest.raises(NotImplementedError, match="item 7"):
         TrainConfig(data_parallel=2)
+    with pytest.raises(ValueError, match="grad_accum > 1"):
+        make_adversarial_train_step(TrainConfig(
+            grad_accum=2, loss=LossConfig(adversarial_loss=True)))
     cfg = TrainConfig(grad_accum=3, loss=LossConfig(relax_style=False))
     state = init_train_state(_port_params(jax_params), cfg)
     content, style, extra = _t(batch)
     with pytest.raises(ValueError, match="must divide the batch"):
         make_train_step(cfg)(state, content, style, None, extra)
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(KeyError, match="NextContent"):
         compute_losses(state.params, content, style, None, cfg,
                        {"BackwardFlow": extra["FakeFlow"]})
 
