@@ -99,6 +99,23 @@ Phases, each printing one JSON line (any failure exits non-zero):
              U-Net forward at
              256x256 (num_downs 8, ngf 64) against the CPU, to 1e-4 of its
              max-abs, timed; 0 kernel launches;
+   tiling      — one 16-frame f16 Pass-2 batch at true 1080p (1920x1080
+             content padded to 1216x2048) on twins of the global f16
+             session with ``spatial_tiles`` 1, 2 and 4: ms per batch, peak
+             allocated memory, launches counted from 0 around one batch
+             (``norm_affine_clamp`` 7 + 4 T: the tail's norm sites run per
+             slab), frames within 1 count of untiled; one 640x640 batch at
+             T = 2 against T = 1;
+   aot         — the global f16 and pair-lane sessions' Pass 2 exported
+             (``torch.export``, ``io/aot.py``) at 640x640 for batches 1
+             and 16 on the card, written, and loaded in a fresh process
+             that imports only rerevst_torch: 11 ``rerevst::
+             norm_affine_clamp`` and 3 ``rerevst::dynamic_filter_pair``
+             nodes (and 3 ``rerevst::conv3x3_pairlane`` on the pair-lane
+             route), launches equal to eager's, ``pass2_mode == 'aot'``,
+             frames within 1 count of eager; export, write and load
+             seconds, first-call and warm ms against eager; one /stylize
+             through ``serve(..., aot=bundle)``;
 5. times   — each kernel and its plain version at every main-path site
              (device time from CUDA events, and the host's own cost per
              call), the bound (the filter pair's products as three TF32
@@ -112,7 +129,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
              conv4_1 (C >= 128, the wide kernel), and the cp.async kernel at
              C = 32, beside ``F.conv2d``;
              and (phase pipeline) the warm f16 stylize_video's wall time
-             and idle share;
+             and idle share; (phase dispatch) the host cost of each kernel
+             op's ``torch.library`` dispatch against its CUDA
+             implementation called directly;
 6. a ``{"phase": "done", "seconds": ...}`` line (the script's wall time),
    the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
    line ``{"ok": true, "device": {...}}``.
@@ -1816,6 +1835,404 @@ def serve_phase(torch):
 
 
 # ---------------------------------------------------------------------------
+# Phase tiling: spatial H-tiling of Pass 2 at true 1080p
+# ---------------------------------------------------------------------------
+
+#: The spatial tile counts of phase tiling, and its true-1080p content
+#: geometry (padded by the port's rule to 1216x2048).
+TILE_COUNTS = (1, 2, 4)
+HD_H, HD_W = 1080, 1920
+
+
+def _tiled_session(torch, base, tiles):
+    """A twin of the global session `base` with ``spatial_tiles=tiles``: the
+    same weights (not copied), style and frozen statistics."""
+    import dataclasses
+
+    from rerevst_torch.api import Stylization
+
+    s = Stylization(params=base.params, infer=base.infer, device="cuda",
+                    cfg=dataclasses.replace(base.cfg, spatial_tiles=tiles))
+    s.style, s.stats = base.style, base.stats
+    return s
+
+
+def _u8(torch, out, h, w, pad=64):
+    """A Pass-2 batch cropped on the card to uint8 (cv2's rounding)."""
+    from rerevst_torch.ops.image import crop_back, to_uint8
+
+    return to_uint8(crop_back(out, h, w, pad))
+
+
+def _count_diff(torch, a, b) -> dict:
+    d = (a.to(torch.int16) - b.to(torch.int16)).abs()
+    return {"max_counts": int(d.max()), "frac_differ": float(
+        (d > 0).float().mean()), "equal": bool(torch.equal(a, b))}
+
+
+def tiling_phase(torch, base):
+    """Pass 2 of one 16-frame batch at true 1080p (1920x1080 content padded
+    to 1216x2048) with ``spatial_tiles`` 1, 2 and 4, on twins of the global
+    f16 session `base` (its style and statistics): per tile count the
+    device ms per batch (CUDA events), the peak allocated memory over one
+    batch (``max_memory_allocated`` after ``reset_peak_memory_stats``) and
+    the kernel launches of that batch, counted from 0 around it.  The
+    tail's four norm sites run per slab, so ``norm_affine_clamp`` launches
+    7 + 4 T times; the tiled frames stay within 1 uint8 count of the
+    untiled ones.  Then one 640x640 batch at T = 2 against T = 1."""
+    from rerevst_torch import kernels
+
+    res = {"geometry": {}, "rows": []}
+    for (h, w), counts in (((HD_H, HD_W), TILE_COUNTS),
+                           ((CONTENT, CONTENT), (1, 2))):
+        clip = synth_clip(BATCH, h, w, seed=6)
+        ref = None
+        for tiles in counts:
+            s = _tiled_session(torch, base, tiles)
+            x = s._upload(s._prep_batch_host(clip))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            start_gb = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            out = s._stylize(x)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            frames = _u8(torch, out, h, w, s.infer.pad)
+            del out
+            want = {"norm_affine_clamp": 7 + 4 * tiles,
+                    "dynamic_filter_pair": 3, "conv3x3_implicit_gemm": 0,
+                    "conv3x3_pairlane": 0}
+            if launches != want:
+                fail(f"tiling {h}x{w} T={tiles}: launches {launches}, "
+                     f"expected {want}")
+            t = time_ms(torch, lambda: s._stylize(x), iters=5, warmup=1)
+            row = {"content": [h, w], "padded": list(x.shape[1:3]),
+                   "batch": BATCH, "dtype": "float16", "tiles": tiles,
+                   "batch_ms": t["ms"], "host_paced": t["host_paced"],
+                   "peak_allocated_gb": peak_gb,
+                   "allocated_before_gb": start_gb,
+                   "peak_above_before_gb": peak_gb - start_gb,
+                   "launches": launches}
+            if ref is None:
+                ref = frames
+            else:
+                row["vs_untiled"] = _count_diff(torch, frames, ref)
+                if row["vs_untiled"]["max_counts"] > 1:
+                    fail(f"tiling {h}x{w} T={tiles}: frames differ from the "
+                         f"untiled ones by {row['vs_untiled']['max_counts']} "
+                         f"counts")
+            res["rows"].append(row)
+            emit({"phase": "tiling", **row})
+            del x, frames, s
+            torch.cuda.empty_cache()
+    RESULTS["tiling"] = res
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase aot: Pass-2 bundles exported with torch.export
+# ---------------------------------------------------------------------------
+
+#: The fresh process that loads a bundle: it imports rerevst_torch only,
+#: builds a session on the bundled checkpoint with the parent's style and
+#: statistics, serves one batch from the bundle and times it against the
+#: eager path in turns (or, in mode 'eager', times the eager first call).
+AOT_CHILD = r"""
+import json, sys, time
+import torch
+from rerevst_torch import kernels
+from rerevst_torch.api import Stylization
+from rerevst_torch.config import ModelConfig
+from rerevst_torch.ops.image import crop_back, to_uint8
+
+ckpt, bundle, inputs, out, mode, pairlane = sys.argv[1:7]
+t_start = time.perf_counter()
+d = torch.load(inputs, weights_only=False)  # this script's own file
+s = Stylization(ckpt, cfg=ModelConfig(dtype=torch.float16,
+                                      pairlane=pairlane == "1"),
+                device="cuda")
+s.style, s.stats = d["style"], d["stats"]
+x = d["x"].cuda()
+res = {"setup_s": time.perf_counter() - t_start}
+
+
+def first(fn):
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = fn()
+    torch.cuda.synchronize()
+    return y, (time.perf_counter() - t0) * 1e3, kernels.launch_counts()
+
+
+def ms(fn, iters=10):
+    for _ in range(2):
+        fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+if mode == "eager":
+    _, res["first_ms"], res["launches"] = first(lambda: s._stylize(x))
+    res["pass2_mode"] = s.pass2_mode
+else:
+    t0 = time.perf_counter()
+    s.use_aot(bundle)
+    res["load_s"] = time.perf_counter() - t0
+    res["nodes"] = {}
+    for b in s._aot.batches():
+        names = [str(n.target) for n in s._aot.program(b, "cuda").graph.nodes
+                 if n.op == "call_function"]
+        res["nodes"][b] = {k: names.count(f"rerevst.{k}.default")
+                           for k in kernels.launch_counts()}
+    y, res["first_ms"], res["launches"] = first(lambda: s._stylize(x))
+    res["pass2_mode"] = s.pass2_mode
+    y1 = s._stylize(x[:1])
+    res["pass2_mode_batch1"] = s.pass2_mode
+    h, w = d["hw"]
+    torch.save({"frames": to_uint8(crop_back(y, h, w)).cpu(),
+                "frames1": to_uint8(crop_back(y1, h, w)).cpu()}, out)
+    bundle_obj = s._aot
+
+    def eager():
+        s._aot = None
+        try:
+            return s._stylize(x)
+        finally:
+            s._aot = bundle_obj
+
+    turns = []
+    for name in ("eager", "aot", "aot", "eager"):
+        turns.append([name, ms(eager if name == "eager"
+                               else lambda: s._stylize(x))])
+    res["warm_ms_turns"] = turns
+print(json.dumps(res))
+"""
+
+
+def _aot_child(torch, args):
+    res = subprocess.run([sys.executable, "-c", AOT_CHILD, *map(str, args)],
+                         cwd=str(HERE), capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode != 0:
+        fail(f"aot: the loading process failed ({res.returncode}):\n"
+             f"{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def aot_phase(torch, sessions):
+    """The global f16 session's Pass 2 exported at 640x640 for batches 1 and
+    16 on the card (``io/aot.py``), written, and loaded in a fresh process
+    that imports only rerevst_torch: its graphs hold the
+    ``rerevst::norm_affine_clamp`` node 11 times and
+    ``rerevst::dynamic_filter_pair`` 3 times; its batch of 16 launches the
+    kernels as often as the eager batch (counted from 0 around each), with
+    ``pass2_mode == 'aot'``, and its frames are within 1 count of the eager
+    frames (batch 16 and batch 1); export, write and load seconds, the
+    first call in a fresh process (against the eager first call in another
+    fresh process) and the warm ms per batch in turns with eager.  Then the
+    same for the pair-lane session (``conv3x3_pairlane`` 3 nodes and
+    launches per batch).  Then one /stylize through ``serve(...,
+    aot=bundle)`` (the route's service call: image decoding needs cv2,
+    which the card's machine lacks), served from the bundle."""
+    import tempfile
+
+    from rerevst_torch import kernels
+    from rerevst_torch.io import aot as A
+
+    ckpt = str(HERE / "models" / "demo_plum_4000.msgpack")
+    tmp = Path(tempfile.mkdtemp(prefix="rerevst_aot_"))
+    res = {}
+    clip = synth_clip(BATCH, CONTENT, CONTENT, seed=4)
+    try:
+        for key, pl in (("f16", False), ("f16_pairlane", True)):
+            s = sessions[key]
+            x = s._upload(s._prep_batch_host(clip))
+            t0 = time.perf_counter()
+            meta, programs = A.export_bundle(s, (PAD_HW, PAD_HW),
+                                             (1, BATCH), ("cuda",))
+            export_s = time.perf_counter() - t0
+            path = tmp / f"{key}.rvaot"
+            t0 = time.perf_counter()
+            A.write_bundle(str(path), meta, programs)
+            write_s = time.perf_counter() - t0
+            del programs
+            kernels.reset_launches()
+            y = s._stylize(x)
+            torch.cuda.synchronize()
+            eager_launches = kernels.launch_counts()
+            eager = _u8(torch, y, CONTENT, CONTENT)
+            eager1 = _u8(torch, s._stylize(x[:1]), CONTENT, CONTENT)
+            del y
+            inputs = tmp / f"{key}.inputs.pt"
+            torch.save({"style": s.style, "stats": s.stats, "x": x.cpu(),
+                        "hw": (CONTENT, CONTENT)}, inputs)
+            args = [ckpt, path, inputs, tmp / f"{key}.out.pt"]
+            child = _aot_child(torch, args + ["aot", int(pl)])
+            cold_eager = _aot_child(torch, args + ["eager", int(pl)])
+            got = torch.load(tmp / f"{key}.out.pt")
+            want_nodes = {"norm_affine_clamp": 11, "dynamic_filter_pair": 3,
+                          "conv3x3_implicit_gemm": 0,
+                          "conv3x3_pairlane": 3 if pl else 0}
+            row = {"session": key, "hw": [PAD_HW, PAD_HW],
+                   "batches": [1, BATCH], "export_s": export_s,
+                   "write_s": write_s, "bundle_bytes": path.stat().st_size,
+                   "load_s": child["load_s"], "nodes": child["nodes"],
+                   "eager_launches": eager_launches,
+                   "aot_launches": child["launches"],
+                   "pass2_mode": child["pass2_mode"],
+                   "first_call_ms_aot": child["first_ms"],
+                   "first_call_ms_eager": cold_eager["first_ms"],
+                   "warm_ms_turns": child["warm_ms_turns"],
+                   "vs_eager": _count_diff(torch, got["frames"],
+                                           eager.cpu()),
+                   "vs_eager_batch1": _count_diff(torch, got["frames1"],
+                                                  eager1.cpu())}
+            for b in ("1", str(BATCH)):
+                if row["nodes"].get(b) != want_nodes:
+                    fail(f"aot {key}: the loaded batch-{b} graph holds "
+                         f"{row['nodes'].get(b)}, expected {want_nodes}")
+            if eager_launches != want_nodes:
+                fail(f"aot {key}: eager launches {eager_launches}, "
+                     f"expected {want_nodes}")
+            if child["launches"] != eager_launches:
+                fail(f"aot {key}: the bundle launched {child['launches']}, "
+                     f"eager {eager_launches}")
+            if not (child["pass2_mode"] == child["pass2_mode_batch1"]
+                    == "aot"):
+                fail(f"aot {key}: pass2_mode {child['pass2_mode']} and "
+                     f"{child['pass2_mode_batch1']}, not 'aot'")
+            if cold_eager["pass2_mode"] != "global" or \
+                    cold_eager["launches"] != eager_launches:
+                fail(f"aot {key}: the eager process ran "
+                     f"{cold_eager['pass2_mode']} with "
+                     f"{cold_eager['launches']} launches")
+            for k in ("vs_eager", "vs_eager_batch1"):
+                if row[k]["max_counts"] > 1:
+                    fail(f"aot {key}: frames differ from eager by "
+                         f"{row[k]['max_counts']} counts ({k})")
+            res[key] = row
+            emit({"phase": "aot", **row})
+            del x, eager, eager1
+            torch.cuda.empty_cache()
+        res["serve"] = _serve_aot(torch, ckpt, tmp / "f16.rvaot")
+        emit({"phase": "aot", "serve": res["serve"]})
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    RESULTS["aot"] = res
+    return res
+
+
+def _serve_aot(torch, ckpt, bundle):
+    """One /stylize through ``serve(..., aot=bundle)``: the service call
+    behind the route, launches counted from 0 around it, ``pass2_mode ==
+    'aot'``, and the frame within 1 count of the same session served
+    eager."""
+    import numpy as np
+
+    from rerevst_torch import kernels
+    from rerevst_torch.serve import serve
+
+    clip = synth_clip(9, CONTENT, CONTENT, seed=0)
+    style = synth_style(CONTENT, CONTENT, seed=1)
+    server = serve(ckpt, port=0, host="127.0.0.1", dtype="f16",
+                   aot=str(bundle), device="cuda")
+    url, thread = _start_server(server)
+    svc = server.service
+    try:
+        svc.set_style(style)
+        svc.pass1(clip[0], last=False)
+        svc.pass1(clip[-1], last=True)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = svc.stylize(clip[0])
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = kernels.launch_counts()
+        mode = svc.session.pass2_mode
+        bundle_obj = svc.session._aot
+        svc.session._aot = None
+        want = svc._run(lambda: svc.session.transfer(clip[0]))
+        svc.session._aot = bundle_obj
+        status, body = _http(url + "/healthz", method="GET")
+    finally:
+        _stop_server(server, thread)
+    d = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
+    out = {"stylize_ms": ms, "launches": launches, "pass2_mode": mode,
+           "max_counts_vs_eager": d, "healthz": status}
+    if mode != "aot":
+        fail(f"aot serve: /stylize ran {mode}, not from the bundle")
+    if launches != {"norm_affine_clamp": 11, "dynamic_filter_pair": 3,
+                    "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0}:
+        fail(f"aot serve: /stylize launched {launches}")
+    if d > 1 or got.shape != (CONTENT, CONTENT, 3) or status != 200:
+        fail(f"aot serve: {out}")
+    return out
+
+
+def dispatch_cost(torch):
+    """Host microseconds per call of each kernel op through
+    ``torch.ops.rerevst`` against its CUDA implementation called directly,
+    at one main-path shape each (f16, 640x640 batch 16): the custom op's
+    dispatch cost.  Host time only: the card runs behind."""
+    from rerevst_torch.kernels import conv3x3, filter_chain, norm_affine
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    x, st, s, m = norm_inputs(torch, (BATCH, PAD_HW, PAD_HW, 64), "affine",
+                              torch.float16, gen)
+    xf, f1, f2 = filter_inputs(torch, (BATCH, PAD_HW // 8, PAD_HW // 8, 32),
+                               torch.float16, gen)
+    xc, w, b = conv_inputs(torch, (BATCH, PAD_HW, PAD_HW, 64), 3,
+                           torch.float16, gen)
+    ops = torch.ops.rerevst
+    cases = {
+        "norm_affine_clamp": (ops.norm_affine_clamp, norm_affine._cuda,
+                              (x, *st, s, m, False)),
+        "dynamic_filter_pair": (ops.dynamic_filter_pair, filter_chain._cuda,
+                                (xf, f1, f2)),
+        "conv3x3_pairlane": (ops.conv3x3_pairlane, conv3x3._pairlane_cuda,
+                             (xc, w, b)),
+    }
+    out = {}
+    for name, (op, direct, args) in cases.items():
+        per = {}
+        for how, fn in (("op", op), ("direct", direct), ("op2", op),
+                        ("direct2", direct)):
+            for _ in range(3):
+                fn(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn(*args)
+            per[how] = (time.perf_counter() - t0) / 50 * 1e6
+            torch.cuda.synchronize()
+        out[name] = {"op_us": min(per["op"], per["op2"]),
+                     "direct_us": min(per["direct"], per["direct2"])}
+        out[name]["dispatch_us"] = out[name]["op_us"] - out[name]["direct_us"]
+    calls = {"global": 11 + 3, "pairlane": 11 + 3 + 3}
+    est = out["norm_affine_clamp"]["dispatch_us"] * 11 \
+        + out["dynamic_filter_pair"]["dispatch_us"] * 3
+    res = {"per_op": out, "calls_per_batch": calls,
+           "dispatch_ms_per_global_batch": est / 1e3,
+           "dispatch_ms_per_pairlane_batch":
+               (est + 3 * out["conv3x3_pairlane"]["dispatch_us"]) / 1e3}
+    RESULTS["dispatch"] = res
+    emit({"phase": "dispatch", **res})
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase train: the trainer on the card
 # ---------------------------------------------------------------------------
 
@@ -3049,6 +3466,8 @@ def main() -> int:
     native_prep(torch, sessions["f16"])
     ms = multistyle(torch, errs)
     served = serve_phase(torch)
+    tiled = tiling_phase(torch, sessions["f16"])
+    aoted = aot_phase(torch, sessions)
     host, stage = train_host_params(torch)
     trained = train_phase(torch, host, stage)
     adv = adversarial_phase(torch, host)
@@ -3060,6 +3479,7 @@ def main() -> int:
     conv_tot = time_convs(torch)
     vgg_rows = time_vgg_convs(torch)
     pipeline(torch, sessions["f16"])
+    dispatch_cost(torch)
     for key, sess in (("pass2", "f16"), ("pass2_pairlane", "f16_pairlane"),
                       ("pass2_per_frame", "pf_f16")):
         p2 = time_pass2(torch, sessions[sess])
@@ -3117,7 +3537,13 @@ def main() -> int:
          "launches_serve": served["launches_serve"][k],
          "launches_train": trained["launches"][k],
          "launches_adversarial": adv["launches"][k],
-         "launches_ablation": abl["launches"][k]}
+         "launches_ablation": abl["launches"][k],
+         "launches_tiling_1080p": {
+             r["tiles"]: r["launches"][k] for r in tiled["rows"]
+             if r["content"] == [HD_H, HD_W]},
+         "launches_aot": aoted["f16"]["aot_launches"][k],
+         "launches_aot_pairlane": aoted["f16_pairlane"]["aot_launches"][k],
+         "launches_aot_serve": aoted["serve"]["launches"][k]}
         for k, (src, rep, by, path, counts) in meta.items()]}
     for entry in line["kernels"]:
         if entry["name"] == "conv3x3_implicit_gemm":

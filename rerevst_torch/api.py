@@ -21,14 +21,19 @@ memory.  Host prep and post-processing use the native library
 and uploads chunk k+1 while the card runs chunk k, and chunk k-1 is fetched
 on a copy stream that does not wait for chunk k's kernels.
 
-Not ported yet (each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item): a device mesh and AOT bundles.
+Global-mode Pass 2 can run from an AOT bundle (``use_aot``,
+``io/aot.py``): a graph exported with ``torch.export`` for the frame
+geometry, batch and device of a call; other calls run eager.
+
+Not ported yet (raises ``NotImplementedError`` naming its ``ROADMAP.md``
+item): a device mesh.
 """
 
 from __future__ import annotations
 
 import itertools
 import os
+import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence
@@ -171,8 +176,13 @@ class Stylization:
         #: How the last Pass 1 collected its statistics: 'batched' or
         #: 'streaming-spill'.
         self.pass1_mode: Optional[str] = None
-        #: Which graph the last Pass-2 call ran: 'global' or 'per-frame'.
+        #: Which graph the last Pass-2 call ran: 'global' (eager), 'aot' (an
+        #: AOT bundle's graph) or 'per-frame'.
         self.pass2_mode: Optional[str] = None
+        #: The AOT bundle Pass 2 runs from (``use_aot``), and whether one was
+        #: dropped after it rejected a call.
+        self._aot = None
+        self._aot_warned = False
 
     # ------------------------------------------------------------------
     # Geometry (ReshapeTool contract: fixed after the first frame)
@@ -322,15 +332,60 @@ class Stylization:
         self._patches = []
 
     def use_aot(self, path: str) -> None:
-        raise _not_ported("AOT bundles", "Queue 1 item 7")
+        """Serve global-mode Pass 2 from an AOT bundle (``io/aot.py``) where
+        the frame geometry and batch match; other shapes run eager.  A
+        bundle exported for another storage dtype or other model switches,
+        or with no graph for the session's device, raises ``ValueError``
+        here: its graphs would reject every call, or run another route, or
+        another device's graph."""
+        from rerevst_torch.io.aot import MODEL_KEYS, load_bundle
+
+        bundle = load_bundle(path)
+        want = str(self.cfg.dtype).removeprefix("torch.")
+        have = bundle.meta.get("dtype")
+        if have != want:
+            raise ValueError(
+                f"AOT bundle {path} was exported for dtype {have!r} but the "
+                f"session stores {want!r}: rebuild it with convert "
+                f"--export-aot --dtype matching the serving dtype")
+        model = {k: getattr(self.cfg, k) for k in MODEL_KEYS}
+        if bundle.meta.get("model") != model:
+            raise ValueError(
+                f"AOT bundle {path} was exported for the model switches "
+                f"{bundle.meta.get('model')} but the session has {model}")
+        if self.device.type not in bundle.platforms():
+            raise ValueError(
+                f"AOT bundle {path} has graphs for {bundle.platforms()} and "
+                f"none for the session's device {self.device.type!r}: "
+                f"export it on that device (convert --export-aot "
+                f"--platforms {self.device.type})")
+        self._aot = bundle
+        self._aot_warned = False
 
     def _stylize(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_global and self.stats is None:
             raise RuntimeError("compute() first (or use_global=False)")
         if self.style is None:
             raise RuntimeError("prepare_style first")
-        self.pass2_mode = "global" if self.use_global else "per-frame"
         with torch.inference_mode():
+            if self.use_global and self._aot is not None:
+                try:
+                    out = self._aot(self.params, x, self.style, self.stats)
+                    self.pass2_mode = "aot"
+                    return out
+                except KeyError:
+                    pass  # geometry or batch not in the bundle: eager
+                except ValueError as e:
+                    # Structure or dtype drift (e.g. statistics of another
+                    # Pass 1): the rejection holds until Pass 1 reruns, so
+                    # drop the bundle rather than re-check it every call,
+                    # and say so; use_aot() re-arms it.
+                    print(f"warning: AOT bundle rejected the call ({e}); "
+                          f"serving eager from now on (use_aot() to re-arm "
+                          f"after the next Pass 1)", file=sys.stderr)
+                    self._aot_warned = True
+                    self._aot = None
+            self.pass2_mode = "global" if self.use_global else "per-frame"
             return stylize(self.params, x, self.style, self.cfg,
                            self.stats if self.use_global else None)
 

@@ -3,9 +3,11 @@
 Mirrors ``rerevst_tpu/config.py`` field for field, with torch dtypes.  The
 port supports the default architecture and both ablation switches
 (``dynamic_filter``, ``both_sty_con``; per-frame mode only, as in the JAX
-package); a switch that selects a path the port does not have yet raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it, so no
-setting is silently ignored (``outpairs`` excepted, see its comment).
+package), the pair-lane route and spatial H-tiling (``spatial_tiles``); a
+switch that selects a path the port does not have yet (the TPU layout and
+precision variants) raises ``NotImplementedError`` naming the ``ROADMAP.md``
+item that ports it, so no setting is silently ignored (``outpairs``
+excepted, see its comment).
 """
 
 from __future__ import annotations
@@ -68,7 +70,9 @@ class ModelConfig:
     #: the default path.  The TPU's W-pair lane layout is not ported: the
     #: region stays NHWC in the session's storage dtype.
     pairlane: bool = False
-    #: H-tiling of the full-resolution regions (1 = off).
+    #: H-tiling of the full-resolution regions (1 = off): the encoder's conv1
+    #: block and the global decoder's tail run over this many overlapping
+    #: H-slabs where the geometry allows it (``ops/tiling.py``).
     spatial_tiles: int = 1
     #: Accepted with any value and ignored: on the TPU it only picks a
     #: paired-output layout for the SAME out conv; the port runs the plain
@@ -81,8 +85,6 @@ class ModelConfig:
              "ROADMAP.md Queue 1 item 8 (config variants)"),
             (self.luma_fold, "luma_fold=True",
              "ROADMAP.md Queue 1 item 8 (config variants)"),
-            (self.spatial_tiles > 1, f"spatial_tiles={self.spatial_tiles}",
-             "ROADMAP.md Queue 1 item 7 (ops/tiling.py)"),
             (self.fp32_mix != "none", f"fp32_mix={self.fp32_mix!r}",
              "ROADMAP.md Queue 1 item 8 (config variants)"),
             (self.precision not in ("auto", "highest"),

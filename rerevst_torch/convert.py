@@ -30,8 +30,15 @@ beside the generator's checkpoint at its step, else the newest one (with a
 warning: the G and D steps then differ).  An import writes D with a fresh
 Adam state: the reference never saves D's optimizer.
 
-Not ported yet: ``--export-aot`` (raises ``NotImplementedError`` naming
-ROADMAP.md Queue 1 item 7).
+An AOT Pass-2 bundle (``io/aot.py``), as ``rerevst_tpu.convert`` exports
+one:
+
+    python -m rerevst_torch.convert model.msgpack pass2.rvaot --export-aot \
+        --hw 640x640 --batches 1,16 --dtype f16 --platforms cuda
+
+``--platforms`` defaults to ``cpu,cuda``.  Exporting for ``cuda`` traces on
+the card, so it needs one; without a card the command refuses ``cuda`` and
+writes nothing (``--platforms cpu`` exports the CPU graph alone).
 """
 
 from __future__ import annotations
@@ -67,7 +74,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--export-aot", action="store_true",
                     help="src = checkpoint, dst = bundle: export the "
-                         "compiled Pass-2 hot path (not ported: raises)")
+                         "global-mode Pass-2 graph (torch.export, the "
+                         "kernels as rerevst:: ops) as a deployment "
+                         "artifact")
     ap.add_argument("--hw", default="640x640",
                     help="with --export-aot: PADDED frame geometry HxW")
     ap.add_argument("--batches", default="1",
@@ -75,8 +84,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default="f16",
                     choices=["bf16", "f16", "f32"],
                     help="with --export-aot: model storage dtype")
-    ap.add_argument("--platforms", default="cpu,tpu",
-                    help="with --export-aot: lowering platforms")
+    ap.add_argument("--platforms", default="cpu,cuda",
+                    help="with --export-aot: the devices to export a graph "
+                         "for (cuda needs a card)")
     return ap
 
 
@@ -153,12 +163,30 @@ def _train_import(args) -> None:
     print(f"imported train state @ step {step} -> {wrote}")
 
 
+def _export_aot(args) -> None:
+    from rerevst_torch.api import Stylization
+    from rerevst_torch.config import ModelConfig, dtype_from_name
+    from rerevst_torch.io.aot import check_platforms, save_bundle
+
+    h, w = (int(v) for v in args.hw.lower().split("x"))
+    batches = [int(b) for b in args.batches.split(",")]
+    platforms = args.platforms.split(",")
+    check_platforms(platforms)  # before the model loads
+    cfg = ModelConfig(dtype=dtype_from_name(args.dtype))
+    session = Stylization(checkpoint=args.src, cfg=cfg, use_global=True,
+                          device="cuda" if "cuda" in platforms else "cpu")
+    meta = save_bundle(args.dst, session, (h, w), batches=batches,
+                       platforms=platforms)
+    size_mb = os.path.getsize(args.dst) / (1 << 20)
+    print(f"AOT bundle {args.dst}: {meta['hw'][0]}x{meta['hw'][1]} batches "
+          f"{meta['batches']} platforms {meta['platforms']} "
+          f"({size_mb:.1f} MB)")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.export_aot:
-        raise NotImplementedError(
-            "--export-aot (AOT bundles) is not ported yet: ROADMAP.md "
-            "Queue 1 item 7")
+        return _export_aot(args)
     if args.train_export:
         return _train_export(args)
     if args.train_import:

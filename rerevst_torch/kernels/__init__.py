@@ -9,6 +9,14 @@
 
 The kernels build at first use (``kernels/_build.py``).  Each wrapper keeps an
 integer ``launches`` count of its kernel launches.
+
+Each wrapper checks its arguments and calls its ``torch.library`` op,
+``rerevst::<wrapper name>``, registered when this package is imported: the
+op's CUDA implementation launches the kernel (and counts the launch), its CPU
+implementation is the plain version, and its fake implementation gives the
+output's shape, so ``torch.export`` keeps each kernel as one node of an
+exported graph (``io/aot.py``).  Every path, eager, tiled or exported, reaches
+a kernel through its op.
 """
 
 from rerevst_torch.kernels.conv3x3 import (  # noqa: F401

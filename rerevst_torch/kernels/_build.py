@@ -160,6 +160,28 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+#: The ``rerevst`` operator namespace.  Each kernel module defines its op
+#: here with ``define_op``.  The low-level ``torch.library.Library`` API, not
+#: ``torch.library.custom_op``: custom_op wraps every kernel in
+#: ``torch._disable_dynamo``, whose first call imports ``torch._dynamo``
+#: (1.76 s on a CPU host, measured; PERF.md section 6, PR 12), and routes
+#: each call through a Python autograd wrapper.  The ops have no autograd
+#: formula: the kernels are forward-only.
+LIBRARY = torch.library.Library("rerevst", "DEF")
+
+
+def define_op(schema: str, cpu, cuda, fake) -> None:
+    """Define ``rerevst::<name>`` from its schema, with `cpu` (the plain
+    version) for CPU tensors, `cuda` (the kernel's launcher) for CUDA
+    tensors and `fake` (the output's shape, dtype and strides alone, reading
+    no memory) for ``torch.export`` and other tracing."""
+    name = schema.split("(", 1)[0]
+    LIBRARY.define(schema)
+    LIBRARY.impl(name, cpu, "CPU")
+    LIBRARY.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"rerevst::{name}", fake, lib=LIBRARY)
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error for its launch."""
     if err != 0:

@@ -31,7 +31,12 @@ shape (:func:`design` names it):
 * fp32: CUDA-core FMAs.
 
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
-takes the plain version.
+takes the plain version.  Each wrapper reaches both through its
+``torch.library`` op, ``rerevst::conv3x3_implicit_gemm`` or
+``rerevst::conv3x3_pairlane``: the op's CUDA implementation launches the
+kernel, its CPU implementation is the plain version, and its fake
+implementation gives the output's shape alone, so that ``torch.export``
+captures the op as one node.
 """
 
 from __future__ import annotations
@@ -353,8 +358,7 @@ def _validate(name: str, x: torch.Tensor, w: torch.Tensor,
 
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
             b: Optional[torch.Tensor], c64: bool) -> torch.Tensor:
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for {x.device}")
+    _validate(name, x, w, b, c64)
     for what, t in (("x", x), ("w", w)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {what} must be 16-byte aligned")
@@ -409,14 +413,33 @@ def conv3x3_implicit_gemm(x: torch.Tensor, w: torch.Tensor,
                           b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: contiguous [B,H,W,C], any C; w: [3,3,C,O], any O; b: [O] or None."""
     _validate("conv3x3_implicit_gemm", x, w, b, c64=False)
-    if x.device.type == "cpu":
-        return _plain(x, w, b)
+    _check_device("conv3x3_implicit_gemm", x)
+    return torch.ops.rerevst.conv3x3_implicit_gemm(x, w, b)
+
+
+def _check_device(name: str, x: torch.Tensor) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for {x.device}")
+
+
+def _out_like(x: torch.Tensor, w: torch.Tensor,
+              b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The output of the conv of x by w, uninitialized: [B,H,W,O] (the
+    ops' fake)."""
+    return x.new_empty(tuple(x.shape[:3]) + (w.shape[-1],))
+
+
+def _igemm_cuda(x, w, b):
     y = _launch("conv3x3_implicit_gemm", x, w, b, c64=False)
     if y.numel():
         conv3x3_implicit_gemm.launches += 1
         conv3x3_implicit_gemm.launches_by_design[
             design(x.shape[-1], x.dtype)] += 1
     return y
+
+
+_build.define_op("conv3x3_implicit_gemm(Tensor x, Tensor w, Tensor? b) "
+                 "-> Tensor", _plain, _igemm_cuda, _out_like)
 
 
 def conv3x3_pairlane_plain(x: torch.Tensor, w: torch.Tensor,
@@ -431,12 +454,19 @@ def conv3x3_pairlane(x: torch.Tensor, w: torch.Tensor,
                      b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: contiguous [B,H,W,64]; w: [3,3,64,O] with O <= 64; b: [O] or None."""
     _validate("conv3x3_pairlane", x, w, b, c64=True)
-    if x.device.type == "cpu":
-        return _plain(x, w, b)
+    _check_device("conv3x3_pairlane", x)
+    return torch.ops.rerevst.conv3x3_pairlane(x, w, b)
+
+
+def _pairlane_cuda(x, w, b):
     y = _launch("conv3x3_pairlane", x, w, b, c64=True)
     if y.numel():
         conv3x3_pairlane.launches += 1
     return y
+
+
+_build.define_op("conv3x3_pairlane(Tensor x, Tensor w, Tensor? b) -> Tensor",
+                 _plain, _pairlane_cuda, _out_like)
 
 
 #: The kernel designs of csrc/conv3x3.cu, as :func:`design` names them.

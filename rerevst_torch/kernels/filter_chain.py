@@ -14,6 +14,11 @@ equal to x's leading dim (multi-style blending gives each frame its own).
 On the card the per-sample case launches the kernel once per sample, on
 that sample's slice of x with its own filters, each launch counted; the
 plain version multiplies batch by batch.
+
+The wrapper reaches both through the ``rerevst::dynamic_filter_pair``
+``torch.library`` op: its CUDA implementation launches the kernel, its CPU
+implementation is the plain version, and its fake implementation gives the
+output's shape alone, so that ``torch.export`` captures the op as one node.
 """
 
 from __future__ import annotations
@@ -106,15 +111,25 @@ def dynamic_filter_pair(x: torch.Tensor, f1: torch.Tensor,
         raise TypeError(f"dynamic_filter_pair: unsupported dtype {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("dynamic_filter_pair: x must be contiguous NHWC")
-    c = x.shape[-1]
-    a, b = _filters(f1, x), _filters(f2, x)
-    if x.device.type == "cpu":
-        return dynamic_filter_pair_plain(x, f1, f2)
-    if x.device.type != "cuda":
+    for f in (f1, f2):
+        _filters(f, x)  # raises on a shape the op does not take
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"dynamic_filter_pair: no kernel for {x.device}")
+    return torch.ops.rerevst.dynamic_filter_pair(x, f1, f2)
+
+
+def _fake(x, f1, f2):
+    return torch.empty_like(x)
+
+
+def _cuda(x, f1, f2):
+    c = x.shape[-1]
     if c != _C:
         raise ValueError(f"dynamic_filter_pair: the kernel takes C={_C}, "
                          f"got {c}")
+    if not x.is_contiguous():
+        raise ValueError("dynamic_filter_pair: x must be contiguous NHWC")
+    a, b = _filters(f1, x), _filters(f2, x)
     for name, f in (("f1", a), ("f2", b)):
         if f.dtype != torch.float32 or f.device != x.device \
                 or not f.is_contiguous():
@@ -134,6 +149,11 @@ def dynamic_filter_pair(x: torch.Tensor, f1: torch.Tensor,
         _launch(x[i], y[i], a[i if a.shape[0] > 1 else 0],
                 b[i if b.shape[0] > 1 else 0])
     return y
+
+
+_build.define_op(
+    "dynamic_filter_pair(Tensor x, Tensor f1, Tensor f2) -> Tensor",
+    dynamic_filter_pair_plain, _cuda, _fake)
 
 
 def _launch(x: torch.Tensor, y: torch.Tensor, a: torch.Tensor,

@@ -18,11 +18,17 @@ The conditioning (each statistic and the style affine) is either shared,
 per-sample case launches the kernel once per sample, on that sample's slice
 of x (contiguous in NHWC) with its own conditioning, each launch counted;
 the plain version broadcasts.
+
+The wrapper reaches both through the ``rerevst::norm_affine_clamp``
+``torch.library`` op, which dispatches by device: its CUDA implementation
+launches the kernel, its CPU implementation is the plain version, and its
+fake implementation gives the output's shape alone, so that
+``torch.export`` captures the op as one node of a graph.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +37,15 @@ from rerevst_torch.kernels import _build
 
 _CODES = _build.DTYPE_CODES
 _THREADS = 256  # csrc/norm_affine.cu kThreads
+
+
+class _Stats(NamedTuple):
+    """The four frozen statistics as the op passes them (the fields of
+    ``models.transformer.NormStats``)."""
+    mean: torch.Tensor
+    rstd: torch.Tensor
+    xmin: torch.Tensor
+    xmax: torch.Tensor
 
 
 def _per_sample(t: Optional[torch.Tensor], x: torch.Tensor) -> bool:
@@ -110,21 +125,35 @@ def norm_affine_clamp(x: torch.Tensor, st,
     conditioning tensor shared [1,1,1,C] or per sample [B,1,1,C];
     leaky: apply leaky_relu(0.2) to x first."""
     _validate(x, st, style_std, style_mean)
-    if x.device.type == "cpu":
-        return norm_affine_clamp_plain(x, st, style_std, style_mean, leaky)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"norm_affine_clamp: no kernel for {x.device}")
+    return torch.ops.rerevst.norm_affine_clamp(
+        x, st.mean, st.rstd, st.xmin, st.xmax, style_std, style_mean, leaky)
+
+
+def _cpu(x, mean, rstd, xmin, xmax, style_std, style_mean, leaky):
+    return norm_affine_clamp_plain(x, _Stats(mean, rstd, xmin, xmax),
+                                   style_std, style_mean, leaky)
+
+
+def _fake(x, mean, rstd, xmin, xmax, style_std, style_mean, leaky):
+    return torch.empty_like(x)
+
+
+def _cuda(x, mean, rstd, xmin, xmax, style_std, style_mean, leaky):
     c = x.shape[-1]
     v = 16 // x.element_size()
     if c % v or c // v > _THREADS:
         raise ValueError(f"norm_affine_clamp: the kernel takes C divisible by "
                          f"{v} and at most {_THREADS * v}; got C={c}")
+    if not x.is_contiguous():
+        raise ValueError("norm_affine_clamp: x must be contiguous NHWC")
     if x.data_ptr() % 16:
         raise ValueError("norm_affine_clamp: x must be 16-byte aligned")
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    cond = (st.mean, st.rstd, st.xmin, st.xmax, style_std, style_mean)
+    cond = (mean, rstd, xmin, xmax, style_std, style_mean)
     if not any(_per_sample(t, x) for t in cond):
         _launch(x, y, cond, leaky)
         return y
@@ -132,6 +161,12 @@ def norm_affine_clamp(x: torch.Tensor, st,
         _launch(x[b], y[b], [t[b] if _per_sample(t, x) else t for t in cond],
                 leaky)
     return y
+
+
+_build.define_op(
+    "norm_affine_clamp(Tensor x, Tensor mean, Tensor rstd, Tensor xmin, "
+    "Tensor xmax, Tensor? style_std, Tensor? style_mean, bool leaky) "
+    "-> Tensor", _cpu, _cuda, _fake)
 
 
 def _launch(x: torch.Tensor, y: torch.Tensor, cond, leaky: bool) -> None:

@@ -65,6 +65,7 @@ from rerevst_torch.ops.stats import (
     instance_norm,
     mean_std,
 )
+from rerevst_torch.ops.tiling import can_tile_h, tiled_over_h
 
 
 class StyleFeatures(NamedTuple):
@@ -212,10 +213,11 @@ def init_transformer_params(gen: torch.Generator, cfg: ModelConfig,
 def encode_content(params: Dict, frame: torch.Tensor, cfg: ModelConfig,
                    desaturate: bool = True) -> torch.Tensor:
     """Content branch: reversed-luma desaturation (inference), then
-    VGG -> relu4_1 in the storage dtype."""
+    VGG -> relu4_1 in the storage dtype (the conv1 block over
+    ``cfg.spatial_tiles`` H-slabs where ``vgg.encode`` can tile it)."""
     x = rgb_to_luma_reversed(frame) if desaturate else frame
     return vgg.encode(params["encoder"], x.to(cfg.dtype),
-                      pairlane=cfg.pairlane)
+                      pairlane=cfg.pairlane, head_tiles=cfg.spatial_tiles)
 
 
 def encode_style(params: Dict, style: torch.Tensor,
@@ -369,6 +371,12 @@ def _resblock_global(p: Dict, x: torch.Tensor, sa: NormStats,
     return xs + h
 
 
+#: H receptive field of the tiled decoder tail in half-resolution input
+#: rows: res2's upsample conv (1) + res2.conv2 and the out conv (one
+#: full-resolution row each).
+_TAIL_HALO = 2
+
+
 def decode_global(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
                   stats: SeqStats, cfg: ModelConfig) -> torch.Tensor:
     """Global decoder graph: every norm uses frozen sequence statistics with
@@ -381,7 +389,14 @@ def decode_global(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
     and even W.  One deliberate difference: there an f16 session runs that
     region (and the pair-lane encoder head) in bf16, only because Mosaic has
     no f16; the card's kernel takes f16, so the region stays in the
-    session's storage dtype."""
+    session's storage dtype.
+
+    ``cfg.spatial_tiles > 1`` runs the full-resolution tail (ada2 -> res2
+    -> ada1 -> out) over that many overlapping H-slabs (``ops/tiling.py``)
+    under the JAX package's gate: not on the pair-lane route, and an H that
+    ``can_tile_h`` divides (otherwise the tail runs whole).  Under frozen
+    statistics the region is H-local, so the slabs give the untiled values;
+    its four norm sites then run once per slab."""
     m1, m2, m3, m4 = style.means
     s1, s2, s3, s4 = style.stds
     norms, filt = stats.norms, stats.filters
@@ -395,6 +410,16 @@ def decode_global(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
     h = _resblock_global(params_dec["res4"], h, norms["res4a"], norms["res4b"])
     h = _norm_apply(norms["ada3"], h, s3, m3)
     h = _resblock_global(params_dec["res3"], h, norms["res3a"], norms["res3b"])
+    if cfg.spatial_tiles > 1 and not cfg.pairlane and can_tile_h(
+            h.shape[1], cfg.spatial_tiles, _TAIL_HALO, (2, 1)):
+        def tail(hs):
+            t = _norm_apply(norms["ada2"], hs, s2, m2)
+            t = _resblock_global(params_dec["res2"], t, norms["res2a"],
+                                 norms["res2b"])
+            t = _norm_apply(norms["ada1"], t, s1, m1)
+            return conv2d(params_dec["out"], t, padding=1)
+
+        return tiled_over_h(tail, h, cfg.spatial_tiles, _TAIL_HALO, (2, 1))
     h = _norm_apply(norms["ada2"], h, s2, m2)
     pl = (cfg.pairlane and cfg.dtype != torch.float32
           and h.shape[1] % 4 == 0 and h.shape[2] % 2 == 0)

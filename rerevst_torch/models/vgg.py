@@ -6,7 +6,9 @@ network runs.  Pools come before conv2_1, conv3_1 and conv4_1.
 
 With ``pairlane=True`` the content encoder's conv1_2 (the full-resolution
 64->64 conv) runs the ``conv3x3_pairlane`` kernel, under the JAX package's
-gates: 16-bit storage and a geometry the TPU kernel tiles.
+gates: 16-bit storage and a geometry the TPU kernel tiles.  With
+``head_tiles > 1`` the content encoder's conv1 block runs over overlapping
+H-slabs (``ops/tiling.py``), under the JAX package's gate.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from rerevst_torch.models.layers import (
     max_pool_2x2,
     weights_as,
 )
+from rerevst_torch.ops.tiling import can_tile_h, tiled_over_h
 
 #: (name, cin, cout) of the 9 convs through conv4_1, in order.
 VGG_CONVS = (
@@ -134,11 +137,41 @@ def encode_pairlane_ok(x: torch.Tensor) -> bool:
     return x.shape[1] % 8 == 0 and x.shape[2] % 2 == 0
 
 
-def encode(params: Dict, x: torch.Tensor,
-           pairlane: bool = False) -> torch.Tensor:
+#: H receptive field of the encoder's conv1 block in full-resolution rows:
+#: conv1_1 (1) + conv1_2 (1) + the 2x2 pool's alignment — 3, rounded to 4
+#: (even, so slab edges stay pool-aligned).
+_HEAD_HALO = 4
+
+
+def _head(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """conv1_1, relu, conv1_2, relu, pool1: the full-resolution block."""
+    h = torch.relu(conv2d(params["conv1_1"], x, padding=1))
+    h = torch.relu(conv2d(params["conv1_2"], h, padding=1))
+    return max_pool_2x2(h)
+
+
+def encode(params: Dict, x: torch.Tensor, pairlane: bool = False,
+           head_tiles: int = 1) -> torch.Tensor:
     """Content encoder: the relu4_1 map only.  ``pairlane`` routes conv1_2
     through the ``conv3x3_pairlane`` kernel for 16-bit storage and a
     geometry that passes ``encode_pairlane_ok``, as the JAX package gates
-    its pair-lane head; otherwise it is ignored."""
+    its pair-lane head; otherwise it is ignored.
+
+    ``head_tiles > 1`` runs the conv1 block over that many overlapping
+    H-slabs (``ops/tiling.py``: the block's two [B,H,W,64] maps are the
+    encoder's share of the peak memory at large geometries), under the JAX
+    package's gate: not on the pair-lane route, even W, and an H that
+    ``can_tile_h`` divides; otherwise the block runs whole.  The encoder
+    has no normalization, so the tiled block gives the untiled values."""
+    if head_tiles > 1 and not pairlane and x.shape[2] % 2 == 0 \
+            and can_tile_h(x.shape[1], head_tiles, _HEAD_HALO, (1, 2),
+                           align=2):
+        h = tiled_over_h(lambda xs: _head(params, xs), x, head_tiles,
+                         _HEAD_HALO, (1, 2))
+        for name, _, _ in VGG_CONVS[2:]:
+            if name in _POOL_BEFORE and name != "conv2_1":
+                h = max_pool_2x2(h)  # pool1 already ran inside the slabs
+            h = torch.relu(conv2d(params[name], h, padding=1))
+        return h
     pairlane = pairlane and x.dtype != torch.float32 and encode_pairlane_ok(x)
     return vgg_features(params, x, "relu4_1", pairlane).relu4_1

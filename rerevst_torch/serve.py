@@ -62,9 +62,11 @@ stuck clients, and every error returns structured JSON (``{"error":
 violations (e.g. /stylize before /style), 500 (logged with traceback) for
 anything unexpected.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``--aot`` and ``--tiles`` > 1 (Queue 1 item 7) and ``--mix`` other
-than ``none`` (Queue 1 item 8).
+``--aot`` serves global-mode Pass 2 from an AOT bundle (``convert
+--export-aot``; ``io/aot.py``) where geometry and batch match, and
+``--tiles`` runs the full-resolution regions over H-slabs
+(``ops/tiling.py``).  Not ported yet (raises ``NotImplementedError`` naming
+its ROADMAP item): ``--mix`` other than ``none`` (Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -804,13 +806,11 @@ def serve(checkpoint: str, port: int = 8787, host: str = "127.0.0.1",
         raise ValueError(
             "--aot bundles export the global-mode Pass 2; with "
             "--no-global the bundle would load but never be used")
-    if aot:
-        raise NotImplementedError(
-            "--aot (AOT bundles) is not ported yet: ROADMAP.md Queue 1 "
-            "item 7")
     svc = StylizeService(checkpoint, dtype, mix, use_global,
                          batch_window_ms, batch_max, tiles=tiles,
                          device=device)
+    if aot:
+        svc.session.use_aot(aot)
     if warmup:
         hw = ([int(v) for v in warmup.split("x")] if "x" in warmup
               else [int(warmup)] * 2)
@@ -848,11 +848,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch-max", type=int, default=8,
                     help="micro-batching: max frames per coalesced call")
     ap.add_argument("--aot", default=None,
-                    help="AOT Pass-2 bundle (not ported: raises)")
+                    help="AOT Pass-2 bundle (convert --export-aot, exported "
+                         "on this device): serve Pass 2 from its graph "
+                         "where geometry and batch match; other shapes run "
+                         "eager")
     ap.add_argument("--tiles", type=int, default=1,
                     help="spatial H-tiles for the full-resolution regions "
-                         "(ModelConfig.spatial_tiles; not ported: > 1 "
-                         "raises)")
+                         "(ModelConfig.spatial_tiles): bounds their memory "
+                         "at large geometries (true 1080p)")
     ap.add_argument("--warmup", default=None, metavar="HxW",
                     help="run a synthetic clip of this content geometry "
                          "through the full two-pass at BOOT, so the first "

@@ -10,8 +10,9 @@ under ``<out>/ReReVST-<style>-<clip>[-no-global]/`` and an MJPG ``.avi`` at
 ``rerevst_tpu.stylize``, plus ``--device`` (the card by default).  Frame
 files and videos are read and written with OpenCV.  Options that select
 what the port does not have yet raise ``NotImplementedError`` naming their
-ROADMAP item: ``--devices`` > 0, ``--tiles`` > 1 and ``--mix`` other than
-``none``.
+ROADMAP item: ``--devices`` > 0 and ``--mix`` other than ``none``.
+``--tiles`` runs the full-resolution regions over H-slabs
+(``ops/tiling.py``).
 """
 
 from __future__ import annotations
@@ -60,8 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fp32-storage region (ModelConfig.fp32_mix; not "
                         "ported: anything but 'none' raises)")
     p.add_argument("--tiles", type=int, default=1,
-                   help="spatial H-tiles (ModelConfig.spatial_tiles; not "
-                        "ported: > 1 raises)")
+                   help="spatial H-tiles for the full-resolution regions "
+                        "(ModelConfig.spatial_tiles): bounds their memory "
+                        "at large geometries; the same frames")
     p.add_argument("--pairlane", action="store_true",
                    help="run the full-resolution 64-channel convs through "
                         "the conv3x3_pairlane kernel (bf16/f16 only)")

@@ -19,6 +19,7 @@ from flax import serialization
 from rerevst_torch import kernels
 from rerevst_torch.api import Stylization
 from rerevst_torch.config import InferenceConfig
+from rerevst_torch.multistyle import MultiStylization
 from rerevst_tpu.api import Stylization as JaxStylization
 
 REPO = Path(__file__).resolve().parent.parent
@@ -173,15 +174,16 @@ def test_default_device_raises_without_cuda(params, monkeypatch):
 @pytest.mark.parametrize("call,match", [
     (lambda p: Stylization(params=p, mesh=object(), device="cpu"),
      "Queue 1 item 7"),
-    (lambda p: Stylization(params=p, device="cpu").use_aot("x.rvaot"),
+    (lambda p: MultiStylization(params=p, mesh=object(), device="cpu"),
      "Queue 1 item 7"),
     (lambda p: Stylization(params=p, device="cpu").prepare_global(
         iter(_clip(n=2))), None),
 ])
 def test_later_slices_raise(params, call, match):
-    """The mesh and AOT bundles raise, naming their ROADMAP item; an unsized
-    iterable passed to prepare_global (once a raise, now ported) spills and
-    streams instead."""
+    """A device mesh raises in both sessions, naming its ROADMAP item (AOT
+    bundles, once a raise here, are ported: tests/test_torch_aot.py); an
+    unsized iterable passed to prepare_global (once a raise, now ported)
+    spills and streams instead."""
     if match is None:
         s = Stylization(params=params, device="cpu")
         s.prepare_style(_style())

@@ -180,12 +180,19 @@ def test_no_forbidden_imports_anywhere():
 
 @pytest.mark.parametrize("kw", [
     {"parity_packed": True}, {"luma_fold": True},
-    {"spatial_tiles": 2}, {"fp32_mix": "dec"}, {"fp32_mix": "out"},
+    {"fp32_mix": "body"}, {"fp32_mix": "dec"}, {"fp32_mix": "out"},
     {"precision": "default"}, {"precision": "high"},
 ])
 def test_config_rejects_unported_switches(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ModelConfig(**kw)
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 4, 7])
+def test_config_takes_spatial_tiles(tiles):
+    """Spatial H-tiling is ported (ops/tiling.py): any tile count is a
+    valid config; a geometry it cannot tile runs untiled."""
+    assert ModelConfig(spatial_tiles=tiles).spatial_tiles == tiles
 
 
 def test_config_defaults_and_outpairs():

@@ -89,8 +89,8 @@ def test_cli_rejects_unported_options(inputs):
     frames, style = inputs
     base = ["--style", style, "--frames", frames, "--checkpoint", CKPT,
             "--device", "cpu", "--no-video"]
+    # --tiles is ported: tests/test_torch_tiling.py runs it.
     for extra, item in ((["--devices", "2"], "Queue 1 item 7"),
-                        (["--tiles", "2"], "Queue 1 item 7"),
                         (["--mix", "dec"], "Queue 1 item 8")):
         with pytest.raises(NotImplementedError, match=item):
             stylize.main(base + extra)

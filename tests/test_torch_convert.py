@@ -252,13 +252,17 @@ def test_cli_no_loss_net_matches_jax(pths, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag,item", [("--train-export", "item 6"),
                                        ("--train-import", "item 6"),
                                        ("--export-aot", "item 7")])
-def test_cli_unported_options_raise(tmp_path, flag, item):
-    # Only --export-aot is unported (item 7).  The train-state modes take
-    # --netd now: a missing discriminator file is an error of the file,
-    # not of the port.
+def test_cli_unported_options_raise(tmp_path, flag, item, monkeypatch):
+    # Every mode is ported now.  --export-aot (item 7) exports for cpu and
+    # cuda by default, and a cuda export needs a card: without one it
+    # raises and writes nothing (tests/test_torch_aot.py exports for cpu).
+    # The train-state modes take --netd: a missing discriminator file is an
+    # error of the file, not of the port.
     if flag == "--export-aot":
-        with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="needs a card"):
             convert.main([str(CKPT), str(tmp_path / "out"), flag])
+        assert not (tmp_path / "out").exists()
         return
     with pytest.raises(FileNotFoundError):
         convert.main([str(CKPT), str(tmp_path / "out"), flag, "--netd",

@@ -35,7 +35,7 @@ from flax import serialization
 
 from rerevst_torch import serve as port_serve
 from rerevst_torch.api import Stylization
-from rerevst_torch.config import InferenceConfig
+from rerevst_torch.config import InferenceConfig, ModelConfig, dtype_from_name
 from rerevst_torch.multistyle import MultiStylization
 
 cv2 = pytest.importorskip("cv2")
@@ -220,13 +220,57 @@ def test_protocol_parity_with_jax_server(ckpt, clip, start):
 
 @pytest.mark.parametrize("kw,err,match", [
     ({"aot": "bundle", "use_global": False}, ValueError, "--no-global"),
-    ({"aot": "bundle"}, NotImplementedError, "Queue 1 item 7"),
-    ({"tiles": 2}, NotImplementedError, "Queue 1 item 7"),
+    ({"aot": "missing.rvaot"}, FileNotFoundError, "missing.rvaot"),
     ({"mix": "out"}, NotImplementedError, "Queue 1 item 8"),
 ])
 def test_unported_options_raise(ckpt, kw, err, match):
+    """--mix is not ported; --aot loads its bundle (a missing file raises;
+    test_serve_aot_stylize serves one) and --tiles runs
+    (test_serve_tiles_matches_untiled)."""
     with pytest.raises(err, match=match):
         _port(ckpt, **kw)
+
+
+def _stylize_once(url, clip):
+    """Style, one Pass-1 frame, then one /stylize of that frame: the
+    decoded reply."""
+    frames, style = clip
+    assert _req(url + "/style", _png(style))[0] == 200
+    assert _req(url + "/pass1?last=1", _png(frames[0]))[0] == 200
+    status, body, _ = _req(url + "/stylize", _png(frames[0]))
+    assert status == 200, body[:200]
+    return cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
+
+
+def test_serve_tiles_matches_untiled(ckpt, clip, start):
+    """serve --tiles 2: /stylize of a 64x96 frame (padded to 192x256, both
+    regions tile) within 1 count of the untiled server's."""
+    outs = [_stylize_once(start(_port, ckpt, tiles=t), clip) for t in (1, 2)]
+    assert outs[0].shape == clip[0][0].shape
+    assert np.abs(outs[0].astype(np.int16) - outs[1].astype(np.int16)).max() \
+        <= 1
+
+
+def test_serve_aot_stylize(ckpt, clip, start, tmp_path):
+    """serve --aot: a CPU bundle of the fp32 session at the frame's padded
+    geometry serves /stylize from its graph, with the eager server's
+    frame."""
+    from rerevst_torch.io.aot import save_bundle
+
+    s = Stylization(ckpt, cfg=ModelConfig(dtype=dtype_from_name("f32")),
+                    device="cpu")
+    path = str(tmp_path / "pass2.rvaot")
+    save_bundle(path, s, (192, 256), batches=(1,), platforms=("cpu",))
+    servers = []
+
+    def keep(path_, **kw):
+        servers.append(_port(path_, **kw))
+        return servers[-1]
+
+    want = _stylize_once(start(_port, ckpt), clip)
+    got = _stylize_once(start(keep, ckpt, aot=path), clip)
+    assert servers[0].service.session.pass2_mode == "aot"
+    assert np.array_equal(got, want)
 
 
 def test_cli_flags_match_jax(capsys, monkeypatch):
