@@ -106,6 +106,22 @@ Phases, each printing one JSON line (any failure exits non-zero):
              (``norm_affine_clamp`` 7 + 4 T: the tail's norm sites run per
              slab), frames within 1 count of untiled; one 640x640 batch at
              T = 2 against T = 1;
+   distributed — the multi-device layer (``rerevst_torch/parallel``) on 2
+             and 4 shards (the first cards, or logical shards of cuda:0
+             with fewer cards: overhead, not scaling): f16 and fp32
+             sessions with ``mesh=`` over the 33-frame clip (Pass 1
+             sharded, statistics against the unmeshed session's, Pass 2
+             batch-sharded, 11 + 3 launches per shard-decode), one Pass-2
+             batch split over 2 and 4 shards (within 1 count, ms against
+             unsharded); one true-1080p f16 frame H-sharded over 4 (halo
+             exchange; ms and peak memory per device); the pair-lane route
+             H-sharded (``conv3x3_pairlane`` on slabs of h/4 + 2 rows); a
+             multi-style interpolation on the mesh; one
+             ``TrainConfig(data_parallel=2)`` step against the single step
+             and three default-recipe steps (median ms, peak memory per
+             device); two ranks started through ``distributed_init`` (gloo
+             on one card, NCCL over two) against the same workload on the
+             2-shard mesh;
    aot         — the global f16 and pair-lane sessions' Pass 2 exported
              (``torch.export``, ``io/aot.py``) at 640x640 for batches 1
              and 16 on the card, written, and loaded in a fresh process
@@ -3252,6 +3268,400 @@ def ablation_phase(torch, host):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase distributed: the multi-device layer (rerevst_torch/parallel)
+# ---------------------------------------------------------------------------
+
+#: Shard counts of phase distributed: the first n cards where there are n,
+#: else n logical shards of cuda:0 (which measure the layer's overhead, not
+#: scaling).
+MESH_SHARDS = (2, 4)
+#: How far, as a multiple of the unmeshed collection's own drift at twice
+#: the batch, the sharded f16 statistics may stray from the unmeshed ones.
+STATS_F16_WITNESS_FACTOR = 2.0
+
+
+def _meshes(torch):
+    from rerevst_torch.parallel import frame_mesh
+
+    count = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(count)]
+    return {n: frame_mesh(n, devices=cards[:n] if count >= n
+                          else [cards[0]] * n) for n in MESH_SHARDS}
+
+
+def _peak_gb_per_device(torch, mesh) -> dict:
+    return {str(d): torch.cuda.max_memory_allocated(d) / 1e9
+            for d in dict.fromkeys(mesh.devices)}
+
+
+def _reset_peaks(torch, mesh) -> None:
+    torch.cuda.synchronize()
+    for d in dict.fromkeys(mesh.devices):
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def _mesh_twin(base, mesh):
+    """A twin of session `base` on `mesh`: the same weights, style and
+    frozen statistics."""
+    from rerevst_torch.api import Stylization
+
+    s = Stylization(params=base.params, infer=base.infer, cfg=base.cfg,
+                    mesh=mesh, device="cuda")
+    s.style, s.stats = base.style, base.stats
+    return s
+
+
+def _pass1_feats(torch, session, clip):
+    """The features Pass 1 of `session.stylize_video(clip)` collects over:
+    the sampled frames, encoded ``pass1_chunk`` at a time as
+    ``prepare_global`` encodes them."""
+    import numpy as np
+
+    from rerevst_torch.data.transforms import bgr_to_model
+
+    n, interval = len(clip), session.infer.sample_interval
+    idx = [k * interval for k in range((n - 1) // interval)] + [n - 1]
+    chunk = max(1, session.infer.pass1_chunk)
+    with torch.inference_mode():
+        return torch.cat([session._encode(session._upload(np.concatenate(
+            [bgr_to_model(clip[i]) for i in idx[j:j + chunk]])))
+            for j in range(0, len(idx), chunk)])
+
+
+def _launches(want_per_decode: dict, decodes: int) -> dict:
+    return {k: v * decodes for k, v in want_per_decode.items()}
+
+
+def _stats_err(a, b) -> float:
+    """max |a - b| / (2e-4 + 2e-4 |b|) over every leaf of two SeqStats: at
+    most 1 within rtol = atol = 2e-4."""
+    from rerevst_torch.parallel.collectives import tree_to
+
+    def leaves(t):
+        if hasattr(t, "shape"):
+            return [t.float()]
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in leaves(t[k])]
+        return [x for v in t for x in leaves(v)]
+
+    b = tree_to(b, "cpu")
+    return max(float(((x.cpu() - y).abs() / (2e-4 + 2e-4 * y.abs())).max())
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def distributed_phase(torch, sessions, host):
+    """Phase distributed: the mesh paths of the port on whatever the machine
+    has (``MESH_SHARDS``: cards, or logical shards of cuda:0), launches
+    counted from 0 around each path; then data-parallel training; then two
+    ranks joined through ``distributed_init`` (NCCL over two cards, or gloo
+    with both ranks on cuda:0: NCCL refuses two ranks on one GPU)."""
+    import numpy as np
+
+    from rerevst_torch import kernels
+    from rerevst_torch.api import Stylization
+    from rerevst_torch.config import InferenceConfig, LossConfig, TrainConfig
+    from rerevst_torch.eval.parity import pixel_error
+    from rerevst_torch.models.transformer import collect_stats
+    from rerevst_torch.multistyle import MultiStylization
+    from rerevst_torch.parallel.dryrun import (
+        dryrun_body,
+        dryrun_multichip_multiprocess,
+    )
+    from rerevst_torch.parallel.pipeline import stylize_frames_sharded
+    from rerevst_torch.train.state import init_train_state, tree_leaves
+    from rerevst_torch.train.step import make_sharded_train_step
+
+    t_phase = time.perf_counter()
+    meshes = _meshes(torch)
+    m2, m4 = meshes[2], meshes[4]
+    res = {"device_count": torch.cuda.device_count(), "card": nvidia_smi(),
+           "meshes": {n: [str(d) for d in m.devices]
+                      for n, m in meshes.items()},
+           "transport": m2.transport, "launches": {}}
+    emit({"phase": "distributed", "device_count": res["device_count"],
+          "shards": {n: len(m.devices) for n, m in meshes.items()},
+          "devices": res["meshes"], "transport": res["transport"],
+          "logical": torch.cuda.device_count() < max(MESH_SHARDS)})
+    ckpt = str(HERE / "models" / "demo_plum_4000.msgpack")
+    clip = synth_clip(CLIP_FRAMES, CONTENT, CONTENT, seed=0)
+    style = synth_style(CONTENT, CONTENT, seed=1)
+    n_batches = -(-CLIP_FRAMES // BATCH)
+    per_decode = {"norm_affine_clamp": 11, "dynamic_filter_pair": 3,
+                  "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0}
+    launches = {k: {} for k in per_decode}
+
+    def record(path, counts):
+        for k, v in counts.items():
+            launches[k][path] = v
+
+    # 1. Global sessions on the 2-shard mesh: Pass 1 sharded, Pass 2
+    # batch-sharded, over the 33-frame clip; then one Pass-2 batch over 2
+    # and 4 shards under the unmeshed session's statistics.
+    for key in ("f16", "fp32"):
+        base = sessions[key]
+        s = Stylization(ckpt, cfg=base.cfg, mesh=m2, device="cuda")
+        s.prepare_style(style)
+        kernels.reset_launches()
+        frames = list(s.stylize_video(clip, batch_size=BATCH))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = _launches(per_decode, n_batches * 2)
+        if counts != want:
+            fail(f"distributed {key} session: launches {counts}, expected "
+                 f"{want} (11 + 3 per shard-decode)")
+        if (s.pass1_mode, s.pass2_mode) != ("sharded", "batch-sharded"):
+            fail(f"distributed {key} session: modes {s.pass1_mode}, "
+                 f"{s.pass2_mode}")
+        record(f"session_{key}_2_shards", counts)
+        ref = list(base.stylize_video(clip, batch_size=BATCH))
+        # The witness: the unmeshed collection over the same features with
+        # every frame twice — the same statistics in exact arithmetic, at
+        # another batch shape — against the session's own.
+        feats = _pass1_feats(torch, base, clip)
+        with torch.inference_mode():
+            rerun, twice = (collect_stats(base.params["decoder"], f,
+                                          base.style, base.cfg)
+                            for f in (feats, torch.cat([feats, feats])))
+        row = {"session": key, "launches": counts,
+               "pass1_mode": s.pass1_mode, "pass2_mode": s.pass2_mode,
+               "stats_vs_unmeshed_in_2e-4": _stats_err(s.stats, base.stats),
+               "stats_unmeshed_rerun_in_2e-4": _stats_err(rerun, base.stats),
+               "stats_unmeshed_2x_batch_in_2e-4": _stats_err(twice,
+                                                             base.stats),
+               "frames_vs_unmeshed": pixel_error(frames, ref)}
+        emit({"phase": "distributed", "pass1": row})
+        del feats, rerun, twice
+        # fp32 statistics to the JAX package's bar.  f16 ones sum f16
+        # activations of other batch shapes (other cuDNN algorithms): they
+        # may stray as far as the unmeshed collection at twice the batch
+        # does, by STATS_F16_WITNESS_FACTOR, and no further.
+        bar = 1.0 if key == "fp32" else max(
+            1.0, STATS_F16_WITNESS_FACTOR
+            * row["stats_unmeshed_2x_batch_in_2e-4"])
+        if row["stats_unmeshed_rerun_in_2e-4"] > 1:
+            fail(f"distributed {key}: the unmeshed collection does not "
+                 f"repeat the session's statistics: "
+                 f"{row['stats_unmeshed_rerun_in_2e-4']}")
+        if row["stats_vs_unmeshed_in_2e-4"] > bar:
+            fail(f"distributed {key}: sharded statistics off by "
+                 f"{row['stats_vs_unmeshed_in_2e-4']} x (2e-4 + 2e-4 |x|), "
+                 f"limit {bar}")
+        if row["frames_vs_unmeshed"]["max_counts"] > 1:
+            fail(f"distributed {key}: sharded pipeline frames "
+                 f"{row['frames_vs_unmeshed']}")
+        x = base._upload(base._prep_batch_host(clip[:BATCH]))
+        with torch.inference_mode():
+            one = _u8(torch, base._stylize(x), CONTENT, CONTENT)
+            row["batch_ms"] = {1: time_ms(torch, lambda: base._stylize(x),
+                                          iters=5, warmup=1)["ms"]}
+            for n, mesh in meshes.items():
+                def sharded(mesh=mesh):
+                    return stylize_frames_sharded(
+                        base.params, x, base.style, base.stats, base.cfg,
+                        mesh)
+                diff = _count_diff(torch, _u8(torch, sharded(), CONTENT,
+                                              CONTENT), one)
+                row[f"batch_sharded_{n}_vs_unsharded"] = diff
+                if diff["max_counts"] > 1:
+                    fail(f"distributed {key}: batch-sharded over {n} "
+                         f"differs by {diff['max_counts']} counts")
+                row["batch_ms"][n] = time_ms(torch, sharded, iters=5,
+                                             warmup=1)["ms"]
+        emit({"phase": "distributed", **row})
+        res[f"session_{key}"] = row
+        del s, x
+
+    # 2. One f16 batch-1 frame at true 1080p, H-sharded over 4.
+    base = sessions["f16"]
+    s = _mesh_twin(base, m4)
+    x = s._upload(s._prep_batch_host(synth_clip(1, HD_H, HD_W, seed=6)))
+    with torch.inference_mode():
+        _reset_peaks(torch, m4)
+        before = {str(d): torch.cuda.memory_allocated(d) / 1e9
+                  for d in dict.fromkeys(m4.devices)}
+        kernels.reset_launches()
+        out = s._stylize(x)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak = _peak_gb_per_device(torch, m4)
+        if s.pass2_mode != "spatial-sharded":
+            fail(f"distributed 1080p: pass2_mode {s.pass2_mode}")
+        if counts != _launches(per_decode, 4):
+            fail(f"distributed 1080p: launches {counts}")
+        record("spatial_1080p_4_shards", counts)
+        sharded = _u8(torch, out, HD_H, HD_W)
+        del out
+        _reset_peaks(torch, m4)
+        ref = _u8(torch, base._stylize(x), HD_H, HD_W)
+        torch.cuda.synchronize()
+        peak_one = torch.cuda.max_memory_allocated(0) / 1e9
+        diff = _count_diff(torch, sharded, ref)
+        if diff["max_counts"] > 1:
+            fail(f"distributed 1080p: H-sharded differs by "
+                 f"{diff['max_counts']} counts")
+        row = {"path": "spatial 1080p", "padded": list(x.shape[1:3]),
+               "shards": 4, "rows_per_shard": x.shape[1] // 4,
+               "launches": counts, "vs_unsharded": diff,
+               "timed": time_ms(torch, lambda: s._stylize(x), iters=5,
+                                warmup=1),
+               "unsharded_timed": time_ms(torch, lambda: base._stylize(x),
+                                          iters=5, warmup=1),
+               "peak_allocated_gb_per_device": peak,
+               "allocated_before_gb_per_device": before,
+               "unsharded_peak_allocated_gb": peak_one}
+    emit({"phase": "distributed", **row})
+    res["spatial_1080p"] = row
+    del s, x, sharded, ref
+    torch.cuda.empty_cache()
+
+    # 3. The pair-lane route H-sharded: conv3x3_pairlane on halo slabs.
+    base = sessions["f16_pairlane"]
+    s = _mesh_twin(base, m4)
+    x = s._upload(s._prep_batch_host(clip[:1]))
+    with torch.inference_mode():
+        kernels.reset_launches()
+        out = s._stylize(x)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = dict(_launches(per_decode, 4), conv3x3_pairlane=3 * 4)
+        if s.pass2_mode != "spatial-sharded" or counts != want:
+            fail(f"distributed pair-lane: {s.pass2_mode}, launches {counts}"
+                 f", expected {want}")
+        record("spatial_pairlane_4_shards", counts)
+        diff = _count_diff(torch, _u8(torch, out, CONTENT, CONTENT),
+                           _u8(torch, base._stylize(x), CONTENT, CONTENT))
+        if diff["max_counts"] > 1:
+            fail(f"distributed pair-lane: H-sharded differs by "
+                 f"{diff['max_counts']} counts")
+    row = {"path": "spatial pair-lane", "padded": list(x.shape[1:3]),
+           "slab_rows": x.shape[1] // 4 + 2, "launches": counts,
+           "vs_unsharded": diff}
+    emit({"phase": "distributed", **row})
+    res["spatial_pairlane"] = row
+    del s, x, out
+
+    # 4. One multi-style interpolation on the mesh (fp32, 9 frames).
+    small = synth_clip(9, 256, 256, seed=2)
+    styles = [synth_style(256, 256, seed=3), synth_style(256, 256, seed=5)]
+    got = {}
+    for key, mesh in (("mesh", m2), ("one", None)):
+        ms = MultiStylization(ckpt, infer=InferenceConfig(sample_interval=4),
+                              mesh=mesh, device="cuda")
+        ms.prepare_styles(styles)
+        kernels.reset_launches()
+        got[key] = list(ms.interpolate_video(small, batch_size=4))
+        torch.cuda.synchronize()
+        if key == "mesh":
+            counts = kernels.launch_counts()
+            record("multistyle_2_shards", counts)
+    d = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+            for a, b in zip(got["mesh"], got["one"]))
+    if d > 1 or counts["norm_affine_clamp"] == 0:
+        fail(f"distributed multistyle: {d} counts, launches {counts}")
+    res["multistyle"] = {"frames": len(got["mesh"]), "max_counts": d,
+                         "launches": counts}
+    emit({"phase": "distributed", "multistyle": res["multistyle"]})
+
+    # 5. Data-parallel training: one step against the single step on the
+    # same batch, then three default-recipe steps.
+    dev = torch.device("cuda")
+    batch = train_batches(1, 4, 256, seed=700)[0]
+    c, st = (torch.from_numpy(batch[k]).to(dev) for k in ("Content", "Style"))
+    lcfg = LossConfig(relax_style=False, temporal_loss=False)
+    single, m1 = _train_step_run(torch, TrainConfig(loss=lcfg), host, dev,
+                                 batch)
+    cfg = TrainConfig(data_parallel=2, loss=lcfg)
+    state = init_train_state(_tree_to(host, dev), cfg)
+    kernels.reset_launches()
+    state, m2_ = make_sharded_train_step(cfg, m2)(state, c, st, None)
+    m2_ = {k: float(v) for k, v in m2_.items()}
+    metric_err = max(abs(m2_[k] - m1[k]) / (5e-6 + 5e-4 * abs(m1[k]))
+                     for k in m1)
+    params_err = max(float((a - b).abs().max().detach()) for (_, a), (_, b)
+                     in zip(tree_leaves(state.params),
+                            tree_leaves(single.params)))
+    row = {"check": "data_parallel=2 vs single step, batch 4 of 256x256",
+           "metrics_in_bar": metric_err, "params_max_abs": params_err,
+           "bar": "metrics rtol 5e-4 atol 5e-6, params atol 2.5e-4"}
+    if metric_err > 1 or params_err > 2.5e-4:
+        fail(f"distributed train: sharded step vs single: {row}")
+    del single, state
+    cfg = TrainConfig(data_parallel=2)
+    state = init_train_state(_tree_to(host, dev), cfg)
+    step = make_sharded_train_step(cfg, m2)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 17)
+    _reset_peaks(torch, m2)
+    ms_steps = []
+    for _ in range(3):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step(state, c, st, gen)
+        e1.record()
+        if not all(np.isfinite(float(v)) for v in m.values()):
+            fail(f"distributed train: metrics not finite: {m}")
+        ms_steps.append(e0.elapsed_time(e1))
+    row.update(default_recipe_steps_ms=ms_steps,
+               default_recipe_median_ms=float(np.median(ms_steps)),
+               peak_allocated_gb_per_device=_peak_gb_per_device(torch, m2),
+               launches=kernels.launch_counts())
+    emit({"phase": "distributed", "train": row})
+    res["train"] = row
+    del state, step
+
+    # 6. Two ranks through distributed_init, against the same workload on
+    # the 2-shard mesh of this process.
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip_multiprocess(2, device="cuda", timeout=300)
+    ranks_s = time.perf_counter() - t0
+    one = dryrun_body(m2, "cuda")
+    for r in ranks:
+        for k, v in one["metrics"].items():
+            if abs(r["metrics"][k] - v) > 5e-6 + 5e-4 * abs(v):
+                fail(f"distributed ranks: metric {k} {r['metrics'][k]} vs "
+                     f"mesh {v}")
+        for (sa, aa, n), (sb, ab, _) in zip(
+                *(np.reshape(d, (-1, 3)) for d in (r["params"],
+                                                   one["params"]))):
+            if abs(sa - sb) > 2.5e-4 * n:
+                fail("distributed ranks: parameters differ from the mesh "
+                     "step's beyond 2.5e-4 per element")
+        off = _digests_off(r["stats"], one["stats"])
+        if off > 1:
+            fail(f"distributed ranks: Pass-1 statistics differ from the "
+                 f"mesh's by {off} x the bar")
+    rows = [r["pass2_rows"][0] for r in ranks]
+    if len(ranks[0]["pass2_rows"]) != 1 or not np.allclose(
+            rows, one["pass2_rows"], rtol=1e-3):
+        fail(f"distributed ranks: Pass-2 rows {rows} vs {one['pass2_rows']}")
+    res["ranks"] = {"transport": ranks[0]["transport"], "seconds": ranks_s,
+                    "loss": [r["loss"] for r in ranks],
+                    "mesh_loss": one["loss"],
+                    "stats_vs_mesh_in_bar": [_digests_off(r["stats"],
+                                                          one["stats"])
+                                             for r in ranks]}
+    emit({"phase": "distributed", "ranks": res["ranks"]})
+    for m in meshes.values():
+        m.close()
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "distributed", "phase_s": res["phase_s"]})
+    RESULTS["distributed"] = res
+    return res
+
+
+def _digests_off(a, b) -> float:
+    """How far two Pass-1 digests (sum, sum |x|, size per leaf) are apart,
+    in units of 2e-4 of the leaf's |x| sum plus 2e-4 per element (the
+    rtol = atol = 2e-4 bar, summed over the leaf): at most 1 within it."""
+    import numpy as np
+
+    a, b = np.reshape(a, (-1, 3)), np.reshape(b, (-1, 3))
+    return float((np.abs(a[:, :2] - b[:, :2])
+                  / (2e-4 * b[:, 1:2] + 2e-4 * b[:, 2:3])).max())
+
+
 def fetch_overlap(torch, session, clip):
     """One stylize_video with timing events: after each chunk's launch (on
     the compute stream) and after each fetch's copy (on the session's copy
@@ -3472,6 +3882,7 @@ def main() -> int:
     trained = train_phase(torch, host, stage)
     adv = adversarial_phase(torch, host)
     abl = ablation_phase(torch, host)
+    dist = distributed_phase(torch, sessions, host)
     del host
 
     # 5. times
@@ -3543,7 +3954,8 @@ def main() -> int:
              if r["content"] == [HD_H, HD_W]},
          "launches_aot": aoted["f16"]["aot_launches"][k],
          "launches_aot_pairlane": aoted["f16_pairlane"]["aot_launches"][k],
-         "launches_aot_serve": aoted["serve"]["launches"][k]}
+         "launches_aot_serve": aoted["serve"]["launches"][k],
+         "launches_mesh": dist["launches"][k]}
         for k, (src, rep, by, path, counts) in meta.items()]}
     for entry in line["kernels"]:
         if entry["name"] == "conv3x3_implicit_gemm":

@@ -2,10 +2,10 @@
 
 The reference's ``framework.Stylization`` surface (``prepare_style`` /
 ``clean`` / ``add`` / ``compute`` / ``transfer``) plus the batched
-``stylize_video`` path, on one device, in both inference modes: two-pass
-global (``use_global=True``: Pass 1 freezes the sequence statistics, Pass 2
-decodes under them) and per-frame (``use_global=False``: Pass 2 alone, the
-stateless ``decode``).  Geometry is fixed by the first frame (the
+``stylize_video`` path, on one device or a mesh, in both inference modes:
+two-pass global (``use_global=True``: Pass 1 freezes the sequence
+statistics, Pass 2 decodes under them) and per-frame (``use_global=False``:
+Pass 2 alone, the stateless ``decode``).  Geometry is fixed by the first frame (the
 reference's ReshapeTool contract); Pass-1 frames stay unpadded, Pass-2
 frames are reflect-padded; each chunk is one host-to-device copy, and frames
 are cropped on the device before the device-to-host copy.  Weights come from
@@ -25,8 +25,18 @@ Global-mode Pass 2 can run from an AOT bundle (``use_aot``,
 ``io/aot.py``): a graph exported with ``torch.export`` for the frame
 geometry, batch and device of a call; other calls run eager.
 
-Not ported yet (raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item): a device mesh.
+With a mesh (``parallel/mesh.py``) global mode shards both passes, as the
+JAX session does: Pass 1 over the sampled frames (``pass1_mode``
+'sharded', or 'streaming-spill-sharded' for a long clip), and Pass 2 over
+each frame's H rows when the batch is smaller than the mesh and the
+geometry allows it ('spatial-sharded', ``parallel/spatial.py``), over the
+batch otherwise ('batch-sharded'); a batch of 1 that does not pass the
+spatial gate runs on the session's device, through its AOT bundle if it has
+one.  Per-frame mode runs on the session's device.  The mesh's shards are
+threads of this process that enqueue under one GIL: over several cards it
+beats one card only where a shard's device work outweighs its enqueue
+(fp32 Pass 2; f16 on two cards), and f16 Pass 2 on four cards and the
+H-sharded batch-1 frame run slower than on one card (PERF.md section 5).
 """
 
 from __future__ import annotations
@@ -60,11 +70,10 @@ from rerevst_torch.ops.image import (
     padded_size,
     validate_pad_geometry,
 )
+from rerevst_torch.parallel.pipeline import stylize_frames_sharded
+from rerevst_torch.parallel.spatial import spatial_ok, stylize_spatial_sharded
+from rerevst_torch.parallel.stats import collect_stats_sharded
 from rerevst_torch.parallel.streaming import collect_stats_streaming
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
 
 
 class _FeatureSpill:
@@ -100,7 +109,7 @@ class _FeatureSpill:
 
 
 class Stylization:
-    """Video stylization session on one device.
+    """Video stylization session on one device or a mesh.
 
     Parameters
     ----------
@@ -116,6 +125,9 @@ class Stylization:
         Sequence-level global feature sharing (two-pass) or per-frame mode.
         The global graph exists only for the default architecture: under
         either ablation switch of ``cfg`` it raises ``ValueError``.
+    mesh:
+        A ``parallel.Mesh``: global-mode Pass 1 and Pass 2 shard over it
+        (see the module's docstring); frames and results stay on `device`.
     device:
         The card by default; pass ``"cpu"`` for the plain PyTorch path.
     """
@@ -129,9 +141,8 @@ class Stylization:
                  cfg: Optional[ModelConfig] = None, use_global: bool = True,
                  infer: Optional[InferenceConfig] = None, mesh=None,
                  device="cuda"):
-        if mesh is not None:
-            raise _not_ported("a device mesh", "Queue 1 item 7")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.cfg = cfg or ModelConfig()
         if use_global and not (self.cfg.dynamic_filter
                                and self.cfg.both_sty_con):
@@ -173,11 +184,12 @@ class Stylization:
         self._orig_hw = None
         #: Side streams of the card's copies (created at first use).
         self._streams: Dict[str, torch.cuda.Stream] = {}
-        #: How the last Pass 1 collected its statistics: 'batched' or
-        #: 'streaming-spill'.
+        #: How the last Pass 1 collected its statistics: 'batched',
+        #: 'sharded', 'streaming-spill' or 'streaming-spill-sharded'.
         self.pass1_mode: Optional[str] = None
         #: Which graph the last Pass-2 call ran: 'global' (eager), 'aot' (an
-        #: AOT bundle's graph) or 'per-frame'.
+        #: AOT bundle's graph), 'spatial-sharded', 'batch-sharded' or
+        #: 'per-frame'.
         self.pass2_mode: Optional[str] = None
         #: The AOT bundle Pass 2 runs from (``use_aot``), and whether one was
         #: dropped after it rejected a call.
@@ -303,15 +315,17 @@ class Stylization:
         self._patches = []
 
     def _collect_spilled(self, spill: _FeatureSpill) -> None:
-        self.pass1_mode = "streaming-spill"
+        self.pass1_mode = ("streaming-spill" if self.mesh is None
+                           else "streaming-spill-sharded")
         self.stats = collect_stats_streaming(
             self.params["decoder"], spill.memmap(), self.style, self.cfg,
-            chunk_size=max(1, self.infer.pass1_chunk))
+            chunk_size=max(1, self.infer.pass1_chunk), mesh=self.mesh)
 
     def compute(self) -> None:
         """Pass 1 finish: freeze the sequence statistics over the buffered
         frames — streamed from the host spool above STREAMING_THRESHOLD, in
-        one batched collection otherwise."""
+        one batched collection otherwise (sharded over the mesh, if the
+        session has one)."""
         if self.style is None:
             raise RuntimeError("prepare_style first")
         if self._patch_spill is not None:
@@ -326,9 +340,15 @@ class Stylization:
             raise ValueError("compute() needs add()ed frames")
         with torch.inference_mode():
             feats = torch.cat(self._patches, 0)
-            self.pass1_mode = "batched"
-            self.stats = collect_stats(self.params["decoder"], feats,
-                                       self.style, self.cfg)
+            if self.mesh is not None:
+                self.pass1_mode = "sharded"
+                self.stats = collect_stats_sharded(
+                    self.params["decoder"], feats, self.style, self.cfg,
+                    self.mesh)
+            else:
+                self.pass1_mode = "batched"
+                self.stats = collect_stats(self.params["decoder"], feats,
+                                           self.style, self.cfg)
         self._patches = []
 
     def use_aot(self, path: str) -> None:
@@ -368,6 +388,20 @@ class Stylization:
         if self.style is None:
             raise RuntimeError("prepare_style first")
         with torch.inference_mode():
+            if self.use_global and self.mesh is not None:
+                if spatial_ok(x.shape[0], x.shape[1], self.mesh):
+                    # Fewer frames than shards (batch-1 latency serving
+                    # included): shard each frame's H rows, and the batch
+                    # too when 1 < B < n.
+                    self.pass2_mode = "spatial-sharded"
+                    return stylize_spatial_sharded(
+                        self.params, x, self.style, self.stats, self.cfg,
+                        self.mesh)
+                if x.shape[0] > 1:
+                    self.pass2_mode = "batch-sharded"
+                    return stylize_frames_sharded(
+                        self.params, x, self.style, self.stats, self.cfg,
+                        self.mesh)
             if self.use_global and self._aot is not None:
                 try:
                     out = self._aot(self.params, x, self.style, self.stats)

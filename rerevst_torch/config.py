@@ -215,7 +215,7 @@ class TrainConfig:
     #: 'orthogonal' (``models.discriminator.INIT_SCHEMES``).
     d_init: str = "normal"
     #: Data-parallel training over this many devices (0 or 1 = one card;
-    #: more is ROADMAP.md Queue 1 item 7).
+    #: ``train/step.make_sharded_train_step``; on the CPU, logical shards).
     data_parallel: int = 0
     #: Recompute each decode in the backward pass
     #: (``torch.utils.checkpoint``): less activation memory, more FLOPs.
@@ -228,10 +228,6 @@ class TrainConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
 
     def __post_init__(self):
-        if self.data_parallel > 1:
-            raise NotImplementedError(
-                f"TrainConfig(data_parallel={self.data_parallel}) is not "
-                f"ported yet: ROADMAP.md Queue 1 item 7 (torch.distributed)")
         if self.d_init not in D_INIT_SCHEMES:
             raise ValueError(f"unknown d_init {self.d_init!r} "
                              f"(choose from {D_INIT_SCHEMES})")

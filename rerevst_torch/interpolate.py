@@ -8,9 +8,11 @@ sampling), then decodes every frame with the blend weights sweeping linearly
 from the last style to the first (or under ``--weights``), and prints one
 JSON report line.  The same flags and report as ``rerevst_tpu.interpolate``,
 plus ``--device`` (the card by default).  Frame files and videos are read
-and written with OpenCV.  Options that select what the port does not have
-yet raise ``NotImplementedError`` naming their ROADMAP item: ``--devices``
-> 0 and ``--mix`` other than ``none``.
+and written with OpenCV.  ``--devices N`` shards each style's Pass 1 and
+the decodes over a mesh of N devices (``parallel/mesh.py``): N visible
+cards, or N logical shards of the CPU with ``--device cpu`` (over cards the
+shards enqueue under one GIL, PERF.md section 5).  ``--mix``
+other than ``none`` raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from rerevst_torch.config import InferenceConfig, ModelConfig, dtype_from_name
 from rerevst_torch.data import video as vio
 from rerevst_torch.data.source import PathsSource, as_source
 from rerevst_torch.multistyle import MultiStylization
+from rerevst_torch.parallel.mesh import device_mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -52,8 +55,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the full-resolution 64-channel convs through "
                         "the conv3x3_pairlane kernel (bf16/f16 only)")
     p.add_argument("--devices", type=int, default=0,
-                   help="shard per-style Pass 1 over this many devices (0 = "
-                        "single; not ported: > 0 raises)")
+                   help="shard per-style Pass 1 and the decodes over this "
+                        "many devices (0 = single; with --device cpu, "
+                        "logical shards of the CPU)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' for the plain path")
     return p
@@ -61,16 +65,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.devices:
-        raise NotImplementedError(
-            "--devices (a device mesh) is not ported yet: ROADMAP.md Queue 1 "
-            "item 7")
     cv2 = vio.require_cv2()
     cfg = ModelConfig(dtype=dtype_from_name(args.dtype), fp32_mix=args.mix,
                       pairlane=args.pairlane)
     infer = InferenceConfig(sample_interval=args.interval)
+    mesh = device_mesh(args.devices, args.device) if args.devices else None
     ms = MultiStylization(checkpoint=args.checkpoint, cfg=cfg, infer=infer,
-                          device=args.device)
+                          mesh=mesh, device=args.device)
     ms.prepare_styles([cv2.resize(vio.read_frame(s),
                                   (args.style_size, args.style_size))
                        for s in args.styles])

@@ -18,6 +18,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -149,10 +150,20 @@ def ptxas_report(source: str) -> dict:
     return out
 
 
+#: Serializes the first build: a mesh's shard threads may all reach their
+#: first kernel at once, and concurrent builds would share object files.
+_BUILD_LOCK = threading.Lock()
+
+#: Guards the wrappers' launch counts, which a mesh's shard threads bump
+#: concurrently (a read-modify-write).
+COUNT_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
-    lib = ctypes.CDLL(str(build()))
+    with _BUILD_LOCK:
+        lib = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

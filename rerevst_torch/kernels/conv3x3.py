@@ -432,9 +432,10 @@ def _out_like(x: torch.Tensor, w: torch.Tensor,
 def _igemm_cuda(x, w, b):
     y = _launch("conv3x3_implicit_gemm", x, w, b, c64=False)
     if y.numel():
-        conv3x3_implicit_gemm.launches += 1
-        conv3x3_implicit_gemm.launches_by_design[
-            design(x.shape[-1], x.dtype)] += 1
+        with _build.COUNT_LOCK:
+            conv3x3_implicit_gemm.launches += 1
+            conv3x3_implicit_gemm.launches_by_design[
+                design(x.shape[-1], x.dtype)] += 1
     return y
 
 
@@ -461,7 +462,8 @@ def conv3x3_pairlane(x: torch.Tensor, w: torch.Tensor,
 def _pairlane_cuda(x, w, b):
     y = _launch("conv3x3_pairlane", x, w, b, c64=True)
     if y.numel():
-        conv3x3_pairlane.launches += 1
+        with _build.COUNT_LOCK:
+            conv3x3_pairlane.launches += 1
     return y
 
 

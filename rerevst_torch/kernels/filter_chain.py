@@ -167,7 +167,8 @@ def _launch(x: torch.Tensor, y: torch.Tensor, a: torch.Tensor,
         b.data_ptr(), plan.grid,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "dynamic_filter_pair")
-    dynamic_filter_pair.launches += 1
+    with _build.COUNT_LOCK:
+        dynamic_filter_pair.launches += 1
 
 
 #: Kernel launches so far (CPU calls and empty inputs launch nothing).

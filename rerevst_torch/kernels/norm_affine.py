@@ -185,7 +185,8 @@ def _launch(x: torch.Tensor, y: torch.Tensor, cond, leaky: bool) -> None:
         m.data_ptr() if affine else None, grid,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "norm_affine_clamp")
-    norm_affine_clamp.launches += 1
+    with _build.COUNT_LOCK:
+        norm_affine_clamp.launches += 1
 
 
 #: Kernel launches so far (CPU calls and empty inputs launch nothing).

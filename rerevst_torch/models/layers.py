@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from rerevst_torch.ops import halo
 from rerevst_torch.ops.resize import upsample_nearest_2x
 
 
@@ -104,12 +105,22 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d(p, x: torch.Tensor, stride: int = 1, padding: int = 0):
-    """3x3/1x1 conv with torch-style symmetric zero padding; p['w'] is HWIO."""
+    """3x3/1x1 conv with torch-style symmetric zero padding; p['w'] is HWIO.
+
+    On an H shard of Pass 2 (``ops/halo.py``) the H padding of a conv taller
+    than one row comes from the neighbouring shards' rows instead of
+    zeros."""
     _fp32_products_exact(x)
     w = p["w"].to(x.dtype).permute(3, 2, 0, 1) \
         .contiguous(memory_format=torch.channels_last)
     b = p["b"].to(x.dtype) if "b" in p else None
-    return _nhwc(F.conv2d(_nchw(x), w, b, stride=stride, padding=padding))
+    pad = padding
+    if padding and w.shape[2] > 1:
+        ctx = halo.current()
+        if ctx is not None:
+            x = ctx.exchange_rows(x, padding)
+            pad = (0, padding)
+    return _nhwc(F.conv2d(_nchw(x), w, b, stride=stride, padding=pad))
 
 
 def weights_as(p, dtype: torch.dtype):

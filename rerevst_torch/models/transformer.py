@@ -58,6 +58,7 @@ from rerevst_torch.models.layers import (
     upsample2x_conv3x3,
     weights_as,
 )
+from rerevst_torch.ops import halo
 from rerevst_torch.ops.image import rgb_to_luma_reversed
 from rerevst_torch.ops.stats import (
     channel_minmax,
@@ -352,9 +353,11 @@ def _kernel_filter_frozen(p: Dict, content: torch.Tensor, fa: torch.Tensor,
 
 def _conv3x3(p: Dict, x: torch.Tensor, pairlane: bool) -> torch.Tensor:
     """A full-resolution 64-channel SAME 3x3 conv: the ``conv3x3_pairlane``
-    kernel on the pair-lane route, ``conv2d`` otherwise."""
+    kernel on the pair-lane route (on an H shard, over the shard and one
+    halo row each side: ``ops/halo.py``), ``conv2d`` otherwise."""
     if pairlane:
-        return conv3x3_pairlane(x, *weights_as(p, x.dtype))
+        w, b = weights_as(p, x.dtype)
+        return halo.same_conv(lambda v: conv3x3_pairlane(v, w, b), x)
     return conv2d(p, x, padding=1)
 
 
@@ -433,24 +436,61 @@ def decode_global(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
 # Global statistics collection — Pass 1
 # ---------------------------------------------------------------------------
 
-def _norm_compute(x: torch.Tensor, eps: float
+def _identity(v):
+    return v
+
+
+def _norm_compute(x: torch.Tensor, eps: float, reduce_fns=None,
+                  mask: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, NormStats]:
     """InstanceNorm.compute over (N,H,W): (normalized batch, NormStats), with
-    the two-pass variance of ``instance_moments``."""
+    the two-pass variance of ``instance_moments``.
+
+    `reduce_fns` = (psum, pmin, pmax) combine the moments and extrema across
+    shards (``parallel/stats.py``); `mask` ([N], 1 = a real frame) keeps the
+    frames that pad a batch to the shard count out of every reduction.  The
+    squared deviation is masked inside the square, and the extrema skip pad
+    rows through fp32's largest value, as in the JAX package: a pad row
+    repeats a real frame, and inf * 0 would be NaN."""
     xf = x.to(torch.float32)
-    mean, rstd = instance_moments(xf, (0, 1, 2), eps)
+    if reduce_fns is None and mask is None:
+        mean, rstd = instance_moments(xf, (0, 1, 2), eps)
+        xn = (xf - mean) * rstd
+        xmin, xmax = channel_minmax(xn, (0, 1, 2))
+        return xn.to(x.dtype), NormStats(mean, rstd, xmin, xmax)
+    psum, pmin, pmax = reduce_fns or (_identity,) * 3
+    hw = float(xf.shape[1] * xf.shape[2])
+    m = (torch.ones((xf.shape[0], 1, 1, 1), dtype=torch.float32,
+                    device=xf.device) if mask is None
+         else mask.reshape(-1, 1, 1, 1).to(torch.float32))
+    cnt = psum(m.sum()) * hw
+    mean = psum((xf * m).sum((0, 1, 2), keepdim=True)) / cnt
+    ss = psum(torch.square((xf - mean) * m).sum((0, 1, 2), keepdim=True))
+    rstd = torch.rsqrt(ss / cnt + eps)
     xn = (xf - mean) * rstd
-    xmin, xmax = channel_minmax(xn, (0, 1, 2))
+    big = torch.finfo(torch.float32).max
+    real = m > 0
+    xmin = pmin(torch.where(real, xn, big).amin((0, 1, 2), keepdim=True))
+    xmax = pmax(torch.where(real, xn, -big).amax((0, 1, 2), keepdim=True))
     return xn.to(x.dtype), NormStats(mean, rstd, xmin, xmax)
 
 
 def _filter_compute(p: Dict, content_batch: torch.Tensor,
-                    style_map: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+                    style_map: torch.Tensor, cfg: ModelConfig, psum=None,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """FilterPredictor.compute: content pooled over the whole sampled batch ->
     one fp32 [1,P,Q] filter per sequence.  The pooling and the FC run in fp32
-    in every storage dtype: the frozen filters stay fp32."""
+    in every storage dtype: the frozen filters stay fp32.  `psum` and `mask`
+    pool over every shard's real frames (see ``_norm_compute``)."""
     pc = conv2d(p["down"], content_batch, padding=1).float().mean((1, 2))
-    pc = pc.mean(0, keepdim=True)
+    if psum is None and mask is None:
+        pc = pc.mean(0, keepdim=True)
+    else:
+        ps_ = psum or _identity
+        m = (torch.ones((pc.shape[0], 1), dtype=torch.float32,
+                        device=pc.device) if mask is None
+             else mask.reshape(-1, 1).to(torch.float32))
+        pc = ps_((pc * m).sum(0, keepdim=True)) / ps_(m.sum())
     ps = conv2d(p["down"], style_map, padding=1).float().mean((1, 2))
     fc = {k: v.float() for k, v in p["fc"].items()}
     f = linear(fc, torch.cat([pc, ps], dim=1))
@@ -459,40 +499,44 @@ def _filter_compute(p: Dict, content_batch: torch.Tensor,
 
 
 def collect_stats(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
-                  cfg: ModelConfig) -> SeqStats:
+                  cfg: ModelConfig, reduce_fns=None,
+                  mask: Optional[torch.Tensor] = None) -> SeqStats:
     """Decoder.compute: run the global graph over the sampled-frame batch
     ``x`` ([N, H/8, W/8, 512] content features), freezing every norm and
-    filter."""
+    filter.  With `reduce_fns` = (psum, pmin, pmax) the same code runs on
+    each shard of a frame-sharded batch (``parallel/stats.py``), and `mask`
+    ([N], 1 = a real frame) keeps pad frames out of every reduction."""
     eps = cfg.norm_eps
+    psum = reduce_fns[0] if reduce_fns is not None else None
     norms: Dict[str, NormStats] = {}
     filters: Dict[str, torch.Tensor] = {}
     m1, m2, m3, m4 = style.means
     s1, s2, s3, s4 = style.stds
 
-    h, norms["pre"] = _norm_compute(x, eps)
+    h, norms["pre"] = _norm_compute(x, eps, reduce_fns, mask)
     ns = (style.map - m4) / s4
 
     for i, name in ((1, "filter1"), (2, "filter2"), (3, "filter3")):
         p = params_dec[name]
         inner = conv2d(p["down"], h, padding=1)
-        fa = _filter_compute(p["p1"], h, ns, cfg)
+        fa = _filter_compute(p["p1"], h, ns, cfg, psum, mask)
         filters[f"f{i}a"] = fa
         inner = leaky_relu(apply_dynamic_filter(inner, fa))
-        fb = _filter_compute(p["p2"], h, ns, cfg)
+        fb = _filter_compute(p["p2"], h, ns, cfg, psum, mask)
         filters[f"f{i}b"] = fb
         inner = apply_dynamic_filter(inner, fb)
         h = h + conv2d(p["up"], inner, padding=1)
 
     def ada_compute(h, key, m, s):
-        hn, norms[key] = _norm_compute(h, eps)
+        hn, norms[key] = _norm_compute(h, eps, reduce_fns, mask)
         return hn * s + m
 
     def res_compute(h, p, ka, kb):
         xs = upsample2x_conv1x1(p["shortcut"], h)
         t = upsample2x_conv3x3(p["conv1"], h)
-        t, norms[ka] = _norm_compute(leaky_relu(t), eps)
+        t, norms[ka] = _norm_compute(leaky_relu(t), eps, reduce_fns, mask)
         t = conv2d(p["conv2"], t, padding=1)
-        t, norms[kb] = _norm_compute(leaky_relu(t), eps)
+        t, norms[kb] = _norm_compute(leaky_relu(t), eps, reduce_fns, mask)
         return xs + t
 
     h = ada_compute(h, "ada4", m4, s4)

@@ -26,6 +26,7 @@ from rerevst_torch.models.layers import (
     max_pool_2x2,
     weights_as,
 )
+from rerevst_torch.ops import halo
 from rerevst_torch.ops.tiling import can_tile_h, tiled_over_h
 
 #: (name, cin, cout) of the 9 convs through conv4_1, in order.
@@ -108,7 +109,8 @@ def from_torch_features(state_dict, prefix: str = "",
 def vgg_features(params: Dict, x: torch.Tensor, upto: str = "relu4_1",
                  pairlane: bool = False) -> VggFeatures:
     """Run the backbone, returning every relu tap up to `upto`.
-    ``pairlane`` runs conv1_2 through the ``conv3x3_pairlane`` kernel."""
+    ``pairlane`` runs conv1_2 through the ``conv3x3_pairlane`` kernel (on an
+    H shard, over the shard and one halo row each side: ``ops/halo.py``)."""
     taps = {}
     h = x
     for name, _, _ in VGG_CONVS:
@@ -116,7 +118,8 @@ def vgg_features(params: Dict, x: torch.Tensor, upto: str = "relu4_1",
             h = max_pool_2x2(h)
         p = params[name]
         if pairlane and name == "conv1_2":
-            h = conv3x3_pairlane(h, *weights_as(p, h.dtype))
+            w, b = weights_as(p, h.dtype)
+            h = halo.same_conv(lambda v: conv3x3_pairlane(v, w, b), h)
         else:
             h = conv2d(p, h, padding=1)
         h = torch.relu(h)

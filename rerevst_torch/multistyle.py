@@ -15,7 +15,12 @@ The quirks of the JAX package are kept: ``InferenceConfig(sample_interval=
 writes a memmap cache with a ``.meta.json`` sidecar that ``load_features``
 reads back; ``interpolate_video`` spills its features to a temp memmap above
 ``SPILL_THRESHOLD`` frames and pads the ragged tail chunk to the batch size.
-A device mesh raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 7).
+
+With a mesh (``parallel/mesh.py``), as in the JAX session: each style's
+Pass 1 is sharded over the sampled frames (``parallel/stats.py``); a decode
+of fewer frames than shards shards the feature map's H rows
+(``parallel/spatial.py``, where ``spatial_feats_ok`` allows it), and a
+larger batch is split over the shards (``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -44,12 +49,18 @@ from rerevst_torch.models.transformer import (
     encode_style,
 )
 from rerevst_torch.ops.image import crop_back, pad_reflect_multiple, padded_size
+from rerevst_torch.parallel.pipeline import decode_blended_sharded
+from rerevst_torch.parallel.spatial import (
+    multistyle_decode_spatial,
+    spatial_feats_ok,
+)
+from rerevst_torch.parallel.stats import collect_stats_sharded
 
 
 class MultiStylization:
-    """Session for N-style blended stylization on one device: prepare the
-    styles, encode every frame once, freeze per-style statistics, then
-    decode each frame under its own blend weights."""
+    """Session for N-style blended stylization on one device or a mesh:
+    prepare the styles, encode every frame once, freeze per-style
+    statistics, then decode each frame under its own blend weights."""
 
     #: interpolate_video spills the frame-feature cache to a temp memmap
     #: above this clip length (mirrors Stylization.STREAMING_THRESHOLD).
@@ -59,10 +70,8 @@ class MultiStylization:
                  cfg: Optional[ModelConfig] = None,
                  infer: Optional[InferenceConfig] = None, mesh=None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet: ROADMAP.md Queue 1 item 7")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.cfg = cfg or ModelConfig()
         self.infer = infer or InferenceConfig(sample_interval=16)
         if params is None:
@@ -181,17 +190,39 @@ class MultiStylization:
             sampled = np.stack([feats[i] for i in idx])
         sampled = self._feats(sampled)
         with torch.inference_mode():
-            self.stats = [collect_stats(self.params["decoder"], sampled, sf,
-                                        self.cfg) for sf in self.styles]
+            if self.mesh is not None:
+                self.stats = [collect_stats_sharded(
+                    self.params["decoder"], sampled, sf, self.cfg, self.mesh)
+                    for sf in self.styles]
+            else:
+                self.stats = [collect_stats(self.params["decoder"], sampled,
+                                            sf, self.cfg)
+                              for sf in self.styles]
 
     # -- per-weight decode -------------------------------------------------
 
-    def _decode(self, feats, sf: StyleFeatures, st: SeqStats) -> np.ndarray:
+    def _decode(self, feats, weights) -> np.ndarray:
+        """Decode features under blended styles: `weights` [S] (one blend)
+        or [B, S] (a blend per frame); cropped, on the host."""
+        per_frame = np.ndim(weights) == 2
+        blend = blend_pytrees_batched if per_frame else blend_pytrees
         with torch.inference_mode():
-            out = decode_global(self.params["decoder"], self._feats(feats),
-                                sf, st, self.cfg)
-            h, w = self._orig_hw
-            return crop_back(out, h, w, self.infer.pad).float().cpu().numpy()
+            x = self._feats(feats)
+            if self.mesh is not None and spatial_feats_ok(
+                    x.shape[0], x.shape[1], self.mesh):
+                out = multistyle_decode_spatial(
+                    self.params, x, self.styles, self.stats, weights,
+                    self.cfg, self.mesh)
+            elif self.mesh is not None and per_frame and x.shape[0] > 1:
+                out = decode_blended_sharded(
+                    self.params, x, self.styles, self.stats, weights,
+                    self.cfg, self.mesh)
+            else:
+                out = decode_global(self.params["decoder"], x,
+                                    blend(self.styles, weights),
+                                    blend(self.stats, weights), self.cfg)
+            h, w_ = self._orig_hw
+            return crop_back(out, h, w_, self.infer.pad).float().cpu().numpy()
 
     def transfer(self, feats_one, weights: Sequence[float]) -> np.ndarray:
         """Decode one frame's cached features under blended styles -> BGR.
@@ -199,9 +230,7 @@ class MultiStylization:
         if len(weights) != len(self.styles):
             raise ValueError(
                 f"got {len(weights)} weights for {len(self.styles)} styles")
-        out = self._decode(feats_one, blend_pytrees(self.styles, weights),
-                           blend_pytrees(self.stats, weights))
-        return model_to_bgr(out)
+        return model_to_bgr(self._decode(feats_one, weights))
 
     def transfer_batch(self, feats, weight_rows) -> List[np.ndarray]:
         """Decode a [B,...] feature batch, each frame under its own blend
@@ -212,8 +241,7 @@ class MultiStylization:
         if w.shape != (n, len(self.styles)):
             raise ValueError(f"weights shape {w.shape} != "
                              f"({n}, {len(self.styles)})")
-        out = self._decode(feats, blend_pytrees_batched(self.styles, w),
-                           blend_pytrees_batched(self.stats, w))
+        out = self._decode(feats, w)
         return [model_to_bgr(out[i:i + 1]) for i in range(n)]
 
     def interpolate_video(self, frames_bgr,

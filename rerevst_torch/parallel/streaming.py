@@ -21,6 +21,10 @@ so no second pass is needed.  The ``res*a`` and ``res*b`` stages reduce
 over leaky(conv), before the norm.  Filter stages sum the pooled predictor
 inputs in fp64 (``_pool_pred``); the filters come out fp32.
 
+With a mesh, each chunk's frames split over the shards and the chunk's
+reductions combine across them (``parallel/collectives.py``), the pad
+frames masked out.
+
 Cost: about 7x the batched collection's operations, the price of O(chunk)
 device memory.  Results match the batched ``collect_stats`` up to fp
 reassociation (and, in 16-bit storage, up to where each rounds to the
@@ -50,6 +54,8 @@ from rerevst_torch.models.transformer import (
     _kernel_filter_frozen,
     _norm_apply,
 )
+from rerevst_torch.parallel.collectives import run_sharded, tree_to
+from rerevst_torch.parallel.mesh import Mesh, pad_to_multiple
 
 #: reduction stages in dependency order
 STAGES = ("pre", "f1", "f2", "f3", "ada4", "res4a", "res4b",
@@ -129,33 +135,103 @@ class _Welford:
 
 class _ChunkFeed:
     """Lazy chunk iterator over a host feature array (a memmap stays on disk
-    between stages).  Each chunk goes up in one copy and is cast on the
-    device to the storage dtype — lossless, the spooled fp32 values came
-    from it."""
+    between stages), for the shards of `mesh` (one shard on one device
+    without a mesh).  Each chunk goes up in one copy per shard and is cast
+    on the device to the storage dtype — lossless, the spooled fp32 values
+    came from it.
+
+    A chunk holds at least one frame per shard; it is padded on the host to
+    a multiple of the shard count (repeating its last frame) and split over
+    this process's shards: each iteration gives (per-shard chunks,
+    per-shard masks), the masks None where the chunk needed no pad, else
+    keeping the pad out of every reduction.  Every process of a
+    multi-process mesh reads the same host array and takes its own shards'
+    rows of each chunk."""
 
     def __init__(self, feats_host, chunk_size: int, dtype: torch.dtype,
-                 device: torch.device):
+                 mesh):
         self.feats = feats_host
         self.n = feats_host.shape[0]
-        self.chunk = max(1, int(chunk_size))
+        self.chunk = max(1, int(chunk_size), mesh.size)
         self.dtype = dtype
-        self.device = device
+        self.mesh = mesh
 
-    def __iter__(self) -> Iterator[torch.Tensor]:
+    def __iter__(self) -> Iterator:
+        mesh = self.mesh
         for i in range(0, self.n, self.chunk):
             ch = self.feats[i:i + self.chunk]
             if not isinstance(ch, torch.Tensor):
                 ch = torch.from_numpy(np.array(ch))  # a memmap is read-only
-            yield ch.to(self.device).to(self.dtype)
+            ch, mask = pad_to_multiple(ch, mesh.size)
+            per = ch.shape[0] // mesh.size
+            lo = mesh.process_index * len(mesh.devices) * per
+            rows = [slice(lo + k * per, lo + (k + 1) * per)
+                    for k in range(len(mesh.devices))]
+            padded = bool((mask == 0).any())
+            yield ([ch[r].to(d).to(self.dtype)
+                    for r, d in zip(rows, mesh.devices)],
+                   [mask[r].to(d) if padded else None
+                    for r, d in zip(rows, mesh.devices)])
 
 
-def _chunk_moments(t: torch.Tensor) -> torch.Tensor:
-    """[mean, M2, min, max] per channel over (N, H, W) of one chunk, fp32 on
-    the device, stacked for one fetch."""
+def _real(mask, x: torch.Tensor, fill: float) -> torch.Tensor:
+    """`x` with its pad frames' values set to `fill` (where, not a
+    product: a pad row's inf * 0 would be NaN); `x` itself where the chunk
+    has no pad."""
+    if mask is None:
+        return x
+    return torch.where(mask.reshape((-1,) + (1,) * (x.dim() - 1)) > 0, x,
+                       fill)
+
+
+def _frames(mask, x: torch.Tensor, comm) -> float:
+    """The real frames of a chunk, over every shard."""
+    if mask is None:
+        return float(x.shape[0] * comm.size)
+    return float(comm.psum(mask.sum()))
+
+
+def _moments(t: torch.Tensor, p: Dict, mask, comm):
+    """(mean, M2, min, max, count) per channel of one chunk's stage tensor
+    `t` over (N, H, W) of every shard's real frames, fp32 on the device and
+    fetched in one copy."""
     tf = t.float()
-    mean = tf.mean((0, 1, 2))
-    m2 = (tf - mean).square().sum((0, 1, 2))
-    return torch.stack([mean, m2, tf.amin((0, 1, 2)), tf.amax((0, 1, 2))])
+    cnt = _frames(mask, t, comm) * (t.shape[1] * t.shape[2])
+    mean = comm.psum(_real(mask, tf, 0.0).sum((0, 1, 2))) / cnt
+    m2 = comm.psum(_real(mask, (tf - mean).square(), 0.0).sum((0, 1, 2)))
+    mn = comm.pmin(_real(mask, tf, float("inf")).amin((0, 1, 2)))
+    mx = comm.pmax(_real(mask, tf, float("-inf")).amax((0, 1, 2)))
+    mean, m2, mn, mx = torch.stack([mean, m2, mn, mx]).cpu().numpy()
+    return mean, m2, mn, mx, cnt
+
+
+def _pool_sums(i: int, pk: str):
+    """The chunk reduction of one FilterPredictor's pooled content: the sum
+    over every shard's real frames of the spatial mean of its own down conv
+    (fp64 on the host), and the frame count."""
+    def reduce(h: torch.Tensor, p: Dict, mask, comm):
+        pc = conv2d(p[f"filter{i}"][pk]["down"], h, padding=1).float() \
+            .mean((1, 2))
+        s = comm.psum(_real(mask, pc, 0.0).sum(0))
+        return s.cpu().numpy().astype(np.float64), _frames(mask, pc, comm)
+    return reduce
+
+
+def _chunk_results(feed: _ChunkFeed, params_dec: Dict, style: StyleFeatures,
+                   norms: Dict, filters: Dict, cfg: ModelConfig, stage: str,
+                   reduce):
+    """`reduce` of each chunk's stage tensor, chunk by chunk; each chunk
+    runs on every shard in lockstep, its reductions across the shards."""
+    mesh = feed.mesh
+    reps = [(mesh.replica(params_dec, d), mesh.replica(style, d),
+             tree_to(norms, d), tree_to(filters, d)) for d in mesh.devices]
+
+    def local(comm, x, m, rep):
+        p, s, nm, fl = rep
+        return reduce(_prefix_to(p, x, s, nm, fl, cfg, stage), p, m, comm)
+
+    for chs, masks in feed:
+        yield run_sharded(local, mesh, chs, masks, reps)[0]
 
 
 def collect_stats_streaming(params_dec: Dict, feats_host, style: StyleFeatures,
@@ -163,16 +239,22 @@ def collect_stats_streaming(params_dec: Dict, feats_host, style: StyleFeatures,
                             mesh=None) -> SeqStats:
     """collect_stats over `feats_host` [N, h, w, 512] (a host array, memmap
     or CPU tensor) with O(chunk_size) device memory, on the device that holds
-    the style features."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is not ported yet: ROADMAP.md Queue 1 item 7")
+    the style features.
+
+    `mesh`: shard each chunk's frames over a mesh (``parallel/mesh.py``):
+    each chunk's moments, extrema and pooled sums reduce across the shards,
+    and the host's Welford merge across chunks is unchanged."""
     device = style.map.device
-    feed = _ChunkFeed(feats_host, chunk_size, cfg.dtype, device)
+    feed = _ChunkFeed(feats_host, chunk_size, cfg.dtype,
+                      mesh or Mesh((device,)))
     norms: Dict[str, NormStats] = {}
     filters: Dict[str, torch.Tensor] = {}
     # The style side of the predictors is frame-independent.
     ns = (style.map - style.means[3]) / style.stds[3]
+
+    def chunks(stage, reduce):
+        return _chunk_results(feed, params_dec, style, norms, filters, cfg,
+                              stage, reduce)
 
     with torch.inference_mode():
         for stage in STAGES:
@@ -181,8 +263,12 @@ def collect_stats_streaming(params_dec: Dict, feats_host, style: StyleFeatures,
                 ic = cfg.filter_channels
                 for sub, pk in (("a", "p1"), ("b", "p2")):
                     fprm = params_dec[f"filter{i}"][pk]
-                    pc = _pool_pred(fprm, feed, params_dec, style, norms,
-                                    filters, cfg, stage)
+                    # The pooled content: the mean over all frames, in fp64.
+                    acc, cnt = 0.0, 0
+                    for s, c in chunks(stage, _pool_sums(i, pk)):
+                        acc, cnt = acc + s, cnt + c
+                    pc = torch.as_tensor((acc / cnt)[None],
+                                         dtype=torch.float32, device=device)
                     ps = conv2d(fprm["down"], ns, padding=1).float() \
                         .mean((1, 2))
                     fc = {k: v.float() for k, v in fprm["fc"].items()}
@@ -190,27 +276,9 @@ def collect_stats_streaming(params_dec: Dict, feats_host, style: StyleFeatures,
                     filters[f"f{i}{sub}"] = f.reshape(-1, ic, ic)
                 continue
             wf = None
-            for ch in feed:
-                t = _prefix_to(params_dec, ch, style, norms, filters, cfg,
-                               stage)
-                mean, m2, mn, mx = _chunk_moments(t).cpu().numpy()
+            for mean, m2, mn, mx, cnt in chunks(stage, _moments):
                 if wf is None:
                     wf = _Welford(mean.shape[0])
-                wf.update(float(np.prod(t.shape[:3])), mean, m2, mn, mx)
+                wf.update(cnt, mean, m2, mn, mx)
             norms[stage] = wf.finalize(cfg.norm_eps, device)
     return SeqStats(norms, filters)
-
-
-def _pool_pred(fprm: Dict, feed: _ChunkFeed, params_dec: Dict,
-               style: StyleFeatures, norms: Dict, filters: Dict,
-               cfg: ModelConfig, stage: str) -> torch.Tensor:
-    """Pooled predictor-content vector for one FilterPredictor: the mean over
-    all frames of the spatial mean of its own down conv, summed in fp64."""
-    acc, cnt = 0.0, 0
-    for ch in feed:
-        h = _prefix_to(params_dec, ch, style, norms, filters, cfg, stage)
-        pc = conv2d(fprm["down"], h, padding=1).float().mean((1, 2))
-        acc = acc + pc.sum(0).cpu().numpy().astype(np.float64)
-        cnt += pc.shape[0]
-    return torch.as_tensor((acc / cnt)[None], dtype=torch.float32,
-                           device=style.map.device)

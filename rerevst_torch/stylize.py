@@ -8,11 +8,14 @@ per-frame mode with ``--no-global``), every-8th-frame sampling, PNG frames
 under ``<out>/ReReVST-<style>-<clip>[-no-global]/`` and an MJPG ``.avi`` at
 24 fps, then one JSON report line.  The same flags and report as
 ``rerevst_tpu.stylize``, plus ``--device`` (the card by default).  Frame
-files and videos are read and written with OpenCV.  Options that select
-what the port does not have yet raise ``NotImplementedError`` naming their
-ROADMAP item: ``--devices`` > 0 and ``--mix`` other than ``none``.
-``--tiles`` runs the full-resolution regions over H-slabs
-(``ops/tiling.py``).
+files and videos are read and written with OpenCV.  ``--devices N`` shards
+both passes over a mesh of N devices (``parallel/mesh.py``): N visible
+cards, or N logical shards of the CPU with ``--device cpu`` (over cards the
+shards enqueue under one GIL: f16 on four cards runs slower than on one,
+PERF.md section 5).  ``--tiles``
+runs the full-resolution regions over H-slabs (``ops/tiling.py``).
+``--mix`` other than ``none`` raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from rerevst_torch.api import Stylization
 from rerevst_torch.config import InferenceConfig, ModelConfig, dtype_from_name
 from rerevst_torch.data import video as vio
 from rerevst_torch.data.source import PathsSource, as_source
+from rerevst_torch.parallel.mesh import device_mesh
 from rerevst_torch.profiling import PhaseTimer, trace
 
 
@@ -73,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(Farneback flow + occlusion masking)")
     p.add_argument("--devices", type=int, default=0,
                    help="shard Pass 1/2 over this many devices (0 = single; "
-                        "not ported: > 0 raises)")
+                        "with --device cpu, logical shards of the CPU); "
+                        "f16 over 4 cards is slower than 1 (PERF.md)")
     p.add_argument("--trace", default=None, metavar="DIR",
                    help="record a torch.profiler trace of the run into "
                         "DIR/trace.json")
@@ -88,10 +93,6 @@ def main(argv=None):
     if args.pad < 0 or args.granularity < 8 or args.granularity % 8:
         parser.error("--pad must be >= 0 and --granularity a positive "
                      "multiple of 8")
-    if args.devices:
-        raise NotImplementedError(
-            "--devices (a device mesh) is not ported yet: ROADMAP.md Queue 1 "
-            "item 7")
     use_global = not args.no_global
 
     cfg = ModelConfig(dtype=dtype_from_name(args.dtype), fp32_mix=args.mix,
@@ -100,8 +101,9 @@ def main(argv=None):
                             use_global=use_global, batch_size=args.batch,
                             fps=args.fps, pad=args.pad,
                             granularity=args.granularity)
+    mesh = device_mesh(args.devices, args.device) if args.devices else None
     framework = Stylization(args.checkpoint, cfg=cfg, use_global=use_global,
-                            infer=infer, device=args.device)
+                            infer=infer, mesh=mesh, device=args.device)
     framework.prepare_style(vio.read_frame(args.style))
 
     # The pipeline pulls frames from the source lazily, never the whole clip.

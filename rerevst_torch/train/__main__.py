@@ -8,12 +8,19 @@ PyTorch path).  The proposed model is ``--dynamic_filter --both_sty_con
 --data_sigma --data_w``; ``--adaversarial_loss`` (the reference's
 spelling) adds the PatchGAN term (``--gan_mode``, ``--ganWeight``,
 ``--init_type``), and ``--use_mpi``/``--use_video`` train the Figure-16
-ablations on real pairs.  Not ported (each raises ``NotImplementedError``
-naming its ROADMAP item): ``--data_parallel`` > 1, ``--coordinator`` and
-``--num_processes`` > 1 (Queue 1 item 7).
+ablations on real pairs.  ``--data_parallel N`` shards each batch over N
+devices (N visible cards, or N logical shards of the CPU with ``--device
+cpu``) in this process; ``--num_processes N --coordinator HOST:PORT
+--process_id I``, run once per process, joins N processes through
+``torch.distributed`` (NCCL on the cards, gloo on the CPU), one card per
+process, ``--batchSize`` per process.  On several cards run one process
+per card: the in-process shards enqueue under one GIL and a step over
+them is slower than on one card (PERF.md section 5).
 """
 
 import argparse
+
+import torch.distributed as dist
 
 from rerevst_torch.config import (
     LossConfig,
@@ -21,6 +28,7 @@ from rerevst_torch.config import (
     TrainConfig,
     dtype_from_name,
 )
+from rerevst_torch.parallel.mesh import distributed_init
 from rerevst_torch.train.loop import train
 
 
@@ -106,18 +114,19 @@ def build_parser() -> argparse.ArgumentParser:
 
     p.add_argument("--data_parallel", type=int, default=0,
                    help="shard the batch over this many devices (0 = one "
-                        "card; more is not ported: raises, ROADMAP.md "
-                        "Queue 1 item 7)")
+                        "device; with --device cpu, logical shards of the "
+                        "CPU); with multi-process flags the mesh spans the "
+                        "processes and batchSize is PER PROCESS; on several "
+                        "cards one process per card is faster (PERF.md)")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="split each batch into this many micro-batches "
                         "inside one step, averaging their gradients — less "
                         "activation memory at the same effective batch")
     p.add_argument("--coordinator", default=None,
-                   help="multi-host coordinator host:port (not ported: "
-                        "raises, ROADMAP.md Queue 1 item 7)")
+                   help="multi-process: the rendezvous host:port "
+                        "(torch.distributed, the same on every process)")
     p.add_argument("--num_processes", type=int, default=1,
-                   help="multi-host process count (> 1 is not ported: "
-                        "raises, ROADMAP.md Queue 1 item 7)")
+                   help="multi-process: total process count")
     p.add_argument("--process_id", type=int, default=0,
                    help="multi-host: this process's id in [0, "
                         "num_processes)")
@@ -178,15 +187,22 @@ def config_from_args(a) -> TrainConfig:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.num_processes > 1 or args.coordinator:
-        raise NotImplementedError(
-            "multi-process training (--coordinator/--num_processes) is not "
-            "ported yet: ROADMAP.md Queue 1 item 7 (torch.distributed)")
+    if args.num_processes > 1:
+        # Run this module once per process with the same --coordinator and
+        # a unique --process_id; the mesh then spans the processes.
+        if not args.coordinator:
+            raise SystemExit("--num_processes > 1 needs --coordinator")
+        distributed_init(args.coordinator, args.num_processes,
+                         args.process_id, device=args.device)
     cfg = config_from_args(args)
     print(cfg, flush=True)
-    train(cfg, max_steps=args.max_steps, resume=args.continue_training,
-          pretrained=args.pretrained, load_step=args.load_step,
-          vgg_init=args.vgg_init, device=args.device)
+    try:
+        train(cfg, max_steps=args.max_steps, resume=args.continue_training,
+              pretrained=args.pretrained, load_step=args.load_step,
+              vgg_init=args.vgg_init, device=args.device)
+    finally:
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

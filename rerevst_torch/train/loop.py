@@ -17,6 +17,16 @@ package writes; ``resume`` restores it.
 Host-side init (the seeded parameters, a pretrained graft) runs on the CPU
 and moves to the device once.  Reading images (the loader, the validation
 grid, the diagnostic dumps) needs cv2, which the card's machine lacks.
+
+Data-parallel training (``TrainConfig(data_parallel > 1)``, or a
+multi-process run after ``parallel.distributed_init``) runs
+``make_sharded_train_step`` over a mesh (``parallel.device_mesh``): the
+batch size is per process, each process's loader is seeded with
+``seed + 7919 * process_index``, and the chief (process 0) alone logs,
+validates and saves.  A resumed multi-process run checks that every
+process restored the same step and parameters.  The adversarial loss and
+the ``use_mpi``/``use_video`` ablations are single-device only and raise
+under it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rerevst_torch.config import TrainConfig, resolve_device
 from rerevst_torch.data.datasets import get_loader
@@ -45,6 +56,11 @@ from rerevst_torch.models.transformer import (
     TransformerNet,
     init_transformer_params,
 )
+from rerevst_torch.parallel.mesh import (
+    device_mesh,
+    multi_process,
+    process_device,
+)
 from rerevst_torch.train.state import (
     TrainState,
     d_opt_state_tree,
@@ -58,6 +74,7 @@ from rerevst_torch.train.state import (
 from rerevst_torch.train.step import (
     compute_losses,
     make_adversarial_train_step,
+    make_sharded_train_step,
     make_train_step,
 )
 
@@ -222,6 +239,22 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
+def _check_same_resume(state: TrainState, start_step: int) -> None:
+    """Every process must resume the same step and parameters: saving is
+    chief-only, so where ``out_dir`` is not a filesystem every process
+    sees, the others would start from the seed init while the chief
+    resumes, and every averaged gradient would mix divergent replicas."""
+    fp = float(sum(leaf.float().abs().sum()
+                   for _, leaf in tree_leaves(state.params)))
+    views = [None] * dist.get_world_size()
+    dist.all_gather_object(views, [float(start_step), fp])
+    if any(v != views[0] for v in views):
+        raise RuntimeError(
+            "--continue_training resumed divergent states across processes "
+            f"(step/fingerprint rows per process:\n{views}\n). out_dir "
+            "must be a shared filesystem visible to every process.")
+
+
 def train(cfg: TrainConfig, params: Optional[Dict] = None,
           max_steps: Optional[int] = None, resume: bool = False,
           pretrained: Optional[str] = None, load_step: Optional[int] = None,
@@ -232,8 +265,25 @@ def train(cfg: TrainConfig, params: Optional[Dict] = None,
     through the three-stage graft, or a native ``.msgpack``); `resume`
     restores the whole train state from ``cfg.out_dir``, the newest
     checkpoint or the one of `load_step`; `vgg_init` ('torch' | 'he_relu')
-    is the VGG init of freshly initialised backbones."""
+    is the VGG init of freshly initialised backbones.  In a multi-process
+    run `device` names the kind, and each process trains on its own card
+    (the one ``distributed_init`` set)."""
     dev = resolve_device(device)
+    multi = multi_process()
+    data_parallel = cfg.data_parallel > 1 or multi
+    if data_parallel and cfg.loss.adversarial_loss:
+        # Otherwise each process would train an independent GAN on its own
+        # shard: fail loudly, as the MPI/video combination does.
+        raise NotImplementedError(
+            "adversarial_loss is single-device only; drop "
+            "--data_parallel / multi-process flags or the GAN loss")
+    if data_parallel and (cfg.use_mpi or cfg.use_video):
+        raise NotImplementedError(
+            "MPI/video ablation losses are single-device only")
+    process_index = dist.get_rank() if multi else 0
+    is_chief = process_index == 0
+    if multi:
+        dev = process_device(dev)
     net = TransformerNet(cfg.model)
     if params is None:
         params = init_transformer_params(
@@ -260,8 +310,10 @@ def train(cfg: TrainConfig, params: Optional[Dict] = None,
             p, o = restore_train_state(path, state.params)
             load_train_state(state, p, o, start_step)
             print(f"resumed from {path} @ step {start_step}", flush=True)
+        if multi:
+            _check_same_resume(state, start_step)
 
-    d_state = None
+    d_state = mesh = None
     if cfg.loss.adversarial_loss:
         # The PatchGAN's alternating D/G update (train/train.py:275-287).
         from rerevst_torch.models.discriminator import (
@@ -279,15 +331,21 @@ def train(cfg: TrainConfig, params: Optional[Dict] = None,
             state, _, metrics = adv_step(state, d_state, content, style, gen,
                                          extra)
             return state, metrics
+    elif data_parallel:
+        # The batch sharded over the mesh, gradients averaged over every
+        # shard; each process's loader feeds its own part.
+        mesh = device_mesh(cfg.data_parallel, dev)
+        step_fn = make_sharded_train_step(cfg, mesh)
     else:
         step_fn = make_train_step(cfg)
     loader = get_loader(cfg.batch_size, cfg.load_size, cfg.fine_size,
                         cfg.flip, cfg.content_data, cfg.style_data,
-                        num_workers=cfg.num_workers, seed=cfg.seed,
+                        num_workers=cfg.num_workers,
+                        seed=cfg.seed + 7919 * process_index,
                         use_mpi=cfg.use_mpi, use_video=cfg.use_video)
-    logger = MetricsLogger(cfg.log_dir)
+    logger = MetricsLogger(cfg.log_dir) if is_chief else None
     validation = None
-    if os.path.isdir(os.path.join(cfg.val_dir, "content")):
+    if is_chief and os.path.isdir(os.path.join(cfg.val_dir, "content")):
         validation = Validation(cfg.val_dir, net, cfg.out_dir, dev)
         validation.save_results(state.params, 0)
 
@@ -310,7 +368,7 @@ def train(cfg: TrainConfig, params: Optional[Dict] = None,
                 it += 1
                 cur_total += float(metrics["total"])
 
-                if it % cfg.scalar_every == 0:
+                if it % cfg.scalar_every == 0 and is_chief:
                     m = {k: float(v) for k, v in metrics.items()}
                     dt = (time.time() - t0) / cfg.scalar_every
                     t0 = time.time()
@@ -323,7 +381,7 @@ def train(cfg: TrainConfig, params: Optional[Dict] = None,
                           flush=True)
                     logger.log(it, metrics)
 
-                if it % cfg.log_every == 0:
+                if it % cfg.log_every == 0 and is_chief:
                     cur_total /= cfg.log_every
                     if cur_total < min_total:
                         min_total = cur_total
@@ -350,7 +408,7 @@ def train(cfg: TrainConfig, params: Optional[Dict] = None,
         # must not raise (a lost device fails it), or it would mask the
         # original exception.
         try:
-            if it > start_step:
+            if it > start_step and is_chief:
                 save_train_state(cfg.out_dir, it, state.params,
                                  opt_state_tree(state))
                 if d_state is not None:
@@ -359,7 +417,10 @@ def train(cfg: TrainConfig, params: Optional[Dict] = None,
             print(f"WARNING: crash-flush checkpoint failed: {e!r}",
                   flush=True)
         try:
-            logger.close()
+            if logger is not None:
+                logger.close()
         except Exception:  # noqa: BLE001
             pass
+        if mesh is not None:
+            mesh.close()
     return state

@@ -19,8 +19,11 @@ injected fake pair (``Second``, ``FakeFlow``).
 
 ``make_adversarial_train_step`` is the PatchGAN step: one generator
 forward, D's Adam update on the detached output, then G's update through
-the updated D.  Not here: the data-parallel step (ROADMAP.md Queue 1 item
-7), whose configuration flag raises.
+the updated D.  ``make_sharded_train_step`` is the data-parallel step over
+a mesh (``parallel/mesh.py``): each shard computes the gradients of its
+part of the batch, the gradients and metrics are averaged over every shard
+(``pmean``), and each replica of the parameters takes its own Adam step on
+the averaged gradients, as DDP does, so the replicas stay identical.
 """
 
 from __future__ import annotations
@@ -44,7 +47,14 @@ from rerevst_torch.models import vgg
 from rerevst_torch.models.discriminator import discriminator
 from rerevst_torch.models.transformer import decode, encode_style
 from rerevst_torch.ops.image import rgb_to_luma_reversed
-from rerevst_torch.train.state import TrainState, trainable_leaves
+from rerevst_torch.parallel.collectives import run_sharded, shard_batch, \
+    tree_to
+from rerevst_torch.parallel.mesh import lift_local
+from rerevst_torch.train.state import (
+    TrainState,
+    init_train_state,
+    trainable_leaves,
+)
 
 #: The profiler range around the discriminator's part of an adversarial
 #: step: D's forward, backward and Adam update, and G's GAN term through
@@ -242,6 +252,105 @@ def make_train_step(cfg: TrainConfig):
         return state, metrics
 
     return train_step
+
+
+def shard_generator(seed: int, index: int, device) -> torch.Generator:
+    """The generator of the shard with global index `index` for one sharded
+    step: seeded from the step's seed and the index (JAX: ``fold_in(key,
+    axis_index)``), so each shard draws its own fake motion, as
+    independent loader workers would."""
+    return torch.Generator(device=device).manual_seed(
+        (seed * 1_000_003 + index + 1) % (1 << 63))
+
+
+def make_sharded_train_step(cfg: TrainConfig, mesh):
+    """(state, content, style, gen, extra=None) -> (state, metrics): one
+    data-parallel step over `mesh`, `state` updated in place.
+
+    The batch splits over the shards; each shard computes its losses and
+    gradients (``grad_accum`` micro-batches its own part), drawing from
+    ``shard_generator(seed, shard)`` with `seed` drawn once from `gen`.
+    Gradients and metrics are averaged over every shard (within the process
+    in shard order, then across processes).  A shard on the state's device
+    uses the state itself; a shard on another device a replica (a copy of
+    the parameters and the optimizer, made once); one shard per device
+    steps that device's Adam on the averaged gradients.  A batch that the
+    shards do not divide raises: padding a training batch would bias the
+    averaged gradients.  In a multi-process mesh `content` and `style` are
+    this process's LOCAL batches."""
+    accum = max(int(cfg.grad_accum), 1)
+    n_shards = mesh.size
+    multihost = mesh.process_count > 1
+    n_local = len(mesh.devices) if multihost else n_shards
+    devs = mesh.devices
+
+    def make_replica(state: TrainState, dev: torch.device) -> TrainState:
+        rep = init_train_state(tree_to(_detached(state.params), dev), cfg)
+        rep.optimizer.load_state_dict(state.optimizer.state_dict())
+        rep.step = state.step
+        return rep
+
+    def replica(state: TrainState, dev: torch.device) -> TrainState:
+        # A replica steps with the state; one that fell behind (the state
+        # stepped elsewhere) is made anew.
+        if dev == _device_of(state):
+            return state
+        return mesh.replica(state, dev, make=make_replica,
+                            fresh=lambda rep: rep.step == state.step)
+
+    def local(comm, st: TrainState, content, style, seed, extra, stepper):
+        gen = None if seed is None else shard_generator(
+            seed, comm.global_index, comm.device)
+        leaves = trainable_leaves(st)
+        if accum > 1:
+            grads, metrics = _accum_loss_grads(st.params, leaves, cfg, accum,
+                                               content, style, gen, extra)
+        else:
+            total, (metrics, _) = compute_losses(st.params, content, style,
+                                                 gen, cfg, extra)
+            grads = _grads(total, leaves)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        keys = sorted(metrics)
+        avg = comm.pmean(list(grads) + [metrics[k] for k in keys])
+        if stepper:
+            for p, g in zip(leaves, avg[:len(leaves)]):
+                p.grad = g
+            st.optimizer.step()
+            st.step += 1
+        return dict(zip(keys, avg[len(leaves):]))
+
+    def step(state: TrainState, content: torch.Tensor, style: torch.Tensor,
+             gen: Optional[torch.Generator], extra: Optional[Dict] = None):
+        if content.shape[0] % n_local or style.shape[0] % n_local:
+            scope = (f"this process's {n_local} mesh devices" if multihost
+                     else f"the mesh ({n_shards} devices)")
+            raise ValueError(
+                f"sharded train step needs batch divisible by {scope}; got "
+                f"content batch {content.shape[0]}, style batch "
+                f"{style.shape[0]}. Pick batch_size = k * {n_local}.")
+        if multihost:
+            content = lift_local(mesh, content, what="content batch")
+            style = lift_local(mesh, style, what="style batch")
+        seed = None if gen is None else int(torch.randint(
+            0, 1 << 62, (1,), generator=gen, device=gen.device))
+        states = [replica(state, d) for d in devs]
+        first = {}  # the shard that steps each device's optimizer
+        for i, d in enumerate(devs):
+            first.setdefault(str(d), i)
+        steppers = [first[str(d)] == i for i, d in enumerate(devs)]
+        extras = ([None] * len(devs) if extra is None else
+                  [dict(zip(extra, vs)) for vs in zip(
+                      *(shard_batch(v, mesh) for v in extra.values()))])
+        metrics = run_sharded(local, mesh, states, shard_batch(content, mesh),
+                              shard_batch(style, mesh), [seed] * len(devs),
+                              extras, steppers)
+        return state, tree_to(metrics[0], _device_of(state))
+
+    return step
+
+
+def _device_of(state: TrainState) -> torch.device:
+    return trainable_leaves(state)[0].device
 
 
 def discriminator_step(d_state: TrainState, fake: torch.Tensor,

@@ -20,6 +20,7 @@ from rerevst_torch import kernels
 from rerevst_torch.api import Stylization
 from rerevst_torch.config import InferenceConfig
 from rerevst_torch.multistyle import MultiStylization
+from rerevst_torch.parallel import frame_mesh
 from rerevst_tpu.api import Stylization as JaxStylization
 
 REPO = Path(__file__).resolve().parent.parent
@@ -171,20 +172,34 @@ def test_default_device_raises_without_cuda(params, monkeypatch):
         Stylization(params=params)
 
 
-@pytest.mark.parametrize("call,match", [
-    (lambda p: Stylization(params=p, mesh=object(), device="cpu"),
-     "Queue 1 item 7"),
-    (lambda p: MultiStylization(params=p, mesh=object(), device="cpu"),
-     "Queue 1 item 7"),
-    (lambda p: Stylization(params=p, device="cpu").prepare_global(
-        iter(_clip(n=2))), None),
-])
-def test_later_slices_raise(params, call, match):
-    """A device mesh raises in both sessions, naming its ROADMAP item (AOT
-    bundles, once a raise here, are ported: tests/test_torch_aot.py); an
-    unsized iterable passed to prepare_global (once a raise, now ported)
-    spills and streams instead."""
-    if match is None:
+@pytest.mark.parametrize("which", ["mesh-session", "mesh-multistyle",
+                                   "unsized-prepare-global"])
+def test_later_slices_raise(params, jax_frames, which):
+    """Once raises of later slices, now ported: a mesh session (two logical
+    CPU shards: Pass 1 sharded, Pass 2 batch-sharded) gives the JAX
+    session's frames within 1 count; a mesh MultiStylization gives the
+    unmeshed one's; an unsized iterable passed to prepare_global spills and
+    streams."""
+    mesh = frame_mesh(2, devices=["cpu", "cpu"])
+    if which == "mesh-session":
+        s = Stylization(params=params, mesh=mesh, device="cpu")
+        s.prepare_style(_style())
+        got = list(s.stylize_video(_clip(), batch_size=4))
+        assert (s.pass1_mode, s.pass2_mode) == ("sharded", "batch-sharded")
+        assert len(got) == len(jax_frames)
+        for a, b in zip(got, jax_frames):
+            assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
+    elif which == "mesh-multistyle":
+        infer = InferenceConfig(sample_interval=2)
+        outs = []
+        for m in (mesh, None):
+            ms = MultiStylization(params=params, infer=infer, mesh=m,
+                                  device="cpu")
+            ms.prepare_styles([_style(1), _style(2)])
+            outs.append(list(ms.interpolate_video(_clip(n=3), batch_size=2)))
+        for a, b in zip(*outs):
+            assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
+    else:
         s = Stylization(params=params, device="cpu")
         s.prepare_style(_style())
         s.prepare_global(iter(_clip(n=2)))
@@ -192,9 +207,7 @@ def test_later_slices_raise(params, call, match):
         assert set(s.stats.norms) == {"pre", "ada4", "ada3", "ada2", "ada1",
                                       "res4a", "res4b", "res3a", "res3b",
                                       "res2a", "res2b"}
-        return
-    with pytest.raises(NotImplementedError, match=match):
-        call(params)
+    mesh.close()
 
 
 def test_file_inputs_and_order_raise(session, tmp_path):

@@ -85,15 +85,26 @@ def test_cli_matches_jax(inputs, tmp_path, capsys, mode):
         assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
 
 
-def test_cli_rejects_unported_options(inputs):
+def test_cli_rejects_unported_options(inputs, tmp_path, capsys):
+    """``--devices 2`` (two logical CPU shards) runs both passes sharded and
+    gives the frames of one device; ``--mix`` other than none raises,
+    naming its ROADMAP item; a bad granularity is a usage error.  (--tiles
+    is ported: tests/test_torch_tiling.py runs it.)"""
     frames, style = inputs
     base = ["--style", style, "--frames", frames, "--checkpoint", CKPT,
-            "--device", "cpu", "--no-video"]
-    # --tiles is ported: tests/test_torch_tiling.py runs it.
-    for extra, item in ((["--devices", "2"], "Queue 1 item 7"),
-                        (["--mix", "dec"], "Queue 1 item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            stylize.main(base + extra)
+            "--device", "cpu", "--no-video", "--batch", "2", "--interval",
+            "2"]
+    outs = {}
+    for name, extra in (("one", []), ("mesh", ["--devices", "2"])):
+        out = tmp_path / name
+        report = _run(stylize.main, base + ["-o", str(out)] + extra, capsys)
+        assert report["frames"] == 4
+        outs[name] = [cv2.imread(str(out / p)) for p in _tree(out)]
+    assert report["pass1"] == "sharded"
+    for a, b in zip(outs["mesh"], outs["one"]):
+        assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        stylize.main(base + ["--mix", "dec"])
     with pytest.raises(SystemExit):
         stylize.main(base + ["--granularity", "12"])
 

@@ -31,6 +31,7 @@ from rerevst_torch.models.transformer import (
     blend_pytrees_batched,
 )
 from rerevst_torch.multistyle import MultiStylization, linear_sweep_weights
+from rerevst_torch.parallel import frame_mesh
 from rerevst_tpu import interpolate as jax_interpolate
 from rerevst_tpu.models import transformer as jtr
 from rerevst_tpu.multistyle import MultiStylization as JaxMultiStylization
@@ -212,8 +213,21 @@ def test_feature_cache_roundtrip(params, tmp_path):
 
 
 def test_mesh_and_bad_weights_raise(params):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        MultiStylization(params=params, mesh=object(), device="cpu")
+    """A mesh session (two logical CPU shards: per-style Pass 1 sharded, a
+    one-frame decode H-sharded, a batch decode batch-sharded) gives the
+    unmeshed session's frames; bad weights raise."""
+    mesh = frame_mesh(2, devices=["cpu", "cpu"])
+    got = []
+    for m in (mesh, None):
+        ms = MultiStylization(params=params, infer=INFER, mesh=m,
+                              device="cpu")
+        ms.prepare_styles(_styles(2))
+        feats = ms.encode_frames(_clip(n=3))
+        ms.prepare_global(feats)
+        got.append([ms.transfer(feats[2:3], ROWS2[0])]
+                   + ms.transfer_batch(feats[:2], ROWS2 * 2))
+    mesh.close()
+    _close(got[0], got[1], "mesh session")
     ms = MultiStylization(params=params, infer=INFER, device="cpu")
     ms.prepare_styles(_styles(2))
     with pytest.raises(ValueError, match="rows"):
@@ -257,10 +271,19 @@ def test_interpolate_cli_matches_jax(png_inputs, tmp_path, capsys):
 
 
 def test_interpolate_cli_unported_options_raise(png_inputs, tmp_path):
+    """``--devices 2`` (two logical CPU shards) gives the frames of one
+    device; ``--mix`` other than none raises, naming its ROADMAP item."""
+    cv2 = pytest.importorskip("cv2")
     frames, styles = png_inputs
     base = ["--styles", *styles, "--frames", frames, "--checkpoint",
-            str(CKPT), "-o", str(tmp_path / "x"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        interpolate.main(base + ["--devices", "2"])
+            str(CKPT), "--interval", "2", "--style-size", "64", "--device",
+            "cpu"]
+    outs = []
+    for name, extra in (("one", []), ("mesh", ["--devices", "2"])):
+        interpolate.main(base + ["-o", str(tmp_path / name)] + extra)
+        outs.append([cv2.imread(p) for p in sorted(
+            glob.glob(str(tmp_path / name / "*.png")))])
+    assert len(outs[0]) == 5
+    _close(outs[1], outs[0], "--devices 2")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        interpolate.main(base + ["--mix", "dec"])
+        interpolate.main(base + ["-o", str(tmp_path / "x"), "--mix", "dec"])

@@ -157,7 +157,10 @@ def test_cli_trains_on_cpu(tiny_world, monkeypatch):
     """``python -m rerevst_torch.train --device cpu``: one step of the
     proposed model from the bundled checkpoint; then, in process, a resume,
     a resume with the adversarial loss (a fresh D, saved beside the
-    generator), and the refusal of multi-process training."""
+    generator), and multi-process flags reaching ``distributed_init`` with
+    the CLI's arguments (stubbed here: the two-rank run is
+    tests/test_torch_multiprocess.py)."""
+    import rerevst_torch.train.__main__ as cli
     from rerevst_torch.train.__main__ import main
 
     args = ["--device", "cpu", "--batchSize", "1", "--epoches", "1",
@@ -187,8 +190,22 @@ def test_cli_trains_on_cpu(tiny_world, monkeypatch):
     assert ck.latest_checkpoint("out")[1] == 3
     assert [os.path.basename(p) for p in glob.glob("out/netD-step*")] == [
         "netD-step00000001.msgpack"]
-    with pytest.raises(NotImplementedError, match="item 7"):
+    calls = []
+
+    class Rendezvous(Exception):
+        pass
+
+    def fake_init(*a, **kw):
+        calls.append((a, kw))
+        raise Rendezvous
+
+    monkeypatch.setattr(cli, "distributed_init", fake_init)
+    with pytest.raises(SystemExit, match="needs --coordinator"):
         main(args + ["--num_processes", "2"])
+    with pytest.raises(Rendezvous):
+        main(args + ["--num_processes", "2", "--coordinator",
+                     "localhost:12345", "--process_id", "1"])
+    assert calls == [(("localhost:12345", 2, 1), {"device": "cpu"})]
 
 
 def test_loader_batches_match_jax(tiny_world):

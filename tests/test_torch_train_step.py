@@ -268,10 +268,13 @@ def test_memory_options_keep_the_gradient(jax_params, batch, kw, tol):
 
 
 def test_refusals(jax_params, batch):
-    """What the step refuses: the pair-lane kernel, data-parallel training
-    (item 7), a batch that micro-batches do not divide, and micro-batches
-    with the adversarial loss; the adversarial and ablation flags are
-    accepted, and an ablation pair without its mask is an error."""
+    """What the step refuses: the pair-lane kernel, the Figure-16 ablations
+    under data-parallel training (the JAX package's refusal; the
+    configuration itself is accepted), a batch that micro-batches do not
+    divide, and micro-batches with the adversarial loss; the adversarial and
+    ablation flags are accepted, and an ablation pair without its mask is an
+    error."""
+    from rerevst_torch.train.loop import train
     from rerevst_torch.train.step import make_adversarial_train_step
 
     with pytest.raises(ValueError, match="pair-lane"):
@@ -280,8 +283,10 @@ def test_refusals(jax_params, batch):
         == "wgangp"
     for kw in ({"use_mpi": True}, {"use_video": True}):
         assert TrainConfig(**kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TrainConfig(data_parallel=2)
+    for kw in ({"use_mpi": True}, {"use_video": True}):
+        with pytest.raises(NotImplementedError,
+                           match="MPI/video ablation losses are single-device"):
+            train(TrainConfig(data_parallel=2, **kw), device="cpu")
     with pytest.raises(ValueError, match="grad_accum > 1"):
         make_adversarial_train_step(TrainConfig(
             grad_accum=2, loss=LossConfig(adversarial_loss=True)))
