@@ -10,7 +10,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
              and reports the registers and spills of the streamed, wide
              and narrow conv kernels and the filter pair kernel (``nvcc
              -Xptxas -v``; a spill fails, and so does a serialized wgmma in
-             the wide kernel);
+             the wide or sliced kernel);
 3. check   — each kernel against its plain PyTorch version on the card, at the
              main path's shapes (batch 16, 512x512 content padded to 640x640)
              plus ragged ones and inf/NaN inputs, in f16, bf16 and fp32;
@@ -28,10 +28,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
              (exact flows, no cv2), on the card and on the CPU; then
              ``conv3x3_implicit_gemm``, which no model path runs, driven
              alone at the shapes of the JAX package's conv benchmark
-             (``scripts/bench_conv3x3.py``), at VGG conv2_2 and conv1_1 and
-             at C = 32, so that each of its four 16-bit designs (streamed,
-             wide, narrow, cp.async) launches; every global session's Pass-2
-             host prep must have gone through the native library;
+             (``scripts/bench_conv3x3.py``), at VGG conv2_2 and conv1_1, at
+             C = 32 and at the decoder filter blocks' `up` and `down` convs,
+             so that each of its four 16-bit designs (streamed, wide,
+             narrow, sliced) launches; every global session's Pass-2 host
+             prep must have gone through the native library;
    long_clip   — f16 and fp32 ``stylize_video`` of a seeded 65-frame 512x512
              clip at ``sample_interval=1``: 65 samples spill to the host
              spool and stream ('streaming-spill'); launches of the path and
@@ -142,8 +143,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
              Pass 2 alone on those three paths (where a batch's time goes);
              ``rr_conv3x3`` at the VGG shapes conv1_1 (C = 3, the narrow
              kernel), conv2_1 (C = 64) and conv2_2, conv3_1, conv3_2 and
-             conv4_1 (C >= 128, the wide kernel), and the cp.async kernel at
-             C = 32, beside ``F.conv2d``;
+             conv4_1 (C >= 128, the wide kernel), the sliced kernel at C =
+             32 and at the filter blocks' `up` conv and the wide kernel at
+             their `down` conv, beside ``F.conv2d``, and the fp32 CUDA-core
+             kernel at [16,640,640,64] -> 64 beside ``F.conv2d`` without
+             TF32;
              and (phase pipeline) the warm f16 stylize_video's wall time
              and idle share; (phase dispatch) the host cost of each kernel
              op's ``torch.library`` dispatch against its CUDA
@@ -222,10 +226,33 @@ VGG_CONVS = [("VGG conv1_1", (BATCH, PAD_HW, PAD_HW, 3), 64),
              ("VGG conv3_1", (BATCH, 160, 160, 128), 256),
              ("VGG conv3_2", (BATCH, 160, 160, 256), 256),
              ("VGG conv4_1", (BATCH, 80, 80, 256), 512)]
-#: One call of the cp.async implicit GEMM (C = 32, no VGG site) at conv2_x
-#: scale: it is driven and timed beside F.conv2d so that the remaining
-#: igemm design keeps a launch and a yardstick.
-IGEMM_C32 = ("igemm C = 32", (BATCH, 320, 320, 32), 64)
+#: The sliced design (C >= 8 neither 64 nor a multiple of 64 >= 128) at C =
+#: 32 and conv2_x scale (no VGG site), and the decoder's three filter
+#: blocks' convs at relu4_1 scale (rerevst_torch/models/transformer.py: `up`
+#: 32 -> 512 on the sliced design, `down` 512 -> 32 on the wide one), which
+#: the default path runs through F.conv2d today: (site, x shape, O).
+SLICED_CONVS = [("sliced C = 32", (BATCH, 320, 320, 32), 64),
+                ("filter up", (BATCH, 80, 80, 32), 512),
+                ("filter down", (BATCH, 80, 80, 512), 32)]
+#: The fp32 CUDA-core kernel at row 3's shape, beside F.conv2d without TF32
+#: (the JAX package's HIGHEST precision): (site, x shape, O).
+F32_CONV = ("fp32 C = 64", (BATCH, PAD_HW, PAD_HW, 64), 64)
+#: Shapes of the sliced kernel's checks (x shape, O, bias): C = 8 and 16
+#: (16-channel slices), 24, 32, 40, 96, 100 (a zero-padded copy of x), 160
+#: and 200 (32-channel slices; 24, 40 and 200 end in a zero-filled tail);
+#: each tile width its plan picks (16, 32, 64, 128 columns), ragged bands
+#: and strips, W narrower than a tile, B = 1; O = 3 and 5 (scalar stores, a
+#: padded weight copy), 8, 24, 32, 64, 192 (a half-empty channel tile) and
+#: 512 (four).
+SLICED_CHECKS = [
+    ((2, 21, 19, 32), 24, True), ((2, 13, 7, 8), 5, True),
+    ((1, 37, 53, 16), 64, False), ((2, 9, 33, 24), 24, True),
+    ((1, 21, 100, 32), 3, True), ((1, 5, 300, 32), 64, True),
+    ((2, 19, 150, 40), 32, True), ((1, 23, 45, 96), 192, True),
+    ((2, 11, 9, 100), 8, True), ((1, 12, 80, 32), 512, True),
+    ((1, 3, 161, 160), 64, True), ((1, 17, 20, 200), 24, False),
+    ((1, 6, 40, 96), 3, False), ((1, 4, 64, 24), 8, True),
+]
 #: inf and NaN inputs of the C = 3 checks, at [2, 19, 70, 3]: (index, value).
 NARROW_NONFINITE = [((0, 3, 31, 2), "inf"), ((0, 3, 32, 0), "-inf"),
                     ((0, 7, 10, 1), "nan"), ((0, 8, 40, 2), "inf"),
@@ -320,33 +347,33 @@ def check_convs(torch, gen, errs):
     # columns, W < 128, B = 1, and O = 128 as two channel tiles.  C = 128,
     # 256 and 512 take the wide kernel: every tile width its plan picks,
     # ragged bands and strips, B = 1, O = 5 (a zero-padded weight copy), 16,
-    # 64, 192 (a half-empty tile), 256 and 512 (two 256-wide tiles).  C = 32
-    # takes the cp.async implicit GEMM.  C = 1 .. 7 take the narrow kernel
-    # (8 x 32 tiles): ragged last bands and strips, W narrower than a tile,
-    # B = 1, O = 3 and 5 (scalar stores), 16, 64 and 128 (two channel tiles).
-    igemm = [((BATCH, p, p, 64), 64, True), ((BATCH, p, p, 64), 3, True),
-             ((2, 64, 64, 3), 64, True), ((2, 80, 80, 128), 128, False),
-             ((2, 40, 40, 256), 512, True),
-             ((3, 37, 53, 64), 64, True), ((2, 13, 7, 128), 5, False),
-             ((1, 75, 300, 64), 128, True), ((1, 75, 300, 64), 128, False),
-             ((1, 37, 53, 128), 64, True), ((1, 9, 33, 128), 16, True),
-             ((2, 11, 9, 128), 192, True), ((1, 5, 640, 128), 128, True),
-             ((2, 6, 320, 256), 256, False), ((1, 19, 150, 256), 256, True),
-             ((1, 23, 45, 512), 128, False), ((2, 12, 80, 256), 512, True),
-             ((1, 3, 161, 512), 512, True), ((2, 13, 7, 512), 5, True),
-             ((2, 21, 19, 32), 24, True)] \
+    # 64, 192 (a half-empty tile), 256 and 512 (two 256-wide tiles).  C = 1
+    # .. 7 take the narrow kernel (8 x 32 tiles): ragged last bands and
+    # strips, W narrower than a tile, B = 1, O = 3 and 5 (scalar stores), 16,
+    # 64 and 128 (two channel tiles).  SLICED_CHECKS take the sliced kernel.
+    implicit = [((BATCH, p, p, 64), 64, True), ((BATCH, p, p, 64), 3, True),
+                ((2, 64, 64, 3), 64, True), ((2, 80, 80, 128), 128, False),
+                ((2, 40, 40, 256), 512, True),
+                ((3, 37, 53, 64), 64, True), ((2, 13, 7, 128), 5, False),
+                ((1, 75, 300, 64), 128, True), ((1, 75, 300, 64), 128, False),
+                ((1, 37, 53, 128), 64, True), ((1, 9, 33, 128), 16, True),
+                ((2, 11, 9, 128), 192, True), ((1, 5, 640, 128), 128, True),
+                ((2, 6, 320, 256), 256, False), ((1, 19, 150, 256), 256, True),
+                ((1, 23, 45, 512), 128, False), ((2, 12, 80, 256), 512, True),
+                ((1, 3, 161, 512), 512, True), ((2, 13, 7, 512), 5, True)] \
         + [((2, 13, 45, 3), 64, True), ((2, 13, 45, 3), 64, False),
            ((1, 9, 7, 1), 5, True), ((1, 37, 70, 4), 128, True),
            ((1, 37, 70, 4), 128, False), ((3, 5, 33, 7), 16, True),
            ((1, 40, 33, 3), 3, False), ((1, 21, 100, 7), 64, True),
-           ((1, 8, 20, 1), 3, True), ((2, 17, 64, 4), 5, False)]
+           ((1, 8, 20, 1), 3, True), ((2, 17, 64, 4), 5, False)] \
+        + SLICED_CHECKS
     pair = [((BATCH, p, p, 64), 64, True), ((BATCH, p, p, 64), 3, True),
             ((3, 37, 53, 64), 64, True), ((2, 19, 150, 64), 32, True),
             ((1, 131, 200, 64), 64, False), ((1, 130, 257, 64), 5, True),
             ((2, 97, 129, 64), 32, False), ((1, 37, 100, 64), 8, True),
             ((3, 5, 7, 64), 3, False), ((1, 200, 64, 64), 3, True)]
     cases = [("conv3x3_implicit_gemm", s, o, bias, False)
-             for s, o, bias in igemm] \
+             for s, o, bias in implicit] \
         + [("conv3x3_pairlane", s, o, bias, False) for s, o, bias in pair] \
         + [(name, (2, 19, 150, 64), o, True, True)  # inf and NaN inputs
            for name in ("conv3x3_implicit_gemm", "conv3x3_pairlane")
@@ -354,7 +381,9 @@ def check_convs(torch, gen, errs):
         + [("conv3x3_implicit_gemm", (2, 19, 150, 128), o, True, True)
            for o in (128, 5)] \
         + [("conv3x3_implicit_gemm", (2, 19, 70, 3), o, True, True)
-           for o in (64, 5)]  # the same through the narrow kernel
+           for o in (64, 5)] \
+        + [("conv3x3_implicit_gemm", (2, 19, 150, c), o, True, True)
+           for c, o in ((32, 64), (100, 5), (200, 192))]  # the sliced kernel
     for name, shape, o, bias, nonfinite in cases:
         kern = getattr(kernels, name)
         plain = getattr(kernels, name + "_plain")
@@ -371,7 +400,7 @@ def check_convs(torch, gen, errs):
                 x[0, 10, 127, 1] = float("-inf")
                 x[0, 10, 128, 2] = float("nan")
                 x[1, 0, 149, 0] = float("nan")
-                x[1, 18, 0, 63] = float("inf")
+                x[1, 18, 0, min(63, shape[-1] - 1)] = float("inf")
             got = kern(x, w, b)
             torch.cuda.synchronize()
             want = plain(x, w, b)
@@ -607,15 +636,16 @@ def time_kernels(torch):
     return tot, bound_by
 
 
-def conv_bound(x, w, o):
-    """Least device time of one f16 conv call: each input read once and the
-    output written once over HBM, or its 2 M K O flops over the dense f16
-    tensor-core peak, whichever is larger."""
+def conv_bound(x, w, o, peak=F16_FLOP_PER_S):
+    """Least device time of one conv call: each input read once and the
+    output written once over HBM, or its 2 M K O flops over the type's
+    dense peak (`peak`: the f16 tensor cores', or FP32_FLOP_PER_S for fp32
+    on the CUDA cores), whichever is larger."""
     m = x.numel() // x.shape[-1]
     nbytes = (x.numel() + w.numel() + o + m * o) * x.element_size()
     flops = 2 * m * w.shape[0] * w.shape[1] * w.shape[2] * o
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F16_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
                                  else "bytes"), t_bytes, t_ops
 
@@ -810,16 +840,16 @@ def run_e2e(torch):
 def drive_implicit_gemm(torch):
     """conv3x3_implicit_gemm has no model path in either package; its one
     driver in the JAX package is scripts/bench_conv3x3.py.  Drive it once
-    at those shapes, at VGG conv2_2 and conv1_1 and at IGEMM_C32, counts at
-    0 before and read after: each 16-bit design of csrc/conv3x3.cu must have
-    launched."""
+    at those shapes, at VGG conv2_2 and conv1_1 and at SLICED_CONVS, counts
+    at 0 before and read after: each 16-bit design of csrc/conv3x3.cu must
+    have launched."""
     from rerevst_torch import kernels
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     shapes = IGEMM_BENCH + [(shape, o) for site, shape, o in VGG_CONVS
                             if site in ("VGG conv2_2", "VGG conv1_1")] \
-        + [IGEMM_C32[1:]]
+        + [(shape, o) for _, shape, o in SLICED_CONVS]
     kernels.reset_launches()
     for shape, o in shapes:
         x, w, b = conv_inputs(torch, shape, o, torch.float16, gen)
@@ -833,8 +863,8 @@ def drive_implicit_gemm(torch):
     emit({"phase": "e2e", "path": "conv3x3_implicit_gemm standalone",
           "launches": counts, "launches_by_design": by_design})
     if counts["conv3x3_implicit_gemm"] != len(shapes) \
-            or by_design != {"streamed": 2, "wide": 1, "narrow": 1,
-                             "igemm": 1, "fp32": 0}:
+            or by_design != {"streamed": 2, "wide": 2, "narrow": 1,
+                             "sliced": 2, "fp32": 0}:
         fail(f"conv3x3_implicit_gemm standalone launches {counts}, "
              f"by design {by_design}")
     RESULTS["implicit_gemm_launches_by_design"] = by_design
@@ -3726,8 +3756,10 @@ def time_vgg_convs(torch):
     """rr_conv3x3 at the VGG shapes of VGG_CONVS, f16, beside its plain
     version and one F.conv2d call: conv1_1 (C = 3: the narrow kernel),
     conv2_1 (C = 64: the streamed kernel in two channel tiles) and the C >=
-    128 shapes (the wide kernel); then IGEMM_C32 (the cp.async + mma.sync
-    implicit GEMM).  Each is checked against its plain version first."""
+    128 shapes (the wide kernel); then SLICED_CONVS (the sliced kernel at C
+    = 32 and at the filter blocks' `up` conv, the wide kernel at their
+    `down` conv) and F32_CONV (the fp32 CUDA-core kernel, beside F.conv2d
+    with TF32 off).  Each is checked against its plain version first."""
     import torch.nn.functional as F
 
     from rerevst_torch import kernels
@@ -3736,8 +3768,12 @@ def time_vgg_convs(torch):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
     rows = []
-    for site, shape, o in VGG_CONVS + [IGEMM_C32]:
-        x, w, b = conv_inputs(torch, shape, o, torch.float16, gen)
+    sites = [(site, shape, o, torch.float16)
+             for site, shape, o in VGG_CONVS + SLICED_CONVS] \
+        + [F32_CONV + (torch.float32,)]
+    tf32 = torch.backends.cudnn.allow_tf32
+    for site, shape, o, dtype in sites:
+        x, w, b = conv_inputs(torch, shape, o, dtype, gen)
         got = kernels.conv3x3_implicit_gemm(x, w, b)
         want = kernels.conv3x3_implicit_gemm_plain(x, w, b)
         if not conv_within_tolerance(torch, got, want, x, w, b):
@@ -3746,17 +3782,24 @@ def time_vgg_convs(torch):
         del got, want
         wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         xl = x.permute(0, 3, 1, 2)
+        f32 = dtype == torch.float32
+        iters = 3 if f32 else 10
         k = time_ms(torch, lambda: kernels.conv3x3_implicit_gemm(x, w, b),
-                    iters=10, warmup=2)
+                    iters=iters, warmup=1 if f32 else 2)
         pl = time_ms(torch,
                      lambda: kernels.conv3x3_implicit_gemm_plain(x, w, b),
                      iters=3, warmup=1)
-        lib = time_ms(torch, lambda: F.conv2d(xl, wl, b, padding=1),
-                      iters=10, warmup=2)
-        bound, by, t_bytes, t_ops = conv_bound(x, w, o)
+        torch.backends.cudnn.allow_tf32 = False  # fp32: the JAX HIGHEST
+        try:
+            lib = time_ms(torch, lambda: F.conv2d(xl, wl, b, padding=1),
+                          iters=iters, warmup=1 if f32 else 2)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        bound, by, t_bytes, t_ops = conv_bound(
+            x, w, o, FP32_FLOP_PER_S if f32 else F16_FLOP_PER_S)
         row = {"kernel": "conv3x3_implicit_gemm", "site": site,
                "design": design(shape[-1], x.dtype),
-               "shape": shape, "O": o, "dtype": "float16",
+               "shape": shape, "O": o, "dtype": str(dtype)[6:],
                "max_abs_err": err, "ms": k["ms"], "plain_ms": pl["ms"],
                "library_ms": lib["ms"], "bound_ms": bound, "bound_by": by,
                "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
@@ -3773,10 +3816,11 @@ def time_vgg_convs(torch):
 
 def kernel_resources(build) -> dict:
     """Registers, spills and ptxas's notes (a serialized wgmma shows here)
-    of each instance of the streamed C = 64, the wide and the narrow conv
-    kernels and of the filter pair kernel.  A spill fails the phase: the
-    designs count on keeping their fragments and accumulators in registers;
-    so does a note that the wide kernel's wgmmas are serialized."""
+    of each instance of the streamed C = 64, the wide, the narrow and the
+    sliced conv kernels and of the filter pair kernel.  A spill fails the
+    phase: the designs count on keeping their fragments and accumulators in
+    registers; so does a note that the wide or sliced kernel's wgmmas are
+    serialized."""
     import re
 
     dts = {"f": "fp32", "6__half": "f16", "13__nv_bfloat16": "bf16"}
@@ -3792,6 +3836,11 @@ def kernel_resources(build) -> dict:
         if m:
             out[f"conv3x3_narrow_kernel<{dts[m.group(1)]}, C={m.group(2)}, "
                 f"N={m.group(3)}>"] = info
+        m = re.search(r"conv3x3_sliced_kernelI(6__half|13__nv_bfloat16)"
+                      r"Li(\d+)ELi(\d+)E", name)
+        if m:
+            out[f"conv3x3_sliced_kernel<{dts[m.group(1)]}, N={m.group(2)}, "
+                f"KS={m.group(3)}>"] = info
     n_conv = len(out)
     n_wide = sum(k.startswith("conv3x3_wide") for k in out)
     if n_wide != 12:
@@ -3799,7 +3848,11 @@ def kernel_resources(build) -> dict:
     n_narrow = sum(k.startswith("conv3x3_narrow") for k in out)
     if n_narrow != 28:
         fail(f"ptxas reported {n_narrow} narrow conv kernels, not 28")
-    serialized = [k for k, v in out.items() if k.startswith("conv3x3_wide")
+    n_sliced = sum(k.startswith("conv3x3_sliced") for k in out)
+    if n_sliced != 20:
+        fail(f"ptxas reported {n_sliced} sliced conv kernels, not 20")
+    serialized = [k for k, v in out.items()
+                  if k.startswith(("conv3x3_wide", "conv3x3_sliced"))
                   and any("wgmma" in n and "serializ" in n
                           for n in v["notes"])]
     if serialized:
@@ -3871,7 +3924,7 @@ def main() -> int:
     check_against_cpu(torch)
     check_pth(torch)
     temporal(torch, sessions)
-    igemm_counts = drive_implicit_gemm(torch)
+    implicit_counts = drive_implicit_gemm(torch)
     long = long_clip(torch)
     native_prep(torch, sessions["f16"])
     ms = multistyle(torch, errs)
@@ -3925,7 +3978,7 @@ def main() -> int:
             "rerevst_tpu/kernels/conv3x3.py:81",
             conv_tot["conv3x3_implicit_gemm"]["bound_by"],
             "standalone at scripts/bench_conv3x3.py's shapes (no model path)",
-            igemm_counts),
+            implicit_counts),
         "conv3x3_pairlane": ("rerevst_torch/csrc/conv3x3.cu",
                              "rerevst_tpu/kernels/conv3x3.py:210",
                              conv_tot["conv3x3_pairlane"]["bound_by"],
@@ -3961,7 +4014,7 @@ def main() -> int:
         if entry["name"] == "conv3x3_implicit_gemm":
             entry["launches_by_design"] = \
                 RESULTS["implicit_gemm_launches_by_design"]
-            # Each 16-bit design at its VGG (or IGEMM_C32) sites.
+            # Each design at its VGG, SLICED_CONVS or F32_CONV sites.
             entry["designs"] = {}
             for r in vgg_rows:
                 entry["designs"].setdefault(r["design"], []).append(

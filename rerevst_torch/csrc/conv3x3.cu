@@ -25,10 +25,12 @@
 // * 16-bit with 1 <= C <= 7 -- rr_conv3x3 only (VGG's conv1_1 with C = 3,
 //   whose 6-byte pixel stride no tensor map takes): the narrow design below
 //   (conv3x3_narrow_kernel).
-// * 16-bit with any other C -- rr_conv3x3 only (C = 8, 32, and C that fill
-//   no 64-channel slice): the cp.async implicit GEMM (conv3x3_igemm_kernel).
+// * 16-bit with any other C >= 8 -- rr_conv3x3 only (C = 8, 32, 96, 100,
+//   160, 200, ...: C that fills no 64-channel slice): the sliced design
+//   below (conv3x3_sliced_kernel).
 // * fp32: true fp32 CUDA-core FMAs (the counterpart of the JAX package's
 //   HIGHEST precision) in one kernel that both entry points use.
+// No 16-bit call reaches a cp.async + mma.sync kernel.
 // A tensor map that cannot be encoded or a refused launch is returned as
 // an error: nothing retries on another design.
 //
@@ -177,15 +179,73 @@
 //   aligned span) or steering L2 (evict-first stores, an evict-last
 //   prefetch of x) did not recover it.
 
-// The cp.async implicit GEMM (other C).  A block computes 128 consecutive
-// output pixels (flattened over batch, rows and columns) by up to 64 output
-// channels.  Each K step stages a 128 x 32 input chunk, gathered straight
-// from x with the halo's zeros, and a 32 x N weight chunk in shared memory,
-// double-buffered with cp.async (16-byte copies whose out-of-image and
-// past-C parts are zero-filled by the copy itself; scalar loads where C or O
-// is not a multiple of 8).  mma.sync m16n8k16 with fp32 accumulation,
-// operands through ldmatrix (rows padded by 16 bytes).  Every input value is
-// gathered nine times per call, from L2.
+// The sliced design (16-bit, C >= 8 that is neither 64 nor a multiple of 64
+// >= 128: C = 8, 32, 96, 100, 160, 200, ...).  It too replaces
+// conv3x3_implicit_gemm.  At these widths K = 9C is short and the output
+// is most of the bytes: [16,320,320,32] -> 64 moves 192 bytes a pixel, two
+// thirds of them stores, for 36.9 kflop (0.094 ms of bytes against 0.061
+// of products); the decoder's filter `up` conv [16,80,80,32] -> 512 moves
+// 112 MB, 94% stores (0.0334 ms), for 30.2 GFLOP (0.0305 ms).  So it must
+// read x about once, feed wgmma from shared memory and, above all, keep
+// the output stream busy.
+// * Work split (kernels/conv3x3.py: sliced_plan).  Tiles of 256 pixels
+//   (rows x cols, cols = 16, 32, 64 or 128, narrowest of those that pad the
+//   image least: taller tiles re-read fewer halo rows) x N output channels
+//   (O rounded up to 8, 16, 32 or 64 below 64, else 128).  One persistent
+//   block per SM walks tiles in wide_tile's order (channel tile fastest).
+// * K in slices of KS = 16 channels where C <= 16, else 32 (a 16-channel
+//   stage carries half the products for the same barrier round trip and
+//   wgmma wait), x in TMA boxes {KS, cols, rows + 2, 1} with the 32- or
+//   64-byte swizzle (the box's inner extent is the swizzle span).  A stage
+//   is one slice at one dx: the box at (s KS, x0 + dx - 1, y0 - 1, b), and
+//   the three taps (dy, dx), dy = 0, 1, 2, of the weights.  Its A for tap
+//   dy starts dy x cols pixels into the box: cols is a multiple of 8, so
+//   each tap's operand starts on a whole 8-row swizzle group and wgmma reads
+//   it through a K-major descriptor (layout 64B or 32B, 8-row stride 8 KS 2
+//   bytes), with no shifted copy.  Each input value is staged 3 (rows + 2)
+//   / rows times per channel tile (3.4 at rows = 16), not nine.  The
+//   weights are a 3-D tensor map [9][C][ld], boxes {64, KS, 1}: the
+//   hardware zero-fills a slice's tail past C in B as in A (the box at
+//   channel s KS reads past C only out of bounds), so both sides of a
+//   padded K column are true zeros and a non-finite input never meets a
+//   padded weight.  B lands O-contiguous with the 128-byte swizzle and
+//   wgmma reads it MN-major (leading offset KS 128 bytes), as in the wide
+//   design.  A ring of stages (as many as fit beside the output boxes and
+//   the bias, at most 8: 6 and 3 at the two shapes above), one full and one
+//   empty mbarrier each; one producer thread, two consumer warpgroups of
+//   two m64 blocks each, a stage's 3 x KS / 16 x 2 wgmmas in flight as one
+//   group while the previous stage is released.
+// * C % 8 != 0 (C = 100: no 16-byte pixel stride, so no tensor map): the
+//   wrapper hands the kernel copies of x and w zero-padded to C rounded up
+//   to KS (the copy counts in the wrapper's time; a whole slice per pixel
+//   keeps each box row on 32-byte sectors).  O % 8 != 0: a copy of w padded
+//   to ld = O rounded up to 8, as in the wide design.
+// * The output stream.  The fp32 sums start from the bias.  Each consumer
+//   warpgroup rounds its finished 128 pixels once into staging boxes
+//   {CW, min(cols, 64), 64 / min(cols, 64), 1} of y, one per m64 block and
+//   CW = min(N, 64) channels (swizzled by CW x 2 bytes, so the writes are
+//   free of bank conflicts), all behind one barrier and one proxy fence,
+//   and one thread stores them with TMA bulk tensor stores; the hardware
+//   drops what falls past the image or past O.  A box is rewritten a tile
+//   later, after cp.async.bulk.wait_group.read says its store has read it,
+//   so tile t's stores drain while tile t + 1's products run.  O % 8 != 0
+//   (no tensor map over y): coalesced scalar stores from the same boxes.
+//   The bias is staged in shared memory once per block: a tile's global
+//   loads wait behind the ring's L2 traffic, and one box at a time, each
+//   behind its own barriers, fence and bias loads, left the tensor cores
+//   idle for a serial chain of waits (0.035 of the `up` conv's 0.077 ms).
+// * No 64-channel slices: a stage's bytes per product do not depend on KS,
+//   and a 64-channel stage at cols = 128, N = 128 (64 KB of A, 48 KB of
+//   weights) leaves no room for a ring.
+// * Measured (scripts/probe_sliced_conv.py, chip_smoke.py; NVIDIA H100
+//   80GB HBM3 at 700 W): 0.139 ms at [16,320,320,32] -> 64 (68% of its
+//   bound) and 0.068 at the `up` conv (49%), against F.conv2d's 0.475 and
+//   0.224.  What remains is the staging from L2 and the epilogue under the
+//   products.
+// * Rejected: a generalized streamed design (32-channel halo rows, A
+//   through ldmatrix, x read once).  Its family, the streamed kernel at C
+//   = 64 on the same B, H, W and O, took 0.252 and 0.165 ms at the two
+//   shapes (at O = 512 it re-streams x for each of 8 channel tiles).
 //
 // Offsets are 64-bit: a batch of 16 frames of 640^2 x 64 holds 4.2e8
 // values.
@@ -193,15 +253,13 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 
+#include <algorithm>
 #include <type_traits>
 #include <utility>
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps (implicit GEMM, fp32)
-constexpr int kBM = 128;       // output pixels per block tile (implicit GEMM)
-constexpr int kKC = 32;        // channels per K step (implicit GEMM)
-constexpr int kLDA = kKC + 8;  // padded row of the staged input chunk
+constexpr int kThreads = 256;  // 8 warps (fp32)
 
 // The streamed design.
 constexpr int kC = 64;                     // input channels it takes
@@ -237,10 +295,21 @@ struct Wide {
                                   + 2 * kStages * 8;      // mbarriers
 };
 
-// Padded row length of a [k][BN] weight tile: 16 bytes of padding keeps
-// ldmatrix free of bank conflicts; an 8-wide row is already conflict-free.
-template <int BN>
-__host__ __device__ constexpr int ldw() { return BN == 8 ? 8 : BN + 8; }
+// The sliced design: tiles of 256 pixels x BN channels, K slices of KS.
+template <int BN, int KS>
+struct Sliced {
+  static constexpr int kM = 256;                          // pixels a tile
+  static constexpr int kChunks = BN >= 64 ? BN / 64 : 1;  // B boxes a tap
+  static constexpr int kBBox = KS * 128;                  // {64 o, KS c}
+  static constexpr int kBTaps = 3 * kChunks * kBBox;      // a stage's B
+  static constexpr int kCW = BN < 64 ? BN : 64;           // staged channels
+  static constexpr int kOutBox = 64 * kCW * 2;            // 64 px x kCW
+  static constexpr int kOutBoxes = 2 * (BN / kCW);        // a warpgroup's tile
+  static constexpr int kFixed = 1024                      // base alignment
+                                + 2 * kOutBoxes * kOutBox;
+};
+constexpr int kSlicedMaxStages = 8;
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may take
 
 // ---------------------------------------------------------------------------
 // PTX helpers (the cp.async ones are in common.cuh)
@@ -253,19 +322,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  ldsm_x4(r, smem_addr(p));
-}
-
-// B fragment of m16n8k16 from a [k][n] row-major tile: lane l (< 16) names
-// row k = l, columns n .. n+7; the transpose gives the "col" operand.
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p)));
 }
 
 template <typename T>
@@ -404,13 +460,18 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// Shared-memory matrix descriptor of a K-major operand with the 128-byte
-// swizzle: start address >> 4, leading offset 1 (unused), stride 1024 bytes
-// between 8-row groups, layout 1 (128B swizzle).  The base must be
-// 1024-byte aligned; a k16 step adds 32 bytes to the start address.
+// Shared-memory matrix descriptor of a K-major operand with the S-byte
+// swizzle (S = 128 for the streamed and wide designs, 32 or 64 for the
+// sliced one), as TMA lands boxes whose inner extent is S bytes: start
+// address >> 4, leading offset 1 (unused), each row one S-byte swizzle
+// row, eight rows a group 8 S bytes apart (the stride offset), layout 1, 2
+// or 3 (128B, 64B, 32B).  A start must sit on a whole group of the
+// pattern; a k16 step adds 32 bytes to it.
+template <int S = 128>
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  constexpr uint64_t layout = S == 128 ? 1 : S == 64 ? 2 : 3;
   return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (1ull << 16) |
-         (64ull << 32) | (1ull << 62);
+         (static_cast<uint64_t>(S / 2) << 32) | (layout << 62);
 }
 
 // wgmma.mma_async m64nNk16, fp32 accumulators d (N / 2 per thread), A from
@@ -495,6 +556,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of a 3-D tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
 // Waits until at most N of this warpgroup's committed wgmma groups are
 // still in flight.
 template <int N>
@@ -507,10 +580,12 @@ __device__ __forceinline__ void wgmma_wait() {
 // row-major matrix: each k row of a box is one 128-byte swizzle row, eight
 // rows make a 1024-byte group.  Leading offset: 8192 bytes from one
 // 64-column box to the next along N; stride offset: 1024 bytes from one
-// group of eight k rows to the next.  A k16 step adds 2048 bytes.
-__device__ __forceinline__ uint64_t wgmma_desc_mn(uint32_t addr) {
+// group of eight k rows to the next.  A k16 step adds 2048 bytes.  The
+// sliced design's boxes hold KS k rows: leading offset `lbo` = KS 128.
+__device__ __forceinline__ uint64_t wgmma_desc_mn(uint32_t addr,
+                                                  uint32_t lbo = kBChunk) {
   return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>(kBChunk >> 4) << 16) | (64ull << 32) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (64ull << 32) |
          (1ull << 62);
 }
 
@@ -1061,197 +1136,6 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_wide_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// 16-bit, other C (rr_conv3x3): tiles of 128 pixels x BN channels, K in
-// 32-wide chunks
-// ---------------------------------------------------------------------------
-
-// Warp tiling of a 128 x BN block tile over 8 warps: 4 x 2 warps of 32 x 32
-// at BN = 64, else 8 x 1 warps of 16 x BN.
-template <int BN>
-struct WarpTile {
-  static constexpr int kWarpsN = BN == 64 ? 2 : 1;
-  static constexpr int kWarpsM = 8 / kWarpsN;
-  static constexpr int kWM = kBM / kWarpsM;  // rows per warp
-  static constexpr int kWN = BN / kWarpsN;   // columns per warp
-  static constexpr int kMI = kWM / 16;       // m16 tiles per warp
-  static constexpr int kNI = kWN / 8;        // n8 tiles per warp
-};
-
-// One k16 step of a warp's products: A rows from `a_row(i)` (the address of
-// row (lane % 16) of m16 tile i at column 0 of this step), B from a [k][n]
-// tile at `b` (row 0 of this step, the warp's first column).
-template <typename T, int BN, typename ARow>
-__device__ __forceinline__ void warp_k16(
-    float (&acc)[WarpTile<BN>::kMI][WarpTile<BN>::kNI][4], ARow a_row,
-    const T* b, int lane) {
-  using WT = WarpTile<BN>;
-  constexpr int LDB = ldw<BN>();
-  uint32_t af[WT::kMI][4], bf[WT::kNI][2];
-#pragma unroll
-  for (int i = 0; i < WT::kMI; ++i) ldsm_x4(af[i], a_row(i) + (lane >> 4) * 8);
-#pragma unroll
-  for (int j = 0; j < WT::kNI; ++j)
-    ldsm_x2_trans(bf[j], b + (lane & 15) * LDB + j * 8);
-#pragma unroll
-  for (int i = 0; i < WT::kMI; ++i)
-#pragma unroll
-    for (int j = 0; j < WT::kNI; ++j) mma16816<T>(acc[i][j], af[i], bf[j]);
-}
-
-// Epilogue part 1: accumulators + bias (fp32), rounded once, into a
-// [128][BN + 8] tile in shared memory.
-template <typename T, int BN>
-__device__ __forceinline__ void stage_out(
-    const float (&acc)[WarpTile<BN>::kMI][WarpTile<BN>::kNI][4], T* os,
-    const T* __restrict__ bias, int n0, int O, int wm, int wn, int lane) {
-  using WT = WarpTile<BN>;
-  constexpr int LDO = BN + 8;
-#pragma unroll
-  for (int j = 0; j < WT::kNI; ++j) {
-    const int col = wn * WT::kWN + j * 8 + (lane & 3) * 2;
-    const int o = n0 + col;
-    const float b0 = (bias != nullptr && o < O) ? rr_to_float(bias[o]) : 0.f;
-    const float b1 =
-        (bias != nullptr && o + 1 < O) ? rr_to_float(bias[o + 1]) : 0.f;
-#pragma unroll
-    for (int i = 0; i < WT::kMI; ++i) {
-      const int row = wm * WT::kWM + i * 16 + (lane >> 2);
-      os[row * LDO + col] = rr_from_float<T>(acc[i][j][0] + b0);
-      os[row * LDO + col + 1] = rr_from_float<T>(acc[i][j][1] + b1);
-      os[(row + 8) * LDO + col] = rr_from_float<T>(acc[i][j][2] + b0);
-      os[(row + 8) * LDO + col + 1] = rr_from_float<T>(acc[i][j][3] + b1);
-    }
-  }
-}
-
-// Epilogue part 2: rows of the staged tile to y.  `pix(r)` is row r's pixel
-// index into y, or -1 past the ragged edge.
-template <typename T, int BN, bool VO, typename Pix>
-__device__ __forceinline__ void store_out(const T* os, T* __restrict__ y,
-                                          Pix pix, int n0, int O) {
-  constexpr int LDO = BN + 8;
-  if (VO) {  // O % 8 == 0: whole 16-byte vectors
-    constexpr int VPR = BN / 8;
-    for (int i = threadIdx.x; i < kBM * VPR; i += kThreads) {
-      const int r = i / VPR, v = i % VPR;
-      const long long m = pix(r);
-      const int o = n0 + v * 8;
-      if (m >= 0 && o < O)
-        *reinterpret_cast<uint4*>(y + m * O + o) =
-            *reinterpret_cast<const uint4*>(os + r * LDO + v * 8);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kBM * BN; i += kThreads) {
-      const int r = i / BN, c = i % BN;
-      const long long m = pix(r);
-      if (m >= 0 && n0 + c < O) y[m * O + n0 + c] = os[r * LDO + c];
-    }
-  }
-}
-
-template <typename T, int BN, bool VX, bool VO>
-__global__ void __launch_bounds__(kThreads, 2) conv3x3_igemm_kernel(
-    const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ bias,
-    T* __restrict__ y, int B, int H, int W, int C, int O) {
-  using WT = WarpTile<BN>;
-  constexpr int LDB = ldw<BN>();
-  constexpr int kStageA = kBM * kLDA;
-  constexpr int kStageB = kKC * LDB;
-  static_assert(kBM * (BN + 8) <= 2 * kStageA, "epilogue tile fits");
-  __shared__ __align__(16) T as[2 * kStageA];
-  __shared__ __align__(16) T bs[2 * kStageB];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % WT::kWarpsM, wn = warp / WT::kWarpsM;
-  const long long M = (long long)B * H * W;
-  const long long m0 = (long long)blockIdx.x * kBM;
-  const int n0 = blockIdx.y * BN;
-
-  // Each thread stages one input row (pixel) of every chunk: 16 channels.
-  const int arow = tid >> 1, acol = (tid & 1) * 16;
-  const long long am = m0 + arow;
-  const bool am_ok = am < M;
-  const int ax = am_ok ? (int)(am % W) : 0;
-  const long long aq = am_ok ? am / W : 0;
-  const int ay = (int)(aq % H);
-  const long long ab = aq / H;
-
-  const int nkc = (C + kKC - 1) / kKC;
-  const int nk = 9 * nkc;
-  const T zero = rr_from_float<T>(0.f);
-
-  auto load = [&](int stage, int kt) {
-    const int tap = kt / nkc, c0 = (kt % nkc) * kKC;
-    const int yy = ay + tap / 3 - 1, xx = ax + tap % 3 - 1;
-    const bool in = am_ok && yy >= 0 && yy < H && xx >= 0 && xx < W;
-    const T* src = x + ((ab * H + yy) * W + xx) * C;
-    T* dst = as + stage * kStageA + arow * kLDA + acol;
-    if (VX) {
-#pragma unroll
-      for (int v = 0; v < 2; ++v) {
-        const int c = c0 + acol + v * 8;
-        const bool ok = in && c < C;
-        cp_async16(dst + v * 8, ok ? src + c : x, ok);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int c = c0 + acol + j;
-        dst[j] = (in && c < C) ? src[c] : zero;
-      }
-    }
-    constexpr int VPR = BN / 8;  // 8-wide weight vectors per row
-    if (tid < kKC * VPR) {
-      const int r = tid / VPR, o = n0 + (tid % VPR) * 8, c = c0 + r;
-      const T* wsrc = w + ((long long)tap * C + c) * O + o;
-      T* wdst = bs + stage * kStageB + r * LDB + (tid % VPR) * 8;
-      if (VO) {
-        const bool ok = c < C && o < O;
-        cp_async16(wdst, ok ? wsrc : w, ok);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          wdst[j] = (c < C && o + j < O) ? wsrc[j] : zero;
-      }
-    }
-  };
-
-  float acc[WT::kMI][WT::kNI][4];
-#pragma unroll
-  for (int i = 0; i < WT::kMI; ++i)
-#pragma unroll
-    for (int j = 0; j < WT::kNI; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-
-  load(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load((kt + 1) & 1, kt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const T* a = as + (kt & 1) * kStageA;
-    const T* b = bs + (kt & 1) * kStageB + wn * WT::kWN;
-#pragma unroll
-    for (int kk = 0; kk < kKC; kk += 16) {
-      auto a_row = [&](int i) {
-        return a + (wm * WT::kWM + i * 16 + (lane & 15)) * kLDA + kk;
-      };
-      warp_k16<T, BN>(acc, a_row, b + kk * LDB, lane);
-    }
-    __syncthreads();  // the next iteration's copies overwrite this stage
-  }
-  cp_async_wait<0>();
-
-  T* os = as;
-  stage_out<T, BN>(acc, os, bias, n0, O, wm, wn, lane);
-  __syncthreads();
-  store_out<T, BN, VO>(
-      os, y, [&](int r) { return m0 + r < M ? m0 + r : -1LL; }, n0, O);
-}
-
-// ---------------------------------------------------------------------------
 // 16-bit, 1 <= C <= 7 (rr_conv3x3): the narrow design (above)
 // ---------------------------------------------------------------------------
 
@@ -1546,6 +1430,223 @@ __global__ void __launch_bounds__(kNThreads, 2) conv3x3_narrow_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// 16-bit, other C >= 8 (rr_conv3x3): the sliced design (above)
+// ---------------------------------------------------------------------------
+
+// Byte offset of (pixel p, channel n) in a staged output box of CW
+// channels a pixel: CW 2-byte rows with TMA's swizzle of that span (bits 4
+// .. of the offset XORed with bits 7 ..; none for 16-byte rows).
+template <int CW>
+__device__ __forceinline__ int sliced_out_offset(int p, int n) {
+  const int lin = (p * CW + n) * 2;
+  constexpr int mask = CW * 2 / 16 - 1;
+  return CW == 8 ? lin : lin ^ (((lin >> 7) & mask) << 4);
+}
+
+// One stage's products for a warpgroup: taps dy = 0, 1, 2 of the stage's
+// dx, each KS / 16 k16 steps into both m64 blocks (the sums, which start
+// from the bias, accumulate).  da: the warpgroup's first pixel at dy = 0;
+// tap dy starts dy x `drow` further on (a row of cols pixels, in 16-byte
+// units), a k16 step 32 bytes and an m64 block 64 KS 2 bytes on.  db: the
+// stage's B; tap dy starts dy kChunks kBBox bytes on, a k16 step 2048
+// bytes.
+template <typename T, int BN, int KS>
+__device__ __forceinline__ void sliced_stage(float (&acc)[2][BN / 2],
+                                             uint64_t da, uint64_t db,
+                                             uint32_t drow) {
+  using P = Sliced<BN, KS>;
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+    for (int i = 0; i < KS / 16; ++i)
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        wgmma_ss<T, BN>(acc[m], da + dy * drow + m * (64 * KS * 2 / 16) + 2 * i,
+                        db + dy * (P::kChunks * P::kBBox / 16) + 128 * i, 1);
+}
+
+// xmap: x as [B][H][W][C] (C % 8 = 0), boxes {KS, cols, rows + 2, 1}, the
+// KS 2-byte swizzle; wmap: the weights as [9][C][ld], boxes {64, KS, 1},
+// the 128-byte swizzle; ymap: y as [B][H][W][O], boxes {CW, min(cols, 64),
+// 64 / min(cols, 64), 1}, swizzled by CW 2 bytes (unused where O % 8 !=
+// 0).  `lc` = log2(cols); `stages` stages of `a_slot` + kBTaps bytes.
+template <typename T, int BN, int KS>
+__global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_sliced_kernel(
+    const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap wmap,
+    const __grid_constant__ CUtensorMap ymap, const T* __restrict__ bias,
+    T* __restrict__ y, int B, int H, int W, int C, int O, int lc, int stages,
+    int a_slot) {
+  using P = Sliced<BN, KS>;
+  constexpr int CW = P::kCW;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const int stage_bytes = a_slot + P::kBTaps;
+  const uint32_t ring = smem_addr(base);
+  unsigned char* out_s = base + (size_t)stages * stage_bytes;
+  float* bias_s = reinterpret_cast<float*>(out_s + 2 * P::kOutBoxes * P::kOutBox);
+  const int n_tiles = (O + BN - 1) / BN;
+  const uint32_t full = smem_addr(bias_s + n_tiles * BN);
+  const uint32_t empty = full + 8 * stages;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerThreads / 32);
+    }
+    fence_barrier_init();
+  }
+  // The bias in fp32, zero past O, once per block: a global load in a
+  // tile's critical path waits behind the ring's traffic in L2.
+  for (int i = tid; i < n_tiles * BN; i += kSpecThreads)
+    bias_s[i] = bias != nullptr && i < O ? rr_to_float(bias[i]) : 0.f;
+  __syncthreads();
+
+  const int cols = 1 << lc, rows = P::kM >> lc;
+  const int strips = (W + cols - 1) >> lc;
+  const int bands = (H + rows - 1) / rows;
+  const long long tiles = (long long)n_tiles * strips * bands * B;
+  const int ksteps = 3 * ((C + KS - 1) / KS);  // k = slice 3 + dx
+
+  if (tid >= kConsumerThreads) {
+    // The producer warpgroup: one thread streams every tile's stages.
+    regs_release();
+    if (tid == kConsumerThreads) {
+      const uint32_t tx = (rows + 2) * cols * KS * 2 + P::kBTaps;
+      int s = 0;
+      uint32_t ph = 0;
+      for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const WideTile u = wide_tile(t, n_tiles, strips, bands, rows, cols, BN);
+        for (int k = 0; k < ksteps; ++k) {
+          const int sl = k / 3, dx = k - 3 * sl;
+          const uint32_t a = ring + s * stage_bytes;
+          mbar_wait(empty + 8 * s, ph ^ 1);
+          mbar_expect_tx(full + 8 * s, tx);
+          tma_load_4d(a, &xmap, full + 8 * s, sl * KS, u.x0 + dx - 1,
+                      u.y0 - 1, u.b);
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+            for (int j = 0; j < P::kChunks; ++j)
+              tma_load_3d(a + a_slot + (dy * P::kChunks + j) * P::kBBox, &wmap,
+                          full + 8 * s, u.n0 + 64 * j, sl * KS, 3 * dy + dx);
+          if (++s == stages) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumers: warpgroup wg computes tile pixels 128 wg .. + 127, two
+  // m64 blocks.
+  regs_claim();
+  const int wg = tid >> 7, wtid = tid & 127, lane = tid & 31;
+  const int r = ((tid >> 5) & 3) * 16 + (lane >> 2);  // accumulator row
+  const bool tma = O % 8 == 0;
+  unsigned char* boxes = out_s + wg * P::kOutBoxes * P::kOutBox;
+  const uint32_t drow = (uint32_t)(cols * KS * 2) >> 4;
+  float acc[2][BN / 2];
+  int s = 0;
+  uint32_t ph = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const WideTile u = wide_tile(t, n_tiles, strips, bands, rows, cols, BN);
+    // The sums start from the bias (fp32).
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int o = u.n0 + j * 8 + (lane & 3) * 2;
+      const float b0 = bias_s[o], b1 = bias_s[o + 1];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        acc[m][4 * j] = acc[m][4 * j + 2] = b0;
+        acc[m][4 * j + 1] = acc[m][4 * j + 3] = b1;
+      }
+    }
+    int prev = 0;
+    for (int k = 0; k < ksteps; ++k) {
+      mbar_wait(full + 8 * s, ph);
+      const uint32_t a = ring + s * stage_bytes;
+      const uint64_t da = wgmma_desc<KS * 2>(a + wg * 128 * KS * 2);
+      const uint64_t db = wgmma_desc_mn(a + a_slot, P::kBBox);
+      fence_regs(acc);
+      wgmma_fence();
+      sliced_stage<T, BN, KS>(acc, da, db, drow);
+      wgmma_commit();
+      if (k > 0) {
+        // The previous stage's group is done: it may be refilled.
+        wgmma_wait<1>();
+        fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * prev);
+      }
+      prev = s;
+      if (++s == stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * prev);
+
+    // The epilogue: the warpgroup's two m64 blocks, CW channels a box,
+    // rounded once into its staging boxes and stored by TMA (or by scalar
+    // stores).  The boxes were last stored a tile ago: those stores must
+    // have read them (and, for scalar stores, every thread copied them out).
+    constexpr int NB = BN / CW;  // boxes an m64 block
+    if (tma && wtid == 0) bulk_wait_read<0>();
+    bar_sync_wg(1 + wg);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        unsigned char* box = boxes + (m * NB + c) * P::kOutBox;
+#pragma unroll
+        for (int j = 0; j < CW / 8; ++j) {
+          const int col = j * 8 + (lane & 3) * 2, ai = 4 * (c * CW / 8 + j);
+          *reinterpret_cast<uint32_t*>(box + sliced_out_offset<CW>(r, col)) =
+              pack2<T>(acc[m][ai], acc[m][ai + 1]);
+          *reinterpret_cast<uint32_t*>(box + sliced_out_offset<CW>(r + 8, col)) =
+              pack2<T>(acc[m][ai + 2], acc[m][ai + 3]);
+        }
+      }
+    if (tma) fence_async_shared();  // the TMA stores (async proxy) read them
+    bar_sync_wg(1 + wg);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int p0 = (wg * 2 + m) * 64;  // the block's first tile pixel
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        const unsigned char* box = boxes + (m * NB + c) * P::kOutBox;
+        const int nc = u.n0 + c * CW;
+        if (tma) {
+          if (wtid == 0)
+            tma_store_4d(&ymap, smem_addr(box), nc, u.x0 + (p0 & (cols - 1)),
+                         u.y0 + (p0 >> lc), u.b);
+        } else {
+          for (int i = wtid; i < 64 * CW; i += 128) {
+            const int px = i / CW, ch = i % CW, p = p0 + px;
+            const int yy = u.y0 + (p >> lc), xx = u.x0 + (p & (cols - 1));
+            if (yy < H && xx < W && nc + ch < O)
+              y[(((long long)u.b * H + yy) * W + xx) * O + nc + ch] =
+                  *reinterpret_cast<const T*>(box +
+                                              sliced_out_offset<CW>(px, ch));
+          }
+        }
+      }
+    }
+    if (tma && wtid == 0) bulk_commit();
+  }
+  // The block's shared memory must outlive the stores that read it.
+  if (tma && wtid == 0) bulk_wait_all();
+}
+
+// ---------------------------------------------------------------------------
 // fp32: CUDA-core FMAs, tiles of 64 pixels x 64 channels, 4 x 4 per thread
 // ---------------------------------------------------------------------------
 
@@ -1652,35 +1753,6 @@ cudaError_t launch_f32(const void* x, const void* w, const void* b, void* y,
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(b), static_cast<float*>(y), B, H, W, C, O);
   return cudaGetLastError();
-}
-
-template <typename T, int BN, bool VX, bool VO>
-cudaError_t launch_igemm(const void* x, const void* w, const void* b, void* y,
-                         int B, int H, int W, int C, int O, cudaStream_t st) {
-  const long long M = (long long)B * H * W;
-  dim3 grid((unsigned)((M + kBM - 1) / kBM), (O + BN - 1) / BN);
-  conv3x3_igemm_kernel<T, BN, VX, VO><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(b), static_cast<T*>(y), B, H, W, C, O);
-  return cudaGetLastError();
-}
-
-template <typename T, int BN>
-cudaError_t igemm_vec(const void* x, const void* w, const void* b, void* y,
-                      int B, int H, int W, int C, int O, cudaStream_t st) {
-  const bool vx = C % 8 == 0, vo = O % 8 == 0;
-  if (vx && vo) return launch_igemm<T, BN, true, true>(x, w, b, y, B, H, W, C, O, st);
-  if (vx) return launch_igemm<T, BN, true, false>(x, w, b, y, B, H, W, C, O, st);
-  if (vo) return launch_igemm<T, BN, false, true>(x, w, b, y, B, H, W, C, O, st);
-  return launch_igemm<T, BN, false, false>(x, w, b, y, B, H, W, C, O, st);
-}
-
-template <typename T>
-cudaError_t igemm(const void* x, const void* w, const void* b, void* y, int B,
-                  int H, int W, int C, int O, cudaStream_t st) {
-  if (O <= 8) return igemm_vec<T, 8>(x, w, b, y, B, H, W, C, O, st);
-  if (O <= 32) return igemm_vec<T, 32>(x, w, b, y, B, H, W, C, O, st);
-  return igemm_vec<T, 64>(x, w, b, y, B, H, W, C, O, st);
 }
 
 // cuTensorMapEncodeTiled is a driver-API function; the library links only
@@ -1818,6 +1890,14 @@ cudaError_t wide(const void* x, const void* w, const void* b, void* y, int B,
   }
 }
 
+// A swizzle mode by span in bytes (16: none).
+CUtensorMapSwizzle swizzle_of(int bytes) {
+  return bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+         : bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                       : CU_TENSOR_MAP_SWIZZLE_NONE;
+}
+
 // The narrow kernel: `grid` persistent blocks per tile of BN output
 // channels.  Where O % 8 = 0 the output goes out through a tensor map of
 // y, boxes {BN, 32, 1, 1} (the 128-byte swizzle at BN = 64).
@@ -1832,9 +1912,7 @@ cudaError_t launch_narrow(const void* x, const void* w, const void* b,
                                 (cuuint64_t)B};
     const cuuint64_t strides[3] = {O * 2ull, O * 2ull * W, O * 2ull * W * H};
     const cuuint32_t box[4] = {(cuuint32_t)BN, kNC, 1, 1};
-    e = encode_map<T>(&map, y, 4, dims, strides, box,
-                      BN == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                               : CU_TENSOR_MAP_SWIZZLE_NONE);
+    e = encode_map<T>(&map, y, 4, dims, strides, box, swizzle_of(BN * 2));
     if (e != cudaSuccess) return e;
   }
   constexpr size_t bytes = Narrow<C, BN>::kSmem;
@@ -1876,16 +1954,100 @@ cudaError_t narrow(const void* x, const void* w, const void* b, void* y,
   return cudaErrorInvalidValue;
 }
 
+// The sliced kernel: `grid` persistent blocks over tiles of 256 pixels
+// (cols = 1 << lc wide) x BN output channels, K slices of KS.  x is
+// [B,H,W,C] and w [3,3,C,ld], C % 8 = 0, ld = O rounded up to 8.  The ring
+// takes as many stages as fit beside the output boxes and the bias (O
+// rounded up to BN floats), at most kSlicedMaxStages; fewer than two (O
+// beyond about 30000) is refused.
+template <typename T, int BN, int KS>
+cudaError_t launch_sliced(const void* x, const void* w, const void* b,
+                          void* y, int B, int H, int W, int C, int O, int lc,
+                          int grid, cudaStream_t st) {
+  using P = Sliced<BN, KS>;
+  const int cols = 1 << lc, rows = P::kM >> lc;
+  CUtensorMap xmap, wmap, ymap = {};
+  const cuuint64_t xd[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                            (cuuint64_t)B};
+  const cuuint64_t xs[3] = {C * 2ull, C * 2ull * W, C * 2ull * W * H};
+  const cuuint32_t xb[4] = {(cuuint32_t)KS, (cuuint32_t)cols,
+                            (cuuint32_t)(rows + 2), 1};
+  cudaError_t e = encode_map<T>(&xmap, x, 4, xd, xs, xb, swizzle_of(KS * 2));
+  if (e != cudaSuccess) return e;
+  const cuuint64_t ld = (cuuint64_t)(O + 7) / 8 * 8;
+  const cuuint64_t wd[3] = {ld, (cuuint64_t)C, 9};
+  const cuuint64_t ws[2] = {ld * 2, ld * 2 * C};
+  const cuuint32_t wb[3] = {64, (cuuint32_t)KS, 1};
+  e = encode_map<T>(&wmap, w, 3, wd, ws, wb);
+  if (e != cudaSuccess) return e;
+  if (O % 8 == 0) {
+    const int bc = cols < 64 ? cols : 64;
+    const cuuint64_t yd[4] = {(cuuint64_t)O, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+    const cuuint64_t ys[3] = {O * 2ull, O * 2ull * W, O * 2ull * W * H};
+    const cuuint32_t yb[4] = {(cuuint32_t)P::kCW, (cuuint32_t)bc,
+                              (cuuint32_t)(64 / bc), 1};
+    e = encode_map<T>(&ymap, y, 4, yd, ys, yb, swizzle_of(P::kCW * 2));
+    if (e != cudaSuccess) return e;
+  }
+  const int a_slot = ((rows + 2) * cols * KS * 2 + 1023) / 1024 * 1024;
+  const int stage = a_slot + P::kBTaps;
+  const int fixed = P::kFixed + (O + BN - 1) / BN * BN * 4;  // + the bias
+  const int stages =
+      std::min(kSlicedMaxStages, (kSmemMax - fixed) / (stage + 16));
+  if (stages < 2) return cudaErrorInvalidValue;
+  const size_t bytes = fixed + (size_t)stages * (stage + 16);
+  e = cudaFuncSetAttribute(conv3x3_sliced_kernel<T, BN, KS>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e != cudaSuccess) return e;
+  conv3x3_sliced_kernel<T, BN, KS><<<grid, kSpecThreads, bytes, st>>>(
+      xmap, wmap, ymap, static_cast<const T*>(b), static_cast<T*>(y), B, H, W,
+      C, O, lc, stages, a_slot);
+  return cudaGetLastError();
+}
+
+template <typename T, int BN>
+cudaError_t sliced_ks(const void* x, const void* w, const void* b, void* y,
+                      int B, int H, int W, int C, int O, int lc, int ks,
+                      int grid, cudaStream_t st) {
+  if (ks == 16)
+    return launch_sliced<T, BN, 16>(x, w, b, y, B, H, W, C, O, lc, grid, st);
+  if (ks == 32)
+    return launch_sliced<T, BN, 32>(x, w, b, y, B, H, W, C, O, lc, grid, st);
+  return cudaErrorInvalidValue;
+}
+
+// C is the caller's channel count; where C % 8 != 0, x and w hold C
+// rounded up to the K slice (the wrapper's zero-padded copies).
+template <typename T>
+cudaError_t sliced(const void* x, const void* w, const void* b, void* y,
+                   int B, int H, int W, int C, int O, int cols, int n, int ks,
+                   int grid, cudaStream_t st) {
+  const int lc = cols == 16 ? 4 : cols == 32 ? 5 : cols == 64 ? 6
+               : cols == 128 ? 7 : -1;
+  if (lc < 0 || grid <= 0 || ks <= 0) return cudaErrorInvalidValue;
+  const int cx = C % 8 ? (C + ks - 1) / ks * ks : C;  // x's channels
+  switch (n) {
+    case 8: return sliced_ks<T, 8>(x, w, b, y, B, H, W, cx, O, lc, ks, grid, st);
+    case 16: return sliced_ks<T, 16>(x, w, b, y, B, H, W, cx, O, lc, ks, grid, st);
+    case 32: return sliced_ks<T, 32>(x, w, b, y, B, H, W, cx, O, lc, ks, grid, st);
+    case 64: return sliced_ks<T, 64>(x, w, b, y, B, H, W, cx, O, lc, ks, grid, st);
+    case 128: return sliced_ks<T, 128>(x, w, b, y, B, H, W, cx, O, lc, ks, grid, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // 16-bit dispatch by shape (the header's table).
 template <typename T>
 cudaError_t conv16(const void* x, const void* w, const void* b, void* y,
                    int B, int H, int W, int C, int O, int R, int cols, int n,
-                   int grid, cudaStream_t st) {
+                   int ks, int grid, cudaStream_t st) {
   if (C == kC) return stream<T>(x, w, b, y, B, H, W, O, R, grid, st);
   if (C % 64 == 0 && C >= 128)
     return wide<T>(x, w, b, y, B, H, W, C, O, cols, n, grid, st);
   if (C <= 7) return narrow<T>(x, w, b, y, B, H, W, C, O, n, grid, st);
-  return igemm<T>(x, w, b, y, B, H, W, C, O, st);
+  return sliced<T>(x, w, b, y, B, H, W, C, O, cols, n, ks, grid, st);
 }
 
 }  // namespace
@@ -1895,11 +2057,14 @@ cudaError_t conv16(const void* x, const void* w, const void* b, void* y,
 // `grid` for the streamed kernel (16-bit, C = 64); `cols`, `n` (the tile's
 // columns and output channels) and `grid` for the wide kernel (16-bit, C %
 // 64 = 0, C >= 128), which takes w as [3,3,C,ld], ld = O rounded up to 8;
-// `n` and `grid` for the narrow kernel (16-bit, C <= 7); the other designs
-// read none of them.
+// `n` and `grid` for the narrow kernel (16-bit, C <= 7); `cols`, `n`, `ks`
+// (the K slice) and `grid` for the sliced kernel (16-bit, other C >= 8),
+// which takes w as [3,3,C,ld] and, where C % 8 != 0, x as [B,H,W,Cp] and w
+// as [3,3,Cp,ld], Cp = C rounded up to ks; the fp32 kernel reads none of
+// them.
 extern "C" int rr_conv3x3(int dtype, const void* x, const void* w,
                           const void* b, void* y, int B, int H, int W, int C,
-                          int O, int R, int cols, int n, int grid,
+                          int O, int R, int cols, int n, int ks, int grid,
                           void* stream_) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0)
     return cudaErrorInvalidValue;
@@ -1908,9 +2073,10 @@ extern "C" int rr_conv3x3(int dtype, const void* x, const void* w,
     case RR_F32:
       return launch_f32(x, w, b, y, B, H, W, C, O, st);
     case RR_F16:
-      return conv16<__half>(x, w, b, y, B, H, W, C, O, R, cols, n, grid, st);
+      return conv16<__half>(x, w, b, y, B, H, W, C, O, R, cols, n, ks, grid,
+                            st);
     case RR_BF16:
-      return conv16<__nv_bfloat16>(x, w, b, y, B, H, W, C, O, R, cols, n,
+      return conv16<__nv_bfloat16>(x, w, b, y, B, H, W, C, O, R, cols, n, ks,
                                    grid, st);
     default:
       return cudaErrorInvalidValue;
@@ -1922,6 +2088,6 @@ extern "C" int rr_conv3x3_c64(int dtype, const void* x, const void* w,
                               const void* b, void* y, int B, int H, int W,
                               int O, int R, int grid, void* stream_) {
   if (O > kC) return cudaErrorInvalidValue;
-  return rr_conv3x3(dtype, x, w, b, y, B, H, W, kC, O, R, 0, 0, grid,
+  return rr_conv3x3(dtype, x, w, b, y, B, H, W, kC, O, R, 0, 0, 0, grid,
                     stream_);
 }

@@ -26,9 +26,17 @@ shape (:func:`design` names it):
   halo read per tile of 8 x 32 pixels, K = 9 C in one mma.sync pass and
   the output staged for TMA bulk stores, whose work split
   :func:`narrow_plan` computes here;
-* f16/bf16 with any other C (C = 8, 32, ...): the cp.async + mma.sync
-  implicit GEMM;
+* f16/bf16 with any other C >= 8 (C = 8, 32, 96, 100, 160, 200, ...): the
+  sliced design, a TMA-fed wgmma ring over K slices of 16 or 32 channels
+  (one halo'd box per slice and dx feeds the three taps dy), with its
+  output staged per m64 block and written by TMA bulk stores behind the
+  next tile's products; its work split :func:`sliced_plan` computes here
+  (where C % 8 != 0 the wrapper hands it copies of ``x`` and ``w`` padded
+  with zero channels to a whole K slice, and where O % 8 != 0 a copy of
+  ``w`` padded to 8 output channels, as for the wide design);
 * fp32: CUDA-core FMAs.
+
+No 16-bit call reaches a cp.async + mma.sync kernel.
 
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
 takes the plain version.  Each wrapper reaches both through its
@@ -41,6 +49,7 @@ captures the op as one node.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import Optional
@@ -146,7 +155,7 @@ def design(c: int, dtype: torch.dtype) -> str:
         return "wide"
     if 1 <= c <= NARROW_MAX_C:
         return "narrow"
-    return "igemm"
+    return "sliced"
 
 
 def wide_tile_n(o: int) -> int:
@@ -225,13 +234,15 @@ class WidePlan:
         return range(bx, self.tiles, self.grid)
 
 
-def wide_cols(height: int, width: int, m: int) -> int:
+def wide_cols(height: int, width: int, m: int,
+              choices: tuple = WIDE_COLS) -> int:
     """The tile width that pads the image least (tiles of m pixels, rows x
-    cols, over height x width), the widest on a tie."""
+    cols, over height x width), the first of `choices` on a tie (the
+    widest, for the wide design)."""
     def padded(cols):
         rows = m // cols
         return -(-width // cols) * cols * (-(-height // rows) * rows)
-    return min(WIDE_COLS, key=padded)  # min keeps the first of equals
+    return min(choices, key=padded)  # min keeps the first of equals
 
 
 @functools.lru_cache(maxsize=256)
@@ -244,6 +255,59 @@ def wide_plan(batch: int, height: int, width: int, o: int,
     cols = wide_cols(height, width, wide_tile_m(n))
     plan = WidePlan(batch, height, width, o, cols, n, 1)
     return WidePlan(batch, height, width, o, cols, n, min(plan.tiles, sms))
+
+
+#: The tile widths the sliced design takes, narrowest first: a tie between
+#: shapes that pad alike goes to the tallest tile, whose halo'd boxes
+#: (rows + 2 rows for rows of output) re-read the fewest input rows.
+SLICED_COLS = (16, 32, 64, 128)
+SLICED_M = 256  # csrc/conv3x3.cu Sliced::kM: output pixels a tile
+
+
+def slice_width(c: int) -> int:
+    """The sliced design's K slice KS for C input channels: 16 where C <=
+    16 (one slice, half the zero-filled K of a 32-channel one at C = 8),
+    else 32: a stage of 16 channels carries half the products of a 32-
+    channel one for the same barrier round trip and wgmma wait (PERF.md
+    section 6)."""
+    return 16 if c <= 16 else 32
+
+
+def sliced_tile_n(o: int) -> int:
+    """The sliced kernel's wgmma width N for O output channels: O rounded
+    up to 8, 16, 32 or 64 below 64, else 128 (256 would halve the tile's
+    pixels and double each stage's weight bytes)."""
+    return out_tile(o) if o <= 64 else 128
+
+
+@dataclass(frozen=True)
+class SlicedPlan(WidePlan):
+    """The sliced kernel's work split for one call: the wide design's tile
+    walk (256-pixel tiles of ``rows x cols``, channel tile fastest) over K
+    slices of ``ks`` of the ``c`` input channels (``slices`` of them, the
+    last zero-filled past C), each slice staged once per dx."""
+
+    c: int
+    ks: int
+
+    @property
+    def slices(self) -> int:
+        return -(-self.c // self.ks)
+
+
+@functools.lru_cache(maxsize=256)
+def sliced_plan(batch: int, height: int, width: int, c: int, o: int,
+                sms: int) -> SlicedPlan:
+    """Tile shape, width N, K slice and grid for a [batch, height, width,
+    c] -> o conv on the sliced design, on a card with ``sms`` SMs: one
+    block per SM, or one per tile where there are fewer tiles."""
+    if design(c, torch.float16) != "sliced":
+        raise ValueError(f"the sliced design takes C >= 8 that is neither "
+                         f"64 nor a multiple of 64 >= 128; got C={c}")
+    n = sliced_tile_n(o)
+    cols = wide_cols(height, width, SLICED_M, SLICED_COLS)
+    plan = SlicedPlan(batch, height, width, o, cols, n, 1, c, slice_width(c))
+    return dataclasses.replace(plan, grid=min(plan.tiles, sms))
 
 
 #: The narrow design (csrc/conv3x3.cu conv3x3_narrow_kernel): the widest C
@@ -367,9 +431,9 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
     y = torch.empty((bb, h, wd, o), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    rows = cols = n = grid = 0  # the plan of a persistent design
+    rows = cols = n = ks = grid = 0  # the plan of a persistent design
     kind = design(c, x.dtype)
-    if kind in ("streamed", "wide", "narrow"):
+    if kind in ("streamed", "wide", "narrow", "sliced"):
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if kind == "streamed":
         plan = conv_plan(bb, h, wd, o, sms)
@@ -385,6 +449,20 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
     elif kind == "narrow":
         plan = narrow_plan(bb, h, wd, c, o, sms)
         n, grid = plan.n, plan.grid
+    elif kind == "sliced":
+        plan = sliced_plan(bb, h, wd, c, o, sms)
+        cols, n, ks, grid = plan.cols, plan.n, plan.ks, plan.grid
+        # TMA needs 16-byte pixel and weight-row strides: zero-pad the
+        # input channels (x and w; to a whole K slice) where C % 8 != 0 and
+        # the output channels (w) to 8.
+        cp = c if c % 8 == 0 else -(-c // ks) * ks
+        ld = -(-o // 8) * 8
+        if cp != c:
+            x = F.pad(x, (0, cp - c))
+        if (cp, ld) != (c, o):
+            wp = w.new_zeros(3, 3, cp, ld)
+            wp[:, :, :c, :o] = w
+            w = wp
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bias = None if b is None else b.data_ptr()
     lib = _build.library()
@@ -395,7 +473,7 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
     else:
         err = lib.rr_conv3x3(_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
                              bias, y.data_ptr(), bb, h, wd, c, o, rows, cols,
-                             n, grid, stream)
+                             n, ks, grid, stream)
     _build.check(err, name)
     return y
 
@@ -429,7 +507,7 @@ def _out_like(x: torch.Tensor, w: torch.Tensor,
     return x.new_empty(tuple(x.shape[:3]) + (w.shape[-1],))
 
 
-def _igemm_cuda(x, w, b):
+def _implicit_gemm_cuda(x, w, b):
     y = _launch("conv3x3_implicit_gemm", x, w, b, c64=False)
     if y.numel():
         with _build.COUNT_LOCK:
@@ -440,7 +518,7 @@ def _igemm_cuda(x, w, b):
 
 
 _build.define_op("conv3x3_implicit_gemm(Tensor x, Tensor w, Tensor? b) "
-                 "-> Tensor", _plain, _igemm_cuda, _out_like)
+                 "-> Tensor", _plain, _implicit_gemm_cuda, _out_like)
 
 
 def conv3x3_pairlane_plain(x: torch.Tensor, w: torch.Tensor,
@@ -472,7 +550,7 @@ _build.define_op("conv3x3_pairlane(Tensor x, Tensor w, Tensor? b) -> Tensor",
 
 
 #: The kernel designs of csrc/conv3x3.cu, as :func:`design` names them.
-DESIGNS = ("streamed", "wide", "narrow", "igemm", "fp32")
+DESIGNS = ("streamed", "wide", "narrow", "sliced", "fp32")
 
 #: Kernel launches so far (CPU calls and empty inputs launch nothing); the
 #: implicit-GEMM wrapper's also by design.

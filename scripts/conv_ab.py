@@ -7,9 +7,14 @@ given root — one side of an A/B of two trees' conv kernels in one call.
 
 ROOT holds the ``rerevst_torch`` to measure (this repository, or an unpacked
 ``git archive`` of another commit); its kernels build from its own sources.
-The shapes are ``chip_smoke.py``'s VGG_CONVS: conv1_1 [16,640,640,3]->64,
-conv2_2 [16,320,320,128]->128, conv3_1 [16,160,160,128]->256, conv3_2
-[16,160,160,256]->256 and conv4_1 [16,80,80,256]->512.  Inputs are seeded
+The shapes are the JAX conv benchmark's [16,640,640,64] -> 64 and -> 3
+(the streamed kernel), ``chip_smoke.py``'s VGG_CONVS (conv1_1
+[16,640,640,3]->64, the narrow kernel; conv2_1 [16,320,320,64]->128, the
+streamed kernel; conv2_2 [16,320,320,128]->128, conv3_1
+[16,160,160,128]->256, conv3_2 [16,160,160,256]->256 and conv4_1
+[16,80,80,256]->512, the wide kernel) and its SLICED_CONVS ([16,320,320,32]
+-> 64 and the filter blocks' `up` [16,80,80,32] -> 512, the sliced kernel;
+their `down` [16,80,80,512] -> 32, the wide kernel).  Inputs are seeded
 randoms made on the card; each call is checked once against ``F.conv2d`` in
 fp32 (max |diff| reported), then timed with CUDA events over 20 calls
 queued behind a sleep kernel, after 3 warm-up calls.  Prints one JSON line
@@ -26,11 +31,17 @@ import sys
 import time
 from pathlib import Path
 
-SHAPES = [("conv1_1", (16, 640, 640, 3), 64),
+SHAPES = [("bench 64->64", (16, 640, 640, 64), 64),
+          ("bench 64->3", (16, 640, 640, 64), 3),
+          ("conv1_1", (16, 640, 640, 3), 64),
+          ("conv2_1", (16, 320, 320, 64), 128),
           ("conv2_2", (16, 320, 320, 128), 128),
           ("conv3_1", (16, 160, 160, 128), 256),
           ("conv3_2", (16, 160, 160, 256), 256),
-          ("conv4_1", (16, 80, 80, 256), 512)]
+          ("conv4_1", (16, 80, 80, 256), 512),
+          ("sliced C = 32", (16, 320, 320, 32), 64),
+          ("filter up", (16, 80, 80, 32), 512),
+          ("filter down", (16, 80, 80, 512), 32)]
 
 
 def device_ms(torch, fn, iters=20, warmup=3) -> float:

@@ -77,6 +77,9 @@ def _j(a):
     ((1, 8, 16, 64), 128, True), ((1, 8, 12, 32), 16, False),
     # The wide design's widths (C % 64 = 0, C >= 128).
     ((1, 8, 16, 128), 128, True), ((1, 8, 8, 256), 64, False),
+    # The sliced design's widths (other C >= 8): C = 8, 96 and 100.
+    ((1, 8, 16, 8), 64, True), ((2, 8, 8, 96), 32, True),
+    ((1, 8, 12, 100), 5, False),
 ])
 def test_implicit_gemm_plain_matches_pallas(rng, shape, o, bias):
     x, w, b = _conv_inputs(rng, shape, o, bias)

@@ -9,33 +9,45 @@ into tiles of rows x cols pixels x N channels, and runs a K loop of tap-
 shifted TMA boxes of 64 channels against 64-row weight slices that wgmma
 reads N-contiguous through the same swizzle.  Its narrow design (C <= 7)
 stages each 8 x 32 tile's zero-filled halo once and multiplies K = 9 C,
-padded to a multiple of 16 with zeros, in one pass.  These tests hold that
-index math, as the wrapper's plans (``conv_plan``, ``wide_plan``,
-``narrow_plan`` in ``rerevst_torch.kernels.conv3x3``) and numpy emulations
-of the kernels' order of work state it, to the plain conv.
+padded to a multiple of 16 with zeros, in one pass.  Its sliced design
+(other C >= 8) walks the wide design's tiles over K slices of 16 or 32
+channels, one halo'd TMA box per slice and dx feeding the three taps dy
+through K-major descriptors with the 32- or 64-byte swizzle, and stages
+its output in swizzled boxes for TMA stores.  These tests hold that index
+math, as the wrapper's plans (``conv_plan``, ``wide_plan``,
+``narrow_plan``, ``sliced_plan`` in ``rerevst_torch.kernels.conv3x3``) and
+numpy emulations of the kernels' order of work state it, to the plain
+conv.
 
 Tolerance of the emulations: each and the plain version sum K = 9 C fp32
 products in other orders, each within K 2^-24 sum|x||w| of the exact sum,
 so they agree to K 2^-22 sum|x||w| (+ |b|), the card tests' conv bound.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from rerevst_torch.kernels.conv3x3 import (
+    DESIGNS,
     NARROW_COLS,
     NARROW_ROWS,
+    SLICED_COLS,
     TW,
     WIDE_COLS,
     ConvPlan,
     NarrowPlan,
+    SlicedPlan,
     WidePlan,
     conv3x3_implicit_gemm_plain,
     conv_plan,
     design,
     narrow_plan,
     out_tile,
+    slice_width,
+    sliced_plan,
     wide_plan,
 )
 
@@ -168,8 +180,8 @@ VGG_WIDE = [((16, 320, 320, 128), 128), ((16, 160, 160, 128), 256),
 
 def test_design_by_shape():
     """The launcher's dispatch: C = 64 streamed, C % 64 = 0 with C >= 128
-    wide, 1 <= C <= 7 narrow, other C the cp.async implicit GEMM, fp32 its
-    own kernel."""
+    wide, 1 <= C <= 7 narrow, other C the sliced TMA + wgmma kernel (no
+    16-bit C reaches a cp.async + mma.sync kernel), fp32 its own kernel."""
     for dt in (torch.float16, torch.bfloat16):
         assert design(64, dt) == "streamed"
         for c in (128, 192, 256, 512, 1024):
@@ -177,7 +189,7 @@ def test_design_by_shape():
         for c in range(1, 8):
             assert design(c, dt) == "narrow"
         for c in (8, 32, 96, 100, 160, 200):
-            assert design(c, dt) == "igemm"
+            assert design(c, dt) == "sliced"
     for c in (1, 3, 7, 64, 128, 512):
         assert design(c, torch.float32) == "fp32"
 
@@ -521,3 +533,308 @@ def test_narrow_nonfinite_inputs_stay_in_their_field():
         torch.from_numpy(np.abs(b))).numpy()
     assert (np.abs(got[fin] - want[fin])
             <= 9 * c * 2.0 ** -22 * scale[fin]).all()
+
+
+# ---------------------------------------------------------------------------
+# The sliced design (other C >= 8: 8, 32, 96, 100, 160, 200, ...)
+# ---------------------------------------------------------------------------
+
+#: The two shapes the sliced design was built for: C = 32 at conv2_x scale,
+#: and the decoder's filter `up` conv at relu4_1 scale.
+SLICED_TARGETS = [((16, 320, 320, 32), 64), ((16, 80, 80, 32), 512)]
+
+
+def test_slice_width():
+    """KS = 16 up to C = 16 (one slice), else 32; the padded K per tap
+    (slices x KS) covers C with less than one slice to spare."""
+    assert {c: slice_width(c) for c in (8, 16, 24, 32, 40, 96, 100, 160,
+                                        200)} == {
+        8: 16, 16: 16, 24: 32, 32: 32, 40: 32, 96: 32, 100: 32, 160: 32,
+        200: 32}
+    for c in range(8, 300):
+        if design(c, torch.float16) != "sliced":
+            continue
+        ks = slice_width(c)
+        padded = -(-c // ks) * ks
+        assert 0 <= padded - c < ks
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("height", [1, 7, 37, 130])
+@pytest.mark.parametrize("width", [1, 7, 37, 130, 640])
+def test_sliced_plan_covers_every_output_once(batch, height, width):
+    """Every output pixel x channel belongs to exactly one tile, the blocks
+    take every tile once, the grid never exceeds the tiles or the SMs, and
+    the tile is 256 pixels, one TMA box of rows + 2 halo'd rows x cols."""
+    for c, o in [(8, 5), (32, 64), (100, 192), (200, 512), (24, 24)]:
+        for sms in (H100_SMS, 7):
+            plan = sliced_plan(batch, height, width, c, o, sms)
+            assert isinstance(plan, SlicedPlan)
+            assert plan.cols in SLICED_COLS and plan.m == 256
+            assert plan.rows * plan.cols == 256 and plan.rows + 2 <= 256
+            assert plan.n == (out_tile(o) if o <= 64 else 128)
+            assert plan.ks == slice_width(c) and plan.slices * plan.ks >= c
+            assert 1 <= plan.grid <= min(plan.tiles, sms)
+            taken = np.sort(np.concatenate(
+                [np.asarray(plan.block_tiles(bx)) for bx in range(plan.grid)]))
+            assert (taken == np.arange(plan.tiles)).all()
+            cover = np.zeros((plan.n_tiles, batch, height, width), np.int32)
+            for t in range(plan.tiles):
+                b, y0, x0, n0 = plan.tile(t)
+                assert 0 <= b < batch and 0 <= y0 < height \
+                    and 0 <= x0 < width and 0 <= n0 < o
+                cover[n0 // plan.n, b, y0:y0 + plan.rows,
+                      x0:x0 + plan.cols] += 1
+            assert (cover == 1).all(), (c, o, sms)
+            assert plan.n_tiles * plan.n >= o > (plan.n_tiles - 1) * plan.n
+
+
+def test_sliced_plan_at_the_target_shapes():
+    """Both target shapes tile with no pixel padded, in the tallest tiles
+    (16 x 16: each input row staged 18 / 16 times per dx), 32-channel
+    slices, N = 64 and 128, on all 132 SMs; the other designs keep their
+    plans, and the design list names the sliced design in place of the
+    cp.async one's."""
+    for (b, h, w, c), o in SLICED_TARGETS:
+        plan = sliced_plan(b, h, w, c, o, H100_SMS)
+        assert (plan.cols, plan.rows, plan.ks, plan.slices) == (16, 16, 32, 1)
+        assert plan.strips * plan.cols == w and plan.bands * plan.rows == h
+        assert plan.n == (64 if o == 64 else 128)
+        assert plan.grid == H100_SMS
+    assert "sliced" in DESIGNS and "igemm" not in DESIGNS
+    assert wide_plan(16, 80, 80, 32, H100_SMS).n == 32  # the filter `down`
+    with pytest.raises(ValueError):
+        sliced_plan(1, 8, 8, 64, 64, H100_SMS)
+
+
+def _emulate_sliced(x, w, b, plan):
+    """The sliced kernel's order of work in numpy (fp32), with the
+    wrapper's copies (where C % 8 != 0, x and w zero-padded to C8 = C
+    rounded up to KS input channels; w to ld = O rounded up to 8 output
+    channels): for each tile,
+    stages k = slice 3 + dx; stage k's A is the TMA box of channels KS
+    slice .. + KS - 1 at rows y0 - 1 .. y0 + rows, columns x0 + dx - 1 ..
+    (zero outside the image and past C8), flattened to [(rows + 2) cols px]
+    [KS ch]; tap dy reads its rows dy cols .. + 255 against the weights'
+    box of tap 3 dy + dx, rows KS slice .., channels n0 .. n0 + N - 1 (zero
+    past C8 and past ld).  The sums start from the bias; the output starts
+    as NaN and each pixel and channel inside it is stored once."""
+    bsz, h, wd, c = x.shape
+    o = w.shape[-1]
+    c8 = c if c % 8 == 0 else -(-c // plan.ks) * plan.ks
+    ld = -(-o // 8) * 8
+    xp = np.zeros((bsz, h, wd, c8), np.float32)
+    xp[..., :c] = x
+    wk = np.zeros((9, c8, ld), np.float32)
+    wk[:, :c, :o] = w.reshape(9, c, o)
+    bk = np.zeros(plan.n_tiles * plan.n, np.float32)
+    bk[:o] = b
+    y = np.full((bsz, h, wd, o), np.nan, np.float32)
+    rows, cols, ks = plan.rows, plan.cols, plan.ks
+    for bx in range(plan.grid):
+        for t in plan.block_tiles(bx):
+            bi, y0, x0, n0 = plan.tile(t)
+            acc = np.tile(bk[n0:n0 + plan.n], (plan.m, 1))
+            for k in range(3 * plan.slices):
+                sl, dx = divmod(k, 3)
+                cs = sl * ks
+                box = np.zeros((rows + 2, cols, ks), np.float32)
+                ys, xs = y0 - 1, x0 + dx - 1
+                ylo, yhi = max(ys, 0), min(ys + rows + 2, h)
+                xlo, xhi = max(xs, 0), min(xs + cols, wd)
+                chi = min(cs + ks, c8)
+                if ylo < yhi and xlo < xhi:
+                    box[ylo - ys:yhi - ys, xlo - xs:xhi - xs, :chi - cs] = \
+                        xp[bi, ylo:yhi, xlo:xhi, cs:chi]
+                flat = box.reshape((rows + 2) * cols, ks)
+                for dy in range(3):
+                    bt = np.zeros((ks, plan.n), np.float32)
+                    nhi = min(n0 + plan.n, ld)
+                    bt[:chi - cs, :nhi - n0] = wk[3 * dy + dx, cs:chi, n0:nhi]
+                    acc += flat[dy * cols:dy * cols + plan.m] @ bt
+            out = acc.reshape(rows, cols, plan.n)
+            nh, nw, nc = min(rows, h - y0), min(cols, wd - x0), \
+                min(plan.n, o - n0)
+            assert np.isnan(y[bi, y0:y0 + nh, x0:x0 + nw, n0:n0 + nc]).all()
+            y[bi, y0:y0 + nh, x0:x0 + nw, n0:n0 + nc] = out[:nh, :nw, :nc]
+    return y
+
+
+def _sliced_case(c, o, shape, seed=4):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape + (c,)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, c, o)) / np.sqrt(9 * c)).astype(
+        np.float32)
+    b = rng.standard_normal(o).astype(np.float32)
+    return x, w, b
+
+
+@pytest.mark.parametrize("c", [8, 24, 32, 40, 96, 100, 200])
+@pytest.mark.parametrize("o", [5, 32, 64, 192, 512])
+def test_sliced_k_loop_matches_plain(c, o):
+    """Ragged last band and strip (H = 19, W = 21: 16 x 16 tiles), B = 2, a
+    grid of 3 blocks; C = 8, 24, 40, 100 and 200 leave a zero-filled slice
+    tail (100 also a zero-padded copy), O = 192 and 512 take two and four
+    channel tiles."""
+    x, w, b = _sliced_case(c, o, (2, 19, 21))
+    plan = sliced_plan(2, 19, 21, c, o, H100_SMS)
+    plan = dataclasses.replace(plan, grid=3)
+    got = _emulate_sliced(x, w, b, plan)
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    want = conv3x3_implicit_gemm_plain(*tt).numpy()
+    scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want) <= 9 * c * 2.0 ** -22 * scale).all()
+
+
+@pytest.mark.parametrize("c", [16, 96])
+@pytest.mark.parametrize("cols", SLICED_COLS)
+def test_sliced_k_loop_every_tile_width(c, cols):
+    """The same walk at each tile width the kernel takes (rows = 256 /
+    cols), C = 96 in three 32-channel slices and C = 16 in one of 16, O =
+    24."""
+    x, w, b = _sliced_case(c, 24, (1, 11, 150), seed=5)
+    plan = sliced_plan(1, 11, 150, c, 24, H100_SMS)
+    plan = dataclasses.replace(plan, cols=cols, grid=2)
+    got = _emulate_sliced(x, w, b, plan)
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    want = conv3x3_implicit_gemm_plain(*tt).numpy()
+    scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want) <= 9 * c * 2.0 ** -22 * scale).all()
+
+
+def test_sliced_nonfinite_inputs_stay_in_their_field():
+    """inf and NaN inside, on both sides of a tile's edge columns (15 | 16)
+    and rows (15 | 16), at the image's edges and in the last real channel
+    (C = 100: the padded channels and the slice's zero-filled tail follow
+    it): the emulation's non-finite outputs are exactly the plain conv's
+    (both sides of every padded K column are true zeros, so no inf meets a
+    padded weight), and the finite ones agree."""
+    c, o = 100, 24
+    x, w, b = _sliced_case(c, o, (2, 19, 40), seed=6)
+    for idx, v in [((0, 3, 5, 7), np.inf), ((0, 10, 15, 1), -np.inf),
+                   ((0, 10, 16, c - 1), np.nan), ((0, 15, 30, 4), np.inf),
+                   ((0, 16, 31, c - 1), np.inf), ((1, 0, 39, 0), np.nan),
+                   ((1, 18, 0, c - 1), -np.inf)]:
+        x[idx] = v
+    plan = sliced_plan(2, 19, 40, c, o, H100_SMS)
+    with np.errstate(invalid="ignore"):  # inf - inf and inf x 0 are NaN
+        got = _emulate_sliced(x, w, b, plan)
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    want = conv3x3_implicit_gemm_plain(*tt).numpy()
+    assert (np.isnan(got) == np.isnan(want)).all()
+    assert (np.isinf(got) == np.isinf(want)).all()
+    fin = np.isfinite(want)
+    assert not fin.all()
+    xz = np.where(np.isfinite(x), x, 0).astype(np.float32)
+    scale = conv3x3_implicit_gemm_plain(
+        torch.from_numpy(np.abs(xz)), torch.from_numpy(np.abs(w)),
+        torch.from_numpy(np.abs(b))).numpy()
+    assert (np.abs(got[fin] - want[fin])
+            <= 9 * c * 2.0 ** -22 * scale[fin]).all()
+
+
+def tma_swizzle(off, span):
+    """TMA's swizzle of `span` bytes (32, 64 or 128; 16: none) on a byte
+    offset from a 1024-byte-aligned base: bits 4 .. of the offset XORed
+    with bits 7 .. (one bit at 32 bytes, two at 64, three at 128)."""
+    if span == 16:
+        return off
+    return off ^ (((off >> 7) & (span // 16 - 1)) << 4)
+
+
+@pytest.mark.parametrize("ks", [16, 32])
+@pytest.mark.parametrize("cols", SLICED_COLS)
+def test_wgmma_reads_sliced_a_where_tma_lands_it(ks, cols):
+    """For each tap dy, warpgroup, m64 block, k16 step and element of the
+    64 x 16 A operand, the address wgmma reads through the K-major
+    descriptor (csrc/conv3x3.cu wgmma_desc<KS 2>: rows of S = KS 2 bytes,
+    8-row groups 8 S apart, + 32 bytes a k16 step) is where TMA landed the
+    box's pixel dy cols + 128 wg + 64 m + row, channel 16 step + k; every
+    operand starts on a whole 8-row group of the pattern; the box's
+    elements land on distinct addresses."""
+    span = 2 * ks
+    rows = 256 // cols
+    sbo = 8 * span
+
+    def tma_a(q, ch):  # box pixel q (row-major over rows + 2 x cols)
+        return tma_swizzle(q * span + 2 * ch, span)
+
+    for dy in range(3):
+        for wg in range(2):
+            for mb in range(2):
+                start = (dy * cols + 128 * wg + 64 * mb) * span
+                assert start % sbo == 0
+                for step in range(ks // 16):
+                    for i in range(64):
+                        for kk in range(16):
+                            lin = (start + 32 * step + (i // 8) * sbo
+                                   + (i % 8) * span + 2 * kk)
+                            q = dy * cols + 128 * wg + 64 * mb + i
+                            assert tma_swizzle(lin, span) == \
+                                tma_a(q, 16 * step + kk)
+    offs = {tma_a(q, ch) for q in range((rows + 2) * cols) for ch in range(ks)}
+    assert len(offs) == (rows + 2) * cols * ks
+    assert max(offs) < (rows + 2) * cols * span
+
+
+@pytest.mark.parametrize("ks", [16, 32])
+@pytest.mark.parametrize("n", [8, 16, 32, 64, 128])
+def test_wgmma_reads_sliced_b_where_tma_lands_it(ks, n):
+    """A stage's weights: for tap dy, TMA boxes {64 o, KS c} of the [9][C]
+    [ld] map land chunk j of tap dy at (dy chunks + j) KS 128 bytes, row k
+    of a box 128 bytes on, with the 128-byte swizzle.  wgmma reads element
+    (k, n) of a k16 step's 16 x N operand through the MN-major descriptor
+    (leading offset KS 128 bytes between 64-column chunks, stride 1024
+    between 8-row groups, + 2048 a k16 step) at that same address."""
+    chunks = max(1, n // 64)
+    lbo = ks * 128
+
+    def tma_b(dy, k, col):
+        j, cc = divmod(col, 64)
+        return ((dy * chunks + j) * lbo
+                + tma_swizzle(k * 128 + 2 * cc, 128))
+
+    for dy in range(3):
+        base = dy * chunks * lbo
+        for step in range(ks // 16):
+            for kk in range(16):
+                for col in range(n):
+                    lin = (base + step * 2048 + (col // 64) * lbo
+                           + (kk // 8) * 1024 + (kk % 8) * 128
+                           + (col % 64) * 2)
+                    # the boxes start on 1024-byte boundaries
+                    assert (base + (col // 64) * lbo) % 1024 == 0
+                    assert base + tma_swizzle(lin - base, 128) == \
+                        tma_b(dy, 16 * step + kk, col)
+
+
+def sliced_out_offset(cw, p, ch):
+    """csrc/conv3x3.cu sliced_out_offset: where a consumer thread writes
+    (pixel p, channel ch) of a staged output box of cw channels."""
+    lin = (p * cw + ch) * 2
+    return lin if cw == 8 else lin ^ (((lin >> 7) & (cw * 2 // 16 - 1)) << 4)
+
+
+@pytest.mark.parametrize("cw", [8, 16, 32, 64])
+def test_sliced_output_box_is_tmas_and_free_of_bank_conflicts(cw):
+    """The staging box's layout is the one the TMA store reads (a box {cw,
+    px, ...} of y swizzled by cw 2 bytes), its 64 x cw values land on
+    distinct addresses inside it, and each store instruction of a warp
+    (lane l: accumulator row 16 warp + l / 4 (+ 8), columns 8 j + 2 (l %
+    4), + 1) hits 32 distinct banks."""
+    offs = set()
+    for p in range(64):
+        for ch in range(cw):
+            off = sliced_out_offset(cw, p, ch)
+            assert off == tma_swizzle((p * cw + ch) * 2, 2 * cw)
+            offs.add(off)
+    assert len(offs) == 64 * cw and max(offs) < 64 * cw * 2
+    for warp in range(4):
+        for j in range(cw // 8):
+            for half in (0, 8):
+                banks = {(sliced_out_offset(cw, 16 * warp + lane // 4 + half,
+                                            8 * j + 2 * (lane % 4)) // 4)
+                         % 32 for lane in range(32)}
+                assert len(banks) == 32

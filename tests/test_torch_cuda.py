@@ -323,6 +323,62 @@ def test_conv3x3_narrow_nonfinite_inputs_on_card(rng, cuda, dtype, o):
                     xz, w, b)
 
 
+#: Shapes of the sliced kernel (16-bit, C >= 8 neither 64 nor a multiple of
+#: 64 >= 128): C = 8 and 16 (16-channel slices), 24, 32, 40, 96, 100 (a
+#: zero-padded copy of x), 160 and 200 (32-channel slices; 24, 40 and 200
+#: end in a zero-filled tail); every tile width its plan picks, ragged bands
+#: and strips, W narrower than a tile, B = 1; O = 3 and 5 (scalar stores, a
+#: padded weight copy), 8, 24, 32, 64, 192 (a half-empty channel tile) and
+#: 512 (four).
+SLICED = [
+    ((2, 13, 7, 8), 5), ((1, 37, 53, 16), 64), ((2, 9, 33, 24), 24),
+    ((1, 21, 100, 32), 3), ((1, 5, 300, 32), 64), ((2, 19, 150, 40), 32),
+    ((1, 23, 45, 96), 192), ((2, 11, 9, 100), 8), ((1, 12, 80, 32), 512),
+    ((1, 3, 161, 160), 64), ((1, 17, 20, 200), 24),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape,o", SLICED)
+@pytest.mark.parametrize("bias", [True, False])
+def test_conv3x3_sliced_kernel_on_card(rng, cuda, dtype, shape, o, bias):
+    x, w, b = _conv_on_card(rng, cuda, dtype, shape, o, bias)
+    before = dict(conv3x3_implicit_gemm.launches_by_design)
+    got = conv3x3_implicit_gemm(x, w, b)
+    torch.cuda.synchronize()
+    after = conv3x3_implicit_gemm.launches_by_design
+    assert after["sliced"] == before["sliced"] + 1
+    assert got.dtype == dtype and tuple(got.shape) == shape[:3] + (o,)
+    assert _conv_ok(got, conv3x3_implicit_gemm_plain(x, w, b), x, w, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("c,o", [(32, 64), (100, 5), (200, 192)])
+def test_conv3x3_sliced_nonfinite_inputs_on_card(rng, cuda, dtype, c, o):
+    """The sliced kernel under inf and NaN inputs in the interior, on both
+    sides of a tile's edge columns (15 | 16) and rows, at the image's edges
+    and in the last channel (a slice's zero-filled tail follows it): the
+    padded K columns must read true zeros on both sides."""
+    x, w, b = _conv_on_card(rng, cuda, dtype, (2, 19, 70, c), o, True)
+    x[0, 3, 5, 7] = float("inf")
+    x[0, 10, 15, 1] = float("-inf")
+    x[0, 10, 16, c - 1] = float("nan")
+    x[1, 0, 69, 0] = float("nan")
+    x[1, 18, 0, c - 1] = float("inf")
+    x[1, 15, 33, 2] = float("inf")
+    got = conv3x3_implicit_gemm(x, w, b)
+    torch.cuda.synchronize()
+    want = conv3x3_implicit_gemm_plain(x, w, b)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin) and not fin.all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    xz = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    assert _conv_ok(torch.where(fin, got, 0), torch.where(fin, want, 0),
+                    xz, w, b)
+
+
 #: Shapes that stress the streamed C = 64 kernel's work split (its plan on
 #: an H100's 132 SMs): a last band shorter than the others (H % R != 0), a
 #: last strip narrower than 128 columns, W < 128, B = 1.
