@@ -7,13 +7,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device  — the card's name, compute capability (must be 9.0) and power limit;
 2. build   — compiles ``rerevst_torch/csrc/*.cu`` for sm_90a (first use),
-             and reports the registers and spills of the streamed, wide
-             and narrow conv kernels and the filter pair kernel (``nvcc
-             -Xptxas -v``; a spill fails, and so does a serialized wgmma in
-             the wide or sliced kernel);
+             and reports the registers and spills of the streamed, wide,
+             narrow, sliced and split-TF32 conv kernels and the filter pair
+             kernel (``nvcc -Xptxas -v``; a spill fails, and so does a
+             serialized wgmma in the wide, sliced or split-TF32 kernel);
 3. check   — each kernel against its plain PyTorch version on the card, at the
              main path's shapes (batch 16, 512x512 content padded to 640x640)
-             plus ragged ones and inf/NaN inputs, in f16, bf16 and fp32;
+             plus ragged ones and inf/NaN inputs, in f16, bf16 and fp32
+             (fp32 also at +-FLT_MAX; the NaN and inf masks of the narrow,
+             split-TF32 and C % 64 = 0, O <= 64 convs must be plain's);
 4. e2e     — ``Stylization.stylize_video`` on a seeded 33-frame 512x512 clip
              with the bundled checkpoint: the global (two-pass) default
              path in f16 and in fp32 and its pair-lane route
@@ -29,10 +31,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
              ``conv3x3_implicit_gemm``, which no model path runs, driven
              alone at the shapes of the JAX package's conv benchmark
              (``scripts/bench_conv3x3.py``), at VGG conv2_2 and conv1_1, at
-             C = 32 and at the decoder filter blocks' `up` and `down` convs,
-             so that each of its four 16-bit designs (streamed, wide,
-             narrow, sliced) launches; every global session's Pass-2 host
-             prep must have gone through the native library;
+             C = 32, at the decoder filter blocks' `up` and `down` convs and
+             in fp32 at [16,640,640,64] -> 64, so that each of its five
+             designs (streamed, wide, narrow, sliced, split-TF32) launches;
+             every global session's Pass-2 host prep must have gone through
+             the native library;
    long_clip   — f16 and fp32 ``stylize_video`` of a seeded 65-frame 512x512
              clip at ``sample_interval=1``: 65 samples spill to the host
              spool and stream ('streaming-spill'); launches of the path and
@@ -144,10 +147,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
              ``rr_conv3x3`` at the VGG shapes conv1_1 (C = 3, the narrow
              kernel), conv2_1 (C = 64) and conv2_2, conv3_1, conv3_2 and
              conv4_1 (C >= 128, the wide kernel), the sliced kernel at C =
-             32 and at the filter blocks' `up` conv and the wide kernel at
-             their `down` conv, beside ``F.conv2d``, and the fp32 CUDA-core
-             kernel at [16,640,640,64] -> 64 beside ``F.conv2d`` without
-             TF32;
+             32 and at the filter blocks' `up` and `down` convs, beside
+             ``F.conv2d``, and the split-TF32 kernel at [16,640,640,64] ->
+             64 beside ``F.conv2d`` without TF32, with both bounds (three
+             TF32 passes, fp32 FMAs) and both max |errors| against a
+             float64 conv;
              and (phase pipeline) the warm f16 stylize_video's wall time
              and idle share; (phase dispatch) the host cost of each kernel
              op's ``torch.library`` dispatch against its CUDA
@@ -226,16 +230,17 @@ VGG_CONVS = [("VGG conv1_1", (BATCH, PAD_HW, PAD_HW, 3), 64),
              ("VGG conv3_1", (BATCH, 160, 160, 128), 256),
              ("VGG conv3_2", (BATCH, 160, 160, 256), 256),
              ("VGG conv4_1", (BATCH, 80, 80, 256), 512)]
-#: The sliced design (C >= 8 neither 64 nor a multiple of 64 >= 128) at C =
-#: 32 and conv2_x scale (no VGG site), and the decoder's three filter
-#: blocks' convs at relu4_1 scale (rerevst_torch/models/transformer.py: `up`
-#: 32 -> 512 on the sliced design, `down` 512 -> 32 on the wide one), which
-#: the default path runs through F.conv2d today: (site, x shape, O).
+#: The sliced design (C >= 8 neither 64 nor a multiple of 64 >= 128, and C %
+#: 64 = 0 with O <= 64) at C = 32 and conv2_x scale (no VGG site), and the
+#: decoder's three filter blocks' convs at relu4_1 scale
+#: (rerevst_torch/models/transformer.py: `up` 32 -> 512 and `down` 512 ->
+#: 32), which the default path runs through F.conv2d today: (site, x shape,
+#: O).
 SLICED_CONVS = [("sliced C = 32", (BATCH, 320, 320, 32), 64),
                 ("filter up", (BATCH, 80, 80, 32), 512),
                 ("filter down", (BATCH, 80, 80, 512), 32)]
-#: The fp32 CUDA-core kernel at row 3's shape, beside F.conv2d without TF32
-#: (the JAX package's HIGHEST precision): (site, x shape, O).
+#: The split-TF32 kernel (fp32) at row 3's shape, beside F.conv2d without
+#: TF32 (the JAX package's HIGHEST precision): (site, x shape, O).
 F32_CONV = ("fp32 C = 64", (BATCH, PAD_HW, PAD_HW, 64), 64)
 #: Shapes of the sliced kernel's checks (x shape, O, bias): C = 8 and 16
 #: (16-channel slices), 24, 32, 40, 96, 100 (a zero-padded copy of x), 160
@@ -253,6 +258,14 @@ SLICED_CHECKS = [
     ((1, 3, 161, 160), 64, True), ((1, 17, 20, 200), 24, False),
     ((1, 6, 40, 96), 3, False), ((1, 4, 64, 24), 8, True),
 ]
+#: Checks that reach the split-TF32 kernel in fp32 with C % 4 != 0 (a
+#: zero-padded copy of x) and O % 4 != 0 (scalar stores), finite and not:
+#: (entry point, x shape, O, bias, non-finite inputs).
+F32_CHECKS = [("conv3x3_implicit_gemm", (2, 13, 45, 3), 5, True, False),
+              ("conv3x3_implicit_gemm", (1, 21, 100, 7), 3, False, False),
+              ("conv3x3_implicit_gemm", (2, 19, 21, 13), 6, True, False),
+              ("conv3x3_implicit_gemm", (2, 19, 70, 13), 6, True, True),
+              ("conv3x3_implicit_gemm", (2, 19, 70, 5), 9, True, True)]
 #: inf and NaN inputs of the C = 3 checks, at [2, 19, 70, 3]: (index, value).
 NARROW_NONFINITE = [((0, 3, 31, 2), "inf"), ((0, 3, 32, 0), "-inf"),
                     ((0, 7, 10, 1), "nan"), ((0, 8, 40, 2), "inf"),
@@ -339,6 +352,7 @@ def conv_inputs(torch, shape, o, dtype, gen, bias=True):
 
 def check_convs(torch, gen, errs):
     from rerevst_torch import kernels
+    from rerevst_torch.kernels.conv3x3 import design
 
     p = PAD_HW
     # (x shape, O, bias).  The cases after the main-path shapes stress the
@@ -383,7 +397,9 @@ def check_convs(torch, gen, errs):
         + [("conv3x3_implicit_gemm", (2, 19, 70, 3), o, True, True)
            for o in (64, 5)] \
         + [("conv3x3_implicit_gemm", (2, 19, 150, c), o, True, True)
-           for c, o in ((32, 64), (100, 5), (200, 192))]  # the sliced kernel
+           for c, o in ((32, 64), (100, 5), (200, 192))] \
+        + [("conv3x3_implicit_gemm", (2, 19, 70, 512), 32, True, True)] \
+        + F32_CHECKS  # the sliced kernel (C % 64 = 0 with O <= 64, too)
     for name, shape, o, bias, nonfinite in cases:
         kern = getattr(kernels, name)
         plain = getattr(kernels, name + "_plain")
@@ -396,19 +412,31 @@ def check_convs(torch, gen, errs):
                     x[idx] = float(v)
             elif nonfinite:
                 # The interior, both sides of a strip's edge, image edges.
-                x[0, 3, 5, 7] = float("inf")
-                x[0, 10, 127, 1] = float("-inf")
-                x[0, 10, 128, 2] = float("nan")
-                x[1, 0, 149, 0] = float("nan")
+                x[0, 3, 5, 7 % shape[-1]] = float("inf")
+                x[0, 10, 127 % shape[2], 1] = float("-inf")
+                x[0, 10, 128 % shape[2], 2] = float("nan")
+                x[1, 0, shape[2] - 1, 0] = float("nan")
                 x[1, 18, 0, min(63, shape[-1] - 1)] = float("inf")
+            if nonfinite and dtype == torch.float32:
+                # fp32's largest values, apart: the split must not round
+                # them to inf.
+                fmax = torch.finfo(torch.float32).max
+                x[0, 14, 40, shape[-1] - 1] = fmax
+                x[1, 6, shape[2] - 3, 1 % shape[-1]] = -fmax
             got = kern(x, w, b)
             torch.cuda.synchronize()
             want = plain(x, w, b)
             fin = torch.isfinite(want)
             err = (got.float() - want.float()).abs()[fin].max().item()
             ok = conv_within_tolerance(torch, got, want, x, w, b)
-            if shape[-1] <= 7:  # and the narrow kernel's NaNs are plain's
-                ok = ok and bool((torch.isnan(got) == torch.isnan(want)).all())
+            kind = design(shape[-1], dtype, o)
+            if kind in ("narrow", "tf32x3") or (
+                    kind == "sliced" and shape[-1] % 64 == 0):
+                # The narrow, split-TF32 and C % 64 = 0, O <= 64 routes keep
+                # plain's NaN and inf masks exactly (inf stays inf).
+                ok = ok and bool(torch.equal(torch.isnan(got),
+                                             torch.isnan(want))) \
+                    and bool(torch.equal(torch.isinf(got), torch.isinf(want)))
             RESULTS["checks"].append(
                 {"kernel": name, "shape": shape, "O": o, "dtype": str(dtype),
                  "bias": b is not None, "nonfinite_inputs": nonfinite,
@@ -418,7 +446,11 @@ def check_convs(torch, gen, errs):
             if not ok:
                 fail(f"{name} {shape}->{o} {dtype}: max |kernel - plain| = "
                      f"{err}, or non-finite outputs differ")
-            errs[name] = max(errs.get(name, 0.0), err)
+            # +-FLT_MAX makes outputs near 1e37, held to the same relative
+            # bar: their errors go to a key of their own.
+            key = name + (" (+-FLT_MAX inputs)"
+                          if nonfinite and dtype == torch.float32 else "")
+            errs[key] = max(errs.get(key, 0.0), err)
             del x, w, b, got, want
     torch.cuda.empty_cache()
 
@@ -639,8 +671,9 @@ def time_kernels(torch):
 def conv_bound(x, w, o, peak=F16_FLOP_PER_S):
     """Least device time of one conv call: each input read once and the
     output written once over HBM, or its 2 M K O flops over the type's
-    dense peak (`peak`: the f16 tensor cores', or FP32_FLOP_PER_S for fp32
-    on the CUDA cores), whichever is larger."""
+    dense peak (`peak`: the f16 tensor cores'; for fp32 TF32_FLOP_PER_S / 3,
+    three TF32 passes, or FP32_FLOP_PER_S on the CUDA cores), whichever is
+    larger."""
     m = x.numel() // x.shape[-1]
     nbytes = (x.numel() + w.numel() + o + m * o) * x.element_size()
     flops = 2 * m * w.shape[0] * w.shape[1] * w.shape[2] * o
@@ -840,19 +873,23 @@ def run_e2e(torch):
 def drive_implicit_gemm(torch):
     """conv3x3_implicit_gemm has no model path in either package; its one
     driver in the JAX package is scripts/bench_conv3x3.py.  Drive it once
-    at those shapes, at VGG conv2_2 and conv1_1 and at SLICED_CONVS, counts
-    at 0 before and read after: each 16-bit design of csrc/conv3x3.cu must
-    have launched."""
+    at those shapes, at VGG conv2_2 and conv1_1, at SLICED_CONVS (the
+    filter `down` conv on the sliced design: O <= 64) and in fp32 at
+    F32_CONV, counts at 0 before and read after: each design of
+    csrc/conv3x3.cu must have launched."""
     from rerevst_torch import kernels
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    shapes = IGEMM_BENCH + [(shape, o) for site, shape, o in VGG_CONVS
-                            if site in ("VGG conv2_2", "VGG conv1_1")] \
-        + [(shape, o) for _, shape, o in SLICED_CONVS]
+    f16 = torch.float16
+    shapes = [(shape, o, f16) for shape, o in IGEMM_BENCH] \
+        + [(shape, o, f16) for site, shape, o in VGG_CONVS
+           if site in ("VGG conv2_2", "VGG conv1_1")] \
+        + [(shape, o, f16) for _, shape, o in SLICED_CONVS] \
+        + [F32_CONV[1:] + (torch.float32,)]
     kernels.reset_launches()
-    for shape, o in shapes:
-        x, w, b = conv_inputs(torch, shape, o, torch.float16, gen)
+    for shape, o, dtype in shapes:
+        x, w, b = conv_inputs(torch, shape, o, dtype, gen)
         y = kernels.conv3x3_implicit_gemm(x, w, b)
         torch.cuda.synchronize()
         if tuple(y.shape) != shape[:3] + (o,) or not torch.isfinite(y).all():
@@ -863,8 +900,8 @@ def drive_implicit_gemm(torch):
     emit({"phase": "e2e", "path": "conv3x3_implicit_gemm standalone",
           "launches": counts, "launches_by_design": by_design})
     if counts["conv3x3_implicit_gemm"] != len(shapes) \
-            or by_design != {"streamed": 2, "wide": 2, "narrow": 1,
-                             "sliced": 2, "fp32": 0}:
+            or by_design != {"streamed": 2, "wide": 1, "narrow": 1,
+                             "sliced": 3, "tf32x3": 1}:
         fail(f"conv3x3_implicit_gemm standalone launches {counts}, "
              f"by design {by_design}")
     RESULTS["implicit_gemm_launches_by_design"] = by_design
@@ -3757,9 +3794,13 @@ def time_vgg_convs(torch):
     version and one F.conv2d call: conv1_1 (C = 3: the narrow kernel),
     conv2_1 (C = 64: the streamed kernel in two channel tiles) and the C >=
     128 shapes (the wide kernel); then SLICED_CONVS (the sliced kernel at C
-    = 32 and at the filter blocks' `up` conv, the wide kernel at their
-    `down` conv) and F32_CONV (the fp32 CUDA-core kernel, beside F.conv2d
-    with TF32 off).  Each is checked against its plain version first."""
+    = 32 and at the filter blocks' `up` and `down` convs) and F32_CONV (the
+    split-TF32 kernel, beside F.conv2d
+    with TF32 off, the JAX package's HIGHEST: its bound is three TF32
+    passes, reported beside the fp32 FMAs' on the CUDA cores, and its max
+    |error| against a float64 conv of two frames beside F.conv2d's, within
+    the 9 C 2^-22 sum |x||w| bar).  Each is checked against its plain
+    version first."""
     import torch.nn.functional as F
 
     from rerevst_torch import kernels
@@ -3796,9 +3837,13 @@ def time_vgg_convs(torch):
         finally:
             torch.backends.cudnn.allow_tf32 = tf32
         bound, by, t_bytes, t_ops = conv_bound(
-            x, w, o, FP32_FLOP_PER_S if f32 else F16_FLOP_PER_S)
+            x, w, o, TF32_FLOP_PER_S / 3 if f32 else F16_FLOP_PER_S)
+        extra = f32_errors(torch, x, w, b) if f32 else {}
+        if f32:
+            extra["bound_fp32_cores_ms"] = conv_bound(x, w, o,
+                                                      FP32_FLOP_PER_S)[3]
         row = {"kernel": "conv3x3_implicit_gemm", "site": site,
-               "design": design(shape[-1], x.dtype),
+               "design": design(shape[-1], x.dtype, o), **extra,
                "shape": shape, "O": o, "dtype": str(dtype)[6:],
                "max_abs_err": err, "ms": k["ms"], "plain_ms": pl["ms"],
                "library_ms": lib["ms"], "bound_ms": bound, "bound_by": by,
@@ -3814,12 +3859,44 @@ def time_vgg_convs(torch):
     return rows
 
 
+def f32_errors(torch, x, w, b) -> dict:
+    """Max |error| of the split-TF32 kernel and of F.conv2d (TF32 off)
+    against a float64 conv of x's first two frames, and the least of the
+    9 C 2^-22 sum |x||w| (+|b|) bar over them; fails past the bar."""
+    import torch.nn.functional as F
+
+    from rerevst_torch import kernels
+
+    x2 = x[:2].contiguous()
+    xd, wd = x2.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1)
+    ref = F.conv2d(xd, wd, b.double(), padding=1).permute(0, 2, 3, 1)
+    bar = 9 * x.shape[-1] * 2.0 ** -22 * F.conv2d(
+        xd.abs(), wd.abs(), b.double().abs(), padding=1).permute(0, 2, 3, 1)
+    del xd, wd
+    kern = (kernels.conv3x3_implicit_gemm(x2, w, b).double() - ref).abs()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lib = (F.conv2d(x2.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b,
+                        padding=1).permute(0, 2, 3, 1).double() - ref).abs()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    out = {"max_abs_err_vs_f64": kern.max().item(),
+           "library_max_abs_err_vs_f64": lib.max().item(),
+           "least_bar": bar.min().item(),
+           "worst_err_over_bar": (kern / bar).max().item()}
+    if not out["worst_err_over_bar"] <= 1.0:
+        fail(f"split-TF32 conv beyond 9C 2^-22 sum|x||w| of float64: {out}")
+    return out
+
+
 def kernel_resources(build) -> dict:
     """Registers, spills and ptxas's notes (a serialized wgmma shows here)
-    of each instance of the streamed C = 64, the wide, the narrow and the
-    sliced conv kernels and of the filter pair kernel.  A spill fails the
-    phase: the designs count on keeping their fragments and accumulators in
-    registers; so does a note that the wide or sliced kernel's wgmmas are
+    of each instance of the streamed C = 64, the wide, the narrow, the
+    sliced and the split-TF32 conv kernels (and its weights' split kernel)
+    and of the filter pair kernel.  A spill fails the phase: the designs
+    count on keeping their fragments and accumulators in registers; so does
+    a note that the wide, sliced or split-TF32 kernel's wgmmas are
     serialized."""
     import re
 
@@ -3841,6 +3918,12 @@ def kernel_resources(build) -> dict:
         if m:
             out[f"conv3x3_sliced_kernel<{dts[m.group(1)]}, N={m.group(2)}, "
                 f"KS={m.group(3)}>"] = info
+        m = re.search(r"conv3x3_tf32x3_kernelILi(\d+)ELi(\d+)E", name)
+        if m:
+            out[f"conv3x3_tf32x3_kernel<N={m.group(1)}, KS={m.group(2)}>"] = \
+                info
+        if "conv3x3_tf32_split_kernel" in name:
+            out["conv3x3_tf32_split_kernel"] = info
     n_conv = len(out)
     n_wide = sum(k.startswith("conv3x3_wide") for k in out)
     if n_wide != 12:
@@ -3851,8 +3934,13 @@ def kernel_resources(build) -> dict:
     n_sliced = sum(k.startswith("conv3x3_sliced") for k in out)
     if n_sliced != 20:
         fail(f"ptxas reported {n_sliced} sliced conv kernels, not 20")
+    n_tf32 = sum(k.startswith("conv3x3_tf32") for k in out)
+    if n_tf32 != 9:
+        fail(f"ptxas reported {n_tf32} split-TF32 conv kernels, not 8 and "
+             f"the weights' split")
     serialized = [k for k, v in out.items()
-                  if k.startswith(("conv3x3_wide", "conv3x3_sliced"))
+                  if k.startswith(("conv3x3_wide", "conv3x3_sliced",
+                                   "conv3x3_tf32x3"))
                   and any("wgmma" in n and "serializ" in n
                           for n in v["notes"])]
     if serialized:
@@ -4020,7 +4108,11 @@ def main() -> int:
                 entry["designs"].setdefault(r["design"], []).append(
                     {k: r[k] for k in ("site", "shape", "O", "ms",
                                        "plain_ms", "bound_ms", "bound_by",
-                                       "library_ms", "max_abs_err")})
+                                       "library_ms", "max_abs_err",
+                                       "bound_fp32_cores_ms",
+                                       "max_abs_err_vs_f64",
+                                       "library_max_abs_err_vs_f64")
+                     if k in r})
     RESULTS["kernels"] = line["kernels"]
     RESULTS["seconds"] = time.perf_counter() - t_main
     _save()

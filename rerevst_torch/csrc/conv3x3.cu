@@ -19,18 +19,20 @@
 // Which design takes which call (by shape, in the launcher; no switch):
 // * 16-bit (f16, bf16) with C = 64 -- both entry points, every O: the
 //   streamed design below (conv3x3_stream_kernel).
-// * 16-bit with C % 64 = 0 and C >= 128 -- rr_conv3x3 (VGG conv2_2 to
-//   conv4_1, the decoder's res3/res4 convs): the wide design below
-//   (conv3x3_wide_kernel).
+// * 16-bit with C % 64 = 0, C >= 128 and O > kSlicedMaxO = 64 -- rr_conv3x3
+//   (VGG conv2_2 to conv4_1, the decoder's res3/res4 convs): the wide
+//   design below (conv3x3_wide_kernel).
 // * 16-bit with 1 <= C <= 7 -- rr_conv3x3 only (VGG's conv1_1 with C = 3,
 //   whose 6-byte pixel stride no tensor map takes): the narrow design below
 //   (conv3x3_narrow_kernel).
 // * 16-bit with any other C >= 8 -- rr_conv3x3 only (C = 8, 32, 96, 100,
-//   160, 200, ...: C that fills no 64-channel slice): the sliced design
-//   below (conv3x3_sliced_kernel).
-// * fp32: true fp32 CUDA-core FMAs (the counterpart of the JAX package's
-//   HIGHEST precision) in one kernel that both entry points use.
-// No 16-bit call reaches a cp.async + mma.sync kernel.
+//   160, 200, ...: C that fills no 64-channel slice; and C % 64 = 0, C >=
+//   128 with O <= kSlicedMaxO, such as the decoder filter blocks' `down`
+//   conv 512 -> 32): the sliced design below (conv3x3_sliced_kernel).
+// * fp32 -- both entry points, every C and O: the split-TF32 design below
+//   (conv3x3_tf32x3_kernel), fp32-accurate products on the tensor cores
+//   (the counterpart of the JAX package's HIGHEST precision).
+// No call reaches a cp.async + mma.sync kernel or the CUDA cores' FMAs.
 // A tensor map that cannot be encoded or a refused launch is returned as
 // an error: nothing retries on another design.
 //
@@ -246,7 +248,82 @@
 //   through ldmatrix, x read once).  Its family, the streamed kernel at C
 //   = 64 on the same B, H, W and O, took 0.252 and 0.165 ms at the two
 //   shapes (at O = 512 it re-streams x for each of 8 channel tiles).
-//
+// * C % 64 = 0, C >= 128 with O <= kSlicedMaxO: the wide design's tiles at
+//   N <= 32 restage each input value nine times from L2 (one tap-shifted
+//   box per tap and 64-channel slice) for few products; the sliced walk
+//   stages it 3.4 times.  scripts/conv_ab.py's grid (C 128 / 256 / 512 at
+//   320^2 / 160^2 / 80^2 x O 3 / 16 / 32 / 64, the two designs in turns)
+//   sets the threshold (PERF.md section 6).
+
+// The split-TF32 design (fp32, every C and O; both entry points).  The
+// JAX package computes fp32 convs at HIGHEST precision; on this card fp32
+// FMAs on the CUDA cores (67 TFLOP/s) bound [16,640,640,64] -> 64 at 7.2
+// ms, half of cuDNN's 15 ms without TF32.  The tensor cores take TF32 (an
+// fp32 exponent, 10 mantissa bits) at 495 TFLOP/s, so the products are
+// made fp32-accurate by a split, as csrc/filter_chain.cu does: each
+// operand v = hi + lo with hi, lo in TF32, and x w is taken as x_hi w_hi +
+// x_hi w_lo + x_lo w_hi (three passes, fp32 accumulators; 2.9 ms of
+// products at that shape).  What the split drops (x_lo w_lo, the lo
+// values' truncation) is at most about 2^-19 of |x||w| a product, inside
+// the checks' 9C 2^-22 sum |x||w|; measured, the tensor cores' own fp32
+// accumulation dominates (4.5e-5 against a float64 conv at that shape,
+// cuDNN's 6.9e-6).
+// * Tiles, walk and stages: the sliced design's (256-pixel tiles of rows x
+//   cols, one persistent block per SM, channel tile fastest; a stage is one
+//   K slice at one dx, whose halo'd box of x feeds the three taps dy at dy
+//   x cols pixels in), with K slices of KS = 16 fp32 channels (8 where C <=
+//   8): 64 bytes a pixel, the byte geometry of the f16 KS = 32 slice (the
+//   64-byte swizzle; 32 at KS = 8).  N = O rounded up to 8, 16, 32 or 64;
+//   larger O tiles by 64.  Three stages of 60 KB at 16 x 16 tiles and N =
+//   64 (x, its lo, the weights' 24 KB).
+// * B must be K-major: PTX gives wgmma no transpose for .tf32 operands.
+//   A small kernel (conv3x3_tf32_split_kernel, launched first on the same
+//   stream) writes the wrapper's scratch tensor ws [2][9][O][Cp] once per
+//   call: the HWIO weights transposed to [tap][o][c], split into hi and lo
+//   planes (147 KB each at C = O = 64), zero past C.  A stage loads the
+//   three taps' hi and lo boxes {KS, N, 1} of it with TMA, zero-filled past
+//   O and past Cp.
+// * A from shared memory.  The box of x as TMA lands it is x_hi: wgmma
+//   reads an fp32 operand truncated to TF32.  Once a stage has landed,
+//   both consumer warpgroups write x_lo = trunc_tf32(x - trunc_tf32(x)),
+//   16 bytes a thread at a time, into a second box at the same offsets (so
+//   under the same swizzle), fence, and meet at a barrier; then each issues
+//   the stage's x_hi B_hi, x_hi B_lo and x_lo B_hi as shared-memory
+//   wgmma.mma_async m64nNk8 .tf32, one group in flight while the next
+//   stage's lo is written.  Rejected: A from registers (each warp loads its
+//   fragments of each tap with ldmatrix and splits them in registers,
+//   three times a stage per value; no second box, no barrier): 5.11 ms
+//   against this design's 4.70 in one call, and 5.27 against 4.75 in
+//   another (scripts/probe_tf32_conv.py `a_from_registers`; NVIDIA H100
+//   80GB HBM3 at 700 W).  Splitting once per value outweighs reading A from
+//   shared memory twice more.
+// * The split, in integer operations (cvt.rna.tf32.f32 runs on the
+//   conversion unit at 16 a clock per SM: it cost the register-A route
+//   0.45 ms more at that shape).  x:
+//   hi is x truncated (the tensor cores' reading), lo = x - hi (exact, of
+//   x's sign) truncated, 0 where x is a TF32 value, +-inf or a NaN that
+//   truncation keeps; +-FLT_MAX splits into finite halves.  w (in the
+//   split kernel): hi is w truncated, lo = rna TF32 of w - hi, never of hi's
+//   opposite sign, and where that lo is 0 but w is not it becomes hi 2^-30
+//   (the same sign; 2^-30 of |x||w| a product).  So an infinite x meets a
+//   non-zero weight as x_hi w_hi + x_hi w_lo = +-inf, as in an fp32 conv,
+//   never as inf - inf or inf 0; NaN stays NaN.  Weights are taken to be
+//   finite (an infinite weight would meet x_lo = 0 as inf 0).  The padded
+//   K columns are true zeros on both sides.
+// * x needs a 16-byte pixel stride for its tensor map: where C % 4 != 0 the
+//   wrapper hands the kernel a copy zero-padded to Cp = C rounded up to 4
+//   (the copy counts in the wrapper's time).
+// * The output: each thread stores its accumulator pairs as 8-byte vectors
+//   straight from registers (four lanes write one row's 32 contiguous
+//   bytes: whole sectors), where they fall inside the image and O.  An
+//   fp32 tile is 64 KB at N = 64, too much to stage beside the ring.
+// * What bounds it (scripts/probe_tf32_conv.py at [16,640,640,64] -> 64):
+//   one pass alone 2.73 ms, no wgmma at all 2.64, the lo pass 0.67 of the
+//   4.70, the stores 0.19.  Each m64nNk8 reads 2 KB of A and N 32 bytes of
+//   B from shared memory for 32 clocks of products at N = 64: with the lo
+//   pass and the TMA writes, a stage moves about 370 KB through shared
+//   memory for 2304 clocks of products, more than its 128 bytes a clock.
+
 // Offsets are 64-bit: a batch of 16 frames of 640^2 x 64 holds 4.2e8
 // values.
 #include "common.cuh"
@@ -258,8 +335,6 @@
 #include <utility>
 
 namespace {
-
-constexpr int kThreads = 256;  // 8 warps (fp32)
 
 // The streamed design.
 constexpr int kC = 64;                     // input channels it takes
@@ -309,6 +384,8 @@ struct Sliced {
                                 + 2 * kOutBoxes * kOutBox;
 };
 constexpr int kSlicedMaxStages = 8;
+// 16-bit C % 64 = 0, C >= 128 with O <= kSlicedMaxO take the sliced design.
+constexpr int kSlicedMaxO = 64;
 constexpr int kSmemMax = 232448;  // dynamic shared memory a block may take
 
 // ---------------------------------------------------------------------------
@@ -419,6 +496,11 @@ __device__ __forceinline__ void fence_async_shared() {
 // A barrier of one warpgroup (ids 1 and 2; 0 is __syncthreads).
 __device__ __forceinline__ void bar_sync_wg(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// A barrier of the two consumer warpgroups (id 3).
+__device__ __forceinline__ void bar_sync_consumers() {
+  asm volatile("bar.sync 3, %0;\n" ::"n"(kConsumerThreads) : "memory");
 }
 
 // Registers move between warpgroups: the producer gives its up, the
@@ -591,7 +673,8 @@ __device__ __forceinline__ uint64_t wgmma_desc_mn(uint32_t addr,
 
 // wgmma.mma_async m64nNk16 with A and B from shared memory: A K-major
 // (descriptor da), B MN-major (db, the transpose flag set); fp32
-// accumulators d; scale_d = 0 starts d afresh.
+// accumulators d; scale_d = 0 starts d afresh.  For T = float,
+// m64nNk8 .tf32 with both operands K-major.
 #define RR_ACC4 "%0, %1, %2, %3"
 #define RR_ACC8 RR_ACC4 ", %4, %5, %6, %7"
 #define RR_ACC16 RR_ACC8 ", %8, %9, %10, %11, %12, %13, %14, %15"
@@ -613,29 +696,31 @@ __device__ __forceinline__ uint64_t wgmma_desc_mn(uint32_t addr,
 #define RR_D64(i) RR_D32(i), RR_D32(i + 32)
 #define RR_D128(i) RR_D64(i), RR_D64(i + 64)
 
-// N, TY: the shape's width and the type as PTX strings; ACC, D: the
-// accumulators' operand list and constraints; IA, IB, IS: the operand
-// numbers of da, db and scale_d (N / 2, N / 2 + 1, N / 2 + 2).
-#define RR_WGMMA_SS(N, TY, ACC, D, IA, IB, IS)                          \
+// N, K, TY: the shape's width and depth and the type as PTX strings; TR:
+// the transpose flags (", 0, 1": A K-major, B MN-major; "" for .tf32,
+// which takes none: both K-major); ACC, D: the accumulators' operand list
+// and constraints; IA, IB, IS: the operand numbers of da, db and scale_d
+// (N / 2, N / 2 + 1, N / 2 + 2).
+#define RR_WGMMA_SS(N, K, TY, TR, ACC, D, IA, IB, IS)                   \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IS ", 0;\n"         \
-               "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." \
-               TY " {" ACC "}, %" IA ", %" IB ", p, 1, 1, 0, 1;\n}\n"   \
+               "wgmma.mma_async.sync.aligned.m64n" N K ".f32." TY "."   \
+               TY " {" ACC "}, %" IA ", %" IB ", p, 1, 1" TR ";\n}\n"   \
                : D                                                      \
                : "l"(da), "l"(db), "r"(scale_d))
 
-#define RR_WGMMA_SS_ALL(TY)                                                  \
-  if constexpr (N == 8)                                                      \
-    RR_WGMMA_SS("8", TY, RR_ACC4, RR_D4(0), "4", "5", "6");                  \
-  else if constexpr (N == 16)                                                \
-    RR_WGMMA_SS("16", TY, RR_ACC8, RR_D8(0), "8", "9", "10");                \
-  else if constexpr (N == 32)                                                \
-    RR_WGMMA_SS("32", TY, RR_ACC16, RR_D16(0), "16", "17", "18");            \
-  else if constexpr (N == 64)                                                \
-    RR_WGMMA_SS("64", TY, RR_ACC32, RR_D32(0), "32", "33", "34");            \
-  else if constexpr (N == 128)                                               \
-    RR_WGMMA_SS("128", TY, RR_ACC64, RR_D64(0), "64", "65", "66");           \
-  else                                                                       \
-    RR_WGMMA_SS("256", TY, RR_ACC128, RR_D128(0), "128", "129", "130")
+#define RR_WGMMA_SS_ALL(K, TY, TR)                                            \
+  if constexpr (N == 8)                                                       \
+    RR_WGMMA_SS("8", K, TY, TR, RR_ACC4, RR_D4(0), "4", "5", "6");            \
+  else if constexpr (N == 16)                                                 \
+    RR_WGMMA_SS("16", K, TY, TR, RR_ACC8, RR_D8(0), "8", "9", "10");          \
+  else if constexpr (N == 32)                                                 \
+    RR_WGMMA_SS("32", K, TY, TR, RR_ACC16, RR_D16(0), "16", "17", "18");      \
+  else if constexpr (N == 64)                                                 \
+    RR_WGMMA_SS("64", K, TY, TR, RR_ACC32, RR_D32(0), "32", "33", "34");      \
+  else if constexpr (N == 128)                                                \
+    RR_WGMMA_SS("128", K, TY, TR, RR_ACC64, RR_D64(0), "64", "65", "66");     \
+  else                                                                        \
+    RR_WGMMA_SS("256", K, TY, TR, RR_ACC128, RR_D128(0), "128", "129", "130")
 
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
@@ -643,10 +728,12 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
   static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128 ||
                     N == 256,
                 "wgmma width");
-  if constexpr (std::is_same<T, __half>::value) {
-    RR_WGMMA_SS_ALL("f16");
+  if constexpr (std::is_same<T, float>::value) {
+    RR_WGMMA_SS_ALL("k8", "tf32", "");
+  } else if constexpr (std::is_same<T, __half>::value) {
+    RR_WGMMA_SS_ALL("k16", "f16", ", 0, 1");
   } else {
-    RR_WGMMA_SS_ALL("bf16");
+    RR_WGMMA_SS_ALL("k16", "bf16", ", 0, 1");
   }
 }
 
@@ -1647,113 +1734,263 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_sliced_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA-core FMAs, tiles of 64 pixels x 64 channels, 4 x 4 per thread
+// fp32 (both entry points): the split-TF32 design (above)
 // ---------------------------------------------------------------------------
 
-constexpr int kF32M = 64, kF32N = 64, kF32K = 16;
+// Tiles of 256 pixels x N channels, K slices of KS fp32 channels (kS bytes
+// a pixel, the swizzle span).  A stage: the box of x, a box of its lo
+// (a_slot bytes each, set at launch), then the weights' boxes {KS c, N o}:
+// hi of taps dy = 0, 1, 2, then lo of the same, each on a 1024-byte
+// boundary.
+template <int N, int KS>
+struct Tf32 {
+  static constexpr int kM = 256;
+  static constexpr int kS = KS * 4;
+  static constexpr int kBBox = (N * KS * 4 + 1023) / 1024 * 1024;
+  static constexpr int kBBytes = 6 * kBBox;
+  static constexpr int kBTx = 6 * N * KS * 4;  // the bytes TMA writes
+};
 
-__global__ void __launch_bounds__(kThreads) conv3x3_f32_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ bias, float* __restrict__ y, int B, int H, int W,
-    int C, int O) {
-  __shared__ __align__(16) float as[kF32K][kF32M + 4];  // [c][pixel]
-  __shared__ __align__(16) float bs[kF32K][kF32N];      // [c][o]
+// TF32 of the fp32 bits v rounded to nearest, ties away from zero: what
+// cvt.rna.tf32.f32 gives (its low 13 bits are 0), in two integer
+// operations.  For |v| below 0x7f7ff000: larger finite values would round
+// up to inf.
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t v) {
+  return (v + 0x1000u) & 0xffffe000u;
+}
+
+// An input value's lo (bits v): hi is v truncated to TF32, as the tensor
+// cores read v; lo = v - hi (exact, with v's sign) truncated to TF32; 0
+// where v is a TF32 value, inf or a NaN whose payload TF32 keeps (any
+// other NaN gives lo = NaN).
+__device__ __forceinline__ uint32_t tf32_lo(uint32_t v) {
+  const uint32_t hi = v & 0xffffe000u;
+  const float r = __uint_as_float(v) - __uint_as_float(hi);
+  return hi == v ? 0u : __float_as_uint(r) & 0xffffe000u;
+}
+
+// A weight's split: hi = w truncated to TF32 (NaN kept), lo = rna TF32 of
+// the rest, which never has hi's opposite sign; a lo of 0 for a non-zero
+// finite w becomes hi 2^-30, so that an infinite x meets w as two infinities
+// of one sign.  0 for +-inf (an infinite weight is outside the contract).
+__device__ __forceinline__ void tf32_split_w(float w, float& hi, float& lo) {
+  const uint32_t v = __float_as_uint(w), a = v & 0x7fffffffu;
+  hi = __uint_as_float(a > 0x7f800000u ? 0x7fffe000u : v & 0xffffe000u);
+  uint32_t l = a >= 0x7f800000u ? 0u : tf32_rna(__float_as_uint(w - hi));
+  if (l == 0u && a != 0u && a < 0x7f800000u)
+    l = __float_as_uint(hi * 0x1p-30f);  // a TF32 value scaled by 2^-30
+  lo = __uint_as_float(l);
+}
+
+// ws [2][9][O][Cp] (hi, lo; tap, output channel, input channel; zero past
+// C) from the HWIO weights w [9][C][O].
+__global__ void conv3x3_tf32_split_kernel(const float* __restrict__ w,
+                                          float* __restrict__ ws, int C,
+                                          int Cp, int O) {
+  const long long n = 9LL * Cp * O;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int o = (int)(i % O);
+    const long long q = i / O;
+    const int c = (int)(q % Cp), tap = (int)(q / Cp);
+    float hi = 0.f, lo = 0.f;
+    if (c < C) tf32_split_w(w[((long long)tap * C + c) * O + o], hi, lo);
+    const long long d = ((long long)tap * O + o) * Cp + c;
+    ws[d] = hi;
+    ws[n + d] = lo;
+  }
+}
+
+// A stage's products for a warpgroup: taps dy = 0, 1, 2, each KS / 8 k8
+// steps into both m64 blocks, as x_hi w_hi + x_hi w_lo + x_lo w_hi.  da:
+// the warpgroup's first pixel at dy = 0 in the box of x; tap dy starts dy x
+// `drow` further on (a row of cols pixels, in 16-byte units), a k8 step 32
+// bytes and an m64 block 64 kS bytes on; the box of lo is `dlo` further on.
+// db: the stage's weights, tap dy's hi box dy kBBox bytes on, its lo box 3
+// kBBox further.
+template <int N, int KS>
+__device__ __forceinline__ void tf32x3_stage(float (&acc)[2][N / 2],
+                                             uint64_t da, uint64_t db,
+                                             uint32_t drow, uint32_t dlo) {
+  using P = Tf32<N, KS>;
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+    for (int i = 0; i < KS / 8; ++i)
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const uint64_t ah = da + dy * drow + m * (64 * P::kS / 16) + 2 * i;
+        const uint64_t bh = db + dy * (P::kBBox / 16) + 2 * i;
+        const uint64_t bl = bh + 3 * (P::kBBox / 16);
+        wgmma_ss<float, N>(acc[m], ah, bh, 1);
+        wgmma_ss<float, N>(acc[m], ah, bl, 1);
+        wgmma_ss<float, N>(acc[m], ah + dlo, bh, 1);
+      }
+}
+
+// xmap: x as [B][H][W][Cp] fp32, boxes {KS, cols, rows + 2, 1}; wmap: ws as
+// [18][O][Cp], boxes {KS, N, 1}; both with the kS-byte swizzle.  `lc` =
+// log2(cols); `stages` stages of 2 `a_slot` + kBBytes bytes.
+template <int N, int KS>
+__global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
+    const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap wmap, const float* __restrict__ bias,
+    float* __restrict__ y, int B, int H, int W, int Cp, int O, int lc,
+    int stages, int a_slot) {
+  using P = Tf32<N, KS>;
+  static_assert(KS == 8 || KS == 16, "K slice");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const int stage_bytes = 2 * a_slot + P::kBBytes;
+  const uint32_t ring = smem_addr(base);
+  float* bias_s = reinterpret_cast<float*>(base + (size_t)stages * stage_bytes);
+  const int n_tiles = (O + N - 1) / N;
+  const uint32_t full = smem_addr(bias_s + n_tiles * N);
+  const uint32_t empty = full + 8 * stages;
+
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;  // 4 channels, 4 pixels each
-  const long long M = (long long)B * H * W;
-  const long long m0 = (long long)blockIdx.x * kF32M;
-  const int n0 = blockIdx.y * kF32N;
-
-  // Staging roles: input pixel tid / 4 (channels 4 (tid % 4) .. +3), weight
-  // row tid / 16 (outputs 4 (tid % 16) .. +3).
-  const int arow = tid >> 2, acol = (tid & 3) * 4;
-  const long long am = m0 + arow;
-  const bool am_ok = am < M;
-  const int ax = am_ok ? (int)(am % W) : 0;
-  const long long aq = am_ok ? am / W : 0;
-  const int ay = (int)(aq % H);
-  const long long ab = aq / H;
-  const int brow = tid >> 4, bcol = (tid & 15) * 4;
-
-  const int nkc = (C + kF32K - 1) / kF32K;
-  const int nk = 9 * nkc;
-  float ra[4], rb[4];
-  auto fetch = [&](int kt) {
-    const int tap = kt / nkc, c0 = (kt % nkc) * kF32K;
-    const int yy = ay + tap / 3 - 1, xx = ax + tap % 3 - 1;
-    const bool in = am_ok && yy >= 0 && yy < H && xx >= 0 && xx < W;
-    const float* src = x + ((ab * H + yy) * W + xx) * C;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + acol + j;
-      ra[j] = (in && c < C) ? src[c] : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerThreads / 32);
     }
-    const int c = c0 + brow;
-    const float* wsrc = w + ((long long)tap * C + c) * O;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = n0 + bcol + j;
-      rb[j] = (c < C && o < O) ? wsrc[o] : 0.f;
-    }
-  };
+    fence_barrier_init();
+  }
+  for (int i = tid; i < n_tiles * N; i += kSpecThreads)
+    bias_s[i] = bias != nullptr && i < O ? bias[i] : 0.f;
+  __syncthreads();
 
-  float acc[4][4] = {};
-  fetch(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    __syncthreads();
+  const int cols = 1 << lc, rows = P::kM >> lc;
+  const int strips = (W + cols - 1) >> lc;
+  const int bands = (H + rows - 1) / rows;
+  const long long tiles = (long long)n_tiles * strips * bands * B;
+  const int ksteps = 3 * ((Cp + KS - 1) / KS);  // k = slice 3 + dx
+  const int box_bytes = (rows + 2) * cols * P::kS;
+
+  if (tid >= kConsumerThreads) {
+    // The producer warpgroup: one thread streams every tile's stages.
+    regs_release();
+    if (tid == kConsumerThreads) {
+      const uint32_t tx = box_bytes + P::kBTx;
+      int s = 0;
+      uint32_t ph = 0;
+      for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const WideTile u = wide_tile(t, n_tiles, strips, bands, rows, cols, N);
+        for (int k = 0; k < ksteps; ++k) {
+          const int sl = k / 3, dx = k - 3 * sl;
+          const uint32_t a = ring + s * stage_bytes;
+          mbar_wait(empty + 8 * s, ph ^ 1);
+          mbar_expect_tx(full + 8 * s, tx);
+          tma_load_4d(a, &xmap, full + 8 * s, sl * KS, u.x0 + dx - 1,
+                      u.y0 - 1, u.b);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) as[acol + j][arow] = ra[j];
-    *reinterpret_cast<float4*>(&bs[brow][bcol]) =
-        make_float4(rb[0], rb[1], rb[2], rb[3]);
-    __syncthreads();
-    if (kt + 1 < nk) fetch(kt + 1);  // in flight while this chunk computes
+          for (int p = 0; p < 2; ++p)
 #pragma unroll
-    for (int k = 0; k < kF32K; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&as[k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&bs[k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+            for (int dy = 0; dy < 3; ++dy)
+              tma_load_3d(a + 2 * a_slot + (3 * p + dy) * P::kBBox, &wmap,
+                          full + 8 * s, sl * KS, u.n0, 9 * p + 3 * dy + dx);
+          if (++s == stages) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
     }
+    return;
   }
 
-  const int o0 = n0 + tx * 4;
-  float bv[4];
+  // The consumers: warpgroup wg computes tile pixels 128 wg .. + 127, two
+  // m64 blocks.
+  regs_claim();
+  const int wg = tid >> 7, lane = tid & 31;
+  const int r = ((tid >> 5) & 3) * 16 + (lane >> 2);  // accumulator row
+  const uint32_t drow = (uint32_t)(cols * P::kS) >> 4;
+  const uint32_t dlo = (uint32_t)a_slot >> 4;
+  float acc[2][N / 2];
+  int s = 0;
+  uint32_t ph = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const WideTile u = wide_tile(t, n_tiles, strips, bands, rows, cols, N);
+    // The sums start from the bias.
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    bv[j] = (bias != nullptr && o0 + j < O) ? bias[o0 + j] : 0.f;
+    for (int j = 0; j < N / 8; ++j) {
+      const int o = u.n0 + j * 8 + (lane & 3) * 2;
+      const float b0 = bias_s[o], b1 = bias_s[o + 1];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty * 4 + i;
-    if (m >= M) break;
-    float* dst = y + m * O + o0;
-    if (O % 4 == 0 && o0 < O) {
-      *reinterpret_cast<float4*>(dst) =
-          make_float4(acc[i][0] + bv[0], acc[i][1] + bv[1], acc[i][2] + bv[2],
-                      acc[i][3] + bv[3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (o0 + j < O) dst[j] = acc[i][j] + bv[j];
+      for (int m = 0; m < 2; ++m) {
+        acc[m][4 * j] = acc[m][4 * j + 2] = b0;
+        acc[m][4 * j + 1] = acc[m][4 * j + 3] = b1;
+      }
     }
+    int prev = 0;
+    for (int k = 0; k < ksteps; ++k) {
+      mbar_wait(full + 8 * s, ph);
+      const uint32_t a = ring + s * stage_bytes;
+      // The box as it lies is x_hi (wgmma reads fp32 truncated to TF32);
+      // both warpgroups write its lo into the second box, chunk by chunk
+      // at the same offsets (so with the same swizzle), then meet.
+      const uint4* xv = reinterpret_cast<const uint4*>(base + (a - ring));
+      uint4* lv = reinterpret_cast<uint4*>(base + (a - ring) + a_slot);
+      for (int i = tid; i < box_bytes / 16; i += kConsumerThreads) {
+        const uint4 v = xv[i];
+        lv[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
+                           tf32_lo(v.w));
+      }
+      fence_async_shared();  // the generic writes, before wgmma reads them
+      bar_sync_consumers();
+      const uint64_t da = wgmma_desc<P::kS>(a + wg * 128 * P::kS);
+      const uint64_t db = wgmma_desc<P::kS>(a + 2 * a_slot);
+      fence_regs(acc);
+      wgmma_fence();
+      tf32x3_stage<N, KS>(acc, da, db, drow, dlo);
+      wgmma_commit();
+      if (k > 0) {
+        // The previous stage's group is done: it may be refilled.
+        wgmma_wait<1>();
+        fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * prev);
+      }
+      prev = s;
+      if (++s == stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * prev);
+
+    // The epilogue: accumulator pairs (columns 8 j + 2 (lane % 4), + 1) of
+    // rows r and r + 8 of each m64 block, straight to y.
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = 128 * wg + 64 * m + r + 8 * h;  // the tile pixel
+        const int yy = u.y0 + (p >> lc), xx = u.x0 + (p & (cols - 1));
+        if (yy >= H || xx >= W) continue;
+        float* dst = y + (((long long)u.b * H + yy) * W + xx) * O;
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          const int o = u.n0 + j * 8 + (lane & 3) * 2;
+          const float v0 = acc[m][4 * j + 2 * h], v1 = acc[m][4 * j + 2 * h + 1];
+          if (O % 2 == 0) {
+            if (o < O) *reinterpret_cast<float2*>(dst + o) = make_float2(v0, v1);
+          } else {
+            if (o < O) dst[o] = v0;
+            if (o + 1 < O) dst[o + 1] = v1;
+          }
+        }
+      }
   }
 }
 
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
-
-cudaError_t launch_f32(const void* x, const void* w, const void* b, void* y,
-                       int B, int H, int W, int C, int O, cudaStream_t st) {
-  const long long M = (long long)B * H * W;
-  dim3 grid((unsigned)((M + kF32M - 1) / kF32M), (O + kF32N - 1) / kF32N);
-  conv3x3_f32_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<float*>(y), B, H, W, C, O);
-  return cudaGetLastError();
-}
 
 // cuTensorMapEncodeTiled is a driver-API function; the library links only
 // the static runtime, so it is fetched through the runtime once.
@@ -1782,9 +2019,9 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A tiled tensor map over 16-bit data with the 128-byte swizzle (or
-// `swizzle`) and zero fill out of bounds.  The map holds the data's
-// pointer, so it is encoded at every call.
+// A tiled tensor map over T (f16, bf16 or fp32) data with the 128-byte
+// swizzle (or `swizzle`) and zero fill out of bounds.  The map holds the
+// data's pointer, so it is encoded at every call.
 template <typename T>
 cudaError_t encode_map(
     CUtensorMap* map, const void* p, cuuint32_t rank, const cuuint64_t* dims,
@@ -1795,8 +2032,9 @@ cudaError_t encode_map(
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map,
-      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      std::is_same<T, float>::value    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       rank, const_cast<void*>(p), dims, strides, box, elem,
       CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -2038,13 +2276,88 @@ cudaError_t sliced(const void* x, const void* w, const void* b, void* y,
   }
 }
 
+// The split-TF32 kernel: `grid` persistent blocks over tiles of 256
+// pixels (cols = 1 << lc wide) x N output channels, K slices of KS.  x is
+// [B,H,W,Cp] (Cp = C rounded up to 4: the wrapper's zero-padded copy where
+// C % 4 != 0), w the caller's [3,3,C,O]; ws, the wrapper's scratch of 18 O
+// Cp floats, takes the weights' split first.  The ring takes as many
+// stages as fit beside the bias, at most kSlicedMaxStages.
+template <int N, int KS>
+cudaError_t launch_tf32x3(const void* x, const void* w, const void* b,
+                          void* y, void* ws, int B, int H, int W, int C,
+                          int O, int lc, int grid, cudaStream_t st) {
+  using P = Tf32<N, KS>;
+  const int cols = 1 << lc, rows = P::kM >> lc, cp = (C + 3) / 4 * 4;
+  const long long nw = 9LL * cp * O;
+  conv3x3_tf32_split_kernel<<<(int)std::min<long long>((nw + 255) / 256,
+                                                        1024),
+                              256, 0, st>>>(static_cast<const float*>(w),
+                                            static_cast<float*>(ws), C, cp, O);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xd[4] = {(cuuint64_t)cp, (cuuint64_t)W, (cuuint64_t)H,
+                            (cuuint64_t)B};
+  const cuuint64_t xs[3] = {cp * 4ull, cp * 4ull * W, cp * 4ull * W * H};
+  const cuuint32_t xb[4] = {(cuuint32_t)KS, (cuuint32_t)cols,
+                            (cuuint32_t)(rows + 2), 1};
+  e = encode_map<float>(&xmap, x, 4, xd, xs, xb, swizzle_of(P::kS));
+  if (e != cudaSuccess) return e;
+  const cuuint64_t wd[3] = {(cuuint64_t)cp, (cuuint64_t)O, 18};
+  const cuuint64_t wst[2] = {cp * 4ull, cp * 4ull * O};
+  const cuuint32_t wb[3] = {(cuuint32_t)KS, (cuuint32_t)N, 1};
+  e = encode_map<float>(&wmap, ws, 3, wd, wst, wb, swizzle_of(P::kS));
+  if (e != cudaSuccess) return e;
+  const int a_slot = ((rows + 2) * cols * P::kS + 1023) / 1024 * 1024;
+  const int stage = 2 * a_slot + P::kBBytes;
+  const int fixed = 1024 + (O + N - 1) / N * N * 4;  // alignment, the bias
+  const int stages =
+      std::min(kSlicedMaxStages, (kSmemMax - fixed) / (stage + 16));
+  if (stages < 2) return cudaErrorInvalidValue;
+  const size_t bytes = fixed + (size_t)stages * (stage + 16);
+  e = cudaFuncSetAttribute(conv3x3_tf32x3_kernel<N, KS>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e != cudaSuccess) return e;
+  conv3x3_tf32x3_kernel<N, KS><<<grid, kSpecThreads, bytes, st>>>(
+      xmap, wmap, static_cast<const float*>(b), static_cast<float*>(y), B, H,
+      W, cp, O, lc, stages, a_slot);
+  return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t tf32x3_ks(const void* x, const void* w, const void* b, void* y,
+                      void* ws, int B, int H, int W, int C, int O, int lc,
+                      int ks, int grid, cudaStream_t st) {
+  if (ks == 8)
+    return launch_tf32x3<N, 8>(x, w, b, y, ws, B, H, W, C, O, lc, grid, st);
+  if (ks == 16)
+    return launch_tf32x3<N, 16>(x, w, b, y, ws, B, H, W, C, O, lc, grid, st);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t tf32x3(const void* x, const void* w, const void* b, void* y,
+                   void* ws, int B, int H, int W, int C, int O, int cols,
+                   int n, int ks, int grid, cudaStream_t st) {
+  const int lc = cols == 16 ? 4 : cols == 32 ? 5 : cols == 64 ? 6
+               : cols == 128 ? 7 : -1;
+  if (lc < 0 || grid <= 0 || ws == nullptr) return cudaErrorInvalidValue;
+  switch (n) {
+    case 8: return tf32x3_ks<8>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
+    case 16: return tf32x3_ks<16>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
+    case 32: return tf32x3_ks<32>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
+    case 64: return tf32x3_ks<64>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // 16-bit dispatch by shape (the header's table).
 template <typename T>
 cudaError_t conv16(const void* x, const void* w, const void* b, void* y,
                    int B, int H, int W, int C, int O, int R, int cols, int n,
                    int ks, int grid, cudaStream_t st) {
   if (C == kC) return stream<T>(x, w, b, y, B, H, W, O, R, grid, st);
-  if (C % 64 == 0 && C >= 128)
+  if (C % 64 == 0 && C >= 128 && O > kSlicedMaxO)
     return wide<T>(x, w, b, y, B, H, W, C, O, cols, n, grid, st);
   if (C <= 7) return narrow<T>(x, w, b, y, B, H, W, C, O, n, grid, st);
   return sliced<T>(x, w, b, y, B, H, W, C, O, cols, n, ks, grid, st);
@@ -2056,22 +2369,24 @@ cudaError_t conv16(const void* x, const void* w, const void* b, void* y,
 // y [B,H,W,O]; every pointer 16-byte aligned.  The wrapper's plan: `R` and
 // `grid` for the streamed kernel (16-bit, C = 64); `cols`, `n` (the tile's
 // columns and output channels) and `grid` for the wide kernel (16-bit, C %
-// 64 = 0, C >= 128), which takes w as [3,3,C,ld], ld = O rounded up to 8;
-// `n` and `grid` for the narrow kernel (16-bit, C <= 7); `cols`, `n`, `ks`
-// (the K slice) and `grid` for the sliced kernel (16-bit, other C >= 8),
-// which takes w as [3,3,C,ld] and, where C % 8 != 0, x as [B,H,W,Cp] and w
-// as [3,3,Cp,ld], Cp = C rounded up to ks; the fp32 kernel reads none of
-// them.
+// 64 = 0, C >= 128, O > kSlicedMaxO), which takes w as [3,3,C,ld], ld = O
+// rounded up to 8; `n` and `grid` for the narrow kernel (16-bit, C <= 7);
+// `cols`, `n`, `ks` (the K slice) and `grid` for the sliced kernel (16-bit,
+// other C >= 8), which takes w as [3,3,C,ld] and, where C % 8 != 0, x as
+// [B,H,W,Cp] and w as [3,3,Cp,ld], Cp = C rounded up to ks; `cols`, `n`,
+// `ks` and `grid` for the split-TF32 kernel (fp32), which takes x as
+// [B,H,W,Cp] where C % 4 != 0, Cp = C rounded up to 4, and `ws`, a scratch
+// of 18 O Cp floats (unused by the 16-bit kernels).
 extern "C" int rr_conv3x3(int dtype, const void* x, const void* w,
-                          const void* b, void* y, int B, int H, int W, int C,
-                          int O, int R, int cols, int n, int ks, int grid,
-                          void* stream_) {
+                          const void* b, void* y, void* ws, int B, int H,
+                          int W, int C, int O, int R, int cols, int n, int ks,
+                          int grid, void* stream_) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream_);
   switch (dtype) {
     case RR_F32:
-      return launch_f32(x, w, b, y, B, H, W, C, O, st);
+      return tf32x3(x, w, b, y, ws, B, H, W, C, O, cols, n, ks, grid, st);
     case RR_F16:
       return conv16<__half>(x, w, b, y, B, H, W, C, O, R, cols, n, ks, grid,
                             st);
@@ -2085,9 +2400,10 @@ extern "C" int rr_conv3x3(int dtype, const void* x, const void* w,
 
 // The same with C = 64 and O <= 64.
 extern "C" int rr_conv3x3_c64(int dtype, const void* x, const void* w,
-                              const void* b, void* y, int B, int H, int W,
-                              int O, int R, int grid, void* stream_) {
+                              const void* b, void* y, void* ws, int B, int H,
+                              int W, int O, int R, int cols, int n, int ks,
+                              int grid, void* stream_) {
   if (O > kC) return cudaErrorInvalidValue;
-  return rr_conv3x3(dtype, x, w, b, y, B, H, W, kC, O, R, 0, 0, 0, grid,
-                    stream_);
+  return rr_conv3x3(dtype, x, w, b, y, ws, B, H, W, kC, O, R, cols, n, ks,
+                    grid, stream_);
 }

@@ -47,12 +47,14 @@ SIGNATURES = {
                        _I, _P],
     # dtype, x, y, rows, f1, f2, grid, stream
     "rr_filter_pair": [_I, _P, _P, _L, _P, _P, _I, _P],
-    # dtype, x, w, b (or None), y, B, H, W, C, O, rows, cols, n, ks, grid,
-    # stream
-    "rr_conv3x3": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                   _I, _P],
-    # dtype, x, w, b (or None), y, B, H, W, O, rows, grid, stream
-    "rr_conv3x3_c64": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, x, w, b (or None), y, ws (or None), B, H, W, C, O, rows, cols,
+    # n, ks, grid, stream
+    "rr_conv3x3": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _I, _P],
+    # dtype, x, w, b (or None), y, ws (or None), B, H, W, O, rows, cols, n,
+    # ks, grid, stream
+    "rr_conv3x3_c64": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _P],
 }
 
 

@@ -17,26 +17,35 @@ shape (:func:`design` names it):
 
 * f16/bf16 with C = 64 (both entry points): the streamed TMA + wgmma
   design, whose work split :func:`conv_plan` computes here;
-* f16/bf16 with C % 64 = 0 and C >= 128: the wide design, a TMA-fed ring of
-  64-channel tap slices into wgmma, whose work split :func:`wide_plan`
-  computes here (where O % 8 != 0 the wrapper hands it a copy of ``w``
-  padded with zeros to a multiple of 8 channels: no tensor map takes the
-  weights' row stride otherwise);
+* f16/bf16 with C % 64 = 0, C >= 128 and O > ``SLICED_MAX_O``: the wide
+  design, a TMA-fed ring of 64-channel tap slices into wgmma, whose work
+  split :func:`wide_plan` computes here (where O % 8 != 0 the wrapper hands
+  it a copy of ``w`` padded with zeros to a multiple of 8 channels: no
+  tensor map takes the weights' row stride otherwise);
 * f16/bf16 with 1 <= C <= 7 (VGG conv1_1's C = 3): the narrow design, one
   halo read per tile of 8 x 32 pixels, K = 9 C in one mma.sync pass and
   the output staged for TMA bulk stores, whose work split
   :func:`narrow_plan` computes here;
-* f16/bf16 with any other C >= 8 (C = 8, 32, 96, 100, 160, 200, ...): the
-  sliced design, a TMA-fed wgmma ring over K slices of 16 or 32 channels
-  (one halo'd box per slice and dx feeds the three taps dy), with its
+* f16/bf16 with any other C >= 8 (C = 8, 32, 96, 100, 160, 200, ..., and
+  C % 64 = 0 with O <= ``SLICED_MAX_O``, such as the decoder filter
+  blocks' `down` conv 512 -> 32): the sliced design, a TMA-fed wgmma ring
+  over K slices of 16 or 32 channels (one halo'd box per slice and dx
+  feeds the three taps dy), with its
   output staged per m64 block and written by TMA bulk stores behind the
   next tile's products; its work split :func:`sliced_plan` computes here
   (where C % 8 != 0 the wrapper hands it copies of ``x`` and ``w`` padded
   with zero channels to a whole K slice, and where O % 8 != 0 a copy of
   ``w`` padded to 8 output channels, as for the wide design);
-* fp32: CUDA-core FMAs.
+* fp32 (both entry points, any C and O): the split-TF32 design, the
+  sliced design's walk over K slices of 16 fp32 channels (8 where C <= 8)
+  with each fp32 product taken on the tensor cores as three TF32 passes,
+  x_hi w_hi + x_hi w_lo + x_lo w_hi (fp32-accurate, as the JAX package's
+  HIGHEST); its work split :func:`tf32x3_plan` computes here.  The wrapper
+  hands it a scratch tensor for the weights' K-major hi and lo planes,
+  which the kernel writes first, and where C % 4 != 0 a copy of ``x``
+  padded with zero channels to a multiple of 4.
 
-No 16-bit call reaches a cp.async + mma.sync kernel.
+No call reaches a cp.async + mma.sync kernel or the CUDA cores' FMAs.
 
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
 takes the plain version.  Each wrapper reaches both through its
@@ -144,14 +153,21 @@ def conv_plan(batch: int, height: int, width: int, o: int,
 WIDE_COLS = (128, 64, 32, 16)
 
 
-def design(c: int, dtype: torch.dtype) -> str:
+#: csrc/conv3x3.cu kSlicedMaxO: 16-bit C % 64 = 0, C >= 128 with O up to
+#: this take the sliced design, wider O the wide one (PERF.md section 6:
+#: the two designs' A/B at C 128 / 256 / 512 x O 3 / 16 / 32 / 64).
+SLICED_MAX_O = 64
+
+
+def design(c: int, dtype: torch.dtype, o: int) -> str:
     """Which kernel of ``csrc/conv3x3.cu`` takes a call with C input
-    channels in ``dtype`` (the launcher's dispatch by shape)."""
+    channels and O output channels in ``dtype`` (the launcher's dispatch
+    by shape)."""
     if dtype == torch.float32:
-        return "fp32"
+        return "tf32x3"
     if c == _C64:
         return "streamed"
-    if c % 64 == 0 and c >= 128:
+    if c % 64 == 0 and c >= 128 and o > SLICED_MAX_O:
         return "wide"
     if 1 <= c <= NARROW_MAX_C:
         return "narrow"
@@ -301,12 +317,33 @@ def sliced_plan(batch: int, height: int, width: int, c: int, o: int,
     """Tile shape, width N, K slice and grid for a [batch, height, width,
     c] -> o conv on the sliced design, on a card with ``sms`` SMs: one
     block per SM, or one per tile where there are fewer tiles."""
-    if design(c, torch.float16) != "sliced":
+    if design(c, torch.float16, o) != "sliced":
         raise ValueError(f"the sliced design takes C >= 8 that is neither "
-                         f"64 nor a multiple of 64 >= 128; got C={c}")
+                         f"64 nor a multiple of 64 >= 128 (those too with "
+                         f"O <= {SLICED_MAX_O}); got C={c}, O={o}")
     n = sliced_tile_n(o)
     cols = wide_cols(height, width, SLICED_M, SLICED_COLS)
     plan = SlicedPlan(batch, height, width, o, cols, n, 1, c, slice_width(c))
+    return dataclasses.replace(plan, grid=min(plan.tiles, sms))
+
+
+def tf32_slice_width(c: int) -> int:
+    """The split-TF32 design's K slice for C fp32 input channels: 8 where
+    C <= 8 (a wgmma k8 step: 32 bytes a pixel), else 16 (64 bytes a pixel,
+    the byte geometry of the 16-bit KS = 32 slice)."""
+    return 8 if c <= 8 else 16
+
+
+@functools.lru_cache(maxsize=256)
+def tf32x3_plan(batch: int, height: int, width: int, c: int, o: int,
+                sms: int) -> SlicedPlan:
+    """Tile shape, width N, K slice and grid for a [batch, height, width,
+    c] -> o fp32 conv on the split-TF32 design (the sliced design's walk):
+    256-pixel tiles, N = O rounded up to 8, 16, 32 or 64 (larger O tiles
+    by 64), one block per SM or one per tile where there are fewer."""
+    plan = SlicedPlan(batch, height, width, o,
+                      wide_cols(height, width, SLICED_M, SLICED_COLS),
+                      out_tile(o), 1, c, tf32_slice_width(c))
     return dataclasses.replace(plan, grid=min(plan.tiles, sms))
 
 
@@ -432,9 +469,9 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
     if y.numel() == 0:
         return y
     rows = cols = n = ks = grid = 0  # the plan of a persistent design
-    kind = design(c, x.dtype)
-    if kind in ("streamed", "wide", "narrow", "sliced"):
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    ws = None  # the split-TF32 kernel's scratch
+    kind = design(c, x.dtype, o)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if kind == "streamed":
         plan = conv_plan(bb, h, wd, o, sms)
         rows, grid = plan.rows, plan.grid
@@ -463,17 +500,27 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
             wp = w.new_zeros(3, 3, cp, ld)
             wp[:, :, :c, :o] = w
             w = wp
+    elif kind == "tf32x3":
+        plan = tf32x3_plan(bb, h, wd, c, o, sms)
+        cols, n, ks, grid = plan.cols, plan.n, plan.ks, plan.grid
+        # TMA needs a 16-byte pixel stride: zero-pad x's channels to 4.  The
+        # kernel splits the weights into the scratch ws [2][9][O][Cp] first.
+        cp = -(-c // 4) * 4
+        if cp != c:
+            x = F.pad(x, (0, cp - c))
+        ws = torch.empty(18 * o * cp, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bias = None if b is None else b.data_ptr()
+    scratch = None if ws is None else ws.data_ptr()
     lib = _build.library()
     if c64:
         err = lib.rr_conv3x3_c64(_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-                                 bias, y.data_ptr(), bb, h, wd, o, rows, grid,
-                                 stream)
+                                 bias, y.data_ptr(), scratch, bb, h, wd, o,
+                                 rows, cols, n, ks, grid, stream)
     else:
         err = lib.rr_conv3x3(_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-                             bias, y.data_ptr(), bb, h, wd, c, o, rows, cols,
-                             n, ks, grid, stream)
+                             bias, y.data_ptr(), scratch, bb, h, wd, c, o,
+                             rows, cols, n, ks, grid, stream)
     _build.check(err, name)
     return y
 
@@ -513,7 +560,7 @@ def _implicit_gemm_cuda(x, w, b):
         with _build.COUNT_LOCK:
             conv3x3_implicit_gemm.launches += 1
             conv3x3_implicit_gemm.launches_by_design[
-                design(x.shape[-1], x.dtype)] += 1
+                design(x.shape[-1], x.dtype, w.shape[-1])] += 1
     return y
 
 
@@ -550,7 +597,7 @@ _build.define_op("conv3x3_pairlane(Tensor x, Tensor w, Tensor? b) -> Tensor",
 
 
 #: The kernel designs of csrc/conv3x3.cu, as :func:`design` names them.
-DESIGNS = ("streamed", "wide", "narrow", "sliced", "fp32")
+DESIGNS = ("streamed", "wide", "narrow", "sliced", "tf32x3")
 
 #: Kernel launches so far (CPU calls and empty inputs launch nothing); the
 #: implicit-GEMM wrapper's also by design.

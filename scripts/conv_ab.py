@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
 """Device time of ``conv3x3_implicit_gemm`` at the VGG shapes of one
-16-frame batch of 640^2, f16, for the ``rerevst_torch`` package under a
-given root — one side of an A/B of two trees' conv kernels in one call.
+16-frame batch of 640^2, for the ``rerevst_torch`` package under a given
+root — one side of an A/B of two trees' conv kernels in one call.
 
     python3 scripts/conv_ab.py --root ROOT [--label NAME]
 
 ROOT holds the ``rerevst_torch`` to measure (this repository, or an unpacked
 ``git archive`` of another commit); its kernels build from its own sources.
-The shapes are the JAX conv benchmark's [16,640,640,64] -> 64 and -> 3
+The f16 shapes are the JAX conv benchmark's [16,640,640,64] -> 64 and -> 3
 (the streamed kernel), ``chip_smoke.py``'s VGG_CONVS (conv1_1
 [16,640,640,3]->64, the narrow kernel; conv2_1 [16,320,320,64]->128, the
 streamed kernel; conv2_2 [16,320,320,128]->128, conv3_1
 [16,160,160,128]->256, conv3_2 [16,160,160,256]->256 and conv4_1
 [16,80,80,256]->512, the wide kernel) and its SLICED_CONVS ([16,320,320,32]
 -> 64 and the filter blocks' `up` [16,80,80,32] -> 512, the sliced kernel;
-their `down` [16,80,80,512] -> 32, the wide kernel).  Inputs are seeded
-randoms made on the card; each call is checked once against ``F.conv2d`` in
-fp32 (max |diff| reported), then timed with CUDA events over 20 calls
-queued behind a sleep kernel, after 3 warm-up calls.  Prints one JSON line
-with the card's name and power limit.  Run the two trees in turns (A, B,
-B, A) in one call: the card and its host differ from call to call.
+their `down` [16,80,80,512] -> 32), then the grid of C % 64 = 0 with O <=
+64 that decides between the sliced and the wide designs (C = 128, 256, 512
+at the relu2_1, relu3_1 and relu4_1 scales 320^2, 160^2, 80^2, x O = 3,
+16, 32, 64), and row 3j, fp32 [16,640,640,64] -> 64.  Inputs are seeded
+randoms made on the card; each call is checked once against ``F.conv2d``
+in fp32 with TF32 off (max |diff| reported), then timed with CUDA events
+over 20 calls (5 in fp32) queued behind a sleep kernel, after 3 warm-up
+calls.  Prints one JSON line with the card's name and power limit and the
+design each call took (where the tree's wrapper names it).  Run the two
+trees in turns (A, B, B, A) in one call: the card and its host differ from
+call to call.
 """
 
 from __future__ import annotations
@@ -31,17 +36,22 @@ import sys
 import time
 from pathlib import Path
 
-SHAPES = [("bench 64->64", (16, 640, 640, 64), 64),
-          ("bench 64->3", (16, 640, 640, 64), 3),
-          ("conv1_1", (16, 640, 640, 3), 64),
-          ("conv2_1", (16, 320, 320, 64), 128),
-          ("conv2_2", (16, 320, 320, 128), 128),
-          ("conv3_1", (16, 160, 160, 128), 256),
-          ("conv3_2", (16, 160, 160, 256), 256),
-          ("conv4_1", (16, 80, 80, 256), 512),
-          ("sliced C = 32", (16, 320, 320, 32), 64),
-          ("filter up", (16, 80, 80, 32), 512),
-          ("filter down", (16, 80, 80, 512), 32)]
+F16, F32 = "float16", "float32"
+SHAPES = [("bench 64->64", (16, 640, 640, 64), 64, F16),
+          ("bench 64->3", (16, 640, 640, 64), 3, F16),
+          ("conv1_1", (16, 640, 640, 3), 64, F16),
+          ("conv2_1", (16, 320, 320, 64), 128, F16),
+          ("conv2_2", (16, 320, 320, 128), 128, F16),
+          ("conv3_1", (16, 160, 160, 128), 256, F16),
+          ("conv3_2", (16, 160, 160, 256), 256, F16),
+          ("conv4_1", (16, 80, 80, 256), 512, F16),
+          ("sliced C = 32", (16, 320, 320, 32), 64, F16),
+          ("filter up", (16, 80, 80, 32), 512, F16),
+          ("filter down", (16, 80, 80, 512), 32, F16)] \
+    + [(f"C = {c} -> {o}", (16, hw, hw, c), o, F16)
+       for c, hw in ((128, 320), (256, 160), (512, 80))
+       for o in (3, 16, 32, 64) if (c, o) != (512, 32)] \
+    + [("fp32 C = 64", (16, 640, 640, 64), 64, F32)]
 
 
 def device_ms(torch, fn, iters=20, warmup=3) -> float:
@@ -86,6 +96,7 @@ def main() -> int:
         return 2
     import rerevst_torch
     from rerevst_torch.kernels import conv3x3_implicit_gemm
+    from rerevst_torch.kernels.conv3x3 import design
 
     if Path(rerevst_torch.__file__).resolve().parent.parent != root:
         print(f"conv_ab: imported rerevst_torch from "
@@ -95,20 +106,27 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
     rows = {}
-    for site, shape, o in SHAPES:
-        x = torch.randn(shape, generator=gen, device="cuda").half()
+    for site, shape, o, dt in SHAPES:
+        dtype = getattr(torch, dt)
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         w = (torch.randn((3, 3, shape[-1], o), generator=gen, device="cuda")
-             / (3 * shape[-1] ** 0.5)).half()
-        b = torch.randn(o, generator=gen, device="cuda").half()
+             / (3 * shape[-1] ** 0.5)).to(dtype)
+        b = torch.randn(o, generator=gen, device="cuda").to(dtype)
         got = conv3x3_implicit_gemm(x, w, b).float()
         want = F.conv2d(x.float().permute(0, 3, 1, 2),
                         w.float().permute(3, 2, 0, 1), b.float(),
                         padding=1).permute(0, 2, 3, 1)
         err = (got - want).abs().max().item()
         del got, want
+        iters = 5 if dt == F32 else 20
         rows[site] = {"ms": device_ms(torch,
-                                      lambda: conv3x3_implicit_gemm(x, w, b)),
-                      "max_abs_diff_vs_fp32": err}
+                                      lambda: conv3x3_implicit_gemm(x, w, b),
+                                      iters=iters),
+                      "max_abs_diff_vs_fp32": err, "dtype": dt}
+        try:
+            rows[site]["design"] = design(shape[-1], dtype, o)
+        except TypeError:  # a tree whose design() takes no O
+            rows[site]["design"] = design(shape[-1], dtype)
         del x, w, b
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

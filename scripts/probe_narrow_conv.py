@@ -168,7 +168,7 @@ def main() -> int:
     def call(lib_, x, w, b, y, o, grid):
         bsz, h, wd, c = x.shape
         err = lib_.rr_conv3x3(2, x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                              y.data_ptr(), bsz, h, wd, c, o, 0, 0,
+                              y.data_ptr(), None, bsz, h, wd, c, o, 0, 0,
                               K.narrow_tile_n(o), 0, grid, stream)
         if err:
             raise RuntimeError(f"rr_conv3x3 failed with {err}")

@@ -107,8 +107,8 @@ def main() -> int:
     def direct(x, w, b, y, cols, n, ks, grid, lib=lib):
         bb, h, wd, c = x.shape
         err = lib.rr_conv3x3(2, x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                             y.data_ptr(), bb, h, wd, c, w.shape[-1], 0, cols,
-                             n, ks, grid,
+                             y.data_ptr(), None, bb, h, wd, c, w.shape[-1], 0,
+                             cols, n, ks, grid,
                              torch.cuda.current_stream().cuda_stream)
         _build.check(err, "rr_conv3x3")
 

@@ -1,0 +1,361 @@
+#!/usr/bin/env python3
+"""What the split-TF32 conv kernel (fp32, ``csrc/conv3x3.cu``
+conv3x3_tf32x3_kernel) costs on an NVIDIA H100, against the design it was
+chosen over.
+
+    python3 scripts/probe_tf32_conv.py
+
+Runs on the card only (imports torch and ``rerevst_torch``, no JAX).  fp32,
+device time from CUDA events over back-to-back calls queued behind a sleep
+kernel (``chip_smoke.time_ms``), at [16,640,640,64] -> 64 (row 3j of
+PERF.md section 6):
+
+1. the kernel as the wrapper plans it (``kernels/conv3x3.py:
+   tf32x3_plan``), checked against its plain version, beside one
+   ``F.conv2d`` with bias (channels_last) with TF32 off (the JAX package's
+   HIGHEST: the same function) and on (one TF32 pass: not the same
+   function, for scale), and the bounds: three TF32 passes at 495 TFLOP/s,
+   fp32 FMAs at 67 TFLOP/s, bytes at 3.35 TB/s; its max |error| and
+   ``F.conv2d``'s against a float64 conv of the same inputs (two frames);
+2. every tile width (16, 32, 64, 128 columns) and K slice (8, 16) the
+   kernel takes, through ``rr_conv3x3`` directly;
+3. variants of ``csrc/conv3x3.cu``, each built from the committed source
+   with its edits into ``rerevst_torch/_build/probe/``:
+   ``a_from_registers`` (the rejected design: each warp loads its tap
+   fragments with ldmatrix, splits them in registers and issues register-A
+   wgmmas; checked against the plain version too), ``one_pass`` (x_hi B_hi
+   alone: what two more passes cost), ``no_split`` (the consumers' lo pass
+   skipped, the barrier kept), ``loads_only`` (no wgmma: the loads, the lo
+   pass, the barriers and the stores remain), ``no_a_load`` and
+   ``no_b_load`` (the producer skips the box of x, or the six weight
+   boxes, of every stage: what staging each costs) and ``no_store`` (the
+   epilogue skipped).
+
+Prints the card's name and power limit and one JSON line; the same lands in
+``chiprun_out/probe_tf32_conv.json``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+SHAPE, O = (16, 640, 640, 64), 64
+
+#: The rejected design: A from registers.  Each consumer warp loads its
+#: 16 x 8 fragment of each tap's operand from the swizzled box with one
+#: ldmatrix (an 8 x 8 b16 matrix is 8 rows of four fp32 values: the m16n8k8
+#: TF32 A layout), splits it in registers (three times a stage per value:
+#: once per tap), and issues three register-A wgmmas; each tap has a
+#: register set of its own, refilled once wgmma.wait_group 2 says its
+#: readers are done.  A stage holds no lo box.
+RS_TAP = r'''
+#define RR_TF32_RS(NS, ACC, D, IA, ID, IO, IS)                            \
+  asm volatile("{\n.reg .pred p;\n.reg .b64 dd;\n"                         \
+               "setp.ne.b32 p, %" IS ", 0;\nadd.s64 dd, %" ID ", %" IO ";\n" \
+               "wgmma.mma_async.sync.aligned.m64n" NS "k8.f32.tf32.tf32 "  \
+               "{" ACC "}, {" IA "}, dd, p, 1, 1;\n}\n"                     \
+               : D                                                         \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),   \
+                 "n"(Off), "r"(1))
+
+template <int N, int Off>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  if constexpr (N == 8)
+    RR_TF32_RS("8", RR_ACC4, RR_D4(0), "%4, %5, %6, %7", "8", "9", "10");
+  else if constexpr (N == 16)
+    RR_TF32_RS("16", RR_ACC8, RR_D8(0), "%8, %9, %10, %11", "12", "13", "14");
+  else if constexpr (N == 32)
+    RR_TF32_RS("32", RR_ACC16, RR_D16(0), "%16, %17, %18, %19", "20", "21",
+               "22");
+  else
+    RR_TF32_RS("64", RR_ACC32, RR_D32(0), "%32, %33, %34, %35", "36", "37",
+               "38");
+}
+
+template <int KK>
+__device__ __forceinline__ void fence_frags(uint32_t (&r)[KK][2][4]) {
+#pragma unroll
+  for (int k = 0; k < KK; ++k)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[k][m][i])::"memory");
+}
+
+template <int N, int KS, int DY>
+__device__ __forceinline__ void tf32x3_tap(float (&acc)[2][N / 2],
+                                           uint32_t (&xh)[KS / 8][2][4],
+                                           uint32_t (&xl)[KS / 8][2][4],
+                                           uint32_t a, uint64_t db, int cols,
+                                           int lrow, int lchunk,
+                                           uint32_t release, int lane) {
+  using P = Tf32<N, KS>;
+  wgmma_wait<2>();
+  fence_frags(xh);
+  fence_frags(xl);
+  if (DY == 2 && release != 0u) {
+    fence_async_shared();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(release);
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS / 8; ++kk)
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int q = DY * cols + lrow + 64 * m, c = 2 * kk + lchunk;
+      const int sw = (q * P::kS >> 7) & (P::kS / 16 - 1);
+      uint32_t v[4];
+      ldsm_x4(v, a + q * P::kS + ((c ^ sw) << 4));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        xh[kk][m][i] = v[i] & 0xffffe000u;
+        xl[kk][m][i] = tf32_lo(v[i]);
+      }
+    }
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS / 8; ++kk)
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      constexpr int hi = DY * P::kBBox / 16, lo = (3 + DY) * P::kBBox / 16;
+      const uint64_t dk = db + 2 * kk;
+      wgmma_tf32<N, hi>(acc[m], xh[kk][m], dk);
+      wgmma_tf32<N, lo>(acc[m], xh[kk][m], dk);
+      wgmma_tf32<N, hi>(acc[m], xl[kk][m], dk);
+    }
+  wgmma_commit();
+}
+
+// xmap: x as [B][H][W][Cp] fp32'''
+
+SS_STAGE = '''      const uint4* xv = reinterpret_cast<const uint4*>(base + (a - ring));
+      uint4* lv = reinterpret_cast<uint4*>(base + (a - ring) + a_slot);
+      for (int i = tid; i < box_bytes / 16; i += kConsumerThreads) {
+        const uint4 v = xv[i];
+        lv[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
+                           tf32_lo(v.w));
+      }
+      fence_async_shared();  // the generic writes, before wgmma reads them
+      bar_sync_consumers();
+      const uint64_t da = wgmma_desc<P::kS>(a + wg * 128 * P::kS);
+      const uint64_t db = wgmma_desc<P::kS>(a + 2 * a_slot);
+      fence_regs(acc);
+      wgmma_fence();
+      tf32x3_stage<N, KS>(acc, da, db, drow, dlo);
+      wgmma_commit();
+      if (k > 0) {
+        // The previous stage's group is done: it may be refilled.
+        wgmma_wait<1>();
+        fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * prev);
+      }
+'''
+
+RS_STAGE = '''      const uint64_t db = wgmma_desc<P::kS>(a + a_slot);
+      const uint32_t rel = k > 0 ? empty + 8 * prev : 0u;
+      tf32x3_tap<N, KS, 0>(acc, xh[0], xl[0], a, db, cols, lrow, lchunk, 0u,
+                           lane);
+      tf32x3_tap<N, KS, 1>(acc, xh[1], xl[1], a, db, cols, lrow, lchunk, 0u,
+                           lane);
+      tf32x3_tap<N, KS, 2>(acc, xh[2], xl[2], a, db, cols, lrow, lchunk, rel,
+                           lane);
+      if (k == ksteps - 1) fence_async_shared();  // before the last release
+'''
+
+RS_DECLS = '''  float acc[2][N / 2];
+  uint32_t xh[3][KS / 8][2][4], xl[3][KS / 8][2][4];
+  const int lrow = 128 * wg + ((tid >> 5) & 3) * 16 + (lane & 7) +
+                   8 * ((lane >> 3) & 1);
+  const int lchunk = lane >> 4;
+'''
+
+PRODUCER = '''          tma_load_4d(a, &xmap, full + 8 * s, sl * KS, u.x0 + dx - 1,
+                      u.y0 - 1, u.b);
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+#pragma unroll
+            for (int dy = 0; dy < 3; ++dy)
+              tma_load_3d(a + 2 * a_slot + (3 * p + dy) * P::kBBox, &wmap,
+'''
+
+WGMMAS = '''        wgmma_ss<float, N>(acc[m], ah, bh, 1);
+        wgmma_ss<float, N>(acc[m], ah, bl, 1);
+        wgmma_ss<float, N>(acc[m], ah + dlo, bh, 1);
+'''
+
+SPLIT = '''        lv[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
+                           tf32_lo(v.w));
+'''
+
+#: name -> [(old, new), ...]: edits of csrc/conv3x3.cu.
+VARIANTS = {
+    "a_from_registers": [
+        ("\n// xmap: x as [B][H][W][Cp] fp32", RS_TAP),
+        ("  const int stage_bytes = 2 * a_slot + P::kBBytes;",
+         "  const int stage_bytes = a_slot + P::kBBytes;"),
+        ("  const int stage = 2 * a_slot + P::kBBytes;",
+         "  const int stage = a_slot + P::kBBytes;"),
+        ("tma_load_3d(a + 2 * a_slot + (3 * p + dy) * P::kBBox, &wmap,",
+         "tma_load_3d(a + a_slot + (3 * p + dy) * P::kBBox, &wmap,"),
+        ("  float acc[2][N / 2];\n", RS_DECLS),
+        (SS_STAGE, RS_STAGE),
+    ],
+    "one_pass": [(WGMMAS, "        wgmma_ss<float, N>(acc[m], ah, bh, 1);\n")],
+    "no_split": [(SPLIT, "        (void)v;\n")],
+    "loads_only": [(WGMMAS, "")],
+    "no_a_load": [
+        ("      const uint32_t tx = box_bytes + P::kBTx;",
+         "      const uint32_t tx = P::kBTx;"),
+        (PRODUCER, PRODUCER.replace("          tma_load_4d(",
+                                    "          if (t < 0) tma_load_4d("))],
+    "no_b_load": [
+        ("      const uint32_t tx = box_bytes + P::kBTx;",
+         "      const uint32_t tx = box_bytes;"),
+        (PRODUCER, PRODUCER.replace("              tma_load_3d(",
+                                    "              if (t < 0) tma_load_3d("))],
+    "no_store": [
+        ("    // The epilogue: accumulator pairs (columns 8 j + 2 (lane % 4), + 1) of",
+         "    if (O >= 0) continue;\n"
+         "    // The epilogue: accumulator pairs (columns 8 j + 2 (lane % 4), + 1) of")],
+}
+
+
+def build_variant(build, name: str, edits) -> ctypes.CDLL:
+    """The kernel library with `edits` of conv3x3.cu."""
+    d = build.BUILD_DIR / "probe" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    src = (build.SRC_DIR / "conv3x3.cu").read_text()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"{name}: an edit does not match conv3x3.cu")
+        src = src.replace(old, new)
+    (d / "conv3x3.cu").write_text(src)
+    shutil.copy(build.SRC_DIR / "common.cuh", d)
+    so = d / "lib.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared",
+                    str(d / "conv3x3.cu"), "-o", str(so)], check=True)
+    lib = ctypes.CDLL(str(so))
+    lib.rr_conv3x3.argtypes = build.SIGNATURES["rr_conv3x3"]
+    lib.rr_conv3x3.restype = ctypes.c_int
+    return lib
+
+
+def main() -> int:
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("probe_tf32_conv: CUDA is not available", file=sys.stderr)
+        return 2
+    from concurrent.futures import ThreadPoolExecutor
+
+    import chip_smoke as cs
+    from rerevst_torch.kernels import (
+        _build,
+        conv3x3_implicit_gemm,
+        conv3x3_implicit_gemm_plain,
+    )
+    from rerevst_torch.kernels.conv3x3 import tf32x3_plan
+
+    lib = _build.library()
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:  # nvcc runs in parallel
+        built = {name: pool.submit(build_variant, _build, name, edits)
+                 for name, edits in VARIANTS.items()}
+        variants = {name: f.result() for name, f in built.items()}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    x, w, b = cs.conv_inputs(torch, SHAPE, O, torch.float32, gen)
+    y = torch.empty(SHAPE[:3] + (O,), device="cuda")
+    ws = torch.empty(18 * O * SHAPE[-1], device="cuda")
+    plan = tf32x3_plan(*SHAPE, O, sms)
+
+    def direct(cols, ks, lib=lib):
+        bb, h, wd, c = SHAPE
+        err = lib.rr_conv3x3(1, x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                             y.data_ptr(), ws.data_ptr(), bb, h, wd, c, O, 0,
+                             cols, plan.n, ks, plan.grid,
+                             torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "rr_conv3x3")
+
+    got = conv3x3_implicit_gemm(x, w, b)
+    want = conv3x3_implicit_gemm_plain(x, w, b)
+    ok = cs.conv_within_tolerance(torch, got, want, x, w, b)
+    del got, want
+    # Errors against float64 on two frames, the kernel's and cuDNN's fp32.
+    xd, wd_ = x[:2].double(), w.double()
+    ref = F.conv2d(xd.permute(0, 3, 1, 2), wd_.permute(3, 2, 0, 1),
+                   b.double(), padding=1).permute(0, 2, 3, 1)
+    kern_err = (conv3x3_implicit_gemm(x[:2].contiguous(), w, b).double()
+                - ref).abs().max().item()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    lib_err = (F.conv2d(x[:2].permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b,
+                        padding=1).permute(0, 2, 3, 1).double()
+               - ref).abs().max().item()
+    scale = F.conv2d(xd.abs().permute(0, 3, 1, 2),
+                     wd_.abs().permute(3, 2, 0, 1), b.double().abs(),
+                     padding=1)
+    bar = (9 * SHAPE[-1] * 2.0 ** -22 * scale).min().item()
+    del xd, wd_, ref, scale
+    xl = x.permute(0, 3, 1, 2)
+    wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    lib_ms = cs.time_ms(torch, lambda: F.conv2d(xl, wl, b, padding=1),
+                        iters=10)["ms"]
+    torch.backends.cudnn.allow_tf32 = True
+    lib_tf32_ms = cs.time_ms(torch, lambda: F.conv2d(xl, wl, b, padding=1),
+                             iters=10)["ms"]
+    torch.backends.cudnn.allow_tf32 = tf32
+    m = x.numel() // SHAPE[-1]
+    flops = 2 * m * 9 * SHAPE[-1] * O
+    out = {"card": cs.nvidia_smi(), "shape": SHAPE, "O": O, "ok": ok,
+           "plan": {"cols": plan.cols, "rows": plan.rows, "n": plan.n,
+                    "ks": plan.ks, "grid": plan.grid},
+           "ms": cs.time_ms(torch, lambda: conv3x3_implicit_gemm(x, w, b),
+                            iters=10)["ms"],
+           "library_ms_tf32_off": lib_ms, "library_ms_tf32_on": lib_tf32_ms,
+           "bound_tf32x3_ms": 3 * flops / cs.TF32_FLOP_PER_S * 1e3,
+           "bound_fp32_cores_ms": flops / cs.FP32_FLOP_PER_S * 1e3,
+           "bound_bytes_ms": (x.numel() + w.numel() + O + m * O) * 4
+           / cs.HBM_BYTES_PER_S * 1e3,
+           "max_abs_err_vs_f64": kern_err,
+           "library_max_abs_err_vs_f64": lib_err,
+           "least_bar_9c_2m22_sum_abs": bar}
+    sweep = {}
+    for cols in (16, 32, 64, 128):
+        for ks in (8, 16):
+            sweep[f"cols={cols},ks={ks}"] = cs.time_ms(
+                torch, lambda: direct(cols, ks), iters=10)["ms"]
+    out["sweep_ms"] = sweep
+    for name, vlib in variants.items():
+        row = {"ms": cs.time_ms(torch, lambda: direct(plan.cols, plan.ks,
+                                                      vlib), iters=10)["ms"]}
+        if name == "a_from_registers":
+            direct(plan.cols, plan.ks, vlib)
+            torch.cuda.synchronize()
+            row["ok"] = cs.conv_within_tolerance(
+                torch, y, conv3x3_implicit_gemm_plain(x, w, b), x, w, b)
+        out[name] = row
+        print(json.dumps({"probe": name, **row}), flush=True)
+    dest = ROOT / "chiprun_out"
+    dest.mkdir(exist_ok=True)
+    (dest / "probe_tf32_conv.json").write_text(json.dumps(out, indent=1))
+    print(out["card"], flush=True)
+    print(json.dumps(out), flush=True)
+    return 0 if ok and out["a_from_registers"]["ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

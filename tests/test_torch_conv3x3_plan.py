@@ -13,11 +13,14 @@ padded to a multiple of 16 with zeros, in one pass.  Its sliced design
 (other C >= 8) walks the wide design's tiles over K slices of 16 or 32
 channels, one halo'd TMA box per slice and dx feeding the three taps dy
 through K-major descriptors with the 32- or 64-byte swizzle, and stages
-its output in swizzled boxes for TMA stores.  These tests hold that index
-math, as the wrapper's plans (``conv_plan``, ``wide_plan``,
-``narrow_plan``, ``sliced_plan`` in ``rerevst_torch.kernels.conv3x3``) and
-numpy emulations of the kernels' order of work state it, to the plain
-conv.
+its output in swizzled boxes for TMA stores; it also takes C % 64 = 0 with
+O <= 64.  Its split-TF32 design (fp32) walks the sliced design's tiles
+over K slices of 16 fp32 channels and takes each product as three TF32
+passes, x_hi w_hi + x_hi w_lo + x_lo w_hi.  These tests hold that index
+math and that split, as the wrapper's plans (``conv_plan``, ``wide_plan``,
+``narrow_plan``, ``sliced_plan``, ``tf32x3_plan`` in
+``rerevst_torch.kernels.conv3x3``) and numpy emulations of the kernels'
+order of work state it, to the plain conv.
 
 Tolerance of the emulations: each and the plain version sum K = 9 C fp32
 products in other orders, each within K 2^-24 sum|x||w| of the exact sum,
@@ -35,6 +38,7 @@ from rerevst_torch.kernels.conv3x3 import (
     NARROW_COLS,
     NARROW_ROWS,
     SLICED_COLS,
+    SLICED_MAX_O,
     TW,
     WIDE_COLS,
     ConvPlan,
@@ -48,6 +52,8 @@ from rerevst_torch.kernels.conv3x3 import (
     out_tile,
     slice_width,
     sliced_plan,
+    tf32_slice_width,
+    tf32x3_plan,
     wide_plan,
 )
 
@@ -180,18 +186,28 @@ VGG_WIDE = [((16, 320, 320, 128), 128), ((16, 160, 160, 128), 256),
 
 def test_design_by_shape():
     """The launcher's dispatch: C = 64 streamed, C % 64 = 0 with C >= 128
-    wide, 1 <= C <= 7 narrow, other C the sliced TMA + wgmma kernel (no
-    16-bit C reaches a cp.async + mma.sync kernel), fp32 its own kernel."""
+    wide where O > 64 and sliced where O <= 64 (the grid of
+    scripts/conv_ab.py), 1 <= C <= 7 narrow, other C the sliced TMA + wgmma
+    kernel (no 16-bit C reaches a cp.async + mma.sync kernel), fp32 the
+    split-TF32 kernel at every C and O (none reaches the CUDA cores' FMAs)."""
+    assert SLICED_MAX_O == 64
     for dt in (torch.float16, torch.bfloat16):
-        assert design(64, dt) == "streamed"
+        for o in (3, 64, 65, 512):
+            assert design(64, dt, o) == "streamed"
         for c in (128, 192, 256, 512, 1024):
-            assert design(c, dt) == "wide"
+            for o in (65, 128, 192, 512):
+                assert design(c, dt, o) == "wide"
+            for o in (1, 3, 16, 32, 64):
+                assert design(c, dt, o) == "sliced"
         for c in range(1, 8):
-            assert design(c, dt) == "narrow"
+            for o in (3, 64, 128):
+                assert design(c, dt, o) == "narrow"
         for c in (8, 32, 96, 100, 160, 200):
-            assert design(c, dt) == "sliced"
-    for c in (1, 3, 7, 64, 128, 512):
-        assert design(c, torch.float32) == "fp32"
+            for o in (3, 64, 512):
+                assert design(c, dt, o) == "sliced"
+    for c in (1, 3, 7, 8, 64, 100, 128, 512):
+        for o in (3, 64, 512):
+            assert design(c, torch.float32, o) == "tf32x3"
 
 
 @pytest.mark.parametrize("batch", [1, 3])
@@ -551,8 +567,8 @@ def test_slice_width():
                                         200)} == {
         8: 16, 16: 16, 24: 32, 32: 32, 40: 32, 96: 32, 100: 32, 160: 32,
         200: 32}
-    for c in range(8, 300):
-        if design(c, torch.float16) != "sliced":
+    for c in range(8, 600):
+        if design(c, torch.float16, SLICED_MAX_O) != "sliced":
             continue
         ks = slice_width(c)
         padded = -(-c // ks) * ks
@@ -592,9 +608,11 @@ def test_sliced_plan_covers_every_output_once(batch, height, width):
 def test_sliced_plan_at_the_target_shapes():
     """Both target shapes tile with no pixel padded, in the tallest tiles
     (16 x 16: each input row staged 18 / 16 times per dx), 32-channel
-    slices, N = 64 and 128, on all 132 SMs; the other designs keep their
-    plans, and the design list names the sliced design in place of the
-    cp.async one's."""
+    slices, N = 64 and 128, on all 132 SMs; so does the filter blocks'
+    `down` conv (512 -> 32), which takes the sliced design in 16 slices
+    at N = 32 (400 tiles) where it took the wide one; the other designs
+    keep their plans, and the design list names the sliced and split-TF32
+    designs in place of the cp.async and CUDA-core ones."""
     for (b, h, w, c), o in SLICED_TARGETS:
         plan = sliced_plan(b, h, w, c, o, H100_SMS)
         assert (plan.cols, plan.rows, plan.ks, plan.slices) == (16, 16, 32, 1)
@@ -602,9 +620,15 @@ def test_sliced_plan_at_the_target_shapes():
         assert plan.n == (64 if o == 64 else 128)
         assert plan.grid == H100_SMS
     assert "sliced" in DESIGNS and "igemm" not in DESIGNS
-    assert wide_plan(16, 80, 80, 32, H100_SMS).n == 32  # the filter `down`
+    assert "tf32x3" in DESIGNS and "fp32" not in DESIGNS
+    down = sliced_plan(16, 80, 80, 512, 32, H100_SMS)  # the filter `down`
+    assert (down.cols, down.rows, down.ks, down.slices) == (16, 16, 32, 16)
+    assert (down.n, down.tiles, down.grid) == (32, 400, H100_SMS)
+    assert wide_plan(16, 80, 80, 32, H100_SMS).n == 32  # its former plan
     with pytest.raises(ValueError):
         sliced_plan(1, 8, 8, 64, 64, H100_SMS)
+    with pytest.raises(ValueError):
+        sliced_plan(1, 8, 8, 512, SLICED_MAX_O + 1, H100_SMS)
 
 
 def _emulate_sliced(x, w, b, plan):
@@ -680,6 +704,24 @@ def test_sliced_k_loop_matches_plain(c, o):
     plan = sliced_plan(2, 19, 21, c, o, H100_SMS)
     plan = dataclasses.replace(plan, grid=3)
     got = _emulate_sliced(x, w, b, plan)
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    want = conv3x3_implicit_gemm_plain(*tt).numpy()
+    scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want) <= 9 * c * 2.0 ** -22 * scale).all()
+
+
+@pytest.mark.parametrize("c", [128, 512])
+@pytest.mark.parametrize("o", [3, 32, 64])
+def test_sliced_k_loop_wide_c_narrow_o(c, o):
+    """C % 64 = 0 with O <= 64, the route moved off the wide kernel: C =
+    128 and 512 in 4 and 16 slices of 32 channels, O = 3 (scalar stores, a
+    padded weight copy), 32 and 64; ragged band and strip, B = 2, a grid of
+    3 blocks."""
+    x, w, b = _sliced_case(c, o, (2, 19, 21), seed=7)
+    plan = sliced_plan(2, 19, 21, c, o, H100_SMS)
+    assert plan.slices == c // 32 and plan.n == out_tile(o)
+    got = _emulate_sliced(x, w, b, dataclasses.replace(plan, grid=3))
     tt = [torch.from_numpy(v) for v in (x, w, b)]
     want = conv3x3_implicit_gemm_plain(*tt).numpy()
     scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
@@ -838,3 +880,270 @@ def test_sliced_output_box_is_tmas_and_free_of_bank_conflicts(cw):
                                             8 * j + 2 * (lane % 4)) // 4)
                          % 32 for lane in range(32)}
                 assert len(banks) == 32
+
+
+# ---------------------------------------------------------------------------
+# The split-TF32 design (fp32, every C and O)
+# ---------------------------------------------------------------------------
+
+MASK = np.uint32(0xFFFFE000)
+FLT_MAX = np.finfo(np.float32).max
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
+def _floats(u):
+    return np.asarray(u, np.uint32).view(np.float32)
+
+
+def tf32_rna(v):
+    """csrc/conv3x3.cu tf32_rna on fp32 bits (|v| < 0x7f7ff000): TF32
+    rounded to nearest, ties away from zero."""
+    return (np.asarray(v, np.uint32) + np.uint32(0x1000)) & MASK
+
+
+def tf32_lo(v):
+    """csrc/conv3x3.cu tf32_lo: the input's lo beside hi = v truncated to
+    TF32 (the tensor cores' reading of the box)."""
+    v = np.asarray(v, np.uint32)
+    hi = v & MASK
+    with np.errstate(invalid="ignore"):
+        r = _bits(_floats(v) - _floats(hi))
+    return np.where(hi == v, np.uint32(0), r & MASK)
+
+
+def tf32_split_w(w):
+    """csrc/conv3x3.cu tf32_split_w: (hi, lo) of fp32 weights, as floats."""
+    v = _bits(w)
+    a = v & np.uint32(0x7FFFFFFF)
+    hi = _floats(np.where(a > 0x7F800000, np.uint32(0x7FFFE000), v & MASK))
+    with np.errstate(invalid="ignore", over="ignore"):
+        lo = np.where(a >= 0x7F800000, np.uint32(0),
+                      tf32_rna(_bits(np.asarray(w, np.float32) - hi)))
+    tiny = _bits(hi * np.float32(2.0 ** -30))
+    lo = np.where((lo == 0) & (a != 0) & (a < 0x7F800000), tiny, lo)
+    return hi, _floats(lo)
+
+
+def _rna_reference(v):
+    """fp32 values rounded to 11 significant bits, ties away from zero,
+    by arithmetic in float64 (normal values)."""
+    m, e = np.frexp(np.asarray(v, np.float64))
+    return (np.sign(m) * np.floor(np.abs(m) * 2.0 ** 11 + 0.5)
+            * 2.0 ** (e - 11)).astype(np.float32)
+
+
+def test_tf32_split_bits():
+    """rna on the bit pattern is round-to-nearest-ties-away to 11
+    significant bits (ties built on purpose); hi + lo of an input holds it
+    to 2^-20 with lo of its sign; the weights' lo never has hi's opposite
+    sign and is 0 only for w = 0; inf and NaN stay what they are, lo of
+    +-inf is 0, +-FLT_MAX splits into finite halves."""
+    rng = np.random.default_rng(8)
+    v = (rng.standard_normal(20000) * np.exp(rng.uniform(-30, 30, 20000))
+         ).astype(np.float32)
+    ties = _floats((_bits(v) & MASK) | np.uint32(0x1000))
+    for vals in (v, ties):
+        assert (_floats(tf32_rna(_bits(vals))) == _rna_reference(vals)).all()
+    hi, lo = _floats(_bits(v) & MASK), _floats(tf32_lo(_bits(v)))
+    assert ((_bits(hi) | _bits(lo)) & ~MASK == 0).all()
+    assert (np.abs(v.astype(np.float64) - hi - lo)
+            <= 2.0 ** -20 * np.abs(v)).all()
+    assert ((lo == 0) | (np.sign(lo) == np.sign(v))).all()
+    whi, wlo = tf32_split_w(v)
+    assert ((wlo != 0) & (np.sign(wlo) == np.sign(whi))).all()
+    assert (np.abs(v.astype(np.float64) - whi - wlo)
+            <= 2.0 ** -21 * np.abs(v)).all()
+    assert (tf32_split_w(np.zeros(1, np.float32))[1] == 0).all()
+    special = np.array([np.inf, -np.inf, np.nan, FLT_MAX, -FLT_MAX],
+                       np.float32)
+    lo = _floats(tf32_lo(_bits(special)))
+    assert (lo[:3] == 0).all()
+    assert np.isfinite(lo[3:]).all() and (lo[3:] != 0).all()
+    assert np.isnan(_floats(_bits(special[2:3]) & MASK)).all()
+    big = special[3:].astype(np.float64)
+    assert (np.abs(_floats(_bits(special[3:]) & MASK).astype(np.float64)
+                   + lo[3:] - big) <= 2.0 ** -20 * np.abs(big)).all()
+    exotic = np.array([0x7F800001], np.uint32)  # NaN, payload below TF32's
+    assert np.isnan(_floats(tf32_lo(exotic))).all()
+    whi, wlo = tf32_split_w(special)
+    assert np.isnan(whi[2]) and (wlo[:3] == 0).all()
+    assert np.isfinite(whi[3:]).all()
+
+
+def test_tf32_split_infinite_input_meets_each_weight_as_fp32():
+    """x = +-inf against a weight exact in TF32 (0.5: lo would be 0), an
+    inexact one, its negation and 0: the three passes give inf of x w's
+    sign, NaN for w = 0, as one fp32 product does (never inf - inf)."""
+    w = np.array([0.5, 0.1, -0.1, -3.0, 0.0], np.float32)
+    whi, wlo = tf32_split_w(w)
+    for x in (np.inf, -np.inf):
+        xb = _bits(np.float32(x))
+        xhi, xlo = _floats(xb & MASK), _floats(tf32_lo(xb))
+        with np.errstate(invalid="ignore"):
+            got = xhi * whi + xhi * wlo + xlo * whi
+            want = np.float32(x) * w
+        assert np.array_equal(np.isnan(got), np.isnan(want))
+        assert (got[~np.isnan(want)] == want[~np.isnan(want)]).all()
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("height", [1, 7, 37, 130])
+@pytest.mark.parametrize("width", [1, 7, 130, 640])
+def test_tf32x3_plan_covers_every_output_once(batch, height, width):
+    """Every output pixel x channel belongs to exactly one 256-pixel tile,
+    the blocks take every tile once, N = O rounded up to 8 .. 64 (larger O
+    in tiles of 64) and the K slice is 8 fp32 channels up to C = 8, else
+    16."""
+    for c, o in [(3, 64), (8, 5), (64, 64), (100, 192), (64, 3), (7, 512)]:
+        for sms in (H100_SMS, 7):
+            plan = tf32x3_plan(batch, height, width, c, o, sms)
+            assert plan.cols in SLICED_COLS and plan.m == 256
+            assert plan.n == out_tile(o) and plan.ks == tf32_slice_width(c)
+            assert plan.ks == (8 if c <= 8 else 16)
+            assert 1 <= plan.grid <= min(plan.tiles, sms)
+            taken = np.sort(np.concatenate(
+                [np.asarray(plan.block_tiles(bx)) for bx in range(plan.grid)]))
+            assert (taken == np.arange(plan.tiles)).all()
+            cover = np.zeros((plan.n_tiles, batch, height, width), np.int32)
+            for t in range(plan.tiles):
+                b, y0, x0, n0 = plan.tile(t)
+                cover[n0 // plan.n, b, y0:y0 + plan.rows,
+                      x0:x0 + plan.cols] += 1
+            assert (cover == 1).all(), (c, o, sms)
+            assert plan.n_tiles * plan.n >= o > (plan.n_tiles - 1) * plan.n
+
+
+def test_tf32x3_plan_at_row_3j():
+    """[16,640,640,64] -> 64: 16 x 16 tiles, no pixel padded, N = 64, four
+    16-channel slices (12 stages a tile), 25600 tiles on all 132 SMs."""
+    plan = tf32x3_plan(16, 640, 640, 64, 64, H100_SMS)
+    assert (plan.cols, plan.rows, plan.n, plan.ks, plan.slices) == \
+        (16, 16, 64, 16, 4)
+    assert plan.tiles == 25600 and plan.grid == H100_SMS
+
+
+def _emulate_tf32x3(x, w, b, plan):
+    """The split-TF32 kernel's order of work in numpy: x zero-padded to Cp
+    = C rounded up to 4; the split kernel's ws[p][tap][o][c] (p = 0: hi, 1:
+    lo; zero past C); for each tile, stages k = slice 3 + dx, whose box
+    (channels KS slice .., zero outside the image and past Cp) is x_hi as
+    the tensor cores read it (truncated to TF32) beside its lo box; tap dy
+    adds x_hi B_hi + x_hi B_lo + x_lo B_hi, B_p = ws[p][3 dy + dx] rows n0 ..
+    n0 + N - 1 (zero past O), columns of the slice.  The sums start from
+    the bias; each output inside y is stored once."""
+    bsz, h, wd, c = x.shape
+    o = w.shape[-1]
+    cp = -(-c // 4) * 4
+    xp = np.zeros((bsz, h, wd, cp), np.float32)
+    xp[..., :c] = x
+    whi, wlo = tf32_split_w(w.reshape(9, c, o))
+    ws = np.zeros((2, 9, o, cp), np.float32)
+    ws[0, :, :, :c] = whi.transpose(0, 2, 1)
+    ws[1, :, :, :c] = wlo.transpose(0, 2, 1)
+    bk = np.zeros(plan.n_tiles * plan.n, np.float32)
+    bk[:o] = b
+    y = np.full((bsz, h, wd, o), np.nan, np.float32)
+    rows, cols, ks, n = plan.rows, plan.cols, plan.ks, plan.n
+    for bx in range(plan.grid):
+        for t in plan.block_tiles(bx):
+            bi, y0, x0, n0 = plan.tile(t)
+            acc = np.tile(bk[n0:n0 + n], (plan.m, 1))
+            for k in range(3 * plan.slices):
+                sl, dx = divmod(k, 3)
+                cs = sl * ks
+                box = np.zeros((rows + 2, cols, ks), np.float32)
+                ys, xs = y0 - 1, x0 + dx - 1
+                ylo, yhi = max(ys, 0), min(ys + rows + 2, h)
+                xlo, xhi = max(xs, 0), min(xs + cols, wd)
+                chi = min(cs + ks, cp)
+                if ylo < yhi and xlo < xhi:
+                    box[ylo - ys:yhi - ys, xlo - xs:xhi - xs, :chi - cs] = \
+                        xp[bi, ylo:yhi, xlo:xhi, cs:chi]
+                bits = _bits(box.reshape((rows + 2) * cols, ks))
+                ahi, alo = _floats(bits & MASK), _floats(tf32_lo(bits))
+                for dy in range(3):
+                    bt = np.zeros((2, ks, n), np.float32)
+                    nhi = min(n0 + n, o)
+                    bt[:, :chi - cs, :nhi - n0] = \
+                        ws[:, 3 * dy + dx, n0:nhi, cs:chi].transpose(0, 2, 1)
+                    rr = slice(dy * cols, dy * cols + plan.m)
+                    acc += ahi[rr] @ bt[0]
+                    acc += ahi[rr] @ bt[1]
+                    acc += alo[rr] @ bt[0]
+            out = acc.reshape(rows, cols, n)
+            nh, nw, nc = min(rows, h - y0), min(cols, wd - x0), \
+                min(n, o - n0)
+            assert np.isnan(y[bi, y0:y0 + nh, x0:x0 + nw, n0:n0 + nc]).all()
+            y[bi, y0:y0 + nh, x0:x0 + nw, n0:n0 + nc] = out[:nh, :nw, :nc]
+    return y
+
+
+@pytest.mark.parametrize("c,o", [(3, 64), (7, 5), (8, 16), (64, 64),
+                                 (64, 3), (100, 192), (13, 72)])
+def test_tf32x3_k_loop_matches_plain(c, o):
+    """Ragged band and strip (H = 19, W = 21), B = 2, a grid of 3 blocks:
+    C = 3, 7 and 13 in a padded copy (Cp = 4, 8, 16), 8 in one 8-channel
+    slice, 64 and 100 in 16-channel slices (100: a zero-filled tail); O =
+    3, 5 (scalar stores), 16, 64, 72 and 192 (two and three channel
+    tiles).  Within 9C 2^-22 sum|x||w| (+|b|) of the plain fp32 conv."""
+    x, w, b = _sliced_case(c, o, (2, 19, 21), seed=9)
+    plan = dataclasses.replace(tf32x3_plan(2, 19, 21, c, o, H100_SMS),
+                               grid=3)
+    got = _emulate_tf32x3(x, w, b, plan)
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    want = conv3x3_implicit_gemm_plain(*tt).numpy()
+    scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want) <= 9 * c * 2.0 ** -22 * scale).all()
+
+
+def test_tf32x3_matches_the_pallas_kernel():
+    """The emulation against rerevst_tpu's conv3x3_implicit_gemm in
+    interpret mode (fp32) at one small shape, within the same bar."""
+    import jax.numpy as jnp
+
+    from rerevst_tpu.kernels import conv3x3 as jconv
+
+    x, w, b = _sliced_case(24, 40, (2, 8, 24), seed=10)
+    plan = tf32x3_plan(2, 8, 24, 24, 40, H100_SMS)
+    got = _emulate_tf32x3(x, w, b, plan)
+    want = np.asarray(jconv.conv3x3_implicit_gemm(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), tile_h=8,
+        interpret=True))
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
+    assert (np.abs(got - want) <= 9 * 24 * 2.0 ** -22 * scale).all()
+
+
+def test_tf32x3_nonfinite_and_huge_inputs():
+    """inf, -inf, NaN and +-FLT_MAX inside, on both sides of a tile's edge
+    columns (15 | 16) and rows, at the image's edges and in the last
+    channel (C = 13: a padded copy): the emulation's NaN and inf outputs
+    are exactly the plain conv's, and the finite ones agree (FLT_MAX's
+    outputs too: its split does not overflow)."""
+    c, o = 13, 24
+    x, w, b = _sliced_case(c, o, (2, 19, 40), seed=11)
+    for idx, v in [((0, 3, 5, 7), np.inf), ((0, 10, 15, 1), -np.inf),
+                   ((0, 10, 16, c - 1), np.nan), ((0, 15, 30, 4), np.inf),
+                   ((1, 0, 39, 0), np.nan), ((1, 18, 0, c - 1), -np.inf),
+                   ((0, 5, 25, 2), FLT_MAX), ((1, 9, 12, c - 1), -FLT_MAX)]:
+        x[idx] = v
+    plan = tf32x3_plan(2, 19, 40, c, o, H100_SMS)
+    with np.errstate(invalid="ignore", over="ignore"):
+        got = _emulate_tf32x3(x, w, b, plan)
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    want = conv3x3_implicit_gemm_plain(*tt).numpy()
+    assert (np.isnan(got) == np.isnan(want)).all()
+    assert (np.isinf(got) == np.isinf(want)).all()
+    assert (np.sign(got[np.isinf(want)]) == np.sign(want[np.isinf(want)])).all()
+    fin = np.isfinite(want)
+    assert not fin.all() and np.abs(want[fin]).max() > 1e36
+    xz = np.where(np.isfinite(x), x, 0).astype(np.float32)
+    scale = conv3x3_implicit_gemm_plain(
+        torch.from_numpy(np.abs(xz)), torch.from_numpy(np.abs(w)),
+        torch.from_numpy(np.abs(b))).numpy()
+    assert (np.abs(got[fin] - want[fin])
+            <= 9 * c * 2.0 ** -22 * scale[fin]).all()

@@ -225,12 +225,11 @@ def test_conv3x3_implicit_gemm_kernel_on_card(rng, cuda, dtype, shape, o,
     assert _conv_ok(got, conv3x3_implicit_gemm_plain(x, w, b), x, w, b)
 
 
-#: Shapes of the wide kernel (16-bit, C % 64 = 0, C >= 128): every tile
-#: width the plan picks (W = 640, 320, 160, 80 and ragged widths), ragged
-#: bands and strips, B = 1, O below 8 (a zero-padded weight copy), below 64,
-#: not a multiple of the tile (192) and two 256-wide tiles.
+#: Shapes of the wide kernel (16-bit, C % 64 = 0, C >= 128, O > 64): every
+#: tile width the plan picks (W = 640, 320, 160, 80 and ragged widths),
+#: ragged bands and strips, B = 1, O not a multiple of the tile (192) and
+#: two 256-wide tiles.  Its O <= 64 shapes moved to SLICED.
 WIDE = [
-    ((2, 13, 7, 128), 5), ((1, 37, 53, 128), 64), ((1, 9, 33, 128), 16),
     ((2, 11, 9, 128), 192), ((1, 5, 640, 128), 128), ((2, 6, 320, 256), 256),
     ((1, 19, 150, 256), 256), ((1, 23, 45, 512), 128),
     ((2, 12, 80, 256), 512), ((1, 3, 161, 512), 512),
@@ -243,20 +242,22 @@ WIDE = [
 @pytest.mark.parametrize("bias", [True, False])
 def test_conv3x3_wide_kernel_on_card(rng, cuda, dtype, shape, o, bias):
     x, w, b = _conv_on_card(rng, cuda, dtype, shape, o, bias)
-    before = conv3x3_implicit_gemm.launches
+    before = dict(conv3x3_implicit_gemm.launches_by_design)
     got = conv3x3_implicit_gemm(x, w, b)
     torch.cuda.synchronize()
-    assert conv3x3_implicit_gemm.launches == before + 1
+    after = conv3x3_implicit_gemm.launches_by_design
+    assert after["wide"] == before["wide"] + 1
     assert got.dtype == dtype and tuple(got.shape) == shape[:3] + (o,)
     assert _conv_ok(got, conv3x3_implicit_gemm_plain(x, w, b), x, w, b)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("o", [128, 5])
+@pytest.mark.parametrize("o", [128, 192])
 def test_conv3x3_wide_nonfinite_inputs_on_card(rng, cuda, dtype, o):
     """The wide kernel (C = 128) under inf and NaN inputs, in the interior,
-    on a tile's edge and at the image's edges."""
+    on a tile's edge and at the image's edges (O = 5, now on the sliced
+    kernel, is in the sliced kernel's test)."""
     x, w, b = _conv_on_card(rng, cuda, dtype, (2, 19, 150, 128), o, True)
     x[0, 3, 5, 7] = float("inf")
     x[0, 10, 63, 1] = float("-inf")
@@ -335,6 +336,9 @@ SLICED = [
     ((1, 21, 100, 32), 3), ((1, 5, 300, 32), 64), ((2, 19, 150, 40), 32),
     ((1, 23, 45, 96), 192), ((2, 11, 9, 100), 8), ((1, 12, 80, 32), 512),
     ((1, 3, 161, 160), 64), ((1, 17, 20, 200), 24),
+    # C % 64 = 0 with O <= 64 (formerly the wide kernel's).
+    ((2, 13, 7, 128), 5), ((1, 37, 53, 128), 64), ((1, 9, 33, 128), 16),
+    ((2, 5, 80, 512), 32),
 ]
 
 
@@ -355,7 +359,8 @@ def test_conv3x3_sliced_kernel_on_card(rng, cuda, dtype, shape, o, bias):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("c,o", [(32, 64), (100, 5), (200, 192)])
+@pytest.mark.parametrize("c,o", [(32, 64), (100, 5), (200, 192), (128, 5),
+                                 (512, 32)])
 def test_conv3x3_sliced_nonfinite_inputs_on_card(rng, cuda, dtype, c, o):
     """The sliced kernel under inf and NaN inputs in the interior, on both
     sides of a tile's edge columns (15 | 16) and rows, at the image's edges
@@ -374,6 +379,70 @@ def test_conv3x3_sliced_nonfinite_inputs_on_card(rng, cuda, dtype, c, o):
     fin = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), fin) and not fin.all()
     assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    xz = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    assert _conv_ok(torch.where(fin, got, 0), torch.where(fin, want, 0),
+                    xz, w, b)
+
+
+#: Shapes of the split-TF32 kernel (fp32, every C and O): C = 1, 3, 7 and 13
+#: (a copy of x zero-padded to a multiple of 4), 8 (one 8-channel slice),
+#: 32, 64, 100 and 128 (16-channel slices; 100 ends in a zero-filled tail);
+#: ragged bands and strips, W narrower than a tile, B = 1; O = 3, 5 and 6
+#: (scalar stores), 16, 64, 192 and 512 (three and eight 64-wide tiles).
+TF32X3 = [
+    ((1, 9, 11, 3), 64), ((2, 13, 45, 3), 5), ((1, 21, 100, 7), 3),
+    ((2, 19, 21, 13), 6), ((1, 8, 20, 1), 3), ((1, 5, 300, 8), 16),
+    ((3, 37, 53, 64), 64), ((1, 23, 45, 100), 192), ((1, 12, 80, 32), 512),
+    ((2, 13, 7, 128), 5),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o", TF32X3)
+@pytest.mark.parametrize("bias", [True, False])
+def test_conv3x3_tf32x3_kernel_on_card(rng, cuda, shape, o, bias):
+    x, w, b = _conv_on_card(rng, cuda, torch.float32, shape, o, bias)
+    before = dict(conv3x3_implicit_gemm.launches_by_design)
+    got = conv3x3_implicit_gemm(x, w, b)
+    torch.cuda.synchronize()
+    after = conv3x3_implicit_gemm.launches_by_design
+    assert after["tf32x3"] == before["tf32x3"] + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape[:3] + (o,)
+    assert _conv_ok(got, conv3x3_implicit_gemm_plain(x, w, b), x, w, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,c,o", [
+    ("conv3x3_implicit_gemm", 64, 64), ("conv3x3_implicit_gemm", 13, 6),
+    ("conv3x3_implicit_gemm", 3, 64), ("conv3x3_implicit_gemm", 200, 192),
+    ("conv3x3_pairlane", 64, 64), ("conv3x3_pairlane", 64, 3)])
+def test_conv3x3_tf32x3_nonfinite_inputs_on_card(rng, cuda, name, c, o):
+    """The split-TF32 kernel through both entry points under inf, -inf,
+    NaN and +-FLT_MAX inputs, in the interior, on both sides of a tile's
+    edge columns (15 | 16), at the image's edges and in the last channel:
+    NaN and inf outputs exactly the plain version's (inf stays inf, of the
+    same sign; FLT_MAX's split does not overflow), finite ones as usual."""
+    kern = getattr(kernels, name)
+    plain = getattr(kernels, name + "_plain")
+    x, w, b = _conv_on_card(rng, cuda, torch.float32, (2, 19, 70, c), o, True)
+    fmax = torch.finfo(torch.float32).max
+    for idx, v in [((0, 3, 5, 2 % c), float("inf")),
+                   ((0, 10, 15, 1 % c), float("-inf")),
+                   ((0, 10, 16, c - 1), float("nan")),
+                   ((1, 0, 69, 0), float("nan")),
+                   ((1, 18, 0, c - 1), float("inf")),
+                   ((0, 14, 40, c - 1), fmax), ((1, 6, 33, 0), -fmax)]:
+        x[idx] = v
+    got = kern(x, w, b)
+    torch.cuda.synchronize()
+    want = plain(x, w, b)
+    fin = torch.isfinite(want)
+    assert not fin.all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.equal(torch.sign(got[torch.isinf(want)]),
+                       torch.sign(want[torch.isinf(want)]))
     xz = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
     assert _conv_ok(torch.where(fin, got, 0), torch.where(fin, want, 0),
                     xz, w, b)
