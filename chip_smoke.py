@@ -15,7 +15,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
              main path's shapes (batch 16, 512x512 content padded to 640x640)
              plus ragged ones and inf/NaN inputs, in f16, bf16 and fp32
              (fp32 also at +-FLT_MAX; the NaN and inf masks of the narrow,
-             split-TF32 and C % 64 = 0, O <= 64 convs must be plain's);
+             split-TF32 and C % 64 = 0, O <= 64 convs must be plain's), and
+             the split-TF32 conv's one-pass instances (``passes=1``) at the
+             fp32 sessions' conv shapes under (2^-9 + 9 C 2^-22) sum |x||w|;
 4. e2e     — ``Stylization.stylize_video`` on a seeded 33-frame 512x512 clip
              with the bundled checkpoint: the global (two-pass) default
              path in f16 and in fp32 and its pair-lane route
@@ -28,12 +30,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
              into a session bit-equal to the ``.msgpack`` one; E_warp and
              temporal SSIM of both modes on a seeded exact-translation clip
              (exact flows, no cv2), on the card and on the CPU; then
-             ``conv3x3_implicit_gemm``, which no model path runs, driven
+             ``conv3x3_implicit_gemm``, which no default session runs, driven
              alone at the shapes of the JAX package's conv benchmark
              (``scripts/bench_conv3x3.py``), at VGG conv2_2 and conv1_1, at
              C = 32, at the decoder filter blocks' `up` and `down` convs and
              in fp32 at [16,640,640,64] -> 64, so that each of its five
-             designs (streamed, wide, narrow, sliced, split-TF32) launches;
+             designs (streamed, wide, narrow, sliced, split-TF32 with three
+             passes) launches (its model paths are the fp32 'high' and
+             'default' sessions of phase config_variants);
              every global session's Pass-2 host prep must have gone through
              the native library;
    long_clip   — f16 and fp32 ``stylize_video`` of a seeded 65-frame 512x512
@@ -126,6 +130,23 @@ Phases, each printing one JSON line (any failure exits non-zero):
              device); two ranks started through ``distributed_init`` (gloo
              on one card, NCCL over two) against the same workload on the
              2-shard mesh;
+   config_variants — the ModelConfig variants through ``Stylization``
+             with the bundled weights (one stylize_video of the 33-frame
+             clip and the global Pass 2's ms per batch each): fp32 at
+             'highest', 'high' and 'default' (the split-TF32 kernel with
+             three and one passes at every 3x3 SAME conv; mean |delta|
+             against 'highest' within 1e-4 and 1e-3), f16 and bf16 with
+             each ``fp32_mix`` region and f16 'full' at mix_precision
+             'high' (output dtype, peak GB, launches by pass count; every
+             f16 one within 1e-3 of fp32 'highest'), f16 with the luma
+             fold, f16 with ``parity_packed`` bit-equal to f16, the Pass
+             2 of fp32 'highest' and of f16 'dec' exported and run from
+             the bundle within 1e-6 mean |delta| of eager (the same graph
+             with the TF32 flags on must miss it), fp32 'highest' again
+             bit-equal to its first run with the TF32 flags as they were;
+             then the one-pass kernel at
+             [16,640,640,64] -> 64 beside ``F.conv2d`` with cuDNN's TF32
+             on, its bound one TF32 pass;
    aot         — the global f16 and pair-lane sessions' Pass 2 exported
              (``torch.export``, ``io/aot.py``) at 640x640 for batches 1
              and 16 on the card, written, and loaded in a fresh process
@@ -157,8 +178,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
              op's ``torch.library`` dispatch against its CUDA
              implementation called directly;
 6. a ``{"phase": "done", "seconds": ...}`` line (the script's wall time),
-   the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
-   line ``{"ok": true, "device": {...}}``.
+   the ``{"kernels": [...]}`` line (the implicit-GEMM conv's ``launches``
+   from the fp32 'high' session of phase config_variants, which runs the
+   split-TF32 design alone, and its times from that design's row at
+   [16,640,640,64] -> 64; the other designs' rows under ``designs``), the
+   ``nvidia-smi`` line, and the last line ``{"ok": true, "device":
+   {...}}``.
 
 Tolerances: a kernel agrees with its plain version to 1e-5 of the output's
 scale in fp32, and within one ulp of the storage dtype in f16/bf16 (both
@@ -266,6 +291,30 @@ F32_CHECKS = [("conv3x3_implicit_gemm", (2, 13, 45, 3), 5, True, False),
               ("conv3x3_implicit_gemm", (2, 19, 21, 13), 6, True, False),
               ("conv3x3_implicit_gemm", (2, 19, 70, 13), 6, True, True),
               ("conv3x3_implicit_gemm", (2, 19, 70, 5), 9, True, True)]
+#: The one-pass split-TF32 instances (``passes=1``, the 'default'
+#: precision) at the fp32 3x3 SAME conv shapes of one Pass-2 batch of the
+#: config_variants sessions (VGG conv1_1, conv1_2 / res2.conv2, conv2_2,
+#: conv3_2, conv4_1, res4.conv2, the filter blocks' `down` and `up`, the
+#: out conv), then ragged ones and non-finite inputs: (x shape, O, bias,
+#: non-finite inputs).
+TF32X1_CHECKS = [((BATCH, PAD_HW, PAD_HW, 3), 64, True, False),
+                 ((BATCH, PAD_HW, PAD_HW, 64), 64, True, False),
+                 ((BATCH, 320, 320, 128), 128, True, False),
+                 ((BATCH, 160, 160, 256), 256, True, False),
+                 ((BATCH, 80, 80, 256), 512, True, False),
+                 ((BATCH, 80, 80, 512), 32, True, False),
+                 ((BATCH, 80, 80, 32), 512, True, False),
+                 ((BATCH, PAD_HW, PAD_HW, 64), 3, True, False),
+                 ((2, 13, 45, 3), 5, True, False),
+                 ((2, 19, 21, 13), 6, False, False),
+                 ((3, 37, 53, 64), 64, True, False),
+                 ((2, 19, 70, 64), 64, True, True),
+                 ((2, 19, 70, 13), 6, True, True),
+                 ((2, 19, 70, 200), 192, True, True)]
+#: One TF32 pass against the exact fp32 conv: x truncated to TF32 (< 2^-10
+#: of |x|) times w rounded to TF32 (<= 2^-11 of |w|) is within 2^-9 of
+#: |x||w| a product, on top of the K 2^-22 sum |x||w| of the accumulation.
+TF32_X1_BAR = 2.0 ** -9
 #: inf and NaN inputs of the C = 3 checks, at [2, 19, 70, 3]: (index, value).
 NARROW_NONFINITE = [((0, 3, 31, 2), "inf"), ((0, 3, 32, 0), "-inf"),
                     ((0, 7, 10, 1), "nan"), ((0, 8, 40, 2), "inf"),
@@ -320,14 +369,15 @@ def within_tolerance(torch, got, want) -> bool:
     return bool(((g - w).abs() <= ulp + slack).all())
 
 
-def conv_within_tolerance(torch, got, want, x, w, b) -> bool:
-    """K 2^-22 sum |x||w| (+|b|), plus one ulp of a 16-bit storage dtype."""
+def conv_within_tolerance(torch, got, want, x, w, b, passes=3) -> bool:
+    """K 2^-22 sum |x||w| (+|b|), plus one ulp of a 16-bit storage dtype;
+    one TF32 pass (fp32, ``passes=1``) adds TF32_X1_BAR sum |x||w|."""
     from rerevst_torch.kernels import conv3x3_implicit_gemm_plain
 
     k = 9 * x.shape[-1]
     scale = conv3x3_implicit_gemm_plain(
         x.abs().float(), w.abs().float(), None if b is None else b.abs().float())
-    tol = k * 2.0 ** -22 * scale
+    tol = (k * 2.0 ** -22 + (TF32_X1_BAR if passes == 1 else 0.0)) * scale
     del scale
     g, v = got.float(), want.float()
     if not (torch.isfinite(g) == torch.isfinite(v)).all():
@@ -453,6 +503,46 @@ def check_convs(torch, gen, errs):
             errs[key] = max(errs.get(key, 0.0), err)
             del x, w, b, got, want
     torch.cuda.empty_cache()
+    for shape, o, bias, nonfinite in TF32X1_CHECKS:
+        x, w, b = conv_inputs(torch, shape, o, torch.float32, gen, bias=bias)
+        if nonfinite:
+            fmax = torch.finfo(torch.float32).max
+            c = shape[-1]
+            for idx, v in [((0, 3, 5, 2 % c), float("inf")),
+                           ((0, 10, 15, 1 % c), float("-inf")),
+                           ((0, 10, 16, c - 1), float("nan")),
+                           ((1, 0, 69, 0), float("nan")),
+                           ((1, 18, 0, c - 1), float("inf")),
+                           ((0, 14, 40, c - 1), fmax),
+                           ((1, 6, 33, 0), -fmax)]:
+                x[idx] = v
+        got = kernels.conv3x3_implicit_gemm(x, w, b, passes=1)
+        torch.cuda.synchronize()
+        want = kernels.conv3x3_implicit_gemm_plain(x, w, b)
+        fin = torch.isfinite(want)
+        err = (got.float() - want.float()).abs()[fin].max().item()
+        xz = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+        ok = conv_within_tolerance(
+            torch, torch.where(fin, got, 0), torch.where(fin, want, 0), xz, w,
+            b, passes=1) \
+            and bool(torch.equal(torch.isnan(got), torch.isnan(want))) \
+            and bool(torch.equal(torch.isinf(got), torch.isinf(want)))
+        RESULTS["checks"].append(
+            {"kernel": "conv3x3_implicit_gemm", "passes": 1, "shape": shape,
+             "O": o, "dtype": "torch.float32", "bias": bias,
+             "nonfinite_inputs": nonfinite,
+             "nonfinite_outputs": int((~fin).sum()), "max_abs_err": err,
+             "bar": "(2^-9 + 9 C 2^-22) sum |x||w| (+|b|)",
+             "scale": want.float()[fin].abs().max().item(), "ok": ok})
+        if not ok:
+            fail(f"conv3x3_implicit_gemm passes=1 {shape}->{o}: max |kernel "
+                 f"- plain| = {err} beyond (2^-9 + 9C 2^-22) sum|x||w|, or "
+                 f"non-finite outputs differ")
+        key = "conv3x3_implicit_gemm (one TF32 pass)" + (
+            " (+-FLT_MAX inputs)" if nonfinite else "")
+        errs[key] = max(errs.get(key, 0.0), err)
+        del x, w, b, got, want, xz
+        torch.cuda.empty_cache()
 
 
 def norm_inputs(torch, shape, variant, dtype, gen):
@@ -871,12 +961,13 @@ def run_e2e(torch):
 
 
 def drive_implicit_gemm(torch):
-    """conv3x3_implicit_gemm has no model path in either package; its one
-    driver in the JAX package is scripts/bench_conv3x3.py.  Drive it once
-    at those shapes, at VGG conv2_2 and conv1_1, at SLICED_CONVS (the
+    """conv3x3_implicit_gemm has no default-session path in either package
+    (phase config_variants drives its fp32 'high' and 'default' sessions);
+    its one caller in the JAX package is scripts/bench_conv3x3.py.  Drive it
+    once at those shapes, at VGG conv2_2 and conv1_1, at SLICED_CONVS (the
     filter `down` conv on the sliced design: O <= 64) and in fp32 at
-    F32_CONV, counts at 0 before and read after: each design of
-    csrc/conv3x3.cu must have launched."""
+    F32_CONV (three passes), counts at 0 before and read after: each
+    design of csrc/conv3x3.cu but the one-pass one must have launched."""
     from rerevst_torch import kernels
 
     gen = torch.Generator(device="cuda")
@@ -901,7 +992,7 @@ def drive_implicit_gemm(torch):
           "launches": counts, "launches_by_design": by_design})
     if counts["conv3x3_implicit_gemm"] != len(shapes) \
             or by_design != {"streamed": 2, "wide": 1, "narrow": 1,
-                             "sliced": 3, "tf32x3": 1}:
+                             "sliced": 3, "tf32x3": 1, "tf32x1": 0}:
         fail(f"conv3x3_implicit_gemm standalone launches {counts}, "
              f"by design {by_design}")
     RESULTS["implicit_gemm_launches_by_design"] = by_design
@@ -2544,6 +2635,7 @@ def time_upsample_conv_forms(torch):
     from torch.profiler import ProfilerActivity, profile
 
     from rerevst_torch.models.layers import conv2d, upsample2x_conv3x3
+    from rerevst_torch.ops.precision import exact_products
     from rerevst_torch.ops.resize import upsample_nearest_2x
 
     dev = torch.device("cuda")
@@ -2558,7 +2650,8 @@ def time_upsample_conv_forms(torch):
     out = {}
     for name, fwd in forms.items():
         def fwd_bwd():
-            torch.autograd.grad(fwd().sum(), (x, p["w"]))
+            with exact_products():  # fp32 products, as a train step's
+                torch.autograd.grad(fwd().sum(), (x, p["w"]))
 
         out[name] = {"fwd_ms": time_ms(torch, fwd, iters=3, warmup=1)["ms"],
                      "fwd_bwd_ms": time_ms(torch, fwd_bwd, iters=3,
@@ -2810,8 +2903,8 @@ def conv_noise(torch, seed):
     real = layers.conv2d
     gen = torch.Generator().manual_seed(seed)
 
-    def noisy(p, x, stride=1, padding=0):
-        y = real(p, x, stride, padding)
+    def noisy(p, x, stride=1, padding=0, precision=None):
+        y = real(p, x, stride, padding, precision)
         if y.dtype != torch.float32:
             return y
         sign = torch.randint(0, 2, y.shape, generator=gen, device="cpu")
@@ -2884,6 +2977,7 @@ def _adv_parts(torch, cfg, host, d_host, batch, extra, dev, ref=None):
         init_train_state,
         tree_leaves,
     )
+    from rerevst_torch.ops.precision import exact_products
     from rerevst_torch.train.step import (
         compute_losses,
         discriminator_step,
@@ -2901,9 +2995,12 @@ def _adv_parts(torch, cfg, host, d_host, batch, extra, dev, ref=None):
     d_new = d.params if ref is None else _tree_to(ref["d_new"], dev)
     g_gan, cot = gan_cotangent(d_new, styled, mode)
     cot_in = cot if ref is None else ref["cot"].to(dev)
-    g_grads = torch.autograd.grad(
-        [total, aux["styled"]], [_leaf(g.params, p) for p in ADV_G_SITES],
-        grad_outputs=[torch.ones_like(total), cot_in * weight])
+    # G's backward, outside the step's own functions: exact fp32 products,
+    # as the train step runs its backward (ops/precision.py).
+    with exact_products():
+        g_grads = torch.autograd.grad(
+            [total, aux["styled"]], [_leaf(g.params, p) for p in ADV_G_SITES],
+            grad_outputs=[torch.ones_like(total), cot_in * weight])
     tensors = {("D",) + p: leaf.grad.cpu() for p, leaf in tree_leaves(d.params)}
     tensors[("cot",)] = cot.detach().cpu()
     tensors.update({("G",) + p: t.cpu() for p, t in zip(ADV_G_SITES,
@@ -3859,10 +3956,12 @@ def time_vgg_convs(torch):
     return rows
 
 
-def f32_errors(torch, x, w, b) -> dict:
-    """Max |error| of the split-TF32 kernel and of F.conv2d (TF32 off)
-    against a float64 conv of x's first two frames, and the least of the
-    9 C 2^-22 sum |x||w| (+|b|) bar over them; fails past the bar."""
+def f32_errors(torch, x, w, b, passes=3) -> dict:
+    """Max |error| of the split-TF32 kernel (`passes` TF32 passes) and of
+    F.conv2d (TF32 off; on for one pass, its library counterpart) against
+    a float64 conv of x's first two frames, and the least of the 9 C 2^-22
+    sum |x||w| (+|b|) bar (+ TF32_X1_BAR sum |x||w| for one pass) over
+    them; fails past the bar."""
     import torch.nn.functional as F
 
     from rerevst_torch import kernels
@@ -3870,12 +3969,14 @@ def f32_errors(torch, x, w, b) -> dict:
     x2 = x[:2].contiguous()
     xd, wd = x2.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1)
     ref = F.conv2d(xd, wd, b.double(), padding=1).permute(0, 2, 3, 1)
-    bar = 9 * x.shape[-1] * 2.0 ** -22 * F.conv2d(
+    bar = (9 * x.shape[-1] * 2.0 ** -22
+           + (TF32_X1_BAR if passes == 1 else 0.0)) * F.conv2d(
         xd.abs(), wd.abs(), b.double().abs(), padding=1).permute(0, 2, 3, 1)
     del xd, wd
-    kern = (kernels.conv3x3_implicit_gemm(x2, w, b).double() - ref).abs()
+    kern = (kernels.conv3x3_implicit_gemm(x2, w, b, passes=passes).double()
+            - ref).abs()
     tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = passes == 1
     try:
         lib = (F.conv2d(x2.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b,
                         padding=1).permute(0, 2, 3, 1).double() - ref).abs()
@@ -3886,8 +3987,304 @@ def f32_errors(torch, x, w, b) -> dict:
            "least_bar": bar.min().item(),
            "worst_err_over_bar": (kern / bar).max().item()}
     if not out["worst_err_over_bar"] <= 1.0:
-        fail(f"split-TF32 conv beyond 9C 2^-22 sum|x||w| of float64: {out}")
+        fail(f"split-TF32 conv ({passes} passes) beyond its bar of "
+             f"float64: {out}")
     return out
+
+
+def time_tf32x1(torch, smi) -> dict:
+    """The split-TF32 kernel's one-pass instance (design ``tf32x1``, the
+    'default' precision) at F32_CONV's shape: checked against its plain
+    version under the one-pass bar, timed beside the plain version and one
+    F.conv2d call with cuDNN's TF32 on (one TF32 pass: the library's
+    counterpart), its error against float64 beside F.conv2d's; the bound is
+    one TF32 pass over the tensor cores, or the bytes."""
+    import torch.nn.functional as F
+
+    from rerevst_torch import kernels
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    site, shape, o = F32_CONV
+    x, w, b = conv_inputs(torch, shape, o, torch.float32, gen)
+    got = kernels.conv3x3_implicit_gemm(x, w, b, passes=1)
+    want = kernels.conv3x3_implicit_gemm_plain(x, w, b)
+    if not conv_within_tolerance(torch, got, want, x, w, b, passes=1):
+        fail(f"conv3x3_implicit_gemm passes=1 {shape}->{o}: disagrees with "
+             f"plain beyond the one-pass bar")
+    err = (got.float() - want.float()).abs().max().item()
+    del got, want
+    wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    xl = x.permute(0, 3, 1, 2)
+    k = time_ms(torch,
+                lambda: kernels.conv3x3_implicit_gemm(x, w, b, passes=1),
+                iters=5, warmup=1)
+    pl = time_ms(torch, lambda: kernels.conv3x3_implicit_gemm_plain(x, w, b),
+                 iters=3, warmup=1)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        lib = time_ms(torch, lambda: F.conv2d(xl, wl, b, padding=1),
+                      iters=5, warmup=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    bound, by, t_bytes, t_ops = conv_bound(x, w, o, TF32_FLOP_PER_S)
+    row = {"kernel": "conv3x3_implicit_gemm", "site": site + ", one pass",
+           "design": "tf32x1", "passes": 1,
+           **f32_errors(torch, x, w, b, passes=1), "shape": shape, "O": o,
+           "dtype": "float32", "max_abs_err": err, "ms": k["ms"],
+           "plain_ms": pl["ms"], "library_ms": lib["ms"],
+           "library": "F.conv2d, cuDNN TF32 on", "bound_ms": bound,
+           "bound_by": by, "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+           "of_bound": bound / k["ms"],
+           "tflops": 2 * x.numel() * 9 * o / k["ms"] / 1e9,
+           "host_paced": k["host_paced"] or lib["host_paced"], "card": smi}
+    del x, w, b, wl, xl
+    torch.cuda.empty_cache()
+    return row
+
+
+#: The phase's sessions whose Pass 2 is also exported (``io/aot.py``) and
+#: run from the bundle: fp32 'highest', every product the library's exact
+#: fp32, and the f16 'dec' region, whose fp32 decoder runs its upsample and
+#: shortcut convs on the library.  (The 'out' region's one fp32 product is
+#: the out conv, the kernel's op: TF32 flags cannot reach it.)
+AOT_VARIANTS = ("fp32_highest", "f16_dec")
+#: Mean |delta| ([0,1] scale) of a bundle's Pass-2 output against eager:
+#: both run the same exact products, so they differ by reassociation at
+#: most; the graph run with cuDNN's and cuBLAS's TF32 on must exceed it.
+AOT_EXACT_BAR = 1e-6
+
+
+def aot_vs_eager(torch, s, x, y) -> dict:
+    """`s`'s Pass 2 exported for `x`'s batch on the card and called through
+    ``AotPass2``, against the eager output `y`: mean and max |delta| on the
+    [0,1] scale, within AOT_EXACT_BAR; and the same graph called with the
+    TF32 flags on (outside the bundle's exact scope), which must differ by
+    more than the bar, so the bar tells the two apart."""
+    from rerevst_torch.io import aot as A
+    from rerevst_torch.ops.image import denormalize
+
+    b, dev = x.shape[0], x.device.type
+    t0 = time.perf_counter()
+    meta, programs = A.export_bundle(s, tuple(x.shape[1:3]), (b,), (dev,))
+    export_s = time.perf_counter() - t0
+    bundle = A.AotPass2(meta, programs)
+    args = (s.params, x, s.style, s.stats)
+    want = denormalize(y.float())
+
+    def delta(got):
+        d = (denormalize(got.float()) - want).abs()
+        return {"mean_01": d.mean().item(), "max_01": d.max().item()}
+
+    with torch.inference_mode():
+        got = bundle(*args)
+        module = bundle.program(b, dev).module()
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = module(*A._canonical(args))
+        finally:
+            torch.backends.cudnn.allow_tf32 = flags[0]
+            torch.backends.cuda.matmul.allow_tf32 = flags[1]
+    out = {"export_s": export_s, "dtype": str(got.dtype),
+           "vs_eager": delta(got), "tf32_on_vs_eager": delta(tf32),
+           "bar_mean_01": AOT_EXACT_BAR}
+    if got.dtype != y.dtype or not (
+            out["vs_eager"]["mean_01"] <= AOT_EXACT_BAR
+            < out["tf32_on_vs_eager"]["mean_01"]):
+        fail(f"config_variants aot: {out}")
+    return out
+
+
+#: The fp32 3x3 SAME conv sites of one Pass-2 batch that each fp32_mix
+#: region runs at mix_precision 'default' (one TF32 pass): the encoder's 9
+#: ('enc'), the decoder's 10 (six filter convs, three res conv2, the out
+#: conv: 'dec'), both ('full'), the encoder and the decoder's front at the
+#: session's 'default' up to res3 ('body': 9 + 8), res2.conv2 and the out
+#: conv ('res2'), the out conv ('out').
+MIX_TF32_SITES = {"out": 1, "res2": 2, "dec": 10, "enc": 9, "full": 19,
+                  "body": 17}
+#: The fp32 precisions' split-TF32 launches per Pass-2 batch: every 3x3
+#: SAME conv of encode_content + decode_global.
+FP32_SITES = 19
+
+
+def config_variants(torch, smi):
+    """Phase config_variants: the config variants of ModelConfig through
+    ``Stylization`` with the bundled weights, one stylize_video of the
+    33-frame 512^2 clip (batch 16, padded to 640^2) and the global Pass 2's
+    device time per batch each:
+
+    * fp32 at 'highest', 'high' and 'default' (the split-TF32 kernel with
+      three and one passes): ms per batch, mean |delta| of the frames
+      ([0,1] scale) against 'highest' (bars: 'high' 1e-4, 'default' 1e-3),
+      split-TF32 launches per batch by pass count;
+    * f16 and bf16 with each fp32_mix region (mix_precision 'default'), and
+      f16 'full' at mix_precision 'high': ms, peak GB, output dtype, mean
+      |delta| against fp32 'highest' (bar: every f16 one 1e-3; bf16
+      recorded), split-TF32 launches per batch (MIX_TF32_SITES);
+    * f16 with luma_fold: ms and mean |delta| against the f16 session;
+    * f16 with parity_packed (and pair-lane, tiles and the luma fold asked
+      for, all closed by it): frames bit-equal to the f16 session's;
+    * the Pass 2 of fp32 'highest' and of f16 'dec' from an AOT bundle
+      (``aot_vs_eager``): within AOT_EXACT_BAR of eager, where the same
+      graph with the TF32 flags on is not;
+    * fp32 'highest' again after all of them: frames bit-equal to the first
+      run, and the TF32 flags as they were (no precision state leaks).
+
+    Each session's kernel launches are counted over its stylize_video (set
+    to 0 just before, read just after)."""
+    import numpy as np
+
+    from rerevst_torch import kernels
+    from rerevst_torch.api import Stylization
+    from rerevst_torch.config import ModelConfig
+    from rerevst_torch.eval.parity import pixel_error
+
+    t_phase = time.perf_counter()
+    ckpt = str(HERE / "models" / "demo_plum_4000.msgpack")
+    clip = synth_clip(CLIP_FRAMES, CONTENT, CONTENT, seed=0)
+    style = synth_style(CONTENT, CONTENT, seed=1)
+    batch = synth_clip(BATCH, CONTENT, CONTENT, seed=4)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    f16, bf16 = torch.float16, torch.bfloat16
+    sessions = [("fp32_highest", ModelConfig()),
+                ("fp32_high", ModelConfig(precision="high")),
+                ("fp32_default", ModelConfig(precision="default")),
+                ("f16", ModelConfig(dtype=f16))] \
+        + [(f"{n}_{mix}", ModelConfig(dtype=dt, fp32_mix=mix))
+           for n, dt in (("f16", f16), ("bf16", bf16))
+           for mix in MIX_TF32_SITES] \
+        + [("f16_full_high", ModelConfig(dtype=f16, fp32_mix="full",
+                                         mix_precision="high")),
+           ("f16_luma_fold", ModelConfig(dtype=f16, luma_fold=True)),
+           ("f16_parity_packed", ModelConfig(
+               dtype=f16, parity_packed=True, pairlane=True,
+               spatial_tiles=2, luma_fold=True)),
+           ("fp32_highest_again", ModelConfig())]
+    params = trace = None
+    res, frames = {}, {}
+    for key, cfg in sessions:
+        s = Stylization(ckpt if params is None else None, params=params,
+                        cfg=cfg, device="cuda")
+        params = s.params
+        s.prepare_style(style)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = list(s.stylize_video(clip, batch_size=BATCH))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        by_design = {k: v for k, v in
+                     kernels.conv3x3_implicit_gemm.launches_by_design.items()
+                     if v}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if len(out) != CLIP_FRAMES or any(
+                f.shape != (CONTENT, CONTENT, 3) or f.dtype != np.uint8
+                for f in out) or np.stack(out).std() < 1.0:
+            fail(f"config_variants {key}: bad frames")
+        x = s._upload(s._prep_batch_host(batch))
+        y = s._stylize(x)
+        if not torch.isfinite(y).all():
+            fail(f"config_variants {key}: non-finite Pass-2 output")
+        kernels.reset_launches()
+        s._stylize(x)
+        torch.cuda.synchronize()
+        per_batch = {k: v for k, v in
+                     kernels.conv3x3_implicit_gemm.launches_by_design.items()
+                     if v}
+        t = time_ms(torch, lambda: s._stylize(x), iters=5, warmup=1)
+        aot = aot_vs_eager(torch, s, x, y) if key in AOT_VARIANTS else None
+        if key == "fp32_default":
+            # What the library's exact fp32 products (the upsample and
+            # shortcut convs: every 3x3 SAME conv is the kernel's) cost of
+            # a 'default' batch.
+            tr = trace_pass2(torch, s)
+            trace = {k: tr[k] for k in ("device_busy_ms",
+                                        "busy_by_category_ms")}
+            trace["library_convs_share"] = tr["busy_by_category_ms"].get(
+                "convolutions", 0.0) / tr["device_busy_ms"]
+        frames[key] = out
+        res[key] = {"ms_per_batch": t["ms"], "host_paced": t["host_paced"],
+                    "peak_alloc_gb": peak, "output_dtype": str(y.dtype),
+                    "precision": cfg.precision, "fp32_mix": cfg.fp32_mix,
+                    "mix_precision": cfg.mix_precision,
+                    "launches": counts, "launches_by_design": by_design,
+                    "tf32_launches_per_batch": per_batch,
+                    "pass1_mode": s.pass1_mode, "pass2_mode": s.pass2_mode}
+        if aot is not None:
+            res[key]["aot"] = aot
+        del s, x, y
+        torch.cuda.empty_cache()
+    ref = frames["fp32_highest"]
+    for key in res:
+        if key != "fp32_highest":
+            res[key]["mean_abs_vs_fp32_highest_01"] = \
+                pixel_error(frames[key], ref)["mean_01"]
+    res["f16_luma_fold"]["mean_abs_vs_f16_01"] = \
+        pixel_error(frames["f16_luma_fold"], frames["f16"])["mean_01"]
+    for key, r in res.items():
+        emit({"phase": "config_variants", "session": key, **r, "card": smi})
+
+    def need(ok, msg):
+        if not ok:
+            fail(f"config_variants: {msg}")
+
+    for key, passes, bar in (("fp32_high", 3, 1e-4),
+                             ("fp32_default", 1, 1e-3)):
+        r = res[key]
+        need(r["tf32_launches_per_batch"] == {f"tf32x{passes}": FP32_SITES},
+             f"{key} split-TF32 launches per batch "
+             f"{r['tf32_launches_per_batch']}, expected {FP32_SITES} with "
+             f"{passes} passes")
+        need(r["mean_abs_vs_fp32_highest_01"] <= bar,
+             f"{key} mean |delta| {r['mean_abs_vs_fp32_highest_01']} > {bar}")
+    need(not res["fp32_highest"]["tf32_launches_per_batch"],
+         "fp32 'highest' reached the split-TF32 kernel")
+    for key, r in res.items():
+        mix = r["fp32_mix"]
+        if key.startswith(("f16_", "bf16_")) and mix != "none":
+            passes = 3 if r["mix_precision"] == "high" else 1
+            need(r["tf32_launches_per_batch"]
+                 == {f"tf32x{passes}": MIX_TF32_SITES[mix]},
+                 f"{key}: split-TF32 launches per batch "
+                 f"{r['tf32_launches_per_batch']}")
+            want = "torch.float32" if mix in ("out", "res2", "dec", "full") \
+                else str(torch.bfloat16 if key.startswith("bf16")
+                         else torch.float16)
+            need(r["output_dtype"] == want,
+                 f"{key}: output dtype {r['output_dtype']}, expected {want}")
+        if key.startswith("f16"):
+            need(r["mean_abs_vs_fp32_highest_01"] <= 1e-3,
+                 f"{key} mean |delta| {r['mean_abs_vs_fp32_highest_01']} "
+                 f"> 1e-3")
+    packed_equal = all(np.array_equal(a, b) for a, b in
+                       zip(frames["f16_parity_packed"], frames["f16"]))
+    leak_equal = all(np.array_equal(a, b) for a, b in
+                     zip(frames["fp32_highest_again"], ref))
+    after = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    summary = {"fp32_default_pass2_trace": trace,
+               "parity_packed_bit_equal_f16": packed_equal,
+               "fp32_highest_again_bit_equal": leak_equal,
+               "tf32_flags_before": list(flags), "tf32_flags_after":
+               list(after), "bars_mean_01": {
+                   "fp32_high": 1e-4, "fp32_default": 1e-3, "f16_*": 1e-3,
+                   "bf16_*": "recorded"}}
+    need(packed_equal, "f16 parity_packed frames differ from f16's")
+    need(leak_equal, "fp32 'highest' frames changed after the variants")
+    need(after == flags, f"TF32 flags {after}, were {flags}")
+    row = time_tf32x1(torch, smi)
+    emit({"phase": "config_variants", "tf32x1_row": row})
+    summary["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "config_variants", "summary": summary, "card": smi})
+    RESULTS["config_variants"] = {"sessions": res, "summary": summary,
+                                  "tf32x1_row": row}
+    return res, row
 
 
 def kernel_resources(build) -> dict:
@@ -3918,10 +4315,11 @@ def kernel_resources(build) -> dict:
         if m:
             out[f"conv3x3_sliced_kernel<{dts[m.group(1)]}, N={m.group(2)}, "
                 f"KS={m.group(3)}>"] = info
-        m = re.search(r"conv3x3_tf32x3_kernelILi(\d+)ELi(\d+)E", name)
+        m = re.search(r"conv3x3_tf32x3_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                      name)
         if m:
-            out[f"conv3x3_tf32x3_kernel<N={m.group(1)}, KS={m.group(2)}>"] = \
-                info
+            out[f"conv3x3_tf32x3_kernel<N={m.group(1)}, KS={m.group(2)}, "
+                f"P={m.group(3)}>"] = info
         if "conv3x3_tf32_split_kernel" in name:
             out["conv3x3_tf32_split_kernel"] = info
     n_conv = len(out)
@@ -3935,9 +4333,9 @@ def kernel_resources(build) -> dict:
     if n_sliced != 20:
         fail(f"ptxas reported {n_sliced} sliced conv kernels, not 20")
     n_tf32 = sum(k.startswith("conv3x3_tf32") for k in out)
-    if n_tf32 != 9:
-        fail(f"ptxas reported {n_tf32} split-TF32 conv kernels, not 8 and "
-             f"the weights' split")
+    if n_tf32 != 17:
+        fail(f"ptxas reported {n_tf32} split-TF32 conv kernels, not 16 (N x "
+             f"KS x three or one pass) and the weights' split")
     serialized = [k for k, v in out.items()
                   if k.startswith(("conv3x3_wide", "conv3x3_sliced",
                                    "conv3x3_tf32x3"))
@@ -3995,7 +4393,7 @@ def main() -> int:
     if tuple(cap) != (9, 0):
         fail(f"compute capability {cap}, the kernels are built for sm_90a")
 
-    # 2. build, and what ptxas says of the streamed conv and filter kernels
+    # 2. build, and what ptxas says of the conv and filter kernels
     t0 = time.perf_counter()
     _build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -4025,6 +4423,7 @@ def main() -> int:
     abl = ablation_phase(torch, host)
     dist = distributed_phase(torch, sessions, host)
     del host
+    variants, tf32x1_row = config_variants(torch, smi)
 
     # 5. times
     tot, filter_bound_by = time_kernels(torch)
@@ -4051,8 +4450,11 @@ def main() -> int:
               **{k: v for k, v in tr.items() if k != "top_kernels"}})
 
     # 6. summary lines.  Times are per Pass-2 batch (summed over the
-    # kernel's sites), or per pair of conv benchmark calls for the
-    # implicit-GEMM conv; launches are counted over one run of each path.
+    # kernel's sites); for the implicit-GEMM conv, whose path (the fp32
+    # 'high' session) launches the split-TF32 design alone, that design's
+    # F32_CONV row (the other designs' rows under "designs").  Launches
+    # are counted over one run of each path.
+    f32_row = next(r for r in vgg_rows if r["design"] == "tf32x3")
     meta = {
         "norm_affine_clamp": ("rerevst_torch/csrc/norm_affine.cu",
                               "rerevst_tpu/kernels/norm_affine.py:41", "bytes",
@@ -4064,9 +4466,9 @@ def main() -> int:
         "conv3x3_implicit_gemm": (
             "rerevst_torch/csrc/conv3x3.cu",
             "rerevst_tpu/kernels/conv3x3.py:81",
-            conv_tot["conv3x3_implicit_gemm"]["bound_by"],
-            "standalone at scripts/bench_conv3x3.py's shapes (no model path)",
-            implicit_counts),
+            f32_row["bound_by"],
+            "stylize_video fp32 precision='high' (phase config_variants)",
+            variants["fp32_high"]["launches"]),
         "conv3x3_pairlane": ("rerevst_torch/csrc/conv3x3.cu",
                              "rerevst_tpu/kernels/conv3x3.py:210",
                              conv_tot["conv3x3_pairlane"]["bound_by"],
@@ -4076,6 +4478,8 @@ def main() -> int:
     times = {k: (v[0], v[1], v[2], None) for k, v in tot.items()}
     times.update({k: (v["ms"], v["plain_ms"], v["bound_ms"], v["library_ms"])
                   for k, v in conv_tot.items()})
+    times["conv3x3_implicit_gemm"] = tuple(
+        f32_row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms"))
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[k], "max_abs_err": errs[k],
@@ -4096,12 +4500,23 @@ def main() -> int:
          "launches_aot": aoted["f16"]["aot_launches"][k],
          "launches_aot_pairlane": aoted["f16_pairlane"]["aot_launches"][k],
          "launches_aot_serve": aoted["serve"]["launches"][k],
-         "launches_mesh": dist["launches"][k]}
+         "launches_mesh": dist["launches"][k],
+         "launches_config_variants": {
+             key: r["launches"][k] for key, r in variants.items()}}
         for k, (src, rep, by, path, counts) in meta.items()]}
     for entry in line["kernels"]:
         if entry["name"] == "conv3x3_implicit_gemm":
+            entry["times_of"] = (f"{f32_row['site']} {list(f32_row['shape'])}"
+                                 f" -> {f32_row['O']}, design tf32x3")
+            entry["max_abs_err_all_checks"] = entry["max_abs_err"]
+            entry["max_abs_err"] = f32_row["max_abs_err"]
+            entry["launches_standalone"] = \
+                implicit_counts["conv3x3_implicit_gemm"]
             entry["launches_by_design"] = \
                 RESULTS["implicit_gemm_launches_by_design"]
+            entry["launches_by_design_config_variants"] = {
+                key: r["launches_by_design"] for key, r in variants.items()
+                if r["launches_by_design"]}
             # Each design at its VGG, SLICED_CONVS or F32_CONV sites.
             entry["designs"] = {}
             for r in vgg_rows:
@@ -4113,6 +4528,11 @@ def main() -> int:
                                        "max_abs_err_vs_f64",
                                        "library_max_abs_err_vs_f64")
                      if k in r})
+            entry["designs"].setdefault("tf32x1", []).append(
+                {k: tf32x1_row[k] for k in (
+                    "site", "shape", "O", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library", "max_abs_err",
+                    "max_abs_err_vs_f64", "library_max_abs_err_vs_f64")})
     RESULTS["kernels"] = line["kernels"]
     RESULTS["seconds"] = time.perf_counter() - t_main
     _save()

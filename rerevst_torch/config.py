@@ -1,13 +1,16 @@
 """Typed configuration of the model, the video pipeline and training.
 
-Mirrors ``rerevst_tpu/config.py`` field for field, with torch dtypes.  The
-port supports the default architecture and both ablation switches
-(``dynamic_filter``, ``both_sty_con``; per-frame mode only, as in the JAX
-package), the pair-lane route and spatial H-tiling (``spatial_tiles``); a
-switch that selects a path the port does not have yet (the TPU layout and
-precision variants) raises ``NotImplementedError`` naming the ``ROADMAP.md``
-item that ports it, so no setting is silently ignored (``outpairs``
-excepted, see its comment).
+Mirrors ``rerevst_tpu/config.py`` field for field, with torch dtypes, and
+takes every value the JAX package takes: the architecture and both ablation
+switches (``dynamic_filter``, ``both_sty_con``; per-frame mode only, as in
+the JAX package), the product precision (``precision``, ``fp32_mix`` with
+``mix_precision``; ``ops/precision.py`` says what each level runs on the
+card), the pair-lane route, spatial H-tiling (``spatial_tiles``), the luma
+fold (``luma_fold``) and the TPU layouts, whose functions the port runs
+without their layout (``parity_packed``, ``outpairs``; see their comments).
+One deliberate difference: an unknown ``precision``, ``mix_precision`` or
+``fp32_mix`` raises ``ValueError`` where the JAX package runs an unknown
+region as ``'none'``.
 """
 
 from __future__ import annotations
@@ -16,8 +19,13 @@ import dataclasses
 
 import torch
 
+from rerevst_torch.ops.precision import PRECISIONS
+
 #: Storage dtypes the port runs in.
 STORAGE_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+
+#: The fp32 storage regions of ``ModelConfig.fp32_mix``.
+FP32_MIX = ("none", "out", "res2", "dec", "enc", "full", "body")
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -50,19 +58,36 @@ class ModelConfig:
     norm_eps: float = 1e-8
     #: Epsilon inside the style mean/std.
     mean_std_eps: float = 1e-5
-    #: Storage dtype of activations and weights.  fp32 runs every conv and
-    #: matmul in true fp32 (see ``models.layers.conv2d``).
+    #: Storage dtype of activations and weights.
     dtype: torch.dtype = torch.float32
     #: Dtype of normalization statistics and reductions (always fp32).
     stats_dtype: torch.dtype = torch.float32
-    #: Product precision: 'auto' (fp32 storage -> true fp32 products; 16-bit
-    #: storage -> the card's native 16-bit products) or 'highest'.
+    #: Product precision: 'auto' (fp32 storage -> 'highest', exact fp32
+    #: products; 16-bit storage -> 'default', the card's native 16-bit
+    #: products), or a level forced: 'default' (fp32 3x3 SAME convs as one
+    #: TF32 pass), 'high' (three TF32 passes, fp32-accurate) or 'highest'
+    #: (``ops/precision.py``).
     precision: str = "auto"
-    #: fp32 storage region inside a low-precision model ('none' only).
+    #: fp32 storage region inside a 16-bit session (``models/transformer``):
+    #: 'none'; 'out' (the last AdaIN and the out conv); 'res2' (from the last
+    #: residual block); 'dec' (the decoder); 'enc' (the encoder, its output
+    #: cast back); 'full' (encoder and decoder); 'body' (everything but the
+    #: full-resolution res2 + out tail).  'out', 'res2', 'dec' and 'full'
+    #: return fp32 frames.  Inactive in fp32 sessions.
     fp32_mix: str = "none"
+    #: The product precision inside the fp32 region (what ``precision``
+    #: takes; 'auto' is 'highest' there).
     mix_precision: str = "default"
-    #: TPU layout variants of the same functions (not ported).
+    #: The JAX package's parity-packed (space-to-depth) route for the
+    #: encoder's conv1 block and the decoder's res2 + out tail.  The port
+    #: computes the same functions without the packed layout (which only
+    #: suits the TPU's MXU): the flag closes the gates it closes there (the
+    #: luma fold, head and tail tiling, the pair-lane encoder head and tail)
+    #: and keeps its tail's mix-precision choices.
     parity_packed: bool = False
+    #: Fold the reversed-luma desaturation into conv1_1 (``vgg.encode_luma``)
+    #: on the 16-bit inference path: desaturate, dtype not fp32, fp32_mix
+    #: 'none', and neither parity_packed nor pairlane.
     luma_fold: bool = False
     #: Route the full-resolution 64-channel convs (encoder conv1_2, decoder
     #: res2.conv2 and the out conv) through the ``conv3x3_pairlane`` kernel
@@ -80,21 +105,13 @@ class ModelConfig:
     outpairs: str = "auto"
 
     def __post_init__(self):
-        unsupported = [
-            (self.parity_packed, "parity_packed=True",
-             "ROADMAP.md Queue 1 item 8 (config variants)"),
-            (self.luma_fold, "luma_fold=True",
-             "ROADMAP.md Queue 1 item 8 (config variants)"),
-            (self.fp32_mix != "none", f"fp32_mix={self.fp32_mix!r}",
-             "ROADMAP.md Queue 1 item 8 (config variants)"),
-            (self.precision not in ("auto", "highest"),
-             f"precision={self.precision!r}",
-             "ROADMAP.md Queue 1 item 8 (config variants)"),
-        ]
-        for bad, what, item in unsupported:
-            if bad:
-                raise NotImplementedError(
-                    f"ModelConfig({what}) is not ported yet: {item}")
+        for name in ("precision", "mix_precision"):
+            if getattr(self, name) not in PRECISIONS + (None,):
+                raise ValueError(f"unknown {name} {getattr(self, name)!r}; "
+                                 f"choose from {PRECISIONS}")
+        if self.fp32_mix not in FP32_MIX:
+            raise ValueError(f"unknown fp32_mix {self.fp32_mix!r}; choose "
+                             f"from {FP32_MIX}")
         if self.dtype not in STORAGE_DTYPES:
             raise ValueError(f"unsupported storage dtype {self.dtype}")
 

@@ -31,7 +31,9 @@
 //   conv 512 -> 32): the sliced design below (conv3x3_sliced_kernel).
 // * fp32 -- both entry points, every C and O: the split-TF32 design below
 //   (conv3x3_tf32x3_kernel), fp32-accurate products on the tensor cores
-//   (the counterpart of the JAX package's HIGHEST precision).
+//   (the counterpart of the JAX package's HIGHEST and HIGH precisions)
+//   at passes = 3; at passes = 1 one TF32 pass (x truncated, w rounded to
+//   TF32: the 'default' precision), the same walk with neither lo box.
 // No call reaches a cp.async + mma.sync kernel or the CUDA cores' FMAs.
 // A tensor map that cannot be encoded or a refused launch is returned as
 // an error: nothing retries on another design.
@@ -317,6 +319,12 @@
 //   straight from registers (four lanes write one row's 32 contiguous
 //   bytes: whole sectors), where they fall inside the image and O.  An
 //   fp32 tile is 64 KB at N = 64, too much to stage beside the ring.
+// * One pass (P = 1, rr_conv3x3 with passes = 1): x_hi w_hi alone,
+//   with the weights rounded to nearest in the split kernel (once a call;
+//   x stays truncated by the tensor cores, unbiased rounding of it would
+//   cost a pass over every box): no lo box of x, no barrier, no lo planes
+//   of the weights.  Within 2^-9 sum |x||w| of the fp32 conv (x's
+//   truncation < 2^-10 of |x|, w's rounding <= 2^-11 of |w|).
 // * What bounds it (scripts/probe_tf32_conv.py at [16,640,640,64] -> 64):
 //   one pass alone 2.73 ms, no wgmma at all 2.64, the lo pass 0.67 of the
 //   4.70, the stores 0.19.  Each m64nNk8 reads 2 KB of A and N 32 bytes of
@@ -1741,14 +1749,21 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_sliced_kernel(
 // a pixel, the swizzle span).  A stage: the box of x, a box of its lo
 // (a_slot bytes each, set at launch), then the weights' boxes {KS c, N o}:
 // hi of taps dy = 0, 1, 2, then lo of the same, each on a 1024-byte
-// boundary.
-template <int N, int KS>
+// boundary.  P is the number of TF32 passes: 3 (x_hi w_hi + x_hi w_lo +
+// x_lo w_hi, fp32-accurate) or 1 (x_hi w_hi: the box of x and the weights'
+// hi boxes alone).
+// P = 1 (one TF32 pass, x_hi w_hi) stages neither the lo box nor the lo
+// boxes of the weights.
+template <int N, int KS, int P>
 struct Tf32 {
+  static_assert(P == 1 || P == 3, "passes");
   static constexpr int kM = 256;
   static constexpr int kS = KS * 4;
+  static constexpr int kABoxes = P == 3 ? 2 : 1;   // x (and its lo)
+  static constexpr int kPlanes = P == 3 ? 2 : 1;   // w's hi (and lo)
   static constexpr int kBBox = (N * KS * 4 + 1023) / 1024 * 1024;
-  static constexpr int kBBytes = 6 * kBBox;
-  static constexpr int kBTx = 6 * N * KS * 4;  // the bytes TMA writes
+  static constexpr int kBBytes = 3 * kPlanes * kBBox;
+  static constexpr int kBTx = 3 * kPlanes * N * KS * 4;  // what TMA writes
 };
 
 // TF32 of the fp32 bits v rounded to nearest, ties away from zero: what
@@ -1769,6 +1784,15 @@ __device__ __forceinline__ uint32_t tf32_lo(uint32_t v) {
   return hi == v ? 0u : __float_as_uint(r) & 0xffffe000u;
 }
 
+// A weight's one-pass TF32 value: w rounded to nearest (its error is half
+// of truncation's and unbiased), truncated where rounding would overflow
+// (|w| >= 0x7f7ff000) and for NaN.
+__device__ __forceinline__ float tf32_round_w(float w) {
+  const uint32_t v = __float_as_uint(w);
+  return __uint_as_float((v & 0x7fffffffu) >= 0x7f7ff000u ? v & 0xffffe000u
+                                                          : tf32_rna(v));
+}
+
 // A weight's split: hi = w truncated to TF32 (NaN kept), lo = rna TF32 of
 // the rest, which never has hi's opposite sign; a lo of 0 for a non-zero
 // finite w becomes hi 2^-30, so that an infinite x meets w as two infinities
@@ -1783,36 +1807,42 @@ __device__ __forceinline__ void tf32_split_w(float w, float& hi, float& lo) {
 }
 
 // ws [2][9][O][Cp] (hi, lo; tap, output channel, input channel; zero past
-// C) from the HWIO weights w [9][C][O].
+// C) from the HWIO weights w [9][C][O]; for one pass (passes = 1) ws
+// [9][O][Cp], w rounded to TF32.
 __global__ void conv3x3_tf32_split_kernel(const float* __restrict__ w,
                                           float* __restrict__ ws, int C,
-                                          int Cp, int O) {
+                                          int Cp, int O, int passes) {
   const long long n = 9LL * Cp * O;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
     const int o = (int)(i % O);
     const long long q = i / O;
     const int c = (int)(q % Cp), tap = (int)(q / Cp);
+    const long long d = ((long long)tap * O + o) * Cp + c;
+    if (passes == 1) {
+      ws[d] = c < C ? tf32_round_w(w[((long long)tap * C + c) * O + o]) : 0.f;
+      continue;
+    }
     float hi = 0.f, lo = 0.f;
     if (c < C) tf32_split_w(w[((long long)tap * C + c) * O + o], hi, lo);
-    const long long d = ((long long)tap * O + o) * Cp + c;
     ws[d] = hi;
     ws[n + d] = lo;
   }
 }
 
 // A stage's products for a warpgroup: taps dy = 0, 1, 2, each KS / 8 k8
-// steps into both m64 blocks, as x_hi w_hi + x_hi w_lo + x_lo w_hi.  da:
+// steps into both m64 blocks, as x_hi w_hi + x_hi w_lo + x_lo w_hi (P = 3)
+// or x_hi w_hi (P = 1).  da:
 // the warpgroup's first pixel at dy = 0 in the box of x; tap dy starts dy x
 // `drow` further on (a row of cols pixels, in 16-byte units), a k8 step 32
 // bytes and an m64 block 64 kS bytes on; the box of lo is `dlo` further on.
 // db: the stage's weights, tap dy's hi box dy kBBox bytes on, its lo box 3
 // kBBox further.
-template <int N, int KS>
+template <int N, int KS, int NP>
 __device__ __forceinline__ void tf32x3_stage(float (&acc)[2][N / 2],
                                              uint64_t da, uint64_t db,
                                              uint32_t drow, uint32_t dlo) {
-  using P = Tf32<N, KS>;
+  using P = Tf32<N, KS, NP>;
 #pragma unroll
   for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
@@ -1821,28 +1851,30 @@ __device__ __forceinline__ void tf32x3_stage(float (&acc)[2][N / 2],
       for (int m = 0; m < 2; ++m) {
         const uint64_t ah = da + dy * drow + m * (64 * P::kS / 16) + 2 * i;
         const uint64_t bh = db + dy * (P::kBBox / 16) + 2 * i;
-        const uint64_t bl = bh + 3 * (P::kBBox / 16);
         wgmma_ss<float, N>(acc[m], ah, bh, 1);
-        wgmma_ss<float, N>(acc[m], ah, bl, 1);
-        wgmma_ss<float, N>(acc[m], ah + dlo, bh, 1);
+        if constexpr (NP == 3) {
+          const uint64_t bl = bh + 3 * (P::kBBox / 16);
+          wgmma_ss<float, N>(acc[m], ah, bl, 1);
+          wgmma_ss<float, N>(acc[m], ah + dlo, bh, 1);
+        }
       }
 }
 
 // xmap: x as [B][H][W][Cp] fp32, boxes {KS, cols, rows + 2, 1}; wmap: ws as
-// [18][O][Cp], boxes {KS, N, 1}; both with the kS-byte swizzle.  `lc` =
-// log2(cols); `stages` stages of 2 `a_slot` + kBBytes bytes.
-template <int N, int KS>
+// [9 kPlanes][O][Cp], boxes {KS, N, 1}; both with the kS-byte swizzle.
+// `lc` = log2(cols); `stages` stages of kABoxes `a_slot` + kBBytes bytes.
+template <int N, int KS, int NP>
 __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
     const __grid_constant__ CUtensorMap xmap,
     const __grid_constant__ CUtensorMap wmap, const float* __restrict__ bias,
     float* __restrict__ y, int B, int H, int W, int Cp, int O, int lc,
     int stages, int a_slot) {
-  using P = Tf32<N, KS>;
+  using P = Tf32<N, KS, NP>;
   static_assert(KS == 8 || KS == 16, "K slice");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
-  const int stage_bytes = 2 * a_slot + P::kBBytes;
+  const int stage_bytes = P::kABoxes * a_slot + P::kBBytes;
   const uint32_t ring = smem_addr(base);
   float* bias_s = reinterpret_cast<float*>(base + (size_t)stages * stage_bytes);
   const int n_tiles = (O + N - 1) / N;
@@ -1885,11 +1917,12 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
           tma_load_4d(a, &xmap, full + 8 * s, sl * KS, u.x0 + dx - 1,
                       u.y0 - 1, u.b);
 #pragma unroll
-          for (int p = 0; p < 2; ++p)
+          for (int p = 0; p < P::kPlanes; ++p)
 #pragma unroll
             for (int dy = 0; dy < 3; ++dy)
-              tma_load_3d(a + 2 * a_slot + (3 * p + dy) * P::kBBox, &wmap,
-                          full + 8 * s, sl * KS, u.n0, 9 * p + 3 * dy + dx);
+              tma_load_3d(a + P::kABoxes * a_slot + (3 * p + dy) * P::kBBox,
+                          &wmap, full + 8 * s, sl * KS, u.n0,
+                          9 * p + 3 * dy + dx);
           if (++s == stages) {
             s = 0;
             ph ^= 1;
@@ -1928,22 +1961,25 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
       mbar_wait(full + 8 * s, ph);
       const uint32_t a = ring + s * stage_bytes;
       // The box as it lies is x_hi (wgmma reads fp32 truncated to TF32);
-      // both warpgroups write its lo into the second box, chunk by chunk
-      // at the same offsets (so with the same swizzle), then meet.
-      const uint4* xv = reinterpret_cast<const uint4*>(base + (a - ring));
-      uint4* lv = reinterpret_cast<uint4*>(base + (a - ring) + a_slot);
-      for (int i = tid; i < box_bytes / 16; i += kConsumerThreads) {
-        const uint4 v = xv[i];
-        lv[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
-                           tf32_lo(v.w));
+      // for three passes both warpgroups write its lo into the second box,
+      // chunk by chunk at the same offsets (so with the same swizzle), then
+      // meet.
+      if constexpr (NP == 3) {
+        const uint4* xv = reinterpret_cast<const uint4*>(base + (a - ring));
+        uint4* lv = reinterpret_cast<uint4*>(base + (a - ring) + a_slot);
+        for (int i = tid; i < box_bytes / 16; i += kConsumerThreads) {
+          const uint4 v = xv[i];
+          lv[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
+                             tf32_lo(v.w));
+        }
+        fence_async_shared();  // the generic writes, before wgmma reads them
+        bar_sync_consumers();
       }
-      fence_async_shared();  // the generic writes, before wgmma reads them
-      bar_sync_consumers();
       const uint64_t da = wgmma_desc<P::kS>(a + wg * 128 * P::kS);
-      const uint64_t db = wgmma_desc<P::kS>(a + 2 * a_slot);
+      const uint64_t db = wgmma_desc<P::kS>(a + P::kABoxes * a_slot);
       fence_regs(acc);
       wgmma_fence();
-      tf32x3_stage<N, KS>(acc, da, db, drow, dlo);
+      tf32x3_stage<N, KS, NP>(acc, da, db, drow, dlo);
       wgmma_commit();
       if (k > 0) {
         // The previous stage's group is done: it may be refilled.
@@ -2282,17 +2318,18 @@ cudaError_t sliced(const void* x, const void* w, const void* b, void* y,
 // C % 4 != 0), w the caller's [3,3,C,O]; ws, the wrapper's scratch of 18 O
 // Cp floats, takes the weights' split first.  The ring takes as many
 // stages as fit beside the bias, at most kSlicedMaxStages.
-template <int N, int KS>
+template <int N, int KS, int NP>
 cudaError_t launch_tf32x3(const void* x, const void* w, const void* b,
                           void* y, void* ws, int B, int H, int W, int C,
                           int O, int lc, int grid, cudaStream_t st) {
-  using P = Tf32<N, KS>;
+  using P = Tf32<N, KS, NP>;
   const int cols = 1 << lc, rows = P::kM >> lc, cp = (C + 3) / 4 * 4;
   const long long nw = 9LL * cp * O;
   conv3x3_tf32_split_kernel<<<(int)std::min<long long>((nw + 255) / 256,
                                                         1024),
                               256, 0, st>>>(static_cast<const float*>(w),
-                                            static_cast<float*>(ws), C, cp, O);
+                                            static_cast<float*>(ws), C, cp, O,
+                                            NP);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   CUtensorMap xmap, wmap;
@@ -2303,52 +2340,67 @@ cudaError_t launch_tf32x3(const void* x, const void* w, const void* b,
                             (cuuint32_t)(rows + 2), 1};
   e = encode_map<float>(&xmap, x, 4, xd, xs, xb, swizzle_of(P::kS));
   if (e != cudaSuccess) return e;
-  const cuuint64_t wd[3] = {(cuuint64_t)cp, (cuuint64_t)O, 18};
+  const cuuint64_t wd[3] = {(cuuint64_t)cp, (cuuint64_t)O,
+                            (cuuint64_t)(9 * P::kPlanes)};
   const cuuint64_t wst[2] = {cp * 4ull, cp * 4ull * O};
   const cuuint32_t wb[3] = {(cuuint32_t)KS, (cuuint32_t)N, 1};
   e = encode_map<float>(&wmap, ws, 3, wd, wst, wb, swizzle_of(P::kS));
   if (e != cudaSuccess) return e;
   const int a_slot = ((rows + 2) * cols * P::kS + 1023) / 1024 * 1024;
-  const int stage = 2 * a_slot + P::kBBytes;
+  const int stage = P::kABoxes * a_slot + P::kBBytes;
   const int fixed = 1024 + (O + N - 1) / N * N * 4;  // alignment, the bias
   const int stages =
       std::min(kSlicedMaxStages, (kSmemMax - fixed) / (stage + 16));
   if (stages < 2) return cudaErrorInvalidValue;
   const size_t bytes = fixed + (size_t)stages * (stage + 16);
-  e = cudaFuncSetAttribute(conv3x3_tf32x3_kernel<N, KS>,
+  e = cudaFuncSetAttribute(conv3x3_tf32x3_kernel<N, KS, NP>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)bytes);
   if (e != cudaSuccess) return e;
-  conv3x3_tf32x3_kernel<N, KS><<<grid, kSpecThreads, bytes, st>>>(
+  conv3x3_tf32x3_kernel<N, KS, NP><<<grid, kSpecThreads, bytes, st>>>(
       xmap, wmap, static_cast<const float*>(b), static_cast<float*>(y), B, H,
       W, cp, O, lc, stages, a_slot);
   return cudaGetLastError();
 }
 
-template <int N>
+template <int N, int NP>
 cudaError_t tf32x3_ks(const void* x, const void* w, const void* b, void* y,
                       void* ws, int B, int H, int W, int C, int O, int lc,
                       int ks, int grid, cudaStream_t st) {
   if (ks == 8)
-    return launch_tf32x3<N, 8>(x, w, b, y, ws, B, H, W, C, O, lc, grid, st);
+    return launch_tf32x3<N, 8, NP>(x, w, b, y, ws, B, H, W, C, O, lc, grid,
+                                   st);
   if (ks == 16)
-    return launch_tf32x3<N, 16>(x, w, b, y, ws, B, H, W, C, O, lc, grid, st);
+    return launch_tf32x3<N, 16, NP>(x, w, b, y, ws, B, H, W, C, O, lc, grid,
+                                    st);
   return cudaErrorInvalidValue;
 }
 
+template <int NP>
+cudaError_t tf32_n(const void* x, const void* w, const void* b, void* y,
+                   void* ws, int B, int H, int W, int C, int O, int lc, int n,
+                   int ks, int grid, cudaStream_t st) {
+  switch (n) {
+    case 8: return tf32x3_ks<8, NP>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
+    case 16: return tf32x3_ks<16, NP>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
+    case 32: return tf32x3_ks<32, NP>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
+    case 64: return tf32x3_ks<64, NP>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// `passes` TF32 passes: 3 (fp32-accurate) or 1.
 cudaError_t tf32x3(const void* x, const void* w, const void* b, void* y,
                    void* ws, int B, int H, int W, int C, int O, int cols,
-                   int n, int ks, int grid, cudaStream_t st) {
+                   int n, int ks, int grid, int passes, cudaStream_t st) {
   const int lc = cols == 16 ? 4 : cols == 32 ? 5 : cols == 64 ? 6
                : cols == 128 ? 7 : -1;
   if (lc < 0 || grid <= 0 || ws == nullptr) return cudaErrorInvalidValue;
-  switch (n) {
-    case 8: return tf32x3_ks<8>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
-    case 16: return tf32x3_ks<16>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
-    case 32: return tf32x3_ks<32>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
-    case 64: return tf32x3_ks<64>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (passes == 3)
+    return tf32_n<3>(x, w, b, y, ws, B, H, W, C, O, lc, n, ks, grid, st);
+  if (passes == 1)
+    return tf32_n<1>(x, w, b, y, ws, B, H, W, C, O, lc, n, ks, grid, st);
+  return cudaErrorInvalidValue;
 }
 
 // 16-bit dispatch by shape (the header's table).
@@ -2375,18 +2427,21 @@ cudaError_t conv16(const void* x, const void* w, const void* b, void* y,
 // other C >= 8), which takes w as [3,3,C,ld] and, where C % 8 != 0, x as
 // [B,H,W,Cp] and w as [3,3,Cp,ld], Cp = C rounded up to ks; `cols`, `n`,
 // `ks` and `grid` for the split-TF32 kernel (fp32), which takes x as
-// [B,H,W,Cp] where C % 4 != 0, Cp = C rounded up to 4, and `ws`, a scratch
-// of 18 O Cp floats (unused by the 16-bit kernels).
+// [B,H,W,Cp] where C % 4 != 0, Cp = C rounded up to 4, its TF32 `passes`
+// (3, or 1: x_hi w_hi with w rounded to TF32) and `ws`, a scratch of 18 O
+// Cp floats (9 O Cp for one pass).  The 16-bit kernels read neither `ws`
+// nor `passes`.
 extern "C" int rr_conv3x3(int dtype, const void* x, const void* w,
                           const void* b, void* y, void* ws, int B, int H,
                           int W, int C, int O, int R, int cols, int n, int ks,
-                          int grid, void* stream_) {
+                          int grid, int passes, void* stream_) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream_);
   switch (dtype) {
     case RR_F32:
-      return tf32x3(x, w, b, y, ws, B, H, W, C, O, cols, n, ks, grid, st);
+      return tf32x3(x, w, b, y, ws, B, H, W, C, O, cols, n, ks, grid, passes,
+                    st);
     case RR_F16:
       return conv16<__half>(x, w, b, y, B, H, W, C, O, R, cols, n, ks, grid,
                             st);
@@ -2402,8 +2457,8 @@ extern "C" int rr_conv3x3(int dtype, const void* x, const void* w,
 extern "C" int rr_conv3x3_c64(int dtype, const void* x, const void* w,
                               const void* b, void* y, void* ws, int B, int H,
                               int W, int O, int R, int cols, int n, int ks,
-                              int grid, void* stream_) {
+                              int grid, int passes, void* stream_) {
   if (O > kC) return cudaErrorInvalidValue;
   return rr_conv3x3(dtype, x, w, b, y, ws, B, H, W, kC, O, R, cols, n, ks,
-                    grid, stream_);
+                    grid, passes, stream_);
 }

@@ -8,9 +8,9 @@ per-pixel uint8 error.  The repository's bar is 1e-3 mean |delta| per pixel
 on the [0,1] scale.
 
 CLI: ``python -m rerevst_torch.eval.parity [--checkpoint ...] [--frames N]
-[--device cuda]``.  Options of ``rerevst_tpu``'s CLI that select a
-configuration the port does not have raise through ``ModelConfig``, naming
-their ROADMAP item.
+[--device cuda]``, with ``rerevst_tpu``'s options for the fast
+configuration (``--fast_dtype``, ``--fast_precision``, ``--fast_tail``,
+``--fast_packed``, ``--pairlane``).
 """
 
 from __future__ import annotations
@@ -126,13 +126,14 @@ def main(argv=None):
                     help="the fast config with the conv3x3_pairlane kernel "
                          "(ModelConfig.pairlane)")
     ap.add_argument("--fast_packed", action="store_true",
-                    help="parity-packed boundary convs in the fast config "
-                         "(not ported: raises)")
+                    help="the parity-packed route in the fast config "
+                         "(ModelConfig.parity_packed: the same functions, "
+                         "without the TPU's packed layout)")
     ap.add_argument("--fast_tail", default="none",
                     choices=["none", "out", "res2", "dec", "enc", "full",
                              "body"],
                     help="fp32 storage region in the fast config "
-                         "(ModelConfig.fp32_mix; not ported: raises)")
+                         "(ModelConfig.fp32_mix)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for the plain path")
     args = ap.parse_args(argv)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from rerevst_torch.config import resolve_device
 from rerevst_torch.eval.ewarp import _PairAccumulator, _f32, masked_warps
+from rerevst_torch.ops.precision import exact_products
 
 _K1, _K2, _L = 0.01, 0.03, 255.0
 _WIN, _SIGMA = 11, 1.5
@@ -49,9 +50,10 @@ def _blur(x: torch.Tensor) -> torch.Tensor:
     r = _WIN // 2
     k = _gauss_window(x.device)
     y = x[:, :, _reflect_index(w, r, x.device)][:, None]
-    y = F.conv2d(y, k.reshape(1, 1, 1, _WIN))
-    y = y[:, :, _reflect_index(h, r, x.device)]
-    return F.conv2d(y, k.reshape(1, 1, _WIN, 1))[:, 0]
+    with exact_products(y):
+        y = F.conv2d(y, k.reshape(1, 1, 1, _WIN))
+        y = y[:, :, _reflect_index(h, r, x.device)]
+        return F.conv2d(y, k.reshape(1, 1, _WIN, 1))[:, 0]
 
 
 def ssim_map(a, b, device="cuda") -> torch.Tensor:

@@ -11,8 +11,8 @@ plus ``--device`` (the card by default).  Frame files and videos are read
 and written with OpenCV.  ``--devices N`` shards each style's Pass 1 and
 the decodes over a mesh of N devices (``parallel/mesh.py``): N visible
 cards, or N logical shards of the CPU with ``--device cpu`` (over cards the
-shards enqueue under one GIL, PERF.md section 5).  ``--mix``
-other than ``none`` raises ``NotImplementedError`` naming its ROADMAP item.
+shards enqueue under one GIL, PERF.md section 5).  ``--mix`` runs a
+region of a 16-bit session with fp32 storage (``ModelConfig.fp32_mix``).
 """
 
 from __future__ import annotations
@@ -49,8 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mix", default="none",
                    choices=["none", "out", "res2", "dec", "enc", "full",
                             "body"],
-                   help="fp32-storage region (ModelConfig.fp32_mix; not "
-                        "ported: anything but 'none' raises)")
+                   help="fp32-storage region of a bf16/f16 session "
+                        "(ModelConfig.fp32_mix)")
     p.add_argument("--pairlane", action="store_true",
                    help="run the full-resolution 64-channel convs through "
                         "the conv3x3_pairlane kernel (bf16/f16 only)")

@@ -40,11 +40,14 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from rerevst_torch.ops.precision import exact_products
+
 #: The port's bundle magic (the JAX package writes ``RVAOT001``).
 MAGIC = b"RVTAOT01"
 
 #: The model switches an exported graph bakes in, beside its dtype.
-MODEL_KEYS = ("pairlane", "spatial_tiles")
+MODEL_KEYS = ("pairlane", "spatial_tiles", "precision", "fp32_mix",
+              "mix_precision", "luma_fold", "parity_packed")
 
 _REGISTERED = False
 
@@ -298,7 +301,11 @@ class AotPass2:
         self._check(key, args)
         if key not in self._modules:
             self._modules[key] = self._programs[key].module()
-        return self._modules[key](*args)
+        # The graph's library products carry no precision of their own: an
+        # fp32 one runs exact, as the eager path's do, only with the TF32
+        # flags off while it runs.
+        with exact_products():
+            return self._modules[key](*args)
 
 
 def load_bundle(path: str) -> AotPass2:

@@ -40,10 +40,13 @@ shape (:func:`design` names it):
   sliced design's walk over K slices of 16 fp32 channels (8 where C <= 8)
   with each fp32 product taken on the tensor cores as three TF32 passes,
   x_hi w_hi + x_hi w_lo + x_lo w_hi (fp32-accurate, as the JAX package's
-  HIGHEST); its work split :func:`tf32x3_plan` computes here.  The wrapper
-  hands it a scratch tensor for the weights' K-major hi and lo planes,
-  which the kernel writes first, and where C % 4 != 0 a copy of ``x``
-  padded with zero channels to a multiple of 4.
+  HIGHEST and HIGH; design ``"tf32x3"``), or, where the implicit-GEMM
+  wrapper is called with ``passes=1`` (the ``'default'`` precision), as
+  one pass x_hi w_hi with the weights rounded to TF32 (design
+  ``"tf32x1"``); its work split :func:`tf32x3_plan` computes here.  The
+  wrapper hands it a scratch tensor for the weights' K-major hi (and lo)
+  planes, which the kernel writes first, and where C % 4 != 0 a copy of
+  ``x`` padded with zero channels to a multiple of 4.
 
 No call reaches a cp.async + mma.sync kernel or the CUDA cores' FMAs.
 
@@ -68,7 +71,7 @@ import torch
 import torch.nn.functional as F
 
 from rerevst_torch.kernels import _build
-from rerevst_torch.models.layers import _fp32_products_exact
+from rerevst_torch.ops.precision import exact_products
 
 _CODES = _build.DTYPE_CODES
 _C64 = 64       # csrc/conv3x3.cu kC: the channels of the streamed design
@@ -159,12 +162,12 @@ WIDE_COLS = (128, 64, 32, 16)
 SLICED_MAX_O = 64
 
 
-def design(c: int, dtype: torch.dtype, o: int) -> str:
+def design(c: int, dtype: torch.dtype, o: int, passes: int = 3) -> str:
     """Which kernel of ``csrc/conv3x3.cu`` takes a call with C input
     channels and O output channels in ``dtype`` (the launcher's dispatch
-    by shape)."""
+    by shape; `passes`, the TF32 passes of an fp32 call, 3 or 1)."""
     if dtype == torch.float32:
-        return "tf32x3"
+        return "tf32x1" if passes == 1 else "tf32x3"
     if c == _C64:
         return "streamed"
     if c % 64 == 0 and c >= 128 and o > SLICED_MAX_O:
@@ -420,20 +423,24 @@ def narrow_plan(batch: int, height: int, width: int, c: int, o: int,
 
 
 def _plain(x: torch.Tensor, w: torch.Tensor,
-           b: Optional[torch.Tensor]) -> torch.Tensor:
+           b: Optional[torch.Tensor], passes: int = 3) -> torch.Tensor:
+    # Exact fp32 whatever `passes` says: the JAX package computes every
+    # precision level alike on the CPU.
     xf = x.float()
-    _fp32_products_exact(xf)  # no TF32 in the fp32 reference on the card
-    out = F.conv2d(xf.permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
-                   padding=1)
+    with exact_products(xf):  # no TF32 in the fp32 reference on the card
+        out = F.conv2d(xf.permute(0, 3, 1, 2),
+                       w.float().permute(3, 2, 0, 1), padding=1)
     if b is not None:
         out = out + b.float().reshape(1, -1, 1, 1)
     return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
 def _validate(name: str, x: torch.Tensor, w: torch.Tensor,
-              b: Optional[torch.Tensor], c64: bool) -> None:
+              b: Optional[torch.Tensor], c64: bool, passes: int = 3) -> None:
     if x.dtype not in _CODES:
         raise TypeError(f"{name}: unsupported dtype {x.dtype}")
+    if passes not in (1, 3):
+        raise ValueError(f"{name}: passes must be 1 or 3; got {passes!r}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous NHWC tensor")
     c = x.shape[-1]
@@ -458,8 +465,9 @@ def _validate(name: str, x: torch.Tensor, w: torch.Tensor,
 
 
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
-            b: Optional[torch.Tensor], c64: bool) -> torch.Tensor:
-    _validate(name, x, w, b, c64)
+            b: Optional[torch.Tensor], c64: bool,
+            passes: int = 3) -> torch.Tensor:
+    _validate(name, x, w, b, c64, passes)
     for what, t in (("x", x), ("w", w)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {what} must be 16-byte aligned")
@@ -470,7 +478,7 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
         return y
     rows = cols = n = ks = grid = 0  # the plan of a persistent design
     ws = None  # the split-TF32 kernel's scratch
-    kind = design(c, x.dtype, o)
+    kind = design(c, x.dtype, o, passes)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if kind == "streamed":
         plan = conv_plan(bb, h, wd, o, sms)
@@ -500,15 +508,17 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
             wp = w.new_zeros(3, 3, cp, ld)
             wp[:, :, :c, :o] = w
             w = wp
-    elif kind == "tf32x3":
+    elif kind in ("tf32x3", "tf32x1"):
         plan = tf32x3_plan(bb, h, wd, c, o, sms)
         cols, n, ks, grid = plan.cols, plan.n, plan.ks, plan.grid
         # TMA needs a 16-byte pixel stride: zero-pad x's channels to 4.  The
-        # kernel splits the weights into the scratch ws [2][9][O][Cp] first.
+        # kernel splits the weights into the scratch ws [2][9][O][Cp] first
+        # (one pass: only the rounded plane, [9][O][Cp]).
         cp = -(-c // 4) * 4
         if cp != c:
             x = F.pad(x, (0, cp - c))
-        ws = torch.empty(18 * o * cp, dtype=torch.float32, device=x.device)
+        ws = torch.empty((18 if passes == 3 else 9) * o * cp,
+                         dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bias = None if b is None else b.data_ptr()
     scratch = None if ws is None else ws.data_ptr()
@@ -516,30 +526,33 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
     if c64:
         err = lib.rr_conv3x3_c64(_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
                                  bias, y.data_ptr(), scratch, bb, h, wd, o,
-                                 rows, cols, n, ks, grid, stream)
+                                 rows, cols, n, ks, grid, passes, stream)
     else:
         err = lib.rr_conv3x3(_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
                              bias, y.data_ptr(), scratch, bb, h, wd, c, o,
-                             rows, cols, n, ks, grid, stream)
+                             rows, cols, n, ks, grid, passes, stream)
     _build.check(err, name)
     return y
 
 
 def conv3x3_implicit_gemm_plain(x: torch.Tensor, w: torch.Tensor,
-                                b: Optional[torch.Tensor] = None
-                                ) -> torch.Tensor:
+                                b: Optional[torch.Tensor] = None,
+                                passes: int = 3) -> torch.Tensor:
     """The plain PyTorch version: fp32 conv (no TF32), fp32 bias, one
-    rounding to x's dtype."""
-    _validate("conv3x3_implicit_gemm", x, w, b, c64=False)
+    rounding to x's dtype, for either pass count."""
+    _validate("conv3x3_implicit_gemm", x, w, b, False, passes)
     return _plain(x, w, b)
 
 
 def conv3x3_implicit_gemm(x: torch.Tensor, w: torch.Tensor,
-                          b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x: contiguous [B,H,W,C], any C; w: [3,3,C,O], any O; b: [O] or None."""
-    _validate("conv3x3_implicit_gemm", x, w, b, c64=False)
+                          b: Optional[torch.Tensor] = None,
+                          passes: int = 3) -> torch.Tensor:
+    """x: contiguous [B,H,W,C], any C; w: [3,3,C,O], any O; b: [O] or None.
+    `passes`: the TF32 passes of an fp32 call on the card, 3
+    (fp32-accurate) or 1 (ignored by 16-bit calls)."""
+    _validate("conv3x3_implicit_gemm", x, w, b, False, passes)
     _check_device("conv3x3_implicit_gemm", x)
-    return torch.ops.rerevst.conv3x3_implicit_gemm(x, w, b)
+    return torch.ops.rerevst.conv3x3_implicit_gemm(x, w, b, passes)
 
 
 def _check_device(name: str, x: torch.Tensor) -> None:
@@ -548,24 +561,26 @@ def _check_device(name: str, x: torch.Tensor) -> None:
 
 
 def _out_like(x: torch.Tensor, w: torch.Tensor,
-              b: Optional[torch.Tensor] = None) -> torch.Tensor:
+              b: Optional[torch.Tensor] = None,
+              passes: int = 3) -> torch.Tensor:
     """The output of the conv of x by w, uninitialized: [B,H,W,O] (the
     ops' fake)."""
     return x.new_empty(tuple(x.shape[:3]) + (w.shape[-1],))
 
 
-def _implicit_gemm_cuda(x, w, b):
-    y = _launch("conv3x3_implicit_gemm", x, w, b, c64=False)
+def _implicit_gemm_cuda(x, w, b, passes=3):
+    y = _launch("conv3x3_implicit_gemm", x, w, b, False, passes)
     if y.numel():
         with _build.COUNT_LOCK:
             conv3x3_implicit_gemm.launches += 1
             conv3x3_implicit_gemm.launches_by_design[
-                design(x.shape[-1], x.dtype, w.shape[-1])] += 1
+                design(x.shape[-1], x.dtype, w.shape[-1], passes)] += 1
     return y
 
 
-_build.define_op("conv3x3_implicit_gemm(Tensor x, Tensor w, Tensor? b) "
-                 "-> Tensor", _plain, _implicit_gemm_cuda, _out_like)
+_build.define_op("conv3x3_implicit_gemm(Tensor x, Tensor w, Tensor? b, "
+                 "int passes=3) -> Tensor", _plain, _implicit_gemm_cuda,
+                 _out_like)
 
 
 def conv3x3_pairlane_plain(x: torch.Tensor, w: torch.Tensor,
@@ -597,7 +612,7 @@ _build.define_op("conv3x3_pairlane(Tensor x, Tensor w, Tensor? b) -> Tensor",
 
 
 #: The kernel designs of csrc/conv3x3.cu, as :func:`design` names them.
-DESIGNS = ("streamed", "wide", "narrow", "sliced", "tf32x3")
+DESIGNS = ("streamed", "wide", "narrow", "sliced", "tf32x3", "tf32x1")
 
 #: Kernel launches so far (CPU calls and empty inputs launch nothing); the
 #: implicit-GEMM wrapper's also by design.

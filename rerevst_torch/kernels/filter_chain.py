@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from rerevst_torch.kernels import _build
-from rerevst_torch.models.layers import _fp32_products_exact
+from rerevst_torch.ops.precision import exact_products
 
 _CODES = _build.DTYPE_CODES
 _C = 32          # csrc/filter_chain.cu kC
@@ -98,9 +98,10 @@ def dynamic_filter_pair_plain(x: torch.Tensor, f1: torch.Tensor,
         a, b = a[0], b[0]
     else:
         xf = x.reshape(x.shape[0], -1, c).float()
-    _fp32_products_exact(xf)
-    h = F.leaky_relu(xf @ a.transpose(-1, -2), 0.2)
-    return (h @ b.transpose(-1, -2)).to(x.dtype).reshape(x.shape)
+    with exact_products(xf):
+        h = F.leaky_relu(xf @ a.transpose(-1, -2), 0.2)
+        y = h @ b.transpose(-1, -2)
+    return y.to(x.dtype).reshape(x.shape)
 
 
 def dynamic_filter_pair(x: torch.Tensor, f1: torch.Tensor,

@@ -26,6 +26,7 @@ import torch
 from rerevst_torch.config import LossConfig, ModelConfig
 from rerevst_torch.losses.perceptual import style_loss
 from rerevst_torch.models.vgg import VggFeatures, vgg_features
+from rerevst_torch.ops.precision import exact_products_fn
 from rerevst_torch.ops.blur import gaussian_blur
 from rerevst_torch.ops.resize import resize_bilinear
 from rerevst_torch.ops.warp import flow_warp
@@ -64,6 +65,7 @@ def _detached(tree, dtype=None):
     return t if dtype is None else t.to(dtype)
 
 
+@exact_products_fn
 def relaxed_style_loss(vgg_params: Dict, style_img: torch.Tensor,
                        f_styled: VggFeatures, cfg: LossConfig,
                        model_cfg: ModelConfig,

@@ -6,6 +6,13 @@ NCHW *views* — channels_last in memory — for ``F.conv2d``, and permute the
 (channels_last) result back, so no activation is ever copied to another
 layout.  Weights are HWIO at the API, as in the JAX package.
 
+The convs take a ``precision`` level (``ops/precision.py``), as the JAX
+package's take a ``lax.Precision``: on the card the fp32 3x3 SAME convs at
+'high' and 'default' run the ``conv3x3_implicit_gemm`` kernel (three or one
+TF32 passes), and every other product is the library's, exact in fp32.
+``None`` is 'highest'.  ``linear`` and the dynamic filters are exact in
+fp32 at every level, so they take none.
+
 The initializers draw from an explicit ``torch.Generator`` (the JAX
 package's PRNG key), on the generator's device, with the JAX package's
 distributions: normal(0, 0.02) weights and zero bias for the decoder, and
@@ -21,20 +28,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from rerevst_torch.kernels import conv3x3_implicit_gemm
 from rerevst_torch.ops import halo
+from rerevst_torch.ops.precision import exact_products, tf32_passes
+# A public name of rerevst_tpu.models.layers, kept here for its callers.
+from rerevst_torch.ops.precision import precision_for  # noqa: F401
 from rerevst_torch.ops.resize import upsample_nearest_2x
-
-
-def _fp32_products_exact(x: torch.Tensor) -> None:
-    """fp32 storage means true fp32 products, the counterpart of the JAX
-    package's HIGHEST precision.  cuDNN runs fp32 convolutions as TF32 while
-    ``torch.backends.cudnn.allow_tf32`` is True (PyTorch's default), and
-    cuBLAS does the same for matmuls under
-    ``torch.backends.cuda.matmul.allow_tf32``; both are switched off for the
-    process the first time an fp32 product runs on the card."""
-    if x.is_cuda and x.dtype == torch.float32:
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def init_conv_normal(gen: torch.Generator, kh: int, kw: int, cin: int,
@@ -104,13 +103,35 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
-def conv2d(p, x: torch.Tensor, stride: int = 1, padding: int = 0):
-    """3x3/1x1 conv with torch-style symmetric zero padding; p['w'] is HWIO.
+def conv2d(p, x: torch.Tensor, stride: int = 1, padding: int = 0,
+           precision: Optional[str] = None):
+    """3x3/1x1 conv with torch-style symmetric zero padding; p['w'] is HWIO,
+    cast to x's dtype (the region's, not the session's).
+
+    A 3x3 SAME conv (stride 1, padding 1) of fp32 operands at `precision`
+    'high' or 'default' runs the ``conv3x3_implicit_gemm`` op: on the card
+    its kernel with three or one TF32 passes, on the CPU its plain version.
+    The kernel has no backward, so such a call raises where autograd would
+    need one (the train step runs 'highest').  Every other conv is the
+    library's, exact in fp32.
 
     On an H shard of Pass 2 (``ops/halo.py``) the H padding of a conv taller
     than one row comes from the neighbouring shards' rows instead of
     zeros."""
-    _fp32_products_exact(x)
+    passes = (tf32_passes(x, precision) if stride == 1 and padding == 1
+              and tuple(p["w"].shape[:2]) == (3, 3) else 0)
+    if passes:
+        wk, bk = weights_as(p, x.dtype)
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x, wk, bk)):
+            raise RuntimeError(
+                f"conv2d at precision {precision!r} runs the "
+                f"conv3x3_implicit_gemm kernel, which has no backward; "
+                f"differentiate at precision 'highest'")
+        return halo.same_conv(
+            lambda v: conv3x3_implicit_gemm(v.contiguous(), wk.contiguous(),
+                                            None if bk is None
+                                            else bk.contiguous(), passes), x)
     w = p["w"].to(x.dtype).permute(3, 2, 0, 1) \
         .contiguous(memory_format=torch.channels_last)
     b = p["b"].to(x.dtype) if "b" in p else None
@@ -120,7 +141,9 @@ def conv2d(p, x: torch.Tensor, stride: int = 1, padding: int = 0):
         if ctx is not None:
             x = ctx.exchange_rows(x, padding)
             pad = (0, padding)
-    return _nhwc(F.conv2d(_nchw(x), w, b, stride=stride, padding=pad))
+    with exact_products(x):
+        y = F.conv2d(_nchw(x), w, b, stride=stride, padding=pad)
+    return _nhwc(y)
 
 
 def weights_as(p, dtype: torch.dtype):
@@ -132,9 +155,10 @@ def weights_as(p, dtype: torch.dtype):
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
-    """x @ w + b with w as [in, out]."""
-    _fp32_products_exact(x)
-    return x @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
+    """x @ w + b with w as [in, out]; exact in fp32, whatever the config's
+    precision (cuBLAS has no three-pass TF32), so it takes none."""
+    with exact_products(x):
+        return x @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
@@ -146,7 +170,8 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     return _nhwc(F.max_pool2d(_nchw(x), 2, 2))
 
 
-def upsample2x_conv3x3(p, x: torch.Tensor) -> torch.Tensor:
+def upsample2x_conv3x3(p, x: torch.Tensor,
+                       precision: Optional[str] = None) -> torch.Tensor:
     """conv3x3(nearest_upsample_2x(x)) without the 2x intermediate: each
     output parity (a, b) reads a 2x2 window of `x` with the 3x3 taps
     pre-summed, so one 2x2 conv over the zero-padded input gives the four
@@ -180,17 +205,18 @@ def upsample2x_conv3x3(p, x: torch.Tensor) -> torch.Tensor:
     kp = {"w": k}
     if "b" in p:
         kp["b"] = p["b"].repeat(4)
-    y = conv2d(kp, x, padding=1)  # [N, H+1, W+1, 4 Cout]
+    y = conv2d(kp, x, padding=1, precision=precision)  # [N,H+1,W+1,4 O]
     y = y.reshape(n, h + 1, w + 1, 2, 2, o)
     out = torch.stack([torch.stack([y[:, a:a + h, c:c + w, a, c]
                                     for c in (0, 1)], 3) for a in (0, 1)], 2)
     return out.reshape(n, 2 * h, 2 * w, o)
 
 
-def upsample2x_conv1x1(p, x: torch.Tensor) -> torch.Tensor:
+def upsample2x_conv1x1(p, x: torch.Tensor,
+                       precision: Optional[str] = None) -> torch.Tensor:
     """conv1x1(nearest_upsample_2x(x)), evaluated as the upsample of the 1x1
     conv: a pointwise conv commutes exactly with nearest upsampling."""
-    return upsample_nearest_2x(conv2d(p, x))
+    return upsample_nearest_2x(conv2d(p, x, precision=precision))
 
 
 def apply_dynamic_filter(x: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
@@ -200,14 +226,15 @@ def apply_dynamic_filter(x: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
 
     f16 guard: the frozen filters are unbounded FC outputs that f16's exponent
     cannot hold, so under f16 storage the operands are fp32 and only the
-    output is rounded to f16."""
-    _fp32_products_exact(x)
+    output is rounded to f16.  Exact in fp32 whatever the config's
+    precision, so it takes none."""
     if x.dtype == torch.float16:
         return apply_dynamic_filter(x.float(), filt.float()).to(x.dtype)
     f = filt.to(x.dtype)
-    if f.shape[0] == 1:
-        return x @ f[0].T
-    return torch.einsum("bhwq,bpq->bhwp", x, f)
+    with exact_products(x):
+        if f.shape[0] == 1:
+            return x @ f[0].T
+        return torch.einsum("bhwq,bpq->bhwp", x, f)
 
 
 def apply_dynamic_filter_3x3(x: torch.Tensor,
@@ -219,15 +246,16 @@ def apply_dynamic_filter_3x3(x: torch.Tensor,
 
     f16 guard as in ``apply_dynamic_filter``: the predicted kernels are
     unbounded FC outputs, so under f16 storage the conv runs in fp32 and
-    only the output is rounded to f16."""
+    only the output is rounded to f16.  Exact in fp32 whatever the config's
+    precision (a per-sample grouped conv, cuDNN's), so it takes none."""
     if x.dtype == torch.float16:
         return apply_dynamic_filter_3x3(x.float(), filt.float()).to(x.dtype)
-    _fp32_products_exact(x)
     b, h, w, q = x.shape
     f = filt.to(x.dtype)
     if f.shape[0] == 1 and b != 1:
         f = f.expand(b, *f.shape[1:])
     p = f.shape[1]
-    y = F.conv2d(_nchw(x).reshape(1, b * q, h, w), f.reshape(b * p, q, 3, 3),
-                 padding=1, groups=b)
+    with exact_products(x):
+        y = F.conv2d(_nchw(x).reshape(1, b * q, h, w),
+                     f.reshape(b * p, q, 3, 3), padding=1, groups=b)
     return y.reshape(b, p, h, w).permute(0, 2, 3, 1).contiguous()

@@ -30,11 +30,27 @@ same wrappers compute their plain versions.  The per-frame graph computes
 its norms and filters in plain PyTorch, as the JAX package computes them
 outside its kernels; on the pair-lane route only its encoder's conv1_2 runs
 ``conv3x3_pairlane``.
+
+Every product runs at the level ``precision_for(cfg.dtype, cfg.precision)``
+gives (``ops/precision.py``): in fp32 sessions at 'high' and 'default' the
+3x3 SAME convs run the ``conv3x3_implicit_gemm`` kernel.  ``cfg.fp32_mix``
+runs a region of a 16-bit session with fp32 storage, its products at
+``cfg.mix_precision`` where the JAX package puts them (``_mix_cfg``):
+'enc', 'full' and 'body' in ``encode_content``, and 'out', 'res2', 'dec',
+'full' and 'body' in ``decode`` and ``decode_global``; the decoders'
+fp32 regions run the norm and filter kernels on fp32 tensors.  Pass 1
+(``collect_stats``) runs in the dtype of the features it is given.
+``cfg.luma_fold`` folds the desaturation into conv1_1 (``vgg.encode_luma``)
+under the JAX package's gate, and ``cfg.parity_packed`` runs the JAX
+package's packed route without its layout: it closes the luma fold, the
+tiling and the pair-lane gates.
 """
 
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -59,7 +75,8 @@ from rerevst_torch.models.layers import (
     weights_as,
 )
 from rerevst_torch.ops import halo
-from rerevst_torch.ops.image import rgb_to_luma_reversed
+from rerevst_torch.ops.image import rgb_to_luma01, rgb_to_luma_reversed
+from rerevst_torch.ops.precision import precision_for
 from rerevst_torch.ops.stats import (
     channel_minmax,
     instance_moments,
@@ -211,21 +228,72 @@ def init_transformer_params(gen: torch.Generator, cfg: ModelConfig,
 # Encoders
 # ---------------------------------------------------------------------------
 
+def _prec(cfg: ModelConfig) -> str:
+    """The product precision level of a config (``precision_for``)."""
+    return precision_for(cfg.dtype, cfg.precision)
+
+
+def _mix_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config inside an fp32 region (``ModelConfig.fp32_mix``): fp32
+    storage, products at ``mix_precision``."""
+    return dataclasses.replace(cfg, dtype=torch.float32,
+                               precision=cfg.mix_precision)
+
+
+def _tail(cfg: ModelConfig) -> str:
+    """The active fp32 region: ``cfg.fp32_mix`` in 16-bit sessions, 'none'
+    in fp32 ones."""
+    return cfg.fp32_mix if cfg.dtype != torch.float32 else "none"
+
+
+def content_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The dtype of ``encode_content``'s features: fp32 under ``fp32_mix``
+    'full' and 'body' of a 16-bit session, else the storage dtype."""
+    return (torch.float32 if cfg.fp32_mix in ("full", "body")
+            else cfg.dtype)
+
+
+def luma_fold_on(cfg: ModelConfig) -> bool:
+    """The luma fold's gate, as the JAX package's: 16-bit storage, no fp32
+    region, neither the packed nor the pair-lane route (the fp32 parity
+    oracle never folds)."""
+    return (cfg.luma_fold and cfg.dtype != torch.float32
+            and cfg.fp32_mix == "none" and not cfg.parity_packed
+            and not cfg.pairlane)
+
+
 def encode_content(params: Dict, frame: torch.Tensor, cfg: ModelConfig,
                    desaturate: bool = True) -> torch.Tensor:
     """Content branch: reversed-luma desaturation (inference), then
     VGG -> relu4_1 in the storage dtype (the conv1 block over
-    ``cfg.spatial_tiles`` H-slabs where ``vgg.encode`` can tile it)."""
+    ``cfg.spatial_tiles`` H-slabs where ``vgg.encode`` can tile it).
+
+    Under ``luma_fold_on(cfg)`` the desaturation folds into conv1_1
+    (``vgg.encode_luma``; never tiled).  With ``cfg.fp32_mix`` in ('enc',
+    'full', 'body') of a 16-bit session the VGG runs with fp32 storage at
+    ``mix_precision``, untiled and off the pair-lane route, as in the JAX
+    package; 'enc' casts the features back to the storage dtype, 'full'
+    and 'body' return them in fp32."""
+    if desaturate and luma_fold_on(cfg):
+        g = rgb_to_luma01(frame).to(cfg.dtype)
+        return vgg.encode_luma(params["encoder"], g, _prec(cfg))
     x = rgb_to_luma_reversed(frame) if desaturate else frame
+    if cfg.fp32_mix in ("enc", "full", "body") and cfg.dtype != torch.float32:
+        f = vgg.encode(params["encoder"], x.to(torch.float32),
+                       precision=_prec(_mix_cfg(cfg)),
+                       packed=cfg.parity_packed)
+        return f.to(cfg.dtype) if cfg.fp32_mix == "enc" else f
     return vgg.encode(params["encoder"], x.to(cfg.dtype),
-                      pairlane=cfg.pairlane, head_tiles=cfg.spatial_tiles)
+                      pairlane=cfg.pairlane, head_tiles=cfg.spatial_tiles,
+                      precision=_prec(cfg), packed=cfg.parity_packed)
 
 
 def encode_style(params: Dict, style: torch.Tensor,
                  cfg: ModelConfig) -> StyleFeatures:
-    """EncoderStyle: per-tap (mean, std) + the raw relu4_1 map."""
+    """EncoderStyle: per-tap (mean, std) + the raw relu4_1 map, in the
+    storage dtype at the session's precision."""
     feats = vgg.vgg_features(params["encoder_style"], style.to(cfg.dtype),
-                             "relu4_1")
+                             "relu4_1", precision=_prec(cfg))
     means, stds = [], []
     for tap in feats:
         m, s = mean_std(tap, eps=cfg.mean_std_eps)
@@ -248,8 +316,9 @@ def _predict_filter(p: Dict, content: torch.Tensor, style_map: torch.Tensor,
     """FilterPredictor.forward: pooled content and style features -> one
     [P,Q] filter per content sample, [B,P,Q] in the storage dtype (the
     style's pooled features broadcast over the content batch)."""
-    pc = conv2d(p["down"], content, padding=1).mean((1, 2))
-    ps = conv2d(p["down"], style_map, padding=1).mean((1, 2))
+    prec = _prec(cfg)
+    pc = conv2d(p["down"], content, padding=1, precision=prec).mean((1, 2))
+    ps = conv2d(p["down"], style_map, padding=1, precision=prec).mean((1, 2))
     if ps.shape[0] == 1 and pc.shape[0] != 1:
         ps = ps.expand(pc.shape)
     f = linear(p["fc"], torch.cat([pc, ps], dim=1))
@@ -260,7 +329,8 @@ def _predict_filter(p: Dict, content: torch.Tensor, style_map: torch.Tensor,
 def _predict_filter_s(p: Dict, style_map: torch.Tensor,
                       cfg: ModelConfig) -> torch.Tensor:
     """FilterPredictor_S.forward: the style alone -> [N,P,Q,3,3] filters."""
-    ps = conv2d(p["down"], style_map, padding=1).mean((1, 2))
+    prec = _prec(cfg)
+    ps = conv2d(p["down"], style_map, padding=1, precision=prec).mean((1, 2))
     f = linear(p["fc"], ps)
     ic = cfg.filter_channels
     return f.reshape(-1, ic, ic, 3, 3)
@@ -270,7 +340,8 @@ def _kernel_filter(p: Dict, content: torch.Tensor, style_map: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
     """KernelFilter.forward (KernelFilter_S under ``both_sty_con=False``)
     with filters predicted for this batch."""
-    h = conv2d(p["down"], content, padding=1)
+    prec = _prec(cfg)
+    h = conv2d(p["down"], content, padding=1, precision=prec)
     if cfg.both_sty_con:
         h = apply_dynamic_filter(
             h, _predict_filter(p["p1"], content, style_map, cfg))
@@ -283,16 +354,17 @@ def _kernel_filter(p: Dict, content: torch.Tensor, style_map: torch.Tensor,
         h = leaky_relu(h)
         h = apply_dynamic_filter_3x3(h, _predict_filter_s(p["p2"], style_map,
                                                           cfg))
-    return content + conv2d(p["up"], h, padding=1)
+    return content + conv2d(p["up"], h, padding=1, precision=prec)
 
 
 def _resblock(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """ResidualBlock.forward with stateless norms; the nearest-2x upsample
     feeds both the shortcut (1x1 conv, then the upsample) and conv1."""
-    xs = upsample2x_conv1x1(p["shortcut"], x)
-    h = upsample2x_conv3x3(p["conv1"], x)
+    prec = _prec(cfg)
+    xs = upsample2x_conv1x1(p["shortcut"], x, prec)
+    h = upsample2x_conv3x3(p["conv1"], x, prec)
     h = _instance_norm(leaky_relu(h), cfg.norm_eps)
-    h = conv2d(p["conv2"], h, padding=1)
+    h = conv2d(p["conv2"], h, padding=1, precision=prec)
     h = _instance_norm(leaky_relu(h), cfg.norm_eps)
     return xs + h
 
@@ -302,7 +374,20 @@ def decode(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
     """Per-frame decoder graph: the filter chain runs on the instance-normed
     content, then the relu4_1 style affine is re-applied (no norm site
     between the filters and res4, unlike the global graph); under
-    ``dynamic_filter=False`` plain AdaIN takes the chain's place."""
+    ``dynamic_filter=False`` plain AdaIN takes the chain's place.
+
+    The fp32 regions of a 16-bit session, as in the JAX package: 'dec' and
+    'full' run the whole decoder in the mix config; 'body' runs it in fp32
+    (products at the session's precision) up to res3 and the res2 + out
+    tail in the storage dtype; 'res2' runs res2 in the mix config and 'out'
+    the last AdaIN in fp32; under every region but 'none' the out conv
+    runs at ``mix_precision``."""
+    tail = _tail(cfg)
+    tcfg = _mix_cfg(cfg)
+    if tail in ("dec", "full"):
+        return decode(params_dec, x.to(torch.float32), style, tcfg)
+    if tail == "body":
+        x = x.to(torch.float32)  # fp32 front; res2 + out in the storage dtype
     m1, m2, m3, m4 = style.means
     s1, s2, s3, s4 = style.stds
 
@@ -322,10 +407,17 @@ def decode(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
     h = _resblock(params_dec["res4"], h, cfg)
     h = adain(h, m3, s3)
     h = _resblock(params_dec["res3"], h, cfg)
+    if tail == "res2":
+        h = h.to(torch.float32)
+    elif tail == "body":
+        h = h.to(cfg.dtype)
     h = adain(h, m2, s2)
-    h = _resblock(params_dec["res2"], h, cfg)
+    h = _resblock(params_dec["res2"], h, tcfg if tail == "res2" else cfg)
+    if tail == "out":
+        h = h.to(torch.float32)
     h = adain(h, m1, s1)
-    return conv2d(params_dec["out"], h, padding=1)
+    return conv2d(params_dec["out"], h, padding=1,
+                  precision=_prec(tcfg if tail != "none" else cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -343,33 +435,37 @@ def _norm_apply(st: NormStats, x: torch.Tensor,
 
 
 def _kernel_filter_frozen(p: Dict, content: torch.Tensor, fa: torch.Tensor,
-                          fb: torch.Tensor) -> torch.Tensor:
+                          fb: torch.Tensor,
+                          precision: Optional[str] = None) -> torch.Tensor:
     """KernelFilter.forward with frozen filters; the filter pair between the
-    down and up convs is one ``dynamic_filter_pair`` call."""
-    h = conv2d(p["down"], content, padding=1)
+    down and up convs is one ``dynamic_filter_pair`` call (fp32-accurate at
+    every precision)."""
+    h = conv2d(p["down"], content, padding=1, precision=precision)
     h = dynamic_filter_pair(h, fa, fb)
-    return content + conv2d(p["up"], h, padding=1)
+    return content + conv2d(p["up"], h, padding=1, precision=precision)
 
 
-def _conv3x3(p: Dict, x: torch.Tensor, pairlane: bool) -> torch.Tensor:
+def _conv3x3(p: Dict, x: torch.Tensor, pairlane: bool,
+             precision: Optional[str] = None) -> torch.Tensor:
     """A full-resolution 64-channel SAME 3x3 conv: the ``conv3x3_pairlane``
     kernel on the pair-lane route (on an H shard, over the shard and one
     halo row each side: ``ops/halo.py``), ``conv2d`` otherwise."""
     if pairlane:
         w, b = weights_as(p, x.dtype)
         return halo.same_conv(lambda v: conv3x3_pairlane(v, w, b), x)
-    return conv2d(p, x, padding=1)
+    return conv2d(p, x, padding=1, precision=precision)
 
 
 def _resblock_global(p: Dict, x: torch.Tensor, sa: NormStats,
-                     sb: NormStats, pairlane: bool = False) -> torch.Tensor:
+                     sb: NormStats, pairlane: bool = False,
+                     precision: Optional[str] = None) -> torch.Tensor:
     """ResidualBlock.forward under frozen norms; the nearest-2x upsample
     feeds both the shortcut and conv1; ``pairlane`` runs conv2 through the
     ``conv3x3_pairlane`` kernel (res2 only)."""
-    xs = upsample2x_conv1x1(p["shortcut"], x)
-    h = upsample2x_conv3x3(p["conv1"], x)
+    xs = upsample2x_conv1x1(p["shortcut"], x, precision)
+    h = upsample2x_conv3x3(p["conv1"], x, precision)
     h = _norm_apply(sa, h, leaky=True)
-    h = _conv3x3(p["conv2"], h, pairlane)
+    h = _conv3x3(p["conv2"], h, pairlane, precision)
     h = _norm_apply(sb, h, leaky=True)
     return xs + h
 
@@ -388,48 +484,72 @@ def decode_global(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
 
     ``cfg.pairlane`` runs res2.conv2 and the out conv through the
     ``conv3x3_pairlane`` kernel under the JAX package's gate for its
-    pair-lane tail: 16-bit storage, and res2's input with H divisible by 4
-    and even W.  One deliberate difference: there an f16 session runs that
-    region (and the pair-lane encoder head) in bf16, only because Mosaic has
-    no f16; the card's kernel takes f16, so the region stays in the
-    session's storage dtype.
+    pair-lane tail: 16-bit storage, no fp32 region, not the packed route,
+    and res2's input with H divisible by 4 and even W.  One deliberate
+    difference: there an f16 session runs that region (and the pair-lane
+    encoder head) in bf16, only because Mosaic has no f16; the card's
+    kernel takes f16, so the region stays in the session's storage dtype.
 
     ``cfg.spatial_tiles > 1`` runs the full-resolution tail (ada2 -> res2
     -> ada1 -> out) over that many overlapping H-slabs (``ops/tiling.py``)
-    under the JAX package's gate: not on the pair-lane route, and an H that
-    ``can_tile_h`` divides (otherwise the tail runs whole).  Under frozen
-    statistics the region is H-local, so the slabs give the untiled values;
-    its four norm sites then run once per slab."""
+    under the JAX package's gate: no fp32 region, neither the pair-lane nor
+    the packed route, and an H that ``can_tile_h`` divides (otherwise the
+    tail runs whole).  Under frozen statistics the region is H-local, so
+    the slabs give the untiled values; its four norm sites then run once
+    per slab.
+
+    The fp32 regions are the per-frame ``decode``'s; ``cfg.parity_packed``
+    is the JAX package's packed tail, which computes what the plain tail
+    does at the same precisions."""
+    tail = _tail(cfg)
+    tcfg = _mix_cfg(cfg)
+    if tail in ("dec", "full"):
+        return decode_global(params_dec, x.to(torch.float32), style, stats,
+                             tcfg)
+    if tail == "body":
+        x = x.to(torch.float32)  # fp32 front; res2 + out in the storage dtype
+    prec = _prec(cfg)
     m1, m2, m3, m4 = style.means
     s1, s2, s3, s4 = style.stds
     norms, filt = stats.norms, stats.filters
 
     h = _norm_apply(norms["pre"], x)
-    h = _kernel_filter_frozen(params_dec["filter1"], h, filt["f1a"], filt["f1b"])
-    h = _kernel_filter_frozen(params_dec["filter2"], h, filt["f2a"], filt["f2b"])
-    h = _kernel_filter_frozen(params_dec["filter3"], h, filt["f3a"], filt["f3b"])
+    for i in (1, 2, 3):
+        h = _kernel_filter_frozen(params_dec[f"filter{i}"], h,
+                                  filt[f"f{i}a"], filt[f"f{i}b"], prec)
 
     h = _norm_apply(norms["ada4"], h, s4, m4)
-    h = _resblock_global(params_dec["res4"], h, norms["res4a"], norms["res4b"])
+    h = _resblock_global(params_dec["res4"], h, norms["res4a"],
+                         norms["res4b"], precision=prec)
     h = _norm_apply(norms["ada3"], h, s3, m3)
-    h = _resblock_global(params_dec["res3"], h, norms["res3a"], norms["res3b"])
-    if cfg.spatial_tiles > 1 and not cfg.pairlane and can_tile_h(
-            h.shape[1], cfg.spatial_tiles, _TAIL_HALO, (2, 1)):
-        def tail(hs):
+    h = _resblock_global(params_dec["res3"], h, norms["res3a"],
+                         norms["res3b"], precision=prec)
+    if tail == "res2":
+        h = h.to(torch.float32)
+    elif tail == "body":
+        h = h.to(cfg.dtype)
+    if (cfg.spatial_tiles > 1 and tail == "none" and not cfg.pairlane
+            and not cfg.parity_packed and can_tile_h(
+                h.shape[1], cfg.spatial_tiles, _TAIL_HALO, (2, 1))):
+        def tail_fn(hs):
             t = _norm_apply(norms["ada2"], hs, s2, m2)
             t = _resblock_global(params_dec["res2"], t, norms["res2a"],
-                                 norms["res2b"])
+                                 norms["res2b"], precision=prec)
             t = _norm_apply(norms["ada1"], t, s1, m1)
-            return conv2d(params_dec["out"], t, padding=1)
+            return conv2d(params_dec["out"], t, padding=1, precision=prec)
 
-        return tiled_over_h(tail, h, cfg.spatial_tiles, _TAIL_HALO, (2, 1))
+        return tiled_over_h(tail_fn, h, cfg.spatial_tiles, _TAIL_HALO, (2, 1))
     h = _norm_apply(norms["ada2"], h, s2, m2)
-    pl = (cfg.pairlane and cfg.dtype != torch.float32
+    pl = (cfg.pairlane and not cfg.parity_packed and tail == "none"
+          and cfg.dtype != torch.float32
           and h.shape[1] % 4 == 0 and h.shape[2] % 2 == 0)
     h = _resblock_global(params_dec["res2"], h, norms["res2a"], norms["res2b"],
-                         pl)
+                         pl, _prec(tcfg) if tail == "res2" else prec)
+    if tail == "out":
+        h = h.to(torch.float32)
     h = _norm_apply(norms["ada1"], h, s1, m1)
-    return _conv3x3(params_dec["out"], h, pl)
+    return _conv3x3(params_dec["out"], h, pl,
+                    _prec(tcfg) if tail != "none" else prec)
 
 
 # ---------------------------------------------------------------------------
@@ -482,7 +602,9 @@ def _filter_compute(p: Dict, content_batch: torch.Tensor,
     one fp32 [1,P,Q] filter per sequence.  The pooling and the FC run in fp32
     in every storage dtype: the frozen filters stay fp32.  `psum` and `mask`
     pool over every shard's real frames (see ``_norm_compute``)."""
-    pc = conv2d(p["down"], content_batch, padding=1).float().mean((1, 2))
+    prec = _prec(cfg)
+    pc = conv2d(p["down"], content_batch, padding=1,
+                precision=prec).float().mean((1, 2))
     if psum is None and mask is None:
         pc = pc.mean(0, keepdim=True)
     else:
@@ -491,7 +613,8 @@ def _filter_compute(p: Dict, content_batch: torch.Tensor,
                         device=pc.device) if mask is None
              else mask.reshape(-1, 1).to(torch.float32))
         pc = ps_((pc * m).sum(0, keepdim=True)) / ps_(m.sum())
-    ps = conv2d(p["down"], style_map, padding=1).float().mean((1, 2))
+    ps = conv2d(p["down"], style_map, padding=1,
+                precision=prec).float().mean((1, 2))
     fc = {k: v.float() for k, v in p["fc"].items()}
     f = linear(fc, torch.cat([pc, ps], dim=1))
     ic = cfg.filter_channels
@@ -505,8 +628,13 @@ def collect_stats(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
     ``x`` ([N, H/8, W/8, 512] content features), freezing every norm and
     filter.  With `reduce_fns` = (psum, pmin, pmax) the same code runs on
     each shard of a frame-sharded batch (``parallel/stats.py``), and `mask`
-    ([N], 1 = a real frame) keeps pad frames out of every reduction."""
+    ([N], 1 = a real frame) keeps pad frames out of every reduction.
+
+    Products run at the session's precision, in the dtype of `x`: fp32
+    where ``encode_content`` returned fp32 features ('full', 'body'), as in
+    the JAX package (Pass 1 enters no fp32 region of its own)."""
     eps = cfg.norm_eps
+    prec = _prec(cfg)
     psum = reduce_fns[0] if reduce_fns is not None else None
     norms: Dict[str, NormStats] = {}
     filters: Dict[str, torch.Tensor] = {}
@@ -518,24 +646,24 @@ def collect_stats(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
 
     for i, name in ((1, "filter1"), (2, "filter2"), (3, "filter3")):
         p = params_dec[name]
-        inner = conv2d(p["down"], h, padding=1)
+        inner = conv2d(p["down"], h, padding=1, precision=prec)
         fa = _filter_compute(p["p1"], h, ns, cfg, psum, mask)
         filters[f"f{i}a"] = fa
         inner = leaky_relu(apply_dynamic_filter(inner, fa))
         fb = _filter_compute(p["p2"], h, ns, cfg, psum, mask)
         filters[f"f{i}b"] = fb
         inner = apply_dynamic_filter(inner, fb)
-        h = h + conv2d(p["up"], inner, padding=1)
+        h = h + conv2d(p["up"], inner, padding=1, precision=prec)
 
     def ada_compute(h, key, m, s):
         hn, norms[key] = _norm_compute(h, eps, reduce_fns, mask)
         return hn * s + m
 
     def res_compute(h, p, ka, kb):
-        xs = upsample2x_conv1x1(p["shortcut"], h)
-        t = upsample2x_conv3x3(p["conv1"], h)
+        xs = upsample2x_conv1x1(p["shortcut"], h, prec)
+        t = upsample2x_conv3x3(p["conv1"], h, prec)
         t, norms[ka] = _norm_compute(leaky_relu(t), eps, reduce_fns, mask)
-        t = conv2d(p["conv2"], t, padding=1)
+        t = conv2d(p["conv2"], t, padding=1, precision=prec)
         t, norms[kb] = _norm_compute(leaky_relu(t), eps, reduce_fns, mask)
         return xs + t
 

@@ -8,7 +8,11 @@ With ``pairlane=True`` the content encoder's conv1_2 (the full-resolution
 64->64 conv) runs the ``conv3x3_pairlane`` kernel, under the JAX package's
 gates: 16-bit storage and a geometry the TPU kernel tiles.  With
 ``head_tiles > 1`` the content encoder's conv1 block runs over overlapping
-H-slabs (``ops/tiling.py``), under the JAX package's gate.
+H-slabs (``ops/tiling.py``), under the JAX package's gate.  ``packed`` is
+the JAX package's parity-packed conv1 block, computed without the packed
+layout: it closes both of those gates, as there.  ``encode_luma`` is the
+encoder with the desaturation folded into conv1_1.  Every conv takes the
+``precision`` level it is given (``ops/precision.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from rerevst_torch.models.layers import (
     weights_as,
 )
 from rerevst_torch.ops import halo
+from rerevst_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD
 from rerevst_torch.ops.tiling import can_tile_h, tiled_over_h
 
 #: (name, cin, cout) of the 9 convs through conv4_1, in order.
@@ -107,7 +112,8 @@ def from_torch_features(state_dict, prefix: str = "",
 
 
 def vgg_features(params: Dict, x: torch.Tensor, upto: str = "relu4_1",
-                 pairlane: bool = False) -> VggFeatures:
+                 pairlane: bool = False,
+                 precision: Optional[str] = None) -> VggFeatures:
     """Run the backbone, returning every relu tap up to `upto`.
     ``pairlane`` runs conv1_2 through the ``conv3x3_pairlane`` kernel (on an
     H shard, over the shard and one halo row each side: ``ops/halo.py``)."""
@@ -121,7 +127,7 @@ def vgg_features(params: Dict, x: torch.Tensor, upto: str = "relu4_1",
             w, b = weights_as(p, h.dtype)
             h = halo.same_conv(lambda v: conv3x3_pairlane(v, w, b), h)
         else:
-            h = conv2d(p, h, padding=1)
+            h = conv2d(p, h, padding=1, precision=precision)
         h = torch.relu(h)
         for tap, conv_name in RELU_TAPS.items():
             if conv_name == name:
@@ -146,19 +152,67 @@ def encode_pairlane_ok(x: torch.Tensor) -> bool:
 _HEAD_HALO = 4
 
 
-def _head(params: Dict, x: torch.Tensor) -> torch.Tensor:
+def _head(params: Dict, x: torch.Tensor,
+          precision: Optional[str]) -> torch.Tensor:
     """conv1_1, relu, conv1_2, relu, pool1: the full-resolution block."""
-    h = torch.relu(conv2d(params["conv1_1"], x, padding=1))
-    h = torch.relu(conv2d(params["conv1_2"], h, padding=1))
+    h = torch.relu(conv2d(params["conv1_1"], x, padding=1,
+                          precision=precision))
+    h = torch.relu(conv2d(params["conv1_2"], h, padding=1,
+                          precision=precision))
     return max_pool_2x2(h)
 
 
+def _body(params: Dict, h: torch.Tensor,
+          precision: Optional[str]) -> torch.Tensor:
+    """conv2_1 .. relu4_1 after the conv1 block and pool1."""
+    for name, _, _ in VGG_CONVS[2:]:
+        if name in _POOL_BEFORE and name != "conv2_1":
+            h = max_pool_2x2(h)  # pool1 already ran with the head
+        h = torch.relu(conv2d(params[name], h, padding=1,
+                              precision=precision))
+    return h
+
+
+def encode_luma(params: Dict, luma: torch.Tensor,
+                precision: Optional[str] = None) -> torch.Tensor:
+    """The content encoder on the desaturated input with conv1_1 folded
+    (``rerevst_tpu/models/vgg.py:encode_luma``).
+
+    The desaturated frame is an affine image of one luma map g in each
+    channel, x_c = a_c g + d_c (a_c = 1 / std_c, d_c = -mean_c / std_c), so
+    by linearity conv1_1(x) = conv3x3(g, w1) + conv3x3(ones, wd) + b with
+    w1 = sum_c a_c W[..,c,:] and wd = sum_c d_c W[..,c,:], both summed in
+    fp32 and cast to g's dtype, as the JAX package does.  The ones-conv is
+    the batch-independent border map [1,H,W,64] that zero padding makes of
+    the constant term; it runs through ``conv2d``, so on an H shard the
+    halo gives it the neighbours' rows and the map is the whole frame's.
+    `luma` is ``ops.image.rgb_to_luma01(frame)`` ([N,H,W,1] in [0,1]).
+    Equal to ``encode`` of the desaturated frame up to reassociation."""
+    p = params["conv1_1"]
+    w = p["w"].to(torch.float32)  # [3,3,3,64]
+    a = torch.as_tensor(1.0 / IMAGENET_STD, device=w.device)
+    d = torch.as_tensor(-IMAGENET_MEAN / IMAGENET_STD, device=w.device)
+    dt = luma.dtype
+    w1 = torch.einsum("hwco,c->hwo", w, a)[:, :, None, :].to(dt)
+    wd = torch.einsum("hwco,c->hwo", w, d)[:, :, None, :].to(dt)
+    ones = luma.new_ones((1,) + tuple(luma.shape[1:3]) + (1,))
+    border = conv2d({"w": wd}, ones, padding=1, precision=precision)
+    h = conv2d({"w": w1}, luma, padding=1, precision=precision)
+    h = torch.relu(h + border + p["b"].to(dt))
+    h = torch.relu(conv2d(params["conv1_2"], h, padding=1,
+                          precision=precision))
+    return _body(params, max_pool_2x2(h), precision)
+
+
 def encode(params: Dict, x: torch.Tensor, pairlane: bool = False,
-           head_tiles: int = 1) -> torch.Tensor:
+           head_tiles: int = 1, precision: Optional[str] = None,
+           packed: bool = False) -> torch.Tensor:
     """Content encoder: the relu4_1 map only.  ``pairlane`` routes conv1_2
     through the ``conv3x3_pairlane`` kernel for 16-bit storage and a
     geometry that passes ``encode_pairlane_ok``, as the JAX package gates
-    its pair-lane head; otherwise it is ignored.
+    its pair-lane head; otherwise it is ignored.  ``packed`` (the JAX
+    package's parity-packed conv1 block) computes the plain block and
+    closes the pair-lane and tiling gates, as there.
 
     ``head_tiles > 1`` runs the conv1 block over that many overlapping
     H-slabs (``ops/tiling.py``: the block's two [B,H,W,64] maps are the
@@ -166,15 +220,13 @@ def encode(params: Dict, x: torch.Tensor, pairlane: bool = False,
     package's gate: not on the pair-lane route, even W, and an H that
     ``can_tile_h`` divides; otherwise the block runs whole.  The encoder
     has no normalization, so the tiled block gives the untiled values."""
-    if head_tiles > 1 and not pairlane and x.shape[2] % 2 == 0 \
+    if head_tiles > 1 and not packed and not pairlane \
+            and x.shape[2] % 2 == 0 \
             and can_tile_h(x.shape[1], head_tiles, _HEAD_HALO, (1, 2),
                            align=2):
-        h = tiled_over_h(lambda xs: _head(params, xs), x, head_tiles,
-                         _HEAD_HALO, (1, 2))
-        for name, _, _ in VGG_CONVS[2:]:
-            if name in _POOL_BEFORE and name != "conv2_1":
-                h = max_pool_2x2(h)  # pool1 already ran inside the slabs
-            h = torch.relu(conv2d(params[name], h, padding=1))
-        return h
-    pairlane = pairlane and x.dtype != torch.float32 and encode_pairlane_ok(x)
-    return vgg_features(params, x, "relu4_1", pairlane).relu4_1
+        h = tiled_over_h(lambda xs: _head(params, xs, precision), x,
+                         head_tiles, _HEAD_HALO, (1, 2))
+        return _body(params, h, precision)
+    pairlane = (pairlane and not packed and x.dtype != torch.float32
+                and encode_pairlane_ok(x))
+    return vgg_features(params, x, "relu4_1", pairlane, precision).relu4_1

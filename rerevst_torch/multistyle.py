@@ -44,6 +44,7 @@ from rerevst_torch.models.transformer import (
     blend_pytrees,
     blend_pytrees_batched,
     collect_stats,
+    content_dtype,
     decode_global,
     encode_content,
     encode_style,
@@ -138,8 +139,8 @@ class MultiStylization:
         ``data.source.as_source`` accepts, read lazily, one frame at a time.
         With `cache_path` the features go to a disk-backed ``.npy`` memmap
         (fp32) with a sidecar of the geometry, and the memmap is returned;
-        otherwise a device tensor in the storage dtype (lossless: the values
-        came from it)."""
+        otherwise a device tensor in the features' dtype (lossless: the
+        values came from it)."""
         src = as_source(frames_bgr)
         n = len(src)
         it = iter(src)
@@ -174,8 +175,9 @@ class MultiStylization:
         return np.load(cache_path, mmap_mode="r")
 
     def _feats(self, feats) -> torch.Tensor:
-        """Features on the device in the storage dtype."""
-        return self._to_device(feats).to(self.cfg.dtype)
+        """Features on the device in the dtype ``encode_content`` gives them
+        (the storage dtype, or fp32 under ``fp32_mix`` 'full' and 'body')."""
+        return self._to_device(feats).to(content_dtype(self.cfg))
 
     def prepare_global(self, feats, interval: Optional[int] = None) -> None:
         """Freeze per-style SeqStats from sampled cached features: every

@@ -26,7 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rerevst_torch.models.layers import _fp32_products_exact
+from rerevst_torch.ops.precision import exact_products
 
 
 def gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
@@ -68,9 +68,10 @@ def _band_matrix(n: int, ksize: int, sigma: Optional[float], lo: int,
 def _pass_1d(x: torch.Tensor, axis: int, ksize: int, sigma: Optional[float],
              lo: int, hi: int) -> torch.Tensor:
     """One 1-D pass along spatial `axis` (1 = H, 2 = W) of NHWC `x`."""
-    _fp32_products_exact(x)
     m = _band_matrix(x.shape[axis], ksize, sigma, lo, hi, x.device, x.dtype)
-    return (x.movedim(axis, -1) @ m.T).movedim(-1, axis).contiguous()
+    with exact_products(x):
+        y = x.movedim(axis, -1) @ m.T
+    return y.movedim(-1, axis).contiguous()
 
 
 def gaussian_blur(x: torch.Tensor, ksize: int = 101,

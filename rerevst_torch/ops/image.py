@@ -1,6 +1,7 @@
 """Image tensor transforms (NHWC, RGB) — ``rerevst_tpu/ops/image.py``.
 
-ImageNet normalization, the reversed-channel desaturation quirk, and the
+ImageNet normalization, the reversed-channel desaturation quirk (and its
+luma map alone, for the luma fold), and the
 reflect-pad / x64 geometry of the reference's ReshapeTool.
 """
 
@@ -41,6 +42,16 @@ def rgb_to_luma_reversed(img: torch.Tensor) -> torch.Tensor:
     gray = (rgb[..., 2:3] * 0.299 + rgb[..., 1:2] * 0.587
             + rgb[..., 0:1] * 0.114)
     return normalize(gray.expand(rgb.shape))
+
+
+def rgb_to_luma01(img: torch.Tensor) -> torch.Tensor:
+    """The reversed-luma map alone: normalized NHWC -> [N,H,W,1] in [0,1].
+    ``rgb_to_luma_reversed(img)`` is an affine image of it in each channel
+    ((luma - mean_c) / std_c), which ``vgg.encode_luma`` folds into
+    conv1_1."""
+    rgb = denormalize(img)
+    return (rgb[..., 2:3] * 0.299 + rgb[..., 1:2] * 0.587
+            + rgb[..., 0:1] * 0.114)
 
 
 def padded_size(h: int, w: int, pad: int = 64,

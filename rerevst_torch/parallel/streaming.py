@@ -53,6 +53,8 @@ from rerevst_torch.models.transformer import (
     StyleFeatures,
     _kernel_filter_frozen,
     _norm_apply,
+    _prec,
+    content_dtype,
 )
 from rerevst_torch.parallel.collectives import run_sharded, tree_to
 from rerevst_torch.parallel.mesh import Mesh, pad_to_multiple
@@ -69,6 +71,7 @@ def _prefix_to(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
     reduces over (for a filter stage, the content its predictors pool)."""
     m1, m2, m3, m4 = style.means
     s1, s2, s3, s4 = style.stds
+    prec = _prec(cfg)
     if upto == "pre":
         return x
     h = _norm_apply(stats["pre"], x)
@@ -76,21 +79,21 @@ def _prefix_to(params_dec: Dict, x: torch.Tensor, style: StyleFeatures,
         if upto == f"f{i}":
             return h
         h = _kernel_filter_frozen(params_dec[f"filter{i}"], h,
-                                  filters[f"f{i}a"], filters[f"f{i}b"])
+                                  filters[f"f{i}a"], filters[f"f{i}b"], prec)
     for ada, m, s, res in (("ada4", m4, s4, "res4"), ("ada3", m3, s3, "res3"),
                            ("ada2", m2, s2, "res2")):
         if upto == ada:
             return h
         h = _norm_apply(stats[ada], h, s, m)
         p = params_dec[res]
-        t = upsample2x_conv3x3(p["conv1"], h)
+        t = upsample2x_conv3x3(p["conv1"], h, prec)
         if upto == res + "a":
             return leaky_relu(t)
         t = conv2d(p["conv2"], _norm_apply(stats[res + "a"], t, leaky=True),
-                   padding=1)
+                   padding=1, precision=prec)
         if upto == res + "b":
             return leaky_relu(t)
-        h = upsample2x_conv1x1(p["shortcut"], h) \
+        h = upsample2x_conv1x1(p["shortcut"], h, prec) \
             + _norm_apply(stats[res + "b"], t, leaky=True)
     if upto == "ada1":
         return h
@@ -137,8 +140,8 @@ class _ChunkFeed:
     """Lazy chunk iterator over a host feature array (a memmap stays on disk
     between stages), for the shards of `mesh` (one shard on one device
     without a mesh).  Each chunk goes up in one copy per shard and is cast
-    on the device to the storage dtype — lossless, the spooled fp32 values
-    came from it.
+    on the device to the features' dtype (``content_dtype``) — lossless,
+    the spooled fp32 values came from it.
 
     A chunk holds at least one frame per shard; it is padded on the host to
     a multiple of the shard count (repeating its last frame) and split over
@@ -205,13 +208,13 @@ def _moments(t: torch.Tensor, p: Dict, mask, comm):
     return mean, m2, mn, mx, cnt
 
 
-def _pool_sums(i: int, pk: str):
+def _pool_sums(i: int, pk: str, precision: str):
     """The chunk reduction of one FilterPredictor's pooled content: the sum
     over every shard's real frames of the spatial mean of its own down conv
     (fp64 on the host), and the frame count."""
     def reduce(h: torch.Tensor, p: Dict, mask, comm):
-        pc = conv2d(p[f"filter{i}"][pk]["down"], h, padding=1).float() \
-            .mean((1, 2))
+        pc = conv2d(p[f"filter{i}"][pk]["down"], h, padding=1,
+                    precision=precision).float().mean((1, 2))
         s = comm.psum(_real(mask, pc, 0.0).sum(0))
         return s.cpu().numpy().astype(np.float64), _frames(mask, pc, comm)
     return reduce
@@ -243,9 +246,12 @@ def collect_stats_streaming(params_dec: Dict, feats_host, style: StyleFeatures,
 
     `mesh`: shard each chunk's frames over a mesh (``parallel/mesh.py``):
     each chunk's moments, extrema and pooled sums reduce across the shards,
-    and the host's Welford merge across chunks is unchanged."""
+    and the host's Welford merge across chunks is unchanged.  The chunks
+    run in the dtype ``encode_content`` gives the features (fp32 under
+    ``fp32_mix`` 'full' and 'body'), at the session's precision."""
     device = style.map.device
-    feed = _ChunkFeed(feats_host, chunk_size, cfg.dtype,
+    prec = _prec(cfg)
+    feed = _ChunkFeed(feats_host, chunk_size, content_dtype(cfg),
                       mesh or Mesh((device,)))
     norms: Dict[str, NormStats] = {}
     filters: Dict[str, torch.Tensor] = {}
@@ -265,12 +271,12 @@ def collect_stats_streaming(params_dec: Dict, feats_host, style: StyleFeatures,
                     fprm = params_dec[f"filter{i}"][pk]
                     # The pooled content: the mean over all frames, in fp64.
                     acc, cnt = 0.0, 0
-                    for s, c in chunks(stage, _pool_sums(i, pk)):
+                    for s, c in chunks(stage, _pool_sums(i, pk, prec)):
                         acc, cnt = acc + s, cnt + c
                     pc = torch.as_tensor((acc / cnt)[None],
                                          dtype=torch.float32, device=device)
-                    ps = conv2d(fprm["down"], ns, padding=1).float() \
-                        .mean((1, 2))
+                    ps = conv2d(fprm["down"], ns, padding=1,
+                                precision=prec).float().mean((1, 2))
                     fc = {k: v.float() for k, v in fprm["fc"].items()}
                     f = linear(fc, torch.cat([pc, ps], dim=1))
                     filters[f"f{i}{sub}"] = f.reshape(-1, ic, ic)

@@ -65,8 +65,9 @@ anything unexpected.
 ``--aot`` serves global-mode Pass 2 from an AOT bundle (``convert
 --export-aot``; ``io/aot.py``) where geometry and batch match, and
 ``--tiles`` runs the full-resolution regions over H-slabs
-(``ops/tiling.py``).  Not ported yet (raises ``NotImplementedError`` naming
-its ROADMAP item): ``--mix`` other than ``none`` (Queue 1 item 8).
+(``ops/tiling.py``), and ``--mix`` runs a region of a 16-bit session with
+fp32 storage (``ModelConfig.fp32_mix``; 'out', 'res2', 'dec' and 'full'
+stylize into fp32 before the uint8 conversion).
 """
 
 from __future__ import annotations
@@ -834,9 +835,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["bf16", "f16", "f32"])
     ap.add_argument("--mix", default="none",
                     choices=["none", "out", "res2", "dec", "enc", "full", "body"],
-                    help="fp32-storage region (ModelConfig.fp32_mix; not "
-                         "ported: anything but 'none' raises).  --dtype f16 "
-                         "passes the repository's 1e-3 precision bar")
+                    help="fp32-storage region of a bf16/f16 session "
+                         "(ModelConfig.fp32_mix).  --dtype f16 passes the "
+                         "repository's 1e-3 precision bar")
     ap.add_argument("--no-global", action="store_true")
     ap.add_argument("--max-body-mb", type=float, default=DEFAULT_MAX_BODY_MB)
     ap.add_argument("--max-frames", type=int, default=DEFAULT_MAX_FRAMES)

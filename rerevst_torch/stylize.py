@@ -13,9 +13,9 @@ both passes over a mesh of N devices (``parallel/mesh.py``): N visible
 cards, or N logical shards of the CPU with ``--device cpu`` (over cards the
 shards enqueue under one GIL: f16 on four cards runs slower than on one,
 PERF.md section 5).  ``--tiles``
-runs the full-resolution regions over H-slabs (``ops/tiling.py``).
-``--mix`` other than ``none`` raises ``NotImplementedError`` naming its
-ROADMAP item.
+runs the full-resolution regions over H-slabs (``ops/tiling.py``), and
+``--mix`` runs a region of a 16-bit session with fp32 storage
+(``ModelConfig.fp32_mix``).
 """
 
 from __future__ import annotations
@@ -62,8 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mix", default="none",
                    choices=["none", "out", "res2", "dec", "enc", "full",
                             "body"],
-                   help="fp32-storage region (ModelConfig.fp32_mix; not "
-                        "ported: anything but 'none' raises)")
+                   help="fp32-storage region of a bf16/f16 session "
+                        "(ModelConfig.fp32_mix)")
     p.add_argument("--tiles", type=int, default=1,
                    help="spatial H-tiles for the full-resolution regions "
                         "(ModelConfig.spatial_tiles): bounds their memory "

@@ -9,7 +9,11 @@ from the card: its metrics come back as device tensors.
 Training runs the per-frame graph (``transformer.decode``) and the VGG
 networks in plain PyTorch under autograd.  The port's CUDA kernels have no
 backward, so no training path calls them: ``TrainConfig`` refuses
-``pairlane``, and the step never runs ``decode_global``.
+``pairlane``, the step never runs ``decode_global``, and its products are
+exact (``exact_products``, forward and backward): the model config's
+``precision`` and ``mix_precision`` run as 'highest' (``train_model_cfg``),
+where the JAX package trains at the levels they name; its ``fp32_mix``
+region stays.
 
 ``extra`` carries what the loader gives beside ``Content`` and ``Style``:
 the Figure-16 ablation pairs (``NextContent`` with ``BackwardFlow`` and
@@ -28,6 +32,7 @@ the averaged gradients, as DDP does, so the replicas stay identical.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -47,6 +52,7 @@ from rerevst_torch.models import vgg
 from rerevst_torch.models.discriminator import discriminator
 from rerevst_torch.models.transformer import decode, encode_style
 from rerevst_torch.ops.image import rgb_to_luma_reversed
+from rerevst_torch.ops.precision import exact_products_fn, precision_for
 from rerevst_torch.parallel.collectives import run_sharded, shard_batch, \
     tree_to
 from rerevst_torch.parallel.mesh import lift_local
@@ -67,6 +73,15 @@ _ABLATIONS = (("BackwardFlow", "BackwardMask", temporal_loss_mpi),
               ("ForwardFlow", "ForwardMask", temporal_loss_video))
 
 
+def train_model_cfg(mcfg):
+    """The model config a train step runs: every product exact
+    ('highest'), since the ``conv3x3_implicit_gemm`` kernel that 'high' and
+    'default' run on fp32 convs has no backward."""
+    return dataclasses.replace(mcfg, precision="highest",
+                               mix_precision="highest")
+
+
+@exact_products_fn
 def compute_losses(params: Dict, content: torch.Tensor, style: torch.Tensor,
                    gen: Optional[torch.Generator], cfg: TrainConfig,
                    extra: Optional[Dict] = None
@@ -79,7 +94,8 @@ def compute_losses(params: Dict, content: torch.Tensor, style: torch.Tensor,
     frame through the per-frame graph.  ``extra={'Second', 'FakeFlow'}``
     injects the fake pair in place of drawing it from `gen`; an ablation
     pair in `extra` (see the module's docstring) replaces the fake pair."""
-    mcfg, lcfg = cfg.model, cfg.loss
+    mcfg, lcfg = train_model_cfg(cfg.model), cfg.loss
+    prec = precision_for(mcfg.dtype, mcfg.precision)
     ablation = None if extra is None else next(
         (a for a in _ABLATIONS if a[0] in extra), None)
     metrics: Dict = {}
@@ -94,16 +110,17 @@ def compute_losses(params: Dict, content: torch.Tensor, style: torch.Tensor,
         return decode(pd, f, s, mcfg)
 
     gray_content = rgb_to_luma_reversed(content)
-    f_content = vgg.encode(params["encoder"], content)
+    f_content = vgg.encode(params["encoder"], content, precision=prec)
     sf = encode_style(params, style, mcfg)
     styled = decode_(params["decoder"], f_content, sf)
     aux["styled"] = styled
 
     total = zero
     if lcfg.style_content_loss:
-        f_styled = vgg.vgg_features(params["vgg_loss"], styled, "relu4_1")
+        f_styled = vgg.vgg_features(params["vgg_loss"], styled, "relu4_1",
+                                    precision=prec)
         f_content_gt = vgg.vgg_features(params["vgg_loss"], gray_content,
-                                        "relu4_1")
+                                        "relu4_1", precision=prec)
         c_loss = content_loss(f_styled, f_content_gt)
         if lcfg.relax_style:
             s_loss, ori_loss, robust_style = relaxed_style_loss(
@@ -111,7 +128,7 @@ def compute_losses(params: Dict, content: torch.Tensor, style: torch.Tensor,
             aux["relaxed_style"] = robust_style
         else:
             f_style_gt = vgg.vgg_features(params["vgg_loss"], style,
-                                          "relu4_1")
+                                          "relu4_1", precision=prec)
             s_loss = style_loss(f_styled, f_style_gt, mcfg.mean_std_eps)
             ori_loss = zero
         total = total + c_loss * lcfg.content_weight \
@@ -126,7 +143,8 @@ def compute_losses(params: Dict, content: torch.Tensor, style: torch.Tensor,
         recon_content = decode_(params["decoder"], f_content,
                                 encode_style(params, content, mcfg))
         gray_style_feat = vgg.encode(params["encoder"],
-                                     rgb_to_luma_reversed(style))
+                                     rgb_to_luma_reversed(style),
+                                     precision=prec)
         recon_style = decode_(params["decoder"], gray_style_feat, sf)
         r_loss = (torch.mean(torch.abs(recon_content - content))
                   + torch.mean(torch.abs(recon_style - style)))
@@ -145,7 +163,8 @@ def compute_losses(params: Dict, content: torch.Tensor, style: torch.Tensor,
         if mask.dim() == 3:
             mask = mask[..., None]
         styled_next = decode_(params["decoder"],
-                              vgg.encode(params["encoder"], nxt), sf)
+                              vgg.encode(params["encoder"], nxt,
+                                         precision=prec), sf)
         t_loss, fake = loss_fn(styled_next, styled, flow, mask)
         t_gt, _ = loss_fn(nxt, content, flow, mask)
         total = total + t_loss * lcfg.temporal_weight
@@ -159,7 +178,7 @@ def compute_losses(params: Dict, content: torch.Tensor, style: torch.Tensor,
         else:
             second, flow = generate_fake_data(gen, content, lcfg)
         second = second.detach()
-        f_second = vgg.encode(params["encoder"], second)
+        f_second = vgg.encode(params["encoder"], second, precision=prec)
         styled_second = decode_(params["decoder"], f_second, sf)
         t_loss, warped = temporal_loss(styled, styled_second, flow,
                                        use_warp=lcfg.data_w)
@@ -185,6 +204,7 @@ def compute_losses(params: Dict, content: torch.Tensor, style: torch.Tensor,
     return total, (metrics, aux)
 
 
+@exact_products_fn
 def _grads(total: torch.Tensor, leaves: List[torch.Tensor]):
     # A leaf the losses do not reach gets a zero gradient, as under JAX,
     # so Adam still decays its moments.
@@ -353,6 +373,7 @@ def _device_of(state: TrainState) -> torch.device:
     return trainable_leaves(state)[0].device
 
 
+@exact_products_fn
 def discriminator_step(d_state: TrainState, fake: torch.Tensor,
                        real: torch.Tensor, mode: str) -> torch.Tensor:
     """D's Adam step on 0.5 (gan(D(fake), fake) + gan(D(real), real)), in
@@ -368,6 +389,7 @@ def discriminator_step(d_state: TrainState, fake: torch.Tensor,
     return d_loss
 
 
+@exact_products_fn
 def gan_cotangent(d_params: Dict, styled: torch.Tensor, mode: str
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """G's GAN loss gan(D(styled), real) with D held fixed, and its
@@ -398,6 +420,7 @@ def make_adversarial_train_step(cfg: TrainConfig):
         raise ValueError("grad_accum > 1 is not supported with "
                          "adversarial_loss; drop one of the two")
 
+    @exact_products_fn
     def train_step(g_state: TrainState, d_state: TrainState,
                    content: torch.Tensor, style: torch.Tensor,
                    gen: Optional[torch.Generator],

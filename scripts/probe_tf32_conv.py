@@ -23,13 +23,16 @@ PERF.md section 6):
    with its edits into ``rerevst_torch/_build/probe/``:
    ``a_from_registers`` (the rejected design: each warp loads its tap
    fragments with ldmatrix, splits them in registers and issues register-A
-   wgmmas; checked against the plain version too), ``one_pass`` (x_hi B_hi
-   alone: what two more passes cost), ``no_split`` (the consumers' lo pass
-   skipped, the barrier kept), ``loads_only`` (no wgmma: the loads, the lo
-   pass, the barriers and the stores remain), ``no_a_load`` and
+   wgmmas; checked against the plain version too), ``no_split`` (the
+   consumers' lo pass skipped, the barrier kept), ``loads_only`` (no
+   wgmma: the loads, the lo pass, the barriers and the stores remain),
+   ``no_a_load`` and
    ``no_b_load`` (the producer skips the box of x, or the six weight
    boxes, of every stage: what staging each costs) and ``no_store`` (the
-   epilogue skipped).
+   epilogue skipped);
+4. ``one_pass``: the kernel's own one-pass instance (``passes`` = 1, x_hi
+   w_hi alone, the 'default' precision) through ``rr_conv3x3`` directly:
+   what two more passes cost.
 
 Prints the card's name and power limit and one JSON line; the same lands in
 ``chiprun_out/probe_tf32_conv.json``.
@@ -97,7 +100,7 @@ __device__ __forceinline__ void tf32x3_tap(float (&acc)[2][N / 2],
                                            uint32_t a, uint64_t db, int cols,
                                            int lrow, int lchunk,
                                            uint32_t release, int lane) {
-  using P = Tf32<N, KS>;
+  using P = Tf32<N, KS, 3>;
   wgmma_wait<2>();
   fence_frags(xh);
   fence_frags(xl);
@@ -137,20 +140,22 @@ __device__ __forceinline__ void tf32x3_tap(float (&acc)[2][N / 2],
 
 // xmap: x as [B][H][W][Cp] fp32'''
 
-SS_STAGE = '''      const uint4* xv = reinterpret_cast<const uint4*>(base + (a - ring));
-      uint4* lv = reinterpret_cast<uint4*>(base + (a - ring) + a_slot);
-      for (int i = tid; i < box_bytes / 16; i += kConsumerThreads) {
-        const uint4 v = xv[i];
-        lv[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
-                           tf32_lo(v.w));
+SS_STAGE = '''      if constexpr (NP == 3) {
+        const uint4* xv = reinterpret_cast<const uint4*>(base + (a - ring));
+        uint4* lv = reinterpret_cast<uint4*>(base + (a - ring) + a_slot);
+        for (int i = tid; i < box_bytes / 16; i += kConsumerThreads) {
+          const uint4 v = xv[i];
+          lv[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
+                             tf32_lo(v.w));
+        }
+        fence_async_shared();  // the generic writes, before wgmma reads them
+        bar_sync_consumers();
       }
-      fence_async_shared();  // the generic writes, before wgmma reads them
-      bar_sync_consumers();
       const uint64_t da = wgmma_desc<P::kS>(a + wg * 128 * P::kS);
-      const uint64_t db = wgmma_desc<P::kS>(a + 2 * a_slot);
+      const uint64_t db = wgmma_desc<P::kS>(a + P::kABoxes * a_slot);
       fence_regs(acc);
       wgmma_fence();
-      tf32x3_stage<N, KS>(acc, da, db, drow, dlo);
+      tf32x3_stage<N, KS, NP>(acc, da, db, drow, dlo);
       wgmma_commit();
       if (k > 0) {
         // The previous stage's group is done: it may be refilled.
@@ -182,36 +187,34 @@ RS_DECLS = '''  float acc[2][N / 2];
 PRODUCER = '''          tma_load_4d(a, &xmap, full + 8 * s, sl * KS, u.x0 + dx - 1,
                       u.y0 - 1, u.b);
 #pragma unroll
-          for (int p = 0; p < 2; ++p)
+          for (int p = 0; p < P::kPlanes; ++p)
 #pragma unroll
             for (int dy = 0; dy < 3; ++dy)
-              tma_load_3d(a + 2 * a_slot + (3 * p + dy) * P::kBBox, &wmap,
+              tma_load_3d(a + P::kABoxes * a_slot + (3 * p + dy) * P::kBBox,
 '''
 
 WGMMAS = '''        wgmma_ss<float, N>(acc[m], ah, bh, 1);
-        wgmma_ss<float, N>(acc[m], ah, bl, 1);
-        wgmma_ss<float, N>(acc[m], ah + dlo, bh, 1);
+        if constexpr (NP == 3) {
+          const uint64_t bl = bh + 3 * (P::kBBox / 16);
+          wgmma_ss<float, N>(acc[m], ah, bl, 1);
+          wgmma_ss<float, N>(acc[m], ah + dlo, bh, 1);
+        }
 '''
 
-SPLIT = '''        lv[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
-                           tf32_lo(v.w));
+SPLIT = '''          lv[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
+                             tf32_lo(v.w));
 '''
 
 #: name -> [(old, new), ...]: edits of csrc/conv3x3.cu.
 VARIANTS = {
     "a_from_registers": [
         ("\n// xmap: x as [B][H][W][Cp] fp32", RS_TAP),
-        ("  const int stage_bytes = 2 * a_slot + P::kBBytes;",
-         "  const int stage_bytes = a_slot + P::kBBytes;"),
-        ("  const int stage = 2 * a_slot + P::kBBytes;",
-         "  const int stage = a_slot + P::kBBytes;"),
-        ("tma_load_3d(a + 2 * a_slot + (3 * p + dy) * P::kBBox, &wmap,",
-         "tma_load_3d(a + a_slot + (3 * p + dy) * P::kBBox, &wmap,"),
+        ("  static constexpr int kABoxes = P == 3 ? 2 : 1;   // x (and its lo)",
+         "  static constexpr int kABoxes = 1;  // x; its lo stays in registers"),
         ("  float acc[2][N / 2];\n", RS_DECLS),
         (SS_STAGE, RS_STAGE),
     ],
-    "one_pass": [(WGMMAS, "        wgmma_ss<float, N>(acc[m], ah, bh, 1);\n")],
-    "no_split": [(SPLIT, "        (void)v;\n")],
+    "no_split": [(SPLIT, "          (void)v;\n")],
     "loads_only": [(WGMMAS, "")],
     "no_a_load": [
         ("      const uint32_t tx = box_bytes + P::kBTx;",
@@ -282,11 +285,11 @@ def main() -> int:
     ws = torch.empty(18 * O * SHAPE[-1], device="cuda")
     plan = tf32x3_plan(*SHAPE, O, sms)
 
-    def direct(cols, ks, lib=lib):
+    def direct(cols, ks, lib=lib, passes=3):
         bb, h, wd, c = SHAPE
         err = lib.rr_conv3x3(1, x.data_ptr(), w.data_ptr(), b.data_ptr(),
                              y.data_ptr(), ws.data_ptr(), bb, h, wd, c, O, 0,
-                             cols, plan.n, ks, plan.grid,
+                             cols, plan.n, ks, plan.grid, passes,
                              torch.cuda.current_stream().cuda_stream)
         _build.check(err, "rr_conv3x3")
 
@@ -339,6 +342,9 @@ def main() -> int:
             sweep[f"cols={cols},ks={ks}"] = cs.time_ms(
                 torch, lambda: direct(cols, ks), iters=10)["ms"]
     out["sweep_ms"] = sweep
+    out["one_pass"] = {"ms": cs.time_ms(
+        torch, lambda: direct(plan.cols, plan.ks, passes=1),
+        iters=10)["ms"]}
     for name, vlib in variants.items():
         row = {"ms": cs.time_ms(torch, lambda: direct(plan.cols, plan.ks,
                                                       vlib), iters=10)["ms"]}

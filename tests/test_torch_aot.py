@@ -12,8 +12,9 @@ the AOT frames against ``rerevst_tpu``'s ``_stylize`` on the same inputs
 (uint8 within 1 count: the fp32 pipelines differ by about 1e-6 of the pixel
 scale); the exported graph's kernel nodes (11 ``rerevst::norm_affine_clamp``
 and 3 ``rerevst::dynamic_filter_pair``; 3 ``rerevst::conv3x3_pairlane`` on
-the pair-lane route); a CPU bundle refused by a session on a device the
-bundle has no graph for; and ``torch.library.opcheck`` of each kernel op's
+the pair-lane route); the graph run with cuDNN's and cuBLAS's TF32 off,
+as the eager fp32 products are; a CPU bundle refused by a session on a
+device the bundle has no graph for; and ``torch.library.opcheck`` of each kernel op's
 CPU implementation and fake at small shapes.
 """
 
@@ -176,6 +177,45 @@ def test_aot_matches_jax_stylize(session, bundle, tree):
     assert counts.max() <= 1
 
 
+def test_bundle_graph_runs_with_tf32_off(session, bundle):
+    """An exported graph's library convs and matmuls carry no precision of
+    their own: the bundle runs them with cuDNN's and cuBLAS's TF32 flags
+    off, as the eager path's fp32 products run, and puts the flags back
+    after the call."""
+    sess, frame = session
+    aot = A.load_bundle(bundle[0])
+    x1 = _x(frame[:64, :64])
+    key = (1, "cpu")
+    seen = []
+
+    class Recorder(torch.nn.Module):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, *args):
+            seen.append((torch.backends.cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32))
+            return self.inner(*args)
+
+    aot._modules[key] = Recorder(aot.program(*key).module())
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            got = aot(sess.params, x1, sess.style, sess.stats)
+        after = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.backends.cuda.matmul.allow_tf32 = saved[1]
+    assert seen == [(False, False)]
+    assert after == (True, True)
+    assert torch.equal(got, sess._stylize(x1))
+
+
 def test_session_aot_path_and_fallback(session, bundle):
     sess, frame = session
     x1 = _x(frame[:64, :64])
@@ -252,7 +292,10 @@ def test_convert_cli_export_aot(tmp_path, monkeypatch, capsys):
     aot = A.load_bundle(out)
     assert aot.hw == (64, 64) and aot.batches() == [1, 2]
     assert aot.meta["platforms"] == ["cpu"]
-    assert aot.meta["model"] == {"pairlane": False, "spatial_tiles": 1}
+    assert aot.meta["model"] == {
+        "pairlane": False, "spatial_tiles": 1, "precision": "auto",
+        "fp32_mix": "none", "mix_precision": "default", "luma_fold": False,
+        "parity_packed": False}
     # The default platforms include cuda, which needs a card to export.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     other = str(tmp_path / "default.rvaot")

@@ -182,9 +182,29 @@ def test_no_forbidden_imports_anywhere():
     {"parity_packed": True}, {"luma_fold": True},
     {"fp32_mix": "body"}, {"fp32_mix": "dec"}, {"fp32_mix": "out"},
     {"precision": "default"}, {"precision": "high"},
+    {"fp32_mix": "full", "mix_precision": "highest"},
+    {"fp32_mix": "res2", "mix_precision": "auto"},
 ])
-def test_config_rejects_unported_switches(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_config_accepts_variant_switches(kw):
+    """Every config variant of the JAX package is a valid port config with
+    the same fields (tests/test_torch_config_variants.py runs them)."""
+    from rerevst_tpu.config import ModelConfig as JaxModelConfig
+
+    cfg = ModelConfig(**kw)
+    jcfg = JaxModelConfig(**kw)
+    for k in kw:
+        assert getattr(cfg, k) == getattr(jcfg, k) == kw[k]
+
+
+@pytest.mark.parametrize("kw,field", [
+    ({"precision": "fast"}, "precision"),
+    ({"mix_precision": "bf16x3"}, "mix_precision"),
+    ({"fp32_mix": "tail"}, "fp32_mix"),
+])
+def test_config_rejects_unknown_variant_values(kw, field):
+    """An unknown level or region raises, where the JAX package would run
+    an unknown region as 'none' (a recorded difference)."""
+    with pytest.raises(ValueError, match=f"unknown {field}"):
         ModelConfig(**kw)
 
 

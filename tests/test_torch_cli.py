@@ -8,6 +8,7 @@ uint8 count (the fp32 pipelines differ by about 1e-6 of the pixel scale);
 the temporal metrics within 1% (their flows are the same Farneback flows).
 """
 
+import glob
 import json
 import os
 from pathlib import Path
@@ -87,9 +88,10 @@ def test_cli_matches_jax(inputs, tmp_path, capsys, mode):
 
 def test_cli_rejects_unported_options(inputs, tmp_path, capsys):
     """``--devices 2`` (two logical CPU shards) runs both passes sharded and
-    gives the frames of one device; ``--mix`` other than none raises,
-    naming its ROADMAP item; a bad granularity is a usage error.  (--tiles
-    is ported: tests/test_torch_tiling.py runs it.)"""
+    gives the frames of one device; ``--dtype f16 --mix out`` gives the
+    frames of a direct f16 session with ``fp32_mix='out'``; a bad
+    granularity is a usage error.  (--tiles is ported:
+    tests/test_torch_tiling.py runs it.)"""
     frames, style = inputs
     base = ["--style", style, "--frames", frames, "--checkpoint", CKPT,
             "--device", "cpu", "--no-video", "--batch", "2", "--interval",
@@ -103,8 +105,26 @@ def test_cli_rejects_unported_options(inputs, tmp_path, capsys):
     assert report["pass1"] == "sharded"
     for a, b in zip(outs["mesh"], outs["one"]):
         assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        stylize.main(base + ["--mix", "dec"])
+    import torch
+
+    from rerevst_torch.api import Stylization
+    from rerevst_torch.config import InferenceConfig, ModelConfig
+    from rerevst_torch.data.video import read_frame
+
+    out = tmp_path / "mix"
+    report = _run(stylize.main, base + ["-o", str(out), "--dtype", "f16",
+                                        "--mix", "out"], capsys)
+    assert report["frames"] == 4
+    got = [cv2.imread(str(out / p)) for p in _tree(out)]
+    s = Stylization(CKPT, device="cpu",
+                    cfg=ModelConfig(dtype=torch.float16, fp32_mix="out"),
+                    infer=InferenceConfig(sample_interval=2, batch_size=2))
+    s.prepare_style(read_frame(inputs[1]))
+    clip = sorted(glob.glob(inputs[0]))
+    want = list(s.stylize_video([read_frame(p) for p in clip]))
+    assert len(got) == len(want) == 4
+    for a, b in zip(got, want):
+        assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
     with pytest.raises(SystemExit):
         stylize.main(base + ["--granularity", "12"])
 

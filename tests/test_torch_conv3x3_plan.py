@@ -20,7 +20,9 @@ passes, x_hi w_hi + x_hi w_lo + x_lo w_hi.  These tests hold that index
 math and that split, as the wrapper's plans (``conv_plan``, ``wide_plan``,
 ``narrow_plan``, ``sliced_plan``, ``tf32x3_plan`` in
 ``rerevst_torch.kernels.conv3x3``) and numpy emulations of the kernels'
-order of work state it, to the plain conv.
+order of work state it, to the plain conv.  Beside them, the text edits
+of ``scripts/probe_tf32_conv.py``'s variants must each match the kernel
+source once.
 
 Tolerance of the emulations: each and the plain version sum K = 9 C fp32
 products in other orders, each within K 2^-24 sum|x||w| of the exact sum,
@@ -927,6 +929,14 @@ def tf32_split_w(w):
     return hi, _floats(lo)
 
 
+def tf32_round_w(w):
+    """csrc/conv3x3.cu tf32_round_w: a weight's one-pass TF32 value, rna
+    (truncated where that would overflow, and for NaN), as floats."""
+    v = _bits(w)
+    a = v & np.uint32(0x7FFFFFFF)
+    return _floats(np.where(a >= 0x7F7FF000, v & MASK, tf32_rna(v)))
+
+
 def _rna_reference(v):
     """fp32 values rounded to 11 significant bits, ties away from zero,
     by arithmetic in float64 (normal values)."""
@@ -1025,7 +1035,7 @@ def test_tf32x3_plan_at_row_3j():
     assert plan.tiles == 25600 and plan.grid == H100_SMS
 
 
-def _emulate_tf32x3(x, w, b, plan):
+def _emulate_tf32x3(x, w, b, plan, passes=3):
     """The split-TF32 kernel's order of work in numpy: x zero-padded to Cp
     = C rounded up to 4; the split kernel's ws[p][tap][o][c] (p = 0: hi, 1:
     lo; zero past C); for each tile, stages k = slice 3 + dx, whose box
@@ -1033,13 +1043,17 @@ def _emulate_tf32x3(x, w, b, plan):
     the tensor cores read it (truncated to TF32) beside its lo box; tap dy
     adds x_hi B_hi + x_hi B_lo + x_lo B_hi, B_p = ws[p][3 dy + dx] rows n0 ..
     n0 + N - 1 (zero past O), columns of the slice.  The sums start from
-    the bias; each output inside y is stored once."""
+    the bias; each output inside y is stored once.  One pass (`passes` 1)
+    adds x_hi B alone, B = the weights rounded to TF32 (the split kernel's
+    one plane)."""
     bsz, h, wd, c = x.shape
     o = w.shape[-1]
     cp = -(-c // 4) * 4
     xp = np.zeros((bsz, h, wd, cp), np.float32)
     xp[..., :c] = x
     whi, wlo = tf32_split_w(w.reshape(9, c, o))
+    if passes == 1:
+        whi, wlo = tf32_round_w(w.reshape(9, c, o)), np.zeros_like(wlo)
     ws = np.zeros((2, 9, o, cp), np.float32)
     ws[0, :, :, :c] = whi.transpose(0, 2, 1)
     ws[1, :, :, :c] = wlo.transpose(0, 2, 1)
@@ -1071,8 +1085,9 @@ def _emulate_tf32x3(x, w, b, plan):
                         ws[:, 3 * dy + dx, n0:nhi, cs:chi].transpose(0, 2, 1)
                     rr = slice(dy * cols, dy * cols + plan.m)
                     acc += ahi[rr] @ bt[0]
-                    acc += ahi[rr] @ bt[1]
-                    acc += alo[rr] @ bt[0]
+                    if passes == 3:
+                        acc += ahi[rr] @ bt[1]
+                        acc += alo[rr] @ bt[0]
             out = acc.reshape(rows, cols, n)
             nh, nw, nc = min(rows, h - y0), min(cols, wd - x0), \
                 min(n, o - n0)
@@ -1098,6 +1113,42 @@ def test_tf32x3_k_loop_matches_plain(c, o):
     scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
     assert np.isfinite(got).all()
     assert (np.abs(got - want) <= 9 * c * 2.0 ** -22 * scale).all()
+
+
+@pytest.mark.parametrize("c,o", [(3, 64), (8, 16), (64, 64), (100, 192)])
+def test_tf32x1_k_loop_matches_plain(c, o):
+    """One TF32 pass (the 'default' precision): within (2^-9 + 9C 2^-22)
+    sum|x||w| (+|b|) of the plain fp32 conv, x truncated to TF32 (< 2^-10
+    of |x|) times w rounded (<= 2^-11 of |w|); and farther from it than
+    three passes."""
+    x, w, b = _sliced_case(c, o, (2, 19, 21), seed=12)
+    plan = dataclasses.replace(tf32x3_plan(2, 19, 21, c, o, H100_SMS),
+                               grid=3)
+    one = _emulate_tf32x3(x, w, b, plan, passes=1)
+    three = _emulate_tf32x3(x, w, b, plan)
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    want = conv3x3_implicit_gemm_plain(*tt).numpy()
+    scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
+    assert np.isfinite(one).all()
+    assert (np.abs(one - want) <= (2.0 ** -9 + 9 * c * 2.0 ** -22)
+            * scale).all()
+    assert np.abs(one - want).max() > np.abs(three - want).max()
+
+
+def test_tf32_round_w_bits():
+    """The one-pass weights: rna to 11 significant bits (ties away),
+    within 2^-11 of |w|, truncated near FLT_MAX (no overflow to inf), NaN
+    and inf kept."""
+    rng = np.random.default_rng(13)
+    v = (rng.standard_normal(20000) * np.exp(rng.uniform(-30, 30, 20000))
+         ).astype(np.float32)
+    r = tf32_round_w(v)
+    assert (r == _rna_reference(v)).all()
+    assert (np.abs(r.astype(np.float64) - v) <= 2.0 ** -11 * np.abs(v)).all()
+    special = tf32_round_w(np.array([np.inf, -np.inf, np.nan, FLT_MAX,
+                                     -FLT_MAX], np.float32))
+    assert np.isinf(special[:2]).all() and np.isnan(special[2])
+    assert np.isfinite(special[3:]).all()
 
 
 def test_tf32x3_matches_the_pallas_kernel():
@@ -1147,3 +1198,27 @@ def test_tf32x3_nonfinite_and_huge_inputs():
         torch.from_numpy(np.abs(b))).numpy()
     assert (np.abs(got[fin] - want[fin])
             <= 9 * c * 2.0 ** -22 * scale[fin]).all()
+
+
+@pytest.mark.parametrize("variant", ["a_from_registers", "no_split",
+                                     "loads_only", "no_a_load", "no_b_load",
+                                     "no_store"])
+def test_tf32_probe_edits_match_the_kernel_source(variant):
+    """scripts/probe_tf32_conv.py builds each variant by editing the text
+    of csrc/conv3x3.cu: every edit must find its text there exactly once,
+    or the probe's build refuses it."""
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "probe_tf32_conv", root / "scripts" / "probe_tf32_conv.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    src = (root / "rerevst_torch" / "csrc" / "conv3x3.cu").read_text()
+    assert set(probe.VARIANTS) == {"a_from_registers", "no_split",
+                                   "loads_only", "no_a_load", "no_b_load",
+                                   "no_store"}
+    for old, new in probe.VARIANTS[variant]:
+        assert src.count(old) == 1
+        src = src.replace(old, new)

@@ -179,13 +179,15 @@ def test_wrappers_refuse_on_card(rng, cuda):
     assert kernels.launch_counts() == before
 
 
-def _conv_ok(got, want, x, w, b):
-    """Within K 2^-22 sum|x||w| (+|b|), plus one ulp of the storage dtype."""
+def _conv_ok(got, want, x, w, b, passes=3):
+    """Within K 2^-22 sum|x||w| (+|b|), plus one ulp of the storage dtype;
+    one TF32 pass (fp32, ``passes=1``) adds 2^-9 sum|x||w|: x truncated to
+    TF32 (< 2^-10 of |x|) times w rounded to TF32 (<= 2^-11 of |w|)."""
     k = 9 * x.shape[-1]
     absb = None if b is None else b.abs()
     scale = conv3x3_implicit_gemm_plain(x.abs().float(), w.abs().float(),
                                         None if absb is None else absb.float())
-    tol = k * 2.0 ** -22 * scale
+    tol = (k * 2.0 ** -22 + (2.0 ** -9 if passes == 1 else 0.0)) * scale
     g, v = got.float(), want.float()
     if got.dtype != torch.float32:
         mant = {torch.float16: 10, torch.bfloat16: 7}[got.dtype]
@@ -446,6 +448,55 @@ def test_conv3x3_tf32x3_nonfinite_inputs_on_card(rng, cuda, name, c, o):
     xz = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
     assert _conv_ok(torch.where(fin, got, 0), torch.where(fin, want, 0),
                     xz, w, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,o", TF32X3)
+@pytest.mark.parametrize("bias", [True, False])
+def test_conv3x3_tf32x1_kernel_on_card(rng, cuda, shape, o, bias):
+    """The split-TF32 kernel's one-pass instances (``passes=1``, the
+    'default' precision) at the three-pass shapes: one launch of design
+    ``tf32x1``, within the one-pass bar of the plain fp32 conv."""
+    x, w, b = _conv_on_card(rng, cuda, torch.float32, shape, o, bias)
+    before = dict(conv3x3_implicit_gemm.launches_by_design)
+    got = conv3x3_implicit_gemm(x, w, b, passes=1)
+    torch.cuda.synchronize()
+    after = conv3x3_implicit_gemm.launches_by_design
+    assert after["tf32x1"] == before["tf32x1"] + 1
+    assert after["tf32x3"] == before["tf32x3"]
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape[:3] + (o,)
+    want = conv3x3_implicit_gemm_plain(x, w, b)
+    assert _conv_ok(got, want, x, w, b, passes=1)
+    # One pass is not three: its error is TF32's, far above fp32's.
+    assert not torch.equal(got, conv3x3_implicit_gemm(x, w, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,o", [(64, 64), (13, 6), (3, 64), (200, 192)])
+def test_conv3x3_tf32x1_nonfinite_inputs_on_card(rng, cuda, c, o):
+    """One pass under inf, -inf, NaN and +-FLT_MAX inputs: NaN and inf
+    outputs exactly the plain version's, of the same sign."""
+    x, w, b = _conv_on_card(rng, cuda, torch.float32, (2, 19, 70, c), o, True)
+    fmax = torch.finfo(torch.float32).max
+    for idx, v in [((0, 3, 5, 2 % c), float("inf")),
+                   ((0, 10, 15, 1 % c), float("-inf")),
+                   ((0, 10, 16, c - 1), float("nan")),
+                   ((1, 0, 69, 0), float("nan")),
+                   ((1, 18, 0, c - 1), float("inf")),
+                   ((0, 14, 40, c - 1), fmax), ((1, 6, 33, 0), -fmax)]:
+        x[idx] = v
+    got = conv3x3_implicit_gemm(x, w, b, passes=1)
+    torch.cuda.synchronize()
+    want = conv3x3_implicit_gemm_plain(x, w, b)
+    fin = torch.isfinite(want)
+    assert not fin.all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.equal(torch.sign(got[torch.isinf(want)]),
+                       torch.sign(want[torch.isinf(want)]))
+    xz = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    assert _conv_ok(torch.where(fin, got, 0), torch.where(fin, want, 0),
+                    xz, w, b, passes=1)
 
 
 #: Shapes that stress the streamed C = 64 kernel's work split (its plan on

@@ -16,6 +16,7 @@ bundled checkpoint, the port's E_warp of each mode is within 1% of the JAX
 package's, and global mode's is below 0.9x per-frame mode's.
 """
 
+import json
 import sys
 from pathlib import Path
 
@@ -183,9 +184,11 @@ def test_temporal_contract(frames):
     assert ew[True] < 0.9 * ew[False]
 
 
-def test_parity_pipeline_and_unported_flags(frames):
+def test_parity_pipeline_and_unported_flags(frames, monkeypatch, capsys):
     """``run_pipeline`` renders what the JAX package's does (within 1
-    count); fast-config flags the port lacks raise through ModelConfig."""
+    count); the fast-config flags ``--fast_packed``, ``--fast_tail out``
+    and ``--fast_precision high`` run, and report the error of a direct
+    ``run_pipeline`` of that config against fp32."""
     from rerevst_torch.config import ModelConfig
     from rerevst_torch.eval import parity
     from rerevst_tpu.config import ModelConfig as JaxModelConfig
@@ -199,8 +202,24 @@ def test_parity_pipeline_and_unported_flags(frames):
     want = jparity.run_pipeline(params, JaxModelConfig(), clip, style, 2, 2)
     err = parity.pixel_error(got, want)
     assert err["n_frames"] == 3 and err["max_counts"] <= 1
-    for flags, item in ((["--fast_packed"], "item 8"),
-                        (["--fast_tail", "out"], "item 8"),
-                        (["--fast_precision", "high"], "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            parity.main(flags + ["--device", "cpu"])
+    import torch
+
+    monkeypatch.setattr(parity, "load_fixture",
+                        lambda n_frames=None, crop=None: (clip, style))
+    ref = parity.run_pipeline(params, ModelConfig(), clip, style, 8, 2,
+                              device="cpu")
+    for flags, fast in (
+            (["--fast_packed"], ModelConfig(dtype=torch.float16,
+                                            parity_packed=True)),
+            (["--fast_tail", "out"], ModelConfig(dtype=torch.float16,
+                                                 fp32_mix="out")),
+            (["--fast_precision", "high"],
+             ModelConfig(dtype=torch.float16, precision="high"))):
+        parity.main(flags + ["--device", "cpu", "--batch", "2",
+                             "--checkpoint", str(CKPT)])
+        report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        direct = parity.pixel_error(parity.run_pipeline(
+            params, fast, clip, style, 8, 2, device="cpu"), ref)
+        assert report["n_frames"] == 3
+        assert report["value"] == direct["mean_01"]
+        assert report["max_counts"] == direct["max_counts"]

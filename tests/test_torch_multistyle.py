@@ -22,7 +22,7 @@ import jax.numpy as jnp
 from flax import serialization
 
 from rerevst_torch import interpolate
-from rerevst_torch.config import InferenceConfig
+from rerevst_torch.config import InferenceConfig, ModelConfig
 from rerevst_torch.models.transformer import (
     NormStats,
     SeqStats,
@@ -272,7 +272,8 @@ def test_interpolate_cli_matches_jax(png_inputs, tmp_path, capsys):
 
 def test_interpolate_cli_unported_options_raise(png_inputs, tmp_path):
     """``--devices 2`` (two logical CPU shards) gives the frames of one
-    device; ``--mix`` other than none raises, naming its ROADMAP item."""
+    device; ``--dtype f16 --mix out`` gives the frames of the same
+    interpolation through a direct session with ``fp32_mix='out'``."""
     cv2 = pytest.importorskip("cv2")
     frames, styles = png_inputs
     base = ["--styles", *styles, "--frames", frames, "--checkpoint",
@@ -285,5 +286,14 @@ def test_interpolate_cli_unported_options_raise(png_inputs, tmp_path):
             glob.glob(str(tmp_path / name / "*.png")))])
     assert len(outs[0]) == 5
     _close(outs[1], outs[0], "--devices 2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        interpolate.main(base + ["-o", str(tmp_path / "x"), "--mix", "dec"])
+    interpolate.main(base + ["-o", str(tmp_path / "mix"), "--dtype", "f16",
+                             "--mix", "out"])
+    got = [cv2.imread(p) for p in sorted(
+        glob.glob(str(tmp_path / "mix" / "*.png")))]
+    ms = MultiStylization(checkpoint=str(CKPT), device="cpu",
+                          cfg=ModelConfig(dtype=torch.float16,
+                                          fp32_mix="out"),
+                          infer=InferenceConfig(sample_interval=2))
+    ms.prepare_styles([cv2.resize(cv2.imread(s), (64, 64)) for s in styles])
+    want = list(ms.interpolate_video(frames))
+    _close(got, want, "--mix out")

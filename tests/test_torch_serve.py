@@ -221,12 +221,13 @@ def test_protocol_parity_with_jax_server(ckpt, clip, start):
 @pytest.mark.parametrize("kw,err,match", [
     ({"aot": "bundle", "use_global": False}, ValueError, "--no-global"),
     ({"aot": "missing.rvaot"}, FileNotFoundError, "missing.rvaot"),
-    ({"mix": "out"}, NotImplementedError, "Queue 1 item 8"),
+    ({"mix": "tail"}, ValueError, "unknown fp32_mix"),
 ])
 def test_unported_options_raise(ckpt, kw, err, match):
-    """--mix is not ported; --aot loads its bundle (a missing file raises;
-    test_serve_aot_stylize serves one) and --tiles runs
-    (test_serve_tiles_matches_untiled)."""
+    """--no-global has no AOT path; --aot loads its bundle (a missing file
+    raises; test_serve_aot_stylize serves one); an unknown --mix region
+    raises (test_serve_mix_matches_direct_session serves 'out') and --tiles
+    runs (test_serve_tiles_matches_untiled)."""
     with pytest.raises(err, match=match):
         _port(ckpt, **kw)
 
@@ -240,6 +241,26 @@ def _stylize_once(url, clip):
     status, body, _ = _req(url + "/stylize", _png(frames[0]))
     assert status == 200, body[:200]
     return cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
+
+
+def test_serve_mix_matches_direct_session(ckpt, clip, start):
+    """serve --dtype f16 --mix out: /stylize of a 64x96 frame within 1 count
+    of a direct f16 session with fp32_mix='out' (its fp32 frames pass the
+    service's uint8 conversion as they are)."""
+    def f16(path, **kw):
+        return _port(path, **dict(kw, dtype="f16"))
+
+    got = _stylize_once(start(f16, ckpt, mix="out"), clip)
+    frames, style = clip
+    s = Stylization(ckpt, device="cpu",
+                    cfg=ModelConfig(dtype=dtype_from_name("f16"),
+                                    fp32_mix="out"))
+    s.prepare_style(style)
+    s.add(frames[0])
+    s.compute()
+    want = s.transfer(frames[0])
+    assert got.shape == want.shape == frames[0].shape
+    assert _max_counts([got], [want]) <= 1
 
 
 def test_serve_tiles_matches_untiled(ckpt, clip, start):
