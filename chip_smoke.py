@@ -8,8 +8,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
 1. device  — the card's name, compute capability (must be 9.0) and power limit;
 2. build   — compiles ``rerevst_torch/csrc/*.cu`` for sm_90a (first use),
              and reports the registers and spills of the streamed, wide,
-             narrow, sliced and split-TF32 conv kernels and the filter pair
-             kernel (``nvcc -Xptxas -v``; a spill fails, and so does a
+             narrow, sliced and split-TF32 conv kernels, the filter pair
+             kernel and the weight-gradient kernel (``nvcc -Xptxas -v``;
+             a spill fails, and so does a
              serialized wgmma in the wide, sliced or split-TF32 kernel);
 3. check   — each kernel against its plain PyTorch version on the card, at the
              main path's shapes (batch 16, 512x512 content padded to 640x640)
@@ -17,7 +18,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
              (fp32 also at +-FLT_MAX; the NaN and inf masks of the narrow,
              split-TF32 and C % 64 = 0, O <= 64 convs must be plain's), and
              the split-TF32 conv's one-pass instances (``passes=1``) at the
-             fp32 sessions' conv shapes under (2^-9 + 9 C 2^-22) sum |x||w|;
+             fp32 sessions' conv shapes under (2^-10 + (9 C + 1) 2^-22) sum
+             |x||w|,
+             and the weight-gradient kernel (``conv3x3_wgrad``) at ragged
+             shapes, three and one passes, against float64 under (2^-19 or
+             2^-10 + 2^-22, + (K_split + splits) 2^-22) sum |x||g|;
 4. e2e     — ``Stylization.stylize_video`` on a seeded 33-frame 512x512 clip
              with the bundled checkpoint: the global (two-pass) default
              path in f16 and in fp32 and its pair-lane route
@@ -79,7 +84,28 @@ Phases, each printing one JSON line (any failure exits non-zero):
              launches of the hand-written kernels over the timed steps; a
              profile of one step (device busy share, the relaxed inner
              loop's share); the decoder's upsample conv at res3 in its
-             plain and its parity-folded form, timed;
+             plain and its parity-folded form, timed; then the step at
+             each ``ModelConfig.precision`` (``train_precisions``):
+             'highest', 'high' and 'default' from the same parameters and
+             batch under deterministic algorithms, 'high' and 'default'
+             held to 'highest' (the backward alone, behind the exact
+             forward, to 1e-4 relative on the losses and 1e-3 of the
+             max-abs on the gradients at 'high', 5e-3 on the losses at
+             'default'; the whole step to the same bars, its gradients
+             to 1e-3 or twice the spread of 'highest' under 2^-20 conv
+             noise, the larger), three timed
+             steps each (median ms, images/s, peak memory, launches per
+             step: 'highest' none, 'high' and 'default' both
+             ``conv3x3_implicit_gemm`` and ``conv3x3_wgrad``), a 'high'
+             step with ``remat=True`` and a 'high' adversarial step; and
+             ``conv3x3_wgrad`` at every (B, H, W, C, O) the 'high' step
+             launched it, at three and one passes: against float64 under
+             its bar, against its plain version, bit-equal on a rerun,
+             three passes at least WGRAD_PASS_GAP times closer to float64
+             than one,
+             the input gradient's route against ``conv2d_input``, and
+             timed beside its plain version and ``conv2d_weight`` with
+             cuDNN's TF32 off and on;
    adversarial — eight ``LossConfig(adversarial_loss=True)`` steps (batch
              4 of 256x256, fp32, flow_iter 16) from the same generator and
              a seeded PatchGAN (ndf 64, 3 layers, 'normal'): the median
@@ -125,8 +151,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
              exchange; ms and peak memory per device); the pair-lane route
              H-sharded (``conv3x3_pairlane`` on slabs of h/4 + 2 rows); a
              multi-style interpolation on the mesh; one
-             ``TrainConfig(data_parallel=2)`` step against the single step
-             and three default-recipe steps (median ms, peak memory per
+             ``TrainConfig(data_parallel=2)`` step against the single step,
+             the same at ``precision='high'`` (both kernel-route kernels
+             launched, nothing else), three default-recipe steps (median
+             ms, peak memory per
              device); two ranks started through ``distributed_init`` (gloo
              on one card, NCCL over two) against the same workload on the
              2-shard mesh;
@@ -183,7 +211,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    split-TF32 design alone, and its times from that design's row at
    [16,640,640,64] -> 64; the other designs' rows under ``designs``), the
    ``nvidia-smi`` line, and the last line ``{"ok": true, "device":
-   {...}}``.
+   {...}}``.  ``conv3x3_wgrad``'s entry counts one 'high' train step's
+   launches and sums its times over them.
 
 Tolerances: a kernel agrees with its plain version to 1e-5 of the output's
 scale in fp32, and within one ulp of the storage dtype in f16/bf16 (both
@@ -311,10 +340,26 @@ TF32X1_CHECKS = [((BATCH, PAD_HW, PAD_HW, 3), 64, True, False),
                  ((2, 19, 70, 64), 64, True, True),
                  ((2, 19, 70, 13), 6, True, True),
                  ((2, 19, 70, 200), 192, True, True)]
-#: One TF32 pass against the exact fp32 conv: x truncated to TF32 (< 2^-10
-#: of |x|) times w rounded to TF32 (<= 2^-11 of |w|) is within 2^-9 of
-#: |x||w| a product, on top of the K 2^-22 sum |x||w| of the accumulation.
-TF32_X1_BAR = 2.0 ** -9
+#: One TF32 pass against the exact fp32 conv: x and w each rounded to
+#: nearest TF32 (<= 2^-11 of it) are within 2^-10 + 2^-22 of |x||w| a
+#: product, on top of the K 2^-22 sum |x||w| of the accumulation.
+TF32_X1_BAR = 2.0 ** -10 + 2.0 ** -22
+#: Ragged weight-gradient shapes of phase check ([B, H, W, C], O): both
+#: block tiles of csrc/conv3x3_wgrad.cu (O <= 8, the rest), C and O off
+#: every multiple, W off the 32-pixel K tile, one or many splits.
+WGRAD_SMALL = [((2, 19, 70, 13), 6), ((1, 9, 11, 3), 64),
+               ((2, 13, 45, 64), 3), ((3, 37, 53, 64), 64),
+               ((1, 12, 80, 32), 512), ((2, 5, 300, 200), 192)]
+#: What one product's TF32 passes drop at most, a share of |x||g|
+#: (csrc/conv3x3_wgrad.cu): three passes 2^-19; one pass, both operands
+#: rounded to nearest TF32, 2^-10 + 2^-22.
+WGRAD_SPLIT_BAR = {3: 2.0 ** -19, 1: 2.0 ** -10 + 2.0 ** -22}
+#: How many times closer to float64 three passes of ``conv3x3_wgrad``
+#: must come than one pass, at each shape a 'high' step launches (random
+#: normal x and g): one pass rounds each product's operands (2^-11 of
+#: each), three keep 2^-19 of the product, and the fp32 accumulation both
+#: share is near 2^-17 of a block's sum at K_split <= 1024 pixels.
+WGRAD_PASS_GAP = 8.0
 #: inf and NaN inputs of the C = 3 checks, at [2, 19, 70, 3]: (index, value).
 NARROW_NONFINITE = [((0, 3, 31, 2), "inf"), ((0, 3, 32, 0), "-inf"),
                     ((0, 7, 10, 1), "nan"), ((0, 8, 40, 2), "inf"),
@@ -532,11 +577,12 @@ def check_convs(torch, gen, errs):
              "O": o, "dtype": "torch.float32", "bias": bias,
              "nonfinite_inputs": nonfinite,
              "nonfinite_outputs": int((~fin).sum()), "max_abs_err": err,
-             "bar": "(2^-9 + 9 C 2^-22) sum |x||w| (+|b|)",
+             "bar": "(2^-10 + (9 C + 1) 2^-22) sum |x||w| (+|b|)",
              "scale": want.float()[fin].abs().max().item(), "ok": ok})
         if not ok:
             fail(f"conv3x3_implicit_gemm passes=1 {shape}->{o}: max |kernel "
-                 f"- plain| = {err} beyond (2^-9 + 9C 2^-22) sum|x||w|, or "
+                 f"- plain| = {err} beyond (2^-10 + (9C + 1) 2^-22) "
+                 f"sum|x||w|, or "
                  f"non-finite outputs differ")
         key = "conv3x3_implicit_gemm (one TF32 pass)" + (
             " (+-FLT_MAX inputs)" if nonfinite else "")
@@ -639,6 +685,15 @@ def check_kernels(torch):
                      f"outputs differ")
             errs["dynamic_filter_pair"] = max(errs["dynamic_filter_pair"], err)
     check_convs(torch, gen, errs)
+    errs["conv3x3_wgrad"] = 0.0
+    for shape, o in WGRAD_SMALL:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        g = torch.randn(shape[:3] + (o,), generator=gen, device="cuda")
+        for passes in (3, 1):
+            row = check_wgrad(torch, x, g, passes)
+            errs["conv3x3_wgrad"] = max(errs["conv3x3_wgrad"],
+                                        row["max_abs_err"])
+        del x, g
     return errs, len(RESULTS["checks"])
 
 
@@ -877,7 +932,8 @@ def run_e2e(torch):
     n_pass1_chunks = 1  # 5 sampled frames, one Pass-1 chunk
     default = {"norm_affine_clamp": 11 * n_batches,
                "dynamic_filter_pair": 3 * n_batches,
-               "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0}
+               "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0,
+               "conv3x3_wgrad": 0}
     # The pair-lane path: conv1_2 in every encoder call (Pass-1 chunks and
     # Pass-2 batches), res2.conv2 and the out conv in every Pass-2 batch.
     pairlane = dict(default, conv3x3_pairlane=n_pass1_chunks + 3 * n_batches)
@@ -1093,7 +1149,8 @@ def check_pth(torch):
     same = all(np.array_equal(a, b) for a, b in zip(*outs))
     want = {"norm_affine_clamp": 11 * n_batches,
             "dynamic_filter_pair": 3 * n_batches,
-            "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0}
+            "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0,
+            "conv3x3_wgrad": 0}
     emit({"phase": "e2e", "pth_session_bit_equal": same, "launches": counts})
     RESULTS["pth_session_bit_equal"] = same
     if not same:
@@ -1289,7 +1346,8 @@ def streaming_launches(n_samples: int, chunk: int) -> dict:
     chunks = -(-n_samples // chunk)
     return {"norm_affine_clamp": chunks * norm,
             "dynamic_filter_pair": chunks * filt,
-            "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0}
+            "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0,
+            "conv3x3_wgrad": 0}
 
 
 def _max_excess(a, b, rtol, atol) -> float:
@@ -1571,7 +1629,8 @@ def multistyle(torch, errs):
     n_batches = -(-CLIP_FRAMES // BATCH)
     want = {"norm_affine_clamp": 11 * BATCH * n_batches,
             "dynamic_filter_pair": 3 * BATCH * n_batches,
-            "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0}
+            "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0,
+            "conv3x3_wgrad": 0}
     outs, res, sessions = {}, {}, {}
     for key, dtype in (("f16", torch.float16), ("fp32", torch.float32)):
         ms = MultiStylization(ckpt, cfg=ModelConfig(dtype=dtype),
@@ -1990,7 +2049,8 @@ def serve_phase(torch):
     }
     for ep, (norm, filt, pair) in expect.items():
         want = {"norm_affine_clamp": norm, "dynamic_filter_pair": filt,
-                "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": pair}
+                "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": pair,
+                "conv3x3_wgrad": 0}
         if launches[ep] != want:
             fail(f"serve: {ep} launched {launches[ep]}, expected {want}")
     total = {k: sum(c[k] for c in launches.values())
@@ -2077,7 +2137,8 @@ def tiling_phase(torch, base):
             del out
             want = {"norm_affine_clamp": 7 + 4 * tiles,
                     "dynamic_filter_pair": 3, "conv3x3_implicit_gemm": 0,
-                    "conv3x3_pairlane": 0}
+                    "conv3x3_pairlane": 0,
+                    "conv3x3_wgrad": 0}
             if launches != want:
                 fail(f"tiling {h}x{w} T={tiles}: launches {launches}, "
                      f"expected {want}")
@@ -2256,7 +2317,8 @@ def aot_phase(torch, sessions):
             got = torch.load(tmp / f"{key}.out.pt")
             want_nodes = {"norm_affine_clamp": 11, "dynamic_filter_pair": 3,
                           "conv3x3_implicit_gemm": 0,
-                          "conv3x3_pairlane": 3 if pl else 0}
+                          "conv3x3_pairlane": 3 if pl else 0,
+                          "conv3x3_wgrad": 0}
             row = {"session": key, "hw": [PAD_HW, PAD_HW],
                    "batches": [1, BATCH], "export_s": export_s,
                    "write_s": write_s, "bundle_bytes": path.stat().st_size,
@@ -2347,7 +2409,8 @@ def _serve_aot(torch, ckpt, bundle):
     if mode != "aot":
         fail(f"aot serve: /stylize ran {mode}, not from the bundle")
     if launches != {"norm_affine_clamp": 11, "dynamic_filter_pair": 3,
-                    "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0}:
+                    "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0,
+                    "conv3x3_wgrad": 0}:
         fail(f"aot serve: /stylize launched {launches}")
     if d > 1 or got.shape != (CONTENT, CONTENT, 3) or status != 200:
         fail(f"aot serve: {out}")
@@ -2801,6 +2864,462 @@ def train_phase(torch, host=None, stage="subtree"):
 
 
 # ---------------------------------------------------------------------------
+# The weight-gradient kernel and the train step at each precision
+# ---------------------------------------------------------------------------
+
+#: Steps of each precision's run in phase train (the first from the host
+#: parameters under deterministic algorithms, held against 'highest'; the
+#: rest timed).
+PRECISION_STEPS = 4
+
+
+def wgrad_f64(torch, x, g):
+    """The weight gradient in float64: per tap one cuBLAS float64 GEMM of
+    the zero-padded x's shifted window by g."""
+    import torch.nn.functional as F
+
+    _, h, w, c = x.shape
+    xp = F.pad(x.double(), (0, 0, 1, 1, 1, 1))
+    gm = g.double().reshape(-1, g.shape[-1])
+    out = torch.empty((3, 3, c, g.shape[-1]), dtype=torch.float64,
+                      device=x.device)
+    for ky in range(3):
+        for kx in range(3):
+            out[ky, kx] = xp[:, ky:ky + h, kx:kx + w].reshape(-1, c).T @ gm
+    return out
+
+
+def check_wgrad(torch, x, g, passes):
+    """``conv3x3_wgrad`` on the card at `passes` against float64 under its
+    bar k u sum |x||g| (sum |x||g| in float64, k u = WGRAD_SPLIT_BAR +
+    (K_split + splits) 2^-22: the split's loss a product, then the fp32
+    sums of a block's K_split pixels and of the splits' partials, each
+    term's rounding within 2^-23, doubled for the tensor cores'
+    accumulation, as the forward's bar), against the plain version (within
+    that bar plus the plain version's own distance from float64), and
+    bit-equal on a second run; and the input gradient's route (the
+    forward kernel on g with the weights rotated and C and O swapped)
+    against ``torch.nn.grad.conv2d_input`` in exact fp32, under the
+    forward's bar."""
+    from rerevst_torch.kernels import (
+        conv3x3_implicit_gemm,
+        conv3x3_wgrad,
+        conv3x3_wgrad_plain,
+    )
+    from rerevst_torch.kernels.conv3x3 import wgrad_plan
+    from rerevst_torch.ops.precision import exact_products
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b, h, w, c = x.shape
+    o = g.shape[-1]
+    got = conv3x3_wgrad(x, g, passes)
+    again = conv3x3_wgrad(x, g, passes)
+    torch.cuda.synchronize()
+    plan = wgrad_plan(b, h, w, c, o, sms)
+    k = WGRAD_SPLIT_BAR[passes] + (plan.k_split + plan.splits) * 2.0 ** -22
+    want = wgrad_f64(torch, x, g)
+    bar = k * wgrad_f64(torch, x.abs(), g.abs())
+    plain = conv3x3_wgrad_plain(x, g).double()
+    err64 = (got.double() - want).abs()
+    row = {"kernel": "conv3x3_wgrad", "shape": [b, h, w, c], "O": o,
+           "passes": passes, "splits": plan.splits, "tile": [plan.bm,
+                                                           plan.bn],
+           "bar_k_u": k,
+           "max_abs_err": float((got.double() - plain).abs().max()),
+           "max_abs_err_vs_f64": float(err64.max()),
+           "plain_max_abs_err_vs_f64": float((plain - want).abs().max()),
+           "worst_share_of_bar": float((err64 / bar.clamp_min(1e-300))
+                                       .max()),
+           "bit_equal_rerun": torch.equal(got, again)}
+    row["ok"] = bool((err64 <= bar).all()) and bool(
+        ((got.double() - plain).abs() <= bar + (plain - want).abs()).all()
+    ) and row["bit_equal_rerun"]
+    wt = torch.randn((3, 3, c, o), device=x.device) * 0.1
+    wr = wt.flip(0, 1).transpose(2, 3).contiguous()
+    dx = conv3x3_implicit_gemm(g, wr, None, passes)
+    with exact_products():
+        ref = torch.nn.grad.conv2d_input(
+            (b, c, h, w), wt.permute(3, 2, 0, 1).contiguous(),
+            g.permute(0, 3, 1, 2), padding=1).permute(0, 2, 3, 1)
+    row["dgrad_max_abs_err"] = float((dx - ref).abs().max())
+    row["dgrad_ok"] = conv_within_tolerance(
+        torch, dx, ref.contiguous(), g, wr, None, passes)
+    row["ok"] = row["ok"] and row["dgrad_ok"]
+    del wt, wr, dx, ref
+    RESULTS["checks"].append(row)
+    if not row["ok"]:
+        fail(f"conv3x3_wgrad {[b, h, w, c]} -> {o} at {passes} passes: "
+             f"{row}")
+    return row
+
+
+def time_wgrad(torch, x, g):
+    """``conv3x3_wgrad`` at three and one passes beside its plain version
+    and ``torch.nn.grad.conv2d_weight`` with cuDNN's TF32 off and on
+    (CUDA events), with the bound of each pass count: x and g read once and
+    dw written once over HBM, or 2 9 C O pixels a pass over TF32's dense
+    peak, the larger."""
+    from rerevst_torch.kernels import conv3x3_wgrad, conv3x3_wgrad_plain
+    from rerevst_torch.ops.precision import exact_products
+
+    b, h, w, c = x.shape
+    o = g.shape[-1]
+    xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+
+    def library():
+        return torch.nn.grad.conv2d_weight(xn, (o, c, 3, 3), gn, padding=1)
+
+    def library_tf32():
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            return library()
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+
+    def exact_library():
+        with exact_products():
+            return library()
+
+    row = {"shape": [b, h, w, c], "O": o}
+    nbytes = 4 * (x.numel() + g.numel() + 9 * c * o)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    for passes in (3, 1):
+        t = time_ms(torch, lambda: conv3x3_wgrad(x, g, passes), iters=5,
+                    warmup=1)
+        t_ops = passes * 2 * 9 * c * o * b * h * w / TF32_FLOP_PER_S * 1e3
+        row[f"ms_{passes}"] = t["ms"]
+        row[f"ops_ms_{passes}"] = t_ops
+        row[f"bound_ms_{passes}"] = max(t_bytes, t_ops)
+    row["bytes_ms"] = t_bytes
+    row["plain_ms"] = time_ms(torch, lambda: conv3x3_wgrad_plain(x, g),
+                              iters=5, warmup=1)["ms"]
+    row["library_ms"] = time_ms(torch, exact_library, iters=5,
+                                warmup=1)["ms"]
+    row["library_tf32_ms"] = time_ms(torch, library_tf32, iters=5,
+                                     warmup=1)["ms"]
+    return row
+
+
+@contextlib.contextmanager
+def exact_forward(torch):
+    """The kernel route with the exact library conv for every forward
+    (``Conv3x3Fn``'s, and the op's where no gradient is needed): its
+    backward alone, behind 'highest''s forward."""
+    from rerevst_torch.kernels import conv3x3
+    from rerevst_torch.models import layers
+
+    real_fwd, real_call = conv3x3.Conv3x3Fn.forward, \
+        layers.conv3x3_implicit_gemm
+
+    def forward(ctx, x, w, b, passes):
+        ctx.save_for_backward(x, w)
+        ctx.passes = passes
+        return conv3x3.conv3x3_implicit_gemm_plain(x, w, b)
+
+    def call(x, w, b=None, passes=3):
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x, w, b)):
+            return real_call(x, w, b, passes)
+        return conv3x3.conv3x3_implicit_gemm_plain(x, w, b)
+
+    conv3x3.Conv3x3Fn.forward = staticmethod(forward)
+    layers.conv3x3_implicit_gemm = call
+    try:
+        yield
+    finally:
+        conv3x3.Conv3x3Fn.forward = real_fwd
+        layers.conv3x3_implicit_gemm = real_call
+
+
+def train_precisions(torch, host):
+    """``TrainConfig()`` steps (batch 4 of 256x256 crops, fp32, flow_iter
+    16) at each ``ModelConfig.precision``: 'highest', 'high' and 'default'.
+    Each runs one step from the host parameters under deterministic
+    algorithms (its losses and TRAIN_GRAD_SITES gradients held against the
+    'highest' step's, as the block after the loop says: 'high' to 1e-4
+    relative and 1e-3 of the max-abs (the gradients of the whole step, or
+    twice 'highest''s own spread under rounding noise), 'default''s losses
+    to 5e-3 relative, its gradients recorded), then
+    PRECISION_STEPS - 1 timed steps (CUDA events), launches counted per
+    step from 0: 'highest' none, 'high' and 'default' both
+    ``conv3x3_implicit_gemm`` and ``conv3x3_wgrad``.  Then a 'high' step
+    with ``remat=True`` and a 'high' adversarial step (the Function under
+    ``torch.utils.checkpoint`` and in the D-then-G update), and the
+    weight-gradient kernel at every shape the 'high' step launched it:
+    checked (``check_wgrad``) and timed (``time_wgrad``)."""
+    import dataclasses
+
+    import numpy as np
+
+    from rerevst_torch import kernels
+    from rerevst_torch.config import LossConfig, TrainConfig
+    from rerevst_torch.kernels import conv3x3_implicit_gemm, conv3x3_wgrad
+    from rerevst_torch.models.discriminator import init_discriminator_params
+    from rerevst_torch.train.state import init_d_state, init_train_state
+    from rerevst_torch.train.step import (
+        make_adversarial_train_step,
+        make_train_step,
+    )
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    base = TrainConfig()
+    batches = train_batches(PRECISION_STEPS, base.batch_size,
+                            base.fine_size, seed=900)
+    up = [tuple(torch.from_numpy(b[k]).to(dev) for k in ("Content", "Style"))
+          for b in batches]
+
+    def cfg_at(prec, **kw):
+        return dataclasses.replace(
+            base, model=dataclasses.replace(base.model, precision=prec), **kw)
+
+    def first_step(cfg):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with deterministic(torch):
+            state, m = _train_step_run(
+                torch, cfg, host, dev, batches[0],
+                torch.Generator(device=dev).manual_seed(3))
+        wall = (time.perf_counter() - t0) * 1e3
+        grads = {p: _leaf(state.params, p).grad.detach().clone()
+                 for p in TRAIN_GRAD_SITES}
+        return state, m, grads, {
+            "launches": kernels.launch_counts(),
+            "launches_by_design": {
+                k: v for k, v in
+                conv3x3_implicit_gemm.launches_by_design.items() if v},
+            "wgrad_by_shape": dict(conv3x3_wgrad.launches_by_shape),
+            "wall_ms": wall}
+
+    def rel(a, b):
+        return ({k: abs(a[0][k] - b[0][k]) / max(abs(b[0][k]), 1e-12)
+                 for k in b[0]},
+                {".".join(p): float((a[1][p] - b[1][p]).abs().max()
+                                    / b[1][p].abs().max()) for p in b[1]})
+
+    res, ref, shapes = {}, None, None
+    for prec in ("highest", "high", "default"):
+        cfg = cfg_at(prec)
+        state, m, grads, first = first_step(cfg)
+        row = {"first_step": {k: v for k, v in first.items()
+                              if k != "wgrad_by_shape"},
+               "metrics": m}
+        if ref is None:
+            ref = (m, grads)
+        else:
+            loss_rel, grad_rel = rel((m, grads), ref)
+            row.update(max_loss_rel_vs_highest=max(loss_rel.values()),
+                       max_grad_rel_of_maxabs_vs_highest=max(
+                           grad_rel.values()),
+                       loss_rel_vs_highest=loss_rel,
+                       grad_rel_vs_highest=grad_rel)
+        if prec == "high":
+            shapes = first["wgrad_by_shape"]
+        del grads
+        step = make_train_step(cfg)
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed + 17)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows = []
+        for i, (c, s) in enumerate(up[1:]):
+            kernels.reset_launches()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, mm = step(state, c, s, gen)
+            e1.record()
+            vals = {k: float(v) for k, v in mm.items()}
+            rows.append({"step": i + 2, "ms": e0.elapsed_time(e1),
+                         "launches": kernels.launch_counts(), **vals})
+            if not all(np.isfinite(v) for v in vals.values()):
+                fail(f"train {prec} step {i + 2}: non-finite metrics {vals}")
+        row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        row["step_ms_median"] = float(np.median([r["ms"] for r in rows]))
+        row["images_per_s"] = base.batch_size / row["step_ms_median"] * 1e3
+        row["launches_per_step"] = rows[0]["launches"]
+        row["steps"] = rows
+        res[prec] = row
+        emit({"phase": "train", "precision": prec,
+              **{k: v for k, v in row.items()
+                 if k not in ("steps", "grad_rel_vs_highest",
+                              "loss_rel_vs_highest")}})
+        del state, step
+        torch.cuda.empty_cache()
+        launched = [first["launches"]] + [r["launches"] for r in rows]
+        used = {k for k in ("conv3x3_implicit_gemm", "conv3x3_wgrad")
+                if all(n[k] > 0 for n in launched)}
+        others = [{k: v for k, v in n.items() if k not in
+                   ("conv3x3_implicit_gemm", "conv3x3_wgrad")}
+                  for n in launched]
+        if any(any(n.values()) for n in others) or any(
+                n != launched[0] for n in launched[1:]):
+            fail(f"train {prec}: launches per step {launched}")
+        if used != (set() if prec == "highest" else
+                    {"conv3x3_implicit_gemm", "conv3x3_wgrad"}):
+            fail(f"train {prec}: launches per step {launched}")
+
+    # What the comparison with 'highest' is held to.
+    # Losses: 1e-4 relative at 'high', 5e-3 at 'default', for the whole
+    # step and for the kernel route's backward alone (behind the exact
+    # forward).  Gradients at 'high': 1e-3 of the max-abs for the backward
+    # alone; for the whole step 1e-3, or twice what moves 'highest' itself
+    # by as much where the step's conditioning makes that larger (the
+    # adversarial phase's allowance, capped at ALLOWANCE_CAP): the spread
+    # of 'highest' under CONV_NOISE at every fp32 conv output
+    # (NOISE_SEEDS, signs drawn on the card), a measurement of 'highest'
+    # alone that knows nothing of the kernels.  'default''s gradients are
+    # recorded.
+    noise = {}
+    for seed in NOISE_SEEDS:
+        with conv_noise(torch, seed, device="cuda"):
+            m, grads, _ = first_step(cfg_at("highest"))[1:]
+        for k, v in {**rel((m, grads), ref)[0],
+                     **rel((m, grads), ref)[1]}.items():
+            noise[k] = max(noise.get(k, 0.0), v)
+        del grads
+    res["highest_noise_spread"] = noise
+    for prec, loss_bar in (("high", 1e-4), ("default", 5e-3)):
+        with exact_forward(torch):
+            m, grads, _ = first_step(cfg_at(prec))[1:]
+        bwd_loss, bwd_grad = rel((m, grads), ref)
+        del grads
+        row = res[prec]
+        row.update(
+            backward_alone_max_loss_rel=max(bwd_loss.values()),
+            backward_alone_max_grad_rel=max(bwd_grad.values()),
+            backward_alone_loss_rel=bwd_loss,
+            backward_alone_grad_rel=bwd_grad)
+        over = {k: [v, 0.0] for k, v in row["loss_rel_vs_highest"].items()
+                if v > loss_bar}
+        over.update({f"backward_alone.{k}": [v, 0.0]
+                     for k, v in bwd_loss.items() if v > loss_bar})
+        if prec == "high":
+            over.update(_allowed(row["grad_rel_vs_highest"], noise, 1e-3))
+            over.update({f"backward_alone.{k}": [v, 0.0]
+                         for k, v in bwd_grad.items() if v > 1e-3})
+        row["beyond_allowance"] = over
+        row["within_bars"] = (
+            row["max_loss_rel_vs_highest"] <= loss_bar
+            and (prec != "high"
+                 or row["max_grad_rel_of_maxabs_vs_highest"] <= 1e-3))
+        emit({"phase": "train", "precision": prec, "against_highest": {
+            k: row[k] for k in (
+                "max_loss_rel_vs_highest",
+                "max_grad_rel_of_maxabs_vs_highest",
+                "backward_alone_max_loss_rel", "backward_alone_max_grad_rel",
+                "within_bars", "beyond_allowance")},
+            "noise_max_loss_rel": max(noise[k] for k in bwd_loss),
+            "noise_max_grad_rel": max(noise[k] for k in bwd_grad)})
+        if over:
+            fail(f"train {prec!r} against 'highest' beyond its bar: {over}")
+
+    # The Function under remat (torch.utils.checkpoint) and in the
+    # adversarial D-then-G update, at 'high'.
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with deterministic(torch):
+        st, m = _train_step_run(torch, cfg_at("high", remat=True), host, dev,
+                                batches[0],
+                                torch.Generator(device=dev).manual_seed(3))
+    torch.cuda.synchronize()
+    remat = {"wall_ms_first_step": (time.perf_counter() - t0) * 1e3,
+             "launches": kernels.launch_counts(),
+             "max_loss_rel_vs_high": max(
+                 abs(m[k] - res["high"]["metrics"][k])
+                 / max(abs(res["high"]["metrics"][k]), 1e-12) for k in m)}
+    del st
+    acfg = cfg_at("high", loss=LossConfig(adversarial_loss=True))
+    d_host = init_discriminator_params(
+        torch.Generator().manual_seed(acfg.seed + 99), ndf=64, n_layers=3,
+        scheme="normal")
+    g_st = init_train_state(_tree_to(host, dev), acfg)
+    d_st = init_d_state(_tree_to(d_host, dev))
+    astep = make_adversarial_train_step(acfg)
+    gen = torch.Generator(device=dev).manual_seed(acfg.seed + 17)
+    adv = []
+    for c, s in up[:2]:
+        kernels.reset_launches()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g_st, d_st, am = astep(g_st, d_st, c, s, gen)
+        e1.record()
+        vals = {k: float(v) for k, v in am.items()}
+        adv.append({"ms": e0.elapsed_time(e1),
+                    "launches": kernels.launch_counts(), **vals})
+    del g_st, d_st
+    torch.cuda.empty_cache()
+    for name, n, vals in (("remat", remat["launches"], m),
+                          ("adversarial", adv[-1]["launches"], adv[-1])):
+        if not (n["conv3x3_implicit_gemm"] and n["conv3x3_wgrad"]) or \
+                not all(np.isfinite(v) for v in vals.values()
+                        if isinstance(v, float)):
+            fail(f"train 'high' {name}: {n} {vals}")
+    res["high_remat"] = remat
+    res["high_adversarial"] = {"steps": adv, "ms_second_step": adv[-1]["ms"]}
+    emit({"phase": "train", "precision": "high", "remat": remat,
+          "adversarial_ms": [r["ms"] for r in adv]})
+
+    # The weight-gradient kernel at the 'high' step's shapes.
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows, errs = [], 0.0
+    for (b, h, w, c, o), n in sorted(shapes.items()):
+        x = torch.randn((b, h, w, c), generator=gen, device=dev)
+        g = torch.randn((b, h, w, o), generator=gen, device=dev)
+        checks = [check_wgrad(torch, x, g, passes) for passes in (3, 1)]
+        errs = max([errs] + [r["max_abs_err"] for r in checks])
+        # The control: at these shapes the three-pass bar is wide enough
+        # for a one-pass result (its K_split term dominates), so three
+        # passes must also come WGRAD_PASS_GAP times closer to float64
+        # than one pass on the same inputs: a kernel that lost a lo
+        # product would read as one pass.
+        gap = checks[1]["max_abs_err_vs_f64"] / max(
+            checks[0]["max_abs_err_vs_f64"], 1e-300)
+        if gap < WGRAD_PASS_GAP:
+            fail(f"conv3x3_wgrad {[b, h, w, c]} -> {o}: three passes only "
+                 f"{gap:.3g} x closer to float64 than one")
+        row = {**time_wgrad(torch, x, g), "launches_per_step": n,
+               "one_pass_err_over_three": gap,
+               "checks": [{k: r[k] for k in (
+                   "passes", "splits", "bar_k_u", "max_abs_err",
+                   "max_abs_err_vs_f64", "plain_max_abs_err_vs_f64",
+                   "worst_share_of_bar", "dgrad_max_abs_err")}
+                   for r in checks]}
+        rows.append(row)
+        emit({"phase": "train", "wgrad": row})
+        del x, g
+        torch.cuda.empty_cache()
+
+    def per_step(key):
+        return sum(r[key] * r["launches_per_step"] for r in rows)
+
+    res["wgrad"] = {
+        "rows": rows, "max_abs_err": errs,
+        "launches_per_high_step": res["high"]["launches_per_step"][
+            "conv3x3_wgrad"],
+        "ms_per_step": per_step("ms_3"), "ms_per_step_1": per_step("ms_1"),
+        "bound_ms_per_step": per_step("bound_ms_3"),
+        "bound_ms_per_step_1": per_step("bound_ms_1"),
+        "bound_by": ("operations" if per_step("ops_ms_3")
+                     >= per_step("bytes_ms") else "bytes"),
+        "plain_ms_per_step": per_step("plain_ms"),
+        "library_ms_per_step": per_step("library_ms"),
+        "library_tf32_ms_per_step": per_step("library_tf32_ms")}
+    res["card"] = nvidia_smi()
+    res["phase_s"] = time.perf_counter() - t_phase
+    RESULTS["train_precision"] = res
+    emit({"phase": "train", "precision_summary": {
+        **{p: {k: res[p][k] for k in ("step_ms_median", "images_per_s",
+                                      "peak_gb", "launches_per_step")}
+           for p in ("highest", "high", "default")},
+        "wgrad": {k: v for k, v in res["wgrad"].items() if k != "rows"},
+        "phase_s": res["phase_s"]}})
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phases adversarial and ablation: the PatchGAN step and the Figure-16 pairs
 # ---------------------------------------------------------------------------
 
@@ -2893,21 +3412,21 @@ CONV_NOISE = 2.0 ** -20
 
 
 @contextlib.contextmanager
-def conv_noise(torch, seed):
+def conv_noise(torch, seed, device="cpu"):
     """Every fp32 conv output of the models (``layers.conv2d`` wherever it
     is imported) multiplied by 1 +- CONV_NOISE, the sign drawn per element
-    from `seed`: the CPU's stand-in for the card's other summation
-    orders, to measure how far a result moves under them."""
+    from `seed` on `device`: the CPU's stand-in for the card's other
+    summation orders, to measure how far a result moves under them."""
     from rerevst_torch.models import discriminator, layers, transformer, vgg
 
     real = layers.conv2d
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
 
     def noisy(p, x, stride=1, padding=0, precision=None):
         y = real(p, x, stride, padding, precision)
         if y.dtype != torch.float32:
             return y
-        sign = torch.randint(0, 2, y.shape, generator=gen, device="cpu")
+        sign = torch.randint(0, 2, y.shape, generator=gen, device=device)
         return y * (1 + CONV_NOISE * (2 * sign - 1).to(y))
 
     mods = (layers, vgg, transformer, discriminator)
@@ -3524,7 +4043,12 @@ def distributed_phase(torch, sessions, host):
 
     from rerevst_torch import kernels
     from rerevst_torch.api import Stylization
-    from rerevst_torch.config import InferenceConfig, LossConfig, TrainConfig
+    from rerevst_torch.config import (
+        InferenceConfig,
+        LossConfig,
+        ModelConfig,
+        TrainConfig,
+    )
     from rerevst_torch.eval.parity import pixel_error
     from rerevst_torch.models.transformer import collect_stats
     from rerevst_torch.multistyle import MultiStylization
@@ -3552,7 +4076,8 @@ def distributed_phase(torch, sessions, host):
     style = synth_style(CONTENT, CONTENT, seed=1)
     n_batches = -(-CLIP_FRAMES // BATCH)
     per_decode = {"norm_affine_clamp": 11, "dynamic_filter_pair": 3,
-                  "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0}
+                  "conv3x3_implicit_gemm": 0, "conv3x3_pairlane": 0,
+                  "conv3x3_wgrad": 0}
     launches = {k: {} for k in per_decode}
 
     def record(path, counts):
@@ -3751,11 +4276,41 @@ def distributed_phase(torch, sessions, host):
     if metric_err > 1 or params_err > 2.5e-4:
         fail(f"distributed train: sharded step vs single: {row}")
     del single, state
+    # The same at precision 'high': each shard's 3x3 convs through the
+    # kernel route, forward and backward (``Conv3x3Fn``), against the
+    # single 'high' step, launches counted around the sharded step.
+    hcfg = TrainConfig(loss=lcfg, model=ModelConfig(precision="high"))
+    single, m1 = _train_step_run(torch, hcfg, host, dev, batch)
+    hcfg = TrainConfig(data_parallel=2, loss=lcfg,
+                       model=ModelConfig(precision="high"))
+    state = init_train_state(_tree_to(host, dev), hcfg)
+    kernels.reset_launches()
+    state, mh = make_sharded_train_step(hcfg, m2)(state, c, st, None)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    record("train_high_2_shards", counts)
+    mh = {k: float(v) for k, v in mh.items()}
+    high = {"check": "precision='high', data_parallel=2 vs the single "
+                     "'high' step",
+            "metrics_in_bar": max(abs(mh[k] - m1[k])
+                                  / (5e-6 + 5e-4 * abs(m1[k])) for k in m1),
+            "params_max_abs": max(
+                float((a - b).abs().max().detach()) for (_, a), (_, b) in
+                zip(tree_leaves(state.params), tree_leaves(single.params))),
+            "launches": counts}
+    row["high"] = high
+    if high["metrics_in_bar"] > 1 or high["params_max_abs"] > 2.5e-4 or \
+            not (counts["conv3x3_implicit_gemm"] and counts["conv3x3_wgrad"]) \
+            or any(v for k, v in counts.items() if k not in (
+                "conv3x3_implicit_gemm", "conv3x3_wgrad")):
+        fail(f"distributed train 'high': sharded step vs single: {high}")
+    del single, state
     cfg = TrainConfig(data_parallel=2)
     state = init_train_state(_tree_to(host, dev), cfg)
     step = make_sharded_train_step(cfg, m2)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed + 17)
     _reset_peaks(torch, m2)
+    kernels.reset_launches()
     ms_steps = []
     for _ in range(3):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -3961,7 +4516,8 @@ def f32_errors(torch, x, w, b, passes=3) -> dict:
     F.conv2d (TF32 off; on for one pass, its library counterpart) against
     a float64 conv of x's first two frames, and the least of the 9 C 2^-22
     sum |x||w| (+|b|) bar (+ TF32_X1_BAR sum |x||w| for one pass) over
-    them; fails past the bar."""
+    them, and each one's mean signed error (sum (y - y64) sign(y64) over
+    sum |y64|: negative where the sums shrink); fails past the bar."""
     import torch.nn.functional as F
 
     from rerevst_torch import kernels
@@ -3973,17 +4529,24 @@ def f32_errors(torch, x, w, b, passes=3) -> dict:
            + (TF32_X1_BAR if passes == 1 else 0.0)) * F.conv2d(
         xd.abs(), wd.abs(), b.double().abs(), padding=1).permute(0, 2, 3, 1)
     del xd, wd
-    kern = (kernels.conv3x3_implicit_gemm(x2, w, b, passes=passes).double()
-            - ref).abs()
+    def signed(d):
+        return float((d * ref.sign()).sum() / ref.abs().sum())
+
+    kern = kernels.conv3x3_implicit_gemm(x2, w, b, passes=passes).double() \
+        - ref
+    kern_signed, kern = signed(kern), kern.abs()
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = passes == 1
     try:
-        lib = (F.conv2d(x2.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b,
-                        padding=1).permute(0, 2, 3, 1).double() - ref).abs()
+        lib = F.conv2d(x2.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b,
+                       padding=1).permute(0, 2, 3, 1).double() - ref
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+    lib_signed, lib = signed(lib), lib.abs()
     out = {"max_abs_err_vs_f64": kern.max().item(),
            "library_max_abs_err_vs_f64": lib.max().item(),
+           "mean_signed_err_vs_f64": kern_signed,
+           "library_mean_signed_err_vs_f64": lib_signed,
            "least_bar": bar.min().item(),
            "worst_err_over_bar": (kern / bar).max().item()}
     if not out["worst_err_over_bar"] <= 1.0:
@@ -4290,8 +4853,9 @@ def config_variants(torch, smi):
 def kernel_resources(build) -> dict:
     """Registers, spills and ptxas's notes (a serialized wgmma shows here)
     of each instance of the streamed C = 64, the wide, the narrow, the
-    sliced and the split-TF32 conv kernels (and its weights' split kernel)
-    and of the filter pair kernel.  A spill fails the phase: the designs
+    sliced and the split-TF32 conv kernels (and its weights' split kernel),
+    of the filter pair kernel and of the weight-gradient kernel (and its
+    reduction).  A spill fails the phase: the designs
     count on keeping their fragments and accumulators in registers; so does
     a note that the wide, sliced or split-TF32 kernel's wgmmas are
     serialized."""
@@ -4351,6 +4915,19 @@ def kernel_resources(build) -> dict:
         fail("ptxas reported no streamed conv kernel")
     if len(out) - n_conv != 3:
         fail(f"ptxas reported {len(out) - n_conv} filter pair kernels, not 3")
+    n_wgrad = 0
+    for name, info in build.ptxas_report("conv3x3_wgrad.cu").items():
+        m = re.search(r"conv3x3_wgrad_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
+                      name)
+        if m:
+            n_wgrad += 1
+            out[f"conv3x3_wgrad_kernel<MB={m.group(1)}, NB={m.group(2)}, "
+                f"WN={m.group(3)}, P={m.group(4)}>"] = info
+        if "conv3x3_wgrad_reduce_kernel" in name:
+            out["conv3x3_wgrad_reduce_kernel"] = info
+    if n_wgrad != 4:
+        fail(f"ptxas reported {n_wgrad} weight-gradient kernels, not 4 (2 "
+             f"block tiles x three or one pass)")
     spilled = [k for k, v in out.items()
                if v.get("spill_stores", 0) or v.get("spill_loads", 0)]
     if spilled:
@@ -4419,6 +4996,7 @@ def main() -> int:
     aoted = aot_phase(torch, sessions)
     host, stage = train_host_params(torch)
     trained = train_phase(torch, host, stage)
+    precisions = train_precisions(torch, host)
     adv = adversarial_phase(torch, host)
     abl = ablation_phase(torch, host)
     dist = distributed_phase(torch, sessions, host)
@@ -4526,13 +5104,51 @@ def main() -> int:
                                        "library_ms", "max_abs_err",
                                        "bound_fp32_cores_ms",
                                        "max_abs_err_vs_f64",
-                                       "library_max_abs_err_vs_f64")
+                                       "library_max_abs_err_vs_f64",
+                                       "mean_signed_err_vs_f64",
+                                       "library_mean_signed_err_vs_f64")
                      if k in r})
             entry["designs"].setdefault("tf32x1", []).append(
                 {k: tf32x1_row[k] for k in (
                     "site", "shape", "O", "ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms", "library", "max_abs_err",
-                    "max_abs_err_vs_f64", "library_max_abs_err_vs_f64")})
+                    "max_abs_err_vs_f64", "library_max_abs_err_vs_f64",
+                    "mean_signed_err_vs_f64",
+                    "library_mean_signed_err_vs_f64")})
+    # The weight-gradient kernel: its path is the 'high' train step (its
+    # launches one step's), its times summed over that step's launches at
+    # three passes (the one-pass sums under "one_pass").
+    wg = precisions["wgrad"]
+    line["kernels"].append({
+        "name": "conv3x3_wgrad", "route": "cuda",
+        "source": "rerevst_torch/csrc/conv3x3_wgrad.cu",
+        "replaces": "none: the weight gradient of the fp32 routes of "
+                    "rerevst_tpu/kernels/conv3x3.py:81 (JAX's autodiff of "
+                    "the XLA conv at HIGH)",
+        "launches": wg["launches_per_high_step"],
+        "max_abs_err": max(errs["conv3x3_wgrad"], wg["max_abs_err"]),
+        "ms": wg["ms_per_step"], "plain_ms": wg["plain_ms_per_step"],
+        "bound_ms": wg["bound_ms_per_step"], "bound_by": wg["bound_by"],
+        "library_ms": wg["library_ms_per_step"],
+        "library_tf32_ms": wg["library_tf32_ms_per_step"],
+        "path": "TrainConfig(model=ModelConfig(precision='high')) step",
+        "times_of": "one 'high' train step's launches, summed",
+        "one_pass": {"launches": precisions["default"]["launches_per_step"][
+                         "conv3x3_wgrad"],
+                     "ms": wg["ms_per_step_1"],
+                     "bound_ms": wg["bound_ms_per_step_1"]},
+        "launches_train_highest": precisions["highest"][
+            "launches_per_step"]["conv3x3_wgrad"],
+        "launches_other_paths": {
+            "e2e": counts_by["f16"]["conv3x3_wgrad"],
+            "train": trained["launches"]["conv3x3_wgrad"],
+            "adversarial": adv["launches"]["conv3x3_wgrad"],
+            "mesh": dist["launches"]["conv3x3_wgrad"]}})
+    for entry in line["kernels"]:
+        if entry["name"] == "conv3x3_implicit_gemm":
+            entry["launches_train"] = {
+                p: precisions[p]["launches_per_step"]["conv3x3_implicit_gemm"]
+                for p in ("highest", "high", "default")}
     RESULTS["kernels"] = line["kernels"]
     RESULTS["seconds"] = time.perf_counter() - t_main
     _save()

@@ -32,8 +32,8 @@
 // * fp32 -- both entry points, every C and O: the split-TF32 design below
 //   (conv3x3_tf32x3_kernel), fp32-accurate products on the tensor cores
 //   (the counterpart of the JAX package's HIGHEST and HIGH precisions)
-//   at passes = 3; at passes = 1 one TF32 pass (x truncated, w rounded to
-//   TF32: the 'default' precision), the same walk with neither lo box.
+//   at passes = 3; at passes = 1 one TF32 pass (x and w rounded to
+//   nearest TF32: the 'default' precision), the same walk with no lo box.
 // No call reaches a cp.async + mma.sync kernel or the CUDA cores' FMAs.
 // A tensor map that cannot be encoded or a refused launch is returned as
 // an error: nothing retries on another design.
@@ -270,6 +270,17 @@
 // the checks' 9C 2^-22 sum |x||w|; measured, the tensor cores' own fp32
 // accumulation dominates (4.5e-5 against a float64 conv at that shape,
 // cuDNN's 6.9e-6).
+// * The accumulation.  Each wgmma rounds its fp32 sum toward zero (the
+//   sum of its k8 products and the accumulator, truncated), so a long chain
+//   of them shrinks the result: at 9C / 8 chained x_hi w_hi steps and twice
+//   as many corrections in one accumulator the outputs' mean signed error
+//   was -6.2e-6 of their size, and a train step at 'high' moved 1.8e-4
+//   from the exact one.  The corrections (x_hi w_lo, x_lo w_hi, 2^-11 of
+//   the sum) go to an accumulator of their own, where truncation costs
+//   2^-11 as much, and the two are added once in the epilogue: the main
+//   chain truncates 9C / 8 times, not 27C / 8 (an emulation of truncating
+//   wgmma sums puts the bias at a third; 32 more registers a thread at N =
+//   64).
 // * Tiles, walk and stages: the sliced design's (256-pixel tiles of rows x
 //   cols, one persistent block per SM, channel tile fastest; a stage is one
 //   K slice at one dx, whose halo'd box of x feeds the three taps dy at dy
@@ -319,12 +330,22 @@
 //   straight from registers (four lanes write one row's 32 contiguous
 //   bytes: whole sectors), where they fall inside the image and O.  An
 //   fp32 tile is 64 KB at N = 64, too much to stage beside the ring.
-// * One pass (P = 1, rr_conv3x3 with passes = 1): x_hi w_hi alone,
-//   with the weights rounded to nearest in the split kernel (once a call;
-//   x stays truncated by the tensor cores, unbiased rounding of it would
-//   cost a pass over every box): no lo box of x, no barrier, no lo planes
-//   of the weights.  Within 2^-9 sum |x||w| of the fp32 conv (x's
-//   truncation < 2^-10 of |x|, w's rounding <= 2^-11 of |w|).
+// * One pass (P = 1, rr_conv3x3 with passes = 1): x w in one TF32
+//   product, both operands rounded to nearest: the weights once a call in
+//   the split kernel, x in each landed box, in place, by both consumer
+//   warpgroups (the lo pass's walk, its writes to the box itself, then the
+//   same fence and barrier).  Truncation, as the tensor cores read fp32,
+//   shrinks every product by 2^-12 of it on average (a mean signed error of
+//   -3.5e-4, which moved a train step at 'default' 9.1e-3 from the exact
+//   one); rounding is unbiased.  No lo box, no lo planes of the weights.
+//   Within 2^-10 sum |x||w| of the fp32 conv (each rounding <= 2^-11).
+//   The rounding costs: 3.46 ms at [16,640,640,64] -> 64 against
+//   truncation's 2.07 (scripts/conv_ab.py; NVIDIA H100 80GB HBM3 at 700
+//   W).  Rejected, all slower: the box rounded by the producer
+//   warpgroup's three idle warps ahead of a `ready` barrier a stage, 5.32
+//   ms; A from registers (each warp's fragments of a tap by ldmatrix,
+//   rounded, register-A wgmma), 5.13 ms a group a tap and 5.14 a group a
+//   stage from two register sets, no write to shared memory, no fence.
 // * What bounds it (scripts/probe_tf32_conv.py at [16,640,640,64] -> 64):
 //   one pass alone 2.73 ms, no wgmma at all 2.64, the lo pass 0.67 of the
 //   4.70, the stores 0.19.  Each m64nNk8 reads 2 KB of A and N 32 bytes of
@@ -1750,10 +1771,8 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_sliced_kernel(
 // (a_slot bytes each, set at launch), then the weights' boxes {KS c, N o}:
 // hi of taps dy = 0, 1, 2, then lo of the same, each on a 1024-byte
 // boundary.  P is the number of TF32 passes: 3 (x_hi w_hi + x_hi w_lo +
-// x_lo w_hi, fp32-accurate) or 1 (x_hi w_hi: the box of x and the weights'
-// hi boxes alone).
-// P = 1 (one TF32 pass, x_hi w_hi) stages neither the lo box nor the lo
-// boxes of the weights.
+// x_lo w_hi, fp32-accurate) or 1 (x w, both rounded: the box of x and the
+// weights' boxes alone, neither lo box staged).
 template <int N, int KS, int P>
 struct Tf32 {
   static_assert(P == 1 || P == 3, "passes");
@@ -1772,6 +1791,15 @@ struct Tf32 {
 // up to inf.
 __device__ __forceinline__ uint32_t tf32_rna(uint32_t v) {
   return (v + 0x1000u) & 0xffffe000u;
+}
+
+// An input value's one-pass TF32 value (bits v): rounded to nearest,
+// truncated where rounding would overflow (|v| >= 0x7f7ff000, inf kept),
+// a NaN kept as one (0x7fffe000: truncation may leave a NaN no payload).
+__device__ __forceinline__ uint32_t tf32_round_x(uint32_t v) {
+  const uint32_t a = v & 0x7fffffffu;
+  return a > 0x7f800000u ? 0x7fffe000u
+                         : a >= 0x7f7ff000u ? v & 0xffffe000u : tf32_rna(v);
 }
 
 // An input value's lo (bits v): hi is v truncated to TF32, as the tensor
@@ -1831,8 +1859,8 @@ __global__ void conv3x3_tf32_split_kernel(const float* __restrict__ w,
 }
 
 // A stage's products for a warpgroup: taps dy = 0, 1, 2, each KS / 8 k8
-// steps into both m64 blocks, as x_hi w_hi + x_hi w_lo + x_lo w_hi (P = 3)
-// or x_hi w_hi (P = 1).  da:
+// steps into both m64 blocks, as x_hi w_hi into acc and x_hi w_lo + x_lo
+// w_hi into cor (P = 3), or x w into acc (P = 1).  da:
 // the warpgroup's first pixel at dy = 0 in the box of x; tap dy starts dy x
 // `drow` further on (a row of cols pixels, in 16-byte units), a k8 step 32
 // bytes and an m64 block 64 kS bytes on; the box of lo is `dlo` further on.
@@ -1840,6 +1868,7 @@ __global__ void conv3x3_tf32_split_kernel(const float* __restrict__ w,
 // kBBox further.
 template <int N, int KS, int NP>
 __device__ __forceinline__ void tf32x3_stage(float (&acc)[2][N / 2],
+                                             float (&cor)[2][N / 2],
                                              uint64_t da, uint64_t db,
                                              uint32_t drow, uint32_t dlo) {
   using P = Tf32<N, KS, NP>;
@@ -1854,8 +1883,8 @@ __device__ __forceinline__ void tf32x3_stage(float (&acc)[2][N / 2],
         wgmma_ss<float, N>(acc[m], ah, bh, 1);
         if constexpr (NP == 3) {
           const uint64_t bl = bh + 3 * (P::kBBox / 16);
-          wgmma_ss<float, N>(acc[m], ah, bl, 1);
-          wgmma_ss<float, N>(acc[m], ah + dlo, bh, 1);
+          wgmma_ss<float, N>(cor[m], ah, bl, 1);
+          wgmma_ss<float, N>(cor[m], ah + dlo, bh, 1);
         }
       }
 }
@@ -1940,12 +1969,13 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
   const int r = ((tid >> 5) & 3) * 16 + (lane >> 2);  // accumulator row
   const uint32_t drow = (uint32_t)(cols * P::kS) >> 4;
   const uint32_t dlo = (uint32_t)a_slot >> 4;
-  float acc[2][N / 2];
+  // acc: x_hi w_hi from the bias; cor: the corrections (P = 3; unused at
+  // P = 1, where the compiler drops it).
+  float acc[2][N / 2], cor[2][N / 2];
   int s = 0;
   uint32_t ph = 0;
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const WideTile u = wide_tile(t, n_tiles, strips, bands, rows, cols, N);
-    // The sums start from the bias.
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
       const int o = u.n0 + j * 8 + (lane & 3) * 2;
@@ -1954,23 +1984,29 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
       for (int m = 0; m < 2; ++m) {
         acc[m][4 * j] = acc[m][4 * j + 2] = b0;
         acc[m][4 * j + 1] = acc[m][4 * j + 3] = b1;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cor[m][4 * j + e] = 0.f;
       }
     }
     int prev = 0;
     for (int k = 0; k < ksteps; ++k) {
       mbar_wait(full + 8 * s, ph);
       const uint32_t a = ring + s * stage_bytes;
-      // The box as it lies is x_hi (wgmma reads fp32 truncated to TF32);
-      // for three passes both warpgroups write its lo into the second box,
-      // chunk by chunk at the same offsets (so with the same swizzle), then
-      // meet.
-      if constexpr (NP == 3) {
-        const uint4* xv = reinterpret_cast<const uint4*>(base + (a - ring));
+      // The box as it lies is x_hi (wgmma reads fp32 truncated to TF32).
+      // For three passes both warpgroups write its lo into the second box,
+      // chunk by chunk at the same offsets (so with the same swizzle); for
+      // one pass they round the box in place.  Then they meet.
+      {
+        uint4* xv = reinterpret_cast<uint4*>(base + (a - ring));
         uint4* lv = reinterpret_cast<uint4*>(base + (a - ring) + a_slot);
         for (int i = tid; i < box_bytes / 16; i += kConsumerThreads) {
           const uint4 v = xv[i];
-          lv[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
-                             tf32_lo(v.w));
+          if constexpr (NP == 3)
+            lv[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
+                               tf32_lo(v.w));
+          else
+            xv[i] = make_uint4(tf32_round_x(v.x), tf32_round_x(v.y),
+                               tf32_round_x(v.z), tf32_round_x(v.w));
         }
         fence_async_shared();  // the generic writes, before wgmma reads them
         bar_sync_consumers();
@@ -1978,13 +2014,15 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
       const uint64_t da = wgmma_desc<P::kS>(a + wg * 128 * P::kS);
       const uint64_t db = wgmma_desc<P::kS>(a + P::kABoxes * a_slot);
       fence_regs(acc);
+      if constexpr (NP == 3) fence_regs(cor);
       wgmma_fence();
-      tf32x3_stage<N, KS, NP>(acc, da, db, drow, dlo);
+      tf32x3_stage<N, KS, NP>(acc, cor, da, db, drow, dlo);
       wgmma_commit();
       if (k > 0) {
         // The previous stage's group is done: it may be refilled.
         wgmma_wait<1>();
         fence_regs(acc);
+        if constexpr (NP == 3) fence_regs(cor);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + 8 * prev);
       }
@@ -1996,6 +2034,13 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
     }
     wgmma_wait<0>();
     fence_regs(acc);
+    if constexpr (NP == 3) {
+      fence_regs(cor);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int e = 0; e < N / 2; ++e) acc[m][e] += cor[m][e];
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * prev);
 

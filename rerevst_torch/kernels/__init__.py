@@ -6,6 +6,7 @@
 | ``dynamic_filter_pair`` | ``csrc/filter_chain.cu`` | ``rerevst_tpu/kernels/filter_chain.py:dynamic_filter_pair`` |
 | ``conv3x3_implicit_gemm`` | ``csrc/conv3x3.cu`` (``rr_conv3x3``) | ``rerevst_tpu/kernels/conv3x3.py:conv3x3_implicit_gemm`` |
 | ``conv3x3_pairlane`` | ``csrc/conv3x3.cu`` (``rr_conv3x3_c64``) | ``rerevst_tpu/kernels/conv3x3.py:conv3x3_pairlane`` |
+| ``conv3x3_wgrad`` | ``csrc/conv3x3_wgrad.cu`` (``rr_conv3x3_wgrad``) | none: the weight gradient of the fp32 conv (``Conv3x3Fn``'s backward) |
 
 The kernels build at first use (``kernels/_build.py``).  Each wrapper keeps an
 integer ``launches`` count of its kernel launches.
@@ -24,6 +25,8 @@ from rerevst_torch.kernels.conv3x3 import (  # noqa: F401
     conv3x3_implicit_gemm_plain,
     conv3x3_pairlane,
     conv3x3_pairlane_plain,
+    conv3x3_wgrad,
+    conv3x3_wgrad_plain,
 )
 from rerevst_torch.kernels.filter_chain import (  # noqa: F401
     dynamic_filter_pair,
@@ -36,7 +39,7 @@ from rerevst_torch.kernels.norm_affine import (  # noqa: F401
 
 #: Every kernel wrapper of the port.
 WRAPPERS = (norm_affine_clamp, dynamic_filter_pair, conv3x3_implicit_gemm,
-            conv3x3_pairlane)
+            conv3x3_pairlane, conv3x3_wgrad)
 
 
 def reset_launches() -> None:
@@ -44,6 +47,7 @@ def reset_launches() -> None:
         w.launches = 0
     conv3x3_implicit_gemm.launches_by_design = dict.fromkeys(
         conv3x3_implicit_gemm.launches_by_design, 0)
+    conv3x3_wgrad.launches_by_shape = {}
 
 
 def launch_counts() -> dict:

@@ -55,6 +55,8 @@ SIGNATURES = {
     # ks, grid, passes, stream
     "rr_conv3x3_c64": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _I, _I, _I, _P],
+    # x, g, dw, ws (or None), B, H, W, C, O, splits, passes, stream
+    "rr_conv3x3_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -117,16 +119,17 @@ def build() -> Path:
     return so
 
 
-def ptxas_report(source: str) -> dict:
+def ptxas_report(source: str, src_dir: Path = SRC_DIR) -> dict:
     """What ptxas says of each kernel of one source (``nvcc -Xptxas -v``):
     registers, spill stores and loads in bytes, and its performance notes
-    (such as wgmma serialization), by mangled entry name."""
-    obj = BUILD_DIR / f"report.{os.getpid()}.o"
+    (such as wgmma serialization), by mangled entry name.  `src_dir`: where
+    the source lies (an edited copy's directory, for a probe)."""
+    obj = BUILD_DIR / f"report.{os.getpid()}.{abs(hash(str(src_dir)))}.o"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     try:
         res = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c",
-             str(SRC_DIR / source), "-o", str(obj)],
+             str(Path(src_dir) / source), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     finally:
         obj.unlink(missing_ok=True)
@@ -179,7 +182,9 @@ def library() -> ctypes.CDLL:
 #: ``torch._disable_dynamo``, whose first call imports ``torch._dynamo``
 #: (1.76 s on a CPU host, measured; PERF.md section 6, PR 12), and routes
 #: each call through a Python autograd wrapper.  The ops have no autograd
-#: formula: the kernels are forward-only.
+#: formula of their own: where a gradient is needed, the wrapper of the
+#: fp32 conv goes through ``kernels.conv3x3.Conv3x3Fn``, whose backward
+#: calls the conv op again and the ``conv3x3_wgrad`` op.
 LIBRARY = torch.library.Library("rerevst", "DEF")
 
 

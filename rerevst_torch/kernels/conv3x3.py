@@ -42,18 +42,30 @@ shape (:func:`design` names it):
   x_hi w_hi + x_hi w_lo + x_lo w_hi (fp32-accurate, as the JAX package's
   HIGHEST and HIGH; design ``"tf32x3"``), or, where the implicit-GEMM
   wrapper is called with ``passes=1`` (the ``'default'`` precision), as
-  one pass x_hi w_hi with the weights rounded to TF32 (design
-  ``"tf32x1"``); its work split :func:`tf32x3_plan` computes here.  The
+  one pass x w with both rounded to nearest TF32 (design ``"tf32x1"``);
+  its work split :func:`tf32x3_plan` computes here.  The
   wrapper hands it a scratch tensor for the weights' K-major hi (and lo)
   planes, which the kernel writes first, and where C % 4 != 0 a copy of
   ``x`` padded with zero channels to a multiple of 4.
 
-No call reaches a cp.async + mma.sync kernel or the CUDA cores' FMAs.
+No forward call reaches a cp.async + mma.sync kernel or the CUDA cores'
+FMAs.
+
+The backward of the fp32 designs (``Conv3x3Fn``, which the implicit-GEMM
+wrapper takes where autograd needs a gradient): the input gradient is the
+same kernel on the output gradient with the weights rotated 180 degrees and
+C and O swapped, at the same ``passes``; the weight gradient is
+``conv3x3_wgrad``, ``csrc/conv3x3_wgrad.cu`` (mma.sync m16n8k8 TF32 with
+the same hi/lo split, K split over blocks and summed in a fixed order),
+whose work split :func:`wgrad_plan` computes here; the bias gradient is a
+sum.  It replaces no TPU kernel: it is the weight gradient JAX's autodiff
+makes of the XLA conv at HIGH or DEFAULT.
 
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
 takes the plain version.  Each wrapper reaches both through its
-``torch.library`` op, ``rerevst::conv3x3_implicit_gemm`` or
-``rerevst::conv3x3_pairlane``: the op's CUDA implementation launches the
+``torch.library`` op, ``rerevst::conv3x3_implicit_gemm``,
+``rerevst::conv3x3_pairlane`` or ``rerevst::conv3x3_wgrad``: the op's CUDA
+implementation launches the
 kernel, its CPU implementation is the plain version, and its fake
 implementation gives the output's shape alone, so that ``torch.export``
 captures the op as one node.
@@ -69,6 +81,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from rerevst_torch.kernels import _build
 from rerevst_torch.ops.precision import exact_products
@@ -549,10 +562,51 @@ def conv3x3_implicit_gemm(x: torch.Tensor, w: torch.Tensor,
                           passes: int = 3) -> torch.Tensor:
     """x: contiguous [B,H,W,C], any C; w: [3,3,C,O], any O; b: [O] or None.
     `passes`: the TF32 passes of an fp32 call on the card, 3
-    (fp32-accurate) or 1 (ignored by 16-bit calls)."""
+    (fp32-accurate) or 1 (ignored by 16-bit calls).
+
+    Where grad mode is on and an operand requires grad, the call goes
+    through :class:`Conv3x3Fn` (fp32 only); otherwise (``no_grad``,
+    ``inference_mode``, constants) straight to the op."""
     _validate("conv3x3_implicit_gemm", x, w, b, False, passes)
     _check_device("conv3x3_implicit_gemm", x)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, b)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"conv3x3_implicit_gemm: the backward takes "
+                            f"fp32 operands; got {x.dtype}")
+        return Conv3x3Fn.apply(x, w, b, passes)
     return torch.ops.rerevst.conv3x3_implicit_gemm(x, w, b, passes)
+
+
+class Conv3x3Fn(torch.autograd.Function):
+    """The fp32 SAME 3x3 conv with its backward on the hand-written
+    kernels, each gradient at the forward's `passes` and only where
+    ``needs_input_grad`` asks for it: dx the forward kernel on g with the
+    weights rotated 180 degrees and C and O swapped, dw ``conv3x3_wgrad``,
+    db the sum of g over the pixels (fp32).  Once differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, passes):
+        ctx.save_for_backward(x, w)
+        ctx.passes = passes
+        return torch.ops.rerevst.conv3x3_implicit_gemm(x, w, b, passes)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        need_x, need_w, need_b, _ = ctx.needs_input_grad
+        dx = dw = db = None
+        if need_x:
+            dx = torch.ops.rerevst.conv3x3_implicit_gemm(
+                g, w.flip(0, 1).transpose(2, 3).contiguous(), None,
+                ctx.passes)
+        if need_w:
+            dw = conv3x3_wgrad(x, g, ctx.passes)
+        if need_b:
+            db = g.sum((0, 1, 2))
+        return dx, dw, db, None
 
 
 def _check_device(name: str, x: torch.Tensor) -> None:
@@ -611,6 +665,160 @@ _build.define_op("conv3x3_pairlane(Tensor x, Tensor w, Tensor? b) -> Tensor",
                  _plain, _pairlane_cuda, _out_like)
 
 
+WGRAD_TW = 32  # csrc/conv3x3_wgrad.cu kTW: output pixels of a K tile
+#: Blocks per SM the weight-gradient plan aims its K split at (the kernel
+#: keeps three resident: about three waves), and the K tiles a split sums
+#: at least (where there are that many).
+WGRAD_BLOCKS_PER_SM = 8
+WGRAD_MIN_TILES = 4
+
+
+def wgrad_tile(c: int, o: int) -> tuple:
+    """The weight-gradient kernel's block tile (input channels, output
+    channels) for C and O (the launcher's dispatch): 64 x 8 where O <= 8,
+    else 16 x 64."""
+    return (64, 8) if o <= 8 else (16, 64)
+
+
+@dataclass(frozen=True)
+class WgradPlan:
+    """The weight-gradient kernel's work split: output tiles of ``bm``
+    input x ``bn`` output channels (all nine taps), each summed over the K
+    tiles (row segments of ``WGRAD_TW`` output pixels of one image, in
+    image, row, segment order) by ``splits`` blocks, split ``s`` taking the
+    contiguous run :meth:`split_tiles`."""
+
+    batch: int
+    height: int
+    width: int
+    c: int
+    o: int
+    bm: int
+    bn: int
+    splits: int
+
+    @property
+    def strips(self) -> int:
+        """K tiles in all."""
+        return self.batch * self.height * -(-self.width // WGRAD_TW)
+
+    @property
+    def tiles(self) -> int:
+        """Output tiles (the grid's x)."""
+        return -(-self.c // self.bm) * -(-self.o // self.bn)
+
+    def split_tiles(self, s: int) -> range:
+        return range(s * self.strips // self.splits,
+                     (s + 1) * self.strips // self.splits)
+
+    def tile(self, q: int):
+        """(image, output row, first output column) of K tile ``q``: the
+        kernel's order (segment fastest, then row, image)."""
+        segs = -(-self.width // WGRAD_TW)
+        r = q // segs
+        return r // self.height, r % self.height, (q % segs) * WGRAD_TW
+
+    @property
+    def k_split(self) -> int:
+        """The most pixels one block sums (zero-filled ones included)."""
+        return -(-self.strips // self.splits) * WGRAD_TW
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_plan(batch: int, height: int, width: int, c: int, o: int,
+               sms: int) -> WgradPlan:
+    """Block tile and K split of the weight gradient of a [batch, height,
+    width, c] -> o conv on a card with ``sms`` SMs: enough splits for about
+    ``WGRAD_BLOCKS_PER_SM`` blocks an SM over the output tiles, each split
+    summing ``WGRAD_MIN_TILES`` K tiles or more where there are enough."""
+    bm, bn = wgrad_tile(c, o)
+    plan = WgradPlan(batch, height, width, c, o, bm, bn, 1)
+    splits = min(-(-WGRAD_BLOCKS_PER_SM * sms // plan.tiles),
+                 plan.strips // WGRAD_MIN_TILES, 65535)
+    return dataclasses.replace(plan, splits=max(1, splits))
+
+
+def _validate_wgrad(x: torch.Tensor, g: torch.Tensor, passes: int) -> None:
+    name = "conv3x3_wgrad"
+    if passes not in (1, 3):
+        raise ValueError(f"{name}: passes must be 1 or 3; got {passes!r}")
+    for what, t in (("x", x), ("g", g)):
+        if t.dtype != torch.float32 or t.dim() != 4 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a contiguous fp32 "
+                             f"NHWC tensor; got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if tuple(g.shape[:3]) != tuple(x.shape[:3]) or g.device != x.device:
+        raise ValueError(f"{name}: g must be [B,H,W,O] on x's device with "
+                         f"x's [B,H,W] {tuple(x.shape[:3])}; got "
+                         f"{tuple(g.shape)} on {g.device}")
+
+
+def _wgrad_plain(x: torch.Tensor, g: torch.Tensor,
+                 passes: int = 3) -> torch.Tensor:
+    # Exact fp32 whatever `passes` says, as _plain.
+    c, o = x.shape[-1], g.shape[-1]
+    with exact_products(x):
+        dw = torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2), (o, c, 3, 3),
+                                         g.permute(0, 3, 1, 2), padding=1)
+    return dw.permute(2, 3, 1, 0).contiguous()
+
+
+def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor,
+                        passes: int = 3) -> torch.Tensor:
+    """The plain PyTorch version: ``torch.nn.grad.conv2d_weight`` in exact
+    fp32 (no TF32), laid out HWIO, for either pass count."""
+    _validate_wgrad(x, g, passes)
+    return _wgrad_plain(x, g)
+
+
+def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor,
+                  passes: int = 3) -> torch.Tensor:
+    """The weight gradient of a SAME 3x3 conv of x: dw[ky,kx,c,o] =
+    sum over the pixels of x_pad[n,h+ky,w+kx,c] g[n,h,w,o]; x contiguous
+    fp32 [B,H,W,C], g contiguous fp32 [B,H,W,O] (the output's gradient) ->
+    fp32 [3,3,C,O].  `passes`: the TF32 passes on the card, 3
+    (fp32-accurate) or 1."""
+    _validate_wgrad(x, g, passes)
+    _check_device("conv3x3_wgrad", x)
+    return torch.ops.rerevst.conv3x3_wgrad(x, g, passes)
+
+
+def _wgrad_cuda(x, g, passes=3):
+    _validate_wgrad(x, g, passes)
+    bb, h, wd, c = x.shape
+    o = g.shape[-1]
+    dw = torch.empty((3, 3, c, o), dtype=torch.float32, device=x.device)
+    if dw.numel() == 0 or x.numel() == 0:
+        return dw.zero_()  # no pixels: nothing to launch
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = wgrad_plan(bb, h, wd, c, o, sms)
+    ws = (torch.empty(plan.splits * 9 * c * o, dtype=torch.float32,
+                      device=x.device) if plan.splits > 1 else None)
+    err = _build.library().rr_conv3x3_wgrad(
+        x.data_ptr(), g.data_ptr(), dw.data_ptr(),
+        None if ws is None else ws.data_ptr(), bb, h, wd, c, o, plan.splits,
+        passes, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "conv3x3_wgrad")
+    with _build.COUNT_LOCK:
+        conv3x3_wgrad.launches += 1
+        key = (bb, h, wd, c, o)
+        conv3x3_wgrad.launches_by_shape[key] = \
+            conv3x3_wgrad.launches_by_shape.get(key, 0) + 1
+    return dw
+
+
+def _wgrad_like(x: torch.Tensor, g: torch.Tensor,
+                passes: int = 3) -> torch.Tensor:
+    """The weight gradient's [3,3,C,O] fp32, uninitialized (the op's
+    fake)."""
+    return x.new_empty((3, 3, x.shape[-1], g.shape[-1]))
+
+
+_build.define_op("conv3x3_wgrad(Tensor x, Tensor g, int passes=3) -> Tensor",
+                 _wgrad_plain, _wgrad_cuda, _wgrad_like)
+
+
 #: The kernel designs of csrc/conv3x3.cu, as :func:`design` names them.
 DESIGNS = ("streamed", "wide", "narrow", "sliced", "tf32x3", "tf32x1")
 
@@ -619,3 +827,6 @@ DESIGNS = ("streamed", "wide", "narrow", "sliced", "tf32x3", "tf32x1")
 conv3x3_implicit_gemm.launches = 0
 conv3x3_implicit_gemm.launches_by_design = dict.fromkeys(DESIGNS, 0)
 conv3x3_pairlane.launches = 0
+#: The weight-gradient kernel's launches, also by (B, H, W, C, O).
+conv3x3_wgrad.launches = 0
+conv3x3_wgrad.launches_by_shape = {}

@@ -9,7 +9,9 @@ layout.  Weights are HWIO at the API, as in the JAX package.
 The convs take a ``precision`` level (``ops/precision.py``), as the JAX
 package's take a ``lax.Precision``: on the card the fp32 3x3 SAME convs at
 'high' and 'default' run the ``conv3x3_implicit_gemm`` kernel (three or one
-TF32 passes), and every other product is the library's, exact in fp32.
+TF32 passes), forward and, under autograd, backward (its input gradient on
+the same kernel, its weight gradient on ``conv3x3_wgrad``), and every other
+product is the library's, exact in fp32.
 ``None`` is 'highest'.  ``linear`` and the dynamic filters are exact in
 fp32 at every level, so they take none.
 
@@ -111,9 +113,10 @@ def conv2d(p, x: torch.Tensor, stride: int = 1, padding: int = 0,
     A 3x3 SAME conv (stride 1, padding 1) of fp32 operands at `precision`
     'high' or 'default' runs the ``conv3x3_implicit_gemm`` op: on the card
     its kernel with three or one TF32 passes, on the CPU its plain version.
-    The kernel has no backward, so such a call raises where autograd would
-    need one (the train step runs 'highest').  Every other conv is the
-    library's, exact in fp32.
+    Where autograd needs a gradient the call goes through
+    ``kernels.conv3x3.Conv3x3Fn``, whose backward runs the hand-written
+    kernels at the same passes (under ``no_grad`` and ``inference_mode``
+    the op alone).  Every other conv is the library's, exact in fp32.
 
     On an H shard of Pass 2 (``ops/halo.py``) the H padding of a conv taller
     than one row comes from the neighbouring shards' rows instead of
@@ -122,12 +125,6 @@ def conv2d(p, x: torch.Tensor, stride: int = 1, padding: int = 0,
               and tuple(p["w"].shape[:2]) == (3, 3) else 0)
     if passes:
         wk, bk = weights_as(p, x.dtype)
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad for t in (x, wk, bk)):
-            raise RuntimeError(
-                f"conv2d at precision {precision!r} runs the "
-                f"conv3x3_implicit_gemm kernel, which has no backward; "
-                f"differentiate at precision 'highest'")
         return halo.same_conv(
             lambda v: conv3x3_implicit_gemm(v.contiguous(), wk.contiguous(),
                                             None if bk is None

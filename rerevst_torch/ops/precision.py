@@ -12,6 +12,11 @@ levels, as the JAX package's ``lax.Precision`` does
 * ``'default'``: the fp32 3x3 SAME convs as one TF32 pass (the same kernel
   with ``passes=1``); every other fp32 product exact, as at ``'high'``.
 
+The levels hold in training as in inference: under autograd the kernel's
+backward runs at the same level (its input gradient on the same kernel,
+its weight gradient on ``conv3x3_wgrad``, three or one TF32 passes), and
+the library's products, their gradients included, stay exact.
+
 On 16-bit operands every level is the card's native 16-bit product, and on
 the CPU every level computes exact fp32.
 

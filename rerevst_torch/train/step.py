@@ -7,13 +7,17 @@ included; one backward pass gives the gradients of the trainable leaves, and
 from the card: its metrics come back as device tensors.
 
 Training runs the per-frame graph (``transformer.decode``) and the VGG
-networks in plain PyTorch under autograd.  The port's CUDA kernels have no
-backward, so no training path calls them: ``TrainConfig`` refuses
-``pairlane``, the step never runs ``decode_global``, and its products are
-exact (``exact_products``, forward and backward): the model config's
-``precision`` and ``mix_precision`` run as 'highest' (``train_model_cfg``),
-where the JAX package trains at the levels they name; its ``fp32_mix``
-region stays.
+networks under autograd at the levels the model config names, as the JAX
+package does: at 'high' and 'default' the fp32 3x3 SAME convs run the
+``conv3x3_implicit_gemm`` kernel forward and backward
+(``kernels.conv3x3.Conv3x3Fn``: the input gradient on the same kernel, the
+weight gradient on ``conv3x3_wgrad``), every other product the library's,
+exact (``exact_products``, held around forward and backward: the hand-
+written kernels read no TF32 flag).  The relaxed loss's VGG runs exact at
+every level, as JAX's pins it to HIGHEST.  ``TrainConfig`` refuses
+``pairlane`` (that kernel has no backward) and the step never runs
+``decode_global``, so the normalization and filter kernels stay off the
+train path.
 
 ``extra`` carries what the loader gives beside ``Content`` and ``Style``:
 the Figure-16 ablation pairs (``NextContent`` with ``BackwardFlow`` and
@@ -32,7 +36,6 @@ the averaged gradients, as DDP does, so the replicas stay identical.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -73,14 +76,6 @@ _ABLATIONS = (("BackwardFlow", "BackwardMask", temporal_loss_mpi),
               ("ForwardFlow", "ForwardMask", temporal_loss_video))
 
 
-def train_model_cfg(mcfg):
-    """The model config a train step runs: every product exact
-    ('highest'), since the ``conv3x3_implicit_gemm`` kernel that 'high' and
-    'default' run on fp32 convs has no backward."""
-    return dataclasses.replace(mcfg, precision="highest",
-                               mix_precision="highest")
-
-
 @exact_products_fn
 def compute_losses(params: Dict, content: torch.Tensor, style: torch.Tensor,
                    gen: Optional[torch.Generator], cfg: TrainConfig,
@@ -94,7 +89,7 @@ def compute_losses(params: Dict, content: torch.Tensor, style: torch.Tensor,
     frame through the per-frame graph.  ``extra={'Second', 'FakeFlow'}``
     injects the fake pair in place of drawing it from `gen`; an ablation
     pair in `extra` (see the module's docstring) replaces the fake pair."""
-    mcfg, lcfg = train_model_cfg(cfg.model), cfg.loss
+    mcfg, lcfg = cfg.model, cfg.loss
     prec = precision_for(mcfg.dtype, mcfg.precision)
     ablation = None if extra is None else next(
         (a for a in _ABLATIONS if a[0] in extra), None)

@@ -3,7 +3,7 @@
 16-frame batch of 640^2, for the ``rerevst_torch`` package under a given
 root — one side of an A/B of two trees' conv kernels in one call.
 
-    python3 scripts/conv_ab.py --root ROOT [--label NAME]
+    python3 scripts/conv_ab.py --root ROOT [--label NAME] [--wgrad]
 
 ROOT holds the ``rerevst_torch`` to measure (this repository, or an unpacked
 ``git archive`` of another commit); its kernels build from its own sources.
@@ -17,7 +17,9 @@ streamed kernel; conv2_2 [16,320,320,128]->128, conv3_1
 their `down` [16,80,80,512] -> 32), then the grid of C % 64 = 0 with O <=
 64 that decides between the sliced and the wide designs (C = 128, 256, 512
 at the relu2_1, relu3_1 and relu4_1 scales 320^2, 160^2, 80^2, x O = 3,
-16, 32, 64), and row 3j, fp32 [16,640,640,64] -> 64.  Inputs are seeded
+16, 32, 64), and rows 3j and 3k, fp32 [16,640,640,64] -> 64 at three and
+one TF32 pass (the fp32 rows also report the mean signed error, sum (y -
+y_ref) sign(y_ref) over sum |y_ref|).  Inputs are seeded
 randoms made on the card; each call is checked once against ``F.conv2d``
 in fp32 with TF32 off (max |diff| reported), then timed with CUDA events
 over 20 calls (5 in fp32) queued behind a sleep kernel, after 3 warm-up
@@ -25,6 +27,13 @@ calls.  Prints one JSON line with the card's name and power limit and the
 design each call took (where the tree's wrapper names it).  Run the two
 trees in turns (A, B, B, A) in one call: the card and its host differ from
 call to call.
+
+With ``--wgrad``, ``conv3x3_wgrad`` instead (a tree that has it): one
+``TrainConfig()`` step at precision 'high' on the card (seeded random
+parameters and images) gives the (B, H, W, C, O) it launches the kernel at
+and how often (``wgrad_shapes``); each shape is checked once against the
+tree's plain version and timed at three and one pass (5 calls after one
+warm-up), and the line adds the sums over one step's launches.
 """
 
 from __future__ import annotations
@@ -51,7 +60,8 @@ SHAPES = [("bench 64->64", (16, 640, 640, 64), 64, F16),
     + [(f"C = {c} -> {o}", (16, hw, hw, c), o, F16)
        for c, hw in ((128, 320), (256, 160), (512, 80))
        for o in (3, 16, 32, 64) if (c, o) != (512, 32)] \
-    + [("fp32 C = 64", (16, 640, 640, 64), 64, F32)]
+    + [("fp32 C = 64", (16, 640, 640, 64), 64, F32),
+       ("fp32 C = 64, one pass", (16, 640, 640, 64), 64, F32, 1)]
 
 
 def device_ms(torch, fn, iters=20, warmup=3) -> float:
@@ -81,10 +91,77 @@ def device_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def wgrad_shapes(torch) -> dict:
+    """{(B, H, W, C, O): launches} of ``conv3x3_wgrad`` over one
+    ``TrainConfig()`` step at precision 'high' on the card, from seeded
+    random parameters and images (the shapes follow from the config
+    alone)."""
+    import dataclasses
+
+    from rerevst_torch import kernels
+    from rerevst_torch.config import TrainConfig
+    from rerevst_torch.kernels import conv3x3_wgrad
+    from rerevst_torch.models.transformer import init_transformer_params
+    from rerevst_torch.train.state import init_train_state
+    from rerevst_torch.train.step import make_train_step
+
+    base = TrainConfig()
+    cfg = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, precision="high"))
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.detach().to("cuda", copy=True)
+
+    params = to_card(init_transformer_params(
+        torch.Generator().manual_seed(cfg.seed), cfg.model,
+        with_loss_net=True, vgg_scheme="he_relu"))
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    shape = (cfg.batch_size, cfg.fine_size, cfg.fine_size, 3)
+    content, style = (torch.randn(shape, generator=gen, device="cuda")
+                      for _ in range(2))
+    kernels.reset_launches()
+    make_train_step(cfg)(init_train_state(params, cfg), content, style, gen)
+    torch.cuda.synchronize()
+    return dict(conv3x3_wgrad.launches_by_shape)
+
+
+def time_wgrad(torch) -> dict:
+    """``conv3x3_wgrad`` at every shape of ``wgrad_shapes``, at three and
+    one pass: its max |diff| from the plain version and its ms, and the
+    sums over one step's launches."""
+    from rerevst_torch.kernels import conv3x3_wgrad, conv3x3_wgrad_plain
+
+    shapes = wgrad_shapes(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    rows, step = [], {3: 0.0, 1: 0.0}
+    for (b, h, w, c, o), n in sorted(shapes.items()):
+        x = torch.randn((b, h, w, c), generator=gen, device="cuda")
+        g = torch.randn((b, h, w, o), generator=gen, device="cuda")
+        want = conv3x3_wgrad_plain(x, g)
+        row = {"shape": [b, h, w, c], "O": o, "launches": n,
+               "max_abs_diff_vs_plain": float(
+                   (conv3x3_wgrad(x, g, 3) - want).abs().max())}
+        for passes in (3, 1):
+            row[f"ms_{passes}"] = device_ms(
+                torch, lambda: conv3x3_wgrad(x, g, passes), iters=5,
+                warmup=1)
+            step[passes] += n * row[f"ms_{passes}"]
+        rows.append(row)
+        del x, g, want
+        torch.cuda.empty_cache()
+    return {"wgrad": rows, "ms_per_step_3": step[3],
+            "ms_per_step_1": step[1]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
     ap.add_argument("--label", default=None)
+    ap.add_argument("--wgrad", action="store_true",
+                    help="time conv3x3_wgrad at a 'high' step's shapes")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -102,36 +179,44 @@ def main() -> int:
         print(f"conv_ab: imported rerevst_torch from "
               f"{rerevst_torch.__file__}, not {root}", file=sys.stderr)
         return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    if args.wgrad:
+        print(json.dumps({"label": args.label or str(root),
+                          **time_wgrad(torch), "card": smi}), flush=True)
+        return 0
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
     rows = {}
-    for site, shape, o, dt in SHAPES:
+    for site, shape, o, dt, *passes in SHAPES:
+        passes = passes[0] if passes else 3
         dtype = getattr(torch, dt)
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         w = (torch.randn((3, 3, shape[-1], o), generator=gen, device="cuda")
              / (3 * shape[-1] ** 0.5)).to(dtype)
         b = torch.randn(o, generator=gen, device="cuda").to(dtype)
-        got = conv3x3_implicit_gemm(x, w, b).float()
+        got = conv3x3_implicit_gemm(x, w, b, passes).float()
         want = F.conv2d(x.float().permute(0, 3, 1, 2),
                         w.float().permute(3, 2, 0, 1), b.float(),
                         padding=1).permute(0, 2, 3, 1)
         err = (got - want).abs().max().item()
+        signed = float(((got - want) * want.sign()).sum()
+                       / want.abs().sum())
         del got, want
         iters = 5 if dt == F32 else 20
-        rows[site] = {"ms": device_ms(torch,
-                                      lambda: conv3x3_implicit_gemm(x, w, b),
-                                      iters=iters),
-                      "max_abs_diff_vs_fp32": err, "dtype": dt}
+        rows[site] = {"ms": device_ms(
+            torch, lambda: conv3x3_implicit_gemm(x, w, b, passes),
+            iters=iters), "max_abs_diff_vs_fp32": err, "dtype": dt}
+        if dt == F32:
+            rows[site]["mean_signed_err_vs_fp32"] = signed
         try:
             rows[site]["design"] = design(shape[-1], dtype, o)
         except TypeError:  # a tree whose design() takes no O
             rows[site]["design"] = design(shape[-1], dtype)
         del x, w, b
         torch.cuda.empty_cache()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
     print(json.dumps({"label": args.label or str(root), "convs": rows,
                       "card": smi}), flush=True)
     return 0

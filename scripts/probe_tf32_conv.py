@@ -30,8 +30,8 @@ PERF.md section 6):
    ``no_b_load`` (the producer skips the box of x, or the six weight
    boxes, of every stage: what staging each costs) and ``no_store`` (the
    epilogue skipped);
-4. ``one_pass``: the kernel's own one-pass instance (``passes`` = 1, x_hi
-   w_hi alone, the 'default' precision) through ``rr_conv3x3`` directly:
+4. ``one_pass``: the kernel's own one-pass instance (``passes`` = 1, x w
+   with both rounded, the 'default' precision) through ``rr_conv3x3`` directly:
    what two more passes cost.
 
 Prints the card's name and power limit and one JSON line; the same lands in
@@ -140,13 +140,17 @@ __device__ __forceinline__ void tf32x3_tap(float (&acc)[2][N / 2],
 
 // xmap: x as [B][H][W][Cp] fp32'''
 
-SS_STAGE = '''      if constexpr (NP == 3) {
-        const uint4* xv = reinterpret_cast<const uint4*>(base + (a - ring));
+SS_STAGE = '''      {
+        uint4* xv = reinterpret_cast<uint4*>(base + (a - ring));
         uint4* lv = reinterpret_cast<uint4*>(base + (a - ring) + a_slot);
         for (int i = tid; i < box_bytes / 16; i += kConsumerThreads) {
           const uint4 v = xv[i];
-          lv[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
-                             tf32_lo(v.w));
+          if constexpr (NP == 3)
+            lv[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
+                               tf32_lo(v.w));
+          else
+            xv[i] = make_uint4(tf32_round_x(v.x), tf32_round_x(v.y),
+                               tf32_round_x(v.z), tf32_round_x(v.w));
         }
         fence_async_shared();  // the generic writes, before wgmma reads them
         bar_sync_consumers();
@@ -154,13 +158,15 @@ SS_STAGE = '''      if constexpr (NP == 3) {
       const uint64_t da = wgmma_desc<P::kS>(a + wg * 128 * P::kS);
       const uint64_t db = wgmma_desc<P::kS>(a + P::kABoxes * a_slot);
       fence_regs(acc);
+      if constexpr (NP == 3) fence_regs(cor);
       wgmma_fence();
-      tf32x3_stage<N, KS, NP>(acc, da, db, drow, dlo);
+      tf32x3_stage<N, KS, NP>(acc, cor, da, db, drow, dlo);
       wgmma_commit();
       if (k > 0) {
         // The previous stage's group is done: it may be refilled.
         wgmma_wait<1>();
         fence_regs(acc);
+        if constexpr (NP == 3) fence_regs(cor);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + 8 * prev);
       }
@@ -177,7 +183,7 @@ RS_STAGE = '''      const uint64_t db = wgmma_desc<P::kS>(a + a_slot);
       if (k == ksteps - 1) fence_async_shared();  // before the last release
 '''
 
-RS_DECLS = '''  float acc[2][N / 2];
+RS_DECLS = '''  float acc[2][N / 2], cor[2][N / 2];
   uint32_t xh[3][KS / 8][2][4], xl[3][KS / 8][2][4];
   const int lrow = 128 * wg + ((tid >> 5) & 3) * 16 + (lane & 7) +
                    8 * ((lane >> 3) & 1);
@@ -196,13 +202,13 @@ PRODUCER = '''          tma_load_4d(a, &xmap, full + 8 * s, sl * KS, u.x0 + dx -
 WGMMAS = '''        wgmma_ss<float, N>(acc[m], ah, bh, 1);
         if constexpr (NP == 3) {
           const uint64_t bl = bh + 3 * (P::kBBox / 16);
-          wgmma_ss<float, N>(acc[m], ah, bl, 1);
-          wgmma_ss<float, N>(acc[m], ah + dlo, bh, 1);
+          wgmma_ss<float, N>(cor[m], ah, bl, 1);
+          wgmma_ss<float, N>(cor[m], ah + dlo, bh, 1);
         }
 '''
 
-SPLIT = '''          lv[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
-                             tf32_lo(v.w));
+SPLIT = '''            lv[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
+                               tf32_lo(v.w));
 '''
 
 #: name -> [(old, new), ...]: edits of csrc/conv3x3.cu.
@@ -211,10 +217,10 @@ VARIANTS = {
         ("\n// xmap: x as [B][H][W][Cp] fp32", RS_TAP),
         ("  static constexpr int kABoxes = P == 3 ? 2 : 1;   // x (and its lo)",
          "  static constexpr int kABoxes = 1;  // x; its lo stays in registers"),
-        ("  float acc[2][N / 2];\n", RS_DECLS),
+        ("  float acc[2][N / 2], cor[2][N / 2];\n", RS_DECLS),
         (SS_STAGE, RS_STAGE),
     ],
-    "no_split": [(SPLIT, "          (void)v;\n")],
+    "no_split": [(SPLIT, "            (void)v;\n")],
     "loads_only": [(WGMMAS, "")],
     "no_a_load": [
         ("      const uint32_t tx = box_bytes + P::kBTx;",

@@ -111,7 +111,9 @@ def test_uploads_fetches_and_geometry(session):
     assert kernels.launch_counts() == {"norm_affine_clamp": 0,
                                        "dynamic_filter_pair": 0,
                                        "conv3x3_implicit_gemm": 0,
-                                       "conv3x3_pairlane": 0}
+                                       "conv3x3_pairlane": 0,
+
+                                       "conv3x3_wgrad": 0}
 
 
 def test_first_frame_locks_geometry(session):

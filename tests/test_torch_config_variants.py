@@ -204,13 +204,14 @@ def test_fp32_mix_inactive_in_fp32_sessions(data):
 
 
 class _CountConvs(TorchDispatchMode):
-    """Counts ``rerevst::conv3x3_implicit_gemm`` calls by ``passes``, and
-    the library's 3x3 SAME convs (stride 1, padding 1, no groups) that ran
-    outside it."""
+    """Counts ``rerevst::conv3x3_implicit_gemm`` calls by ``passes``,
+    ``rerevst::conv3x3_wgrad`` calls, and the library's 3x3 SAME convs
+    (stride 1, padding 1, no groups) that ran outside them."""
 
     def __init__(self):
         super().__init__()
         self.op = collections.Counter()
+        self.wgrad = 0
         self.library_3x3 = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -218,6 +219,8 @@ class _CountConvs(TorchDispatchMode):
         if func is torch.ops.rerevst.conv3x3_implicit_gemm.default:
             self.op[args[3] if len(args) > 3 else kwargs.get("passes", 3)] \
                 += 1
+        elif func is torch.ops.rerevst.conv3x3_wgrad.default:
+            self.wgrad += 1
         elif func in (torch.ops.aten.conv2d.default,
                       torch.ops.aten.convolution.default):
             # conv2d(x, w, b, stride, padding, dilation, groups) under
@@ -306,15 +309,26 @@ def test_precision_route_by_passes(prec_runs, graph):
         assert dict(c.op) == {passes: sites} and c.library_3x3 == 0
 
 
-def test_kernel_route_refuses_autograd():
-    """The kernel has no backward: a 'high' fp32 conv on a tensor that
-    needs a gradient raises rather than lose it."""
-    p = {"w": torch.randn(3, 3, 4, 5), "b": torch.zeros(5)}
+def test_kernel_route_differentiates():
+    """A 'high' fp32 conv on a tensor that needs a gradient differentiates
+    through the kernel route (``Conv3x3Fn``: its input gradient on the conv
+    op, its weight gradient on the wgrad op), with the gradients of the
+    library's exact conv; under ``no_grad`` it is the op alone."""
+    p = {"w": torch.randn(3, 3, 4, 5, requires_grad=True),
+         "b": torch.zeros(5, requires_grad=True)}
     x = torch.randn(1, 6, 7, 4, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        L.conv2d(p, x, padding=1, precision="high")
+    g = torch.randn(1, 6, 7, 5)
+    with _CountConvs() as c:
+        y = L.conv2d(p, x, padding=1, precision="high")
+        got = torch.autograd.grad(y, (x, p["w"], p["b"]), g)
+    assert dict(c.op) == {3: 2} and c.wgrad == 1 and c.library_3x3 == 0
+    want = torch.autograd.grad(L.conv2d(p, x, padding=1),
+                               (x, p["w"], p["b"]), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     with torch.no_grad():
         y = L.conv2d(p, x, padding=1, precision="high")
+    assert y.grad_fn is None
     torch.testing.assert_close(y, L.conv2d(p, x.detach(), padding=1),
                                rtol=1e-5, atol=1e-5)
 
@@ -508,9 +522,11 @@ def test_aot_bundles_refuse_another_fp32_mix(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_train_step_at_high_precision_matches_jax(data):
-    """One step's losses and gradients at ``precision='high'``: the port
-    trains with exact products (its kernel has no backward), the JAX
-    package at HIGH, which the CPU computes exactly."""
+    """One step's losses and gradients at ``precision='high'``, both
+    packages at HIGH (which the CPU computes exactly): the port's step
+    reaches the conv op with three passes, forward and for the input
+    gradients, and the wgrad op for the weight gradients, and its relaxed
+    loss runs the library's exact convs, as JAX pins it to HIGHEST."""
     jp = jax.tree.map(np.array, data["jp"])
     jp["vgg_loss"] = jax.tree.map(np.asarray, jV.init_vgg_params(
         jax.random.PRNGKey(0), scheme="he_relu"))
@@ -538,10 +554,13 @@ def test_train_step_at_high_precision_matches_jax(data):
                       loss=LossConfig(**lcfg))
     state = init_train_state(from_jax_params(jax.tree.map(np.array, jp),
                                              device="cpu"), cfg)
-    total, (metrics, _) = compute_losses(
-        state.params, torch.from_numpy(content), torch.from_numpy(style),
-        None, cfg, {k: torch.from_numpy(np.array(v))
-                    for k, v in extra.items()})
+    with _CountConvs() as fwd:
+        total, (metrics, _) = compute_losses(
+            state.params, torch.from_numpy(content), torch.from_numpy(style),
+            None, cfg, {k: torch.from_numpy(np.array(v))
+                        for k, v in extra.items()})
+    assert set(fwd.op) == {3} and fwd.op[3] > 0 and fwd.wgrad == 0
+    assert fwd.library_3x3 > 0  # the relaxed loss's VGG, exact
     for k, v in jmetrics.items():
         got = float(metrics[k].detach())
         rel = abs(got - float(v)) / max(abs(float(v)), 1e-12)
@@ -550,7 +569,9 @@ def test_train_step_at_high_precision_matches_jax(data):
              ("encoder", "conv4_1", "w")]
     leaves = dict(((k,) + p, leaf) for k in state.params
                   for p, leaf in tree_leaves(state.params[k]))
-    grads = torch.autograd.grad(total, [leaves[s] for s in sites])
+    with _CountConvs() as bwd:
+        grads = torch.autograd.grad(total, [leaves[s] for s in sites])
+    assert set(bwd.op) == {3} and bwd.op[3] > 0 and bwd.wgrad > 0
     for site, g in zip(sites, grads):
         want = jgrads
         for k in site:

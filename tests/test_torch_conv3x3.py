@@ -126,7 +126,7 @@ def test_cpu_tensors_launch_nothing(rng):
     assert all(v == 0 for v in kernels.launch_counts().values())
     assert set(kernels.launch_counts()) == {
         "norm_affine_clamp", "dynamic_filter_pair", "conv3x3_implicit_gemm",
-        "conv3x3_pairlane"}
+        "conv3x3_pairlane", "conv3x3_wgrad"}
 
 
 def test_pairlane_rejects(rng):

@@ -937,6 +937,17 @@ def tf32_round_w(w):
     return _floats(np.where(a >= 0x7F7FF000, v & MASK, tf32_rna(v)))
 
 
+def tf32_round_x(x):
+    """csrc/conv3x3.cu tf32_round_x: an input's one-pass TF32 value, rna
+    (truncated where that would overflow, inf kept, NaN as 0x7fffe000), as
+    floats."""
+    v = _bits(x)
+    a = v & np.uint32(0x7FFFFFFF)
+    return _floats(np.where(a > 0x7F800000, np.uint32(0x7FFFE000),
+                            np.where(a >= 0x7F7FF000, v & MASK,
+                                     tf32_rna(v))))
+
+
 def _rna_reference(v):
     """fp32 values rounded to 11 significant bits, ties away from zero,
     by arithmetic in float64 (normal values)."""
@@ -1041,10 +1052,12 @@ def _emulate_tf32x3(x, w, b, plan, passes=3):
     lo; zero past C); for each tile, stages k = slice 3 + dx, whose box
     (channels KS slice .., zero outside the image and past Cp) is x_hi as
     the tensor cores read it (truncated to TF32) beside its lo box; tap dy
-    adds x_hi B_hi + x_hi B_lo + x_lo B_hi, B_p = ws[p][3 dy + dx] rows n0 ..
-    n0 + N - 1 (zero past O), columns of the slice.  The sums start from
-    the bias; each output inside y is stored once.  One pass (`passes` 1)
-    adds x_hi B alone, B = the weights rounded to TF32 (the split kernel's
+    adds x_hi B_hi to the sums, which start from the bias, and x_hi B_lo +
+    x_lo B_hi to the corrections, which start from 0, B_p = ws[p][3 dy +
+    dx] rows n0 .. n0 + N - 1 (zero past O), columns of the slice; the two
+    are added once a tile, and each output inside y is stored once.  One
+    pass (`passes` 1) adds x B alone, the box rounded in place
+    (tf32_round_x) and B the weights rounded to TF32 (the split kernel's
     one plane)."""
     bsz, h, wd, c = x.shape
     o = w.shape[-1]
@@ -1065,6 +1078,7 @@ def _emulate_tf32x3(x, w, b, plan, passes=3):
         for t in plan.block_tiles(bx):
             bi, y0, x0, n0 = plan.tile(t)
             acc = np.tile(bk[n0:n0 + n], (plan.m, 1))
+            cor = np.zeros_like(acc)
             for k in range(3 * plan.slices):
                 sl, dx = divmod(k, 3)
                 cs = sl * ks
@@ -1078,6 +1092,8 @@ def _emulate_tf32x3(x, w, b, plan, passes=3):
                         xp[bi, ylo:yhi, xlo:xhi, cs:chi]
                 bits = _bits(box.reshape((rows + 2) * cols, ks))
                 ahi, alo = _floats(bits & MASK), _floats(tf32_lo(bits))
+                if passes == 1:
+                    ahi = tf32_round_x(_floats(bits))
                 for dy in range(3):
                     bt = np.zeros((2, ks, n), np.float32)
                     nhi = min(n0 + n, o)
@@ -1086,9 +1102,9 @@ def _emulate_tf32x3(x, w, b, plan, passes=3):
                     rr = slice(dy * cols, dy * cols + plan.m)
                     acc += ahi[rr] @ bt[0]
                     if passes == 3:
-                        acc += ahi[rr] @ bt[1]
-                        acc += alo[rr] @ bt[0]
-            out = acc.reshape(rows, cols, n)
+                        cor += ahi[rr] @ bt[1]
+                        cor += alo[rr] @ bt[0]
+            out = (acc + cor).reshape(rows, cols, n)
             nh, nw, nc = min(rows, h - y0), min(cols, wd - x0), \
                 min(n, o - n0)
             assert np.isnan(y[bi, y0:y0 + nh, x0:x0 + nw, n0:n0 + nc]).all()
@@ -1117,10 +1133,10 @@ def test_tf32x3_k_loop_matches_plain(c, o):
 
 @pytest.mark.parametrize("c,o", [(3, 64), (8, 16), (64, 64), (100, 192)])
 def test_tf32x1_k_loop_matches_plain(c, o):
-    """One TF32 pass (the 'default' precision): within (2^-9 + 9C 2^-22)
-    sum|x||w| (+|b|) of the plain fp32 conv, x truncated to TF32 (< 2^-10
-    of |x|) times w rounded (<= 2^-11 of |w|); and farther from it than
-    three passes."""
+    """One TF32 pass (the 'default' precision): within (2^-10 + 2^-22 + 9C
+    2^-22) sum|x||w| (+|b|) of the plain fp32 conv, x and w rounded to
+    nearest TF32 (each <= 2^-11 of it); and farther from it than three
+    passes."""
     x, w, b = _sliced_case(c, o, (2, 19, 21), seed=12)
     plan = dataclasses.replace(tf32x3_plan(2, 19, 21, c, o, H100_SMS),
                                grid=3)
@@ -1130,7 +1146,7 @@ def test_tf32x1_k_loop_matches_plain(c, o):
     want = conv3x3_implicit_gemm_plain(*tt).numpy()
     scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
     assert np.isfinite(one).all()
-    assert (np.abs(one - want) <= (2.0 ** -9 + 9 * c * 2.0 ** -22)
+    assert (np.abs(one - want) <= (2.0 ** -10 + (9 * c + 1) * 2.0 ** -22)
             * scale).all()
     assert np.abs(one - want).max() > np.abs(three - want).max()
 
@@ -1149,6 +1165,24 @@ def test_tf32_round_w_bits():
                                      -FLT_MAX], np.float32))
     assert np.isinf(special[:2]).all() and np.isnan(special[2])
     assert np.isfinite(special[3:]).all()
+
+
+def test_tf32_round_x_bits():
+    """The one-pass inputs, rounded in the box: rna to 11 significant bits
+    (ties away), within 2^-11 of |x|, truncated near FLT_MAX, inf kept,
+    every NaN (a payload in the low 13 bits too) kept a NaN."""
+    rng = np.random.default_rng(14)
+    v = (rng.standard_normal(20000) * np.exp(rng.uniform(-30, 30, 20000))
+         ).astype(np.float32)
+    r = tf32_round_x(v)
+    assert (r == _rna_reference(v)).all()
+    assert (np.abs(r.astype(np.float64) - v) <= 2.0 ** -11 * np.abs(v)).all()
+    nans = _floats(np.array([0x7F800001, 0xFF801000, 0x7FC00000],
+                            np.uint32))
+    special = tf32_round_x(np.concatenate([np.array(
+        [np.inf, -np.inf, FLT_MAX, -FLT_MAX], np.float32), nans]))
+    assert np.isinf(special[:2]).all() and np.isfinite(special[2:4]).all()
+    assert np.isnan(special[4:]).all()
 
 
 def test_tf32x3_matches_the_pallas_kernel():

@@ -34,6 +34,8 @@ from rerevst_torch.kernels import (
     conv3x3_implicit_gemm_plain,
     conv3x3_pairlane,
     conv3x3_pairlane_plain,
+    conv3x3_wgrad,
+    conv3x3_wgrad_plain,
     dynamic_filter_pair,
     dynamic_filter_pair_plain,
     norm_affine_clamp,
@@ -181,13 +183,13 @@ def test_wrappers_refuse_on_card(rng, cuda):
 
 def _conv_ok(got, want, x, w, b, passes=3):
     """Within K 2^-22 sum|x||w| (+|b|), plus one ulp of the storage dtype;
-    one TF32 pass (fp32, ``passes=1``) adds 2^-9 sum|x||w|: x truncated to
-    TF32 (< 2^-10 of |x|) times w rounded to TF32 (<= 2^-11 of |w|)."""
+    one TF32 pass (fp32, ``passes=1``) adds (2^-10 + 2^-22) sum|x||w|: x
+    and w each rounded to nearest TF32 (<= 2^-11 of it)."""
     k = 9 * x.shape[-1]
     absb = None if b is None else b.abs()
     scale = conv3x3_implicit_gemm_plain(x.abs().float(), w.abs().float(),
                                         None if absb is None else absb.float())
-    tol = (k * 2.0 ** -22 + (2.0 ** -9 if passes == 1 else 0.0)) * scale
+    tol = (k * 2.0 ** -22 + (2.0 ** -10 + 2.0 ** -22 if passes == 1 else 0.0)) * scale
     g, v = got.float(), want.float()
     if got.dtype != torch.float32:
         mant = {torch.float16: 10, torch.bfloat16: 7}[got.dtype]
@@ -595,7 +597,9 @@ def test_stylize_video_on_card_matches_cpu(cuda):
             assert kernels.launch_counts() == {"norm_affine_clamp": 33,
                                                "dynamic_filter_pair": 9,
                                                "conv3x3_implicit_gemm": 0,
-                                               "conv3x3_pairlane": 0}
+                                               "conv3x3_pairlane": 0,
+
+                                               "conv3x3_wgrad": 0}
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert a.shape == (64, 112, 3) and a.dtype == np.uint8
         assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
@@ -621,7 +625,9 @@ def test_stylize_video_pairlane_on_card(cuda):
             assert kernels.launch_counts() == {"norm_affine_clamp": 33,
                                                "dynamic_filter_pair": 9,
                                                "conv3x3_implicit_gemm": 0,
-                                               "conv3x3_pairlane": 10}
+                                               "conv3x3_pairlane": 10,
+
+                                               "conv3x3_wgrad": 0}
     d = np.mean([np.abs(a.astype(np.int16) - b.astype(np.int16)).mean()
                  for a, b in zip(outs[torch.float16], outs[torch.float32])])
     assert d / 255.0 <= 1e-3
@@ -767,7 +773,9 @@ def test_stylize_video_per_frame_on_card(cuda):
     assert kernels.launch_counts() == {"norm_affine_clamp": 0,
                                        "dynamic_filter_pair": 0,
                                        "conv3x3_implicit_gemm": 0,
-                                       "conv3x3_pairlane": 3}
+                                       "conv3x3_pairlane": 3,
+
+                                       "conv3x3_wgrad": 0}
     d = np.mean([np.abs(a.astype(np.int16) - b.astype(np.int16)).mean()
                  for a, b in zip(out, outs["cpu"])])
     assert d / 255.0 <= 5e-3
@@ -1065,3 +1073,125 @@ def _leaf(tree, path):
     for k in path:
         tree = tree[k]
     return tree
+
+
+# ---------------------------------------------------------------------------
+# The fp32 conv's backward: the weight-gradient kernel and Conv3x3Fn
+# ---------------------------------------------------------------------------
+
+#: ([B, H, W, C], O): both block tiles (O <= 8, the rest), C and O off
+#: every multiple, W off the 32-pixel K tile, one split and many.
+WGRAD = [((1, 9, 11, 3), 64), ((2, 13, 45, 64), 3), ((2, 19, 70, 13), 6),
+         ((3, 37, 53, 64), 64), ((1, 12, 80, 32), 512),
+         ((2, 5, 300, 200), 192), ((1, 1, 1, 1), 1), ((4, 64, 64, 64), 64)]
+
+
+def _wgrad_f64(x, g):
+    xp = torch.nn.functional.pad(x.double(), (0, 0, 1, 1, 1, 1))
+    _, h, w, c = x.shape
+    gm = g.double().reshape(-1, g.shape[-1])
+    return torch.stack([torch.stack([
+        xp[:, ky:ky + h, kx:kx + w].reshape(-1, c).T @ gm for kx in range(3)])
+        for ky in range(3)])
+
+
+def _wgrad_bar(x, g, passes):
+    """(2^-19 at three passes, 2^-10 + 2^-22 at one, + (K_split + splits)
+    2^-22) sum |x||g|: the split's loss a product, then the fp32 sums of a
+    block's pixels and of the partials (``chip_smoke.check_wgrad``)."""
+    from rerevst_torch.kernels.conv3x3 import wgrad_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = wgrad_plan(*x.shape, g.shape[-1], sms)
+    per = 2.0 ** -19 if passes == 3 else 2.0 ** -10 + 2.0 ** -22
+    return (per + (plan.k_split + plan.splits) * 2.0 ** -22) \
+        * _wgrad_f64(x.abs(), g.abs())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("shape,o", WGRAD)
+def test_conv3x3_wgrad_kernel_on_card(rng, cuda, shape, o, passes):
+    """One launch; within its bar of the float64 weight gradient; bit-equal
+    on a second run (no atomics)."""
+    x = torch.from_numpy(rng.standard_normal(shape)).to(cuda, torch.float32)
+    g = torch.from_numpy(rng.standard_normal(shape[:3] + (o,))).to(
+        cuda, torch.float32)
+    before = conv3x3_wgrad.launches
+    got = conv3x3_wgrad(x, g, passes)
+    again = conv3x3_wgrad(x, g, passes)
+    torch.cuda.synchronize()
+    assert conv3x3_wgrad.launches == before + 2
+    assert got.dtype == torch.float32 and tuple(got.shape) == (
+        3, 3, shape[-1], o)
+    assert torch.equal(got, again)
+    err = (got.double() - _wgrad_f64(x, g)).abs()
+    assert (err <= _wgrad_bar(x, g, passes)).all()
+    plain = conv3x3_wgrad_plain(x, g)
+    assert plain.dtype == torch.float32 and plain.shape == got.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [3, 1])
+def test_conv3x3_wgrad_nonfinite_inputs_on_card(rng, cuda, passes):
+    """inf, -inf and NaN in x, in the interior and in the last column of a
+    ragged K tile (W = 70): NaN and inf outputs exactly the plain
+    version's, of the same sign; the finite ones within the bar."""
+    x = torch.from_numpy(rng.standard_normal((2, 19, 70, 13))).to(
+        cuda, torch.float32)
+    g = torch.from_numpy(rng.standard_normal((2, 19, 70, 6))).to(
+        cuda, torch.float32)
+    for idx, v in [((0, 3, 5, 2), float("inf")),
+                   ((1, 10, 69, 12), float("-inf")),
+                   ((0, 7, 33, 0), float("nan"))]:
+        x[idx] = v
+    got = conv3x3_wgrad(x, g, passes)
+    torch.cuda.synchronize()
+    want = conv3x3_wgrad_plain(x, g)
+    fin = torch.isfinite(want)
+    assert not fin.all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.equal(torch.sign(got[torch.isinf(want)]),
+                       torch.sign(want[torch.isinf(want)]))
+    xz = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    err = (got.double() - _wgrad_f64(xz, g)).abs()
+    assert (err[fin] <= _wgrad_bar(xz, g, passes)[fin]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,passes", [("high", 3), ("default", 1)])
+@pytest.mark.parametrize("shape,o", [((2, 13, 45, 3), 64),
+                                     ((1, 19, 70, 64), 3),
+                                     ((2, 16, 32, 64), 64)])
+def test_conv3x3_fn_on_card(rng, cuda, shape, o, precision, passes):
+    """``layers.conv2d`` at 'high' / 'default' under autograd on the card:
+    the conv kernel twice (forward, input gradient) and the wgrad kernel
+    once at `passes`; dx within the forward's bar of
+    ``torch.nn.grad.conv2d_input``, dw within the wgrad bar of float64, db
+    the pixel sum."""
+    from rerevst_torch.models.layers import conv2d
+    from rerevst_torch.ops.precision import exact_products
+
+    x, w, b = _conv_on_card(rng, cuda, torch.float32, shape, o, True)
+    g = torch.from_numpy(rng.standard_normal(shape[:3] + (o,))).to(
+        cuda, torch.float32)
+    for t in (x, w, b):
+        t.requires_grad_(True)
+    kernels.reset_launches()
+    y = conv2d({"w": w, "b": b}, x, padding=1, precision=precision)
+    dx, dw, db = torch.autograd.grad(y, (x, w, b), g)
+    torch.cuda.synchronize()
+    assert conv3x3_implicit_gemm.launches_by_design[f"tf32x{passes}"] == 2
+    assert conv3x3_wgrad.launches == 1
+    x, w = x.detach(), w.detach()
+    with torch.no_grad(), exact_products():
+        want_dx = torch.nn.grad.conv2d_input(
+            x.permute(0, 3, 1, 2).shape, w.permute(3, 2, 0, 1).contiguous(),
+            g.permute(0, 3, 1, 2), padding=1).permute(0, 2, 3, 1)
+    assert _conv_ok(dx, want_dx, g, w.flip(0, 1).transpose(2, 3).contiguous(),
+                    None, passes)
+    assert ((dw.double() - _wgrad_f64(x, g)).abs()
+            <= _wgrad_bar(x, g, passes)).all()
+    torch.testing.assert_close(db, g.sum((0, 1, 2)))
+

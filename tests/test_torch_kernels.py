@@ -164,7 +164,9 @@ class TestWrappers:
         assert kernels.launch_counts() == {"norm_affine_clamp": 0,
                                            "dynamic_filter_pair": 0,
                                            "conv3x3_implicit_gemm": 0,
-                                           "conv3x3_pairlane": 0}
+                                           "conv3x3_pairlane": 0,
+
+                                           "conv3x3_wgrad": 0}
 
     def test_norm_affine_rejects(self, rng):
         x, st, s, m = _inputs(rng, (2, 3, 4, 64), "affine")

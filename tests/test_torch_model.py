@@ -143,7 +143,9 @@ def test_decode_global(models, style_pair, pass1):
     assert kernels.launch_counts() == {"norm_affine_clamp": 0,
                                        "dynamic_filter_pair": 0,
                                        "conv3x3_implicit_gemm": 0,
-                                       "conv3x3_pairlane": 0}
+                                       "conv3x3_pairlane": 0,
+
+                                       "conv3x3_wgrad": 0}
 
 
 def test_decode_global_f16_runs_plain_chain(models, style_pair, pass1):

@@ -107,8 +107,8 @@ def _style(seed=1, size=64):
         .astype(np.uint8)
 
 
-def _session(params, **kw):
-    s = Stylization(params=params, device="cpu", infer=INFER, **kw)
+def _session(params, infer=INFER, **kw):
+    s = Stylization(params=params, device="cpu", infer=infer, **kw)
     s.prepare_style(_style())
     return s
 
@@ -192,9 +192,12 @@ def test_spilled_stylize_video_matches_jax(params, jax_ref, monkeypatch):
 def test_65_sample_add_session(params):
     """65 add()s cross STREAMING_THRESHOLD: the 65th drains the device
     buffer into the spool, compute() streams, and the statistics match a
-    prepare_global over the same 65 frames (which spills too)."""
+    prepare_global over the same 65 frames (which spills too).  Chunks of
+    32 samples (3 a stream): ``test_streaming_matches_batched`` covers the
+    small chunks."""
     frames = _clip(n=65, seed=3)
-    s = _session(params)
+    s = _session(params, infer=InferenceConfig(sample_interval=2,
+                                               pass1_chunk=32))
     for f in frames[:64]:
         s.add(f)
     assert s._patch_spill is None and len(s._patches) == 64

@@ -18,11 +18,13 @@ leaf, a bias ahead of an instance norm, where the terms cancel), and
 rematerialization to 1e-6.
 """
 
+import collections
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -251,15 +253,36 @@ def _grads_after_step(jax_params, batch, **kw):
     return grads, {k: float(v) for k, v in metrics.items()}
 
 
-@pytest.mark.parametrize("kw,tol", [({"grad_accum": 2}, 1e-3),
-                                    ({"remat": True}, 1e-6)],
-                         ids=["grad_accum", "remat"])
+class _KernelOps(TorchDispatchMode):
+    """Counts calls of the ``rerevst::`` ops by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "rerevst":
+            self.calls[func.__name__.split(".")[0]] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("kw,tol", [
+    ({"grad_accum": 2}, 1e-3), ({"remat": True}, 1e-6),
+    ({"grad_accum": 2, "model": ModelConfig(precision="high")}, 1e-3)],
+    ids=["grad_accum", "remat", "grad_accum_high"])
 def test_memory_options_keep_the_gradient(jax_params, batch, kw, tol):
     """grad_accum=2 gives the full batch's gradient (every loss is a
     per-sample mean; ``relax_style=False``, whose best iterate is chosen per
-    micro-batch); remat recomputes the same decode."""
-    g1, m1 = _grads_after_step(jax_params, batch)
-    g2, m2 = _grads_after_step(jax_params, batch, **kw)
+    micro-batch); remat recomputes the same decode.  At precision 'high'
+    both steps take the kernel route: the conv op and its weight-gradient
+    op run in the micro-batched step too."""
+    base = {k: v for k, v in kw.items() if k == "model"}
+    g1, m1 = _grads_after_step(jax_params, batch, **base)
+    with _KernelOps() as ops:
+        g2, m2 = _grads_after_step(jax_params, batch, **kw)
+    if base:
+        assert ops.calls["conv3x3_implicit_gemm"] > 0, ops.calls
+        assert ops.calls["conv3x3_wgrad"] > 0, ops.calls
     for k in g1:
         scale = float(g1[k].abs().max())
         assert float((g2[k] - g1[k]).abs().max()) <= tol * scale, k
