@@ -102,7 +102,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
              launched it, at three and one passes: against float64 under
              its bar, against its plain version, bit-equal on a rerun,
              three passes at least WGRAD_PASS_GAP times closer to float64
-             than one,
+             than one, its mean signed error within its bar (the
+             truncating chains, ``check_wgrad``),
              the input gradient's route against ``conv2d_input``, and
              timed beside its plain version and ``conv2d_weight`` with
              cuDNN's TF32 off and on;
@@ -236,6 +237,7 @@ of JAX.  Detailed results go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -345,8 +347,9 @@ TF32X1_CHECKS = [((BATCH, PAD_HW, PAD_HW, 3), 64, True, False),
 #: product, on top of the K 2^-22 sum |x||w| of the accumulation.
 TF32_X1_BAR = 2.0 ** -10 + 2.0 ** -22
 #: Ragged weight-gradient shapes of phase check ([B, H, W, C], O): both
-#: block tiles of csrc/conv3x3_wgrad.cu (O <= 8, the rest), C and O off
-#: every multiple, W off the 32-pixel K tile, one or many splits.
+#: routes of csrc/conv3x3_wgrad.cu (wgmma: C, O >= 8 and multiples of 4;
+#: mma.sync: the rest, both of its block tiles), C and O off every
+#: multiple, W off the 32-pixel K tile, one or many splits.
 WGRAD_SMALL = [((2, 19, 70, 13), 6), ((1, 9, 11, 3), 64),
                ((2, 13, 45, 64), 3), ((3, 37, 53, 64), 64),
                ((1, 12, 80, 32), 512), ((2, 5, 300, 200), 192)]
@@ -360,6 +363,10 @@ WGRAD_SPLIT_BAR = {3: 2.0 ** -19, 1: 2.0 ** -10 + 2.0 ** -22}
 #: each), three keep 2^-19 of the product, and the fp32 accumulation both
 #: share is near 2^-17 of a block's sum at K_split <= 1024 pixels.
 WGRAD_PASS_GAP = 8.0
+#: What one chained add on the tensor cores may take off its running sum
+#: on average, a share of it (they truncate: half an ulp, 2^-24 of the sum
+#: at most), for the bar of the weight gradient's mean signed error.
+WGRAD_CHAIN_BIAS = 2.0 ** -24
 #: inf and NaN inputs of the C = 3 checks, at [2, 19, 70, 3]: (index, value).
 NARROW_NONFINITE = [((0, 3, 31, 2), "inf"), ((0, 3, 32, 0), "-inf"),
                     ((0, 7, 10, 1), "nan"), ((0, 8, 40, 2), "inf"),
@@ -2900,40 +2907,60 @@ def check_wgrad(torch, x, g, passes):
     bit-equal on a second run; and the input gradient's route (the
     forward kernel on g with the weights rotated and C and O swapped)
     against ``torch.nn.grad.conv2d_input`` in exact fp32, under the
-    forward's bar."""
+    forward's bar.
+
+    Its mean signed error against float64, sum (dw - ref) sign(ref) over
+    sum |ref|, is held to L WGRAD_CHAIN_BIAS + 2^-22 + 4 p / sqrt(9 C O):
+    L the longest chain of truncating tensor-core adds (K_split / 8 k8
+    steps; times the passes on the mma.sync route, which chains the three
+    products into one sum; at one pass the wgmma route's one K tile, 4,
+    whose sums go into an fp32 register sum), 2^-22 the fp32 sums, and
+    four times the rounding noise of a mean over 9 C O outputs (p =
+    WGRAD_SPLIT_BAR, a product's loss, over twice the noise's spread).
+    On random inputs."""
+    import math
+
     from rerevst_torch.kernels import (
         conv3x3_implicit_gemm,
         conv3x3_wgrad,
         conv3x3_wgrad_plain,
     )
-    from rerevst_torch.kernels.conv3x3 import wgrad_plan
+    from rerevst_torch.kernels.conv3x3 import WGRAD_TW, wgrad_plan_for
     from rerevst_torch.ops.precision import exact_products
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     b, h, w, c = x.shape
     o = g.shape[-1]
     got = conv3x3_wgrad(x, g, passes)
     again = conv3x3_wgrad(x, g, passes)
     torch.cuda.synchronize()
-    plan = wgrad_plan(b, h, w, c, o, sms)
+    plan = wgrad_plan_for(x, g)
     k = WGRAD_SPLIT_BAR[passes] + (plan.k_split + plan.splits) * 2.0 ** -22
     want = wgrad_f64(torch, x, g)
     bar = k * wgrad_f64(torch, x.abs(), g.abs())
     plain = conv3x3_wgrad_plain(x, g).double()
     err64 = (got.double() - want).abs()
+    if plan.route == "wgmma":
+        chain = plan.k_split // 8 if passes == 3 else WGRAD_TW // 8
+    else:
+        chain = passes * plan.k_split // 8
     row = {"kernel": "conv3x3_wgrad", "shape": [b, h, w, c], "O": o,
-           "passes": passes, "splits": plan.splits, "tile": [plan.bm,
-                                                           plan.bn],
-           "bar_k_u": k,
+           "passes": passes, "route": plan.route, "splits": plan.splits,
+           "tile": [plan.bm, plan.bn], "bar_k_u": k,
            "max_abs_err": float((got.double() - plain).abs().max()),
            "max_abs_err_vs_f64": float(err64.max()),
+           "mean_signed_err_vs_f64": float(
+               ((got.double() - want) * want.sign()).sum()
+               / want.abs().sum().clamp_min(1e-300)),
+           "mean_signed_bar": chain * WGRAD_CHAIN_BIAS + 2.0 ** -22
+           + 4 * WGRAD_SPLIT_BAR[passes] / math.sqrt(9 * c * o),
            "plain_max_abs_err_vs_f64": float((plain - want).abs().max()),
            "worst_share_of_bar": float((err64 / bar.clamp_min(1e-300))
                                        .max()),
            "bit_equal_rerun": torch.equal(got, again)}
     row["ok"] = bool((err64 <= bar).all()) and bool(
         ((got.double() - plain).abs() <= bar + (plain - want).abs()).all()
-    ) and row["bit_equal_rerun"]
+    ) and row["bit_equal_rerun"] and abs(
+        row["mean_signed_err_vs_f64"]) <= row["mean_signed_bar"]
     wt = torch.randn((3, 3, c, o), device=x.device) * 0.1
     wr = wt.flip(0, 1).transpose(2, 3).contiguous()
     dx = conv3x3_implicit_gemm(g, wr, None, passes)
@@ -2985,8 +3012,8 @@ def time_wgrad(torch, x, g):
     nbytes = 4 * (x.numel() + g.numel() + 9 * c * o)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     for passes in (3, 1):
-        t = time_ms(torch, lambda: conv3x3_wgrad(x, g, passes), iters=5,
-                    warmup=1)
+        t = time_ms(torch, lambda: conv3x3_wgrad(x, g, passes), iters=20,
+                    warmup=3)
         t_ops = passes * 2 * 9 * c * o * b * h * w / TF32_FLOP_PER_S * 1e3
         row[f"ms_{passes}"] = t["ms"]
         row[f"ops_ms_{passes}"] = t_ops
@@ -2994,10 +3021,10 @@ def time_wgrad(torch, x, g):
     row["bytes_ms"] = t_bytes
     row["plain_ms"] = time_ms(torch, lambda: conv3x3_wgrad_plain(x, g),
                               iters=5, warmup=1)["ms"]
-    row["library_ms"] = time_ms(torch, exact_library, iters=5,
-                                warmup=1)["ms"]
-    row["library_tf32_ms"] = time_ms(torch, library_tf32, iters=5,
-                                     warmup=1)["ms"]
+    row["library_ms"] = time_ms(torch, exact_library, iters=20,
+                                warmup=3)["ms"]
+    row["library_tf32_ms"] = time_ms(torch, library_tf32, iters=20,
+                                     warmup=3)["ms"]
     return row
 
 
@@ -3258,6 +3285,27 @@ def train_precisions(torch, host):
                         if isinstance(v, float)):
             fail(f"train 'high' {name}: {n} {vals}")
     res["high_remat"] = remat
+
+    # ModelConfig(pairlane=True) at 'high', as the JAX package accepts it:
+    # the step's decode has no pair-lane route and its encodes are fp32, so
+    # it launches no pair-lane conv and is the 'high' step.
+    high = cfg_at("high")
+    lane_m, lane_first = first_step(dataclasses.replace(
+        high, model=dataclasses.replace(high.model, pairlane=True)))[1::2]
+    lane = {"launches": lane_first["launches"],
+            "wall_ms_first_step": lane_first["wall_ms"],
+            "losses_bit_equal_high": lane_m == res["high"]["metrics"],
+            "max_loss_rel_vs_high": max(
+                abs(lane_m[k] - res["high"]["metrics"][k])
+                / max(abs(res["high"]["metrics"][k]), 1e-12)
+                for k in lane_m)}
+    res["high_pairlane"] = lane
+    emit({"phase": "train", "precision": "high", "pairlane": lane})
+    n = lane["launches"]
+    if n["conv3x3_pairlane"] or not (n["conv3x3_implicit_gemm"]
+                                     and n["conv3x3_wgrad"]) \
+            or lane["max_loss_rel_vs_high"] > 1e-6:
+        fail(f"train 'high' at pairlane=True: {lane}")
     res["high_adversarial"] = {"steps": adv, "ms_second_step": adv[-1]["ms"]}
     emit({"phase": "train", "precision": "high", "remat": remat,
           "adversarial_ms": [r["ms"] for r in adv]})
@@ -3283,9 +3331,11 @@ def train_precisions(torch, host):
         row = {**time_wgrad(torch, x, g), "launches_per_step": n,
                "one_pass_err_over_three": gap,
                "checks": [{k: r[k] for k in (
-                   "passes", "splits", "bar_k_u", "max_abs_err",
-                   "max_abs_err_vs_f64", "plain_max_abs_err_vs_f64",
-                   "worst_share_of_bar", "dgrad_max_abs_err")}
+                   "passes", "route", "splits", "bar_k_u",
+                   "max_abs_err", "max_abs_err_vs_f64",
+                   "mean_signed_err_vs_f64", "mean_signed_bar",
+                   "plain_max_abs_err_vs_f64", "worst_share_of_bar",
+                   "dgrad_max_abs_err")}
                    for r in checks]}
         rows.append(row)
         emit({"phase": "train", "wgrad": row})
@@ -4850,8 +4900,13 @@ def config_variants(torch, smi):
     return res, row
 
 
-def kernel_resources(build) -> dict:
-    """Registers, spills and ptxas's notes (a serialized wgmma shows here)
+#: The sources whose kernels phase ptxas reports.
+PTXAS_SOURCES = ("conv3x3.cu", "filter_chain.cu", "conv3x3_wgrad.cu")
+
+
+def kernel_resources(reports) -> dict:
+    """From `reports` (source -> ``_build.ptxas_report`` of it):
+    registers, spills and ptxas's notes (a serialized wgmma shows here)
     of each instance of the streamed C = 64, the wide, the narrow, the
     sliced and the split-TF32 conv kernels (and its weights' split kernel),
     of the filter pair kernel and of the weight-gradient kernel (and its
@@ -4863,7 +4918,7 @@ def kernel_resources(build) -> dict:
 
     dts = {"f": "fp32", "6__half": "f16", "13__nv_bfloat16": "bf16"}
     out = {}
-    for name, info in build.ptxas_report("conv3x3.cu").items():
+    for name, info in reports["conv3x3.cu"].items():
         m = re.search(r"conv3x3_(stream|wide)_kernelI(6__half|13__nv_bfloat16)"
                       r"Li(\d+)E", name)
         if m:
@@ -4907,7 +4962,7 @@ def kernel_resources(build) -> dict:
                           for n in v["notes"])]
     if serialized:
         fail(f"ptxas serialized the wgmmas of {serialized}: {out}")
-    for name, info in build.ptxas_report("filter_chain.cu").items():
+    for name, info in reports["filter_chain.cu"].items():
         m = re.search(r"filter_pair_kernelI(f|6__half|13__nv_bfloat16)E", name)
         if m:
             out[f"filter_pair_kernel<{dts[m.group(1)]}>"] = info
@@ -4916,18 +4971,29 @@ def kernel_resources(build) -> dict:
     if len(out) - n_conv != 3:
         fail(f"ptxas reported {len(out) - n_conv} filter pair kernels, not 3")
     n_wgrad = 0
-    for name, info in build.ptxas_report("conv3x3_wgrad.cu").items():
+    for name, info in reports["conv3x3_wgrad.cu"].items():
         m = re.search(r"conv3x3_wgrad_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
                       name)
         if m:
             n_wgrad += 1
             out[f"conv3x3_wgrad_kernel<MB={m.group(1)}, NB={m.group(2)}, "
                 f"WN={m.group(3)}, P={m.group(4)}>"] = info
+        m = re.search(r"conv3x3_wgrad_tc_kernelILi(\d+)E", name)
+        if m:
+            n_wgrad += 1
+            out[f"conv3x3_wgrad_tc_kernel<P={m.group(1)}>"] = info
         if "conv3x3_wgrad_reduce_kernel" in name:
             out["conv3x3_wgrad_reduce_kernel"] = info
-    if n_wgrad != 4:
-        fail(f"ptxas reported {n_wgrad} weight-gradient kernels, not 4 (2 "
-             f"block tiles x three or one pass)")
+    if n_wgrad != 6:
+        fail(f"ptxas reported {n_wgrad} weight-gradient kernels, not 6 (the "
+             f"mma.sync route's 2 block tiles and the wgmma route, x three "
+             f"or one pass)")
+    serialized = [k for k, v in out.items()
+                  if k.startswith("conv3x3_wgrad_tc")
+                  and any("wgmma" in n and "serializ" in n
+                          for n in v["notes"])]
+    if serialized:
+        fail(f"ptxas serialized the wgmmas of {serialized}: {out}")
     spilled = [k for k, v in out.items()
                if v.get("spill_stores", 0) or v.get("spill_loads", 0)]
     if spilled:
@@ -4970,13 +5036,19 @@ def main() -> int:
     if tuple(cap) != (9, 0):
         fail(f"compute capability {cap}, the kernels are built for sm_90a")
 
-    # 2. build, and what ptxas says of the conv and filter kernels
+    # 2. build, and what ptxas says of the conv and filter kernels (its
+    # reports compile each source once more, beside the build)
     t0 = time.perf_counter()
-    _build.library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(_build.library_path().relative_to(HERE))})
-    RESULTS["ptxas"] = kernel_resources(_build)
-    emit({"phase": "ptxas", "kernels": RESULTS["ptxas"]})
+    with concurrent.futures.ThreadPoolExecutor(len(PTXAS_SOURCES)) as pool:
+        pending = {src: pool.submit(_build.ptxas_report, src)
+                   for src in PTXAS_SOURCES}
+        _build.library()
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "library": str(_build.library_path().relative_to(HERE))})
+        reports = {src: f.result() for src, f in pending.items()}
+    RESULTS["ptxas"] = kernel_resources(reports)
+    emit({"phase": "ptxas", "kernels": RESULTS["ptxas"],
+          "seconds_with_build": time.perf_counter() - t0})
 
     # 3. kernels vs plain on the card
     errs, n_checks = check_kernels(torch)

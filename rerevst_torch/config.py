@@ -248,9 +248,3 @@ class TrainConfig:
         if self.d_init not in D_INIT_SCHEMES:
             raise ValueError(f"unknown d_init {self.d_init!r} "
                              f"(choose from {D_INIT_SCHEMES})")
-        if self.model.pairlane:
-            # The pair-lane conv kernel has no backward: a trainable tensor
-            # through it would lose its gradient without an error.
-            raise ValueError(
-                "TrainConfig(model=ModelConfig(pairlane=True)): the "
-                "pair-lane kernel is forward-only, training cannot run it")

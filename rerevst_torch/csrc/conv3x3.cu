@@ -357,8 +357,6 @@
 // values.
 #include "common.cuh"
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
-
 #include <algorithm>
 #include <type_traits>
 #include <utility>
@@ -455,73 +453,6 @@ __device__ __forceinline__ void mma16816<__nv_bfloat16>(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// mbarriers, TMA and fences (shared-memory addresses as 32-bit integers).
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Waits until the phase of parity `parity` has completed.  A wait of more
-// than 10 s traps: a row that never arrives becomes a launch error rather
-// than a hung card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  uint64_t t0 = 0;
-  for (uint32_t i = 0; !done; ++i) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && (i & 1023) == 1023) {
-      if (t0 == 0) t0 = global_ns();
-      else if (global_ns() - t0 > 10000000000ull) __trap();
-    }
-  }
-}
-
-// One box of a 4-D tensor map into shared memory; completes on `bar`.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void fence_barrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// Orders this thread's generic-proxy accesses to shared memory before later
-// async-proxy ones (wgmma's operand reads, TMA's writes).
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // A barrier of one warpgroup (ids 1 and 2; 0 is __syncthreads).
 __device__ __forceinline__ void bar_sync_wg(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
@@ -540,35 +471,6 @@ __device__ __forceinline__ void regs_release() {
 
 __device__ __forceinline__ void regs_claim() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pins accumulators at this point of the instruction stream: the compiler
-// may not move a read or copy of them across it (into the span where an
-// in-flight wgmma is still writing them).
-template <int M, int N>
-__device__ __forceinline__ void fence_regs(float (&r)[M][N]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) asm volatile("" : "+f"(r[i][j])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // Shared-memory matrix descriptor of a K-major operand with the S-byte
@@ -677,13 +579,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(bar)
       : "memory");
-}
-
-// Waits until at most N of this warpgroup's committed wgmma groups are
-// still in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Shared-memory matrix descriptor of an N-contiguous (MN-major) B operand
@@ -2072,33 +1967,6 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
-
-// cuTensorMapEncodeTiled is a driver-API function; the library links only
-// the static runtime, so it is fetched through the runtime once.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                  cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // A tiled tensor map over T (f16, bf16 or fp32) data with the 128-byte
 // swizzle (or `swizzle`) and zero fill out of bounds.  The map holds the

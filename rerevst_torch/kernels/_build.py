@@ -124,7 +124,8 @@ def ptxas_report(source: str, src_dir: Path = SRC_DIR) -> dict:
     registers, spill stores and loads in bytes, and its performance notes
     (such as wgmma serialization), by mangled entry name.  `src_dir`: where
     the source lies (an edited copy's directory, for a probe)."""
-    obj = BUILD_DIR / f"report.{os.getpid()}.{abs(hash(str(src_dir)))}.o"
+    obj = BUILD_DIR / (f"report.{os.getpid()}.{Path(source).stem}."
+                       f"{abs(hash(str(src_dir)))}.o")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     try:
         res = subprocess.run(

@@ -55,10 +55,11 @@ The backward of the fp32 designs (``Conv3x3Fn``, which the implicit-GEMM
 wrapper takes where autograd needs a gradient): the input gradient is the
 same kernel on the output gradient with the weights rotated 180 degrees and
 C and O swapped, at the same ``passes``; the weight gradient is
-``conv3x3_wgrad``, ``csrc/conv3x3_wgrad.cu`` (mma.sync m16n8k8 TF32 with
-the same hi/lo split, K split over blocks and summed in a fixed order),
-whose work split :func:`wgrad_plan` computes here; the bias gradient is a
-sum.  It replaces no TPU kernel: it is the weight gradient JAX's autodiff
+``conv3x3_wgrad``, ``csrc/conv3x3_wgrad.cu`` (wgmma ``.tf32`` fed by TMA
+where C and O are 8 or more and multiples of 4, else mma.sync m16n8k8
+TF32; the same hi/lo split, K split over blocks and summed in a fixed
+order), whose route and work split :func:`wgrad_plan` computes here; the
+bias gradient is a sum.  It replaces no TPU kernel: it is the weight gradient JAX's autodiff
 makes of the XLA conv at HIGH or DEFAULT.
 
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
@@ -666,17 +667,31 @@ _build.define_op("conv3x3_pairlane(Tensor x, Tensor w, Tensor? b) -> Tensor",
 
 
 WGRAD_TW = 32  # csrc/conv3x3_wgrad.cu kTW: output pixels of a K tile
-#: Blocks per SM the weight-gradient plan aims its K split at (the kernel
+#: The mma.sync route's plan: blocks per SM its K split aims at (the kernel
 #: keeps three resident: about three waves), and the K tiles a split sums
 #: at least (where there are that many).
 WGRAD_BLOCKS_PER_SM = 8
 WGRAD_MIN_TILES = 4
+#: The wgmma route's unit (csrc/conv3x3_wgrad.cu kTcM x kTcN): input x
+#: output channels, all nine taps.
+WGRAD_TC_TILE = (64, 32)
 
 
-def wgrad_tile(c: int, o: int) -> tuple:
-    """The weight-gradient kernel's block tile (input channels, output
-    channels) for C and O (the launcher's dispatch): 64 x 8 where O <= 8,
-    else 16 x 64."""
+def wgrad_route(c: int, o: int, aligned: bool = True) -> str:
+    """The weight-gradient kernel's route for C and O (the launcher's
+    dispatch, csrc/conv3x3_wgrad.cu tc_route): "wgmma" where C >= 8, O >=
+    8, both multiples of 4 (16-byte pixel strides for the tensor maps) and
+    x and g 16-byte ``aligned``, else "mma" (mma.sync)."""
+    ok = c >= 8 and o >= 8 and c % 4 == 0 and o % 4 == 0 and aligned
+    return "wgmma" if ok else "mma"
+
+
+def wgrad_tile(c: int, o: int, aligned: bool = True) -> tuple:
+    """The weight-gradient kernel's unit (input channels, output channels)
+    for C and O: the wgmma route's 64 x 32; on the mma.sync route 64 x 8
+    where O <= 8, else 16 x 64."""
+    if wgrad_route(c, o, aligned) == "wgmma":
+        return WGRAD_TC_TILE
     return (64, 8) if o <= 8 else (16, 64)
 
 
@@ -685,8 +700,9 @@ class WgradPlan:
     """The weight-gradient kernel's work split: output tiles of ``bm``
     input x ``bn`` output channels (all nine taps), each summed over the K
     tiles (row segments of ``WGRAD_TW`` output pixels of one image, in
-    image, row, segment order) by ``splits`` blocks, split ``s`` taking the
-    contiguous run :meth:`split_tiles`."""
+    image, row, segment order) by ``splits`` blocks (on the wgmma route
+    items of persistent blocks), split ``s`` taking the contiguous run
+    :meth:`split_tiles`."""
 
     batch: int
     height: int
@@ -696,6 +712,7 @@ class WgradPlan:
     bm: int
     bn: int
     splits: int
+    route: str = "mma"
 
     @property
     def strips(self) -> int:
@@ -704,7 +721,7 @@ class WgradPlan:
 
     @property
     def tiles(self) -> int:
-        """Output tiles (the grid's x)."""
+        """Output tiles (units)."""
         return -(-self.c // self.bm) * -(-self.o // self.bn)
 
     def split_tiles(self, s: int) -> range:
@@ -723,18 +740,32 @@ class WgradPlan:
         """The most pixels one block sums (zero-filled ones included)."""
         return -(-self.strips // self.splits) * WGRAD_TW
 
+    @property
+    def workspace_bytes(self) -> int:
+        """The partials' scratch (none at one split)."""
+        return self.splits * 9 * self.c * self.o * 4 if self.splits > 1 else 0
+
 
 @functools.lru_cache(maxsize=256)
 def wgrad_plan(batch: int, height: int, width: int, c: int, o: int,
-               sms: int) -> WgradPlan:
-    """Block tile and K split of the weight gradient of a [batch, height,
-    width, c] -> o conv on a card with ``sms`` SMs: enough splits for about
-    ``WGRAD_BLOCKS_PER_SM`` blocks an SM over the output tiles, each split
-    summing ``WGRAD_MIN_TILES`` K tiles or more where there are enough."""
-    bm, bn = wgrad_tile(c, o)
-    plan = WgradPlan(batch, height, width, c, o, bm, bn, 1)
-    splits = min(-(-WGRAD_BLOCKS_PER_SM * sms // plan.tiles),
-                 plan.strips // WGRAD_MIN_TILES, 65535)
+               sms: int, aligned: bool = True) -> WgradPlan:
+    """Route, unit and K split of the weight gradient of a [batch, height,
+    width, c] -> o conv on a card with ``sms`` SMs; with splits > 1 the
+    partials are summed in split order through a workspace.
+
+    wgmma route: one block an SM, so as many splits as keep units x splits
+    within the SMs and no more than there are K tiles.  mma.sync route:
+    enough splits for about ``WGRAD_BLOCKS_PER_SM`` blocks an SM over the
+    output tiles, each split summing ``WGRAD_MIN_TILES`` K tiles or more
+    where there are enough."""
+    route = wgrad_route(c, o, aligned)
+    bm, bn = wgrad_tile(c, o, aligned)
+    plan = WgradPlan(batch, height, width, c, o, bm, bn, 1, route)
+    if route == "wgmma":
+        splits = min(sms // plan.tiles, plan.strips)
+    else:
+        splits = min(-(-WGRAD_BLOCKS_PER_SM * sms // plan.tiles),
+                     plan.strips // WGRAD_MIN_TILES, 65535)
     return dataclasses.replace(plan, splits=max(1, splits))
 
 
@@ -784,6 +815,16 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor,
     return torch.ops.rerevst.conv3x3_wgrad(x, g, passes)
 
 
+def wgrad_plan_for(x: torch.Tensor, g: torch.Tensor) -> WgradPlan:
+    """The plan ``conv3x3_wgrad`` launches for x and g on the card."""
+    bb, h, wd, c = x.shape
+    idx = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(idx).multi_processor_count
+    return wgrad_plan(bb, h, wd, c, g.shape[-1], sms,
+                      x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0)
+
+
 def _wgrad_cuda(x, g, passes=3):
     _validate_wgrad(x, g, passes)
     bb, h, wd, c = x.shape
@@ -791,10 +832,9 @@ def _wgrad_cuda(x, g, passes=3):
     dw = torch.empty((3, 3, c, o), dtype=torch.float32, device=x.device)
     if dw.numel() == 0 or x.numel() == 0:
         return dw.zero_()  # no pixels: nothing to launch
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = wgrad_plan(bb, h, wd, c, o, sms)
+    plan = wgrad_plan_for(x, g)
     ws = (torch.empty(plan.splits * 9 * c * o, dtype=torch.float32,
-                      device=x.device) if plan.splits > 1 else None)
+                      device=x.device) if plan.workspace_bytes else None)
     err = _build.library().rr_conv3x3_wgrad(
         x.data_ptr(), g.data_ptr(), dw.data_ptr(),
         None if ws is None else ws.data_ptr(), bb, h, wd, c, o, plan.splits,

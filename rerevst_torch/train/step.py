@@ -14,10 +14,11 @@ package does: at 'high' and 'default' the fp32 3x3 SAME convs run the
 weight gradient on ``conv3x3_wgrad``), every other product the library's,
 exact (``exact_products``, held around forward and backward: the hand-
 written kernels read no TF32 flag).  The relaxed loss's VGG runs exact at
-every level, as JAX's pins it to HIGHEST.  ``TrainConfig`` refuses
-``pairlane`` (that kernel has no backward) and the step never runs
-``decode_global``, so the normalization and filter kernels stay off the
-train path.
+every level, as JAX's pins it to HIGHEST.  The step never runs
+``decode_global``, and neither the per-frame ``decode`` nor the VGG
+encoders take the pair-lane route, so the normalization, filter and
+pair-lane kernels stay off the train path in both packages: a
+``ModelConfig(pairlane=True)`` step is the ``pairlane=False`` step.
 
 ``extra`` carries what the loader gives beside ``Content`` and ``Style``:
 the Figure-16 ablation pairs (``NextContent`` with ``BackwardFlow`` and

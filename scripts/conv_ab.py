@@ -3,7 +3,7 @@
 16-frame batch of 640^2, for the ``rerevst_torch`` package under a given
 root — one side of an A/B of two trees' conv kernels in one call.
 
-    python3 scripts/conv_ab.py --root ROOT [--label NAME] [--wgrad]
+    python3 scripts/conv_ab.py --root ROOT [--label NAME] [--wgrad | --steps]
 
 ROOT holds the ``rerevst_torch`` to measure (this repository, or an unpacked
 ``git archive`` of another commit); its kernels build from its own sources.
@@ -28,12 +28,22 @@ design each call took (where the tree's wrapper names it).  Run the two
 trees in turns (A, B, B, A) in one call: the card and its host differ from
 call to call.
 
+With ``--steps``, ``TrainConfig()`` train steps instead, at precision
+'highest', 'high' and 'default' in turns (seeded random parameters and
+images made on the card, one warm-up step each, then the median of 3 with
+CUDA events, and the peak memory of those steps): the step times of two
+trees, A/B in one call.  ``chip_smoke.py``'s phase train times the steps
+of the tree it runs in only, after checks of each precision's step
+against 'highest' that take minutes; this mode times the steps alone, so
+that two trees take turns on one card.
+
 With ``--wgrad``, ``conv3x3_wgrad`` instead (a tree that has it): one
 ``TrainConfig()`` step at precision 'high' on the card (seeded random
 parameters and images) gives the (B, H, W, C, O) it launches the kernel at
 and how often (``wgrad_shapes``); each shape is checked once against the
-tree's plain version and timed at three and one pass (5 calls after one
-warm-up), and the line adds the sums over one step's launches.
+tree's plain version, its mean signed error against float64 read at
+three and one pass, and it is timed at both (20 calls after 3 warm-ups);
+the line adds the sums over one step's launches.
 """
 
 from __future__ import annotations
@@ -91,23 +101,18 @@ def device_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def wgrad_shapes(torch) -> dict:
-    """{(B, H, W, C, O): launches} of ``conv3x3_wgrad`` over one
-    ``TrainConfig()`` step at precision 'high' on the card, from seeded
-    random parameters and images (the shapes follow from the config
-    alone)."""
+def train_setup(torch, precision: str):
+    """``TrainConfig()`` at ``precision`` and its train state on the card,
+    from the config's seed (he_relu VGG weights)."""
     import dataclasses
 
-    from rerevst_torch import kernels
     from rerevst_torch.config import TrainConfig
-    from rerevst_torch.kernels import conv3x3_wgrad
     from rerevst_torch.models.transformer import init_transformer_params
     from rerevst_torch.train.state import init_train_state
-    from rerevst_torch.train.step import make_train_step
 
     base = TrainConfig()
     cfg = dataclasses.replace(base, model=dataclasses.replace(
-        base.model, precision="high"))
+        base.model, precision=precision))
 
     def to_card(tree):
         if isinstance(tree, dict):
@@ -117,14 +122,62 @@ def wgrad_shapes(torch) -> dict:
     params = to_card(init_transformer_params(
         torch.Generator().manual_seed(cfg.seed), cfg.model,
         with_loss_net=True, vgg_scheme="he_relu"))
+    return cfg, init_train_state(params, cfg)
+
+
+def wgrad_shapes(torch) -> dict:
+    """{(B, H, W, C, O): launches} of ``conv3x3_wgrad`` over one
+    ``TrainConfig()`` step at precision 'high' on the card, from seeded
+    random parameters and images (the shapes follow from the config
+    alone)."""
+    from rerevst_torch import kernels
+    from rerevst_torch.kernels import conv3x3_wgrad
+    from rerevst_torch.train.step import make_train_step
+
+    cfg, state = train_setup(torch, "high")
     gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
     shape = (cfg.batch_size, cfg.fine_size, cfg.fine_size, 3)
     content, style = (torch.randn(shape, generator=gen, device="cuda")
                       for _ in range(2))
     kernels.reset_launches()
-    make_train_step(cfg)(init_train_state(params, cfg), content, style, gen)
+    make_train_step(cfg)(state, content, style, gen)
     torch.cuda.synchronize()
     return dict(conv3x3_wgrad.launches_by_shape)
+
+
+def time_steps(torch) -> dict:
+    """Median ms and peak GB of ``TrainConfig()`` steps at each precision
+    (see the module's doc)."""
+    from rerevst_torch.train.step import make_train_step
+
+    out = {}
+    for prec in ("highest", "high", "default"):
+        cfg, state = train_setup(torch, prec)
+        step = make_train_step(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+        shape = (cfg.batch_size, cfg.fine_size, cfg.fine_size, 3)
+        state, _ = step(state, torch.randn(shape, generator=gen,
+                                           device="cuda"),
+                        torch.randn(shape, generator=gen, device="cuda"),
+                        gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(3):
+            c, s = (torch.randn(shape, generator=gen, device="cuda")
+                    for _ in range(2))
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, _ = step(state, c, s, gen)
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        out[prec] = {"step_ms_median": sorted(ms)[1], "step_ms": ms,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del state, step
+        torch.cuda.empty_cache()
+    return {"steps": out}
 
 
 def time_wgrad(torch) -> dict:
@@ -144,10 +197,23 @@ def time_wgrad(torch) -> dict:
         row = {"shape": [b, h, w, c], "O": o, "launches": n,
                "max_abs_diff_vs_plain": float(
                    (conv3x3_wgrad(x, g, 3) - want).abs().max())}
+        # The mean signed error against float64 (per tap one float64
+        # GEMM of the zero-padded x's window by g): sum (dw - ref)
+        # sign(ref) over sum |ref|.
+        xp = torch.nn.functional.pad(x.double(), (0, 0, 1, 1, 1, 1))
+        gm = g.double().reshape(-1, o)
+        ref = torch.stack([torch.stack([
+            xp[:, ky:ky + h, kx:kx + w].reshape(-1, c).T @ gm
+            for kx in range(3)]) for ky in range(3)])
+        del xp, gm
+        for passes in (3, 1):
+            dw = conv3x3_wgrad(x, g, passes).double()
+            row[f"mean_signed_err_vs_f64_{passes}"] = float(
+                ((dw - ref) * ref.sign()).sum() / ref.abs().sum())
+        del ref, dw
         for passes in (3, 1):
             row[f"ms_{passes}"] = device_ms(
-                torch, lambda: conv3x3_wgrad(x, g, passes), iters=5,
-                warmup=1)
+                torch, lambda: conv3x3_wgrad(x, g, passes), iters=20)
             step[passes] += n * row[f"ms_{passes}"]
         rows.append(row)
         del x, g, want
@@ -162,6 +228,8 @@ def main() -> int:
     ap.add_argument("--label", default=None)
     ap.add_argument("--wgrad", action="store_true",
                     help="time conv3x3_wgrad at a 'high' step's shapes")
+    ap.add_argument("--steps", action="store_true",
+                    help="time TrainConfig() steps at each precision")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -182,9 +250,11 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    if args.wgrad:
+    if args.wgrad or args.steps:
         print(json.dumps({"label": args.label or str(root),
-                          **time_wgrad(torch), "card": smi}), flush=True)
+                          **(time_wgrad(torch) if args.wgrad
+                             else time_steps(torch)), "card": smi}),
+              flush=True)
         return 0
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda")

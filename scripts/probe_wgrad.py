@@ -2,31 +2,33 @@
 """What bounds ``conv3x3_wgrad`` (``rerevst_torch/csrc/conv3x3_wgrad.cu``)
 on the card: edited builds of the kernel side by side, each built from a
 copy of the source with the edits in VARIANTS (all nvcc runs in parallel),
-reported by ptxas (registers, spills) and timed at the shapes a
-``TrainConfig()`` step at ``precision='high'`` launches it
+reported by ptxas (registers, spills, wgmma serialization) and timed at
+the shapes a ``TrainConfig()`` step at ``precision='high'`` launches it
 (``scripts/conv_ab.py``'s ``wgrad_shapes``), at three and one pass.
 
     python3 scripts/probe_wgrad.py
 
 Each build is called through its own C entry (``rr_conv3x3_wgrad``) with
 the wrapper's plan (``kernels.conv3x3.wgrad_plan``), checked once against
-the repository's kernel (max |diff|: the edits keep the arithmetic, so 0
-where they only move registers or stages), then timed with CUDA events over
-5 calls behind a sleep kernel.  Prints one JSON line per variant and writes
+the repository's kernel (max |diff|: 0 where an edit keeps the
+arithmetic; the variants that drop work give garbage and are timings
+only), then timed with CUDA events over 5 calls behind a sleep kernel.
+Prints one JSON line per variant and writes
 ``chiprun_out/probe_wgrad.json``; the card's name and power limit beside
-them.  Variants:
+them.  The variants edit the wgmma route (the step's shapes but the two
+RGB layers, which take the mma.sync route and time the same in every
+variant):
 
-* ``as_is``: the source unchanged (16 x 64 tiles in 4 warps, three
-  blocks an SM, the k8 steps rolled);
-* ``kk_unrolled``: the K tile's four k8 steps unrolled (more fragments
-  loaded ahead, more registers);
-* ``wide_tile_one_block``, ``wide_tile_two_blocks``: the O > 8 tile of 32
-  x 64 channels in 8 warps (each one m16 block x two n8 blocks), the k8
-  steps unrolled, at one block an SM (as ptxas likes it) or two (at most
-  128 registers: it spills);
-* ``no_min_blocks``: ``__launch_bounds__`` without the three blocks;
-* ``four_tiles``: one more K tile of shared memory (three in flight at
-  three passes, four at one).
+* ``as_is``: the source unchanged;
+* ``no_products``: the consumers load and split A but issue no wgmma;
+* ``no_b_copies``: the splitter warps write no B copies (flags only);
+* ``loads_only``: neither: the TMA ring, the barriers and the A loads;
+* ``no_setmaxnreg``: every thread keeps the launch's 128 registers (the
+  three-pass consumers spill);
+* ``wait_each_step``: each k8 step's group waited for before the next
+  step's A is loaded (no second register set);
+* ``no_promotion``: at one pass no tile's sums are added into the register
+  sum (the one-pass results are garbage: a timing of what the adds cost).
 """
 
 from __future__ import annotations
@@ -43,21 +45,31 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 SOURCE = "conv3x3_wgrad.cu"
 
-ROLLED = "#pragma unroll 1\n  for (int kk = 0; kk < kTW; kk += 8) {"
-UNROLLED = "#pragma unroll\n  for (int kk = 0; kk < kTW; kk += 8) {"
-BOUNDS = "__global__ void __launch_bounds__(Wgrad<MB, NB, WN>::kThreads, 3)"
-TILE = "  return launch<1, 8, 2, P>("
+PRODUCTS = "  tc_step<P, {s}, KX0, KX1>(acc, cor, ah[{i}], al[{i}], bd);\n"
+SINK = ("  asm volatile(\"\" :: \"r\"(ah[{i}][0]), \"r\"(al[{i}][0]), "
+        "\"r\"(ah[{i}][3]), \"r\"(al[{i}][3]));\n")
+NO_PRODUCTS = [(PRODUCTS.format(s=s, i=s % 2), SINK.format(i=s % 2))
+               for s in range(4)]
+NO_B_COPIES = [("for (int i = sid; i < 4 * kTcN; i += 32 * kTcSplitters) {",
+                "for (int i = sid; i < 0; i += 32 * kTcSplitters) {")]
+NO_SETMAXNREG = [("    regs_release();\n", ""), ("  regs_claim();\n", "")]
+WAIT_EACH = [("  wgmma_wait<1>();  // step 0's group: set 0 is free",
+              "  wgmma_wait<0>();  // step 0's group: set 0 is free"),
+             ("  tc_step<P, 0, KX0, KX1>(acc, cor, ah[0], al[0], bd);\n",
+              "  tc_step<P, 0, KX0, KX1>(acc, cor, ah[0], al[0], bd);\n"
+              "  wgmma_wait<0>();\n"),
+             ("  wgmma_wait<1>();  // step 1's group: set 1 is free",
+              "  wgmma_wait<0>();  // step 1's group: set 1 is free")]
+PROMOTION = "      if constexpr ({}) {{\n        // One pass: the tile's"
+NO_PROMOTION = [(PROMOTION.format("P == 1"), PROMOTION.format("false"))]
 VARIANTS = {
     "as_is": [],
-    "kk_unrolled": [(ROLLED, UNROLLED)],
-    "wide_tile_one_block": [
-        (TILE, "  return launch<2, 8, 2, P>("),
-        (BOUNDS, BOUNDS.replace(", 3)", ")")), (ROLLED, UNROLLED)],
-    "wide_tile_two_blocks": [
-        (TILE, "  return launch<2, 8, 2, P>("),
-        (BOUNDS, BOUNDS.replace(", 3)", ", 2)")), (ROLLED, UNROLLED)],
-    "no_min_blocks": [(BOUNDS, BOUNDS.replace(", 3)", ")"))],
-    "four_tiles": [("constexpr int kTiles = 3;", "constexpr int kTiles = 4;")],
+    "no_products": NO_PRODUCTS,
+    "no_b_copies": NO_B_COPIES,
+    "loads_only": NO_PRODUCTS + NO_B_COPIES,
+    "no_setmaxnreg": NO_SETMAXNREG,
+    "wait_each_step": WAIT_EACH,
+    "no_promotion": NO_PROMOTION,
 }
 
 
@@ -78,12 +90,12 @@ def build_variant(build, name: str, edits):
                     str(d / SOURCE), "-o", str(so)], check=True)
     report = {}
     for entry, info in build.ptxas_report(SOURCE, d).items():
-        m = re.search(r"conv3x3_wgrad_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
-                      entry)
+        m = re.search(r"conv3x3_wgrad_tc_kernelILi(\d+)E", entry)
         if m:
-            report["MB={}, NB={}, WN={}, P={}".format(*m.groups())] = {
-                k: info.get(k) for k in ("registers", "spill_stores",
-                                         "spill_loads")}
+            report[f"wgmma route, P={m.group(1)}"] = {
+                "serialized": any("serializ" in n for n in info["notes"]),
+                **{k: info.get(k) for k in ("registers", "spill_stores",
+                                            "spill_loads")}}
     lib = ctypes.CDLL(str(so))
     lib.rr_conv3x3_wgrad.argtypes = build.SIGNATURES["rr_conv3x3_wgrad"]
     lib.rr_conv3x3_wgrad.restype = ctypes.c_int
@@ -101,12 +113,11 @@ def main() -> int:
     from conv_ab import device_ms, wgrad_shapes
 
     from rerevst_torch.kernels import _build, conv3x3_wgrad
-    from rerevst_torch.kernels.conv3x3 import wgrad_plan
+    from rerevst_torch.kernels.conv3x3 import wgrad_plan_for
 
     with ThreadPoolExecutor(len(VARIANTS)) as pool:  # nvcc runs in parallel
         built = dict(zip(VARIANTS, pool.map(
             lambda kv: build_variant(_build, *kv), VARIANTS.items())))
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     shapes = wgrad_shapes(torch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(17)
@@ -121,15 +132,17 @@ def main() -> int:
         rows, step = [], {3: 0.0, 1: 0.0}
         for (b, h, w, c, o), n in sorted(shapes.items()):
             x, g = inputs[(b, h, w, c, o)]
-            plan = wgrad_plan(b, h, w, c, o, sms)
+            plan = wgrad_plan_for(x, g)
             dw = torch.empty((3, 3, c, o), device="cuda")
             ws = torch.empty(plan.splits * 9 * c * o, device="cuda")
-            row = {"shape": [b, h, w, c], "O": o, "splits": plan.splits}
+            wsp = ws.data_ptr() if plan.workspace_bytes else None
+            row = {"shape": [b, h, w, c], "O": o, "route": plan.route,
+                   "splits": plan.splits}
             for passes in (3, 1):
                 def run():
                     err = lib.rr_conv3x3_wgrad(
-                        x.data_ptr(), g.data_ptr(), dw.data_ptr(),
-                        ws.data_ptr(), b, h, w, c, o, plan.splits, passes,
+                        x.data_ptr(), g.data_ptr(), dw.data_ptr(), wsp, b,
+                        h, w, c, o, plan.splits, passes,
                         torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"{name}: CUDA error {err}")

@@ -1079,11 +1079,14 @@ def _leaf(tree, path):
 # The fp32 conv's backward: the weight-gradient kernel and Conv3x3Fn
 # ---------------------------------------------------------------------------
 
-#: ([B, H, W, C], O): both block tiles (O <= 8, the rest), C and O off
-#: every multiple, W off the 32-pixel K tile, one split and many.
+#: ([B, H, W, C], O): both routes (wgmma: C, O >= 8 and multiples of 4;
+#: mma.sync: the rest) and the mma.sync route's two block tiles (O <= 8,
+#: the rest), C and O off every multiple, W off the 32-pixel K tile, one
+#: split and many.
 WGRAD = [((1, 9, 11, 3), 64), ((2, 13, 45, 64), 3), ((2, 19, 70, 13), 6),
          ((3, 37, 53, 64), 64), ((1, 12, 80, 32), 512),
-         ((2, 5, 300, 200), 192), ((1, 1, 1, 1), 1), ((4, 64, 64, 64), 64)]
+         ((2, 5, 300, 200), 192), ((1, 1, 1, 1), 1), ((4, 64, 64, 64), 64),
+         ((2, 7, 33, 8), 8), ((1, 3, 5, 36), 12)]
 
 
 def _wgrad_f64(x, g):
@@ -1099,10 +1102,9 @@ def _wgrad_bar(x, g, passes):
     """(2^-19 at three passes, 2^-10 + 2^-22 at one, + (K_split + splits)
     2^-22) sum |x||g|: the split's loss a product, then the fp32 sums of a
     block's pixels and of the partials (``chip_smoke.check_wgrad``)."""
-    from rerevst_torch.kernels.conv3x3 import wgrad_plan
+    from rerevst_torch.kernels.conv3x3 import wgrad_plan_for
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = wgrad_plan(*x.shape, g.shape[-1], sms)
+    plan = wgrad_plan_for(x, g)
     per = 2.0 ** -19 if passes == 3 else 2.0 ** -10 + 2.0 ** -22
     return (per + (plan.k_split + plan.splits) * 2.0 ** -22) \
         * _wgrad_f64(x.abs(), g.abs())
@@ -1133,17 +1135,20 @@ def test_conv3x3_wgrad_kernel_on_card(rng, cuda, shape, o, passes):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("passes", [3, 1])
-def test_conv3x3_wgrad_nonfinite_inputs_on_card(rng, cuda, passes):
-    """inf, -inf and NaN in x, in the interior and in the last column of a
-    ragged K tile (W = 70): NaN and inf outputs exactly the plain
-    version's, of the same sign; the finite ones within the bar."""
-    x = torch.from_numpy(rng.standard_normal((2, 19, 70, 13))).to(
+@pytest.mark.parametrize("c,o", [(13, 6), (12, 8)], ids=["mma", "wgmma"])
+def test_conv3x3_wgrad_nonfinite_inputs_on_card(rng, cuda, passes, c, o):
+    """inf, -inf and NaN in x, in the interior, in the last column of a
+    ragged K tile (W = 70) and in the first column, on both routes: NaN and
+    inf outputs exactly the plain version's, of the same sign; the finite
+    ones within the bar."""
+    x = torch.from_numpy(rng.standard_normal((2, 19, 70, c))).to(
         cuda, torch.float32)
-    g = torch.from_numpy(rng.standard_normal((2, 19, 70, 6))).to(
+    g = torch.from_numpy(rng.standard_normal((2, 19, 70, o))).to(
         cuda, torch.float32)
     for idx, v in [((0, 3, 5, 2), float("inf")),
-                   ((1, 10, 69, 12), float("-inf")),
-                   ((0, 7, 33, 0), float("nan"))]:
+                   ((1, 10, 69, c - 1), float("-inf")),
+                   ((0, 7, 33, 0), float("nan")),
+                   ((1, 15, 0, 4), float("inf"))]:
         x[idx] = v
     got = conv3x3_wgrad(x, g, passes)
     torch.cuda.synchronize()
@@ -1157,6 +1162,41 @@ def test_conv3x3_wgrad_nonfinite_inputs_on_card(rng, cuda, passes):
     xz = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
     err = (got.double() - _wgrad_f64(xz, g)).abs()
     assert (err[fin] <= _wgrad_bar(xz, g, passes)[fin]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("width", [70, 64])
+@pytest.mark.parametrize("c,o", [(13, 6), (12, 8)], ids=["mma", "wgmma"])
+def test_conv3x3_wgrad_nonfinite_g_on_card(rng, cuda, passes, width, c, o):
+    """inf, -inf and NaN in g, in the interior and at the image's first and
+    last columns (which meet the padding column of x: 0 inf = NaN in taps
+    kx = 0 and 2), W ragged and a multiple of 32, on both routes: NaN and
+    inf outputs exactly float64's of the zero-padded definition, of its
+    sign; the finite ones within the bar.  (cuDNN's weight gradient is no
+    oracle here: an algorithm may form no products with the padding.)"""
+    x = torch.from_numpy(rng.standard_normal((2, 19, width, c))).to(
+        cuda, torch.float32)
+    g = torch.from_numpy(rng.standard_normal((2, 19, width, o))).to(
+        cuda, torch.float32)
+    for idx, v in [((0, 3, 0, 2), float("inf")),
+                   ((1, 10, width - 1, o - 1), float("-inf")),
+                   ((0, 7, 33, 0), float("nan")),
+                   ((1, 18, width - 1, 4), float("nan"))]:
+        g[idx] = v
+    got = conv3x3_wgrad(x, g, passes)
+    torch.cuda.synchronize()
+    want = _wgrad_f64(x, g)
+    fin = torch.isfinite(want)
+    assert torch.isnan(want[:, 0, :, 2]).all()
+    assert torch.isnan(want[:, 2, :, o - 1]).all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.equal(torch.sign(got[torch.isinf(want)]),
+                       torch.sign(want[torch.isinf(want)]).float())
+    gz = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+    err = (got.double() - _wgrad_f64(x, gz)).abs()
+    assert (err[fin] <= _wgrad_bar(x, gz, passes)[fin]).all()
 
 
 @pytest.mark.cuda

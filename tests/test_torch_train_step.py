@@ -290,18 +290,74 @@ def test_memory_options_keep_the_gradient(jax_params, batch, kw, tol):
         assert abs(m2[k] - m1[k]) <= 1e-5 * max(abs(m1[k]), 1e-12), k
 
 
+def test_pairlane_step_is_the_plain_step(jax_params, batch, port_step):
+    """``TrainConfig(model=ModelConfig(pairlane=True))`` is accepted, as the
+    JAX package's is: neither package's step reaches the pair-lane route
+    (the per-frame ``decode`` has none, and the step's VGG encodes are
+    fp32).  So the step's losses and gradients equal the ``pairlane=False``
+    step's bit for bit (``compute_losses`` with the injected pair, and one
+    ``make_train_step`` update), they match the JAX package's
+    ``pairlane=True`` step under the file's bars (metrics 1e-4 relative,
+    the gradients at GRAD_SITES 1e-3 of their max-abs), and no
+    ``rerevst::conv3x3_pairlane`` op runs."""
+    from rerevst_tpu.config import ModelConfig as JModelConfig
+
+    cfg = TrainConfig(loss=LossConfig(**LCFG),
+                      model=ModelConfig(pairlane=True))
+    state = init_train_state(_port_params(jax_params), cfg)
+    content, style, extra = _t(batch)
+    with _KernelOps() as ops:
+        total, (metrics, _) = compute_losses(state.params, content, style,
+                                             None, cfg, extra)
+        named = [((k,) + p, leaf) for k in state.params
+                 for p, leaf in tree_leaves(state.params[k])
+                 if leaf.requires_grad]
+        grads = torch.autograd.grad(total, [leaf for _, leaf in named])
+        g_lane, m_lane = _grads_after_step(
+            jax_params, batch, model=ModelConfig(pairlane=True))
+    assert ops.calls["conv3x3_pairlane"] == 0, ops.calls
+    want_m, want_g = port_step
+    assert {k: float(v.detach()) for k, v in metrics.items()} == want_m
+    assert [name for name, _ in named] == list(want_g)
+    for (name, _), g in zip(named, grads):
+        assert torch.equal(g, want_g[name]), name
+    g_plain, m_plain = _grads_after_step(jax_params, batch)
+    assert m_lane == m_plain
+    assert g_lane.keys() == g_plain.keys()
+    for k in g_plain:
+        assert torch.equal(g_lane[k], g_plain[k]), k
+
+    jcfg = JTrainConfig(loss=JLossConfig(**LCFG),
+                        model=JModelConfig(pairlane=True))
+
+    def loss_fn(p):
+        t, (m, _) = jcompute_losses(
+            p, jnp.asarray(batch[0]), jnp.asarray(batch[1]),
+            jax.random.PRNGKey(0), jcfg,
+            {k: jnp.asarray(v) for k, v in batch[2].items()})
+        return t, m
+
+    (_, jm), jg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        jax_params)
+    got = {k: float(v.detach()) for k, v in metrics.items()}
+    for k, v in jm.items():
+        assert abs(got[k] - float(v)) <= 1e-4 * max(abs(float(v)), 1e-12), k
+    named = dict(zip([name for name, _ in named], grads))
+    for site in GRAD_SITES:
+        want = np.asarray(_get(jg, site))
+        err = np.abs(named[site].numpy() - want).max() / np.abs(want).max()
+        assert err < 1e-3, (site, err)
+
+
 def test_refusals(jax_params, batch):
-    """What the step refuses: the pair-lane kernel, the Figure-16 ablations
-    under data-parallel training (the JAX package's refusal; the
-    configuration itself is accepted), a batch that micro-batches do not
-    divide, and micro-batches with the adversarial loss; the adversarial and
-    ablation flags are accepted, and an ablation pair without its mask is an
-    error."""
+    """What the step refuses: the Figure-16 ablations under data-parallel
+    training (the JAX package's refusal; the configuration itself is
+    accepted), a batch that micro-batches do not divide, and micro-batches
+    with the adversarial loss; the adversarial and ablation flags are
+    accepted, and an ablation pair without its mask is an error."""
     from rerevst_torch.train.loop import train
     from rerevst_torch.train.step import make_adversarial_train_step
 
-    with pytest.raises(ValueError, match="pair-lane"):
-        TrainConfig(model=ModelConfig(pairlane=True))
     assert LossConfig(adversarial_loss=True, gan_mode="wgangp").gan_mode \
         == "wgangp"
     for kw in ({"use_mpi": True}, {"use_video": True}):
