@@ -8,18 +8,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
 1. device  — the card's name, compute capability (must be 9.0) and power limit;
 2. build   — compiles ``rerevst_torch/csrc/*.cu`` for sm_90a (first use),
              and reports the registers and spills of the streamed, wide,
-             narrow, sliced and split-TF32 conv kernels, the filter pair
-             kernel and the weight-gradient kernel (``nvcc -Xptxas -v``;
-             a spill fails, and so does a
-             serialized wgmma in the wide, sliced or split-TF32 kernel);
+             narrow, sliced, split-TF32 and one-pass conv kernels, the
+             filter pair kernel and the weight-gradient kernel (``nvcc
+             -Xptxas -v``; a spill fails, and so does a serialized wgmma
+             in the wide, sliced, split-TF32 or one-pass kernel);
 3. check   — each kernel against its plain PyTorch version on the card, at the
              main path's shapes (batch 16, 512x512 content padded to 640x640)
              plus ragged ones and inf/NaN inputs, in f16, bf16 and fp32
              (fp32 also at +-FLT_MAX; the NaN and inf masks of the narrow,
              split-TF32 and C % 64 = 0, O <= 64 convs must be plain's), and
-             the split-TF32 conv's one-pass instances (``passes=1``) at the
+             the one-pass conv (``passes=1``: the one-pass design where O >
+             32, the split-TF32 kernel's one-pass instance below) at the
              fp32 sessions' conv shapes under (2^-10 + (9 C + 1) 2^-22) sum
-             |x||w|,
+             |x||w|, each call counted on the design it takes, and its mean
+             signed error against float64 at every finite shape within
+             TF32X1_MEAN_SIGNED_BAR,
              and the weight-gradient kernel (``conv3x3_wgrad``) at ragged
              shapes, three and one passes, against float64 under (2^-19 or
              2^-10 + 2^-22, + (K_split + splits) 2^-22) sum |x||g|;
@@ -173,9 +176,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
              the bundle within 1e-6 mean |delta| of eager (the same graph
              with the TF32 flags on must miss it), fp32 'highest' again
              bit-equal to its first run with the TF32 flags as they were;
-             then the one-pass kernel at
-             [16,640,640,64] -> 64 beside ``F.conv2d`` with cuDNN's TF32
-             on, its bound one TF32 pass;
+             then the one-pass conv at every shape of an fp32 'default'
+             Pass-2 batch (its launches a batch, its design) beside
+             ``F.conv2d`` with cuDNN's TF32 on, its bound one TF32 pass;
    aot         — the global f16 and pair-lane sessions' Pass 2 exported
              (``torch.export``, ``io/aot.py``) at 640x640 for batches 1
              and 16 on the card, written, and loaded in a fresh process
@@ -322,12 +325,14 @@ F32_CHECKS = [("conv3x3_implicit_gemm", (2, 13, 45, 3), 5, True, False),
               ("conv3x3_implicit_gemm", (2, 19, 21, 13), 6, True, False),
               ("conv3x3_implicit_gemm", (2, 19, 70, 13), 6, True, True),
               ("conv3x3_implicit_gemm", (2, 19, 70, 5), 9, True, True)]
-#: The one-pass split-TF32 instances (``passes=1``, the 'default'
-#: precision) at the fp32 3x3 SAME conv shapes of one Pass-2 batch of the
+#: The one-pass conv (``passes=1``, the 'default' precision: the one-pass
+#: design where O > 32, the split-TF32 kernel's one-pass instance below)
+#: at the fp32 3x3 SAME conv shapes of one Pass-2 batch of the
 #: config_variants sessions (VGG conv1_1, conv1_2 / res2.conv2, conv2_2,
 #: conv3_2, conv4_1, res4.conv2, the filter blocks' `down` and `up`, the
-#: out conv), then ragged ones and non-finite inputs: (x shape, O, bias,
-#: non-finite inputs).
+#: out conv), then ragged ones (O = 65: scalar stores; a train step's
+#: 32^2 image) and non-finite inputs: (x shape, O, bias, non-finite
+#: inputs).
 TF32X1_CHECKS = [((BATCH, PAD_HW, PAD_HW, 3), 64, True, False),
                  ((BATCH, PAD_HW, PAD_HW, 64), 64, True, False),
                  ((BATCH, 320, 320, 128), 128, True, False),
@@ -341,11 +346,25 @@ TF32X1_CHECKS = [((BATCH, PAD_HW, PAD_HW, 3), 64, True, False),
                  ((3, 37, 53, 64), 64, True, False),
                  ((2, 19, 70, 64), 64, True, True),
                  ((2, 19, 70, 13), 6, True, True),
-                 ((2, 19, 70, 200), 192, True, True)]
+                 ((2, 19, 70, 200), 192, True, True),
+                 ((2, 9, 40, 100), 65, True, False),
+                 ((1, 32, 32, 256), 512, False, False),
+                 ((2, 19, 70, 13), 72, True, True)]
 #: One TF32 pass against the exact fp32 conv: x and w each rounded to
 #: nearest TF32 (<= 2^-11 of it) are within 2^-10 + 2^-22 of |x||w| a
 #: product, on top of the K 2^-22 sum |x||w| of the accumulation.
 TF32_X1_BAR = 2.0 ** -10 + 2.0 ** -22
+
+
+def tf32x1_mean_signed_bar(c: int) -> float:
+    """The one-pass conv's |mean signed error| against float64 (sum (y -
+    y64) sign(y64) over sum |y64|) may reach (9 C / 8) 2^-24 + 2^-15: each
+    of a sum's 9 C / 8 chained k8 wgmmas may truncate it by up to 2^-24
+    (WGRAD_CHAIN_BIAS's reasoning), and rounding's own scatter, unbiased,
+    leaves its mean far below 2^-15 over these shapes' outputs.  x
+    truncated to TF32 (the tensor cores' own reading) shrinks each product
+    by about 2^-11 ln 2 (3.4e-4) and fails it."""
+    return 9 * c / 8 * 2.0 ** -24 + 2.0 ** -15
 #: Ragged weight-gradient shapes of phase check ([B, H, W, C], O): both
 #: routes of csrc/conv3x3_wgrad.cu (wgmma: C, O >= 8 and multiples of 4;
 #: mma.sync: the rest, both of its block tiles), C and O off every
@@ -568,8 +587,14 @@ def check_convs(torch, gen, errs):
                            ((0, 14, 40, c - 1), fmax),
                            ((1, 6, 33, 0), -fmax)]:
                 x[idx] = v
+        kind = design(shape[-1], torch.float32, o, 1)
+        before = kernels.conv3x3_implicit_gemm.launches_by_design[kind]
         got = kernels.conv3x3_implicit_gemm(x, w, b, passes=1)
         torch.cuda.synchronize()
+        if kernels.conv3x3_implicit_gemm.launches_by_design[kind] \
+                != before + 1:
+            fail(f"conv3x3_implicit_gemm passes=1 {shape}->{o}: no launch "
+                 f"counted on design {kind}")
         want = kernels.conv3x3_implicit_gemm_plain(x, w, b)
         fin = torch.isfinite(want)
         err = (got.float() - want.float()).abs()[fin].max().item()
@@ -579,13 +604,31 @@ def check_convs(torch, gen, errs):
             b, passes=1) \
             and bool(torch.equal(torch.isnan(got), torch.isnan(want))) \
             and bool(torch.equal(torch.isinf(got), torch.isinf(want)))
-        RESULTS["checks"].append(
-            {"kernel": "conv3x3_implicit_gemm", "passes": 1, "shape": shape,
-             "O": o, "dtype": "torch.float32", "bias": bias,
-             "nonfinite_inputs": nonfinite,
-             "nonfinite_outputs": int((~fin).sum()), "max_abs_err": err,
-             "bar": "(2^-10 + (9 C + 1) 2^-22) sum |x||w| (+|b|)",
-             "scale": want.float()[fin].abs().max().item(), "ok": ok})
+        row = {"kernel": "conv3x3_implicit_gemm", "passes": 1,
+               "design": kind, "shape": shape, "O": o,
+               "dtype": "torch.float32", "bias": bias,
+               "nonfinite_inputs": nonfinite,
+               "nonfinite_outputs": int((~fin).sum()), "max_abs_err": err,
+               "bar": "(2^-10 + (9 C + 1) 2^-22) sum |x||w| (+|b|)",
+               "scale": want.float()[fin].abs().max().item(), "ok": ok}
+        if not nonfinite:
+            # The mean signed error against float64 on up to two frames.
+            x2 = x[:2].double().permute(0, 3, 1, 2)
+            ref = torch.nn.functional.conv2d(
+                x2, w.double().permute(3, 2, 0, 1),
+                None if b is None else b.double(),
+                padding=1).permute(0, 2, 3, 1)
+            row["mean_signed_err_vs_f64"] = float(
+                ((got[:2].double() - ref) * ref.sign()).sum()
+                / ref.abs().sum())
+            row["mean_signed_bar"] = tf32x1_mean_signed_bar(shape[-1])
+            del x2, ref
+            if abs(row["mean_signed_err_vs_f64"]) > row["mean_signed_bar"]:
+                RESULTS["checks"].append(row)
+                fail(f"conv3x3_implicit_gemm passes=1 {shape}->{o}: mean "
+                     f"signed error {row['mean_signed_err_vs_f64']} beyond "
+                     f"{row['mean_signed_bar']}")
+        RESULTS["checks"].append(row)
         if not ok:
             fail(f"conv3x3_implicit_gemm passes=1 {shape}->{o}: max |kernel "
                  f"- plain| = {err} beyond (2^-10 + (9C + 1) 2^-22) "
@@ -1055,7 +1098,8 @@ def drive_implicit_gemm(torch):
           "launches": counts, "launches_by_design": by_design})
     if counts["conv3x3_implicit_gemm"] != len(shapes) \
             or by_design != {"streamed": 2, "wide": 1, "narrow": 1,
-                             "sliced": 3, "tf32x3": 1, "tf32x1": 0}:
+                             "sliced": 3, "tf32x3": 1, "tf32x1": 0,
+                             "tf32x1_sliced": 0}:
         fail(f"conv3x3_implicit_gemm standalone launches {counts}, "
              f"by design {by_design}")
     RESULTS["implicit_gemm_launches_by_design"] = by_design
@@ -4605,56 +4649,73 @@ def f32_errors(torch, x, w, b, passes=3) -> dict:
     return out
 
 
-def time_tf32x1(torch, smi) -> dict:
-    """The split-TF32 kernel's one-pass instance (design ``tf32x1``, the
-    'default' precision) at F32_CONV's shape: checked against its plain
-    version under the one-pass bar, timed beside the plain version and one
-    F.conv2d call with cuDNN's TF32 on (one TF32 pass: the library's
-    counterpart), its error against float64 beside F.conv2d's; the bound is
-    one TF32 pass over the tensor cores, or the bytes."""
+def time_tf32x1(torch, smi, shapes) -> list:
+    """The one-pass conv (``passes=1``, the 'default' precision) at every
+    shape `shapes` ({(B, H, W, C, O, passes): launches} of one fp32
+    'default' Pass-2 batch) holds at one pass, with its launches a batch
+    and the design it takes (``tf32x1``, or ``tf32x1_sliced`` where O <=
+    32): checked against its plain version under the one-pass bar, timed
+    beside the plain version and one F.conv2d with cuDNN's TF32 on (one
+    TF32 pass: the library's counterpart), its error against float64 beside
+    F.conv2d's; the bound is one TF32 pass over the tensor cores, or the
+    bytes.  F32_CONV's row is the kernel table's row 3k."""
     import torch.nn.functional as F
 
     from rerevst_torch import kernels
+    from rerevst_torch.kernels.conv3x3 import design
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
-    site, shape, o = F32_CONV
-    x, w, b = conv_inputs(torch, shape, o, torch.float32, gen)
-    got = kernels.conv3x3_implicit_gemm(x, w, b, passes=1)
-    want = kernels.conv3x3_implicit_gemm_plain(x, w, b)
-    if not conv_within_tolerance(torch, got, want, x, w, b, passes=1):
-        fail(f"conv3x3_implicit_gemm passes=1 {shape}->{o}: disagrees with "
-             f"plain beyond the one-pass bar")
-    err = (got.float() - want.float()).abs().max().item()
-    del got, want
-    wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    xl = x.permute(0, 3, 1, 2)
-    k = time_ms(torch,
-                lambda: kernels.conv3x3_implicit_gemm(x, w, b, passes=1),
-                iters=5, warmup=1)
-    pl = time_ms(torch, lambda: kernels.conv3x3_implicit_gemm_plain(x, w, b),
-                 iters=3, warmup=1)
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = True
-    try:
-        lib = time_ms(torch, lambda: F.conv2d(xl, wl, b, padding=1),
-                      iters=5, warmup=1)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
-    bound, by, t_bytes, t_ops = conv_bound(x, w, o, TF32_FLOP_PER_S)
-    row = {"kernel": "conv3x3_implicit_gemm", "site": site + ", one pass",
-           "design": "tf32x1", "passes": 1,
-           **f32_errors(torch, x, w, b, passes=1), "shape": shape, "O": o,
-           "dtype": "float32", "max_abs_err": err, "ms": k["ms"],
-           "plain_ms": pl["ms"], "library_ms": lib["ms"],
-           "library": "F.conv2d, cuDNN TF32 on", "bound_ms": bound,
-           "bound_by": by, "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
-           "of_bound": bound / k["ms"],
-           "tflops": 2 * x.numel() * 9 * o / k["ms"] / 1e9,
-           "host_paced": k["host_paced"] or lib["host_paced"], "card": smi}
-    del x, w, b, wl, xl
-    torch.cuda.empty_cache()
-    return row
+    rows = []
+    one_pass = sorted((k[:5], v) for k, v in shapes.items() if k[5] == 1)
+    if F32_CONV[1] + (F32_CONV[2],) not in dict(one_pass):
+        fail(f"time_tf32x1: {F32_CONV} is not among the 'default' batch's "
+             f"one-pass shapes {one_pass}")
+    for (*shape, o), launches in one_pass:
+        shape = tuple(shape)
+        x, w, b = conv_inputs(torch, shape, o, torch.float32, gen)
+        got = kernels.conv3x3_implicit_gemm(x, w, b, passes=1)
+        want = kernels.conv3x3_implicit_gemm_plain(x, w, b)
+        if not conv_within_tolerance(torch, got, want, x, w, b, passes=1):
+            fail(f"conv3x3_implicit_gemm passes=1 {shape}->{o}: disagrees "
+                 f"with plain beyond the one-pass bar")
+        err = (got.float() - want.float()).abs().max().item()
+        del got, want
+        wl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        xl = x.permute(0, 3, 1, 2)
+        k = time_ms(torch,
+                    lambda: kernels.conv3x3_implicit_gemm(x, w, b, passes=1),
+                    iters=5, warmup=1)
+        pl = time_ms(torch,
+                     lambda: kernels.conv3x3_implicit_gemm_plain(x, w, b),
+                     iters=3, warmup=1)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            lib = time_ms(torch, lambda: F.conv2d(xl, wl, b, padding=1),
+                          iters=5, warmup=1)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        bound, by, t_bytes, t_ops = conv_bound(x, w, o, TF32_FLOP_PER_S)
+        site = F32_CONV[0] + ", one pass" \
+            if (shape, o) == (F32_CONV[1], F32_CONV[2]) \
+            else f"fp32 'default' {list(shape)} -> {o}"
+        rows.append({
+            "kernel": "conv3x3_implicit_gemm", "site": site,
+            "design": design(shape[-1], torch.float32, o, 1), "passes": 1,
+            "launches_per_batch": launches,
+            **f32_errors(torch, x, w, b, passes=1), "shape": shape, "O": o,
+            "dtype": "float32", "max_abs_err": err, "ms": k["ms"],
+            "plain_ms": pl["ms"], "library_ms": lib["ms"],
+            "library": "F.conv2d, cuDNN TF32 on", "bound_ms": bound,
+            "bound_by": by, "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+            "of_bound": bound / k["ms"],
+            "tflops": 2 * x.numel() * 9 * o / k["ms"] / 1e9,
+            "host_paced": k["host_paced"] or lib["host_paced"], "card": smi})
+        del x, w, b, wl, xl
+        torch.cuda.empty_cache()
+    return rows
 
 
 #: The phase's sessions whose Pass 2 is also exported (``io/aot.py``) and
@@ -4725,6 +4786,17 @@ MIX_TF32_SITES = {"out": 1, "res2": 2, "dec": 10, "enc": 9, "full": 19,
 FP32_SITES = 19
 
 
+def tf32_sites(by_design: dict, passes: int) -> int:
+    """Launches at `passes` TF32 passes among launches by design: three
+    passes ``tf32x3``; one pass both one-pass designs (``tf32x1``, and
+    ``tf32x1_sliced`` where O <= 32).  A launch at the other count, or of a
+    16-bit design, makes it -1."""
+    ours = {3: ("tf32x3",), 1: ("tf32x1", "tf32x1_sliced")}[passes]
+    if any(v and k not in ours for k, v in by_design.items()):
+        return -1
+    return sum(by_design.get(k, 0) for k in ours)
+
+
 def config_variants(torch, smi):
     """Phase config_variants: the config variants of ModelConfig through
     ``Stylization`` with the bundled weights, one stylize_video of the
@@ -4779,7 +4851,7 @@ def config_variants(torch, smi):
                dtype=f16, parity_packed=True, pairlane=True,
                spatial_tiles=2, luma_fold=True)),
            ("fp32_highest_again", ModelConfig())]
-    params = trace = None
+    params = trace = default_shapes = None
     res, frames = {}, {}
     for key, cfg in sessions:
         s = Stylization(ckpt if params is None else None, params=params,
@@ -4810,9 +4882,11 @@ def config_variants(torch, smi):
         per_batch = {k: v for k, v in
                      kernels.conv3x3_implicit_gemm.launches_by_design.items()
                      if v}
+        by_shape = dict(kernels.conv3x3_implicit_gemm.launches_by_shape)
         t = time_ms(torch, lambda: s._stylize(x), iters=5, warmup=1)
         aot = aot_vs_eager(torch, s, x, y) if key in AOT_VARIANTS else None
         if key == "fp32_default":
+            default_shapes = by_shape
             # What the library's exact fp32 products (the upsample and
             # shortcut convs: every 3x3 SAME conv is the kernel's) cost of
             # a 'default' batch.
@@ -4828,6 +4902,8 @@ def config_variants(torch, smi):
                     "mix_precision": cfg.mix_precision,
                     "launches": counts, "launches_by_design": by_design,
                     "tf32_launches_per_batch": per_batch,
+                    "tf32_launches_per_batch_by_shape": {
+                        str(list(k)): v for k, v in by_shape.items()},
                     "pass1_mode": s.pass1_mode, "pass2_mode": s.pass2_mode}
         if aot is not None:
             res[key]["aot"] = aot
@@ -4850,10 +4926,12 @@ def config_variants(torch, smi):
     for key, passes, bar in (("fp32_high", 3, 1e-4),
                              ("fp32_default", 1, 1e-3)):
         r = res[key]
-        need(r["tf32_launches_per_batch"] == {f"tf32x{passes}": FP32_SITES},
+        need(tf32_sites(r["tf32_launches_per_batch"], passes) == FP32_SITES
+             and (passes == 3
+                  or r["tf32_launches_per_batch"].get("tf32x1", 0) > 0),
              f"{key} split-TF32 launches per batch "
              f"{r['tf32_launches_per_batch']}, expected {FP32_SITES} with "
-             f"{passes} passes")
+             f"{passes} passes (one pass: the one-pass design among them)")
         need(r["mean_abs_vs_fp32_highest_01"] <= bar,
              f"{key} mean |delta| {r['mean_abs_vs_fp32_highest_01']} > {bar}")
     need(not res["fp32_highest"]["tf32_launches_per_batch"],
@@ -4862,8 +4940,8 @@ def config_variants(torch, smi):
         mix = r["fp32_mix"]
         if key.startswith(("f16_", "bf16_")) and mix != "none":
             passes = 3 if r["mix_precision"] == "high" else 1
-            need(r["tf32_launches_per_batch"]
-                 == {f"tf32x{passes}": MIX_TF32_SITES[mix]},
+            need(tf32_sites(r["tf32_launches_per_batch"], passes)
+                 == MIX_TF32_SITES[mix],
                  f"{key}: split-TF32 launches per batch "
                  f"{r['tf32_launches_per_batch']}")
             want = "torch.float32" if mix in ("out", "res2", "dec", "full") \
@@ -4891,12 +4969,18 @@ def config_variants(torch, smi):
     need(packed_equal, "f16 parity_packed frames differ from f16's")
     need(leak_equal, "fp32 'highest' frames changed after the variants")
     need(after == flags, f"TF32 flags {after}, were {flags}")
-    row = time_tf32x1(torch, smi)
-    emit({"phase": "config_variants", "tf32x1_row": row})
+    rows = time_tf32x1(torch, smi, default_shapes)
+    for r in rows:
+        emit({"phase": "config_variants", "tf32x1_row": r})
+    row = next(r for r in rows if r["site"] == F32_CONV[0] + ", one pass")
+    summary["fp32_default_one_pass_ms_per_batch"] = sum(
+        r["ms"] * r["launches_per_batch"] for r in rows)
+    summary["fp32_default_one_pass_cudnn_tf32_ms_per_batch"] = sum(
+        r["library_ms"] * r["launches_per_batch"] for r in rows)
     summary["phase_s"] = time.perf_counter() - t_phase
     emit({"phase": "config_variants", "summary": summary, "card": smi})
     RESULTS["config_variants"] = {"sessions": res, "summary": summary,
-                                  "tf32x1_row": row}
+                                  "tf32x1_row": row, "tf32x1_rows": rows}
     return res, row
 
 
@@ -4908,12 +4992,13 @@ def kernel_resources(reports) -> dict:
     """From `reports` (source -> ``_build.ptxas_report`` of it):
     registers, spills and ptxas's notes (a serialized wgmma shows here)
     of each instance of the streamed C = 64, the wide, the narrow, the
-    sliced and the split-TF32 conv kernels (and its weights' split kernel),
+    sliced, the split-TF32 (and its weights' split kernel) and the one-pass
+    conv kernels,
     of the filter pair kernel and of the weight-gradient kernel (and its
     reduction).  A spill fails the phase: the designs
     count on keeping their fragments and accumulators in registers; so does
-    a note that the wide, sliced or split-TF32 kernel's wgmmas are
-    serialized."""
+    a note that the wide, sliced, split-TF32 or one-pass kernel's wgmmas
+    are serialized."""
     import re
 
     dts = {"f": "fp32", "6__half": "f16", "13__nv_bfloat16": "bf16"}
@@ -4939,6 +5024,11 @@ def kernel_resources(reports) -> dict:
         if m:
             out[f"conv3x3_tf32x3_kernel<N={m.group(1)}, KS={m.group(2)}, "
                 f"P={m.group(3)}>"] = info
+        m = re.search(r"conv3x3_tf32x1_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                      name)
+        if m:
+            out[f"conv3x3_tf32x1_kernel<MB={m.group(1)}, NPX={m.group(2)}, "
+                f"KS={m.group(3)}>"] = info
         if "conv3x3_tf32_split_kernel" in name:
             out["conv3x3_tf32_split_kernel"] = info
     n_conv = len(out)
@@ -4951,13 +5041,18 @@ def kernel_resources(reports) -> dict:
     n_sliced = sum(k.startswith("conv3x3_sliced") for k in out)
     if n_sliced != 20:
         fail(f"ptxas reported {n_sliced} sliced conv kernels, not 20")
-    n_tf32 = sum(k.startswith("conv3x3_tf32") for k in out)
+    n_tf32 = sum(k.startswith(("conv3x3_tf32x3", "conv3x3_tf32_split"))
+                 for k in out)
     if n_tf32 != 17:
         fail(f"ptxas reported {n_tf32} split-TF32 conv kernels, not 16 (N x "
              f"KS x three or one pass) and the weights' split")
+    n_tf32x1 = sum(k.startswith("conv3x3_tf32x1") for k in out)
+    if n_tf32x1 != 6:
+        fail(f"ptxas reported {n_tf32x1} one-pass conv kernels, not 6 (MB x "
+             f"NPX 1 x 256, 1 x 128, 2 x 128; KS 8, 16)")
     serialized = [k for k, v in out.items()
                   if k.startswith(("conv3x3_wide", "conv3x3_sliced",
-                                   "conv3x3_tf32x3"))
+                                   "conv3x3_tf32x3", "conv3x3_tf32x1"))
                   and any("wgmma" in n and "serializ" in n
                           for n in v["notes"])]
     if serialized:
@@ -5216,6 +5311,25 @@ def main() -> int:
             "train": trained["launches"]["conv3x3_wgrad"],
             "adversarial": adv["launches"]["conv3x3_wgrad"],
             "mesh": dist["launches"]["conv3x3_wgrad"]}})
+    # The one-pass design: its path is the fp32 'default' session (its
+    # launches that session's stylize_video's on design tf32x1), its times
+    # row 3k's (F32_CONV at one pass).
+    line["kernels"].append({
+        "name": "conv3x3_tf32x1", "route": "cuda",
+        "source": "rerevst_torch/csrc/conv3x3.cu",
+        "replaces": "rerevst_tpu/kernels/conv3x3.py:81",
+        "launches": variants["fp32_default"]["launches_by_design"].get(
+            "tf32x1", 0),
+        "max_abs_err": tf32x1_row["max_abs_err"],
+        **{k: tf32x1_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+        "path": "stylize_video fp32 precision='default' (phase "
+                "config_variants)",
+        "times_of": f"{tf32x1_row['site']} {list(tf32x1_row['shape'])} -> "
+                    f"{tf32x1_row['O']}, design tf32x1",
+        "library": tf32x1_row["library"],
+        "launches_train_default": precisions["default"][
+            "launches_per_step"]["conv3x3_implicit_gemm"]})
     for entry in line["kernels"]:
         if entry["name"] == "conv3x3_implicit_gemm":
             entry["launches_train"] = {

@@ -32,8 +32,11 @@
 // * fp32 -- both entry points, every C and O: the split-TF32 design below
 //   (conv3x3_tf32x3_kernel), fp32-accurate products on the tensor cores
 //   (the counterpart of the JAX package's HIGHEST and HIGH precisions)
-//   at passes = 3; at passes = 1 one TF32 pass (x and w rounded to
-//   nearest TF32: the 'default' precision), the same walk with no lo box.
+//   at passes = 3.  At passes = 1, one TF32 pass (x and w rounded to
+//   nearest TF32: the 'default' precision): where the wrapper passes R >
+//   0 (O > 32) the one-pass design below (conv3x3_tf32x1_kernel: the
+//   weights as wgmma's A), else the split-TF32 kernel's one-pass instance
+//   (the same walk with no lo box).
 // No call reaches a cp.async + mma.sync kernel or the CUDA cores' FMAs.
 // A tensor map that cannot be encoded or a refused launch is returned as
 // an error: nothing retries on another design.
@@ -330,28 +333,90 @@
 //   straight from registers (four lanes write one row's 32 contiguous
 //   bytes: whole sectors), where they fall inside the image and O.  An
 //   fp32 tile is 64 KB at N = 64, too much to stage beside the ring.
-// * One pass (P = 1, rr_conv3x3 with passes = 1): x w in one TF32
-//   product, both operands rounded to nearest: the weights once a call in
-//   the split kernel, x in each landed box, in place, by both consumer
-//   warpgroups (the lo pass's walk, its writes to the box itself, then the
-//   same fence and barrier).  Truncation, as the tensor cores read fp32,
-//   shrinks every product by 2^-12 of it on average (a mean signed error of
-//   -3.5e-4, which moved a train step at 'default' 9.1e-3 from the exact
-//   one); rounding is unbiased.  No lo box, no lo planes of the weights.
-//   Within 2^-10 sum |x||w| of the fp32 conv (each rounding <= 2^-11).
-//   The rounding costs: 3.46 ms at [16,640,640,64] -> 64 against
-//   truncation's 2.07 (scripts/conv_ab.py; NVIDIA H100 80GB HBM3 at 700
-//   W).  Rejected, all slower: the box rounded by the producer
-//   warpgroup's three idle warps ahead of a `ready` barrier a stage, 5.32
-//   ms; A from registers (each warp's fragments of a tap by ldmatrix,
-//   rounded, register-A wgmma), 5.13 ms a group a tap and 5.14 a group a
-//   stage from two register sets, no write to shared memory, no fence.
+// * One pass (P = 1, rr_conv3x3 with passes = 1 and R = 0: O <= 32, N = 8,
+//   16 or 32): x w in one TF32 product, both operands rounded to nearest:
+//   the weights once a call in the split kernel, x in each landed box, in
+//   place, by both consumer warpgroups (the lo pass's walk, its writes to
+//   the box itself, then the same fence and barrier; each warpgroup
+//   rounding only the box rows its own taps read behind its own barrier,
+//   as the one-pass design does, rounds 11% more pixels and was 2-4%
+//   slower at these small N, scripts/conv_ab.py --tf32x1 at [4,32,32,512]
+//   -> 32 and [16,80,80,512] -> 32).  Truncation, as the tensor cores
+//   read fp32, shrinks every product by 2^-12 of it on average (a mean
+//   signed error of -3.5e-4, which moved a train step at 'default' 9.1e-3
+//   from the exact one); rounding is unbiased.  No lo box, no lo planes of
+//   the weights.  Within 2^-10 sum |x||w| of the fp32 conv (each rounding
+//   <= 2^-11).  O > 32 takes the one-pass design below.
 // * What bounds it (scripts/probe_tf32_conv.py at [16,640,640,64] -> 64):
 //   one pass alone 2.73 ms, no wgmma at all 2.64, the lo pass 0.67 of the
 //   4.70, the stores 0.19.  Each m64nNk8 reads 2 KB of A and N 32 bytes of
 //   B from shared memory for 32 clocks of products at N = 64: with the lo
 //   pass and the TMA writes, a stage moves about 370 KB through shared
 //   memory for 2304 clocks of products, more than its 128 bytes a clock.
+
+// The one-pass design (fp32, passes = 1, O > 32; rr_conv3x3 with R > 0).
+// One TF32 pass, x and w rounded to nearest, as the split-TF32 kernel's
+// one-pass instance computes it, with the operands swapped: the weights are
+// wgmma's A (M = 64 output channels a block, from the split kernel's one
+// plane ws[tap][o][Cp], rounded once a call and already K-major, so A
+// needs no work in shared memory) and the box of x is B (N = 128 or 256
+// pixels, K-major as NHWC lies; tap dy moves B's start by dy rows of cols
+// pixels, whole 8-row swizzle groups, and dx keeps a box of its own, as a
+// one-pixel shift would break the swizzle groups).
+// * What bounded the old orientation at [16,640,640,64] -> 64 (3.50 ms
+//   against a 1.00 ms bound): shared memory.  Each m64n64k8 read 2 KB of
+//   A (x) and 2 KB of B for 32 clocks of products, 128 bytes a clock, all
+//   an SM's shared memory gives; a stage (one 16-channel slice at one dx,
+//   24 such wgmmas: 768 clocks) moved 96 KB of operands, 30 KB of TMA
+//   writes and 37 KB of rounding (the box read and written), 1296 clocks
+//   at 128 bytes a clock; and both warpgroups rounded the box together and
+//   met at one barrier before either issued the stage's products.
+// * The reckoning (kernels/conv3x3.py: tf32x1_stage_reckoning; a stage,
+//   both warpgroups, KS = 16, 16-column tiles): m64n256k8 reads 2 + 8 KB
+//   for 128 clocks (80 bytes a clock), m64n128k8 2 + 4 KB for 64 (96).
+//     MB x NPX   tile px x ch   clocks   operands  TMA    rounding  ratio
+//     1 x 256    512 x 64       1536     120 KB    46 KB  72 KB     1.24
+//     2 x 128    256 x 128      1536     144 KB    42 KB  40 KB     1.18
+//     1 x 128    256 x 64        768      72 KB    30 KB  40 KB     1.48
+//   (ratio: the stage's shared-memory bytes at 128 a clock over its
+//   clocks of products; the old orientation's was 1.69).  The wrapper's
+//   plan (tf32x1_plan) takes the shape whose reckoned clocks (stages x the
+//   larger of products and bytes, x the rounds of tiles over the SMs) are
+//   least: 2 x 128 where O > 64 (one box, loaded and rounded once, feeds
+//   128 output channels), else 1 x 256; 1 x 128 where the larger tiles
+//   would leave SMs idle (32^2 and 64^2 images of a train step).
+// * Rounding: each consumer warpgroup rounds, in place, the box pixels its
+//   own taps read, [NPX wg, NPX wg + NPX + 2 cols) (tf32_round_x: inf, NaN
+//   and values near FLT_MAX as in the split-TF32 kernel), fences and waits
+//   at its own 128-thread barrier: the two drift apart, and one's rounding
+//   overlaps the other's products.  Rounding is idempotent: the 2 cols
+//   pixels both read may be written twice, with the same bits.
+// * Tiles, walk and stages as the split-TF32 kernel's (persistent blocks,
+//   channel tile fastest, a stage one K slice at one dx), tiles of 2 NPX
+//   pixels (rows x cols) x 64 MB channels; each consumer warpgroup takes
+//   NPX pixels, its rows / 2 rows, for every channel of the tile.  The
+//   weights' boxes {KS, 64, 1} of ws are zero-filled past O and Cp, and the
+//   padded K columns of x are true zeros, as in the split-TF32 kernel.
+// * The epilogue: the sums lie [channel][pixel] and y wants channels
+//   contiguous.  Each warpgroup stages 32 / MB pixels x 64 MB channels at a
+//   time (8 KB: 2 MB boxes of 32 channels with the 128-byte swizzle, so a
+//   warp's 32 accumulator writes fall in 32 banks) into one of two
+//   buffers, and one thread stores the boxes with TMA; the stores drain
+//   while the next chunk is staged and the next tile's products run
+//   (scalar stores where O % 4 != 0).  The producer meanwhile loads the
+//   next tile's stages.
+// * Measured (scripts/conv_ab.py --tf32x1, scripts/probe_tf32_conv.py;
+//   NVIDIA H100 80GB HBM3 at 700 W): 2.57 ms at [16,640,640,64] -> 64
+//   against the old orientation's 3.46 and cuDNN TF32's 3.54 (39% of its
+//   bound).  Without the rounding 1.61, without the wgmmas 2.30; dropping
+//   the proxy fence or keeping two groups of wgmmas in flight changes
+//   nothing, and both warpgroups rounding behind one barrier reads 2.71:
+//   the rounding costs shared-memory traffic, not latency.  Each value is
+//   still loaded and rounded once per dx box, three times a slice.
+//   Rejected in the old orientation, both slower than rounding the box:
+//   the producer warpgroup's idle warps rounding ahead of a `ready`
+//   barrier (5.32 ms), and x as register A, its ldmatrix fragments rounded
+//   in registers (5.13-5.14 ms).  As B, x has no register form.
 
 // Offsets are 64-bit: a batch of 16 frames of 640^2 x 64 holds 4.2e8
 // values.
@@ -1753,6 +1818,22 @@ __global__ void conv3x3_tf32_split_kernel(const float* __restrict__ w,
   }
 }
 
+// One pass: 16-byte chunks [i0, i1) of a landed box of x rounded to
+// nearest TF32 in place by the 128 threads of a warpgroup (`wtid` its
+// thread).  Each chunk is four channels of one pixel, so the swizzle does
+// not matter.  One chunk at a time: loading ten before storing any was
+// 0.25 ms slower at [16,640,640,64] -> 64 (scripts/probe_tf32_conv.py
+// x1_no_store; NVIDIA H100 80GB HBM3 at 700 W), the rounding's bursts
+// competing with the wgmmas' operand reads.
+__device__ __forceinline__ void round_box_x(uint4* xv, int i0, int i1,
+                                            int wtid) {
+  for (int i = i0 + wtid; i < i1; i += 128) {
+    const uint4 v = xv[i];
+    xv[i] = make_uint4(tf32_round_x(v.x), tf32_round_x(v.y),
+                       tf32_round_x(v.z), tf32_round_x(v.w));
+  }
+}
+
 // A stage's products for a warpgroup: taps dy = 0, 1, 2, each KS / 8 k8
 // steps into both m64 blocks, as x_hi w_hi into acc and x_hi w_lo + x_lo
 // w_hi into cor (P = 3), or x w into acc (P = 1).  da:
@@ -1962,6 +2043,261 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
         }
       }
   }
+}
+
+// ---------------------------------------------------------------------------
+// fp32, one TF32 pass, O > 32 (rr_conv3x3 with passes = 1 and R > 0): the
+// one-pass design (above)
+// ---------------------------------------------------------------------------
+
+// Tiles of kM = 2 NPX pixels x MB 64 output channels, K slices of KS fp32
+// channels (kS bytes a pixel, the swizzle span).  A stage: the box of x
+// (a_slot bytes, set at launch), then the weights' boxes {KS c, 64 o} of
+// taps dy = 0, 1, 2, MB blocks each.  The epilogue stages kCPX pixels x MB
+// 64 channels at a time per warpgroup, as 2 MB output boxes of kCPX pixels
+// x 32 channels (kBox bytes, the 128-byte swizzle), in two buffers.
+template <int MB, int NPX, int KS>
+struct Tf32x1 {
+  static_assert((MB == 1 && (NPX == 128 || NPX == 256)) ||
+                    (MB == 2 && NPX == 128),
+                "tile shape");
+  static_assert(KS == 8 || KS == 16, "K slice");
+  static constexpr int kM = 2 * NPX;
+  static constexpr int kBN = 64 * MB;
+  static constexpr int kS = KS * 4;
+  static constexpr int kABox = 64 * KS * 4;
+  static constexpr int kABytes = 3 * MB * kABox;
+  static constexpr int kCPX = 32 / MB;
+  static constexpr int kBox = kCPX * 32 * 4;
+  static constexpr int kChunk = 2 * MB * kBox;  // 8 KB
+  static constexpr int kOut = 2 * kChunk;       // a warpgroup's two buffers
+};
+
+// Byte offset of (pixel p, channel n) in an output box of 32 fp32
+// channels a pixel: 128-byte rows with TMA's 128-byte swizzle (16-byte
+// chunk n / 4 of row p at chunk n / 4 ^ p % 8).
+__device__ __forceinline__ int x1_out_offset(int p, int n) {
+  return p * 128 + ((((n >> 2) ^ p) & 7) << 4) + ((n & 3) << 2);
+}
+
+// A stage's products for a warpgroup: taps dy = 0, 1, 2, each KS / 8 k8
+// steps into each of its MB m64 blocks of output channels, over its NPX
+// pixels.  da: the stage's weights, tap dy's block m (dy MB + m) kABox bytes
+// on, a k8 step 32 bytes; db: the warpgroup's first pixel at dy = 0 in the
+// box of x, tap dy `drow` further on (a row of cols pixels, in 16-byte
+// units), a k8 step 32 bytes.
+template <int MB, int NPX, int KS>
+__device__ __forceinline__ void tf32x1_stage(float (&acc)[MB][NPX / 2],
+                                             uint64_t da, uint64_t db,
+                                             uint32_t drow) {
+  using P = Tf32x1<MB, NPX, KS>;
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+    for (int i = 0; i < KS / 8; ++i)
+#pragma unroll
+      for (int m = 0; m < MB; ++m)
+        wgmma_ss<float, NPX>(acc[m],
+                             da + (dy * MB + m) * (P::kABox / 16) + 2 * i,
+                             db + dy * drow + 2 * i, 1);
+}
+
+// The one-pass kernel.  xmap: x [B][H][W][Cp] fp32, boxes {KS, cols, rows
+// + 2, 1}; wmap: ws [9][O][Cp] (the weights rounded to TF32), boxes {KS,
+// 64, 1}; both with the kS-byte swizzle; ymap: y [B][H][W][O], boxes {32,
+// min(cols, kCPX), kCPX / min(cols, kCPX), 1}, the 128-byte swizzle
+// (unused where O % 4 != 0).  `lc` = log2(cols); `stages` stages of
+// `a_slot` + kABytes bytes.
+template <int MB, int NPX, int KS>
+__global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x1_kernel(
+    const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap wmap,
+    const __grid_constant__ CUtensorMap ymap, const float* __restrict__ bias,
+    float* __restrict__ y, int B, int H, int W, int Cp, int O, int lc,
+    int stages, int a_slot) {
+  using P = Tf32x1<MB, NPX, KS>;
+  constexpr int BN = P::kBN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const int stage_bytes = a_slot + P::kABytes;
+  const uint32_t ring = smem_addr(base);
+  unsigned char* out_s = base + (size_t)stages * stage_bytes;
+  float* bias_s = reinterpret_cast<float*>(out_s + 2 * P::kOut);
+  const int n_tiles = (O + BN - 1) / BN;
+  const uint32_t full = smem_addr(bias_s + n_tiles * BN);
+  const uint32_t empty = full + 8 * stages;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerThreads / 32);
+    }
+    fence_barrier_init();
+  }
+  for (int i = tid; i < n_tiles * BN; i += kSpecThreads)
+    bias_s[i] = bias != nullptr && i < O ? bias[i] : 0.f;
+  __syncthreads();
+
+  const int cols = 1 << lc, rows = P::kM >> lc;
+  const int strips = (W + cols - 1) >> lc;
+  const int bands = (H + rows - 1) / rows;
+  const long long tiles = (long long)n_tiles * strips * bands * B;
+  const int ksteps = 3 * ((Cp + KS - 1) / KS);  // k = slice 3 + dx
+  const int box_bytes = (rows + 2) * cols * P::kS;
+
+  if (tid >= kConsumerThreads) {
+    // The producer warpgroup: one thread streams every tile's stages.
+    regs_release();
+    if (tid == kConsumerThreads) {
+      const uint32_t tx = box_bytes + P::kABytes;
+      int s = 0;
+      uint32_t ph = 0;
+      for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const WideTile u = wide_tile(t, n_tiles, strips, bands, rows, cols, BN);
+        for (int k = 0; k < ksteps; ++k) {
+          const int sl = k / 3, dx = k - 3 * sl;
+          const uint32_t a = ring + s * stage_bytes;
+          mbar_wait(empty + 8 * s, ph ^ 1);
+          mbar_expect_tx(full + 8 * s, tx);
+          tma_load_4d(a, &xmap, full + 8 * s, sl * KS, u.x0 + dx - 1,
+                      u.y0 - 1, u.b);
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+            for (int m = 0; m < MB; ++m)
+              tma_load_3d(a + a_slot + (dy * MB + m) * P::kABox, &wmap,
+                          full + 8 * s, sl * KS, u.n0 + 64 * m, 3 * dy + dx);
+          if (++s == stages) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumers: warpgroup wg computes tile pixels NPX wg .. + NPX - 1
+  // (wgmma's N) for every channel of the tile (MB m64 blocks: wgmma's M).
+  regs_claim();
+  const int wg = tid >> 7, wtid = tid & 127, lane = tid & 31;
+  const int orow = ((tid >> 5) & 3) * 16 + (lane >> 2);  // accumulator row
+  const int pcol = 2 * (lane & 3);  // its first column of each 8 pixels
+  const uint32_t drow = (uint32_t)(cols * P::kS) >> 4;
+  // The box pixels this warpgroup's taps read, in 16-byte chunks.
+  const int r0 = NPX * wg * P::kS / 16;
+  const int r1 = (NPX * (wg + 1) + 2 * cols) * P::kS / 16;
+  unsigned char* st = out_s + wg * P::kOut;
+  const bool tma = O % 4 == 0;  // a tensor map over y needs 16-byte pixels
+  float acc[MB][NPX / 2];
+  int s = 0;
+  uint32_t ph = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const WideTile u = wide_tile(t, n_tiles, strips, bands, rows, cols, BN);
+    // The sums start from the bias of their rows' output channels.
+#pragma unroll
+    for (int m = 0; m < MB; ++m) {
+      const float b0 = bias_s[u.n0 + 64 * m + orow];
+      const float b1 = bias_s[u.n0 + 64 * m + orow + 8];
+#pragma unroll
+      for (int j = 0; j < NPX / 8; ++j) {
+        acc[m][4 * j] = acc[m][4 * j + 1] = b0;
+        acc[m][4 * j + 2] = acc[m][4 * j + 3] = b1;
+      }
+    }
+    int prev = 0;
+    for (int k = 0; k < ksteps; ++k) {
+      mbar_wait(full + 8 * s, ph);
+      const uint32_t a = ring + s * stage_bytes;
+      // Round the box pixels this warpgroup's taps read, in place, and
+      // wait for this warpgroup's own warps alone: the other warpgroup's
+      // products run meanwhile.  The 2 cols pixels both read may be
+      // written twice, with the same bits.
+      round_box_x(reinterpret_cast<uint4*>(base + (a - ring)), r0, r1, wtid);
+      fence_async_shared();  // the generic writes, before wgmma reads them
+      bar_sync_wg(1 + wg);
+      const uint64_t da = wgmma_desc<P::kS>(a + a_slot);
+      const uint64_t db = wgmma_desc<P::kS>(a + wg * NPX * P::kS);
+      fence_regs(acc);
+      wgmma_fence();
+      tf32x1_stage<MB, NPX, KS>(acc, da, db, drow);
+      wgmma_commit();
+      if (k > 0) {
+        // The previous stage's group is done: it may be refilled.
+        wgmma_wait<1>();
+        fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * prev);
+      }
+      prev = s;
+      if (++s == stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * prev);
+
+    // The epilogue.  The sums lie [channel][pixel] (thread: channels orow,
+    // orow + 8 of each block, pixels 8 j + pcol, + 1); y wants channels
+    // contiguous.  kCPX pixels at a time go into one of the warpgroup's two
+    // buffers as 2 MB output boxes [pixel][32 channels] (the 128-byte
+    // swizzle: a warp's 32 writes fall in 32 banks), and one thread stores
+    // them with TMA: the hardware drops what falls past the image or O,
+    // and the stores drain while the next chunk is staged and the next
+    // tile's products run.  A buffer is rewritten two chunks later, once
+    // cp.async.bulk.wait_group.read says its stores have read it.  O % 4 !=
+    // 0: coalesced scalar stores from the same boxes.
+#pragma unroll
+    for (int c = 0; c < NPX / P::kCPX; ++c) {
+      unsigned char* buf = st + (c & 1) * P::kChunk;
+      if (tma && wtid == 0) bulk_wait_read<1>();
+      bar_sync_wg(1 + wg);  // the buffer's last readers are done
+#pragma unroll
+      for (int jj = 0; jj < P::kCPX / 8; ++jj)
+#pragma unroll
+        for (int m = 0; m < MB; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int oc = 64 * m + orow + 8 * h;  // the tile's channel
+              *reinterpret_cast<float*>(
+                  buf + (oc >> 5) * P::kBox +
+                  x1_out_offset(8 * jj + pcol + e, oc & 31)) =
+                  acc[m][4 * (c * (P::kCPX / 8) + jj) + 2 * h + e];
+            }
+      if (tma) fence_async_shared();  // the TMA stores (async proxy) read it
+      bar_sync_wg(1 + wg);
+      const int q0 = NPX * wg + P::kCPX * c;  // the chunk's first tile pixel
+      if (tma) {
+        if (wtid == 0) {
+#pragma unroll
+          for (int bx = 0; bx < 2 * MB; ++bx)
+            tma_store_4d(&ymap, smem_addr(buf + bx * P::kBox),
+                         u.n0 + 32 * bx, u.x0 + (q0 & (cols - 1)),
+                         u.y0 + (q0 >> lc), u.b);
+          bulk_commit();
+        }
+      } else {
+        for (int i = wtid; i < P::kCPX * BN; i += 128) {
+          const int px = i / BN, oc = i % BN, q = q0 + px;
+          const int yy = u.y0 + (q >> lc), xx = u.x0 + (q & (cols - 1));
+          const int o = u.n0 + oc;
+          if (yy < H && xx < W && o < O)
+            y[(((long long)u.b * H + yy) * W + xx) * O + o] =
+                *reinterpret_cast<const float*>(
+                    buf + (oc >> 5) * P::kBox + x1_out_offset(px, oc & 31));
+        }
+      }
+    }
+  }
+  // The block's shared memory must outlive the stores that read it.
+  if (tma && wtid == 0) bulk_wait_all();
 }
 
 // ---------------------------------------------------------------------------
@@ -2316,6 +2652,98 @@ cudaError_t tf32x3(const void* x, const void* w, const void* b, void* y,
   return cudaErrorInvalidValue;
 }
 
+// The one-pass kernel: `grid` persistent blocks over tiles of 2 NPX pixels
+// (cols = 1 << lc wide) x 64 MB output channels, K slices of KS.  x is
+// [B,H,W,Cp] (Cp = C rounded up to 4), w the caller's [3,3,C,O]; ws, the
+// wrapper's scratch of 9 O Cp floats, takes the rounded weights first.  The
+// ring takes as many stages as fit beside the epilogue's staging and the
+// bias, at most kSlicedMaxStages.
+template <int MB, int NPX, int KS>
+cudaError_t launch_tf32x1(const void* x, const void* w, const void* b,
+                          void* y, void* ws, int B, int H, int W, int C,
+                          int O, int lc, int grid, cudaStream_t st) {
+  using P = Tf32x1<MB, NPX, KS>;
+  const int cols = 1 << lc, rows = P::kM >> lc, cp = (C + 3) / 4 * 4;
+  if (rows < 1) return cudaErrorInvalidValue;
+  const long long nw = 9LL * cp * O;
+  conv3x3_tf32_split_kernel<<<(int)std::min<long long>((nw + 255) / 256,
+                                                        1024),
+                              256, 0, st>>>(static_cast<const float*>(w),
+                                            static_cast<float*>(ws), C, cp, O,
+                                            1);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  CUtensorMap xmap, wmap, ymap = {};
+  const cuuint64_t xd[4] = {(cuuint64_t)cp, (cuuint64_t)W, (cuuint64_t)H,
+                            (cuuint64_t)B};
+  const cuuint64_t xs[3] = {cp * 4ull, cp * 4ull * W, cp * 4ull * W * H};
+  const cuuint32_t xb[4] = {(cuuint32_t)KS, (cuuint32_t)cols,
+                            (cuuint32_t)(rows + 2), 1};
+  e = encode_map<float>(&xmap, x, 4, xd, xs, xb, swizzle_of(P::kS));
+  if (e != cudaSuccess) return e;
+  if (O % 4 == 0) {
+    const int bc = cols < P::kCPX ? cols : P::kCPX;
+    const cuuint64_t yd[4] = {(cuuint64_t)O, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+    const cuuint64_t ys[3] = {O * 4ull, O * 4ull * W, O * 4ull * W * H};
+    const cuuint32_t yb[4] = {32, (cuuint32_t)bc, (cuuint32_t)(P::kCPX / bc),
+                              1};
+    e = encode_map<float>(&ymap, y, 4, yd, ys, yb);
+    if (e != cudaSuccess) return e;
+  }
+  const cuuint64_t wd[3] = {(cuuint64_t)cp, (cuuint64_t)O, 9};
+  const cuuint64_t wst[2] = {cp * 4ull, cp * 4ull * O};
+  const cuuint32_t wb[3] = {(cuuint32_t)KS, 64, 1};
+  e = encode_map<float>(&wmap, ws, 3, wd, wst, wb, swizzle_of(P::kS));
+  if (e != cudaSuccess) return e;
+  const int a_slot = ((rows + 2) * cols * P::kS + 1023) / 1024 * 1024;
+  const int stage = a_slot + P::kABytes;
+  // alignment, the epilogue's staging, the bias
+  const int fixed = 1024 + 2 * P::kOut + (O + P::kBN - 1) / P::kBN * P::kBN * 4;
+  const int stages =
+      std::min(kSlicedMaxStages, (kSmemMax - fixed) / (stage + 16));
+  if (stages < 2) return cudaErrorInvalidValue;
+  const size_t bytes = fixed + (size_t)stages * (stage + 16);
+  e = cudaFuncSetAttribute(conv3x3_tf32x1_kernel<MB, NPX, KS>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e != cudaSuccess) return e;
+  conv3x3_tf32x1_kernel<MB, NPX, KS><<<grid, kSpecThreads, bytes, st>>>(
+      xmap, wmap, ymap, static_cast<const float*>(b), static_cast<float*>(y),
+      B, H, W, cp, O, lc, stages, a_slot);
+  return cudaGetLastError();
+}
+
+template <int MB, int NPX>
+cudaError_t tf32x1_ks(const void* x, const void* w, const void* b, void* y,
+                      void* ws, int B, int H, int W, int C, int O, int lc,
+                      int ks, int grid, cudaStream_t st) {
+  if (ks == 8)
+    return launch_tf32x1<MB, NPX, 8>(x, w, b, y, ws, B, H, W, C, O, lc, grid,
+                                     st);
+  if (ks == 16)
+    return launch_tf32x1<MB, NPX, 16>(x, w, b, y, ws, B, H, W, C, O, lc,
+                                      grid, st);
+  return cudaErrorInvalidValue;
+}
+
+// One pass on the one-pass design: `npx` pixels a warpgroup (128 or 256)
+// and `n` = 64 MB output channels a tile (64, or 128 at npx = 128).
+cudaError_t tf32x1(const void* x, const void* w, const void* b, void* y,
+                   void* ws, int B, int H, int W, int C, int O, int cols,
+                   int npx, int n, int ks, int grid, cudaStream_t st) {
+  const int lc = cols == 16 ? 4 : cols == 32 ? 5 : cols == 64 ? 6
+               : cols == 128 ? 7 : -1;
+  if (lc < 0 || grid <= 0 || ws == nullptr) return cudaErrorInvalidValue;
+  if (n == 64 && npx == 256)
+    return tf32x1_ks<1, 256>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
+  if (n == 64 && npx == 128)
+    return tf32x1_ks<1, 128>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
+  if (n == 128 && npx == 128)
+    return tf32x1_ks<2, 128>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
+  return cudaErrorInvalidValue;
+}
+
 // 16-bit dispatch by shape (the header's table).
 template <typename T>
 cudaError_t conv16(const void* x, const void* w, const void* b, void* y,
@@ -2341,9 +2769,12 @@ cudaError_t conv16(const void* x, const void* w, const void* b, void* y,
 // [B,H,W,Cp] and w as [3,3,Cp,ld], Cp = C rounded up to ks; `cols`, `n`,
 // `ks` and `grid` for the split-TF32 kernel (fp32), which takes x as
 // [B,H,W,Cp] where C % 4 != 0, Cp = C rounded up to 4, its TF32 `passes`
-// (3, or 1: x_hi w_hi with w rounded to TF32) and `ws`, a scratch of 18 O
-// Cp floats (9 O Cp for one pass).  The 16-bit kernels read neither `ws`
-// nor `passes`.
+// (3, or 1: x w with both rounded to TF32) and `ws`, a scratch of 18 O
+// Cp floats (9 O Cp for one pass); with passes = 1 and `R` > 0 the
+// one-pass kernel instead, with R its pixels a warpgroup (128 or 256), `n`
+// its output channels a tile (64 or 128), `cols`, `ks`, `grid` and `ws` as
+// the split-TF32 kernel's.  The 16-bit kernels read neither `ws` nor
+// `passes`.
 extern "C" int rr_conv3x3(int dtype, const void* x, const void* w,
                           const void* b, void* y, void* ws, int B, int H,
                           int W, int C, int O, int R, int cols, int n, int ks,
@@ -2353,6 +2784,8 @@ extern "C" int rr_conv3x3(int dtype, const void* x, const void* w,
   cudaStream_t st = static_cast<cudaStream_t>(stream_);
   switch (dtype) {
     case RR_F32:
+      if (passes == 1 && R > 0)
+        return tf32x1(x, w, b, y, ws, B, H, W, C, O, cols, R, n, ks, grid, st);
       return tf32x3(x, w, b, y, ws, B, H, W, C, O, cols, n, ks, grid, passes,
                     st);
     case RR_F16:

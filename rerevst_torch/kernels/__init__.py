@@ -47,6 +47,7 @@ def reset_launches() -> None:
         w.launches = 0
     conv3x3_implicit_gemm.launches_by_design = dict.fromkeys(
         conv3x3_implicit_gemm.launches_by_design, 0)
+    conv3x3_implicit_gemm.launches_by_shape = {}
     conv3x3_wgrad.launches_by_shape = {}
 
 

@@ -40,11 +40,17 @@ shape (:func:`design` names it):
   sliced design's walk over K slices of 16 fp32 channels (8 where C <= 8)
   with each fp32 product taken on the tensor cores as three TF32 passes,
   x_hi w_hi + x_hi w_lo + x_lo w_hi (fp32-accurate, as the JAX package's
-  HIGHEST and HIGH; design ``"tf32x3"``), or, where the implicit-GEMM
-  wrapper is called with ``passes=1`` (the ``'default'`` precision), as
-  one pass x w with both rounded to nearest TF32 (design ``"tf32x1"``);
-  its work split :func:`tf32x3_plan` computes here.  The
-  wrapper hands it a scratch tensor for the weights' K-major hi (and lo)
+  HIGHEST and HIGH; design ``"tf32x3"``); its work split
+  :func:`tf32x3_plan` computes here.  Where the implicit-GEMM wrapper is
+  called with ``passes=1`` (the ``'default'`` precision) each product is
+  one pass x w with both rounded to nearest TF32: for O >
+  ``TF32X1_SLICED_MAX_O`` the one-pass design (``"tf32x1"``: the weights
+  as wgmma's A, 64 output channels a block, over a wide N of 128 or 256
+  pixels of x, each warpgroup rounding the box rows its own taps read),
+  for smaller O the split-TF32 kernel's one-pass instance
+  (``"tf32x1_sliced"``: pixels as A, N = O rounded up to 8, 16 or 32);
+  :func:`tf32x1_plan` computes either work split.  The wrapper hands the
+  fp32 kernels a scratch tensor for the weights' K-major hi (and lo)
   planes, which the kernel writes first, and where C % 4 != 0 a copy of
   ``x`` padded with zero channels to a multiple of 4.
 
@@ -176,12 +182,21 @@ WIDE_COLS = (128, 64, 32, 16)
 SLICED_MAX_O = 64
 
 
+#: One-pass fp32 calls with O up to this take the split-TF32 kernel's
+#: one-pass instance ("tf32x1_sliced", N = O rounded up to 8, 16 or 32);
+#: wider O the one-pass design ("tf32x1"), whose m64 blocks of output
+#: channels would be mostly padding below it.
+TF32X1_SLICED_MAX_O = 32
+
+
 def design(c: int, dtype: torch.dtype, o: int, passes: int = 3) -> str:
     """Which kernel of ``csrc/conv3x3.cu`` takes a call with C input
     channels and O output channels in ``dtype`` (the launcher's dispatch
     by shape; `passes`, the TF32 passes of an fp32 call, 3 or 1)."""
     if dtype == torch.float32:
-        return "tf32x1" if passes == 1 else "tf32x3"
+        if passes == 3:
+            return "tf32x3"
+        return "tf32x1" if o > TF32X1_SLICED_MAX_O else "tf32x1_sliced"
     if c == _C64:
         return "streamed"
     if c % 64 == 0 and c >= 128 and o > SLICED_MAX_O:
@@ -364,6 +379,104 @@ def tf32x3_plan(batch: int, height: int, width: int, c: int, o: int,
     return dataclasses.replace(plan, grid=min(plan.tiles, sms))
 
 
+#: The one-pass design's tile shapes (csrc/conv3x3.cu Tf32x1<MB, NPX, KS>):
+#: (m64 blocks of output channels a warpgroup, pixels a warpgroup: wgmma's
+#: N), a tile being 2 NPX pixels x 64 MB channels; fewest shared-memory
+#: bytes a product first.  MB = 2 (two m64n128 blocks) only where O > 64.
+TF32X1_SHAPES = ((2, 128), (1, 256), (1, 128))
+SMEM_BYTES_PER_CLOCK = 128  # what an SM's shared memory moves a clock
+SMEM_MAX = 232448  # csrc/conv3x3.cu kSmemMax: dynamic shared memory a block
+MAX_STAGES = 8     # csrc/conv3x3.cu kSlicedMaxStages
+
+
+def tf32x1_stage_reckoning(mb: int, npx: int, cols: int,
+                           ks: int) -> tuple:
+    """(clocks of products, bytes through shared memory) of one stage of
+    the one-pass design on one SM, both consumer warpgroups: 3 taps x KS /
+    8 k8 steps x MB blocks of wgmma m64nNk8 .tf32 each, N = NPX pixels (N
+    / 2 clocks at 1024 TF32 FMAs a clock; 2 KB of A, the weights, and 32 N
+    bytes of B, the pixels, read); TMA's writes of the box of x ((rows +
+    2) x cols pixels of 4 KS bytes, rows = 2 NPX / cols) and of the 3 MB
+    weight boxes {KS, 64}; and each warpgroup's rounding, a read and a
+    write of the NPX + 2 cols box pixels its taps read."""
+    steps = 2 * 3 * (ks // 8) * mb
+    clocks = steps * npx // 2
+    reads = steps * (64 * 8 * 4 + npx * 8 * 4)
+    rows = 2 * npx // cols
+    tma = (rows + 2) * cols * ks * 4 + 3 * mb * 64 * ks * 4
+    rounding = 2 * 2 * (npx + 2 * cols) * ks * 4
+    return clocks, reads + tma + rounding
+
+
+@dataclass(frozen=True)
+class Tf32x1Plan(SlicedPlan):
+    """The one-pass design's work split: tiles of ``m`` = 2 ``npx``
+    pixels (rows x cols) x ``n`` = 64 ``mb`` output channels in the sliced
+    walk's order (channel tile fastest), each consumer warpgroup ``npx``
+    of the tile's pixels (its rows / 2 rows) x every channel, over K
+    slices of ``ks`` fp32 channels."""
+
+    mb: int
+    npx: int
+
+    @property
+    def m(self) -> int:
+        return 2 * self.npx
+
+    def stage_clocks(self) -> float:
+        """The reckoned clocks of a stage: the products, or the shared
+        memory's bytes at SMEM_BYTES_PER_CLOCK, the larger."""
+        clocks, nbytes = tf32x1_stage_reckoning(self.mb, self.npx,
+                                                self.cols, self.ks)
+        return max(clocks, nbytes / SMEM_BYTES_PER_CLOCK)
+
+    def cost(self, sms: int) -> float:
+        """Reckoned clocks of the call: the busiest block's tiles x their
+        3 x slices stages."""
+        return -(-self.tiles // sms) * 3 * self.slices * self.stage_clocks()
+
+    def smem(self) -> tuple:
+        """(ring stages, dynamic shared-memory bytes) of the launch, as
+        csrc/conv3x3.cu launch_tf32x1 reckons them: 1024 bytes of
+        alignment, two warpgroups' epilogue staging (two buffers of 8 KB
+        each: 32 / MB pixels x 64 MB fp32 channels), the bias (O rounded up
+        to the tile's channels), then as many stages (the box of x on whole
+        KB, the 3 MB weight boxes {KS, 64}, two mbarriers) as fit, at most
+        MAX_STAGES."""
+        ks4 = 4 * self.ks
+        a_slot = -(-(self.rows + 2) * self.cols * ks4 // 1024) * 1024
+        stage = a_slot + 3 * self.mb * 64 * ks4 + 16
+        fixed = 1024 + 2 * 2 * 8192 + self.n_tiles * self.n * 4
+        stages = min(MAX_STAGES, (SMEM_MAX - fixed) // stage)
+        return stages, fixed + stages * stage
+
+
+@functools.lru_cache(maxsize=256)
+def tf32x1_plan(batch: int, height: int, width: int, c: int, o: int,
+                sms: int) -> SlicedPlan:
+    """The work split of a one-pass fp32 [batch, height, width, c] -> o
+    conv on a card with ``sms`` SMs.  Design "tf32x1": of the tile shapes
+    ``TF32X1_SHAPES`` (each with the tile width that pads the image least,
+    the narrowest on a tie), the one whose reckoned clocks
+    (:meth:`Tf32x1Plan.cost`: rounds of tiles over the SMs x stages x each
+    stage's products or shared-memory bytes) are least, the first on a
+    tie; one block per SM or one per tile where there are fewer.  Design
+    "tf32x1_sliced" (O <= ``TF32X1_SLICED_MAX_O``): :func:`tf32x3_plan`."""
+    if design(c, torch.float32, o, 1) != "tf32x1":
+        return tf32x3_plan(batch, height, width, c, o, sms)
+    best = None
+    for mb, npx in TF32X1_SHAPES:
+        if mb > 1 and o <= 64:
+            continue
+        cols = wide_cols(height, width, 2 * npx, SLICED_COLS)
+        plan = Tf32x1Plan(batch, height, width, o, cols, 64 * mb, 1, c,
+                          tf32_slice_width(c), mb, npx)
+        plan = dataclasses.replace(plan, grid=min(plan.tiles, sms))
+        if best is None or plan.cost(sms) < best.cost(sms):
+            best = plan
+    return best
+
+
 #: The narrow design (csrc/conv3x3.cu conv3x3_narrow_kernel): the widest C
 #: it takes, its tile of output pixels (kNR x kNC) and its blocks per SM.
 NARROW_MAX_C = 7
@@ -522,9 +635,12 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
             wp = w.new_zeros(3, 3, cp, ld)
             wp[:, :, :c, :o] = w
             w = wp
-    elif kind in ("tf32x3", "tf32x1"):
-        plan = tf32x3_plan(bb, h, wd, c, o, sms)
+    elif kind in ("tf32x3", "tf32x1", "tf32x1_sliced"):
+        plan = (tf32x3_plan if passes == 3 else tf32x1_plan)(bb, h, wd, c,
+                                                             o, sms)
         cols, n, ks, grid = plan.cols, plan.n, plan.ks, plan.grid
+        if kind == "tf32x1":
+            rows = plan.npx  # the C entry's `R`: pixels a warpgroup
         # TMA needs a 16-byte pixel stride: zero-pad x's channels to 4.  The
         # kernel splits the weights into the scratch ws [2][9][O][Cp] first
         # (one pass: only the rounded plane, [9][O][Cp]).
@@ -630,6 +746,10 @@ def _implicit_gemm_cuda(x, w, b, passes=3):
             conv3x3_implicit_gemm.launches += 1
             conv3x3_implicit_gemm.launches_by_design[
                 design(x.shape[-1], x.dtype, w.shape[-1], passes)] += 1
+            if x.dtype == torch.float32:
+                key = tuple(x.shape) + (w.shape[-1], passes)
+                conv3x3_implicit_gemm.launches_by_shape[key] = \
+                    conv3x3_implicit_gemm.launches_by_shape.get(key, 0) + 1
     return y
 
 
@@ -860,12 +980,15 @@ _build.define_op("conv3x3_wgrad(Tensor x, Tensor g, int passes=3) -> Tensor",
 
 
 #: The kernel designs of csrc/conv3x3.cu, as :func:`design` names them.
-DESIGNS = ("streamed", "wide", "narrow", "sliced", "tf32x3", "tf32x1")
+DESIGNS = ("streamed", "wide", "narrow", "sliced", "tf32x3", "tf32x1",
+           "tf32x1_sliced")
 
 #: Kernel launches so far (CPU calls and empty inputs launch nothing); the
-#: implicit-GEMM wrapper's also by design.
+#: implicit-GEMM wrapper's also by design, and its fp32 launches by (B, H,
+#: W, C, O, passes).
 conv3x3_implicit_gemm.launches = 0
 conv3x3_implicit_gemm.launches_by_design = dict.fromkeys(DESIGNS, 0)
+conv3x3_implicit_gemm.launches_by_shape = {}
 conv3x3_pairlane.launches = 0
 #: The weight-gradient kernel's launches, also by (B, H, W, C, O).
 conv3x3_wgrad.launches = 0

@@ -3,7 +3,8 @@
 16-frame batch of 640^2, for the ``rerevst_torch`` package under a given
 root — one side of an A/B of two trees' conv kernels in one call.
 
-    python3 scripts/conv_ab.py --root ROOT [--label NAME] [--wgrad | --steps]
+    python3 scripts/conv_ab.py --root ROOT [--label NAME]
+                               [--wgrad | --steps | --tf32x1]
 
 ROOT holds the ``rerevst_torch`` to measure (this repository, or an unpacked
 ``git archive`` of another commit); its kernels build from its own sources.
@@ -44,6 +45,20 @@ and how often (``wgrad_shapes``); each shape is checked once against the
 tree's plain version, its mean signed error against float64 read at
 three and one pass, and it is timed at both (20 calls after 3 warm-ups);
 the line adds the sums over one step's launches.
+
+With ``--tf32x1``, the one-pass conv (``passes=1``, the 'default'
+precision) instead, at every (B, H, W, C, O) the tree launches it at in
+one fp32 'default' Pass-2 batch (``models/demo_plum_4000.msgpack``, 16
+seeded random frames of 512^2 padded to 640^2, a seeded random style) and
+in one 'default' ``TrainConfig()`` step (its forward convs and their input
+gradients; seeded random parameters and images), as a dispatch mode
+records the op's calls (so a tree without launch counts by shape works
+too): each shape's launches in a batch and in a step, the design it takes
+(where the tree's ``design`` names it), its max |diff| from the plain
+version, its mean signed error against a float64 conv of up to two
+frames, its ms (20 calls after 3 warm-ups), the bound (one TF32 pass at
+495 TFLOP/s or the bytes at 3.35 TB/s, the larger) and one ``F.conv2d``
+with cuDNN's TF32 on; and the sums over a batch's and a step's launches.
 """
 
 from __future__ import annotations
@@ -222,6 +237,130 @@ def time_wgrad(torch) -> dict:
             "ms_per_step_1": step[1]}
 
 
+def record_one_pass(torch, fn) -> dict:
+    """{(B, H, W, C, O): calls} of ``rerevst::conv3x3_implicit_gemm`` with
+    passes = 1 while ``fn()`` runs, read by a dispatch mode."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = {}
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func._schema.name == "rerevst::conv3x3_implicit_gemm":
+                passes = args[3] if len(args) > 3 else kwargs.get("passes", 3)
+                if passes == 1:
+                    key = tuple(args[0].shape) + (args[1].shape[-1],)
+                    seen[key] = seen.get(key, 0) + 1
+            return func(*args, **kwargs)
+
+    with Record():
+        fn()
+    torch.cuda.synchronize()
+    return seen
+
+
+def one_pass_shapes(torch) -> tuple:
+    """The one-pass conv's shapes and launches in one fp32 'default'
+    Pass-2 batch and in one 'default' train step (see the module's doc)."""
+    import numpy as np
+
+    from rerevst_torch.api import Stylization
+    from rerevst_torch.config import ModelConfig
+    from rerevst_torch.train.step import make_train_step
+
+    ckpt = Path(__file__).resolve().parent.parent / "models" \
+        / "demo_plum_4000.msgpack"
+    rng = np.random.default_rng(19)
+    s = Stylization(str(ckpt), cfg=ModelConfig(precision="default"),
+                    device="cuda")
+    s.prepare_style(rng.integers(0, 256, (512, 512, 3), dtype=np.uint8))
+    frames = [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+              for _ in range(16)]
+    for f in frames[:2]:  # Pass 1: the statistics Pass 2 runs under
+        s.add(f)
+    s.compute()
+    x = s._upload(s._prep_batch_host(frames))
+    batch = record_one_pass(torch, lambda: s._stylize(x))
+    del s, x
+    cfg, state = train_setup(torch, "default")
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    shape = (cfg.batch_size, cfg.fine_size, cfg.fine_size, 3)
+    content, style = (torch.randn(shape, generator=gen, device="cuda")
+                      for _ in range(2))
+    step = make_train_step(cfg)
+    steps = record_one_pass(torch, lambda: step(state, content, style, gen))
+    del state, step
+    torch.cuda.empty_cache()
+    return batch, steps
+
+
+def time_tf32x1(torch) -> dict:
+    """The one-pass conv at every shape of ``one_pass_shapes`` (see the
+    module's doc)."""
+    import torch.nn.functional as F
+
+    from rerevst_torch.kernels import (
+        conv3x3_implicit_gemm,
+        conv3x3_implicit_gemm_plain,
+    )
+    from rerevst_torch.kernels.conv3x3 import design
+
+    batch, steps = one_pass_shapes(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    rows, sums = [], {"batch": 0.0, "step": 0.0, "batch_cudnn_tf32": 0.0,
+                      "step_cudnn_tf32": 0.0}
+    for key in sorted(set(batch) | set(steps)):
+        *shape, o = key
+        x = torch.randn(shape, generator=gen, device="cuda")
+        w = (torch.randn((3, 3, shape[-1], o), generator=gen, device="cuda")
+             / (3 * shape[-1] ** 0.5))
+        b = torch.randn(o, generator=gen, device="cuda")
+        got = conv3x3_implicit_gemm(x, w, b, 1)
+        diff = (got - conv3x3_implicit_gemm_plain(x, w, b)).abs().max()
+        x2 = x[:2].double().permute(0, 3, 1, 2)
+        ref = F.conv2d(x2, w.double().permute(3, 2, 0, 1), b.double(),
+                       padding=1).permute(0, 2, 3, 1)
+        signed = float(((got[:2].double() - ref) * ref.sign()).sum()
+                       / ref.abs().sum())
+        del got, x2, ref
+        m = x.numel() // shape[-1]
+        bound = max(2 * m * 9 * shape[-1] * o / 495e12,
+                    (x.numel() + w.numel() + o + m * o) * 4 / 3.35e12) * 1e3
+        xl = x.permute(0, 3, 1, 2)
+        wl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            lib_ms = device_ms(torch, lambda: F.conv2d(xl, wl, b, padding=1))
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        row = {"shape": list(shape), "O": o,
+               "launches_batch": batch.get(key, 0),
+               "launches_step": steps.get(key, 0),
+               "max_abs_diff_vs_plain": float(diff),
+               "mean_signed_err_vs_f64": signed,
+               "ms": device_ms(torch, lambda: conv3x3_implicit_gemm(
+                   x, w, b, 1)),
+               "bound_ms": bound, "cudnn_tf32_ms": lib_ms}
+        try:
+            row["design"] = design(shape[-1], torch.float32, o, 1)
+        except TypeError:  # a tree whose design() takes no passes
+            row["design"] = None
+        for where in ("batch", "step"):
+            sums[where] += row[f"launches_{where}"] * row["ms"]
+            sums[f"{where}_cudnn_tf32"] += row[f"launches_{where}"] * lib_ms
+        rows.append(row)
+        del x, w, b, xl, wl
+        torch.cuda.empty_cache()
+    return {"tf32x1": rows, "ms_per_batch": sums["batch"],
+            "ms_per_step": sums["step"],
+            "cudnn_tf32_ms_per_batch": sums["batch_cudnn_tf32"],
+            "cudnn_tf32_ms_per_step": sums["step_cudnn_tf32"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
@@ -230,6 +369,9 @@ def main() -> int:
                     help="time conv3x3_wgrad at a 'high' step's shapes")
     ap.add_argument("--steps", action="store_true",
                     help="time TrainConfig() steps at each precision")
+    ap.add_argument("--tf32x1", action="store_true",
+                    help="time the one-pass conv at a 'default' batch's "
+                         "and step's shapes")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -250,11 +392,11 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    if args.wgrad or args.steps:
+    if args.wgrad or args.steps or args.tf32x1:
+        mode = time_wgrad if args.wgrad else time_steps if args.steps \
+            else time_tf32x1
         print(json.dumps({"label": args.label or str(root),
-                          **(time_wgrad(torch) if args.wgrad
-                             else time_steps(torch)), "card": smi}),
-              flush=True)
+                          **mode(torch), "card": smi}), flush=True)
         return 0
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda")

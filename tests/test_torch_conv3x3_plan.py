@@ -16,9 +16,14 @@ through K-major descriptors with the 32- or 64-byte swizzle, and stages
 its output in swizzled boxes for TMA stores; it also takes C % 64 = 0 with
 O <= 64.  Its split-TF32 design (fp32) walks the sliced design's tiles
 over K slices of 16 fp32 channels and takes each product as three TF32
-passes, x_hi w_hi + x_hi w_lo + x_lo w_hi.  These tests hold that index
-math and that split, as the wrapper's plans (``conv_plan``, ``wide_plan``,
-``narrow_plan``, ``sliced_plan``, ``tf32x3_plan`` in
+passes, x_hi w_hi + x_hi w_lo + x_lo w_hi.  Its one-pass design (fp32, one
+TF32 pass, O > 32) swaps the operands: the weights are wgmma's A, 64
+output channels a block, over 128 or 256 pixels of the box of x as N; each
+consumer warpgroup rounds the box pixels its own taps read, and the
+[channel][pixel] sums go out through a staging buffer.  These tests hold
+that index math and that split, as the wrapper's plans (``conv_plan``,
+``wide_plan``, ``narrow_plan``, ``sliced_plan``, ``tf32x3_plan``,
+``tf32x1_plan`` in
 ``rerevst_torch.kernels.conv3x3``) and numpy emulations of the kernels'
 order of work state it, to the plain conv.  Beside them, the text edits
 of ``scripts/probe_tf32_conv.py``'s variants must each match the kernel
@@ -54,7 +59,12 @@ from rerevst_torch.kernels.conv3x3 import (
     out_tile,
     slice_width,
     sliced_plan,
+    TF32X1_SHAPES,
+    TF32X1_SLICED_MAX_O,
+    Tf32x1Plan,
     tf32_slice_width,
+    tf32x1_plan,
+    tf32x1_stage_reckoning,
     tf32x3_plan,
     wide_plan,
 )
@@ -1046,6 +1056,15 @@ def test_tf32x3_plan_at_row_3j():
     assert plan.tiles == 25600 and plan.grid == H100_SMS
 
 
+def _wg_view(box, p0, p1):
+    """What a consumer warpgroup's taps may read of a landed box (pixels x
+    channels) at one pass: pixels [p0, p1) rounded in place by the
+    warpgroup itself (tf32_round_x), the rest NaN."""
+    view = np.full_like(box, np.nan)
+    view[p0:p1] = tf32_round_x(box[p0:p1])
+    return view
+
+
 def _emulate_tf32x3(x, w, b, plan, passes=3):
     """The split-TF32 kernel's order of work in numpy: x zero-padded to Cp
     = C rounded up to 4; the split kernel's ws[p][tap][o][c] (p = 0: hi, 1:
@@ -1131,17 +1150,28 @@ def test_tf32x3_k_loop_matches_plain(c, o):
     assert (np.abs(got - want) <= 9 * c * 2.0 ** -22 * scale).all()
 
 
+def _emulate_one_pass(x, w, b, plan):
+    """The one-pass kernel the wrapper's plan names: the one-pass design
+    (a Tf32x1Plan) or the split-TF32 kernel's one-pass instance."""
+    if isinstance(plan, Tf32x1Plan):
+        return _emulate_tf32x1(x, w, b, plan)
+    return _emulate_tf32x3(x, w, b, plan, passes=1)
+
+
 @pytest.mark.parametrize("c,o", [(3, 64), (8, 16), (64, 64), (100, 192)])
 def test_tf32x1_k_loop_matches_plain(c, o):
-    """One TF32 pass (the 'default' precision): within (2^-10 + 2^-22 + 9C
-    2^-22) sum|x||w| (+|b|) of the plain fp32 conv, x and w rounded to
-    nearest TF32 (each <= 2^-11 of it); and farther from it than three
-    passes."""
+    """One TF32 pass (the 'default' precision), on the route the wrapper
+    takes (O = 64 and 192: the one-pass design; O = 16: the split-TF32
+    kernel's one-pass instance): within (2^-10 + 2^-22 + 9C 2^-22)
+    sum|x||w| (+|b|) of the plain fp32 conv, x and w rounded to nearest
+    TF32 (each <= 2^-11 of it); and farther from it than three passes."""
     x, w, b = _sliced_case(c, o, (2, 19, 21), seed=12)
-    plan = dataclasses.replace(tf32x3_plan(2, 19, 21, c, o, H100_SMS),
+    plan = dataclasses.replace(tf32x1_plan(2, 19, 21, c, o, H100_SMS),
                                grid=3)
-    one = _emulate_tf32x3(x, w, b, plan, passes=1)
-    three = _emulate_tf32x3(x, w, b, plan)
+    assert isinstance(plan, Tf32x1Plan) == (o > TF32X1_SLICED_MAX_O)
+    one = _emulate_one_pass(x, w, b, plan)
+    three = _emulate_tf32x3(x, w, b, dataclasses.replace(
+        tf32x3_plan(2, 19, 21, c, o, H100_SMS), grid=3))
     tt = [torch.from_numpy(v) for v in (x, w, b)]
     want = conv3x3_implicit_gemm_plain(*tt).numpy()
     scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
@@ -1149,6 +1179,339 @@ def test_tf32x1_k_loop_matches_plain(c, o):
     assert (np.abs(one - want) <= (2.0 ** -10 + (9 * c + 1) * 2.0 ** -22)
             * scale).all()
     assert np.abs(one - want).max() > np.abs(three - want).max()
+
+
+# The one-pass design (fp32, one TF32 pass, O > TF32X1_SLICED_MAX_O).
+
+#: A consumer warpgroup's 128 threads: warp, lane; its accumulator row
+#: (output channel within an m64 block) and first pixel column of each 8.
+_WARP, _LANE = (a.ravel() for a in np.meshgrid(np.arange(4), np.arange(32),
+                                               indexing="ij"))
+_OROW = 16 * _WARP + _LANE // 4
+_PCOL = 2 * (_LANE % 4)
+
+
+def _x_box(xp, bi, y0, x0, dx, rows, cols, cs, ks):
+    """The landed box {ks, cols, rows + 2} of x (zero-padded to Cp) at
+    channel cs, column x0 + dx - 1, row y0 - 1: zero outside the image and
+    past Cp, as pixels x channels."""
+    _, h, wd, cp = xp.shape
+    box = np.zeros((rows + 2, cols, ks), np.float32)
+    ys, xs = y0 - 1, x0 + dx - 1
+    ylo, yhi = max(ys, 0), min(ys + rows + 2, h)
+    xlo, xhi = max(xs, 0), min(xs + cols, wd)
+    chi = min(cs + ks, cp)
+    if ylo < yhi and xlo < xhi:
+        box[ylo - ys:yhi - ys, xlo - xs:xhi - xs, :chi - cs] = \
+            xp[bi, ylo:yhi, xlo:xhi, cs:chi]
+    return box.reshape((rows + 2) * cols, ks)
+
+
+def _emulate_tf32x1(x, w, b, plan):
+    """The one-pass design's order of work in numpy: ws[tap][o][Cp], the
+    weights rounded to TF32 (zero past C); for each tile, stages k = slice
+    3 + dx, the landed box of x zero outside the image and past Cp; each
+    warpgroup wg rounds box pixels [NPX wg, NPX wg + NPX + 2 cols) and
+    reads the rest as NaN (_wg_view); tap dy adds A B^T to its sums
+    [64 MB channels][NPX pixels], which start from the bias: A the weights
+    ws[3 dy + dx] rows n0 + 64 m .. (zero past O), B the NPX box pixels
+    from NPX wg + dy cols.  The epilogue: each thread's accumulators
+    (block m, row orow + 8 h, pixel 8 j + pcol + e) go, kCPX = 32 / MB
+    pixels at a time, into output box (64 m + orow + 8 h) / 32 of 32
+    channels at x1_out_offset(8 jj + pcol + e, channel % 32), each slot
+    written once; then TMA stores each box {32, bc, kCPX / bc} at (n0 + 32
+    box, x0 + q0 % cols, y0 + q0 / cols) (bc = min(cols, kCPX), q0 the
+    chunk's first tile pixel), dropping what falls past the image or O:
+    each output stored once."""
+    bsz, h, wd, c = x.shape
+    o = w.shape[-1]
+    cp = -(-c // 4) * 4
+    xp = np.zeros((bsz, h, wd, cp), np.float32)
+    xp[..., :c] = x
+    ws = np.zeros((9, o, cp), np.float32)
+    ws[:, :, :c] = tf32_round_w(w.reshape(9, c, o)).transpose(0, 2, 1)
+    mb, npx, rows, cols, ks, n = plan.mb, plan.npx, plan.rows, plan.cols, \
+        plan.ks, plan.n
+    assert n == 64 * mb and plan.m == 2 * npx == rows * cols
+    cpx = 32 // mb
+    bc = min(cols, cpx)
+    bk = np.zeros(plan.n_tiles * n, np.float32)
+    bk[:o] = b
+    y = np.zeros((bsz, h, wd, o), np.float32)
+    stored = np.zeros(y.shape, np.int32)
+    for bx in range(plan.grid):
+        for t in plan.block_tiles(bx):
+            bi, y0, x0, n0 = plan.tile(t)
+            d = [np.repeat(bk[n0:n0 + n, None], npx, 1) for _ in range(2)]
+            for k in range(3 * plan.slices):
+                sl, dx = divmod(k, 3)
+                cs = sl * ks
+                box = _x_box(xp, bi, y0, x0, dx, rows, cols, cs, ks)
+                a = np.zeros((3, n, ks), np.float32)
+                nhi, chi = min(n0 + n, o), min(cs + ks, cp)
+                for dy in range(3):
+                    a[dy, :nhi - n0, :chi - cs] = \
+                        ws[3 * dy + dx, n0:nhi, cs:chi]
+                for wg in range(2):
+                    view = _wg_view(box, npx * wg, npx * (wg + 1) + 2 * cols)
+                    for dy in range(3):
+                        p0 = npx * wg + dy * cols
+                        d[wg] += a[dy] @ view[p0:p0 + npx].T
+            for wg in range(2):
+                for ch in range(npx // cpx):
+                    boxes = np.zeros((2 * mb, cpx * 32), np.float32)
+                    filled = np.zeros(boxes.shape, np.int32)
+                    for jj in range(cpx // 8):
+                        j = ch * (cpx // 8) + jj
+                        for m in range(mb):
+                            for hh in range(2):
+                                for e in range(2):
+                                    oc = 64 * m + _OROW + 8 * hh
+                                    slot = (oc // 32, x1_out_offset(
+                                        8 * jj + _PCOL + e, oc % 32) // 4)
+                                    filled[slot] += 1
+                                    boxes[slot] = d[wg][oc, 8 * j + _PCOL + e]
+                    assert (filled == 1).all()
+                    q0 = npx * wg + cpx * ch
+                    bxi, r, cc, n32 = np.meshgrid(
+                        np.arange(2 * mb), np.arange(cpx // bc),
+                        np.arange(bc), np.arange(32), indexing="ij")
+                    yy = y0 + q0 // cols + r
+                    xx = x0 + q0 % cols + cc
+                    oo = n0 + 32 * bxi + n32
+                    ok = (yy < h) & (xx < wd) & (oo < o)
+                    dst = (bi, yy[ok], xx[ok], oo[ok])
+                    np.add.at(stored, dst, 1)
+                    y[dst] = boxes[bxi[ok], x1_out_offset(
+                        (r * bc + cc)[ok], n32[ok]) // 4]
+    assert (stored == 1).all()
+    return y
+
+
+def test_tf32x1_design_by_shape():
+    """One pass: the one-pass design where O > 32, the split-TF32 kernel's
+    one-pass instance (N = O rounded up to 8, 16 or 32) at O <= 32, at
+    every C; three passes the split-TF32 kernel."""
+    assert TF32X1_SLICED_MAX_O == 32
+    assert "tf32x1" in DESIGNS and "tf32x1_sliced" in DESIGNS
+    for c in (1, 3, 8, 13, 64, 512):
+        for o in (1, 3, 8, 32):
+            assert design(c, torch.float32, o, 1) == "tf32x1_sliced"
+        for o in (33, 64, 65, 192, 512):
+            assert design(c, torch.float32, o, 1) == "tf32x1"
+            assert design(c, torch.float32, o, 3) == "tf32x3"
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("height", [1, 7, 32, 37, 130])
+@pytest.mark.parametrize("width", [1, 7, 32, 130, 640])
+def test_tf32x1_plan_covers_every_output_once(batch, height, width):
+    """The one-pass plan at O = 3, 32, 64, 192 and 512: every output pixel
+    x channel belongs to exactly one tile, the blocks take every tile
+    once; O > 32 takes tiles of 2 NPX pixels (rows x cols) x 64 MB
+    channels of TF32X1_SHAPES (MB = 2 only where O > 64), each within the
+    block's shared memory with at least two stages; O <= 32 the split-TF32
+    kernel's plan."""
+    for c, o in [(3, 64), (64, 3), (64, 32), (13, 192), (200, 512),
+                 (64, 64)]:
+        for sms in (H100_SMS, 7):
+            plan = tf32x1_plan(batch, height, width, c, o, sms)
+            if o <= TF32X1_SLICED_MAX_O:
+                assert plan == tf32x3_plan(batch, height, width, c, o, sms)
+            else:
+                assert isinstance(plan, Tf32x1Plan)
+                assert (plan.mb, plan.npx) in TF32X1_SHAPES
+                assert plan.mb == 1 or o > 64
+                assert plan.n == 64 * plan.mb and plan.m == 2 * plan.npx
+                assert plan.rows * plan.cols == plan.m
+                assert plan.cols in SLICED_COLS
+                assert plan.ks == tf32_slice_width(c)
+                stages, nbytes = plan.smem()
+                assert stages >= 2 and nbytes <= 232448
+            assert 1 <= plan.grid <= min(plan.tiles, sms)
+            taken = np.sort(np.concatenate(
+                [np.asarray(plan.block_tiles(bx)) for bx in range(plan.grid)]))
+            assert (taken == np.arange(plan.tiles)).all()
+            cover = np.zeros((plan.n_tiles, batch, height, width), np.int32)
+            for t in range(plan.tiles):
+                b, y0, x0, n0 = plan.tile(t)
+                cover[n0 // plan.n, b, y0:y0 + plan.rows,
+                      x0:x0 + plan.cols] += 1
+            assert (cover == 1).all(), (c, o, sms)
+            assert plan.n_tiles * plan.n >= o > (plan.n_tiles - 1) * plan.n
+
+
+def test_tf32x1_plan_at_row_3k():
+    """[16,640,640,64] -> 64 (PERF.md row 3k): 512-pixel tiles of 32 x 16
+    (no pixel padded), each warpgroup 256 pixels x 64 channels (one
+    m64n256k8 a tap and k8 step), four 16-channel slices, 12800 tiles on
+    all 132 SMs; four stages in 222528 bytes of the 232448; the reckoned
+    stage 1.24 times its products' clocks, the old orientation's 1.69."""
+    plan = tf32x1_plan(16, 640, 640, 64, 64, H100_SMS)
+    assert (plan.mb, plan.npx, plan.cols, plan.rows, plan.n, plan.ks,
+            plan.slices) == (1, 256, 16, 32, 64, 16, 4)
+    assert plan.tiles == 12800 and plan.grid == H100_SMS
+    assert plan.smem() == (4, 222528)
+    clocks, nbytes = tf32x1_stage_reckoning(1, 256, 16, 16)
+    assert clocks == 1536 and round(nbytes / 128 / clocks, 2) == 1.24
+    # The old orientation: 24 m64n64k8 (4 KB each, 32 clocks), TMA's 30
+    # KB and the whole box read and written once.
+    old = 24 * 4096 + (18 * 16 * 64 + 3 * 64 * 64) + 2 * 18 * 16 * 64
+    assert round(old / 128 / 768, 2) == 1.69
+
+
+def test_tf32x1_plan_picks_by_reckoned_clocks():
+    """O > 64 takes two m64n128 blocks a warpgroup at the Pass-2 batch's
+    widths, O = 64 one m64n256; the train step's 32^2 images take 256-pixel
+    tiles of 64 channels (as many blocks as the old orientation: 128 at
+    [4,32,32,256] -> 512), never fewer tiles than SMs where more exist."""
+    want = {((16, 320, 320, 128), 128): (2, 128),
+            ((16, 80, 80, 256), 512): (2, 128),
+            ((16, 80, 80, 32), 512): (2, 128),
+            ((16, 640, 640, 3), 64): (1, 256),
+            ((4, 256, 256, 64), 64): (1, 256),
+            ((4, 32, 32, 256), 512): (1, 128),
+            ((4, 32, 32, 32), 512): (1, 128)}
+    for (shape, o), shp in want.items():
+        plan = tf32x1_plan(*shape, o, H100_SMS)
+        assert (plan.mb, plan.npx) == shp, (shape, o)
+    assert tf32x1_plan(4, 32, 32, 256, 512, H100_SMS).tiles == 128 == \
+        tf32x3_plan(4, 32, 32, 256, 512, H100_SMS).tiles
+
+
+@pytest.mark.parametrize("npx,cols", [(npx, cols) for npx in (128, 256)
+                                      for cols in SLICED_COLS])
+def test_tf32x1_rounded_rows_cover_the_taps(npx, cols):
+    """Each warpgroup rounds box pixels [NPX wg, NPX wg + NPX + 2 cols):
+    every pixel its three taps' B operands read (NPX pixels from NPX wg +
+    dy cols, whole 8-row swizzle groups), all inside the box of (rows + 2)
+    cols pixels; the two warpgroups' ranges cover the box.  The split-TF32
+    kernel's one-pass instance rounds the whole box, both warpgroups
+    behind one barrier."""
+    rows = 2 * npx // cols
+    box = (rows + 2) * cols
+    done = np.zeros(box, np.int32)
+    for wg in range(2):
+        r0, r1 = npx * wg, npx * (wg + 1) + 2 * cols
+        assert 0 <= r0 < r1 <= box
+        done[r0:r1] += 1
+        for dy in range(3):
+            start = npx * wg + dy * cols
+            assert start % 8 == 0
+            assert r0 <= start and start + npx <= r1
+    assert (done >= 1).all()
+
+
+def x1_out_offset(p, n):
+    """csrc/conv3x3.cu x1_out_offset: byte offset of (pixel p, channel n)
+    in an output box of 32 fp32 channels a pixel, 128-byte rows with TMA's
+    128-byte swizzle."""
+    p, n = np.asarray(p), np.asarray(n)
+    return p * 128 + ((((n >> 2) ^ p) & 7) << 4) + ((n & 3) << 2)
+
+
+def test_tf32x1_output_box_is_tmas_and_free_of_bank_conflicts():
+    """The output box layout is TMA's 128-byte swizzle of [pixel][32
+    channels] (tma_swizzle of the row-major offset); every 16-byte chunk
+    holds four consecutive channels of one pixel; and a warp's accumulator
+    writes (channel 16 warp + lane / 4 + 8 h of a box, pixel 8 jj + 2 (lane
+    % 4) + e) fall in 32 banks for every register."""
+    p, n = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    off = x1_out_offset(p, n)
+    assert (off == tma_swizzle(p * 128 + n * 4, 128)).all()
+    assert sorted(off.ravel()) == list(range(0, 32 * 128, 4))
+    lanes = np.arange(32)
+    for warp in range(4):
+        for hh in range(2):
+            for jj in range(4):
+                for e in range(2):
+                    slot = x1_out_offset(8 * jj + 2 * (lanes % 4) + e,
+                                         (16 * warp + lanes // 4 + 8 * hh)
+                                         % 32) // 4
+                    assert len(set(slot % 32)) == 32
+
+
+@pytest.mark.parametrize("c,o,shape", [
+    (3, 64, (2, 19, 21)), (13, 72, (2, 19, 21)), (64, 64, (1, 32, 32)),
+    (64, 192, (2, 19, 21)), (32, 512, (1, 32, 32)), (64, 3, (2, 19, 21)),
+    (64, 32, (1, 32, 32)), (100, 65, (1, 9, 40))])
+def test_tf32x1_walk_matches_plain(c, o, shape):
+    """Both one-pass routes at the wrapper's plan and at every tile shape
+    of TF32X1_SHAPES the width allows, 32^2 images among them, a grid of 3
+    blocks: C = 3 and 13 in a padded copy, 100 with a zero-filled tail;
+    O = 3 and 32 (the split-TF32 instance), 64, 65 and 72 (scalar stores,
+    a half-empty block), 192 and 512.  Within (2^-10 + (9C + 1) 2^-22)
+    sum|x||w| (+|b|) of the plain fp32 conv, each output stored once."""
+    x, w, b = _sliced_case(c, o, shape, seed=15)
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    want = conv3x3_implicit_gemm_plain(*tt).numpy()
+    scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
+    bar = (2.0 ** -10 + (9 * c + 1) * 2.0 ** -22) * scale
+    base = tf32x1_plan(*shape, c, o, H100_SMS)
+    plans = [dataclasses.replace(base, grid=3)]
+    if isinstance(base, Tf32x1Plan):
+        for mb, npx in TF32X1_SHAPES:
+            if mb == 1 or o > 64:
+                plans.append(dataclasses.replace(
+                    base, mb=mb, npx=npx, n=64 * mb, grid=3,
+                    cols=min(SLICED_COLS[1], 2 * npx)))
+    for plan in plans:
+        got = _emulate_one_pass(x, w, b, plan)
+        assert np.isfinite(got).all()
+        assert (np.abs(got - want) <= bar).all(), plan
+
+
+def test_tf32x1_nonfinite_and_huge_inputs():
+    """inf, -inf, NaN and +-FLT_MAX inside, on both sides of a tile's edge
+    columns and of the warpgroups' halves, at the image's edges and in the
+    last channel (C = 13: a padded copy), O = 72 (a half-empty block): the
+    one-pass emulation's NaN and inf outputs are exactly the plain conv's,
+    of the same sign, and the finite ones agree within the one-pass bar."""
+    c, o = 13, 72
+    x, w, b = _sliced_case(c, o, (2, 19, 40), seed=16)
+    for idx, v in [((0, 3, 5, 7), np.inf), ((0, 10, 15, 1), -np.inf),
+                   ((0, 10, 16, c - 1), np.nan), ((0, 15, 30, 4), np.inf),
+                   ((0, 16, 31, 2), -np.inf), ((1, 0, 39, 0), np.nan),
+                   ((1, 18, 0, c - 1), -np.inf), ((0, 5, 25, 2), FLT_MAX),
+                   ((1, 9, 12, c - 1), -FLT_MAX)]:
+        x[idx] = v
+    plan = tf32x1_plan(2, 19, 40, c, o, H100_SMS)
+    assert isinstance(plan, Tf32x1Plan)
+    with np.errstate(invalid="ignore", over="ignore"):
+        got = _emulate_tf32x1(x, w, b, plan)
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    want = conv3x3_implicit_gemm_plain(*tt).numpy()
+    assert (np.isnan(got) == np.isnan(want)).all()
+    assert (np.isinf(got) == np.isinf(want)).all()
+    assert (np.sign(got[np.isinf(want)]) == np.sign(want[np.isinf(want)])).all()
+    fin = np.isfinite(want)
+    assert not fin.all() and np.abs(want[fin]).max() > 1e36
+    xz = np.where(np.isfinite(x), x, 0).astype(np.float32)
+    scale = conv3x3_implicit_gemm_plain(
+        torch.from_numpy(np.abs(xz)), torch.from_numpy(np.abs(w)),
+        torch.from_numpy(np.abs(b))).numpy()
+    assert (np.abs(got[fin] - want[fin])
+            <= (2.0 ** -10 + (9 * c + 1) * 2.0 ** -22) * scale[fin]).all()
+
+
+def test_tf32x1_matches_the_pallas_kernel():
+    """The one-pass emulation against rerevst_tpu's conv3x3_implicit_gemm
+    in interpret mode (fp32) at one small shape, within the one-pass bar."""
+    import jax.numpy as jnp
+
+    from rerevst_tpu.kernels import conv3x3 as jconv
+
+    x, w, b = _sliced_case(24, 80, (2, 8, 24), seed=17)
+    plan = tf32x1_plan(2, 8, 24, 24, 80, H100_SMS)
+    assert isinstance(plan, Tf32x1Plan)
+    got = _emulate_tf32x1(x, w, b, plan)
+    want = np.asarray(jconv.conv3x3_implicit_gemm(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), tile_h=8,
+        interpret=True))
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
+    assert (np.abs(got - want)
+            <= (2.0 ** -10 + (9 * 24 + 1) * 2.0 ** -22) * scale).all()
 
 
 def test_tf32_round_w_bits():
@@ -1236,10 +1599,14 @@ def test_tf32x3_nonfinite_and_huge_inputs():
 
 @pytest.mark.parametrize("variant", ["a_from_registers", "no_split",
                                      "loads_only", "no_a_load", "no_b_load",
-                                     "no_store"])
+                                     "no_store", "x1_no_round",
+                                     "x1_loads_only", "x1_no_store",
+                                     "x1_lockstep", "x1_no_fence",
+                                     "x1_wait2"])
 def test_tf32_probe_edits_match_the_kernel_source(variant):
     """scripts/probe_tf32_conv.py builds each variant by editing the text
-    of csrc/conv3x3.cu: every edit must find its text there exactly once,
+    of csrc/conv3x3.cu (the split-TF32 kernel's, and, ``x1_*``, the
+    one-pass design's): every edit must find its text there exactly once,
     or the probe's build refuses it."""
     import importlib.util
     from pathlib import Path
@@ -1252,7 +1619,10 @@ def test_tf32_probe_edits_match_the_kernel_source(variant):
     src = (root / "rerevst_torch" / "csrc" / "conv3x3.cu").read_text()
     assert set(probe.VARIANTS) == {"a_from_registers", "no_split",
                                    "loads_only", "no_a_load", "no_b_load",
-                                   "no_store"}
+                                   "no_store", "x1_no_round",
+                                   "x1_loads_only", "x1_no_store",
+                                   "x1_lockstep", "x1_no_fence",
+                                   "x1_wait2"}
     for old, new in probe.VARIANTS[variant]:
         assert src.count(old) == 1
         src = src.replace(old, new)

@@ -456,16 +456,22 @@ def test_conv3x3_tf32x3_nonfinite_inputs_on_card(rng, cuda, name, c, o):
 @pytest.mark.parametrize("shape,o", TF32X3)
 @pytest.mark.parametrize("bias", [True, False])
 def test_conv3x3_tf32x1_kernel_on_card(rng, cuda, shape, o, bias):
-    """The split-TF32 kernel's one-pass instances (``passes=1``, the
-    'default' precision) at the three-pass shapes: one launch of design
-    ``tf32x1``, within the one-pass bar of the plain fp32 conv."""
+    """The one-pass conv (``passes=1``, the 'default' precision) at the
+    three-pass shapes: one launch of the design ``design`` names (the
+    one-pass design ``tf32x1`` where O > 32, the split-TF32 kernel's
+    one-pass instance ``tf32x1_sliced`` below), within the one-pass bar of
+    the plain fp32 conv."""
+    from rerevst_torch.kernels.conv3x3 import design
+
     x, w, b = _conv_on_card(rng, cuda, torch.float32, shape, o, bias)
+    kind = design(shape[-1], torch.float32, o, 1)
+    assert kind == ("tf32x1" if o > 32 else "tf32x1_sliced")
     before = dict(conv3x3_implicit_gemm.launches_by_design)
     got = conv3x3_implicit_gemm(x, w, b, passes=1)
     torch.cuda.synchronize()
     after = conv3x3_implicit_gemm.launches_by_design
-    assert after["tf32x1"] == before["tf32x1"] + 1
-    assert after["tf32x3"] == before["tf32x3"]
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == kind) for k in after}
     assert got.dtype == torch.float32 and tuple(got.shape) == shape[:3] + (o,)
     want = conv3x3_implicit_gemm_plain(x, w, b)
     assert _conv_ok(got, want, x, w, b, passes=1)
@@ -1222,7 +1228,10 @@ def test_conv3x3_fn_on_card(rng, cuda, shape, o, precision, passes):
     y = conv2d({"w": w, "b": b}, x, padding=1, precision=precision)
     dx, dw, db = torch.autograd.grad(y, (x, w, b), g)
     torch.cuda.synchronize()
-    assert conv3x3_implicit_gemm.launches_by_design[f"tf32x{passes}"] == 2
+    by_design = conv3x3_implicit_gemm.launches_by_design
+    assert sum(v for k, v in by_design.items()
+               if k.startswith(f"tf32x{passes}")) == 2 == sum(
+                   by_design.values())
     assert conv3x3_wgrad.launches == 1
     x, w = x.detach(), w.detach()
     with torch.no_grad(), exact_products():
