@@ -3116,9 +3116,12 @@ def train_precisions(torch, host):
     step from 0: 'highest' none, 'high' and 'default' both
     ``conv3x3_implicit_gemm`` and ``conv3x3_wgrad``.  Then a 'high' step
     with ``remat=True`` and a 'high' adversarial step (the Function under
-    ``torch.utils.checkpoint`` and in the D-then-G update), and the
+    ``torch.utils.checkpoint`` and in the D-then-G update), the
     weight-gradient kernel at every shape the 'high' step launched it:
-    checked (``check_wgrad``) and timed (``time_wgrad``)."""
+    checked (``check_wgrad``) and timed (``time_wgrad``), and the fp32 conv
+    at every shape the 'high' and 'default' steps launched it, at three
+    and one pass (``time_fp32_convs``: its K splits, checked, bit-equal
+    reruns, timed beside cuDNN), with the sums over a step's launches."""
     import dataclasses
 
     import numpy as np
@@ -3161,6 +3164,7 @@ def train_precisions(torch, host):
                 k: v for k, v in
                 conv3x3_implicit_gemm.launches_by_design.items() if v},
             "wgrad_by_shape": dict(conv3x3_wgrad.launches_by_shape),
+            "conv_by_shape": dict(conv3x3_implicit_gemm.launches_by_shape),
             "wall_ms": wall}
 
     def rel(a, b):
@@ -3169,12 +3173,13 @@ def train_precisions(torch, host):
                 {".".join(p): float((a[1][p] - b[1][p]).abs().max()
                                     / b[1][p].abs().max()) for p in b[1]})
 
-    res, ref, shapes = {}, None, None
+    res, ref, shapes, conv_shapes = {}, None, None, {}
     for prec in ("highest", "high", "default"):
         cfg = cfg_at(prec)
         state, m, grads, first = first_step(cfg)
         row = {"first_step": {k: v for k, v in first.items()
-                              if k != "wgrad_by_shape"},
+                              if k not in ("wgrad_by_shape",
+                                           "conv_by_shape")},
                "metrics": m}
         if ref is None:
             ref = (m, grads)
@@ -3187,6 +3192,8 @@ def train_precisions(torch, host):
                        grad_rel_vs_highest=grad_rel)
         if prec == "high":
             shapes = first["wgrad_by_shape"]
+        if prec != "highest":
+            conv_shapes.update(first["conv_by_shape"])
         del grads
         step = make_train_step(cfg)
         gen = torch.Generator(device=dev).manual_seed(cfg.seed + 17)
@@ -3401,7 +3408,21 @@ def train_precisions(torch, host):
         "plain_ms_per_step": per_step("plain_ms"),
         "library_ms_per_step": per_step("library_ms"),
         "library_tf32_ms_per_step": per_step("library_tf32_ms")}
+    # The fp32 conv at every shape the 'high' (three passes) and 'default'
+    # (one pass) steps launched it: forward convs and input gradients.
     res["card"] = nvidia_smi()
+    conv_rows = time_fp32_convs(torch, res["card"], conv_shapes, per="step")
+    for r in conv_rows:
+        emit({"phase": "train", "conv": r})
+    sums = per_launch_sums(conv_rows, "step")
+    res["conv"] = {"rows": conv_rows, "max_abs_err": max(
+        r["max_abs_err"] for r in conv_rows), "per_step": {
+        {3: "high", 1: "default"}[p]: v for p, v in sums.items()}}
+    for prec, passes in (("high", 3), ("default", 1)):
+        want = res[prec]["launches_per_step"]["conv3x3_implicit_gemm"]
+        if sums[passes]["launches"] != want:
+            fail(f"train {prec}: the conv's launches by shape sum to "
+                 f"{sums[passes]['launches']}, not its {want} a step")
     res["phase_s"] = time.perf_counter() - t_phase
     RESULTS["train_precision"] = res
     emit({"phase": "train", "precision_summary": {
@@ -3409,6 +3430,7 @@ def train_precisions(torch, host):
                                       "peak_gb", "launches_per_step")}
            for p in ("highest", "high", "default")},
         "wgrad": {k: v for k, v in res["wgrad"].items() if k != "rows"},
+        "conv_per_step": res["conv"]["per_step"],
         "phase_s": res["phase_s"]}})
     return res
 
@@ -4649,73 +4671,111 @@ def f32_errors(torch, x, w, b, passes=3) -> dict:
     return out
 
 
-def time_tf32x1(torch, smi, shapes) -> list:
-    """The one-pass conv (``passes=1``, the 'default' precision) at every
-    shape `shapes` ({(B, H, W, C, O, passes): launches} of one fp32
-    'default' Pass-2 batch) holds at one pass, with its launches a batch
-    and the design it takes (``tf32x1``, or ``tf32x1_sliced`` where O <=
-    32): checked against its plain version under the one-pass bar, timed
-    beside the plain version and one F.conv2d with cuDNN's TF32 on (one
-    TF32 pass: the library's counterpart), its error against float64 beside
-    F.conv2d's; the bound is one TF32 pass over the tensor cores, or the
-    bytes.  F32_CONV's row is the kernel table's row 3k."""
+def time_fp32_convs(torch, smi, shapes, per="batch", timed=True) -> list:
+    """The fp32 conv at every (B, H, W, C, O, passes) of `shapes` ({key:
+    launches} of one fp32 Pass-2 batch or of one train step: `per`) at the
+    plan the wrapper launches (its design and K splits; the split-TF32
+    kernel at three passes, at one pass the one-pass design, or where O <=
+    32 the split-TF32 kernel's one-pass instance): checked against its
+    plain version under the pass count's bar, and run again for the same
+    bits (a split tile's partials are summed in split order, whichever
+    unit finishes last).  Where `timed`: its error against float64 beside
+    F.conv2d's (f32_errors; at one pass its mean signed error under
+    tf32x1_mean_signed_bar), timed beside the plain version and one
+    F.conv2d with cuDNN's TF32 on for one pass and off for three (the
+    library's counterpart of each); the bound is the pass count's TF32
+    products over the tensor cores, or the bytes.  F32_CONV's rows are the
+    kernel table's rows 3j and 3k."""
     import torch.nn.functional as F
 
     from rerevst_torch import kernels
-    from rerevst_torch.kernels.conv3x3 import design
+    from rerevst_torch.kernels.conv3x3 import design, plan_for
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
     rows = []
-    one_pass = sorted((k[:5], v) for k, v in shapes.items() if k[5] == 1)
-    if F32_CONV[1] + (F32_CONV[2],) not in dict(one_pass):
-        fail(f"time_tf32x1: {F32_CONV} is not among the 'default' batch's "
-             f"one-pass shapes {one_pass}")
-    for (*shape, o), launches in one_pass:
+    for (*shape, o, passes), launches in sorted(shapes.items()):
         shape = tuple(shape)
         x, w, b = conv_inputs(torch, shape, o, torch.float32, gen)
-        got = kernels.conv3x3_implicit_gemm(x, w, b, passes=1)
+        plan = plan_for(x, o, passes)
+        got = kernels.conv3x3_implicit_gemm(x, w, b, passes=passes)
+        again = kernels.conv3x3_implicit_gemm(x, w, b, passes=passes)
         want = kernels.conv3x3_implicit_gemm_plain(x, w, b)
-        if not conv_within_tolerance(torch, got, want, x, w, b, passes=1):
-            fail(f"conv3x3_implicit_gemm passes=1 {shape}->{o}: disagrees "
-                 f"with plain beyond the one-pass bar")
+        if not conv_within_tolerance(torch, got, want, x, w, b,
+                                     passes=passes):
+            fail(f"conv3x3_implicit_gemm passes={passes} {shape}->{o} "
+                 f"({plan.splits} splits): disagrees with plain beyond the "
+                 f"bar of {passes} passes")
+        if not torch.equal(got, again):
+            fail(f"conv3x3_implicit_gemm passes={passes} {shape}->{o} "
+                 f"({plan.splits} splits): two runs differ")
         err = (got.float() - want.float()).abs().max().item()
-        del got, want
-        wl = w.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        xl = x.permute(0, 3, 1, 2)
-        k = time_ms(torch,
-                    lambda: kernels.conv3x3_implicit_gemm(x, w, b, passes=1),
-                    iters=5, warmup=1)
-        pl = time_ms(torch,
-                     lambda: kernels.conv3x3_implicit_gemm_plain(x, w, b),
-                     iters=3, warmup=1)
-        tf32 = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = True
-        try:
-            lib = time_ms(torch, lambda: F.conv2d(xl, wl, b, padding=1),
-                          iters=5, warmup=1)
-        finally:
-            torch.backends.cudnn.allow_tf32 = tf32
-        bound, by, t_bytes, t_ops = conv_bound(x, w, o, TF32_FLOP_PER_S)
-        site = F32_CONV[0] + ", one pass" \
+        del got, again, want
+        site = F32_CONV[0] + ("" if passes == 3 else ", one pass") \
             if (shape, o) == (F32_CONV[1], F32_CONV[2]) \
-            else f"fp32 'default' {list(shape)} -> {o}"
-        rows.append({
-            "kernel": "conv3x3_implicit_gemm", "site": site,
-            "design": design(shape[-1], torch.float32, o, 1), "passes": 1,
-            "launches_per_batch": launches,
-            **f32_errors(torch, x, w, b, passes=1), "shape": shape, "O": o,
-            "dtype": "float32", "max_abs_err": err, "ms": k["ms"],
-            "plain_ms": pl["ms"], "library_ms": lib["ms"],
-            "library": "F.conv2d, cuDNN TF32 on", "bound_ms": bound,
-            "bound_by": by, "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
-            "of_bound": bound / k["ms"],
-            "tflops": 2 * x.numel() * 9 * o / k["ms"] / 1e9,
-            "host_paced": k["host_paced"] or lib["host_paced"], "card": smi})
-        del x, w, b, wl, xl
+            else f"fp32 {list(shape)} -> {o}, {passes} pass" \
+            + ("es" if passes == 3 else "")
+        row = {"kernel": "conv3x3_implicit_gemm", "site": site,
+               "design": design(shape[-1], torch.float32, o, passes),
+               "passes": passes, "splits": plan.splits, "grid": plan.grid,
+               "tiles": plan.tiles, f"launches_per_{per}": launches,
+               "shape": shape, "O": o, "dtype": "float32",
+               "max_abs_err": err, "bit_equal_rerun": True, "card": smi}
+        if timed:
+            row.update(f32_errors(torch, x, w, b, passes=passes))
+            if passes == 1:
+                row["mean_signed_bar"] = tf32x1_mean_signed_bar(shape[-1])
+                if abs(row["mean_signed_err_vs_f64"]) > \
+                        row["mean_signed_bar"]:
+                    fail(f"conv3x3_implicit_gemm passes=1 {shape}->{o}: "
+                         f"mean signed error {row['mean_signed_err_vs_f64']}"
+                         f" beyond {row['mean_signed_bar']}")
+            wl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            xl = x.permute(0, 3, 1, 2)
+            k = time_ms(torch, lambda: kernels.conv3x3_implicit_gemm(
+                x, w, b, passes=passes), iters=5, warmup=1)
+            pl = time_ms(torch,
+                         lambda: kernels.conv3x3_implicit_gemm_plain(x, w, b),
+                         iters=3, warmup=1)
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = passes == 1
+            try:
+                lib = time_ms(torch, lambda: F.conv2d(xl, wl, b, padding=1),
+                              iters=5, warmup=1)
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            bound, by, t_bytes, t_ops = conv_bound(
+                x, w, o, TF32_FLOP_PER_S / passes)
+            row.update({
+                "ms": k["ms"], "plain_ms": pl["ms"], "library_ms": lib["ms"],
+                "library": "F.conv2d, cuDNN TF32 " + (
+                    "on" if passes == 1 else "off"),
+                "bound_ms": bound, "bound_by": by, "bound_bytes_ms": t_bytes,
+                "bound_ops_ms": t_ops, "of_bound": bound / k["ms"],
+                "tflops": 2 * x.numel() * 9 * o / k["ms"] / 1e9,
+                "host_paced": k["host_paced"] or lib["host_paced"]})
+            del wl, xl
+        rows.append(row)
+        del x, w, b
         torch.cuda.empty_cache()
     return rows
+
+
+def per_launch_sums(rows, per) -> dict:
+    """ms, plain, bound and library ms of `rows` (time_fp32_convs) summed
+    over their launches a `per`, by pass count."""
+    out = {}
+    for passes in (3, 1):
+        mine = [r for r in rows if r["passes"] == passes]
+        if mine:
+            out[passes] = {k: sum(r[k] * r[f"launches_per_{per}"]
+                                  for r in mine)
+                           for k in ("ms", "plain_ms", "bound_ms",
+                                     "library_ms")}
+            out[passes]["launches"] = sum(r[f"launches_per_{per}"]
+                                          for r in mine)
+    return out
 
 
 #: The phase's sessions whose Pass 2 is also exported (``io/aot.py``) and
@@ -4851,7 +4911,7 @@ def config_variants(torch, smi):
                dtype=f16, parity_packed=True, pairlane=True,
                spatial_tiles=2, luma_fold=True)),
            ("fp32_highest_again", ModelConfig())]
-    params = trace = default_shapes = None
+    params = trace = default_shapes = high_shapes = None
     res, frames = {}, {}
     for key, cfg in sessions:
         s = Stylization(ckpt if params is None else None, params=params,
@@ -4885,6 +4945,8 @@ def config_variants(torch, smi):
         by_shape = dict(kernels.conv3x3_implicit_gemm.launches_by_shape)
         t = time_ms(torch, lambda: s._stylize(x), iters=5, warmup=1)
         aot = aot_vs_eager(torch, s, x, y) if key in AOT_VARIANTS else None
+        if key == "fp32_high":
+            high_shapes = by_shape
         if key == "fp32_default":
             default_shapes = by_shape
             # What the library's exact fp32 products (the upsample and
@@ -4969,18 +5031,28 @@ def config_variants(torch, smi):
     need(packed_equal, "f16 parity_packed frames differ from f16's")
     need(leak_equal, "fp32 'highest' frames changed after the variants")
     need(after == flags, f"TF32 flags {after}, were {flags}")
-    rows = time_tf32x1(torch, smi, default_shapes)
+    if F32_CONV[1] + (F32_CONV[2], 1) not in default_shapes:
+        fail(f"config_variants: {F32_CONV} is not among the 'default' "
+             f"batch's one-pass shapes {sorted(default_shapes)}")
+    rows = time_fp32_convs(torch, smi, default_shapes)
     for r in rows:
         emit({"phase": "config_variants", "tf32x1_row": r})
+    # The 'high' batch's three-pass shapes: checked, not timed (row 3j's
+    # time is phase time's).
+    high_rows = time_fp32_convs(torch, smi, high_shapes, timed=False)
+    for r in high_rows:
+        emit({"phase": "config_variants", "tf32x3_check": r})
     row = next(r for r in rows if r["site"] == F32_CONV[0] + ", one pass")
-    summary["fp32_default_one_pass_ms_per_batch"] = sum(
-        r["ms"] * r["launches_per_batch"] for r in rows)
-    summary["fp32_default_one_pass_cudnn_tf32_ms_per_batch"] = sum(
-        r["library_ms"] * r["launches_per_batch"] for r in rows)
+    sums = per_launch_sums(rows, "batch")[1]
+    summary["fp32_default_one_pass_ms_per_batch"] = sums["ms"]
+    summary["fp32_default_one_pass_cudnn_tf32_ms_per_batch"] = \
+        sums["library_ms"]
+    summary["fp32_high_shapes_checked"] = len(high_rows)
     summary["phase_s"] = time.perf_counter() - t_phase
     emit({"phase": "config_variants", "summary": summary, "card": smi})
     RESULTS["config_variants"] = {"sessions": res, "summary": summary,
-                                  "tf32x1_row": row, "tf32x1_rows": rows}
+                                  "tf32x1_row": row, "tf32x1_rows": rows,
+                                  "tf32x3_checks": high_rows}
     return res, row
 
 
@@ -5019,16 +5091,16 @@ def kernel_resources(reports) -> dict:
         if m:
             out[f"conv3x3_sliced_kernel<{dts[m.group(1)]}, N={m.group(2)}, "
                 f"KS={m.group(3)}>"] = info
-        m = re.search(r"conv3x3_tf32x3_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
-                      name)
+        m = re.search(r"conv3x3_tf32x3_kernelILi(\d+)ELi(\d+)ELi(\d+)"
+                      r"ELb([01])E", name)
         if m:
             out[f"conv3x3_tf32x3_kernel<N={m.group(1)}, KS={m.group(2)}, "
-                f"P={m.group(3)}>"] = info
-        m = re.search(r"conv3x3_tf32x1_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
-                      name)
+                f"P={m.group(3)}, split={m.group(4)}>"] = info
+        m = re.search(r"conv3x3_tf32x1_kernelILi(\d+)ELi(\d+)ELi(\d+)"
+                      r"ELb([01])E", name)
         if m:
             out[f"conv3x3_tf32x1_kernel<MB={m.group(1)}, NPX={m.group(2)}, "
-                f"KS={m.group(3)}>"] = info
+                f"KS={m.group(3)}, split={m.group(4)}>"] = info
         if "conv3x3_tf32_split_kernel" in name:
             out["conv3x3_tf32_split_kernel"] = info
     n_conv = len(out)
@@ -5043,13 +5115,14 @@ def kernel_resources(reports) -> dict:
         fail(f"ptxas reported {n_sliced} sliced conv kernels, not 20")
     n_tf32 = sum(k.startswith(("conv3x3_tf32x3", "conv3x3_tf32_split"))
                  for k in out)
-    if n_tf32 != 17:
-        fail(f"ptxas reported {n_tf32} split-TF32 conv kernels, not 16 (N x "
-             f"KS x three or one pass) and the weights' split")
+    if n_tf32 != 25:
+        fail(f"ptxas reported {n_tf32} split-TF32 conv kernels, not 24 (N x "
+             f"KS x three or one pass, and the K-split instances at KS = "
+             f"16) and the weights' split")
     n_tf32x1 = sum(k.startswith("conv3x3_tf32x1") for k in out)
-    if n_tf32x1 != 6:
-        fail(f"ptxas reported {n_tf32x1} one-pass conv kernels, not 6 (MB x "
-             f"NPX 1 x 256, 1 x 128, 2 x 128; KS 8, 16)")
+    if n_tf32x1 != 9:
+        fail(f"ptxas reported {n_tf32x1} one-pass conv kernels, not 9 (MB x "
+             f"NPX 1 x 256, 1 x 128, 2 x 128; KS 8, 16; K-split at 16)")
     serialized = [k for k, v in out.items()
                   if k.startswith(("conv3x3_wide", "conv3x3_sliced",
                                    "conv3x3_tf32x3", "conv3x3_tf32x1"))
@@ -5335,6 +5408,15 @@ def main() -> int:
             entry["launches_train"] = {
                 p: precisions[p]["launches_per_step"]["conv3x3_implicit_gemm"]
                 for p in ("highest", "high", "default")}
+            # A 'high' (three passes) and a 'default' (one pass) train
+            # step's launches summed: the kernel, and one F.conv2d a
+            # launch (cuDNN TF32 off for three passes, on for one).
+            per_step = precisions["conv"]["per_step"]
+            entry["ms_per_step"] = {p: v["ms"] for p, v in per_step.items()}
+            entry["library_ms_per_step"] = {
+                p: v["library_ms"] for p, v in per_step.items()}
+            entry["bound_ms_per_step"] = {
+                p: v["bound_ms"] for p, v in per_step.items()}
     RESULTS["kernels"] = line["kernels"]
     RESULTS["seconds"] = time.perf_counter() - t_main
     _save()

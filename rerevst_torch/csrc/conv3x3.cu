@@ -418,6 +418,40 @@
 //   barrier (5.32 ms), and x as register A, its ldmatrix fragments rounded
 //   in registers (5.13-5.14 ms).  As B, x has no register form.
 
+// Split K (both fp32 kernels, conv3x3_tf32x3_kernel at P = 3 and 1 and
+// conv3x3_tf32x1_kernel).  Where a call has fewer tiles than the card has
+// SMs (a train step's 32^2 images: [4,32,32,512] -> 32 makes 16 tiles of
+// 256 pixels, and each walked all 96 stages while 116 SMs stayed idle),
+// each tile's K is split over `splits` blocks (kernels/conv3x3.py:
+// tf32x3_plan, tf32x1_plan pick it; 1 wherever the tiles fill the SMs, so
+// every plan at the 640^2 batch shapes is as before).
+// * The persistent blocks walk units (tile, split), split fastest, so a
+//   tile's units run side by side; split s takes the contiguous run of K
+//   slices [s slices / splits, (s + 1) slices / splits), 3 stages a slice
+//   as before.  Split 0's sums start from the bias, the others' from 0.
+// * Each consumer warpgroup writes its fp32 partial (P = 3: acc + cor, as
+//   the epilogue adds them) to the workspace after the weights' scratch,
+//   16-byte vectors in its threads' register order (so the writes and the
+//   reads below are coalesced whatever the tile's layout), fences it, and
+//   one thread counts the warpgroup in on a counter of its half tile (the
+//   weights' split kernel zeroes the counters first, on the same stream).
+//   The warpgroup that counts in last reads every split's partial of its
+//   half tile from L2 and sums them in split order, then runs the
+//   epilogue as an unsplit tile does: whichever block finishes last, the
+//   sums are the same bits.  No atomics on values; an inf in one partial
+//   stays inf, inf + -inf across splits is NaN, as within one accumulator.
+//   A last-to-finish sum, not a second kernel: at 0.02 ms a launch counts.
+// * A split takes at least 3 slices where the plan chooses (9 stages: the
+//   ring of up to 8 still fills).  As for the weight gradient, a
+//   reduction inside thread block clusters was no faster than a workspace
+//   at equal splits (csrc/conv3x3_wgrad.cu).
+// * The kernels take the split as a template flag (kSplit): with the
+//   split count a runtime value in one kernel body, tiles walked whole
+//   ran up to a quarter slower at some one-pass shapes
+//   (scripts/conv_ab.py --tf32x1; PERF.md section 6), so the unsplit
+//   instances keep the unsplit walk's code, and only KS = 16 has split
+//   instances (C <= 8 is one slice).
+
 // Offsets are 64-bit: a batch of 16 frames of 640^2 x 64 holds 4.2e8
 // values.
 #include "common.cuh"
@@ -1796,10 +1830,17 @@ __device__ __forceinline__ void tf32_split_w(float w, float& hi, float& lo) {
 
 // ws [2][9][O][Cp] (hi, lo; tap, output channel, input channel; zero past
 // C) from the HWIO weights w [9][C][O]; for one pass (passes = 1) ws
-// [9][O][Cp], w rounded to TF32.
+// [9][O][Cp], w rounded to TF32.  Also zeroes the `ncnt` counters of a
+// split call (split_sum) before the conv kernel, next on the stream,
+// counts on them.
 __global__ void conv3x3_tf32_split_kernel(const float* __restrict__ w,
                                           float* __restrict__ ws, int C,
-                                          int Cp, int O, int passes) {
+                                          int Cp, int O, int passes,
+                                          int* __restrict__ cnt,
+                                          long long ncnt) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < ncnt; i += (long long)gridDim.x * blockDim.x)
+    cnt[i] = 0;
   const long long n = 9LL * Cp * O;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
@@ -1832,6 +1873,100 @@ __device__ __forceinline__ void round_box_x(uint4* xv, int i0, int i1,
     xv[i] = make_uint4(tf32_round_x(v.x), tf32_round_x(v.y),
                        tf32_round_x(v.z), tf32_round_x(v.w));
   }
+}
+
+// Unit i of a walk of `splits` K splits a tile (split fastest): tile t,
+// split sp, and its stages [k0, k1) (3 a slice, the run of slices
+// [sp slices / splits, (sp + 1) slices / splits)).  Without kSplit, unit
+// i is tile i with all its stages, in constants the compiler folds.
+template <bool kSplit>
+struct SplitUnit {
+  long long t;
+  int sp, k0, k1;
+  __device__ __forceinline__ SplitUnit(long long i, int splits, int slices) {
+    if constexpr (kSplit) {
+      t = i / splits;
+      sp = (int)(i - t * splits);
+      k0 = 3 * (sp * slices / splits);
+      k1 = 3 * ((sp + 1) * slices / splits);
+    } else {
+      t = i;
+      sp = 0;
+      k0 = 0;
+      k1 = 3 * slices;
+    }
+  }
+};
+
+// Whether `v` is non-zero in any of a warpgroup's 128 threads, as a
+// barrier of them (named barrier `id`): bar.red.or.
+__device__ __forceinline__ bool bar_any_wg(int id, bool v) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred q, p;\nsetp.ne.u32 q, %1, 0;\n"
+      "bar.red.or.pred p, %2, 128, q;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(r)
+      : "r"((uint32_t)v), "r"(id)
+      : "memory");
+  return r != 0;
+}
+
+// Split K (the header's paragraph): a warpgroup's (wg, thread wtid) sums
+// `acc` of split `sp` of tile t go to its slot of the workspace `part`, in
+// 16-byte vectors in register order (vector i of thread wtid at i 128 +
+// wtid); the half tile's counter cnt[2 t + wg] counts the warpgroup in.
+// The last of the `splits` to count in gets true, with acc the sum of
+// every split's slot in split order; the others get false (their sums are
+// in the workspace).  Non-finite sums pass through unchanged.
+template <int R, int E>
+__device__ __forceinline__ bool split_sum(float (&acc)[R][E],
+                                          float* __restrict__ part,
+                                          int* __restrict__ cnt, long long t,
+                                          int wg, int sp, int splits,
+                                          int wtid) {
+  static_assert(E % 4 == 0, "16-byte vectors");
+  constexpr int V = R * E / 4;  // vectors a thread
+  const long long q = 2 * t + wg;  // the half tile
+  float4* slot0 = reinterpret_cast<float4*>(part) + q * splits * (V * 128LL)
+                  + wtid;
+  float4* mine = slot0 + (long long)sp * (V * 128);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int e = 0; e < E / 4; ++e)
+      __stcg(mine + (r * (E / 4) + e) * 128,
+             make_float4(acc[r][4 * e], acc[r][4 * e + 1], acc[r][4 * e + 2],
+                         acc[r][4 * e + 3]));
+  __threadfence();  // the partial, before the count that announces it
+  bar_sync_wg(1 + wg);
+  bool last = false;
+  if (wtid == 0) last = atomicAdd(cnt + q, 1) == splits - 1;
+  if (!bar_any_wg(4 + wg, last)) return false;
+  __threadfence();  // the count, before the reads of the others' partials
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int e = 0; e < E / 4; ++e) {
+      const float4 v = __ldcg(slot0 + (r * (E / 4) + e) * 128);
+      acc[r][4 * e] = v.x;
+      acc[r][4 * e + 1] = v.y;
+      acc[r][4 * e + 2] = v.z;
+      acc[r][4 * e + 3] = v.w;
+    }
+  for (int k = 1; k < splits; ++k) {
+    const float4* src = slot0 + (long long)k * (V * 128);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int e = 0; e < E / 4; ++e) {
+        const float4 v = __ldcg(src + (r * (E / 4) + e) * 128);
+        acc[r][4 * e] += v.x;
+        acc[r][4 * e + 1] += v.y;
+        acc[r][4 * e + 2] += v.z;
+        acc[r][4 * e + 3] += v.w;
+      }
+  }
+  return true;
 }
 
 // A stage's products for a warpgroup: taps dy = 0, 1, 2, each KS / 8 k8
@@ -1868,12 +2003,16 @@ __device__ __forceinline__ void tf32x3_stage(float (&acc)[2][N / 2],
 // xmap: x as [B][H][W][Cp] fp32, boxes {KS, cols, rows + 2, 1}; wmap: ws as
 // [9 kPlanes][O][Cp], boxes {KS, N, 1}; both with the kS-byte swizzle.
 // `lc` = log2(cols); `stages` stages of kABoxes `a_slot` + kBBytes bytes.
-template <int N, int KS, int NP>
+// `splits` K splits a tile (split_sum's workspace `part` and counters
+// `cnt`) in the kSplit instances; the others take whole tiles (splits =
+// 1) in the code of an unsplit walk (the header's split-K paragraph).
+template <int N, int KS, int NP, bool kSplit>
 __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
     const __grid_constant__ CUtensorMap xmap,
     const __grid_constant__ CUtensorMap wmap, const float* __restrict__ bias,
-    float* __restrict__ y, int B, int H, int W, int Cp, int O, int lc,
-    int stages, int a_slot) {
+    float* __restrict__ y, float* __restrict__ part, int* __restrict__ cnt,
+    int B, int H, int W, int Cp, int O, int lc, int stages, int a_slot,
+    int splits) {
   using P = Tf32<N, KS, NP>;
   static_assert(KS == 8 || KS == 16, "K slice");
   extern __shared__ unsigned char smem_raw[];
@@ -1901,20 +2040,23 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
   const int cols = 1 << lc, rows = P::kM >> lc;
   const int strips = (W + cols - 1) >> lc;
   const int bands = (H + rows - 1) / rows;
-  const long long tiles = (long long)n_tiles * strips * bands * B;
-  const int ksteps = 3 * ((Cp + KS - 1) / KS);  // k = slice 3 + dx
+  if (!kSplit) splits = 1;
+  const long long units = (long long)n_tiles * strips * bands * B * splits;
+  const int slices = (Cp + KS - 1) / KS;  // stage k = slice 3 + dx
   const int box_bytes = (rows + 2) * cols * P::kS;
 
   if (tid >= kConsumerThreads) {
-    // The producer warpgroup: one thread streams every tile's stages.
+    // The producer warpgroup: one thread streams every unit's stages.
     regs_release();
     if (tid == kConsumerThreads) {
       const uint32_t tx = box_bytes + P::kBTx;
       int s = 0;
       uint32_t ph = 0;
-      for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const WideTile u = wide_tile(t, n_tiles, strips, bands, rows, cols, N);
-        for (int k = 0; k < ksteps; ++k) {
+      for (long long i = blockIdx.x; i < units; i += gridDim.x) {
+        const SplitUnit<kSplit> q(i, splits, slices);
+        const WideTile u = wide_tile(q.t, n_tiles, strips, bands, rows, cols,
+                                     N);
+        for (int k = q.k0; k < q.k1; ++k) {
           const int sl = k / 3, dx = k - 3 * sl;
           const uint32_t a = ring + s * stage_bytes;
           mbar_wait(empty + 8 * s, ph ^ 1);
@@ -1945,17 +2087,20 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
   const int r = ((tid >> 5) & 3) * 16 + (lane >> 2);  // accumulator row
   const uint32_t drow = (uint32_t)(cols * P::kS) >> 4;
   const uint32_t dlo = (uint32_t)a_slot >> 4;
-  // acc: x_hi w_hi from the bias; cor: the corrections (P = 3; unused at
-  // P = 1, where the compiler drops it).
+  // acc: x_hi w_hi from the bias (split 0; the other splits from 0); cor:
+  // the corrections (P = 3; unused at P = 1, where the compiler drops it).
   float acc[2][N / 2], cor[2][N / 2];
   int s = 0;
   uint32_t ph = 0;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const WideTile u = wide_tile(t, n_tiles, strips, bands, rows, cols, N);
+  for (long long i = blockIdx.x; i < units; i += gridDim.x) {
+    const SplitUnit<kSplit> q(i, splits, slices);
+    const int k0 = q.k0, k1 = q.k1;
+    const WideTile u = wide_tile(q.t, n_tiles, strips, bands, rows, cols, N);
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
       const int o = u.n0 + j * 8 + (lane & 3) * 2;
-      const float b0 = bias_s[o], b1 = bias_s[o + 1];
+      const float b0 = q.sp ? 0.f : bias_s[o];
+      const float b1 = q.sp ? 0.f : bias_s[o + 1];
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
         acc[m][4 * j] = acc[m][4 * j + 2] = b0;
@@ -1965,7 +2110,7 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
       }
     }
     int prev = 0;
-    for (int k = 0; k < ksteps; ++k) {
+    for (int k = k0; k < k1; ++k) {
       mbar_wait(full + 8 * s, ph);
       const uint32_t a = ring + s * stage_bytes;
       // The box as it lies is x_hi (wgmma reads fp32 truncated to TF32).
@@ -1994,7 +2139,7 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
       wgmma_fence();
       tf32x3_stage<N, KS, NP>(acc, cor, da, db, drow, dlo);
       wgmma_commit();
-      if (k > 0) {
+      if (k > k0) {
         // The previous stage's group is done: it may be refilled.
         wgmma_wait<1>();
         fence_regs(acc);
@@ -2019,6 +2164,10 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * prev);
+    if constexpr (kSplit) {
+      if (!split_sum(acc, part, cnt, q.t, wg, q.sp, splits, tid & 127))
+        continue;  // another unit of the tile finishes it
+    }
 
     // The epilogue: accumulator pairs (columns 8 j + 2 (lane % 4), + 1) of
     // rows r and r + 8 of each m64 block, straight to y.
@@ -2107,14 +2256,17 @@ __device__ __forceinline__ void tf32x1_stage(float (&acc)[MB][NPX / 2],
 // 64, 1}; both with the kS-byte swizzle; ymap: y [B][H][W][O], boxes {32,
 // min(cols, kCPX), kCPX / min(cols, kCPX), 1}, the 128-byte swizzle
 // (unused where O % 4 != 0).  `lc` = log2(cols); `stages` stages of
-// `a_slot` + kABytes bytes.
-template <int MB, int NPX, int KS>
+// `a_slot` + kABytes bytes; `splits` K splits a tile (split_sum's
+// workspace `part` and counters `cnt`) in the kSplit instances, whole
+// tiles in the others (as conv3x3_tf32x3_kernel).
+template <int MB, int NPX, int KS, bool kSplit>
 __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x1_kernel(
     const __grid_constant__ CUtensorMap xmap,
     const __grid_constant__ CUtensorMap wmap,
     const __grid_constant__ CUtensorMap ymap, const float* __restrict__ bias,
-    float* __restrict__ y, int B, int H, int W, int Cp, int O, int lc,
-    int stages, int a_slot) {
+    float* __restrict__ y, float* __restrict__ part, int* __restrict__ cnt,
+    int B, int H, int W, int Cp, int O, int lc, int stages, int a_slot,
+    int splits) {
   using P = Tf32x1<MB, NPX, KS>;
   constexpr int BN = P::kBN;
   extern __shared__ unsigned char smem_raw[];
@@ -2143,20 +2295,23 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x1_kernel(
   const int cols = 1 << lc, rows = P::kM >> lc;
   const int strips = (W + cols - 1) >> lc;
   const int bands = (H + rows - 1) / rows;
-  const long long tiles = (long long)n_tiles * strips * bands * B;
-  const int ksteps = 3 * ((Cp + KS - 1) / KS);  // k = slice 3 + dx
+  if (!kSplit) splits = 1;
+  const long long units = (long long)n_tiles * strips * bands * B * splits;
+  const int slices = (Cp + KS - 1) / KS;  // stage k = slice 3 + dx
   const int box_bytes = (rows + 2) * cols * P::kS;
 
   if (tid >= kConsumerThreads) {
-    // The producer warpgroup: one thread streams every tile's stages.
+    // The producer warpgroup: one thread streams every unit's stages.
     regs_release();
     if (tid == kConsumerThreads) {
       const uint32_t tx = box_bytes + P::kABytes;
       int s = 0;
       uint32_t ph = 0;
-      for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const WideTile u = wide_tile(t, n_tiles, strips, bands, rows, cols, BN);
-        for (int k = 0; k < ksteps; ++k) {
+      for (long long i = blockIdx.x; i < units; i += gridDim.x) {
+        const SplitUnit<kSplit> q(i, splits, slices);
+        const WideTile u = wide_tile(q.t, n_tiles, strips, bands, rows, cols,
+                                     BN);
+        for (int k = q.k0; k < q.k1; ++k) {
           const int sl = k / 3, dx = k - 3 * sl;
           const uint32_t a = ring + s * stage_bytes;
           mbar_wait(empty + 8 * s, ph ^ 1);
@@ -2194,13 +2349,16 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x1_kernel(
   float acc[MB][NPX / 2];
   int s = 0;
   uint32_t ph = 0;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const WideTile u = wide_tile(t, n_tiles, strips, bands, rows, cols, BN);
-    // The sums start from the bias of their rows' output channels.
+  for (long long i = blockIdx.x; i < units; i += gridDim.x) {
+    const SplitUnit<kSplit> q(i, splits, slices);
+    const int k0 = q.k0, k1 = q.k1;
+    const WideTile u = wide_tile(q.t, n_tiles, strips, bands, rows, cols, BN);
+    // The sums start from the bias of their rows' output channels (split
+    // 0; the other splits from 0).
 #pragma unroll
     for (int m = 0; m < MB; ++m) {
-      const float b0 = bias_s[u.n0 + 64 * m + orow];
-      const float b1 = bias_s[u.n0 + 64 * m + orow + 8];
+      const float b0 = q.sp ? 0.f : bias_s[u.n0 + 64 * m + orow];
+      const float b1 = q.sp ? 0.f : bias_s[u.n0 + 64 * m + orow + 8];
 #pragma unroll
       for (int j = 0; j < NPX / 8; ++j) {
         acc[m][4 * j] = acc[m][4 * j + 1] = b0;
@@ -2208,7 +2366,7 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x1_kernel(
       }
     }
     int prev = 0;
-    for (int k = 0; k < ksteps; ++k) {
+    for (int k = k0; k < k1; ++k) {
       mbar_wait(full + 8 * s, ph);
       const uint32_t a = ring + s * stage_bytes;
       // Round the box pixels this warpgroup's taps read, in place, and
@@ -2224,7 +2382,7 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x1_kernel(
       wgmma_fence();
       tf32x1_stage<MB, NPX, KS>(acc, da, db, drow);
       wgmma_commit();
-      if (k > 0) {
+      if (k > k0) {
         // The previous stage's group is done: it may be refilled.
         wgmma_wait<1>();
         fence_regs(acc);
@@ -2241,6 +2399,10 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x1_kernel(
     fence_regs(acc);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * prev);
+    if constexpr (kSplit) {
+      if (!split_sum(acc, part, cnt, q.t, wg, q.sp, splits, wtid))
+        continue;  // another unit of the tile finishes it
+    }
 
     // The epilogue.  The sums lie [channel][pixel] (thread: channels orow,
     // orow + 8 of each block, pixels 8 j + pcol, + 1); y wants channels
@@ -2561,25 +2723,55 @@ cudaError_t sliced(const void* x, const void* w, const void* b, void* y,
   }
 }
 
-// The split-TF32 kernel: `grid` persistent blocks over tiles of 256
-// pixels (cols = 1 << lc wide) x N output channels, K slices of KS.  x is
-// [B,H,W,Cp] (Cp = C rounded up to 4: the wrapper's zero-padded copy where
-// C % 4 != 0), w the caller's [3,3,C,O]; ws, the wrapper's scratch of 18 O
-// Cp floats, takes the weights' split first.  The ring takes as many
-// stages as fit beside the bias, at most kSlicedMaxStages.
+// The split workspace after the weights' scratch (`wfloats` floats of
+// ws): the partials of `tiles` x `splits` units of `tile` floats each,
+// then 2 counters a tile (split_sum); none where splits = 1.  Refuses
+// splits outside [1, slices].
+struct SplitSpace {
+  float* part = nullptr;
+  int* cnt = nullptr;
+  long long ncnt = 0;
+};
+
+cudaError_t split_space(void* ws, long long wfloats, long long tiles,
+                        int splits, int slices, long long tile,
+                        SplitSpace* out) {
+  if (splits < 1 || splits > slices) return cudaErrorInvalidValue;
+  if (splits == 1) return cudaSuccess;
+  out->part = static_cast<float*>(ws) + wfloats;
+  out->cnt = reinterpret_cast<int*>(out->part + tiles * splits * tile);
+  out->ncnt = 2 * tiles;
+  return cudaSuccess;
+}
+
+// The split-TF32 kernel: `grid` persistent blocks over units of tiles of
+// 256 pixels (cols = 1 << lc wide) x N output channels and `splits` K
+// splits a tile, K slices of KS.  x is [B,H,W,Cp] (Cp = C rounded up to 4:
+// the wrapper's zero-padded copy where C % 4 != 0), w the caller's
+// [3,3,C,O]; ws, the wrapper's scratch of 18 O Cp floats (9 O Cp at one
+// pass), takes the weights' split first, then, where splits > 1, the
+// split workspace (split_space).  The ring takes as many stages as fit
+// beside the bias, at most kSlicedMaxStages.
 template <int N, int KS, int NP>
 cudaError_t launch_tf32x3(const void* x, const void* w, const void* b,
                           void* y, void* ws, int B, int H, int W, int C,
-                          int O, int lc, int grid, cudaStream_t st) {
+                          int O, int lc, int grid, int splits,
+                          cudaStream_t st) {
   using P = Tf32<N, KS, NP>;
   const int cols = 1 << lc, rows = P::kM >> lc, cp = (C + 3) / 4 * 4;
   const long long nw = 9LL * cp * O;
+  const long long tiles = (long long)((O + N - 1) / N) * ((W + cols - 1) / cols)
+                          * ((H + rows - 1) / rows) * B;
+  SplitSpace sp;
+  cudaError_t e = split_space(ws, nw * P::kPlanes, tiles, splits,
+                              (cp + KS - 1) / KS, (long long)P::kM * N, &sp);
+  if (e != cudaSuccess) return e;
   conv3x3_tf32_split_kernel<<<(int)std::min<long long>((nw + 255) / 256,
                                                         1024),
                               256, 0, st>>>(static_cast<const float*>(w),
                                             static_cast<float*>(ws), C, cp, O,
-                                            NP);
-  cudaError_t e = cudaGetLastError();
+                                            NP, sp.cnt, sp.ncnt);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   CUtensorMap xmap, wmap;
   const cuuint64_t xd[4] = {(cuuint64_t)cp, (cuuint64_t)W, (cuuint64_t)H,
@@ -2602,38 +2794,41 @@ cudaError_t launch_tf32x3(const void* x, const void* w, const void* b,
       std::min(kSlicedMaxStages, (kSmemMax - fixed) / (stage + 16));
   if (stages < 2) return cudaErrorInvalidValue;
   const size_t bytes = fixed + (size_t)stages * (stage + 16);
-  e = cudaFuncSetAttribute(conv3x3_tf32x3_kernel<N, KS, NP>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  // A split needs two K slices or more: KS = 8 (C <= 8) has one.
+  auto kernel = conv3x3_tf32x3_kernel<N, KS, NP, false>;
+  if constexpr (KS == 16)
+    if (splits > 1) kernel = conv3x3_tf32x3_kernel<N, KS, NP, true>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)bytes);
   if (e != cudaSuccess) return e;
-  conv3x3_tf32x3_kernel<N, KS, NP><<<grid, kSpecThreads, bytes, st>>>(
-      xmap, wmap, static_cast<const float*>(b), static_cast<float*>(y), B, H,
-      W, cp, O, lc, stages, a_slot);
+  kernel<<<grid, kSpecThreads, bytes, st>>>(
+      xmap, wmap, static_cast<const float*>(b), static_cast<float*>(y),
+      sp.part, sp.cnt, B, H, W, cp, O, lc, stages, a_slot, splits);
   return cudaGetLastError();
 }
 
 template <int N, int NP>
 cudaError_t tf32x3_ks(const void* x, const void* w, const void* b, void* y,
                       void* ws, int B, int H, int W, int C, int O, int lc,
-                      int ks, int grid, cudaStream_t st) {
+                      int ks, int grid, int splits, cudaStream_t st) {
   if (ks == 8)
     return launch_tf32x3<N, 8, NP>(x, w, b, y, ws, B, H, W, C, O, lc, grid,
-                                   st);
+                                   splits, st);
   if (ks == 16)
     return launch_tf32x3<N, 16, NP>(x, w, b, y, ws, B, H, W, C, O, lc, grid,
-                                    st);
+                                    splits, st);
   return cudaErrorInvalidValue;
 }
 
 template <int NP>
 cudaError_t tf32_n(const void* x, const void* w, const void* b, void* y,
                    void* ws, int B, int H, int W, int C, int O, int lc, int n,
-                   int ks, int grid, cudaStream_t st) {
+                   int ks, int grid, int splits, cudaStream_t st) {
   switch (n) {
-    case 8: return tf32x3_ks<8, NP>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
-    case 16: return tf32x3_ks<16, NP>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
-    case 32: return tf32x3_ks<32, NP>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
-    case 64: return tf32x3_ks<64, NP>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
+    case 8: return tf32x3_ks<8, NP>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, splits, st);
+    case 16: return tf32x3_ks<16, NP>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, splits, st);
+    case 32: return tf32x3_ks<32, NP>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, splits, st);
+    case 64: return tf32x3_ks<64, NP>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, splits, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -2641,37 +2836,49 @@ cudaError_t tf32_n(const void* x, const void* w, const void* b, void* y,
 // `passes` TF32 passes: 3 (fp32-accurate) or 1.
 cudaError_t tf32x3(const void* x, const void* w, const void* b, void* y,
                    void* ws, int B, int H, int W, int C, int O, int cols,
-                   int n, int ks, int grid, int passes, cudaStream_t st) {
+                   int n, int ks, int grid, int splits, int passes,
+                   cudaStream_t st) {
   const int lc = cols == 16 ? 4 : cols == 32 ? 5 : cols == 64 ? 6
                : cols == 128 ? 7 : -1;
   if (lc < 0 || grid <= 0 || ws == nullptr) return cudaErrorInvalidValue;
   if (passes == 3)
-    return tf32_n<3>(x, w, b, y, ws, B, H, W, C, O, lc, n, ks, grid, st);
+    return tf32_n<3>(x, w, b, y, ws, B, H, W, C, O, lc, n, ks, grid, splits,
+                     st);
   if (passes == 1)
-    return tf32_n<1>(x, w, b, y, ws, B, H, W, C, O, lc, n, ks, grid, st);
+    return tf32_n<1>(x, w, b, y, ws, B, H, W, C, O, lc, n, ks, grid, splits,
+                     st);
   return cudaErrorInvalidValue;
 }
 
-// The one-pass kernel: `grid` persistent blocks over tiles of 2 NPX pixels
-// (cols = 1 << lc wide) x 64 MB output channels, K slices of KS.  x is
-// [B,H,W,Cp] (Cp = C rounded up to 4), w the caller's [3,3,C,O]; ws, the
-// wrapper's scratch of 9 O Cp floats, takes the rounded weights first.  The
-// ring takes as many stages as fit beside the epilogue's staging and the
-// bias, at most kSlicedMaxStages.
+// The one-pass kernel: `grid` persistent blocks over units of tiles of 2
+// NPX pixels (cols = 1 << lc wide) x 64 MB output channels and `splits` K
+// splits a tile, K slices of KS.  x is [B,H,W,Cp] (Cp = C rounded up to
+// 4), w the caller's [3,3,C,O]; ws, the wrapper's scratch of 9 O Cp
+// floats, takes the rounded weights first, then, where splits > 1, the
+// split workspace (split_space).  The ring takes as many stages as fit
+// beside the epilogue's staging and the bias, at most kSlicedMaxStages.
 template <int MB, int NPX, int KS>
 cudaError_t launch_tf32x1(const void* x, const void* w, const void* b,
                           void* y, void* ws, int B, int H, int W, int C,
-                          int O, int lc, int grid, cudaStream_t st) {
+                          int O, int lc, int grid, int splits,
+                          cudaStream_t st) {
   using P = Tf32x1<MB, NPX, KS>;
   const int cols = 1 << lc, rows = P::kM >> lc, cp = (C + 3) / 4 * 4;
   if (rows < 1) return cudaErrorInvalidValue;
   const long long nw = 9LL * cp * O;
+  const long long tiles = (long long)((O + P::kBN - 1) / P::kBN)
+                          * ((W + cols - 1) / cols) * ((H + rows - 1) / rows)
+                          * B;
+  SplitSpace sp;
+  cudaError_t e = split_space(ws, nw, tiles, splits, (cp + KS - 1) / KS,
+                              (long long)P::kM * P::kBN, &sp);
+  if (e != cudaSuccess) return e;
   conv3x3_tf32_split_kernel<<<(int)std::min<long long>((nw + 255) / 256,
                                                         1024),
                               256, 0, st>>>(static_cast<const float*>(w),
                                             static_cast<float*>(ws), C, cp, O,
-                                            1);
-  cudaError_t e = cudaGetLastError();
+                                            1, sp.cnt, sp.ncnt);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   CUtensorMap xmap, wmap, ymap = {};
   const cuuint64_t xd[4] = {(cuuint64_t)cp, (cuuint64_t)W, (cuuint64_t)H,
@@ -2704,26 +2911,28 @@ cudaError_t launch_tf32x1(const void* x, const void* w, const void* b,
       std::min(kSlicedMaxStages, (kSmemMax - fixed) / (stage + 16));
   if (stages < 2) return cudaErrorInvalidValue;
   const size_t bytes = fixed + (size_t)stages * (stage + 16);
-  e = cudaFuncSetAttribute(conv3x3_tf32x1_kernel<MB, NPX, KS>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = conv3x3_tf32x1_kernel<MB, NPX, KS, false>;
+  if constexpr (KS == 16)  // as launch_tf32x3
+    if (splits > 1) kernel = conv3x3_tf32x1_kernel<MB, NPX, KS, true>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)bytes);
   if (e != cudaSuccess) return e;
-  conv3x3_tf32x1_kernel<MB, NPX, KS><<<grid, kSpecThreads, bytes, st>>>(
+  kernel<<<grid, kSpecThreads, bytes, st>>>(
       xmap, wmap, ymap, static_cast<const float*>(b), static_cast<float*>(y),
-      B, H, W, cp, O, lc, stages, a_slot);
+      sp.part, sp.cnt, B, H, W, cp, O, lc, stages, a_slot, splits);
   return cudaGetLastError();
 }
 
 template <int MB, int NPX>
 cudaError_t tf32x1_ks(const void* x, const void* w, const void* b, void* y,
                       void* ws, int B, int H, int W, int C, int O, int lc,
-                      int ks, int grid, cudaStream_t st) {
+                      int ks, int grid, int splits, cudaStream_t st) {
   if (ks == 8)
     return launch_tf32x1<MB, NPX, 8>(x, w, b, y, ws, B, H, W, C, O, lc, grid,
-                                     st);
+                                     splits, st);
   if (ks == 16)
     return launch_tf32x1<MB, NPX, 16>(x, w, b, y, ws, B, H, W, C, O, lc,
-                                      grid, st);
+                                      grid, splits, st);
   return cudaErrorInvalidValue;
 }
 
@@ -2731,16 +2940,20 @@ cudaError_t tf32x1_ks(const void* x, const void* w, const void* b, void* y,
 // and `n` = 64 MB output channels a tile (64, or 128 at npx = 128).
 cudaError_t tf32x1(const void* x, const void* w, const void* b, void* y,
                    void* ws, int B, int H, int W, int C, int O, int cols,
-                   int npx, int n, int ks, int grid, cudaStream_t st) {
+                   int npx, int n, int ks, int grid, int splits,
+                   cudaStream_t st) {
   const int lc = cols == 16 ? 4 : cols == 32 ? 5 : cols == 64 ? 6
                : cols == 128 ? 7 : -1;
   if (lc < 0 || grid <= 0 || ws == nullptr) return cudaErrorInvalidValue;
   if (n == 64 && npx == 256)
-    return tf32x1_ks<1, 256>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
+    return tf32x1_ks<1, 256>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid,
+                             splits, st);
   if (n == 64 && npx == 128)
-    return tf32x1_ks<1, 128>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
+    return tf32x1_ks<1, 128>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid,
+                             splits, st);
   if (n == 128 && npx == 128)
-    return tf32x1_ks<2, 128>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, st);
+    return tf32x1_ks<2, 128>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid,
+                             splits, st);
   return cudaErrorInvalidValue;
 }
 
@@ -2769,25 +2982,30 @@ cudaError_t conv16(const void* x, const void* w, const void* b, void* y,
 // [B,H,W,Cp] and w as [3,3,Cp,ld], Cp = C rounded up to ks; `cols`, `n`,
 // `ks` and `grid` for the split-TF32 kernel (fp32), which takes x as
 // [B,H,W,Cp] where C % 4 != 0, Cp = C rounded up to 4, its TF32 `passes`
-// (3, or 1: x w with both rounded to TF32) and `ws`, a scratch of 18 O
-// Cp floats (9 O Cp for one pass); with passes = 1 and `R` > 0 the
-// one-pass kernel instead, with R its pixels a warpgroup (128 or 256), `n`
-// its output channels a tile (64 or 128), `cols`, `ks`, `grid` and `ws` as
-// the split-TF32 kernel's.  The 16-bit kernels read neither `ws` nor
-// `passes`.
+// (3, or 1: x w with both rounded to TF32), `splits` (K splits a tile, 1
+// up to the K slices) and `ws`, a scratch of 18 O Cp floats (9 O Cp for
+// one pass) followed, where splits > 1, by the split workspace: the fp32
+// partials of tiles x splits units of 256 pixels x n channels, then two
+// int counters a tile (kernels/conv3x3.py SlicedPlan.workspace_bytes);
+// with passes = 1 and `R` > 0 the one-pass kernel instead, with R its
+// pixels a warpgroup (128 or 256), `n` its output channels a tile (64 or
+// 128), `cols`, `ks`, `grid`, `splits` and `ws` as the split-TF32
+// kernel's (units of 2 R pixels x n channels).  The 16-bit kernels read
+// neither `ws`, `splits` nor `passes`.
 extern "C" int rr_conv3x3(int dtype, const void* x, const void* w,
                           const void* b, void* y, void* ws, int B, int H,
                           int W, int C, int O, int R, int cols, int n, int ks,
-                          int grid, int passes, void* stream_) {
+                          int grid, int splits, int passes, void* stream_) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream_);
   switch (dtype) {
     case RR_F32:
       if (passes == 1 && R > 0)
-        return tf32x1(x, w, b, y, ws, B, H, W, C, O, cols, R, n, ks, grid, st);
-      return tf32x3(x, w, b, y, ws, B, H, W, C, O, cols, n, ks, grid, passes,
-                    st);
+        return tf32x1(x, w, b, y, ws, B, H, W, C, O, cols, R, n, ks, grid,
+                      splits, st);
+      return tf32x3(x, w, b, y, ws, B, H, W, C, O, cols, n, ks, grid, splits,
+                    passes, st);
     case RR_F16:
       return conv16<__half>(x, w, b, y, B, H, W, C, O, R, cols, n, ks, grid,
                             st);
@@ -2803,8 +3021,9 @@ extern "C" int rr_conv3x3(int dtype, const void* x, const void* w,
 extern "C" int rr_conv3x3_c64(int dtype, const void* x, const void* w,
                               const void* b, void* y, void* ws, int B, int H,
                               int W, int O, int R, int cols, int n, int ks,
-                              int grid, int passes, void* stream_) {
+                              int grid, int splits, int passes,
+                              void* stream_) {
   if (O > kC) return cudaErrorInvalidValue;
   return rr_conv3x3(dtype, x, w, b, y, ws, B, H, W, kC, O, R, cols, n, ks,
-                    grid, passes, stream_);
+                    grid, splits, passes, stream_);
 }

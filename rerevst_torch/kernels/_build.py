@@ -48,13 +48,13 @@ SIGNATURES = {
     # dtype, x, y, rows, f1, f2, grid, stream
     "rr_filter_pair": [_I, _P, _P, _L, _P, _P, _I, _P],
     # dtype, x, w, b (or None), y, ws (or None), B, H, W, C, O, rows, cols,
-    # n, ks, grid, passes, stream
+    # n, ks, grid, splits, passes, stream
     "rr_conv3x3": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                   _I, _I, _I, _P],
+                   _I, _I, _I, _I, _P],
     # dtype, x, w, b (or None), y, ws (or None), B, H, W, O, rows, cols, n,
-    # ks, grid, passes, stream
+    # ks, grid, splits, passes, stream
     "rr_conv3x3_c64": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _P],
+                       _I, _I, _I, _I, _P],
     # x, g, dw, ws (or None), B, H, W, C, O, splits, passes, stream
     "rr_conv3x3_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }

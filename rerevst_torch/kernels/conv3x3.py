@@ -49,10 +49,14 @@ shape (:func:`design` names it):
   pixels of x, each warpgroup rounding the box rows its own taps read),
   for smaller O the split-TF32 kernel's one-pass instance
   (``"tf32x1_sliced"``: pixels as A, N = O rounded up to 8, 16 or 32);
-  :func:`tf32x1_plan` computes either work split.  The wrapper hands the
-  fp32 kernels a scratch tensor for the weights' K-major hi (and lo)
-  planes, which the kernel writes first, and where C % 4 != 0 a copy of
-  ``x`` padded with zero channels to a multiple of 4.
+  :func:`tf32x1_plan` computes either work split.  Where a call has fewer
+  tiles than the card has SMs (a train step's 32^2 images), both plans
+  split each tile's K over several blocks, whose fp32 partials the last of
+  them to finish sums in split order (``SlicedPlan.splits``).  The
+  wrapper hands the fp32 kernels a scratch tensor for the weights' K-major
+  hi (and lo) planes, which the kernel writes first, followed by the split
+  partials' workspace, and where C % 4 != 0 a copy of ``x`` padded with
+  zero channels to a multiple of 4.
 
 No forward call reaches a cp.async + mma.sync kernel or the CUDA cores'
 FMAs.
@@ -80,6 +84,7 @@ captures the op as one node.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from dataclasses import dataclass
@@ -187,6 +192,17 @@ SLICED_MAX_O = 64
 #: wider O the one-pass design ("tf32x1"), whose m64 blocks of output
 #: channels would be mostly padding below it.
 TF32X1_SLICED_MAX_O = 32
+
+SMEM_BYTES_PER_CLOCK = 128  # what an SM's shared memory moves a clock
+SMEM_MAX = 232448  # csrc/conv3x3.cu kSmemMax: dynamic shared memory a block
+MAX_STAGES = 8     # csrc/conv3x3.cu kSlicedMaxStages
+#: The fewest K slices a split of the fp32 designs takes where the plan
+#: chooses: 3 slices x 3 dx = 9 stages, enough to fill a ring of
+#: MAX_STAGES before the unit's products run out.
+MIN_SPLIT_SLICES = -(-MAX_STAGES // 3)
+#: The card's memory rate in bytes an SM clock (3.35 TB/s at 1.755 GHz),
+#: at which the plans reckon the split partials' traffic.
+HBM_BYTES_PER_CLOCK = 3.35e12 / 1.755e9
 
 
 def design(c: int, dtype: torch.dtype, o: int, passes: int = 3) -> str:
@@ -333,14 +349,63 @@ class SlicedPlan(WidePlan):
     """The sliced kernel's work split for one call: the wide design's tile
     walk (256-pixel tiles of ``rows x cols``, channel tile fastest) over K
     slices of ``ks`` of the ``c`` input channels (``slices`` of them, the
-    last zero-filled past C), each slice staged once per dx."""
+    last zero-filled past C), each slice staged once per dx.
+
+    The fp32 designs (the split-TF32 walk and the one-pass design) may
+    split each tile's K over ``splits`` blocks: ``grid`` persistent blocks
+    then walk units (tile, split), split fastest (:meth:`unit`); split
+    ``s`` takes the contiguous run of slices :meth:`split_slices`, each
+    unit's consumer warpgroups write their fp32 partial sums to the
+    workspace, and the last of a tile's units to finish sums the partials
+    in split order.  The 16-bit sliced kernel has ``splits`` = 1."""
 
     c: int
     ks: int
+    splits: int = dataclasses.field(default=1, kw_only=True)
 
     @property
     def slices(self) -> int:
         return -(-self.c // self.ks)
+
+    @property
+    def units(self) -> int:
+        """(tile, split) units in all: ``tiles`` x ``splits``."""
+        return self.tiles * self.splits
+
+    def unit(self, u: int) -> tuple:
+        """(tile, split) of unit ``u``: the kernel's order, split fastest
+        (a tile's units run side by side in one round of the blocks)."""
+        return divmod(u, self.splits)
+
+    def block_units(self, bx: int) -> range:
+        return range(bx, self.units, self.grid)
+
+    def split_slices(self, s: int) -> range:
+        """The K slices split ``s`` sums: a contiguous run; the runs of
+        splits 0, 1, ... cover every slice once, in order."""
+        return range(s * self.slices // self.splits,
+                     (s + 1) * self.slices // self.splits)
+
+    @property
+    def workspace_bytes(self) -> int:
+        """The partials' workspace after the weights' scratch (none at one
+        split): ``splits`` fp32 partials of every tile (m pixels x n
+        channels, in the consumer threads' register order), then one int
+        counter per tile and consumer warpgroup (csrc/conv3x3.cu
+        split_sum)."""
+        if self.splits == 1:
+            return 0
+        return self.tiles * (self.splits * self.m * self.n + 2) * 4
+
+    def split_cost(self, sms: int, stage_clocks: float) -> float:
+        """Reckoned clocks of the call at ``stage_clocks`` a stage: the
+        busiest block's rounds of units over the SMs x its units' 3 x
+        slices / splits stages (rounded up), plus the workspace's bytes,
+        written and read once, at the card's memory rate."""
+        rounds = -(-self.units // sms)
+        stages = 3 * -(-self.slices // self.splits)
+        return rounds * stages * stage_clocks \
+            + 2 * self.workspace_bytes / HBM_BYTES_PER_CLOCK
 
 
 @functools.lru_cache(maxsize=256)
@@ -359,6 +424,50 @@ def sliced_plan(batch: int, height: int, width: int, c: int, o: int,
     return dataclasses.replace(plan, grid=min(plan.tiles, sms))
 
 
+def with_splits(plan: SlicedPlan, splits: int, sms: int) -> SlicedPlan:
+    """`plan` with its K split over `splits` blocks a tile (at most one a
+    slice) and one block an SM, or one a unit where there are fewer."""
+    splits = max(1, min(splits, plan.slices))
+    return dataclasses.replace(plan, splits=splits,
+                               grid=min(plan.tiles * splits, sms))
+
+
+def _split_k(plan: SlicedPlan, sms: int, stage_clocks: float) -> SlicedPlan:
+    """`plan` (one split) with the K split of least reckoned clocks
+    (:meth:`SlicedPlan.split_cost`), the fewest splits on a tie: one
+    wherever the tiles fill the SMs; else up to one split per
+    ``MIN_SPLIT_SLICES`` slices, so that each unit's stages still fill the
+    ring."""
+    best = with_splits(plan, 1, sms)
+    if plan.tiles >= sms:
+        return best
+    for splits in range(2, plan.slices // MIN_SPLIT_SLICES + 1):
+        cand = with_splits(plan, splits, sms)
+        if cand.split_cost(sms, stage_clocks) < \
+                best.split_cost(sms, stage_clocks):
+            best = cand
+    return best
+
+
+def tf32x3_stage_reckoning(n: int, cols: int, ks: int,
+                           passes: int = 3) -> tuple:
+    """(clocks of products, bytes through shared memory) of one stage of
+    the split-TF32 walk on one SM, both consumer warpgroups: 3 taps x KS /
+    8 k8 steps x two m64 blocks x `passes` wgmma m64nNk8 .tf32 each (N / 2
+    clocks at 1024 TF32 FMAs a clock; 2 KB of A, the pixels, and 32 N
+    bytes of B, the weights, read); TMA's writes of the box of x ((rows +
+    2) x cols pixels of 4 KS bytes, rows = 256 / cols) and of the
+    weights' 3 boxes {KS, N} a plane (hi, and lo at three passes); and the
+    consumers' pass over the box, read once and written once (its lo, or
+    x rounded in place)."""
+    steps = 2 * 3 * (ks // 8) * 2 * passes
+    clocks = steps * n // 2
+    reads = steps * (64 * 8 * 4 + n * 8 * 4)
+    box = (SLICED_M // cols + 2) * cols * ks * 4
+    tma = box + 3 * (2 if passes == 3 else 1) * n * ks * 4
+    return clocks, reads + tma + 2 * box
+
+
 def tf32_slice_width(c: int) -> int:
     """The split-TF32 design's K slice for C fp32 input channels: 8 where
     C <= 8 (a wgmma k8 step: 32 bytes a pixel), else 16 (64 bytes a pixel,
@@ -368,15 +477,21 @@ def tf32_slice_width(c: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def tf32x3_plan(batch: int, height: int, width: int, c: int, o: int,
-                sms: int) -> SlicedPlan:
-    """Tile shape, width N, K slice and grid for a [batch, height, width,
-    c] -> o fp32 conv on the split-TF32 design (the sliced design's walk):
-    256-pixel tiles, N = O rounded up to 8, 16, 32 or 64 (larger O tiles
-    by 64), one block per SM or one per tile where there are fewer."""
+                sms: int, passes: int = 3) -> SlicedPlan:
+    """Tile shape, width N, K slice, K split and grid for a [batch,
+    height, width, c] -> o fp32 conv on the split-TF32 design (the sliced
+    design's walk) at `passes` TF32 passes: 256-pixel tiles, N = O rounded
+    up to 8, 16, 32 or 64 (larger O tiles by 64); where the tiles are
+    fewer than the SMs, each tile's K split over the blocks that reckon
+    least (:func:`_split_k`, a stage as :func:`tf32x3_stage_reckoning`
+    reckons it); one block per SM or one per unit where there are
+    fewer."""
     plan = SlicedPlan(batch, height, width, o,
                       wide_cols(height, width, SLICED_M, SLICED_COLS),
                       out_tile(o), 1, c, tf32_slice_width(c))
-    return dataclasses.replace(plan, grid=min(plan.tiles, sms))
+    clocks, nbytes = tf32x3_stage_reckoning(plan.n, plan.cols, plan.ks,
+                                            passes)
+    return _split_k(plan, sms, max(clocks, nbytes / SMEM_BYTES_PER_CLOCK))
 
 
 #: The one-pass design's tile shapes (csrc/conv3x3.cu Tf32x1<MB, NPX, KS>):
@@ -384,9 +499,6 @@ def tf32x3_plan(batch: int, height: int, width: int, c: int, o: int,
 #: N), a tile being 2 NPX pixels x 64 MB channels; fewest shared-memory
 #: bytes a product first.  MB = 2 (two m64n128 blocks) only where O > 64.
 TF32X1_SHAPES = ((2, 128), (1, 256), (1, 128))
-SMEM_BYTES_PER_CLOCK = 128  # what an SM's shared memory moves a clock
-SMEM_MAX = 232448  # csrc/conv3x3.cu kSmemMax: dynamic shared memory a block
-MAX_STAGES = 8     # csrc/conv3x3.cu kSlicedMaxStages
 
 
 def tf32x1_stage_reckoning(mb: int, npx: int, cols: int,
@@ -431,9 +543,10 @@ class Tf32x1Plan(SlicedPlan):
         return max(clocks, nbytes / SMEM_BYTES_PER_CLOCK)
 
     def cost(self, sms: int) -> float:
-        """Reckoned clocks of the call: the busiest block's tiles x their
-        3 x slices stages."""
-        return -(-self.tiles // sms) * 3 * self.slices * self.stage_clocks()
+        """Reckoned clocks of the call: the busiest block's units x their
+        3 x slices / splits stages, and the split partials' bytes
+        (:meth:`SlicedPlan.split_cost`)."""
+        return self.split_cost(sms, self.stage_clocks())
 
     def smem(self) -> tuple:
         """(ring stages, dynamic shared-memory bytes) of the launch, as
@@ -457,13 +570,15 @@ def tf32x1_plan(batch: int, height: int, width: int, c: int, o: int,
     """The work split of a one-pass fp32 [batch, height, width, c] -> o
     conv on a card with ``sms`` SMs.  Design "tf32x1": of the tile shapes
     ``TF32X1_SHAPES`` (each with the tile width that pads the image least,
-    the narrowest on a tie), the one whose reckoned clocks
-    (:meth:`Tf32x1Plan.cost`: rounds of tiles over the SMs x stages x each
-    stage's products or shared-memory bytes) are least, the first on a
-    tie; one block per SM or one per tile where there are fewer.  Design
-    "tf32x1_sliced" (O <= ``TF32X1_SLICED_MAX_O``): :func:`tf32x3_plan`."""
+    the narrowest on a tie, and the K split that reckons least,
+    :func:`_split_k`), the one whose reckoned clocks
+    (:meth:`Tf32x1Plan.cost`: rounds of units over the SMs x stages x each
+    stage's products or shared-memory bytes, plus the split partials'
+    bytes) are least, the first on a tie; one block per SM or one per unit
+    where there are fewer.  Design "tf32x1_sliced" (O <=
+    ``TF32X1_SLICED_MAX_O``): :func:`tf32x3_plan` at one pass."""
     if design(c, torch.float32, o, 1) != "tf32x1":
-        return tf32x3_plan(batch, height, width, c, o, sms)
+        return tf32x3_plan(batch, height, width, c, o, sms, 1)
     best = None
     for mb, npx in TF32X1_SHAPES:
         if mb > 1 and o <= 64:
@@ -471,7 +586,7 @@ def tf32x1_plan(batch: int, height: int, width: int, c: int, o: int,
         cols = wide_cols(height, width, 2 * npx, SLICED_COLS)
         plan = Tf32x1Plan(batch, height, width, o, cols, 64 * mb, 1, c,
                           tf32_slice_width(c), mb, npx)
-        plan = dataclasses.replace(plan, grid=min(plan.tiles, sms))
+        plan = _split_k(plan, sms, plan.stage_clocks())
         if best is None or plan.cost(sms) < best.cost(sms):
             best = plan
     return best
@@ -591,6 +706,37 @@ def _validate(name: str, x: torch.Tensor, w: torch.Tensor,
                          f"{tuple(b.shape)}")
 
 
+#: The K splits every fp32 launch takes in place of its plan's, inside
+#: :func:`forced_splits`; None: the plan's.
+_FORCED_SPLITS: Optional[int] = None
+
+
+@contextlib.contextmanager
+def forced_splits(splits: int):
+    """Inside, every fp32 launch splits each tile's K over `splits` blocks
+    (at most one a K slice, :func:`with_splits`) whatever its plan chose:
+    the card's tests and checks of the split walk at small shapes, and the
+    timing of a plan's alternatives.  Not thread-safe."""
+    global _FORCED_SPLITS
+    before, _FORCED_SPLITS = _FORCED_SPLITS, splits
+    try:
+        yield
+    finally:
+        _FORCED_SPLITS = before
+
+
+def plan_for(x: torch.Tensor, o: int, passes: int = 3):
+    """The plan an fp32 call of the implicit-GEMM conv on x -> `o` output
+    channels launches on x's card at `passes` (forced splits included)."""
+    bb, h, wd, c = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = (tf32x3_plan if passes == 3 else tf32x1_plan)(bb, h, wd, c, o,
+                                                         sms)
+    if _FORCED_SPLITS is not None:
+        plan = with_splits(plan, _FORCED_SPLITS, sms)
+    return plan
+
+
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
             b: Optional[torch.Tensor], c64: bool,
             passes: int = 3) -> torch.Tensor:
@@ -604,6 +750,7 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
     if y.numel() == 0:
         return y
     rows = cols = n = ks = grid = 0  # the plan of a persistent design
+    splits = 1  # the fp32 designs' K split
     ws = None  # the split-TF32 kernel's scratch
     kind = design(c, x.dtype, o, passes)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -636,18 +783,20 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
             wp[:, :, :c, :o] = w
             w = wp
     elif kind in ("tf32x3", "tf32x1", "tf32x1_sliced"):
-        plan = (tf32x3_plan if passes == 3 else tf32x1_plan)(bb, h, wd, c,
-                                                             o, sms)
+        plan = plan_for(x, o, passes)
         cols, n, ks, grid = plan.cols, plan.n, plan.ks, plan.grid
+        splits = plan.splits
         if kind == "tf32x1":
             rows = plan.npx  # the C entry's `R`: pixels a warpgroup
         # TMA needs a 16-byte pixel stride: zero-pad x's channels to 4.  The
         # kernel splits the weights into the scratch ws [2][9][O][Cp] first
-        # (one pass: only the rounded plane, [9][O][Cp]).
+        # (one pass: only the rounded plane, [9][O][Cp]); the split
+        # partials and their counters follow where splits > 1.
         cp = -(-c // 4) * 4
         if cp != c:
             x = F.pad(x, (0, cp - c))
-        ws = torch.empty((18 if passes == 3 else 9) * o * cp,
+        ws = torch.empty((18 if passes == 3 else 9) * o * cp
+                         + plan.workspace_bytes // 4,
                          dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bias = None if b is None else b.data_ptr()
@@ -656,11 +805,12 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
     if c64:
         err = lib.rr_conv3x3_c64(_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
                                  bias, y.data_ptr(), scratch, bb, h, wd, o,
-                                 rows, cols, n, ks, grid, passes, stream)
+                                 rows, cols, n, ks, grid, splits, passes,
+                                 stream)
     else:
         err = lib.rr_conv3x3(_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
                              bias, y.data_ptr(), scratch, bb, h, wd, c, o,
-                             rows, cols, n, ks, grid, passes, stream)
+                             rows, cols, n, ks, grid, splits, passes, stream)
     _build.check(err, name)
     return y
 

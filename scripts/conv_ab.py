@@ -4,7 +4,7 @@
 root — one side of an A/B of two trees' conv kernels in one call.
 
     python3 scripts/conv_ab.py --root ROOT [--label NAME]
-                               [--wgrad | --steps | --tf32x1]
+                               [--wgrad | --steps | --tf32x1 | --tf32x3]
 
 ROOT holds the ``rerevst_torch`` to measure (this repository, or an unpacked
 ``git archive`` of another commit); its kernels build from its own sources.
@@ -59,6 +59,14 @@ version, its mean signed error against a float64 conv of up to two
 frames, its ms (20 calls after 3 warm-ups), the bound (one TF32 pass at
 495 TFLOP/s or the bytes at 3.35 TB/s, the larger) and one ``F.conv2d``
 with cuDNN's TF32 on; and the sums over a batch's and a step's launches.
+Where the tree splits K over blocks (``kernels.conv3x3.plan_for``), each
+row also gives the plan's splits and, where it splits, the same plan's ms
+with one split (``forced_splits(1)``).
+
+With ``--tf32x3``, the same at three passes (the split-TF32 kernel, the
+'high' precision): every shape of one fp32 'high' Pass-2 batch and one
+'high' train step, beside one ``F.conv2d`` with cuDNN's TF32 off, the
+bound three TF32 passes at 495 TFLOP/s or the bytes.
 """
 
 from __future__ import annotations
@@ -237,9 +245,9 @@ def time_wgrad(torch) -> dict:
             "ms_per_step_1": step[1]}
 
 
-def record_one_pass(torch, fn) -> dict:
-    """{(B, H, W, C, O): calls} of ``rerevst::conv3x3_implicit_gemm`` with
-    passes = 1 while ``fn()`` runs, read by a dispatch mode."""
+def record_shapes(torch, fn, passes: int) -> dict:
+    """{(B, H, W, C, O): calls} of ``rerevst::conv3x3_implicit_gemm`` at
+    `passes` while ``fn()`` runs, read by a dispatch mode."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     seen = {}
@@ -248,8 +256,8 @@ def record_one_pass(torch, fn) -> dict:
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
             if func._schema.name == "rerevst::conv3x3_implicit_gemm":
-                passes = args[3] if len(args) > 3 else kwargs.get("passes", 3)
-                if passes == 1:
+                got = args[3] if len(args) > 3 else kwargs.get("passes", 3)
+                if got == passes:
                     key = tuple(args[0].shape) + (args[1].shape[-1],)
                     seen[key] = seen.get(key, 0) + 1
             return func(*args, **kwargs)
@@ -260,19 +268,21 @@ def record_one_pass(torch, fn) -> dict:
     return seen
 
 
-def one_pass_shapes(torch) -> tuple:
-    """The one-pass conv's shapes and launches in one fp32 'default'
-    Pass-2 batch and in one 'default' train step (see the module's doc)."""
+def fp32_shapes(torch, passes: int) -> tuple:
+    """The fp32 conv's shapes and launches at `passes` in one fp32 Pass-2
+    batch and in one train step at the precision of that pass count ('high'
+    at three, 'default' at one; see the module's doc)."""
     import numpy as np
 
     from rerevst_torch.api import Stylization
     from rerevst_torch.config import ModelConfig
     from rerevst_torch.train.step import make_train_step
 
+    precision = "high" if passes == 3 else "default"
     ckpt = Path(__file__).resolve().parent.parent / "models" \
         / "demo_plum_4000.msgpack"
     rng = np.random.default_rng(19)
-    s = Stylization(str(ckpt), cfg=ModelConfig(precision="default"),
+    s = Stylization(str(ckpt), cfg=ModelConfig(precision=precision),
                     device="cuda")
     s.prepare_style(rng.integers(0, 256, (512, 512, 3), dtype=np.uint8))
     frames = [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
@@ -281,23 +291,24 @@ def one_pass_shapes(torch) -> tuple:
         s.add(f)
     s.compute()
     x = s._upload(s._prep_batch_host(frames))
-    batch = record_one_pass(torch, lambda: s._stylize(x))
+    batch = record_shapes(torch, lambda: s._stylize(x), passes)
     del s, x
-    cfg, state = train_setup(torch, "default")
+    cfg, state = train_setup(torch, precision)
     gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
     shape = (cfg.batch_size, cfg.fine_size, cfg.fine_size, 3)
     content, style = (torch.randn(shape, generator=gen, device="cuda")
                       for _ in range(2))
     step = make_train_step(cfg)
-    steps = record_one_pass(torch, lambda: step(state, content, style, gen))
+    steps = record_shapes(torch, lambda: step(state, content, style, gen),
+                          passes)
     del state, step
     torch.cuda.empty_cache()
     return batch, steps
 
 
-def time_tf32x1(torch) -> dict:
-    """The one-pass conv at every shape of ``one_pass_shapes`` (see the
-    module's doc)."""
+def time_fp32(torch, passes: int) -> dict:
+    """The fp32 conv at `passes` at every shape of ``fp32_shapes`` (see
+    the module's doc)."""
     import torch.nn.functional as F
 
     from rerevst_torch.kernels import (
@@ -305,19 +316,23 @@ def time_tf32x1(torch) -> dict:
         conv3x3_implicit_gemm_plain,
     )
     from rerevst_torch.kernels.conv3x3 import design
+    try:  # a tree that splits K over blocks
+        from rerevst_torch.kernels.conv3x3 import forced_splits, plan_for
+    except ImportError:
+        forced_splits = plan_for = None
 
-    batch, steps = one_pass_shapes(torch)
+    batch, steps = fp32_shapes(torch, passes)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(23)
-    rows, sums = [], {"batch": 0.0, "step": 0.0, "batch_cudnn_tf32": 0.0,
-                      "step_cudnn_tf32": 0.0}
+    rows, sums = [], {"batch": 0.0, "step": 0.0, "batch_cudnn": 0.0,
+                      "step_cudnn": 0.0}
     for key in sorted(set(batch) | set(steps)):
         *shape, o = key
         x = torch.randn(shape, generator=gen, device="cuda")
         w = (torch.randn((3, 3, shape[-1], o), generator=gen, device="cuda")
              / (3 * shape[-1] ** 0.5))
         b = torch.randn(o, generator=gen, device="cuda")
-        got = conv3x3_implicit_gemm(x, w, b, 1)
+        got = conv3x3_implicit_gemm(x, w, b, passes)
         diff = (got - conv3x3_implicit_gemm_plain(x, w, b)).abs().max()
         x2 = x[:2].double().permute(0, 3, 1, 2)
         ref = F.conv2d(x2, w.double().permute(3, 2, 0, 1), b.double(),
@@ -326,13 +341,13 @@ def time_tf32x1(torch) -> dict:
                        / ref.abs().sum())
         del got, x2, ref
         m = x.numel() // shape[-1]
-        bound = max(2 * m * 9 * shape[-1] * o / 495e12,
+        bound = max(passes * 2 * m * 9 * shape[-1] * o / 495e12,
                     (x.numel() + w.numel() + o + m * o) * 4 / 3.35e12) * 1e3
         xl = x.permute(0, 3, 1, 2)
         wl = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         tf32 = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = passes == 1
         try:
             lib_ms = device_ms(torch, lambda: F.conv2d(xl, wl, b, padding=1))
         finally:
@@ -343,22 +358,30 @@ def time_tf32x1(torch) -> dict:
                "max_abs_diff_vs_plain": float(diff),
                "mean_signed_err_vs_f64": signed,
                "ms": device_ms(torch, lambda: conv3x3_implicit_gemm(
-                   x, w, b, 1)),
-               "bound_ms": bound, "cudnn_tf32_ms": lib_ms}
+                   x, w, b, passes)),
+               "bound_ms": bound, "cudnn_ms": lib_ms}
         try:
-            row["design"] = design(shape[-1], torch.float32, o, 1)
+            row["design"] = design(shape[-1], torch.float32, o, passes)
         except TypeError:  # a tree whose design() takes no passes
             row["design"] = None
+        if plan_for is not None:
+            row["splits"] = plan_for(x, o, passes).splits
+            if row["splits"] > 1:
+                with forced_splits(1):
+                    row["ms_one_split"] = device_ms(
+                        torch, lambda: conv3x3_implicit_gemm(x, w, b,
+                                                             passes))
         for where in ("batch", "step"):
             sums[where] += row[f"launches_{where}"] * row["ms"]
-            sums[f"{where}_cudnn_tf32"] += row[f"launches_{where}"] * lib_ms
+            sums[f"{where}_cudnn"] += row[f"launches_{where}"] * lib_ms
         rows.append(row)
         del x, w, b, xl, wl
         torch.cuda.empty_cache()
-    return {"tf32x1": rows, "ms_per_batch": sums["batch"],
+    return {f"tf32x{passes}": rows, "ms_per_batch": sums["batch"],
             "ms_per_step": sums["step"],
-            "cudnn_tf32_ms_per_batch": sums["batch_cudnn_tf32"],
-            "cudnn_tf32_ms_per_step": sums["step_cudnn_tf32"]}
+            "cudnn_ms_per_batch": sums["batch_cudnn"],
+            "cudnn_ms_per_step": sums["step_cudnn"],
+            "cudnn_tf32": passes == 1}
 
 
 def main() -> int:
@@ -371,6 +394,9 @@ def main() -> int:
                     help="time TrainConfig() steps at each precision")
     ap.add_argument("--tf32x1", action="store_true",
                     help="time the one-pass conv at a 'default' batch's "
+                         "and step's shapes")
+    ap.add_argument("--tf32x3", action="store_true",
+                    help="time the three-pass conv at a 'high' batch's "
                          "and step's shapes")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -392,9 +418,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    if args.wgrad or args.steps or args.tf32x1:
+    if args.wgrad or args.steps or args.tf32x1 or args.tf32x3:
         mode = time_wgrad if args.wgrad else time_steps if args.steps \
-            else time_tf32x1
+            else (lambda t: time_fp32(t, 1 if args.tf32x1 else 3))
         print(json.dumps({"label": args.label or str(root),
                           **mode(torch), "card": smi}), flush=True)
         return 0

@@ -169,7 +169,7 @@ def main() -> int:
         bsz, h, wd, c = x.shape
         err = lib_.rr_conv3x3(2, x.data_ptr(), w.data_ptr(), b.data_ptr(),
                               y.data_ptr(), None, bsz, h, wd, c, o, 0, 0,
-                              K.narrow_tile_n(o), 0, grid, 0, stream)
+                              K.narrow_tile_n(o), 0, grid, 1, 0, stream)
         if err:
             raise RuntimeError(f"rr_conv3x3 failed with {err}")
 

@@ -108,7 +108,7 @@ def main() -> int:
         bb, h, wd, c = x.shape
         err = lib.rr_conv3x3(2, x.data_ptr(), w.data_ptr(), b.data_ptr(),
                              y.data_ptr(), None, bb, h, wd, c, w.shape[-1], 0,
-                             cols, n, ks, grid, 0,
+                             cols, n, ks, grid, 1, 0,
                              torch.cuda.current_stream().cuda_stream)
         _build.check(err, "rr_conv3x3")
 

@@ -179,7 +179,7 @@ SS_STAGE = '''      {
       wgmma_fence();
       tf32x3_stage<N, KS, NP>(acc, cor, da, db, drow, dlo);
       wgmma_commit();
-      if (k > 0) {
+      if (k > k0) {
         // The previous stage's group is done: it may be refilled.
         wgmma_wait<1>();
         fence_regs(acc);
@@ -190,14 +190,14 @@ SS_STAGE = '''      {
 '''
 
 RS_STAGE = '''      const uint64_t db = wgmma_desc<P::kS>(a + a_slot);
-      const uint32_t rel = k > 0 ? empty + 8 * prev : 0u;
+      const uint32_t rel = k > k0 ? empty + 8 * prev : 0u;
       tf32x3_tap<N, KS, 0>(acc, xh[0], xl[0], a, db, cols, lrow, lchunk, 0u,
                            lane);
       tf32x3_tap<N, KS, 1>(acc, xh[1], xl[1], a, db, cols, lrow, lchunk, 0u,
                            lane);
       tf32x3_tap<N, KS, 2>(acc, xh[2], xl[2], a, db, cols, lrow, lchunk, rel,
                            lane);
-      if (k == ksteps - 1) fence_async_shared();  // before the last release
+      if (k == k1 - 1) fence_async_shared();  // before the last release
 '''
 
 RS_DECLS = '''  float acc[2][N / 2], cor[2][N / 2];
@@ -237,17 +237,17 @@ X1_ROUND = '''      round_box_x(reinterpret_cast<uint4*>(base + (a - ring)), r0,
 #: The one-pass design with two groups of wgmmas in flight a warpgroup (a
 #: stage is released two stages after its products were issued).
 X1_WAIT2 = [
-    ("    int prev = 0;\n    for (int k = 0; k < ksteps; ++k) {\n"
+    ("    int prev = 0;\n    for (int k = k0; k < k1; ++k) {\n"
      "      mbar_wait(full + 8 * s, ph);\n"
      "      const uint32_t a = ring + s * stage_bytes;\n"
      "      // Round the box pixels this warpgroup's taps read",
-     "    int prev = 0, prev2 = 0;\n    for (int k = 0; k < ksteps; ++k) {\n"
+     "    int prev = 0, prev2 = 0;\n    for (int k = k0; k < k1; ++k) {\n"
      "      mbar_wait(full + 8 * s, ph);\n"
      "      const uint32_t a = ring + s * stage_bytes;\n"
      "      // Round the box pixels this warpgroup's taps read"),
     ('''      tf32x1_stage<MB, NPX, KS>(acc, da, db, drow);
       wgmma_commit();
-      if (k > 0) {
+      if (k > k0) {
         // The previous stage's group is done: it may be refilled.
         wgmma_wait<1>();
         fence_regs(acc);
@@ -257,7 +257,7 @@ X1_WAIT2 = [
       prev = s;
 ''', '''      tf32x1_stage<MB, NPX, KS>(acc, da, db, drow);
       wgmma_commit();
-      if (k > 1) {
+      if (k > k0 + 1) {
         wgmma_wait<2>();
         fence_regs(acc);
         __syncwarp();
@@ -267,12 +267,12 @@ X1_WAIT2 = [
       prev = s;
 '''),
     ('''    if (lane == 0) mbar_arrive(empty + 8 * prev);
-
-    // The epilogue.  The sums lie [channel][pixel]''',
-     '''    if (lane == 0) mbar_arrive(empty + 8 * prev2);
+    if constexpr (kSplit) {
+      if (!split_sum(acc, part, cnt, q.t, wg, q.sp, splits, wtid))''',
+     '''    if (lane == 0 && k1 - k0 > 1) mbar_arrive(empty + 8 * prev2);
     if (lane == 0) mbar_arrive(empty + 8 * prev);
-
-    // The epilogue.  The sums lie [channel][pixel]'''),
+    if constexpr (kSplit) {
+      if (!split_sum(acc, part, cnt, q.t, wg, q.sp, splits, wtid))'''),
 ]
 
 #: name -> [(old, new), ...]: edits of csrc/conv3x3.cu.
@@ -397,7 +397,7 @@ def main() -> int:
         bb, h, wd, c = x.shape
         err = lib.rr_conv3x3(1, x.data_ptr(), w.data_ptr(), b.data_ptr(),
                              y.data_ptr(), ws.data_ptr(), bb, h, wd, c,
-                             w.shape[-1], npx, cols, n, ks, grid, passes,
+                             w.shape[-1], npx, cols, n, ks, grid, 1, passes,
                              torch.cuda.current_stream().cuda_stream)
         _build.check(err, "rr_conv3x3")
 

@@ -136,7 +136,7 @@ def main() -> int:
             grid = min(sms, K.WidePlan(bsz, h, w, o, cols, n, 1).tiles)
             err = lib_.rr_conv3x3(2, x.data_ptr(), wt.data_ptr(),
                                   b.data_ptr(), y.data_ptr(), None, bsz, h,
-                                  w, c, o, 0, cols, n, 0, grid, 0, stream)
+                                  w, c, o, 0, cols, n, 0, grid, 1, 0, stream)
             if err:
                 raise RuntimeError(f"rr_conv3x3 failed with {err}")
 

@@ -30,6 +30,8 @@ import jax
 import jax.numpy as jnp
 from flax import serialization
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.config import LossConfig, TrainConfig
 from rerevst_torch.io.convert import from_jax_params
 from rerevst_torch.losses.temporal import (
@@ -53,16 +55,6 @@ GRAD_SITES = [("decoder", "out", "w"), ("decoder", "res2", "conv2", "w"),
               ("encoder", "conv4_1", "w"), ("encoder_style", "conv1_1", "w")]
 #: The two ablations' ``extra`` keys: (flow, mask).
 ABLATIONS = [("BackwardFlow", "BackwardMask"), ("ForwardFlow", "ForwardMask")]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """The test workers share the machine's cores: two torch threads each,
-    or the workers' thread pools oversubscribe the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _get(tree, path):

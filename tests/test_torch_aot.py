@@ -29,6 +29,8 @@ import torch
 import jax
 from flax import serialization
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch import convert
 from rerevst_torch.api import Stylization
 from rerevst_torch.config import ModelConfig
@@ -39,16 +41,6 @@ REPO = Path(__file__).resolve().parent.parent
 CKPT = REPO / "models" / "demo_plum_4000.msgpack"
 OPS = ("norm_affine_clamp", "dynamic_filter_pair", "conv3x3_implicit_gemm",
        "conv3x3_pairlane")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """The test workers share the machine's cores: two torch threads each,
-    or the workers' thread pools oversubscribe the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _image(h, w, seed):

@@ -19,6 +19,8 @@ import torch
 import jax
 from flax import serialization
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.config import InferenceConfig, ModelConfig, resolve_device
 from rerevst_torch.io.checkpoint import load_params, read_msgpack, unpackb
 from rerevst_torch.io.convert import from_jax_params

@@ -16,6 +16,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch import stylize
 from rerevst_tpu import stylize as jax_stylize
 

@@ -49,6 +49,8 @@ import jax
 import jax.numpy as jnp
 from flax import serialization
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.api import Stylization
 from rerevst_torch.config import (
     InferenceConfig,
@@ -83,16 +85,6 @@ DTYPES = {"f16": (torch.float16, jnp.float16),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
 #: (mean, max) |port - JAX| of the normalized outputs, per storage dtype.
 TOL = {"f16": (2e-3, 1.5e-2), "bf16": (1.5e-2, 0.1)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """The test workers share the machine's cores: two torch threads each,
-    or the workers' thread pools oversubscribe the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _smooth_images(rng, n, h, w):

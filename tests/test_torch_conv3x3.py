@@ -27,6 +27,8 @@ import jax
 import jax.numpy as jnp
 from flax import serialization
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch import kernels
 from rerevst_torch.api import Stylization
 from rerevst_torch.config import ModelConfig

@@ -33,6 +33,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.kernels import conv3x3 as K
 from rerevst_torch.models import layers as L
 from rerevst_tpu.models import layers as jL
@@ -44,15 +46,6 @@ MASK = np.uint32(0xFFFFE000)
 #: batch 1 and 2.
 SHAPES = [((1, 7, 9, 3), 64), ((2, 8, 6, 3), 3), ((2, 5, 10, 8), 64),
           ((1, 6, 11, 8), 3), ((1, 9, 8, 64), 64), ((2, 4, 7, 64), 3)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """The test workers share the machine's cores: two torch threads each."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(shape, o, seed):

@@ -40,6 +40,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.kernels.conv3x3 import (
     DESIGNS,
     NARROW_COLS,
@@ -64,9 +66,11 @@ from rerevst_torch.kernels.conv3x3 import (
     Tf32x1Plan,
     tf32_slice_width,
     tf32x1_plan,
+    MIN_SPLIT_SLICES,
     tf32x1_stage_reckoning,
     tf32x3_plan,
     wide_plan,
+    with_splits,
 )
 
 H100_SMS = 132
@@ -1025,19 +1029,19 @@ def test_tf32_split_infinite_input_meets_each_weight_as_fp32():
 @pytest.mark.parametrize("width", [1, 7, 130, 640])
 def test_tf32x3_plan_covers_every_output_once(batch, height, width):
     """Every output pixel x channel belongs to exactly one 256-pixel tile,
-    the blocks take every tile once, N = O rounded up to 8 .. 64 (larger O
-    in tiles of 64) and the K slice is 8 fp32 channels up to C = 8, else
-    16."""
+    the blocks take every (tile, K split) unit once, N = O rounded up to 8
+    .. 64 (larger O in tiles of 64) and the K slice is 8 fp32 channels up
+    to C = 8, else 16."""
     for c, o in [(3, 64), (8, 5), (64, 64), (100, 192), (64, 3), (7, 512)]:
         for sms in (H100_SMS, 7):
             plan = tf32x3_plan(batch, height, width, c, o, sms)
             assert plan.cols in SLICED_COLS and plan.m == 256
             assert plan.n == out_tile(o) and plan.ks == tf32_slice_width(c)
             assert plan.ks == (8 if c <= 8 else 16)
-            assert 1 <= plan.grid <= min(plan.tiles, sms)
+            assert 1 <= plan.grid <= min(plan.units, sms)
             taken = np.sort(np.concatenate(
-                [np.asarray(plan.block_tiles(bx)) for bx in range(plan.grid)]))
-            assert (taken == np.arange(plan.tiles)).all()
+                [np.asarray(plan.block_units(bx)) for bx in range(plan.grid)]))
+            assert (taken == np.arange(plan.units)).all()
             cover = np.zeros((plan.n_tiles, batch, height, width), np.int32)
             for t in range(plan.tiles):
                 b, y0, x0, n0 = plan.tile(t)
@@ -1063,6 +1067,15 @@ def _wg_view(box, p0, p1):
     view = np.full_like(box, np.nan)
     view[p0:p1] = tf32_round_x(box[p0:p1])
     return view
+
+
+def _split_sum(partials, t, splits):
+    """Tile t's sums: its splits' fp32 partials added in split order (csrc/
+    conv3x3.cu split_sum; one split: its partial as it is)."""
+    total = partials[t, 0]
+    for sp in range(1, splits):
+        total = total + partials[t, sp]
+    return total
 
 
 def _emulate_tf32x3(x, w, b, plan, passes=3):
@@ -1093,12 +1106,15 @@ def _emulate_tf32x3(x, w, b, plan, passes=3):
     bk[:o] = b
     y = np.full((bsz, h, wd, o), np.nan, np.float32)
     rows, cols, ks, n = plan.rows, plan.cols, plan.ks, plan.n
+    partials = {}
     for bx in range(plan.grid):
-        for t in plan.block_tiles(bx):
+        for u in plan.block_units(bx):
+            t, sp = plan.unit(u)
             bi, y0, x0, n0 = plan.tile(t)
-            acc = np.tile(bk[n0:n0 + n], (plan.m, 1))
+            acc = np.tile(bk[n0:n0 + n] * (sp == 0), (plan.m, 1))
             cor = np.zeros_like(acc)
-            for k in range(3 * plan.slices):
+            run = plan.split_slices(sp)
+            for k in range(3 * run.start, 3 * run.stop):
                 sl, dx = divmod(k, 3)
                 cs = sl * ks
                 box = np.zeros((rows + 2, cols, ks), np.float32)
@@ -1123,11 +1139,13 @@ def _emulate_tf32x3(x, w, b, plan, passes=3):
                     if passes == 3:
                         cor += ahi[rr] @ bt[1]
                         cor += alo[rr] @ bt[0]
-            out = (acc + cor).reshape(rows, cols, n)
-            nh, nw, nc = min(rows, h - y0), min(cols, wd - x0), \
-                min(n, o - n0)
-            assert np.isnan(y[bi, y0:y0 + nh, x0:x0 + nw, n0:n0 + nc]).all()
-            y[bi, y0:y0 + nh, x0:x0 + nw, n0:n0 + nc] = out[:nh, :nw, :nc]
+            partials[t, sp] = acc + cor
+    for t in range(plan.tiles):
+        bi, y0, x0, n0 = plan.tile(t)
+        out = _split_sum(partials, t, plan.splits).reshape(rows, cols, n)
+        nh, nw, nc = min(rows, h - y0), min(cols, wd - x0), min(n, o - n0)
+        assert np.isnan(y[bi, y0:y0 + nh, x0:x0 + nw, n0:n0 + nc]).all()
+        y[bi, y0:y0 + nh, x0:x0 + nw, n0:n0 + nc] = out[:nh, :nw, :nc]
     return y
 
 
@@ -1239,11 +1257,15 @@ def _emulate_tf32x1(x, w, b, plan):
     bk[:o] = b
     y = np.zeros((bsz, h, wd, o), np.float32)
     stored = np.zeros(y.shape, np.int32)
+    partials = {}
     for bx in range(plan.grid):
-        for t in plan.block_tiles(bx):
+        for u in plan.block_units(bx):
+            t, sp = plan.unit(u)
             bi, y0, x0, n0 = plan.tile(t)
-            d = [np.repeat(bk[n0:n0 + n, None], npx, 1) for _ in range(2)]
-            for k in range(3 * plan.slices):
+            d = [np.repeat(bk[n0:n0 + n, None] * (sp == 0), npx, 1)
+                 for _ in range(2)]
+            run = plan.split_slices(sp)
+            for k in range(3 * run.start, 3 * run.stop):
                 sl, dx = divmod(k, 3)
                 cs = sl * ks
                 box = _x_box(xp, bi, y0, x0, dx, rows, cols, cs, ks)
@@ -1257,33 +1279,37 @@ def _emulate_tf32x1(x, w, b, plan):
                     for dy in range(3):
                         p0 = npx * wg + dy * cols
                         d[wg] += a[dy] @ view[p0:p0 + npx].T
-            for wg in range(2):
-                for ch in range(npx // cpx):
-                    boxes = np.zeros((2 * mb, cpx * 32), np.float32)
-                    filled = np.zeros(boxes.shape, np.int32)
-                    for jj in range(cpx // 8):
-                        j = ch * (cpx // 8) + jj
-                        for m in range(mb):
-                            for hh in range(2):
-                                for e in range(2):
-                                    oc = 64 * m + _OROW + 8 * hh
-                                    slot = (oc // 32, x1_out_offset(
-                                        8 * jj + _PCOL + e, oc % 32) // 4)
-                                    filled[slot] += 1
-                                    boxes[slot] = d[wg][oc, 8 * j + _PCOL + e]
-                    assert (filled == 1).all()
-                    q0 = npx * wg + cpx * ch
-                    bxi, r, cc, n32 = np.meshgrid(
-                        np.arange(2 * mb), np.arange(cpx // bc),
-                        np.arange(bc), np.arange(32), indexing="ij")
-                    yy = y0 + q0 // cols + r
-                    xx = x0 + q0 % cols + cc
-                    oo = n0 + 32 * bxi + n32
-                    ok = (yy < h) & (xx < wd) & (oo < o)
-                    dst = (bi, yy[ok], xx[ok], oo[ok])
-                    np.add.at(stored, dst, 1)
-                    y[dst] = boxes[bxi[ok], x1_out_offset(
-                        (r * bc + cc)[ok], n32[ok]) // 4]
+            partials[t, sp] = np.stack(d)
+    for t in range(plan.tiles):
+        bi, y0, x0, n0 = plan.tile(t)
+        d = _split_sum(partials, t, plan.splits)
+        for wg in range(2):
+            for ch in range(npx // cpx):
+                boxes = np.zeros((2 * mb, cpx * 32), np.float32)
+                filled = np.zeros(boxes.shape, np.int32)
+                for jj in range(cpx // 8):
+                    j = ch * (cpx // 8) + jj
+                    for m in range(mb):
+                        for hh in range(2):
+                            for e in range(2):
+                                oc = 64 * m + _OROW + 8 * hh
+                                slot = (oc // 32, x1_out_offset(
+                                    8 * jj + _PCOL + e, oc % 32) // 4)
+                                filled[slot] += 1
+                                boxes[slot] = d[wg][oc, 8 * j + _PCOL + e]
+                assert (filled == 1).all()
+                q0 = npx * wg + cpx * ch
+                bxi, r, cc, n32 = np.meshgrid(
+                    np.arange(2 * mb), np.arange(cpx // bc),
+                    np.arange(bc), np.arange(32), indexing="ij")
+                yy = y0 + q0 // cols + r
+                xx = x0 + q0 % cols + cc
+                oo = n0 + 32 * bxi + n32
+                ok = (yy < h) & (xx < wd) & (oo < o)
+                dst = (bi, yy[ok], xx[ok], oo[ok])
+                np.add.at(stored, dst, 1)
+                y[dst] = boxes[bxi[ok], x1_out_offset(
+                    (r * bc + cc)[ok], n32[ok]) // 4]
     assert (stored == 1).all()
     return y
 
@@ -1307,8 +1333,8 @@ def test_tf32x1_design_by_shape():
 @pytest.mark.parametrize("width", [1, 7, 32, 130, 640])
 def test_tf32x1_plan_covers_every_output_once(batch, height, width):
     """The one-pass plan at O = 3, 32, 64, 192 and 512: every output pixel
-    x channel belongs to exactly one tile, the blocks take every tile
-    once; O > 32 takes tiles of 2 NPX pixels (rows x cols) x 64 MB
+    x channel belongs to exactly one tile, the blocks take every (tile, K
+    split) unit once; O > 32 takes tiles of 2 NPX pixels (rows x cols) x 64 MB
     channels of TF32X1_SHAPES (MB = 2 only where O > 64), each within the
     block's shared memory with at least two stages; O <= 32 the split-TF32
     kernel's plan."""
@@ -1328,10 +1354,10 @@ def test_tf32x1_plan_covers_every_output_once(batch, height, width):
                 assert plan.ks == tf32_slice_width(c)
                 stages, nbytes = plan.smem()
                 assert stages >= 2 and nbytes <= 232448
-            assert 1 <= plan.grid <= min(plan.tiles, sms)
+            assert 1 <= plan.grid <= min(plan.units, sms)
             taken = np.sort(np.concatenate(
-                [np.asarray(plan.block_tiles(bx)) for bx in range(plan.grid)]))
-            assert (taken == np.arange(plan.tiles)).all()
+                [np.asarray(plan.block_units(bx)) for bx in range(plan.grid)]))
+            assert (taken == np.arange(plan.units)).all()
             cover = np.zeros((plan.n_tiles, batch, height, width), np.int32)
             for t in range(plan.tiles):
                 b, y0, x0, n0 = plan.tile(t)
@@ -1595,6 +1621,172 @@ def test_tf32x3_nonfinite_and_huge_inputs():
         torch.from_numpy(np.abs(b))).numpy()
     assert (np.abs(got[fin] - want[fin])
             <= 9 * c * 2.0 ** -22 * scale[fin]).all()
+
+
+# Split K over blocks (both fp32 kernels, csrc/conv3x3.cu split_sum).
+
+#: The plans of a 640^2 fp32 batch's conv shapes (rows 3j, 3k and the
+#: other Pass-2 shapes) before K could be split: (x shape, O) -> (cols, n,
+#: ks, grid, tiles) of the three-pass plan, and of the one-pass plan, with
+#: (mb, npx) where that is the one-pass design.
+BATCH_PLANS = {
+    ((16, 640, 640, 64), 64): ((16, 64, 16, 132, 25600),
+                               (16, 64, 16, 132, 12800, 1, 256)),
+    ((16, 640, 640, 3), 64): ((16, 64, 8, 132, 25600),
+                              (16, 64, 8, 132, 12800, 1, 256)),
+    ((16, 640, 640, 64), 3): ((16, 8, 16, 132, 25600),
+                              (16, 8, 16, 132, 25600)),
+    ((16, 320, 320, 64), 128): ((16, 64, 16, 132, 12800),
+                                (16, 128, 16, 132, 6400, 2, 128)),
+    ((16, 320, 320, 128), 128): ((16, 64, 16, 132, 12800),
+                                 (16, 128, 16, 132, 6400, 2, 128)),
+    ((16, 160, 160, 128), 256): ((16, 64, 16, 132, 6400),
+                                 (16, 128, 16, 132, 3200, 2, 128)),
+    ((16, 160, 160, 256), 256): ((16, 64, 16, 132, 6400),
+                                 (16, 128, 16, 132, 3200, 2, 128)),
+    ((16, 80, 80, 256), 512): ((16, 64, 16, 132, 3200),
+                               (16, 128, 16, 132, 1600, 2, 128)),
+    ((16, 80, 80, 512), 32): ((16, 32, 16, 132, 400),
+                              (16, 32, 16, 132, 400)),
+    ((16, 80, 80, 32), 512): ((16, 64, 16, 132, 3200),
+                              (16, 128, 16, 132, 1600, 2, 128)),
+}
+
+
+def _plan_key(plan):
+    key = (plan.cols, plan.n, plan.ks, plan.grid, plan.tiles)
+    return key + ((plan.mb, plan.npx) if isinstance(plan, Tf32x1Plan)
+                  else ())
+
+
+def test_split_plans_keep_the_640_batch_plans():
+    """Every conv shape of a 640^2 fp32 batch has tiles enough for every
+    SM: one split, no workspace, and the plan it had before, at three and
+    at one pass."""
+    for (shape, o), (three, one) in BATCH_PLANS.items():
+        for plan, want in ((tf32x3_plan(*shape, o, H100_SMS), three),
+                           (tf32x1_plan(*shape, o, H100_SMS), one)):
+            assert plan.tiles >= H100_SMS
+            assert _plan_key(plan) == want, (shape, o)
+            assert plan.splits == 1 and plan.workspace_bytes == 0
+            assert plan.units == plan.tiles
+
+
+def test_split_plans_at_the_train_step_32x32():
+    """[4,32,32,512] -> 32 (the decoder filter blocks' `up` conv's input
+    gradient, 72 launches a step): 16 tiles of 256 pixels, at both passes
+    split 8 ways, 128 units of 4 slices (12 stages) on 128 blocks; at one
+    pass [4,32,32,512] -> 256 splits too (more than 32 tiles for 132
+    SMs); the step's shapes whose tiles fill the SMs keep one split."""
+    for passes in (3, 1):
+        plan = tf32x3_plan(4, 32, 32, 512, 32, H100_SMS, passes)
+        assert (plan.tiles, plan.splits, plan.units, plan.grid) == \
+            (16, 8, 128, 128)
+        assert {len(plan.split_slices(s)) for s in range(8)} == {4}
+        assert plan.workspace_bytes == 16 * (8 * 256 * 32 + 2) * 4
+    assert tf32x1_plan(4, 32, 32, 512, 32, H100_SMS) == \
+        tf32x3_plan(4, 32, 32, 512, 32, H100_SMS, 1)
+    wide = tf32x1_plan(4, 32, 32, 512, 256, H100_SMS)
+    assert wide.splits > 1 and wide.tiles < H100_SMS
+    assert wide.units <= H100_SMS and wide.grid == wide.units
+    assert tf32x3_plan(4, 32, 32, 512, 256, H100_SMS).splits > 1
+    for shape, o in [((4, 256, 256, 64), 64), ((4, 128, 128, 64), 128),
+                     ((4, 64, 64, 256), 256), ((4, 32, 32, 256), 512),
+                     ((4, 32, 32, 32), 512)]:
+        for plan in (tf32x3_plan(*shape, o, H100_SMS),
+                     tf32x1_plan(*shape, o, H100_SMS)):
+            assert plan.splits == 1, (shape, o)
+
+
+@pytest.mark.parametrize("sms", [4, 7, H100_SMS])
+def test_split_runs_cover_every_stage_once(sms):
+    """At the plan's splits and at forced ones (2, 3, one a slice): the
+    blocks take every (tile, split) unit once, a tile's units are
+    consecutive (split fastest), and its splits' runs of slices, each
+    staged at dx = 0, 1, 2, cover every (slice, dx) stage once, in order;
+    where the plan splits, every split has MIN_SPLIT_SLICES slices or
+    more and the tiles are fewer than the SMs."""
+    for shape, c, o in [((1, 8, 8), 64, 8), ((2, 19, 21), 200, 96),
+                        ((4, 32, 32), 512, 32), ((1, 9, 40), 100, 65)]:
+        for passes in (3, 1):
+            base = tf32x3_plan(*shape, c, o, sms) if passes == 3 \
+                else tf32x1_plan(*shape, c, o, sms)
+            if base.splits > 1:
+                assert base.tiles < sms
+                assert min(len(base.split_slices(s))
+                           for s in range(base.splits)) >= MIN_SPLIT_SLICES
+            for plan in [base] + [with_splits(base, s, sms)
+                                  for s in (2, 3, base.slices)]:
+                assert 1 <= plan.splits <= plan.slices
+                assert plan.grid == min(plan.units, sms)
+                taken = sorted(u for bx in range(plan.grid)
+                               for u in plan.block_units(bx))
+                assert taken == list(range(plan.units))
+                assert [plan.unit(u) for u in range(plan.units)] == \
+                    [(t, s) for t in range(plan.tiles)
+                     for s in range(plan.splits)]
+                stages = [(sl, dx) for s in range(plan.splits)
+                          for sl in plan.split_slices(s) for dx in range(3)]
+                assert stages == [(sl, dx) for sl in range(plan.slices)
+                                  for dx in range(3)]
+                assert plan.workspace_bytes == (
+                    0 if plan.splits == 1 else
+                    plan.tiles * (plan.splits * plan.m * plan.n + 2) * 4)
+
+
+def _split_case(o, passes, seed):
+    """[1,8,8,64] -> o at `passes`: x, w, b, the plan on a card of 4 SMs
+    (one split: 4 slices are under two splits of MIN_SPLIT_SLICES), the
+    emulation of the walk the plan names and the plain conv's bar."""
+    x, w, b = _sliced_case(64, o, (1, 8, 8), seed=seed)
+    if passes == 3:
+        plan = tf32x3_plan(1, 8, 8, 64, o, 4)
+        emulate = _emulate_tf32x3
+        bar = 9 * 64 * 2.0 ** -22
+    else:
+        plan = tf32x1_plan(1, 8, 8, 64, o, 4)
+        emulate = _emulate_one_pass
+        bar = 2.0 ** -10 + (9 * 64 + 1) * 2.0 ** -22
+    assert plan.splits == 1 and plan.slices == 4
+    return x, w, b, plan, emulate, bar
+
+
+@pytest.mark.parametrize("o", [8, 96])
+@pytest.mark.parametrize("passes", [3, 1])
+def test_split_walk_matches_plain(o, passes):
+    """The kernels' walk with each tile's K split 2 and 4 ways (forced;
+    the one-pass design at O = 96, the split-TF32 walk elsewhere): the
+    splits' fp32 partials, split 0's from the bias, summed in split order,
+    are within the unsplit walk's bar of the plain fp32 conv: 9C 2^-22
+    sum|x||w| (+|b|) at three passes, (2^-10 + (9C + 1) 2^-22) at one."""
+    x, w, b, plan, emulate, bar = _split_case(o, passes, seed=21)
+    assert isinstance(plan, Tf32x1Plan) == (passes == 1 and o > 32)
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    want = conv3x3_implicit_gemm_plain(*tt).numpy()
+    scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
+    for splits in (2, 4):
+        got = emulate(x, w, b, with_splits(plan, splits, 4))
+        assert np.isfinite(got).all()
+        assert (np.abs(got - want) <= bar * scale).all(), splits
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_split_walk_matches_the_pallas_kernel(passes):
+    """The walk split 4 ways (one slice a split) against rerevst_tpu's
+    conv3x3_implicit_gemm in interpret mode (fp32), [1,8,8,64] -> 96,
+    within the pass count's bar."""
+    import jax.numpy as jnp
+
+    from rerevst_tpu.kernels import conv3x3 as jconv
+
+    x, w, b, plan, emulate, bar = _split_case(96, passes, seed=22)
+    got = emulate(x, w, b, with_splits(plan, 4, 4))
+    want = np.asarray(jconv.conv3x3_implicit_gemm(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), tile_h=8,
+        interpret=True))
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
+    assert (np.abs(got - want) <= bar * scale).all()
 
 
 @pytest.mark.parametrize("variant", ["a_from_registers", "no_split",

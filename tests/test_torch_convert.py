@@ -22,6 +22,8 @@ import torch
 
 from flax import serialization
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch import convert
 from rerevst_torch.io import checkpoint as ck
 from rerevst_tpu import convert as jax_convert

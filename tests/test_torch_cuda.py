@@ -417,16 +417,20 @@ def test_conv3x3_tf32x3_kernel_on_card(rng, cuda, shape, o, bias):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 4])
 @pytest.mark.parametrize("name,c,o", [
     ("conv3x3_implicit_gemm", 64, 64), ("conv3x3_implicit_gemm", 13, 6),
     ("conv3x3_implicit_gemm", 3, 64), ("conv3x3_implicit_gemm", 200, 192),
     ("conv3x3_pairlane", 64, 64), ("conv3x3_pairlane", 64, 3)])
-def test_conv3x3_tf32x3_nonfinite_inputs_on_card(rng, cuda, name, c, o):
+def test_conv3x3_tf32x3_nonfinite_inputs_on_card(rng, cuda, name, c, o,
+                                                 splits):
     """The split-TF32 kernel through both entry points under inf, -inf,
     NaN and +-FLT_MAX inputs, in the interior, on both sides of a tile's
     edge columns (15 | 16), at the image's edges and in the last channel:
     NaN and inf outputs exactly the plain version's (inf stays inf, of the
-    same sign; FLT_MAX's split does not overflow), finite ones as usual."""
+    same sign; FLT_MAX's split does not overflow), finite ones as usual;
+    at the plan's K split and at 4 splits a tile (one a slice at C = 64;
+    C = 3 and 13 have one slice, so one split)."""
     kern = getattr(kernels, name)
     plain = getattr(kernels, name + "_plain")
     x, w, b = _conv_on_card(rng, cuda, torch.float32, (2, 19, 70, c), o, True)
@@ -438,7 +442,8 @@ def test_conv3x3_tf32x3_nonfinite_inputs_on_card(rng, cuda, name, c, o):
                    ((1, 18, 0, c - 1), float("inf")),
                    ((0, 14, 40, c - 1), fmax), ((1, 6, 33, 0), -fmax)]:
         x[idx] = v
-    got = kern(x, w, b)
+    with _splits(splits):
+        got = kern(x, w, b)
     torch.cuda.synchronize()
     want = plain(x, w, b)
     fin = torch.isfinite(want)
@@ -480,10 +485,14 @@ def test_conv3x3_tf32x1_kernel_on_card(rng, cuda, shape, o, bias):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,o", [(64, 64), (13, 6), (3, 64), (200, 192)])
-def test_conv3x3_tf32x1_nonfinite_inputs_on_card(rng, cuda, c, o):
+@pytest.mark.parametrize("splits", [None, 4])
+@pytest.mark.parametrize("c,o", [(64, 64), (13, 6), (3, 64), (200, 192),
+                                 (64, 32)])
+def test_conv3x3_tf32x1_nonfinite_inputs_on_card(rng, cuda, c, o, splits):
     """One pass under inf, -inf, NaN and +-FLT_MAX inputs: NaN and inf
-    outputs exactly the plain version's, of the same sign."""
+    outputs exactly the plain version's, of the same sign; at the plan's
+    K split and at 4 splits a tile (both one-pass routes: O = 32 takes the
+    split-TF32 kernel's one-pass instance)."""
     x, w, b = _conv_on_card(rng, cuda, torch.float32, (2, 19, 70, c), o, True)
     fmax = torch.finfo(torch.float32).max
     for idx, v in [((0, 3, 5, 2 % c), float("inf")),
@@ -493,7 +502,8 @@ def test_conv3x3_tf32x1_nonfinite_inputs_on_card(rng, cuda, c, o):
                    ((1, 18, 0, c - 1), float("inf")),
                    ((0, 14, 40, c - 1), fmax), ((1, 6, 33, 0), -fmax)]:
         x[idx] = v
-    got = conv3x3_implicit_gemm(x, w, b, passes=1)
+    with _splits(splits):
+        got = conv3x3_implicit_gemm(x, w, b, passes=1)
     torch.cuda.synchronize()
     want = conv3x3_implicit_gemm_plain(x, w, b)
     fin = torch.isfinite(want)
@@ -505,6 +515,53 @@ def test_conv3x3_tf32x1_nonfinite_inputs_on_card(rng, cuda, c, o):
     xz = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
     assert _conv_ok(torch.where(fin, got, 0), torch.where(fin, want, 0),
                     xz, w, b, passes=1)
+
+
+def _splits(splits):
+    """`splits` K splits a tile for the fp32 launches inside (None: each
+    plan's own)."""
+    import contextlib
+
+    from rerevst_torch.kernels.conv3x3 import forced_splits
+
+    return contextlib.nullcontext() if splits is None \
+        else forced_splits(splits)
+
+
+#: Shapes of the fp32 kernels' K split (x shape, O): one slice a split at
+#: C = 64 (4 slices), ragged runs at C = 200 (13 slices of 16, the last
+#: half zero-filled), a train step's [4,32,32,512] -> 32 (the plan's 8
+#: splits) and -> 96 (the one-pass design at one pass), and a ragged band
+#: and strip; O = 8, 32, 96 and 192 (three channel tiles of 64 at three
+#: passes).
+SPLIT_K = [((1, 8, 8, 64), 8), ((1, 8, 8, 64), 96), ((2, 19, 21, 200), 192),
+           ((4, 32, 32, 512), 32), ((1, 32, 32, 512), 96),
+           ((2, 19, 70, 64), 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("shape,o", SPLIT_K)
+def test_conv3x3_split_k_on_card(rng, cuda, shape, o, bias, passes):
+    """Both fp32 kernels with each tile's K split 2, 3 and 4 ways and one
+    way a slice (forced), at three and one pass: within the pass count's
+    bar of the plain fp32 conv, and two runs give the same bits (the
+    partials are summed in split order, whichever unit finishes last)."""
+    from rerevst_torch.kernels.conv3x3 import forced_splits, plan_for
+
+    x, w, b = _conv_on_card(rng, cuda, torch.float32, shape, o, bias)
+    want = conv3x3_implicit_gemm_plain(x, w, b)
+    slices = plan_for(x, o, passes).slices
+    for splits in sorted({2, 3, 4, slices}):
+        with forced_splits(splits):
+            plan = plan_for(x, o, passes)
+            assert plan.splits == min(splits, slices)
+            got = conv3x3_implicit_gemm(x, w, b, passes=passes)
+            again = conv3x3_implicit_gemm(x, w, b, passes=passes)
+        torch.cuda.synchronize()
+        assert _conv_ok(got, want, x, w, b, passes=passes), splits
+        assert torch.equal(got, again), splits
 
 
 #: Shapes that stress the streamed C = 64 kernel's work split (its plan on

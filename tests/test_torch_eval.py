@@ -25,6 +25,8 @@ import pytest
 
 from flax import serialization
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.api import Stylization
 from rerevst_torch.config import InferenceConfig
 from rerevst_torch.data.video import read_video

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.kernels.filter_chain import (
     TILE_ROWS,
     WARPS,

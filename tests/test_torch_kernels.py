@@ -17,6 +17,8 @@ import torch
 import jax.numpy as jnp
 from jax import lax
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch import kernels
 from rerevst_torch.kernels import (
     dynamic_filter_pair,

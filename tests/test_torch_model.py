@@ -21,6 +21,8 @@ import jax
 import jax.numpy as jnp
 from flax import serialization
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch import kernels
 from rerevst_torch.config import ModelConfig
 from rerevst_torch.io.convert import from_jax_params

@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.io import checkpoint as ck
 from rerevst_torch.parallel.dryrun import (
     dryrun_multichip,
@@ -36,8 +38,9 @@ RANK_TIMEOUT = 300
 
 @pytest.fixture(autouse=True, scope="module")
 def _two_threads():
-    """The test workers share the machine's cores: two torch threads each,
-    or the workers' thread pools oversubscribe the CPU."""
+    """Two torch threads in this process, as the ranks' OMP_NUM_THREADS
+    gives them: the in-process mesh then sums as the ranks do, to the
+    comparisons' rtol 1e-6."""
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     yield

@@ -21,6 +21,8 @@ import torch
 import jax.numpy as jnp
 from flax import serialization
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch import interpolate
 from rerevst_torch.config import InferenceConfig, ModelConfig
 from rerevst_torch.models.transformer import (

@@ -14,6 +14,8 @@ import torch
 
 from flax import serialization
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.api import Stylization
 from rerevst_torch.data import native
 from rerevst_torch.data.transforms import bgr_to_model, model_to_bgr

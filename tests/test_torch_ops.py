@@ -17,6 +17,8 @@ import jax.numpy as jnp
 from jax import lax
 from flax import serialization
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.data import transforms as T
 from rerevst_torch.io.convert import from_jax_params
 from rerevst_torch.models import layers as L

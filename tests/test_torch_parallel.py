@@ -27,6 +27,8 @@ import jax
 import jax.numpy as jnp
 from flax import serialization
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.config import LossConfig, ModelConfig, TrainConfig
 from rerevst_torch.io.convert import from_jax_params
 from rerevst_torch.losses.temporal import generate_fake_data
@@ -67,16 +69,6 @@ CKPT = REPO / "models" / "demo_plum_4000.msgpack"
 CFG = ModelConfig()
 JCFG = JModelConfig()
 TRAIN_LOSS = dict(relax_style=False, temporal_loss=False)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """The test workers share the machine's cores: two torch threads each,
-    or the workers' thread pools oversubscribe the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cpu_mesh(n):

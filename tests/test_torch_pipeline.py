@@ -16,6 +16,8 @@ import pytest
 
 from flax import serialization
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.api import Stylization
 from rerevst_torch.data.source import FrameSource
 from rerevst_torch.data.transforms import model_to_bgr

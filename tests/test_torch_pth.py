@@ -17,6 +17,8 @@ import torch
 import jax
 from flax import serialization
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.api import Stylization
 from rerevst_torch.io import torch_compat as tc
 from rerevst_torch.io.checkpoint import read_msgpack

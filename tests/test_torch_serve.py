@@ -33,6 +33,8 @@ import pytest
 
 from flax import serialization
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch import serve as port_serve
 from rerevst_torch.api import Stylization
 from rerevst_torch.config import InferenceConfig, ModelConfig, dtype_from_name

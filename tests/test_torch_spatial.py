@@ -23,6 +23,8 @@ import jax.numpy as jnp
 from flax import serialization
 from jax.sharding import Mesh as JMesh
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.api import Stylization
 from rerevst_torch.config import InferenceConfig, ModelConfig
 from rerevst_torch.io.convert import from_jax_params
@@ -44,16 +46,6 @@ REPO = Path(__file__).resolve().parent.parent
 CKPT = REPO / "models" / "demo_plum_4000.msgpack"
 CFG = ModelConfig()
 JCFG = JModelConfig()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """The test workers share the machine's cores: two torch threads each,
-    or the workers' thread pools oversubscribe the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(tree):

@@ -27,6 +27,8 @@ import jax
 import jax.numpy as jnp
 from flax import serialization
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.config import ModelConfig
 from rerevst_torch.data.transforms import model_to_bgr
 from rerevst_torch.io.convert import from_jax_params
@@ -45,16 +47,6 @@ from rerevst_tpu.ops import tiling as jtiling
 REPO = Path(__file__).resolve().parent.parent
 CKPT = REPO / "models" / "demo_plum_4000.msgpack"
 CFG = ModelConfig()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """The test workers share the machine's cores: two torch threads each,
-    or the workers' thread pools oversubscribe the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _close(got, want, scale_atol=1e-5):

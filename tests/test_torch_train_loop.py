@@ -31,6 +31,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.config import LossConfig, ModelConfig, TrainConfig
 from rerevst_torch.io import checkpoint as ck
 from rerevst_torch.io.convert import from_jax_params
@@ -43,17 +45,6 @@ from rerevst_torch.train.state import (
 from rerevst_torch.train.step import make_train_step
 
 REPO = Path(__file__).resolve().parent.parent
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """The test workers share the machine's cores: two torch threads each,
-    or the workers' thread pools oversubscribe the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
 
 
 @pytest.fixture()

@@ -21,6 +21,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.config import LossConfig, ModelConfig
 from rerevst_torch.io.convert import from_jax_params
 from rerevst_torch.losses import perceptual as P
@@ -33,17 +35,6 @@ from rerevst_tpu.losses import perceptual as jP
 from rerevst_tpu.losses import relaxed as jRL
 from rerevst_tpu.losses import temporal as jTL
 from rerevst_tpu.models import vgg as jV
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """The test workers share the machine's cores: two torch threads each,
-    or the workers' thread pools oversubscribe the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
 
 
 def _smooth_images(rng, n, h, w):

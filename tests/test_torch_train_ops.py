@@ -18,23 +18,14 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401  (torch's threads in xdist workers)
+
 from rerevst_torch.ops import blur as B
 from rerevst_torch.ops import resize as R
 from rerevst_torch.ops import warp as W
 from rerevst_tpu.ops import blur as jB
 from rerevst_tpu.ops import resize as jR
 from rerevst_tpu.ops import warp as jW
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """The test workers share the machine's cores: two torch threads each,
-    or the workers' thread pools oversubscribe the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
 
 
 def _close(got, want, scale_atol=1e-5, rtol=0.0):
