@@ -8,17 +8,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
 1. device  — the card's name, compute capability (must be 9.0) and power limit;
 2. build   — compiles ``rerevst_torch/csrc/*.cu`` for sm_90a (first use),
              and reports the registers and spills of the streamed, wide,
-             narrow, sliced, split-TF32 and one-pass conv kernels, the
-             filter pair kernel and the weight-gradient kernel (``nvcc
+             narrow, sliced, split-TF32, one-pass and rows conv kernels,
+             the filter pair kernel and the weight-gradient kernel (``nvcc
              -Xptxas -v``; a spill fails, and so does a serialized wgmma
-             in the wide, sliced, split-TF32 or one-pass kernel);
+             in the wide, sliced, split-TF32, one-pass or rows kernel);
 3. check   — each kernel against its plain PyTorch version on the card, at the
              main path's shapes (batch 16, 512x512 content padded to 640x640)
              plus ragged ones and inf/NaN inputs, in f16, bf16 and fp32
              (fp32 also at +-FLT_MAX; the NaN and inf masks of the narrow,
              split-TF32 and C % 64 = 0, O <= 64 convs must be plain's), and
              the one-pass conv (``passes=1``: the one-pass design where O >
-             32, the split-TF32 kernel's one-pass instance below) at the
+             32, the rows design below) at the
              fp32 sessions' conv shapes under (2^-10 + (9 C + 1) 2^-22) sum
              |x||w|, each call counted on the design it takes, and its mean
              signed error against float64 at every finite shape within
@@ -301,6 +301,9 @@ SLICED_CONVS = [("sliced C = 32", (BATCH, 320, 320, 32), 64),
 #: The split-TF32 kernel (fp32) at row 3's shape, beside F.conv2d without
 #: TF32 (the JAX package's HIGHEST precision): (site, x shape, O).
 F32_CONV = ("fp32 C = 64", (BATCH, PAD_HW, PAD_HW, 64), 64)
+#: The rows kernel's (fp32, O <= 32) timed shape, (x shape, O): the decoder
+#: filter blocks' `down` conv, 3 launches an fp32 Pass-2 batch.
+ROWS_CONV = ((BATCH, 80, 80, 512), 32)
 #: Shapes of the sliced kernel's checks (x shape, O, bias): C = 8 and 16
 #: (16-channel slices), 24, 32, 40, 96, 100 (a zero-padded copy of x), 160
 #: and 200 (32-channel slices; 24, 40 and 200 end in a zero-filled tail);
@@ -317,16 +320,18 @@ SLICED_CHECKS = [
     ((1, 3, 161, 160), 64, True), ((1, 17, 20, 200), 24, False),
     ((1, 6, 40, 96), 3, False), ((1, 4, 64, 24), 8, True),
 ]
-#: Checks that reach the split-TF32 kernel in fp32 with C % 4 != 0 (a
-#: zero-padded copy of x) and O % 4 != 0 (scalar stores), finite and not:
-#: (entry point, x shape, O, bias, non-finite inputs).
+#: Checks of the fp32 routes with C % 4 != 0 (a zero-padded copy of x) and
+#: O % 4 != 0 (scalar stores), finite and not: the rows design (O <= 32)
+#: and the split-TF32 kernel (O = 33): (entry point, x shape, O, bias,
+#: non-finite inputs).
 F32_CHECKS = [("conv3x3_implicit_gemm", (2, 13, 45, 3), 5, True, False),
               ("conv3x3_implicit_gemm", (1, 21, 100, 7), 3, False, False),
               ("conv3x3_implicit_gemm", (2, 19, 21, 13), 6, True, False),
               ("conv3x3_implicit_gemm", (2, 19, 70, 13), 6, True, True),
-              ("conv3x3_implicit_gemm", (2, 19, 70, 5), 9, True, True)]
+              ("conv3x3_implicit_gemm", (2, 19, 70, 5), 9, True, True),
+              ("conv3x3_implicit_gemm", (2, 19, 70, 13), 33, True, True)]
 #: The one-pass conv (``passes=1``, the 'default' precision: the one-pass
-#: design where O > 32, the split-TF32 kernel's one-pass instance below)
+#: design where O > 32, the rows design below)
 #: at the fp32 3x3 SAME conv shapes of one Pass-2 batch of the
 #: config_variants sessions (VGG conv1_1, conv1_2 / res2.conv2, conv2_2,
 #: conv3_2, conv4_1, res4.conv2, the filter blocks' `down` and `up`, the
@@ -551,10 +556,11 @@ def check_convs(torch, gen, errs):
             err = (got.float() - want.float()).abs()[fin].max().item()
             ok = conv_within_tolerance(torch, got, want, x, w, b)
             kind = design(shape[-1], dtype, o)
-            if kind in ("narrow", "tf32x3") or (
+            if kind in ("narrow", "tf32x3", "tf32_rows") or (
                     kind == "sliced" and shape[-1] % 64 == 0):
-                # The narrow, split-TF32 and C % 64 = 0, O <= 64 routes keep
-                # plain's NaN and inf masks exactly (inf stays inf).
+                # The narrow, split-TF32, rows and C % 64 = 0, O <= 64
+                # routes keep plain's NaN and inf masks exactly (inf stays
+                # inf).
                 ok = ok and bool(torch.equal(torch.isnan(got),
                                              torch.isnan(want))) \
                     and bool(torch.equal(torch.isinf(got), torch.isinf(want)))
@@ -1099,7 +1105,7 @@ def drive_implicit_gemm(torch):
     if counts["conv3x3_implicit_gemm"] != len(shapes) \
             or by_design != {"streamed": 2, "wide": 1, "narrow": 1,
                              "sliced": 3, "tf32x3": 1, "tf32x1": 0,
-                             "tf32x1_sliced": 0}:
+                             "tf32_rows": 0}:
         fail(f"conv3x3_implicit_gemm standalone launches {counts}, "
              f"by design {by_design}")
     RESULTS["implicit_gemm_launches_by_design"] = by_design
@@ -4674,9 +4680,9 @@ def f32_errors(torch, x, w, b, passes=3) -> dict:
 def time_fp32_convs(torch, smi, shapes, per="batch", timed=True) -> list:
     """The fp32 conv at every (B, H, W, C, O, passes) of `shapes` ({key:
     launches} of one fp32 Pass-2 batch or of one train step: `per`) at the
-    plan the wrapper launches (its design and K splits; the split-TF32
-    kernel at three passes, at one pass the one-pass design, or where O <=
-    32 the split-TF32 kernel's one-pass instance): checked against its
+    plan the wrapper launches (its design and K splits; where O <= 32 the
+    rows kernel at either pass count, else the split-TF32 kernel at three
+    passes and the one-pass design at one): checked against its
     plain version under the pass count's bar, and run again for the same
     bits (a split tile's partials are summed in split order, whichever
     unit finishes last).  Where `timed`: its error against float64 beside
@@ -4846,13 +4852,18 @@ MIX_TF32_SITES = {"out": 1, "res2": 2, "dec": 10, "enc": 9, "full": 19,
 FP32_SITES = 19
 
 
-def tf32_sites(by_design: dict, passes: int) -> int:
+def tf32_sites(by_design: dict, by_shape: dict, passes: int) -> int:
     """Launches at `passes` TF32 passes among launches by design: three
-    passes ``tf32x3``; one pass both one-pass designs (``tf32x1``, and
-    ``tf32x1_sliced`` where O <= 32).  A launch at the other count, or of a
-    16-bit design, makes it -1."""
-    ours = {3: ("tf32x3",), 1: ("tf32x1", "tf32x1_sliced")}[passes]
+    passes ``tf32x3`` and, where O <= 32, ``tf32_rows``; one pass
+    ``tf32x1`` and ``tf32_rows``.  A launch of another design, or an fp32
+    launch at the other count (by_shape: launches by (B, H, W, C, O,
+    passes), as ``launches_by_shape`` counts them, keys as lists or their
+    JSON text), makes it -1."""
+    ours = {3: ("tf32x3", "tf32_rows"), 1: ("tf32x1", "tf32_rows")}[passes]
     if any(v and k not in ours for k, v in by_design.items()):
+        return -1
+    if any(v and (json.loads(k) if isinstance(k, str) else k)[-1] != passes
+           for k, v in by_shape.items()):
         return -1
     return sum(by_design.get(k, 0) for k in ours)
 
@@ -4988,12 +4999,16 @@ def config_variants(torch, smi):
     for key, passes, bar in (("fp32_high", 3, 1e-4),
                              ("fp32_default", 1, 1e-3)):
         r = res[key]
-        need(tf32_sites(r["tf32_launches_per_batch"], passes) == FP32_SITES
+        need(tf32_sites(r["tf32_launches_per_batch"],
+                        r["tf32_launches_per_batch_by_shape"], passes)
+             == FP32_SITES
+             and r["tf32_launches_per_batch"].get("tf32_rows", 0) > 0
              and (passes == 3
                   or r["tf32_launches_per_batch"].get("tf32x1", 0) > 0),
-             f"{key} split-TF32 launches per batch "
+             f"{key} fp32 conv launches per batch "
              f"{r['tf32_launches_per_batch']}, expected {FP32_SITES} with "
-             f"{passes} passes (one pass: the one-pass design among them)")
+             f"{passes} passes (the rows design among them, and at one "
+             f"pass the one-pass design)")
         need(r["mean_abs_vs_fp32_highest_01"] <= bar,
              f"{key} mean |delta| {r['mean_abs_vs_fp32_highest_01']} > {bar}")
     need(not res["fp32_highest"]["tf32_launches_per_batch"],
@@ -5002,7 +5017,8 @@ def config_variants(torch, smi):
         mix = r["fp32_mix"]
         if key.startswith(("f16_", "bf16_")) and mix != "none":
             passes = 3 if r["mix_precision"] == "high" else 1
-            need(tf32_sites(r["tf32_launches_per_batch"], passes)
+            need(tf32_sites(r["tf32_launches_per_batch"],
+                            r["tf32_launches_per_batch_by_shape"], passes)
                  == MIX_TF32_SITES[mix],
                  f"{key}: split-TF32 launches per batch "
                  f"{r['tf32_launches_per_batch']}")
@@ -5043,6 +5059,9 @@ def config_variants(torch, smi):
     for r in high_rows:
         emit({"phase": "config_variants", "tf32x3_check": r})
     row = next(r for r in rows if r["site"] == F32_CONV[0] + ", one pass")
+    # The rows kernel's row: the filter blocks' `down` conv at one pass.
+    rows_row = next(r for r in rows if r["design"] == "tf32_rows"
+                    and (r["shape"], r["O"]) == ROWS_CONV)
     sums = per_launch_sums(rows, "batch")[1]
     summary["fp32_default_one_pass_ms_per_batch"] = sums["ms"]
     summary["fp32_default_one_pass_cudnn_tf32_ms_per_batch"] = \
@@ -5052,25 +5071,27 @@ def config_variants(torch, smi):
     emit({"phase": "config_variants", "summary": summary, "card": smi})
     RESULTS["config_variants"] = {"sessions": res, "summary": summary,
                                   "tf32x1_row": row, "tf32x1_rows": rows,
+                                  "rows_row": rows_row,
                                   "tf32x3_checks": high_rows}
     return res, row
 
 
 #: The sources whose kernels phase ptxas reports.
-PTXAS_SOURCES = ("conv3x3.cu", "filter_chain.cu", "conv3x3_wgrad.cu")
+PTXAS_SOURCES = ("conv3x3.cu", "conv3x3_rows.cu", "filter_chain.cu",
+                 "conv3x3_wgrad.cu")
 
 
 def kernel_resources(reports) -> dict:
     """From `reports` (source -> ``_build.ptxas_report`` of it):
     registers, spills and ptxas's notes (a serialized wgmma shows here)
     of each instance of the streamed C = 64, the wide, the narrow, the
-    sliced, the split-TF32 (and its weights' split kernel) and the one-pass
-    conv kernels,
+    sliced, the split-TF32 (and its weights' split kernel), the one-pass
+    and the rows (and its weights' split kernel) conv kernels,
     of the filter pair kernel and of the weight-gradient kernel (and its
     reduction).  A spill fails the phase: the designs
     count on keeping their fragments and accumulators in registers; so does
-    a note that the wide, sliced, split-TF32 or one-pass kernel's wgmmas
-    are serialized."""
+    a note that the wide, sliced, split-TF32, one-pass or rows kernel's
+    wgmmas are serialized."""
     import re
 
     dts = {"f": "fp32", "6__half": "f16", "13__nv_bfloat16": "bf16"}
@@ -5091,11 +5112,11 @@ def kernel_resources(reports) -> dict:
         if m:
             out[f"conv3x3_sliced_kernel<{dts[m.group(1)]}, N={m.group(2)}, "
                 f"KS={m.group(3)}>"] = info
-        m = re.search(r"conv3x3_tf32x3_kernelILi(\d+)ELi(\d+)ELi(\d+)"
-                      r"ELb([01])E", name)
+        m = re.search(r"conv3x3_tf32x3_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                      name)
         if m:
             out[f"conv3x3_tf32x3_kernel<N={m.group(1)}, KS={m.group(2)}, "
-                f"P={m.group(3)}, split={m.group(4)}>"] = info
+                f"split={m.group(3)}>"] = info
         m = re.search(r"conv3x3_tf32x1_kernelILi(\d+)ELi(\d+)ELi(\d+)"
                       r"ELb([01])E", name)
         if m:
@@ -5103,7 +5124,20 @@ def kernel_resources(reports) -> dict:
                 f"KS={m.group(3)}, split={m.group(4)}>"] = info
         if "conv3x3_tf32_split_kernel" in name:
             out["conv3x3_tf32_split_kernel"] = info
+    for name, info in reports["conv3x3_rows.cu"].items():
+        m = re.search(r"conv3x3_rows_kernelILi(\d+)ELi(\d+)ELi(\d+)"
+                      r"ELb([01])E", name)
+        if m:
+            out[f"conv3x3_rows_kernel<N={m.group(1)}, KS={m.group(2)}, "
+                f"P={m.group(3)}, split={m.group(4)}>"] = info
+        if "conv3x3_rows_split_kernel" in name:
+            out["conv3x3_rows_split_kernel"] = info
     n_conv = len(out)
+    n_rows = sum(k.startswith("conv3x3_rows") for k in out)
+    if n_rows != 19:
+        fail(f"ptxas reported {n_rows} rows conv kernels, not 19 (N 8, 16, "
+             f"32 x KS 8, 16 x three or one pass, the K-split instances at "
+             f"KS = 16, and the weights' split)")
     n_wide = sum(k.startswith("conv3x3_wide") for k in out)
     if n_wide != 12:
         fail(f"ptxas reported {n_wide} wide conv kernels, not 12")
@@ -5115,17 +5149,18 @@ def kernel_resources(reports) -> dict:
         fail(f"ptxas reported {n_sliced} sliced conv kernels, not 20")
     n_tf32 = sum(k.startswith(("conv3x3_tf32x3", "conv3x3_tf32_split"))
                  for k in out)
-    if n_tf32 != 25:
-        fail(f"ptxas reported {n_tf32} split-TF32 conv kernels, not 24 (N x "
-             f"KS x three or one pass, and the K-split instances at KS = "
-             f"16) and the weights' split")
+    if n_tf32 != 4:
+        fail(f"ptxas reported {n_tf32} split-TF32 conv kernels, not 3 (N = "
+             f"64 at KS 8 and 16, and the K-split instance at KS = 16) and "
+             f"the weights' split")
     n_tf32x1 = sum(k.startswith("conv3x3_tf32x1") for k in out)
     if n_tf32x1 != 9:
         fail(f"ptxas reported {n_tf32x1} one-pass conv kernels, not 9 (MB x "
              f"NPX 1 x 256, 1 x 128, 2 x 128; KS 8, 16; K-split at 16)")
     serialized = [k for k, v in out.items()
                   if k.startswith(("conv3x3_wide", "conv3x3_sliced",
-                                   "conv3x3_tf32x3", "conv3x3_tf32x1"))
+                                   "conv3x3_tf32x3", "conv3x3_tf32x1",
+                                   "conv3x3_rows_kernel"))
                   and any("wgmma" in n and "serializ" in n
                           for n in v["notes"])]
     if serialized:
@@ -5403,6 +5438,28 @@ def main() -> int:
         "library": tf32x1_row["library"],
         "launches_train_default": precisions["default"][
             "launches_per_step"]["conv3x3_implicit_gemm"]})
+    # The rows kernel (fp32, O <= 32, csrc/conv3x3_rows.cu): its path is
+    # the fp32 'default' session (its launches that session's
+    # stylize_video's on design tf32_rows), its times the `down` conv's
+    # at one pass (ROWS_CONV), its launches at three passes the 'high'
+    # session's.
+    rows_row = RESULTS["config_variants"]["rows_row"]
+    line["kernels"].append({
+        "name": "conv3x3_rows", "route": "cuda",
+        "source": "rerevst_torch/csrc/conv3x3_rows.cu",
+        "replaces": "rerevst_tpu/kernels/conv3x3.py:81",
+        "launches": variants["fp32_default"]["launches_by_design"].get(
+            "tf32_rows", 0),
+        "max_abs_err": rows_row["max_abs_err"],
+        **{k: rows_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+        "path": "stylize_video fp32 precision='default' (phase "
+                "config_variants)",
+        "times_of": f"{list(rows_row['shape'])} -> {rows_row['O']}, one "
+                    f"pass, design tf32_rows",
+        "library": rows_row["library"],
+        "launches_high": variants["fp32_high"]["launches_by_design"].get(
+            "tf32_rows", 0)})
     for entry in line["kernels"]:
         if entry["name"] == "conv3x3_implicit_gemm":
             entry["launches_train"] = {

@@ -29,14 +29,14 @@
 //   160, 200, ...: C that fills no 64-channel slice; and C % 64 = 0, C >=
 //   128 with O <= kSlicedMaxO, such as the decoder filter blocks' `down`
 //   conv 512 -> 32): the sliced design below (conv3x3_sliced_kernel).
-// * fp32 -- both entry points, every C and O: the split-TF32 design below
-//   (conv3x3_tf32x3_kernel), fp32-accurate products on the tensor cores
-//   (the counterpart of the JAX package's HIGHEST and HIGH precisions)
-//   at passes = 3.  At passes = 1, one TF32 pass (x and w rounded to
-//   nearest TF32: the 'default' precision): where the wrapper passes R >
-//   0 (O > 32) the one-pass design below (conv3x3_tf32x1_kernel: the
-//   weights as wgmma's A), else the split-TF32 kernel's one-pass instance
-//   (the same walk with no lo box).
+// * fp32 with O > 32 -- both entry points, every C: at passes = 3 the
+//   split-TF32 design below (conv3x3_tf32x3_kernel, N = 64), fp32-accurate
+//   products on the tensor cores (the counterpart of the JAX package's
+//   HIGHEST and HIGH precisions); at passes = 1, one TF32 pass (x and w
+//   rounded to nearest TF32: the 'default' precision), the one-pass design
+//   below (conv3x3_tf32x1_kernel: the weights as wgmma's A; the wrapper
+//   passes R > 0).  fp32 calls with O <= 32, at either pass count, take
+//   the rows design (csrc/conv3x3_rows.cu, rr_conv3x3_rows).
 // No call reaches a cp.async + mma.sync kernel or the CUDA cores' FMAs.
 // A tensor map that cannot be encoded or a refused launch is returned as
 // an error: nothing retries on another design.
@@ -260,7 +260,7 @@
 //   320^2 / 160^2 / 80^2 x O 3 / 16 / 32 / 64, the two designs in turns)
 //   sets the threshold (PERF.md section 6).
 
-// The split-TF32 design (fp32, every C and O; both entry points).  The
+// The split-TF32 design (fp32, three passes, O > 32; both entry points).  The
 // JAX package computes fp32 convs at HIGHEST precision; on this card fp32
 // FMAs on the CUDA cores (67 TFLOP/s) bound [16,640,640,64] -> 64 at 7.2
 // ms, half of cuDNN's 15 ms without TF32.  The tensor cores take TF32 (an
@@ -289,9 +289,10 @@
 //   K slice at one dx, whose halo'd box of x feeds the three taps dy at dy
 //   x cols pixels in), with K slices of KS = 16 fp32 channels (8 where C <=
 //   8): 64 bytes a pixel, the byte geometry of the f16 KS = 32 slice (the
-//   64-byte swizzle; 32 at KS = 8).  N = O rounded up to 8, 16, 32 or 64;
-//   larger O tiles by 64.  Three stages of 60 KB at 16 x 16 tiles and N =
-//   64 (x, its lo, the weights' 24 KB).
+//   64-byte swizzle; 32 at KS = 8).  N = 64, O tiling by 64 (at O <= 32
+//   this walk lost to the rows design at every shape measured, at both
+//   pass counts: PERF.md section 6, rows 3l and 3m).  Three stages of 60
+//   KB at 16 x 16 tiles (x, its lo, the weights' 24 KB).
 // * B must be K-major: PTX gives wgmma no transpose for .tf32 operands.
 //   A small kernel (conv3x3_tf32_split_kernel, launched first on the same
 //   stream) writes the wrapper's scratch tensor ws [2][9][O][Cp] once per
@@ -333,20 +334,6 @@
 //   straight from registers (four lanes write one row's 32 contiguous
 //   bytes: whole sectors), where they fall inside the image and O.  An
 //   fp32 tile is 64 KB at N = 64, too much to stage beside the ring.
-// * One pass (P = 1, rr_conv3x3 with passes = 1 and R = 0: O <= 32, N = 8,
-//   16 or 32): x w in one TF32 product, both operands rounded to nearest:
-//   the weights once a call in the split kernel, x in each landed box, in
-//   place, by both consumer warpgroups (the lo pass's walk, its writes to
-//   the box itself, then the same fence and barrier; each warpgroup
-//   rounding only the box rows its own taps read behind its own barrier,
-//   as the one-pass design does, rounds 11% more pixels and was 2-4%
-//   slower at these small N, scripts/conv_ab.py --tf32x1 at [4,32,32,512]
-//   -> 32 and [16,80,80,512] -> 32).  Truncation, as the tensor cores
-//   read fp32, shrinks every product by 2^-12 of it on average (a mean
-//   signed error of -3.5e-4, which moved a train step at 'default' 9.1e-3
-//   from the exact one); rounding is unbiased.  No lo box, no lo planes of
-//   the weights.  Within 2^-10 sum |x||w| of the fp32 conv (each rounding
-//   <= 2^-11).  O > 32 takes the one-pass design below.
 // * What bounds it (scripts/probe_tf32_conv.py at [16,640,640,64] -> 64):
 //   one pass alone 2.73 ms, no wgmma at all 2.64, the lo pass 0.67 of the
 //   4.70, the stores 0.19.  Each m64nNk8 reads 2 KB of A and N 32 bytes of
@@ -355,8 +342,8 @@
 //   memory for 2304 clocks of products, more than its 128 bytes a clock.
 
 // The one-pass design (fp32, passes = 1, O > 32; rr_conv3x3 with R > 0).
-// One TF32 pass, x and w rounded to nearest, as the split-TF32 kernel's
-// one-pass instance computes it, with the operands swapped: the weights are
+// One TF32 pass, x and w rounded to nearest, on the split-TF32 kernel's
+// walk with the operands swapped: the weights are
 // wgmma's A (M = 64 output channels a block, from the split kernel's one
 // plane ws[tap][o][Cp], rounded once a call and already K-major, so A
 // needs no work in shared memory) and the box of x is B (N = 128 or 256
@@ -418,7 +405,7 @@
 //   barrier (5.32 ms), and x as register A, its ldmatrix fragments rounded
 //   in registers (5.13-5.14 ms).  As B, x has no register form.
 
-// Split K (both fp32 kernels, conv3x3_tf32x3_kernel at P = 3 and 1 and
+// Split K (both fp32 kernels, conv3x3_tf32x3_kernel and
 // conv3x3_tf32x1_kernel).  Where a call has fewer tiles than the card has
 // SMs (a train step's 32^2 images: [4,32,32,512] -> 32 makes 16 tiles of
 // 256 pixels, and each walked all 96 stages while 116 SMs stayed idle),
@@ -429,10 +416,11 @@
 //   tile's units run side by side; split s takes the contiguous run of K
 //   slices [s slices / splits, (s + 1) slices / splits), 3 stages a slice
 //   as before.  Split 0's sums start from the bias, the others' from 0.
-// * Each consumer warpgroup writes its fp32 partial (P = 3: acc + cor, as
-//   the epilogue adds them) to the workspace after the weights' scratch,
-//   16-byte vectors in its threads' register order (so the writes and the
-//   reads below are coalesced whatever the tile's layout), fences it, and
+// * Each consumer warpgroup writes its fp32 partial (the split-TF32
+//   kernel's acc + cor, as the epilogue adds them) to the workspace after
+//   the weights' scratch, 16-byte vectors in its threads' register order
+//   (so the writes and the reads below are coalesced whatever the tile's
+//   layout), fences it, and
 //   one thread counts the warpgroup in on a counter of its half tile (the
 //   weights' split kernel zeroes the counters first, on the same stream).
 //   The warpgroup that counts in last reads every split's partial of its
@@ -455,6 +443,7 @@
 // Offsets are 64-bit: a batch of 16 frames of 640^2 x 64 holds 4.2e8
 // values.
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <algorithm>
 #include <type_traits>
@@ -552,38 +541,9 @@ __device__ __forceinline__ void mma16816<__nv_bfloat16>(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// A barrier of one warpgroup (ids 1 and 2; 0 is __syncthreads).
-__device__ __forceinline__ void bar_sync_wg(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
 // A barrier of the two consumer warpgroups (id 3).
 __device__ __forceinline__ void bar_sync_consumers() {
   asm volatile("bar.sync 3, %0;\n" ::"n"(kConsumerThreads) : "memory");
-}
-
-// Registers move between warpgroups: the producer gives its up, the
-// consumer warpgroups take them (the launch grants every warp the same).
-__device__ __forceinline__ void regs_release() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void regs_claim() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major operand with the S-byte
-// swizzle (S = 128 for the streamed and wide designs, 32 or 64 for the
-// sliced one), as TMA lands boxes whose inner extent is S bytes: start
-// address >> 4, leading offset 1 (unused), each row one S-byte swizzle
-// row, eight rows a group 8 S bytes apart (the stride offset), layout 1, 2
-// or 3 (128B, 64B, 32B).  A start must sit on a whole group of the
-// pattern; a k16 step adds 32 bytes to it.
-template <int S = 128>
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
-  constexpr uint64_t layout = S == 128 ? 1 : S == 64 ? 2 : 3;
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (1ull << 16) |
-         (static_cast<uint64_t>(S / 2) << 32) | (layout << 62);
 }
 
 // wgmma.mma_async m64nNk16, fp32 accumulators d (N / 2 per thread), A from
@@ -665,18 +625,6 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// One box of a 3-D tensor map into shared memory; completes on `bar`.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
       : "memory");
 }
 
@@ -1764,69 +1712,18 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_sliced_kernel(
 // a pixel, the swizzle span).  A stage: the box of x, a box of its lo
 // (a_slot bytes each, set at launch), then the weights' boxes {KS c, N o}:
 // hi of taps dy = 0, 1, 2, then lo of the same, each on a 1024-byte
-// boundary.  P is the number of TF32 passes: 3 (x_hi w_hi + x_hi w_lo +
-// x_lo w_hi, fp32-accurate) or 1 (x w, both rounded: the box of x and the
-// weights' boxes alone, neither lo box staged).
-template <int N, int KS, int P>
+// boundary.  Three TF32 passes: x_hi w_hi + x_hi w_lo + x_lo w_hi,
+// fp32-accurate.
+template <int N, int KS>
 struct Tf32 {
-  static_assert(P == 1 || P == 3, "passes");
   static constexpr int kM = 256;
   static constexpr int kS = KS * 4;
-  static constexpr int kABoxes = P == 3 ? 2 : 1;   // x (and its lo)
-  static constexpr int kPlanes = P == 3 ? 2 : 1;   // w's hi (and lo)
+  static constexpr int kABoxes = 2;  // x and its lo
+  static constexpr int kPlanes = 2;  // w's hi and lo
   static constexpr int kBBox = (N * KS * 4 + 1023) / 1024 * 1024;
   static constexpr int kBBytes = 3 * kPlanes * kBBox;
   static constexpr int kBTx = 3 * kPlanes * N * KS * 4;  // what TMA writes
 };
-
-// TF32 of the fp32 bits v rounded to nearest, ties away from zero: what
-// cvt.rna.tf32.f32 gives (its low 13 bits are 0), in two integer
-// operations.  For |v| below 0x7f7ff000: larger finite values would round
-// up to inf.
-__device__ __forceinline__ uint32_t tf32_rna(uint32_t v) {
-  return (v + 0x1000u) & 0xffffe000u;
-}
-
-// An input value's one-pass TF32 value (bits v): rounded to nearest,
-// truncated where rounding would overflow (|v| >= 0x7f7ff000, inf kept),
-// a NaN kept as one (0x7fffe000: truncation may leave a NaN no payload).
-__device__ __forceinline__ uint32_t tf32_round_x(uint32_t v) {
-  const uint32_t a = v & 0x7fffffffu;
-  return a > 0x7f800000u ? 0x7fffe000u
-                         : a >= 0x7f7ff000u ? v & 0xffffe000u : tf32_rna(v);
-}
-
-// An input value's lo (bits v): hi is v truncated to TF32, as the tensor
-// cores read v; lo = v - hi (exact, with v's sign) truncated to TF32; 0
-// where v is a TF32 value, inf or a NaN whose payload TF32 keeps (any
-// other NaN gives lo = NaN).
-__device__ __forceinline__ uint32_t tf32_lo(uint32_t v) {
-  const uint32_t hi = v & 0xffffe000u;
-  const float r = __uint_as_float(v) - __uint_as_float(hi);
-  return hi == v ? 0u : __float_as_uint(r) & 0xffffe000u;
-}
-
-// A weight's one-pass TF32 value: w rounded to nearest (its error is half
-// of truncation's and unbiased), truncated where rounding would overflow
-// (|w| >= 0x7f7ff000) and for NaN.
-__device__ __forceinline__ float tf32_round_w(float w) {
-  const uint32_t v = __float_as_uint(w);
-  return __uint_as_float((v & 0x7fffffffu) >= 0x7f7ff000u ? v & 0xffffe000u
-                                                          : tf32_rna(v));
-}
-
-// A weight's split: hi = w truncated to TF32 (NaN kept), lo = rna TF32 of
-// the rest, which never has hi's opposite sign; a lo of 0 for a non-zero
-// finite w becomes hi 2^-30, so that an infinite x meets w as two infinities
-// of one sign.  0 for +-inf (an infinite weight is outside the contract).
-__device__ __forceinline__ void tf32_split_w(float w, float& hi, float& lo) {
-  const uint32_t v = __float_as_uint(w), a = v & 0x7fffffffu;
-  hi = __uint_as_float(a > 0x7f800000u ? 0x7fffe000u : v & 0xffffe000u);
-  uint32_t l = a >= 0x7f800000u ? 0u : tf32_rna(__float_as_uint(w - hi));
-  if (l == 0u && a != 0u && a < 0x7f800000u)
-    l = __float_as_uint(hi * 0x1p-30f);  // a TF32 value scaled by 2^-30
-  lo = __uint_as_float(l);
-}
 
 // ws [2][9][O][Cp] (hi, lo; tap, output channel, input channel; zero past
 // C) from the HWIO weights w [9][C][O]; for one pass (passes = 1) ws
@@ -1875,114 +1772,20 @@ __device__ __forceinline__ void round_box_x(uint4* xv, int i0, int i1,
   }
 }
 
-// Unit i of a walk of `splits` K splits a tile (split fastest): tile t,
-// split sp, and its stages [k0, k1) (3 a slice, the run of slices
-// [sp slices / splits, (sp + 1) slices / splits)).  Without kSplit, unit
-// i is tile i with all its stages, in constants the compiler folds.
-template <bool kSplit>
-struct SplitUnit {
-  long long t;
-  int sp, k0, k1;
-  __device__ __forceinline__ SplitUnit(long long i, int splits, int slices) {
-    if constexpr (kSplit) {
-      t = i / splits;
-      sp = (int)(i - t * splits);
-      k0 = 3 * (sp * slices / splits);
-      k1 = 3 * ((sp + 1) * slices / splits);
-    } else {
-      t = i;
-      sp = 0;
-      k0 = 0;
-      k1 = 3 * slices;
-    }
-  }
-};
-
-// Whether `v` is non-zero in any of a warpgroup's 128 threads, as a
-// barrier of them (named barrier `id`): bar.red.or.
-__device__ __forceinline__ bool bar_any_wg(int id, bool v) {
-  uint32_t r;
-  asm volatile(
-      "{\n.reg .pred q, p;\nsetp.ne.u32 q, %1, 0;\n"
-      "bar.red.or.pred p, %2, 128, q;\nselp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(r)
-      : "r"((uint32_t)v), "r"(id)
-      : "memory");
-  return r != 0;
-}
-
-// Split K (the header's paragraph): a warpgroup's (wg, thread wtid) sums
-// `acc` of split `sp` of tile t go to its slot of the workspace `part`, in
-// 16-byte vectors in register order (vector i of thread wtid at i 128 +
-// wtid); the half tile's counter cnt[2 t + wg] counts the warpgroup in.
-// The last of the `splits` to count in gets true, with acc the sum of
-// every split's slot in split order; the others get false (their sums are
-// in the workspace).  Non-finite sums pass through unchanged.
-template <int R, int E>
-__device__ __forceinline__ bool split_sum(float (&acc)[R][E],
-                                          float* __restrict__ part,
-                                          int* __restrict__ cnt, long long t,
-                                          int wg, int sp, int splits,
-                                          int wtid) {
-  static_assert(E % 4 == 0, "16-byte vectors");
-  constexpr int V = R * E / 4;  // vectors a thread
-  const long long q = 2 * t + wg;  // the half tile
-  float4* slot0 = reinterpret_cast<float4*>(part) + q * splits * (V * 128LL)
-                  + wtid;
-  float4* mine = slot0 + (long long)sp * (V * 128);
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int e = 0; e < E / 4; ++e)
-      __stcg(mine + (r * (E / 4) + e) * 128,
-             make_float4(acc[r][4 * e], acc[r][4 * e + 1], acc[r][4 * e + 2],
-                         acc[r][4 * e + 3]));
-  __threadfence();  // the partial, before the count that announces it
-  bar_sync_wg(1 + wg);
-  bool last = false;
-  if (wtid == 0) last = atomicAdd(cnt + q, 1) == splits - 1;
-  if (!bar_any_wg(4 + wg, last)) return false;
-  __threadfence();  // the count, before the reads of the others' partials
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int e = 0; e < E / 4; ++e) {
-      const float4 v = __ldcg(slot0 + (r * (E / 4) + e) * 128);
-      acc[r][4 * e] = v.x;
-      acc[r][4 * e + 1] = v.y;
-      acc[r][4 * e + 2] = v.z;
-      acc[r][4 * e + 3] = v.w;
-    }
-  for (int k = 1; k < splits; ++k) {
-    const float4* src = slot0 + (long long)k * (V * 128);
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int e = 0; e < E / 4; ++e) {
-        const float4 v = __ldcg(src + (r * (E / 4) + e) * 128);
-        acc[r][4 * e] += v.x;
-        acc[r][4 * e + 1] += v.y;
-        acc[r][4 * e + 2] += v.z;
-        acc[r][4 * e + 3] += v.w;
-      }
-  }
-  return true;
-}
-
 // A stage's products for a warpgroup: taps dy = 0, 1, 2, each KS / 8 k8
 // steps into both m64 blocks, as x_hi w_hi into acc and x_hi w_lo + x_lo
-// w_hi into cor (P = 3), or x w into acc (P = 1).  da:
+// w_hi into cor.  da:
 // the warpgroup's first pixel at dy = 0 in the box of x; tap dy starts dy x
 // `drow` further on (a row of cols pixels, in 16-byte units), a k8 step 32
 // bytes and an m64 block 64 kS bytes on; the box of lo is `dlo` further on.
 // db: the stage's weights, tap dy's hi box dy kBBox bytes on, its lo box 3
 // kBBox further.
-template <int N, int KS, int NP>
+template <int N, int KS>
 __device__ __forceinline__ void tf32x3_stage(float (&acc)[2][N / 2],
                                              float (&cor)[2][N / 2],
                                              uint64_t da, uint64_t db,
                                              uint32_t drow, uint32_t dlo) {
-  using P = Tf32<N, KS, NP>;
+  using P = Tf32<N, KS>;
 #pragma unroll
   for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
@@ -1991,29 +1794,27 @@ __device__ __forceinline__ void tf32x3_stage(float (&acc)[2][N / 2],
       for (int m = 0; m < 2; ++m) {
         const uint64_t ah = da + dy * drow + m * (64 * P::kS / 16) + 2 * i;
         const uint64_t bh = db + dy * (P::kBBox / 16) + 2 * i;
+        const uint64_t bl = bh + 3 * (P::kBBox / 16);
         wgmma_ss<float, N>(acc[m], ah, bh, 1);
-        if constexpr (NP == 3) {
-          const uint64_t bl = bh + 3 * (P::kBBox / 16);
-          wgmma_ss<float, N>(cor[m], ah, bl, 1);
-          wgmma_ss<float, N>(cor[m], ah + dlo, bh, 1);
-        }
+        wgmma_ss<float, N>(cor[m], ah, bl, 1);
+        wgmma_ss<float, N>(cor[m], ah + dlo, bh, 1);
       }
 }
 
 // xmap: x as [B][H][W][Cp] fp32, boxes {KS, cols, rows + 2, 1}; wmap: ws as
-// [9 kPlanes][O][Cp], boxes {KS, N, 1}; both with the kS-byte swizzle.
+// [18][O][Cp], boxes {KS, N, 1}; both with the kS-byte swizzle.
 // `lc` = log2(cols); `stages` stages of kABoxes `a_slot` + kBBytes bytes.
 // `splits` K splits a tile (split_sum's workspace `part` and counters
 // `cnt`) in the kSplit instances; the others take whole tiles (splits =
 // 1) in the code of an unsplit walk (the header's split-K paragraph).
-template <int N, int KS, int NP, bool kSplit>
+template <int N, int KS, bool kSplit>
 __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
     const __grid_constant__ CUtensorMap xmap,
     const __grid_constant__ CUtensorMap wmap, const float* __restrict__ bias,
     float* __restrict__ y, float* __restrict__ part, int* __restrict__ cnt,
     int B, int H, int W, int Cp, int O, int lc, int stages, int a_slot,
     int splits) {
-  using P = Tf32<N, KS, NP>;
+  using P = Tf32<N, KS>;
   static_assert(KS == 8 || KS == 16, "K slice");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
@@ -2088,7 +1889,7 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
   const uint32_t drow = (uint32_t)(cols * P::kS) >> 4;
   const uint32_t dlo = (uint32_t)a_slot >> 4;
   // acc: x_hi w_hi from the bias (split 0; the other splits from 0); cor:
-  // the corrections (P = 3; unused at P = 1, where the compiler drops it).
+  // the corrections.
   float acc[2][N / 2], cor[2][N / 2];
   int s = 0;
   uint32_t ph = 0;
@@ -2114,20 +1915,15 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
       mbar_wait(full + 8 * s, ph);
       const uint32_t a = ring + s * stage_bytes;
       // The box as it lies is x_hi (wgmma reads fp32 truncated to TF32).
-      // For three passes both warpgroups write its lo into the second box,
-      // chunk by chunk at the same offsets (so with the same swizzle); for
-      // one pass they round the box in place.  Then they meet.
+      // Both warpgroups write its lo into the second box, chunk by chunk at
+      // the same offsets (so with the same swizzle).  Then they meet.
       {
         uint4* xv = reinterpret_cast<uint4*>(base + (a - ring));
         uint4* lv = reinterpret_cast<uint4*>(base + (a - ring) + a_slot);
         for (int i = tid; i < box_bytes / 16; i += kConsumerThreads) {
           const uint4 v = xv[i];
-          if constexpr (NP == 3)
-            lv[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
-                               tf32_lo(v.w));
-          else
-            xv[i] = make_uint4(tf32_round_x(v.x), tf32_round_x(v.y),
-                               tf32_round_x(v.z), tf32_round_x(v.w));
+          lv[i] = make_uint4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
+                             tf32_lo(v.w));
         }
         fence_async_shared();  // the generic writes, before wgmma reads them
         bar_sync_consumers();
@@ -2135,15 +1931,15 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
       const uint64_t da = wgmma_desc<P::kS>(a + wg * 128 * P::kS);
       const uint64_t db = wgmma_desc<P::kS>(a + P::kABoxes * a_slot);
       fence_regs(acc);
-      if constexpr (NP == 3) fence_regs(cor);
+      fence_regs(cor);
       wgmma_fence();
-      tf32x3_stage<N, KS, NP>(acc, cor, da, db, drow, dlo);
+      tf32x3_stage<N, KS>(acc, cor, da, db, drow, dlo);
       wgmma_commit();
       if (k > k0) {
         // The previous stage's group is done: it may be refilled.
         wgmma_wait<1>();
         fence_regs(acc);
-        if constexpr (NP == 3) fence_regs(cor);
+        fence_regs(cor);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + 8 * prev);
       }
@@ -2155,13 +1951,11 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x3_kernel(
     }
     wgmma_wait<0>();
     fence_regs(acc);
-    if constexpr (NP == 3) {
-      fence_regs(cor);
+    fence_regs(cor);
 #pragma unroll
-      for (int m = 0; m < 2; ++m)
+    for (int m = 0; m < 2; ++m)
 #pragma unroll
-        for (int e = 0; e < N / 2; ++e) acc[m][e] += cor[m][e];
-    }
+      for (int e = 0; e < N / 2; ++e) acc[m][e] += cor[m][e];
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * prev);
     if constexpr (kSplit) {
@@ -2382,7 +2176,17 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x1_kernel(
       wgmma_fence();
       tf32x1_stage<MB, NPX, KS>(acc, da, db, drow);
       wgmma_commit();
-      if (k > k0) {
+      if constexpr (kSplit && MB == 1) {
+        // This stage's group done, before the loop's back edge: with a
+        // group in flight across it, ptxas serialized these instances'
+        // wgmmas (note C7515: non-wgmma instructions defining the
+        // accumulators within a pipeline stage), as it did the rows
+        // kernel's split instances.
+        wgmma_wait<0>();
+        fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      } else if (k > k0) {
         // The previous stage's group is done: it may be refilled.
         wgmma_wait<1>();
         fence_regs(acc);
@@ -2398,7 +2202,7 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x1_kernel(
     wgmma_wait<0>();
     fence_regs(acc);
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * prev);
+    if (!(kSplit && MB == 1) && lane == 0) mbar_arrive(empty + 8 * prev);
     if constexpr (kSplit) {
       if (!split_sum(acc, part, cnt, q.t, wg, q.sp, splits, wtid))
         continue;  // another unit of the tile finishes it
@@ -2465,28 +2269,6 @@ __global__ void __launch_bounds__(kSpecThreads, 1) conv3x3_tf32x1_kernel(
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
-
-// A tiled tensor map over T (f16, bf16 or fp32) data with the 128-byte
-// swizzle (or `swizzle`) and zero fill out of bounds.  The map holds the
-// data's pointer, so it is encoded at every call.
-template <typename T>
-cudaError_t encode_map(
-    CUtensorMap* map, const void* p, cuuint32_t rank, const cuuint64_t* dims,
-    const cuuint64_t* strides, const cuuint32_t* box,
-    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map,
-      std::is_same<T, float>::value    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-      : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      rank, const_cast<void*>(p), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
 
 // The streamed C = 64 kernel: `grid` persistent blocks per tile of BN output
 // channels, bands of R rows.
@@ -2573,14 +2355,6 @@ cudaError_t wide(const void* x, const void* w, const void* b, void* y, int B,
     case 256: return launch_wide<T, 256>(x, w, b, y, B, H, W, C, O, lc, grid, st);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// A swizzle mode by span in bytes (16: none).
-CUtensorMapSwizzle swizzle_of(int bytes) {
-  return bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-         : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-         : bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
-                       : CU_TENSOR_MAP_SWIZZLE_NONE;
 }
 
 // The narrow kernel: `grid` persistent blocks per tile of BN output
@@ -2723,41 +2497,20 @@ cudaError_t sliced(const void* x, const void* w, const void* b, void* y,
   }
 }
 
-// The split workspace after the weights' scratch (`wfloats` floats of
-// ws): the partials of `tiles` x `splits` units of `tile` floats each,
-// then 2 counters a tile (split_sum); none where splits = 1.  Refuses
-// splits outside [1, slices].
-struct SplitSpace {
-  float* part = nullptr;
-  int* cnt = nullptr;
-  long long ncnt = 0;
-};
-
-cudaError_t split_space(void* ws, long long wfloats, long long tiles,
-                        int splits, int slices, long long tile,
-                        SplitSpace* out) {
-  if (splits < 1 || splits > slices) return cudaErrorInvalidValue;
-  if (splits == 1) return cudaSuccess;
-  out->part = static_cast<float*>(ws) + wfloats;
-  out->cnt = reinterpret_cast<int*>(out->part + tiles * splits * tile);
-  out->ncnt = 2 * tiles;
-  return cudaSuccess;
-}
-
 // The split-TF32 kernel: `grid` persistent blocks over units of tiles of
 // 256 pixels (cols = 1 << lc wide) x N output channels and `splits` K
 // splits a tile, K slices of KS.  x is [B,H,W,Cp] (Cp = C rounded up to 4:
 // the wrapper's zero-padded copy where C % 4 != 0), w the caller's
-// [3,3,C,O]; ws, the wrapper's scratch of 18 O Cp floats (9 O Cp at one
-// pass), takes the weights' split first, then, where splits > 1, the
-// split workspace (split_space).  The ring takes as many stages as fit
-// beside the bias, at most kSlicedMaxStages.
-template <int N, int KS, int NP>
+// [3,3,C,O]; ws, the wrapper's scratch of 18 O Cp floats, takes the
+// weights' split first, then, where splits > 1, the split workspace
+// (split_space).  The ring takes as many stages as fit beside the bias,
+// at most kSlicedMaxStages.
+template <int N, int KS>
 cudaError_t launch_tf32x3(const void* x, const void* w, const void* b,
                           void* y, void* ws, int B, int H, int W, int C,
                           int O, int lc, int grid, int splits,
                           cudaStream_t st) {
-  using P = Tf32<N, KS, NP>;
+  using P = Tf32<N, KS>;
   const int cols = 1 << lc, rows = P::kM >> lc, cp = (C + 3) / 4 * 4;
   const long long nw = 9LL * cp * O;
   const long long tiles = (long long)((O + N - 1) / N) * ((W + cols - 1) / cols)
@@ -2770,7 +2523,7 @@ cudaError_t launch_tf32x3(const void* x, const void* w, const void* b,
                                                         1024),
                               256, 0, st>>>(static_cast<const float*>(w),
                                             static_cast<float*>(ws), C, cp, O,
-                                            NP, sp.cnt, sp.ncnt);
+                                            3, sp.cnt, sp.ncnt);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   CUtensorMap xmap, wmap;
@@ -2795,9 +2548,9 @@ cudaError_t launch_tf32x3(const void* x, const void* w, const void* b,
   if (stages < 2) return cudaErrorInvalidValue;
   const size_t bytes = fixed + (size_t)stages * (stage + 16);
   // A split needs two K slices or more: KS = 8 (C <= 8) has one.
-  auto kernel = conv3x3_tf32x3_kernel<N, KS, NP, false>;
+  auto kernel = conv3x3_tf32x3_kernel<N, KS, false>;
   if constexpr (KS == 16)
-    if (splits > 1) kernel = conv3x3_tf32x3_kernel<N, KS, NP, true>;
+    if (splits > 1) kernel = conv3x3_tf32x3_kernel<N, KS, true>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)bytes);
   if (e != cudaSuccess) return e;
@@ -2807,46 +2560,20 @@ cudaError_t launch_tf32x3(const void* x, const void* w, const void* b,
   return cudaGetLastError();
 }
 
-template <int N, int NP>
-cudaError_t tf32x3_ks(const void* x, const void* w, const void* b, void* y,
-                      void* ws, int B, int H, int W, int C, int O, int lc,
-                      int ks, int grid, int splits, cudaStream_t st) {
-  if (ks == 8)
-    return launch_tf32x3<N, 8, NP>(x, w, b, y, ws, B, H, W, C, O, lc, grid,
-                                   splits, st);
-  if (ks == 16)
-    return launch_tf32x3<N, 16, NP>(x, w, b, y, ws, B, H, W, C, O, lc, grid,
-                                    splits, st);
-  return cudaErrorInvalidValue;
-}
-
-template <int NP>
-cudaError_t tf32_n(const void* x, const void* w, const void* b, void* y,
-                   void* ws, int B, int H, int W, int C, int O, int lc, int n,
-                   int ks, int grid, int splits, cudaStream_t st) {
-  switch (n) {
-    case 8: return tf32x3_ks<8, NP>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, splits, st);
-    case 16: return tf32x3_ks<16, NP>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, splits, st);
-    case 32: return tf32x3_ks<32, NP>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, splits, st);
-    case 64: return tf32x3_ks<64, NP>(x, w, b, y, ws, B, H, W, C, O, lc, ks, grid, splits, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// `passes` TF32 passes: 3 (fp32-accurate) or 1.
+// Three TF32 passes at N = 64 (O tiles by 64).
 cudaError_t tf32x3(const void* x, const void* w, const void* b, void* y,
                    void* ws, int B, int H, int W, int C, int O, int cols,
-                   int n, int ks, int grid, int splits, int passes,
-                   cudaStream_t st) {
+                   int n, int ks, int grid, int splits, cudaStream_t st) {
   const int lc = cols == 16 ? 4 : cols == 32 ? 5 : cols == 64 ? 6
                : cols == 128 ? 7 : -1;
-  if (lc < 0 || grid <= 0 || ws == nullptr) return cudaErrorInvalidValue;
-  if (passes == 3)
-    return tf32_n<3>(x, w, b, y, ws, B, H, W, C, O, lc, n, ks, grid, splits,
-                     st);
-  if (passes == 1)
-    return tf32_n<1>(x, w, b, y, ws, B, H, W, C, O, lc, n, ks, grid, splits,
-                     st);
+  if (lc < 0 || grid <= 0 || ws == nullptr || n != 64)
+    return cudaErrorInvalidValue;
+  if (ks == 8)
+    return launch_tf32x3<64, 8>(x, w, b, y, ws, B, H, W, C, O, lc, grid,
+                                splits, st);
+  if (ks == 16)
+    return launch_tf32x3<64, 16>(x, w, b, y, ws, B, H, W, C, O, lc, grid,
+                                 splits, st);
   return cudaErrorInvalidValue;
 }
 
@@ -2980,18 +2707,18 @@ cudaError_t conv16(const void* x, const void* w, const void* b, void* y,
 // `cols`, `n`, `ks` (the K slice) and `grid` for the sliced kernel (16-bit,
 // other C >= 8), which takes w as [3,3,C,ld] and, where C % 8 != 0, x as
 // [B,H,W,Cp] and w as [3,3,Cp,ld], Cp = C rounded up to ks; `cols`, `n`,
-// `ks` and `grid` for the split-TF32 kernel (fp32), which takes x as
-// [B,H,W,Cp] where C % 4 != 0, Cp = C rounded up to 4, its TF32 `passes`
-// (3, or 1: x w with both rounded to TF32), `splits` (K splits a tile, 1
-// up to the K slices) and `ws`, a scratch of 18 O Cp floats (9 O Cp for
-// one pass) followed, where splits > 1, by the split workspace: the fp32
-// partials of tiles x splits units of 256 pixels x n channels, then two
-// int counters a tile (kernels/conv3x3.py SlicedPlan.workspace_bytes);
-// with passes = 1 and `R` > 0 the one-pass kernel instead, with R its
-// pixels a warpgroup (128 or 256), `n` its output channels a tile (64 or
-// 128), `cols`, `ks`, `grid`, `splits` and `ws` as the split-TF32
-// kernel's (units of 2 R pixels x n channels).  The 16-bit kernels read
-// neither `ws`, `splits` nor `passes`.
+// `ks` and `grid` for the split-TF32 kernel (fp32, `passes` = 3, `n` =
+// 64), which takes x as [B,H,W,Cp] where C % 4 != 0, Cp = C rounded up to
+// 4, `splits` (K splits a tile, 1 up to the K slices) and `ws`, a scratch
+// of 18 O Cp floats followed, where splits > 1, by the split workspace:
+// the fp32 partials of tiles x splits units of 256 pixels x n channels,
+// then two int counters a tile (kernels/conv3x3.py
+// SlicedPlan.workspace_bytes); with `passes` = 1 the one-pass kernel, with
+// `R` its pixels a warpgroup (128 or 256), `n` its output channels a tile
+// (64 or 128), `cols`, `ks`, `grid`, `splits` as the split-TF32 kernel's
+// (units of 2 R pixels x n channels) and `ws` of 9 O Cp floats before the
+// split workspace.  The 16-bit kernels read neither `ws`, `splits` nor
+// `passes`.
 extern "C" int rr_conv3x3(int dtype, const void* x, const void* w,
                           const void* b, void* y, void* ws, int B, int H,
                           int W, int C, int O, int R, int cols, int n, int ks,
@@ -3001,11 +2728,13 @@ extern "C" int rr_conv3x3(int dtype, const void* x, const void* w,
   cudaStream_t st = static_cast<cudaStream_t>(stream_);
   switch (dtype) {
     case RR_F32:
-      if (passes == 1 && R > 0)
+      if (passes == 1)
         return tf32x1(x, w, b, y, ws, B, H, W, C, O, cols, R, n, ks, grid,
                       splits, st);
-      return tf32x3(x, w, b, y, ws, B, H, W, C, O, cols, n, ks, grid, splits,
-                    passes, st);
+      if (passes == 3)
+        return tf32x3(x, w, b, y, ws, B, H, W, C, O, cols, n, ks, grid,
+                      splits, st);
+      return cudaErrorInvalidValue;
     case RR_F16:
       return conv16<__half>(x, w, b, y, B, H, W, C, O, R, cols, n, ks, grid,
                             st);

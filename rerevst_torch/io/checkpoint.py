@@ -178,7 +178,15 @@ def read_msgpack(path: str) -> Dict:
 
 def load_params(path: str, dtype=None, device="cuda") -> Dict:
     """Load a native ``.msgpack`` checkpoint as the port's parameters, cast to
-    `dtype` (None keeps the stored dtype) on `device`."""
+    `dtype` (None keeps the stored dtype) on `device`.
+
+    Raises ``TypeError`` where `dtype` is neither None nor a
+    ``torch.dtype``: the JAX package's ``load_params(path, like)`` takes a
+    template there, which would otherwise pass silently as the dtype."""
+    if dtype is not None and not isinstance(dtype, torch.dtype):
+        raise TypeError(f"load_params: dtype must be None or a torch.dtype, "
+                        f"not {type(dtype).__name__} (the port reads no "
+                        f"flax template)")
     return from_jax_params(read_msgpack(path), dtype=dtype, device=device)
 
 

@@ -55,6 +55,10 @@ SIGNATURES = {
     # ks, grid, splits, passes, stream
     "rr_conv3x3_c64": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _P],
+    # x, w, b (or None), y, ws, B, H, W, C, O, cols, n, ks, grid, splits,
+    # passes, stream
+    "rr_conv3x3_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _P],
     # x, g, dw, ws (or None), B, H, W, C, O, splits, passes, stream
     "rr_conv3x3_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
@@ -149,7 +153,8 @@ def ptxas_report(source: str, src_dir: Path = SRC_DIR) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
             entry["registers"] = int(m.group(1))
-        m = re.search(r"\((C\d+)\) (.*) for the function '(\w+)'", line)
+        m = re.search(r"\((C\d+)\) (.*) (?:for|in) the function '(\w+)'",
+                      line)
         if m:
             out.setdefault(m.group(3), {"notes": []})["notes"].append(
                 f"{m.group(1)} {m.group(2)}")

@@ -36,27 +36,31 @@ shape (:func:`design` names it):
   (where C % 8 != 0 the wrapper hands it copies of ``x`` and ``w`` padded
   with zero channels to a whole K slice, and where O % 8 != 0 a copy of
   ``w`` padded to 8 output channels, as for the wide design);
-* fp32 (both entry points, any C and O): the split-TF32 design, the
+* fp32 with O <= ``TF32_ROWS_MAX_O`` = 32 (both entry points, any C,
+  either pass count): the rows design (``"tf32_rows"``,
+  ``csrc/conv3x3_rows.cu``): pixels as wgmma's A from registers, each
+  fragment of x loaded once from a slice's one halo'd box and fed to the
+  three taps dy of its dx through R accumulator rows a warpgroup, the
+  weights' K-major planes as B, N = O rounded up to 8, 16 or 32; its work
+  split :func:`tf32_rows_plan` computes here;
+* fp32 with larger O (both entry points): the split-TF32 design, the
   sliced design's walk over K slices of 16 fp32 channels (8 where C <= 8)
   with each fp32 product taken on the tensor cores as three TF32 passes,
   x_hi w_hi + x_hi w_lo + x_lo w_hi (fp32-accurate, as the JAX package's
   HIGHEST and HIGH; design ``"tf32x3"``); its work split
   :func:`tf32x3_plan` computes here.  Where the implicit-GEMM wrapper is
   called with ``passes=1`` (the ``'default'`` precision) each product is
-  one pass x w with both rounded to nearest TF32: for O >
-  ``TF32X1_SLICED_MAX_O`` the one-pass design (``"tf32x1"``: the weights
-  as wgmma's A, 64 output channels a block, over a wide N of 128 or 256
-  pixels of x, each warpgroup rounding the box rows its own taps read),
-  for smaller O the split-TF32 kernel's one-pass instance
-  (``"tf32x1_sliced"``: pixels as A, N = O rounded up to 8, 16 or 32);
-  :func:`tf32x1_plan` computes either work split.  Where a call has fewer
-  tiles than the card has SMs (a train step's 32^2 images), both plans
-  split each tile's K over several blocks, whose fp32 partials the last of
-  them to finish sums in split order (``SlicedPlan.splits``).  The
-  wrapper hands the fp32 kernels a scratch tensor for the weights' K-major
-  hi (and lo) planes, which the kernel writes first, followed by the split
-  partials' workspace, and where C % 4 != 0 a copy of ``x`` padded with
-  zero channels to a multiple of 4.
+  one pass x w with both rounded to nearest TF32, on the one-pass design
+  (``"tf32x1"``: the weights as wgmma's A, 64 output channels a block,
+  over a wide N of 128 or 256 pixels of x, each warpgroup rounding the box
+  rows its own taps read); :func:`tf32x1_plan` computes its work split.
+  Where a call has fewer tiles than the card has SMs (a train step's 32^2
+  images), the fp32 plans split each tile's K over several blocks, whose
+  fp32 partials the last of them to finish sums in split order
+  (``SlicedPlan.splits``).  The wrapper hands the fp32 kernels a scratch
+  tensor for the weights' K-major hi (and lo) planes, which the kernel
+  writes first, followed by the split partials' workspace, and where C %
+  4 != 0 a copy of ``x`` padded with zero channels to a multiple of 4.
 
 No forward call reaches a cp.async + mma.sync kernel or the CUDA cores'
 FMAs.
@@ -187,11 +191,12 @@ WIDE_COLS = (128, 64, 32, 16)
 SLICED_MAX_O = 64
 
 
-#: One-pass fp32 calls with O up to this take the split-TF32 kernel's
-#: one-pass instance ("tf32x1_sliced", N = O rounded up to 8, 16 or 32);
-#: wider O the one-pass design ("tf32x1"), whose m64 blocks of output
-#: channels would be mostly padding below it.
-TF32X1_SLICED_MAX_O = 32
+#: fp32 calls with O up to this take the rows design ("tf32_rows",
+#: csrc/conv3x3_rows.cu: N = O rounded up to 8, 16 or 32) at either pass
+#: count; wider O the split-TF32 design (three passes) or the one-pass
+#: design ("tf32x1"), whose m64 blocks of output channels would be mostly
+#: padding below it.
+TF32_ROWS_MAX_O = 32
 
 SMEM_BYTES_PER_CLOCK = 128  # what an SM's shared memory moves a clock
 SMEM_MAX = 232448  # csrc/conv3x3.cu kSmemMax: dynamic shared memory a block
@@ -210,9 +215,9 @@ def design(c: int, dtype: torch.dtype, o: int, passes: int = 3) -> str:
     channels and O output channels in ``dtype`` (the launcher's dispatch
     by shape; `passes`, the TF32 passes of an fp32 call, 3 or 1)."""
     if dtype == torch.float32:
-        if passes == 3:
-            return "tf32x3"
-        return "tf32x1" if o > TF32X1_SLICED_MAX_O else "tf32x1_sliced"
+        if o <= TF32_ROWS_MAX_O:
+            return "tf32_rows"
+        return "tf32x3" if passes == 3 else "tf32x1"
     if c == _C64:
         return "streamed"
     if c % 64 == 0 and c >= 128 and o > SLICED_MAX_O:
@@ -363,6 +368,10 @@ class SlicedPlan(WidePlan):
     ks: int
     splits: int = dataclasses.field(default=1, kw_only=True)
 
+    #: Stages a K slice: one a dx (the tap-shifted boxes of the sliced
+    #: walk).
+    STAGES_PER_SLICE = 3
+
     @property
     def slices(self) -> int:
         return -(-self.c // self.ks)
@@ -399,11 +408,12 @@ class SlicedPlan(WidePlan):
 
     def split_cost(self, sms: int, stage_clocks: float) -> float:
         """Reckoned clocks of the call at ``stage_clocks`` a stage: the
-        busiest block's rounds of units over the SMs x its units' 3 x
-        slices / splits stages (rounded up), plus the workspace's bytes,
-        written and read once, at the card's memory rate."""
+        busiest block's rounds of units over the SMs x its units'
+        ``STAGES_PER_SLICE`` x slices / splits stages (rounded up), plus the
+        workspace's bytes, written and read once, at the card's memory
+        rate."""
         rounds = -(-self.units // sms)
-        stages = 3 * -(-self.slices // self.splits)
+        stages = self.STAGES_PER_SLICE * -(-self.slices // self.splits)
         return rounds * stages * stage_clocks \
             + 2 * self.workspace_bytes / HBM_BYTES_PER_CLOCK
 
@@ -459,7 +469,9 @@ def tf32x3_stage_reckoning(n: int, cols: int, ks: int,
     2) x cols pixels of 4 KS bytes, rows = 256 / cols) and of the
     weights' 3 boxes {KS, N} a plane (hi, and lo at three passes); and the
     consumers' pass over the box, read once and written once (its lo, or
-    x rounded in place)."""
+    x rounded in place).  The kernel runs N = 64 at three passes; N <= 32
+    and one pass reckon the instances it once had, against which the rows
+    design was chosen (:func:`tf32_rows_stage_reckoning`)."""
     steps = 2 * 3 * (ks // 8) * 2 * passes
     clocks = steps * n // 2
     reads = steps * (64 * 8 * 4 + n * 8 * 4)
@@ -477,20 +489,22 @@ def tf32_slice_width(c: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def tf32x3_plan(batch: int, height: int, width: int, c: int, o: int,
-                sms: int, passes: int = 3) -> SlicedPlan:
+                sms: int) -> SlicedPlan:
     """Tile shape, width N, K slice, K split and grid for a [batch,
-    height, width, c] -> o fp32 conv on the split-TF32 design (the sliced
-    design's walk) at `passes` TF32 passes: 256-pixel tiles, N = O rounded
-    up to 8, 16, 32 or 64 (larger O tiles by 64); where the tiles are
-    fewer than the SMs, each tile's K split over the blocks that reckon
-    least (:func:`_split_k`, a stage as :func:`tf32x3_stage_reckoning`
-    reckons it); one block per SM or one per unit where there are
-    fewer."""
+    height, width, c] -> o fp32 conv (O > ``TF32_ROWS_MAX_O``) on the
+    split-TF32 design (the sliced design's walk) at three TF32 passes:
+    256-pixel tiles, N = 64 (O tiles by 64); where the tiles are fewer
+    than the SMs, each tile's K split over the blocks that reckon least
+    (:func:`_split_k`, a stage as :func:`tf32x3_stage_reckoning` reckons
+    it); one block per SM or one per unit where there are fewer."""
+    if o <= TF32_ROWS_MAX_O:
+        raise ValueError(f"the split-TF32 design takes O > "
+                         f"{TF32_ROWS_MAX_O} (the rows design the rest); "
+                         f"got O={o}")
     plan = SlicedPlan(batch, height, width, o,
                       wide_cols(height, width, SLICED_M, SLICED_COLS),
                       out_tile(o), 1, c, tf32_slice_width(c))
-    clocks, nbytes = tf32x3_stage_reckoning(plan.n, plan.cols, plan.ks,
-                                            passes)
+    clocks, nbytes = tf32x3_stage_reckoning(plan.n, plan.cols, plan.ks)
     return _split_k(plan, sms, max(clocks, nbytes / SMEM_BYTES_PER_CLOCK))
 
 
@@ -575,10 +589,12 @@ def tf32x1_plan(batch: int, height: int, width: int, c: int, o: int,
     (:meth:`Tf32x1Plan.cost`: rounds of units over the SMs x stages x each
     stage's products or shared-memory bytes, plus the split partials'
     bytes) are least, the first on a tie; one block per SM or one per unit
-    where there are fewer.  Design "tf32x1_sliced" (O <=
-    ``TF32X1_SLICED_MAX_O``): :func:`tf32x3_plan` at one pass."""
-    if design(c, torch.float32, o, 1) != "tf32x1":
-        return tf32x3_plan(batch, height, width, c, o, sms, 1)
+    where there are fewer.  O > ``TF32_ROWS_MAX_O`` (the rows design
+    takes the rest)."""
+    if o <= TF32_ROWS_MAX_O:
+        raise ValueError(f"the one-pass design takes O > "
+                         f"{TF32_ROWS_MAX_O} (the rows design the rest); "
+                         f"got O={o}")
     best = None
     for mb, npx in TF32X1_SHAPES:
         if mb > 1 and o <= 64:
@@ -586,6 +602,149 @@ def tf32x1_plan(batch: int, height: int, width: int, c: int, o: int,
         cols = wide_cols(height, width, 2 * npx, SLICED_COLS)
         plan = Tf32x1Plan(batch, height, width, o, cols, 64 * mb, 1, c,
                           tf32_slice_width(c), mb, npx)
+        plan = _split_k(plan, sms, plan.stage_clocks())
+        if best is None or plan.cost(sms) < best.cost(sms):
+            best = plan
+    return best
+
+
+#: The rows design's tile widths (csrc/conv3x3_rows.cu: cw, the columns of
+#: a warpgroup's column of output), narrowest first.
+ROWS_COLS = (16, 32, 64)
+
+
+def rows_phases(n: int, passes: int) -> int:
+    """The rows design's accumulator rows a warpgroup (csrc/conv3x3_rows.cu
+    Rows::kR) at width N: R N / 2 fp32 sums a thread, and as many again at
+    three passes (the corrections), 64 registers at most, R at most 8: one
+    pass 8, 8, 4 at N = 8, 16, 32; three passes 8, 4, 2."""
+    return min(8, (128 if passes == 1 else 64) // n)
+
+
+def rows_channel(p: int, ks: int) -> int:
+    """The input channel at position p of a K slice of `ks` in the rows
+    design's weight planes (csrc/conv3x3_rows.cu rows_channel): k8 step j =
+    p // 8 takes, at its K index k, channel (ks / 4) (k % 4) + 2 j + k // 4,
+    so that the ks / 4 channels a lane loads from a pixel are its A values
+    at K indices t and t + 4 of every step."""
+    j, k = divmod(p, 8)
+    return (ks // 4) * (k % 4) + 2 * j + k // 4
+
+
+def tf32_rows_stage_reckoning(n: int, cols: int, ks: int,
+                              passes: int) -> tuple:
+    """(clocks of products, bytes through shared memory) of one stage (one
+    K slice) of the rows design on one SM, both consumer warpgroups: 9 taps
+    x R rows x KS / 8 k8 steps x `passes` wgmma m64nNk8 .tf32 a warpgroup
+    (N / 2 clocks each at 1024 TF32 FMAs a clock; A from registers, 32 N
+    bytes of B, the weights, read from shared memory); the A fragments
+    loaded from the box, (R + 2) phases x 3 dx of 64 pixels x KS fp32
+    channels a warpgroup; and TMA's writes of the box of x ((rows + 2) x
+    (cols + 2) pixels of 4 KS bytes, rows = 128 R / cols) and of the
+    weights ({KS, N} for 9 taps, hi and lo at three passes)."""
+    r = rows_phases(n, passes)
+    steps = 2 * 9 * r * (ks // 8) * passes
+    clocks = steps * n // 2
+    b_reads = steps * n * 8 * 4
+    a_loads = 2 * (r + 2) * 3 * 64 * ks * 4
+    box = (128 * r // cols + 2) * (cols + 2) * ks * 4
+    weights = 9 * (2 if passes == 3 else 1) * n * ks * 4
+    return clocks, b_reads + a_loads + box + weights
+
+
+#: The card's fp32 rate outside the tensor cores (H100 SXM: 67 TFLOP/s)
+#: and its memory rate, in the units of :func:`direct_fp32_reckoning`.
+FP32_FLOP_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+
+def direct_fp32_reckoning(batch: int, height: int, width: int, c: int,
+                          o: int) -> tuple:
+    """(ms of products, ms of bytes) of a CUDA-core direct conv, the
+    candidate the rows design was weighed against for O <= 8 (not built):
+    9 C O fp32 FMAs an output pixel at FP32_FLOP_PER_S, and x read once
+    and y written once at HBM_BYTES_PER_S.  The pass count does not enter:
+    one fp32 FMA is as accurate as three TF32 passes, and a TF32 x TF32
+    product is exact in fp32."""
+    pixels = batch * height * width
+    flops = 2 * pixels * 9 * c * o
+    nbytes = 4 * pixels * (c + o)
+    return flops / FP32_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+@dataclass(frozen=True)
+class RowsPlan(SlicedPlan):
+    """The rows design's work split: tiles of ``m`` = 128 ``phases``
+    pixels (``rows`` x ``cols``: two warpgroup columns of cols x rows / 2,
+    one above the other) x ``n`` output channels, walked strip fastest,
+    then band and image (one channel tile), each K slice of ``ks``
+    channels one stage, at ``passes`` TF32 passes."""
+
+    phases: int
+    passes: int
+
+    #: One stage a K slice: the dx shift is an offset into the slice's box.
+    STAGES_PER_SLICE = 1
+
+    @property
+    def m(self) -> int:
+        return 128 * self.phases
+
+    def stage_clocks(self) -> float:
+        """The reckoned clocks of a stage: the products, or the shared
+        memory's bytes at SMEM_BYTES_PER_CLOCK, the larger."""
+        clocks, nbytes = tf32_rows_stage_reckoning(self.n, self.cols,
+                                                   self.ks, self.passes)
+        return max(clocks, nbytes / SMEM_BYTES_PER_CLOCK)
+
+    def cost(self, sms: int) -> float:
+        """Reckoned clocks of the call (:meth:`SlicedPlan.split_cost`)."""
+        return self.split_cost(sms, self.stage_clocks())
+
+    @property
+    def weight_floats(self) -> int:
+        """The weights' planes in the scratch: 9 O Cs floats a plane (Cs =
+        C rounded up to ks), two planes at three passes."""
+        cs = -(-self.c // self.ks) * self.ks
+        return (2 if self.passes == 3 else 1) * 9 * self.o * cs
+
+    def smem(self) -> tuple:
+        """(ring stages, dynamic shared-memory bytes) of the launch, as
+        csrc/conv3x3_rows.cu launch_rows reckons them: 1024 bytes of
+        alignment, the bias (N floats), then as many stages (the box of x
+        on whole KB, the weights' boxes on whole KB, two mbarriers) as fit,
+        at most MAX_STAGES."""
+        ks4 = 4 * self.ks
+        a_slot = -(-(self.rows + 2) * (self.cols + 2) * ks4 // 1024) * 1024
+        w = -(-9 * (2 if self.passes == 3 else 1) * self.n * ks4
+              // 1024) * 1024
+        fixed = 1024 + self.n * 4
+        stages = min(MAX_STAGES, (SMEM_MAX - fixed) // (a_slot + w + 16))
+        return stages, fixed + stages * (a_slot + w + 16)
+
+
+@functools.lru_cache(maxsize=256)
+def tf32_rows_plan(batch: int, height: int, width: int, c: int, o: int,
+                   sms: int, passes: int = 3) -> RowsPlan:
+    """The work split of an fp32 [batch, height, width, c] -> o conv (O <=
+    ``TF32_ROWS_MAX_O``) on the rows design at `passes`: of the tile widths
+    ``ROWS_COLS``, each with the K split that reckons least
+    (:func:`_split_k`), the one whose reckoned clocks
+    (:meth:`RowsPlan.cost`) are least, the narrowest on a tie; widths whose
+    tiles would be under 8 rows tall are not taken (the kernel lands the
+    box of x in 8-row pieces); one block per SM or one per unit where there
+    are fewer."""
+    if o > TF32_ROWS_MAX_O:
+        raise ValueError(f"the rows design takes O <= {TF32_ROWS_MAX_O}; "
+                         f"got O={o}")
+    n = out_tile(o)
+    phases = rows_phases(n, passes)
+    best = None
+    for cols in ROWS_COLS:
+        if 128 * phases // cols < 8:
+            continue
+        plan = RowsPlan(batch, height, width, o, cols, n, 1, c,
+                        tf32_slice_width(c), phases, passes)
         plan = _split_k(plan, sms, plan.stage_clocks())
         if best is None or plan.cost(sms) < best.cost(sms):
             best = plan
@@ -730,8 +889,11 @@ def plan_for(x: torch.Tensor, o: int, passes: int = 3):
     channels launches on x's card at `passes` (forced splits included)."""
     bb, h, wd, c = x.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = (tf32x3_plan if passes == 3 else tf32x1_plan)(bb, h, wd, c, o,
-                                                         sms)
+    if design(c, torch.float32, o, passes) == "tf32_rows":
+        plan = tf32_rows_plan(bb, h, wd, c, o, sms, passes)
+    else:
+        plan = (tf32x3_plan if passes == 3 else tf32x1_plan)(bb, h, wd, c, o,
+                                                             sms)
     if _FORCED_SPLITS is not None:
         plan = with_splits(plan, _FORCED_SPLITS, sms)
     return plan
@@ -782,7 +944,24 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
             wp = w.new_zeros(3, 3, cp, ld)
             wp[:, :, :c, :o] = w
             w = wp
-    elif kind in ("tf32x3", "tf32x1", "tf32x1_sliced"):
+    elif kind == "tf32_rows":
+        plan = plan_for(x, o, passes)
+        # x padded to a 16-byte pixel stride, as below; ws: the weights'
+        # planes in the rows order (kernels' split kernel), then the split
+        # partials and their counters where splits > 1.
+        cp = -(-c // 4) * 4
+        if cp != c:
+            x = F.pad(x, (0, cp - c))
+        ws = torch.empty(plan.weight_floats + plan.workspace_bytes // 4,
+                         dtype=torch.float32, device=x.device)
+        err = _build.library().rr_conv3x3_rows(
+            x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+            y.data_ptr(), ws.data_ptr(), bb, h, wd, c, o, plan.cols, plan.n,
+            plan.ks, plan.grid, plan.splits, passes,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(err, name)
+        return y
+    elif kind in ("tf32x3", "tf32x1"):
         plan = plan_for(x, o, passes)
         cols, n, ks, grid = plan.cols, plan.n, plan.ks, plan.grid
         splits = plan.splits
@@ -1129,9 +1308,10 @@ _build.define_op("conv3x3_wgrad(Tensor x, Tensor g, int passes=3) -> Tensor",
                  _wgrad_plain, _wgrad_cuda, _wgrad_like)
 
 
-#: The kernel designs of csrc/conv3x3.cu, as :func:`design` names them.
+#: The kernel designs of csrc/conv3x3.cu and csrc/conv3x3_rows.cu, as
+#: :func:`design` names them.
 DESIGNS = ("streamed", "wide", "narrow", "sliced", "tf32x3", "tf32x1",
-           "tf32x1_sliced")
+           "tf32_rows")
 
 #: Kernel launches so far (CPU calls and empty inputs launch nothing); the
 #: implicit-GEMM wrapper's also by design, and its fp32 launches by (B, H,

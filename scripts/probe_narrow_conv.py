@@ -100,7 +100,8 @@ def build_variants(build) -> dict:
                                    f"conv3x3.cu")
             src = src.replace(old, new)
         (d / "conv3x3.cu").write_text(src)
-        shutil.copy(build.SRC_DIR / "common.cuh", d)
+        for header in build.SRC_DIR.glob("*.cuh"):
+            shutil.copy(header, d)
         procs[name] = (d / "lib.so", subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-shared",
              str(d / "conv3x3.cu"), "-o", str(d / "lib.so")]))

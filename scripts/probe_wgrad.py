@@ -84,7 +84,8 @@ def build_variant(build, name: str, edits):
             raise RuntimeError(f"{name}: an edit does not match {SOURCE}")
         src = src.replace(old, new)
     (d / SOURCE).write_text(src)
-    shutil.copy(build.SRC_DIR / "common.cuh", d)
+    for header in build.SRC_DIR.glob("*.cuh"):
+        shutil.copy(header, d)
     so = d / "lib.so"
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared",
                     str(d / SOURCE), "-o", str(so)], check=True)

@@ -65,7 +65,8 @@ def build_variant(build, name: str, old: str, new: str) -> ctypes.CDLL:
     if src.count(old) != 1:
         raise RuntimeError(f"{name}: the edit does not match conv3x3.cu")
     (d / "conv3x3.cu").write_text(src.replace(old, new))
-    shutil.copy(build.SRC_DIR / "common.cuh", d)
+    for header in build.SRC_DIR.glob("*.cuh"):
+        shutil.copy(header, d)
     so = d / "lib.so"
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared",
                     str(d / "conv3x3.cu"), "-o", str(so)], check=True)

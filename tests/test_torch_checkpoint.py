@@ -117,6 +117,17 @@ def test_load_params_goes_through_convert():
     assert w.dtype == torch.float16 and tuple(w.shape) == (3, 3, 512, 256)
 
 
+@pytest.mark.parametrize("second", ["template", {"decoder": {}}, 16,
+                                    np.float32])
+def test_load_params_rejects_a_template_as_dtype(second):
+    """A JAX-style ``load_params(path, like)`` (a flax template, or any
+    second argument that is not a torch dtype) raises TypeError before the
+    file is read, where it used to pass silently as the dtype."""
+    with pytest.raises(TypeError, match="torch.dtype"):
+        load_params(str(REPO / "models" / "does-not-exist.msgpack"), second,
+                    device="cpu")
+
+
 def test_from_jax_params_rejects_bad_weight_rank():
     with pytest.raises(ValueError, match="HWIO"):
         from_jax_params({"conv": {"w": np.zeros((3, 3, 4))}}, device="cpu")

@@ -14,20 +14,24 @@ padded to a multiple of 16 with zeros, in one pass.  Its sliced design
 channels, one halo'd TMA box per slice and dx feeding the three taps dy
 through K-major descriptors with the 32- or 64-byte swizzle, and stages
 its output in swizzled boxes for TMA stores; it also takes C % 64 = 0 with
-O <= 64.  Its split-TF32 design (fp32) walks the sliced design's tiles
-over K slices of 16 fp32 channels and takes each product as three TF32
-passes, x_hi w_hi + x_hi w_lo + x_lo w_hi.  Its one-pass design (fp32, one
-TF32 pass, O > 32) swaps the operands: the weights are wgmma's A, 64
-output channels a block, over 128 or 256 pixels of the box of x as N; each
-consumer warpgroup rounds the box pixels its own taps read, and the
-[channel][pixel] sums go out through a staging buffer.  These tests hold
-that index math and that split, as the wrapper's plans (``conv_plan``,
+O <= 64.  Its split-TF32 design (fp32, three passes, O > 32) walks the
+sliced design's tiles over K slices of 16 fp32 channels and takes each
+product as three TF32 passes, x_hi w_hi + x_hi w_lo + x_lo w_hi.  Its
+one-pass design (fp32, one TF32 pass, O > 32) swaps the operands: the
+weights are wgmma's A, 64 output channels a block, over 128 or 256 pixels
+of the box of x as N; each consumer warpgroup rounds the box pixels its
+own taps read, and the [channel][pixel] sums go out through a staging
+buffer.
+``csrc/conv3x3_rows.cu``'s rows design (fp32, O <= 32, both pass counts)
+takes pixels as wgmma's A from registers, each fragment of a slice's one
+box fed to the three taps dy through rolling accumulator rows.  These tests
+hold that index math and that split, as the wrapper's plans (``conv_plan``,
 ``wide_plan``, ``narrow_plan``, ``sliced_plan``, ``tf32x3_plan``,
-``tf32x1_plan`` in
+``tf32x1_plan``, ``tf32_rows_plan`` in
 ``rerevst_torch.kernels.conv3x3``) and numpy emulations of the kernels'
 order of work state it, to the plain conv.  Beside them, the text edits
-of ``scripts/probe_tf32_conv.py``'s variants must each match the kernel
-source once.
+of ``scripts/probe_tf32_conv.py``'s and ``scripts/probe_rows_conv.py``'s
+variants must each match the kernel source once.
 
 Tolerance of the emulations: each and the plain version sum K = 9 C fp32
 products in other orders, each within K 2^-24 sum|x||w| of the exact sum,
@@ -47,6 +51,7 @@ from rerevst_torch.kernels.conv3x3 import (
     NARROW_COLS,
     NARROW_ROWS,
     SLICED_COLS,
+    SLICED_M,
     SLICED_MAX_O,
     TW,
     WIDE_COLS,
@@ -57,18 +62,29 @@ from rerevst_torch.kernels.conv3x3 import (
     conv3x3_implicit_gemm_plain,
     conv_plan,
     design,
+    direct_fp32_reckoning,
     narrow_plan,
     out_tile,
     slice_width,
     sliced_plan,
+    MAX_STAGES,
+    MIN_SPLIT_SLICES,
+    ROWS_COLS,
+    SMEM_MAX,
+    TF32_ROWS_MAX_O,
     TF32X1_SHAPES,
-    TF32X1_SLICED_MAX_O,
+    RowsPlan,
     Tf32x1Plan,
+    rows_channel,
+    rows_phases,
+    tf32_rows_plan,
+    tf32_rows_stage_reckoning,
     tf32_slice_width,
     tf32x1_plan,
-    MIN_SPLIT_SLICES,
     tf32x1_stage_reckoning,
     tf32x3_plan,
+    tf32x3_stage_reckoning,
+    wide_cols,
     wide_plan,
     with_splits,
 )
@@ -205,7 +221,8 @@ def test_design_by_shape():
     wide where O > 64 and sliced where O <= 64 (the grid of
     scripts/conv_ab.py), 1 <= C <= 7 narrow, other C the sliced TMA + wgmma
     kernel (no 16-bit C reaches a cp.async + mma.sync kernel), fp32 the
-    split-TF32 kernel at every C and O (none reaches the CUDA cores' FMAs)."""
+    rows kernel at O <= 32 and the split-TF32 kernel at larger O, every C
+    (none reaches the CUDA cores' FMAs)."""
     assert SLICED_MAX_O == 64
     for dt in (torch.float16, torch.bfloat16):
         for o in (3, 64, 65, 512):
@@ -222,7 +239,9 @@ def test_design_by_shape():
             for o in (3, 64, 512):
                 assert design(c, dt, o) == "sliced"
     for c in (1, 3, 7, 8, 64, 100, 128, 512):
-        for o in (3, 64, 512):
+        for o in (3, 32):
+            assert design(c, torch.float32, o) == "tf32_rows"
+        for o in (33, 64, 512):
             assert design(c, torch.float32, o) == "tf32x3"
 
 
@@ -1029,14 +1048,17 @@ def test_tf32_split_infinite_input_meets_each_weight_as_fp32():
 @pytest.mark.parametrize("width", [1, 7, 130, 640])
 def test_tf32x3_plan_covers_every_output_once(batch, height, width):
     """Every output pixel x channel belongs to exactly one 256-pixel tile,
-    the blocks take every (tile, K split) unit once, N = O rounded up to 8
-    .. 64 (larger O in tiles of 64) and the K slice is 8 fp32 channels up
-    to C = 8, else 16."""
-    for c, o in [(3, 64), (8, 5), (64, 64), (100, 192), (64, 3), (7, 512)]:
+    the blocks take every (tile, K split) unit once, N = 64 (O > 32 in
+    tiles of 64; O <= 32 is the rows design's, which the plan refuses) and
+    the K slice is 8 fp32 channels up to C = 8, else 16."""
+    with pytest.raises(ValueError):
+        tf32x3_plan(batch, height, width, 64, TF32_ROWS_MAX_O, H100_SMS)
+    for c, o in [(3, 64), (8, 40), (64, 64), (100, 192), (64, 33), (7, 512)]:
         for sms in (H100_SMS, 7):
             plan = tf32x3_plan(batch, height, width, c, o, sms)
             assert plan.cols in SLICED_COLS and plan.m == 256
-            assert plan.n == out_tile(o) and plan.ks == tf32_slice_width(c)
+            assert plan.n == out_tile(o) == 64
+            assert plan.ks == tf32_slice_width(c)
             assert plan.ks == (8 if c <= 8 else 16)
             assert 1 <= plan.grid <= min(plan.units, sms)
             taken = np.sort(np.concatenate(
@@ -1078,7 +1100,7 @@ def _split_sum(partials, t, splits):
     return total
 
 
-def _emulate_tf32x3(x, w, b, plan, passes=3):
+def _emulate_tf32x3(x, w, b, plan):
     """The split-TF32 kernel's order of work in numpy: x zero-padded to Cp
     = C rounded up to 4; the split kernel's ws[p][tap][o][c] (p = 0: hi, 1:
     lo; zero past C); for each tile, stages k = slice 3 + dx, whose box
@@ -1087,18 +1109,13 @@ def _emulate_tf32x3(x, w, b, plan, passes=3):
     adds x_hi B_hi to the sums, which start from the bias, and x_hi B_lo +
     x_lo B_hi to the corrections, which start from 0, B_p = ws[p][3 dy +
     dx] rows n0 .. n0 + N - 1 (zero past O), columns of the slice; the two
-    are added once a tile, and each output inside y is stored once.  One
-    pass (`passes` 1) adds x B alone, the box rounded in place
-    (tf32_round_x) and B the weights rounded to TF32 (the split kernel's
-    one plane)."""
+    are added once a tile, and each output inside y is stored once."""
     bsz, h, wd, c = x.shape
     o = w.shape[-1]
     cp = -(-c // 4) * 4
     xp = np.zeros((bsz, h, wd, cp), np.float32)
     xp[..., :c] = x
     whi, wlo = tf32_split_w(w.reshape(9, c, o))
-    if passes == 1:
-        whi, wlo = tf32_round_w(w.reshape(9, c, o)), np.zeros_like(wlo)
     ws = np.zeros((2, 9, o, cp), np.float32)
     ws[0, :, :, :c] = whi.transpose(0, 2, 1)
     ws[1, :, :, :c] = wlo.transpose(0, 2, 1)
@@ -1127,8 +1144,6 @@ def _emulate_tf32x3(x, w, b, plan, passes=3):
                         xp[bi, ylo:yhi, xlo:xhi, cs:chi]
                 bits = _bits(box.reshape((rows + 2) * cols, ks))
                 ahi, alo = _floats(bits & MASK), _floats(tf32_lo(bits))
-                if passes == 1:
-                    ahi = tf32_round_x(_floats(bits))
                 for dy in range(3):
                     bt = np.zeros((2, ks, n), np.float32)
                     nhi = min(n0 + n, o)
@@ -1136,9 +1151,8 @@ def _emulate_tf32x3(x, w, b, plan, passes=3):
                         ws[:, 3 * dy + dx, n0:nhi, cs:chi].transpose(0, 2, 1)
                     rr = slice(dy * cols, dy * cols + plan.m)
                     acc += ahi[rr] @ bt[0]
-                    if passes == 3:
-                        cor += ahi[rr] @ bt[1]
-                        cor += alo[rr] @ bt[0]
+                    cor += ahi[rr] @ bt[1]
+                    cor += alo[rr] @ bt[0]
             partials[t, sp] = acc + cor
     for t in range(plan.tiles):
         bi, y0, x0, n0 = plan.tile(t)
@@ -1150,17 +1164,21 @@ def _emulate_tf32x3(x, w, b, plan, passes=3):
 
 
 @pytest.mark.parametrize("c,o", [(3, 64), (7, 5), (8, 16), (64, 64),
-                                 (64, 3), (100, 192), (13, 72)])
+                                 (64, 3), (100, 192), (13, 72), (7, 37),
+                                 (64, 33)])
 def test_tf32x3_k_loop_matches_plain(c, o):
-    """Ragged band and strip (H = 19, W = 21), B = 2, a grid of 3 blocks:
-    C = 3, 7 and 13 in a padded copy (Cp = 4, 8, 16), 8 in one 8-channel
-    slice, 64 and 100 in 16-channel slices (100: a zero-filled tail); O =
-    3, 5 (scalar stores), 16, 64, 72 and 192 (two and three channel
-    tiles).  Within 9C 2^-22 sum|x||w| (+|b|) of the plain fp32 conv."""
+    """Three passes on the route the wrapper takes (O > 32 the split-TF32
+    walk, O <= 32 the rows design).  Ragged band and strip (H = 19, W =
+    21), B = 2, a grid of 3 blocks: C = 3, 7 and 13 in a padded copy (Cp
+    = 4, 8, 16), 8 in one 8-channel slice, 64 and 100 in 16-channel slices
+    (100: a zero-filled tail); O = 3, 5, 33 and 37 (scalar stores), 16,
+    64, 72 and 192 (two and three channel tiles).  Within 9C 2^-22
+    sum|x||w| (+|b|) of the plain fp32 conv."""
     x, w, b = _sliced_case(c, o, (2, 19, 21), seed=9)
-    plan = dataclasses.replace(tf32x3_plan(2, 19, 21, c, o, H100_SMS),
+    plan = dataclasses.replace(_fp32_plan(2, 19, 21, c, o, H100_SMS, 3),
                                grid=3)
-    got = _emulate_tf32x3(x, w, b, plan)
+    assert isinstance(plan, RowsPlan) == (o <= TF32_ROWS_MAX_O)
+    got = _emulate_fp32(x, w, b, plan)
     tt = [torch.from_numpy(v) for v in (x, w, b)]
     want = conv3x3_implicit_gemm_plain(*tt).numpy()
     scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
@@ -1168,28 +1186,41 @@ def test_tf32x3_k_loop_matches_plain(c, o):
     assert (np.abs(got - want) <= 9 * c * 2.0 ** -22 * scale).all()
 
 
-def _emulate_one_pass(x, w, b, plan):
-    """The one-pass kernel the wrapper's plan names: the one-pass design
-    (a Tf32x1Plan) or the split-TF32 kernel's one-pass instance."""
+def _fp32_plan(batch, height, width, c, o, sms, passes):
+    """The plan of the design the wrapper takes for an fp32 call at
+    `passes`: the rows design's at O <= 32, else the split-TF32 (three
+    passes) or the one-pass design's (one)."""
+    if o <= TF32_ROWS_MAX_O:
+        return tf32_rows_plan(batch, height, width, c, o, sms, passes)
+    plan_of = tf32x3_plan if passes == 3 else tf32x1_plan
+    return plan_of(batch, height, width, c, o, sms)
+
+
+def _emulate_fp32(x, w, b, plan):
+    """The fp32 kernel the wrapper's plan names: the rows design (a
+    RowsPlan), the one-pass design (a Tf32x1Plan) or the split-TF32
+    kernel."""
+    if isinstance(plan, RowsPlan):
+        return _emulate_rows(x, w, b, plan)
     if isinstance(plan, Tf32x1Plan):
         return _emulate_tf32x1(x, w, b, plan)
-    return _emulate_tf32x3(x, w, b, plan, passes=1)
+    return _emulate_tf32x3(x, w, b, plan)
 
 
 @pytest.mark.parametrize("c,o", [(3, 64), (8, 16), (64, 64), (100, 192)])
 def test_tf32x1_k_loop_matches_plain(c, o):
     """One TF32 pass (the 'default' precision), on the route the wrapper
-    takes (O = 64 and 192: the one-pass design; O = 16: the split-TF32
-    kernel's one-pass instance): within (2^-10 + 2^-22 + 9C 2^-22)
-    sum|x||w| (+|b|) of the plain fp32 conv, x and w rounded to nearest
-    TF32 (each <= 2^-11 of it); and farther from it than three passes."""
+    takes (O = 64 and 192: the one-pass design; O = 16: the rows design):
+    within (2^-10 + 2^-22 + 9C 2^-22) sum|x||w| (+|b|) of the plain fp32
+    conv, x and w rounded to nearest TF32 (each <= 2^-11 of it); and
+    farther from it than three passes on the route they take."""
     x, w, b = _sliced_case(c, o, (2, 19, 21), seed=12)
-    plan = dataclasses.replace(tf32x1_plan(2, 19, 21, c, o, H100_SMS),
+    plan = dataclasses.replace(_fp32_plan(2, 19, 21, c, o, H100_SMS, 1),
                                grid=3)
-    assert isinstance(plan, Tf32x1Plan) == (o > TF32X1_SLICED_MAX_O)
-    one = _emulate_one_pass(x, w, b, plan)
-    three = _emulate_tf32x3(x, w, b, dataclasses.replace(
-        tf32x3_plan(2, 19, 21, c, o, H100_SMS), grid=3))
+    assert isinstance(plan, Tf32x1Plan) == (o > TF32_ROWS_MAX_O)
+    one = _emulate_fp32(x, w, b, plan)
+    three = _emulate_fp32(x, w, b, dataclasses.replace(
+        _fp32_plan(2, 19, 21, c, o, H100_SMS, 3), grid=3))
     tt = [torch.from_numpy(v) for v in (x, w, b)]
     want = conv3x3_implicit_gemm_plain(*tt).numpy()
     scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
@@ -1199,7 +1230,7 @@ def test_tf32x1_k_loop_matches_plain(c, o):
     assert np.abs(one - want).max() > np.abs(three - want).max()
 
 
-# The one-pass design (fp32, one TF32 pass, O > TF32X1_SLICED_MAX_O).
+# The one-pass design (fp32, one TF32 pass, O > TF32_ROWS_MAX_O).
 
 #: A consumer warpgroup's 128 threads: warp, lane; its accumulator row
 #: (output channel within an m64 block) and first pixel column of each 8.
@@ -1315,14 +1346,14 @@ def _emulate_tf32x1(x, w, b, plan):
 
 
 def test_tf32x1_design_by_shape():
-    """One pass: the one-pass design where O > 32, the split-TF32 kernel's
-    one-pass instance (N = O rounded up to 8, 16 or 32) at O <= 32, at
-    every C; three passes the split-TF32 kernel."""
-    assert TF32X1_SLICED_MAX_O == 32
-    assert "tf32x1" in DESIGNS and "tf32x1_sliced" in DESIGNS
+    """One pass: the one-pass design where O > 32, the rows design (N = O
+    rounded up to 8, 16 or 32) at O <= 32, at every C; three passes the
+    split-TF32 kernel where O > 32."""
+    assert TF32_ROWS_MAX_O == 32
+    assert "tf32x1" in DESIGNS and "tf32_rows" in DESIGNS
     for c in (1, 3, 8, 13, 64, 512):
         for o in (1, 3, 8, 32):
-            assert design(c, torch.float32, o, 1) == "tf32x1_sliced"
+            assert design(c, torch.float32, o, 1) == "tf32_rows"
         for o in (33, 64, 65, 192, 512):
             assert design(c, torch.float32, o, 1) == "tf32x1"
             assert design(c, torch.float32, o, 3) == "tf32x3"
@@ -1336,24 +1367,25 @@ def test_tf32x1_plan_covers_every_output_once(batch, height, width):
     x channel belongs to exactly one tile, the blocks take every (tile, K
     split) unit once; O > 32 takes tiles of 2 NPX pixels (rows x cols) x 64 MB
     channels of TF32X1_SHAPES (MB = 2 only where O > 64), each within the
-    block's shared memory with at least two stages; O <= 32 the split-TF32
-    kernel's plan."""
+    block's shared memory with at least two stages; O <= 32 (the rows
+    design's) is refused."""
     for c, o in [(3, 64), (64, 3), (64, 32), (13, 192), (200, 512),
                  (64, 64)]:
         for sms in (H100_SMS, 7):
+            if o <= TF32_ROWS_MAX_O:
+                with pytest.raises(ValueError):
+                    tf32x1_plan(batch, height, width, c, o, sms)
+                continue
             plan = tf32x1_plan(batch, height, width, c, o, sms)
-            if o <= TF32X1_SLICED_MAX_O:
-                assert plan == tf32x3_plan(batch, height, width, c, o, sms)
-            else:
-                assert isinstance(plan, Tf32x1Plan)
-                assert (plan.mb, plan.npx) in TF32X1_SHAPES
-                assert plan.mb == 1 or o > 64
-                assert plan.n == 64 * plan.mb and plan.m == 2 * plan.npx
-                assert plan.rows * plan.cols == plan.m
-                assert plan.cols in SLICED_COLS
-                assert plan.ks == tf32_slice_width(c)
-                stages, nbytes = plan.smem()
-                assert stages >= 2 and nbytes <= 232448
+            assert isinstance(plan, Tf32x1Plan)
+            assert (plan.mb, plan.npx) in TF32X1_SHAPES
+            assert plan.mb == 1 or o > 64
+            assert plan.n == 64 * plan.mb and plan.m == 2 * plan.npx
+            assert plan.rows * plan.cols == plan.m
+            assert plan.cols in SLICED_COLS
+            assert plan.ks == tf32_slice_width(c)
+            stages, nbytes = plan.smem()
+            assert stages >= 2 and nbytes <= 232448
             assert 1 <= plan.grid <= min(plan.units, sms)
             taken = np.sort(np.concatenate(
                 [np.asarray(plan.block_units(bx)) for bx in range(plan.grid)]))
@@ -1465,7 +1497,7 @@ def test_tf32x1_walk_matches_plain(c, o, shape):
     """Both one-pass routes at the wrapper's plan and at every tile shape
     of TF32X1_SHAPES the width allows, 32^2 images among them, a grid of 3
     blocks: C = 3 and 13 in a padded copy, 100 with a zero-filled tail;
-    O = 3 and 32 (the split-TF32 instance), 64, 65 and 72 (scalar stores,
+    O = 3 and 32 (the rows design), 64, 65 and 72 (scalar stores,
     a half-empty block), 192 and 512.  Within (2^-10 + (9C + 1) 2^-22)
     sum|x||w| (+|b|) of the plain fp32 conv, each output stored once."""
     x, w, b = _sliced_case(c, o, shape, seed=15)
@@ -1473,7 +1505,7 @@ def test_tf32x1_walk_matches_plain(c, o, shape):
     want = conv3x3_implicit_gemm_plain(*tt).numpy()
     scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
     bar = (2.0 ** -10 + (9 * c + 1) * 2.0 ** -22) * scale
-    base = tf32x1_plan(*shape, c, o, H100_SMS)
+    base = _fp32_plan(*shape, c, o, H100_SMS, 1)
     plans = [dataclasses.replace(base, grid=3)]
     if isinstance(base, Tf32x1Plan):
         for mb, npx in TF32X1_SHAPES:
@@ -1482,7 +1514,7 @@ def test_tf32x1_walk_matches_plain(c, o, shape):
                     base, mb=mb, npx=npx, n=64 * mb, grid=3,
                     cols=min(SLICED_COLS[1], 2 * npx)))
     for plan in plans:
-        got = _emulate_one_pass(x, w, b, plan)
+        got = _emulate_fp32(x, w, b, plan)
         assert np.isfinite(got).all()
         assert (np.abs(got - want) <= bar).all(), plan
 
@@ -1595,10 +1627,10 @@ def test_tf32x3_matches_the_pallas_kernel():
 def test_tf32x3_nonfinite_and_huge_inputs():
     """inf, -inf, NaN and +-FLT_MAX inside, on both sides of a tile's edge
     columns (15 | 16) and rows, at the image's edges and in the last
-    channel (C = 13: a padded copy): the emulation's NaN and inf outputs
-    are exactly the plain conv's, and the finite ones agree (FLT_MAX's
-    outputs too: its split does not overflow)."""
-    c, o = 13, 24
+    channel (C = 13: a padded copy), O = 40: the emulation's NaN and inf
+    outputs are exactly the plain conv's, and the finite ones agree
+    (FLT_MAX's outputs too: its split does not overflow)."""
+    c, o = 13, 40
     x, w, b = _sliced_case(c, o, (2, 19, 40), seed=11)
     for idx, v in [((0, 3, 5, 7), np.inf), ((0, 10, 15, 1), -np.inf),
                    ((0, 10, 16, c - 1), np.nan), ((0, 15, 30, 4), np.inf),
@@ -1625,17 +1657,15 @@ def test_tf32x3_nonfinite_and_huge_inputs():
 
 # Split K over blocks (both fp32 kernels, csrc/conv3x3.cu split_sum).
 
-#: The plans of a 640^2 fp32 batch's conv shapes (rows 3j, 3k and the
-#: other Pass-2 shapes) before K could be split: (x shape, O) -> (cols, n,
-#: ks, grid, tiles) of the three-pass plan, and of the one-pass plan, with
-#: (mb, npx) where that is the one-pass design.
+#: The plans of a 640^2 fp32 batch's conv shapes with O > 32 (rows 3j, 3k
+#: and the other Pass-2 shapes) before K could be split: (x shape, O) ->
+#: (cols, n, ks, grid, tiles) of the three-pass plan, and of the one-pass
+#: plan, with (mb, npx).
 BATCH_PLANS = {
     ((16, 640, 640, 64), 64): ((16, 64, 16, 132, 25600),
                                (16, 64, 16, 132, 12800, 1, 256)),
     ((16, 640, 640, 3), 64): ((16, 64, 8, 132, 25600),
                               (16, 64, 8, 132, 12800, 1, 256)),
-    ((16, 640, 640, 64), 3): ((16, 8, 16, 132, 25600),
-                              (16, 8, 16, 132, 25600)),
     ((16, 320, 320, 64), 128): ((16, 64, 16, 132, 12800),
                                 (16, 128, 16, 132, 6400, 2, 128)),
     ((16, 320, 320, 128), 128): ((16, 64, 16, 132, 12800),
@@ -1646,8 +1676,6 @@ BATCH_PLANS = {
                                  (16, 128, 16, 132, 3200, 2, 128)),
     ((16, 80, 80, 256), 512): ((16, 64, 16, 132, 3200),
                                (16, 128, 16, 132, 1600, 2, 128)),
-    ((16, 80, 80, 512), 32): ((16, 32, 16, 132, 400),
-                              (16, 32, 16, 132, 400)),
     ((16, 80, 80, 32), 512): ((16, 64, 16, 132, 3200),
                               (16, 128, 16, 132, 1600, 2, 128)),
 }
@@ -1661,8 +1689,9 @@ def _plan_key(plan):
 
 def test_split_plans_keep_the_640_batch_plans():
     """Every conv shape of a 640^2 fp32 batch has tiles enough for every
-    SM: one split, no workspace, and the plan it had before, at three and
-    at one pass."""
+    SM: one split and no workspace at three and at one pass, and where O >
+    32 the plan it had before (O <= 32, the `out` and `down` convs: the
+    rows design's plans)."""
     for (shape, o), (three, one) in BATCH_PLANS.items():
         for plan, want in ((tf32x3_plan(*shape, o, H100_SMS), three),
                            (tf32x1_plan(*shape, o, H100_SMS), one)):
@@ -1670,22 +1699,29 @@ def test_split_plans_keep_the_640_batch_plans():
             assert _plan_key(plan) == want, (shape, o)
             assert plan.splits == 1 and plan.workspace_bytes == 0
             assert plan.units == plan.tiles
+    for shape, o in (((16, 640, 640, 64), 3), ((16, 80, 80, 512), 32)):
+        for passes in (3, 1):
+            plan = tf32_rows_plan(*shape, o, H100_SMS, passes)
+            assert plan.tiles >= H100_SMS
+            assert plan.splits == 1 and plan.workspace_bytes == 0
+            assert plan.units == plan.tiles
 
 
 def test_split_plans_at_the_train_step_32x32():
     """[4,32,32,512] -> 32 (the decoder filter blocks' `up` conv's input
-    gradient, 72 launches a step): 16 tiles of 256 pixels, at both passes
-    split 8 ways, 128 units of 4 slices (12 stages) on 128 blocks; at one
-    pass [4,32,32,512] -> 256 splits too (more than 32 tiles for 132
-    SMs); the step's shapes whose tiles fill the SMs keep one split."""
-    for passes in (3, 1):
-        plan = tf32x3_plan(4, 32, 32, 512, 32, H100_SMS, passes)
+    gradient, 72 launches a step) on the rows design: 16 tiles of 256
+    pixels at three passes and 8 of 512 at one, each split 8 ways, units
+    of 4 slices (4 stages), one block a unit; at one pass [4,32,32,512] ->
+    256 splits too (more than 32 tiles for 132 SMs); the step's shapes
+    whose tiles fill the SMs keep one split."""
+    assert design(512, torch.float32, 32, 1) == "tf32_rows"
+    for passes, tiles in ((3, 16), (1, 8)):
+        plan = tf32_rows_plan(4, 32, 32, 512, 32, H100_SMS, passes)
         assert (plan.tiles, plan.splits, plan.units, plan.grid) == \
-            (16, 8, 128, 128)
+            (tiles, 8, 8 * tiles, 8 * tiles)
+        assert plan.m * tiles == 4 * 32 * 32
         assert {len(plan.split_slices(s)) for s in range(8)} == {4}
-        assert plan.workspace_bytes == 16 * (8 * 256 * 32 + 2) * 4
-    assert tf32x1_plan(4, 32, 32, 512, 32, H100_SMS) == \
-        tf32x3_plan(4, 32, 32, 512, 32, H100_SMS, 1)
+        assert plan.workspace_bytes == tiles * (8 * plan.m * 32 + 2) * 4
     wide = tf32x1_plan(4, 32, 32, 512, 256, H100_SMS)
     assert wide.splits > 1 and wide.tiles < H100_SMS
     assert wide.units <= H100_SMS and wide.grid == wide.units
@@ -1703,14 +1739,14 @@ def test_split_runs_cover_every_stage_once(sms):
     """At the plan's splits and at forced ones (2, 3, one a slice): the
     blocks take every (tile, split) unit once, a tile's units are
     consecutive (split fastest), and its splits' runs of slices, each
-    staged at dx = 0, 1, 2, cover every (slice, dx) stage once, in order;
-    where the plan splits, every split has MIN_SPLIT_SLICES slices or
-    more and the tiles are fewer than the SMs."""
+    staged at dx = 0, 1, 2 (the rows design, O <= 32: at once), cover
+    every (slice, dx) stage once, in order; where the plan splits, every
+    split has MIN_SPLIT_SLICES slices or more and the tiles are fewer than
+    the SMs."""
     for shape, c, o in [((1, 8, 8), 64, 8), ((2, 19, 21), 200, 96),
                         ((4, 32, 32), 512, 32), ((1, 9, 40), 100, 65)]:
         for passes in (3, 1):
-            base = tf32x3_plan(*shape, c, o, sms) if passes == 3 \
-                else tf32x1_plan(*shape, c, o, sms)
+            base = _fp32_plan(*shape, c, o, sms, passes)
             if base.splits > 1:
                 assert base.tiles < sms
                 assert min(len(base.split_slices(s))
@@ -1739,28 +1775,25 @@ def _split_case(o, passes, seed):
     (one split: 4 slices are under two splits of MIN_SPLIT_SLICES), the
     emulation of the walk the plan names and the plain conv's bar."""
     x, w, b = _sliced_case(64, o, (1, 8, 8), seed=seed)
-    if passes == 3:
-        plan = tf32x3_plan(1, 8, 8, 64, o, 4)
-        emulate = _emulate_tf32x3
-        bar = 9 * 64 * 2.0 ** -22
-    else:
-        plan = tf32x1_plan(1, 8, 8, 64, o, 4)
-        emulate = _emulate_one_pass
-        bar = 2.0 ** -10 + (9 * 64 + 1) * 2.0 ** -22
+    plan = _fp32_plan(1, 8, 8, 64, o, 4, passes)
+    bar = 9 * 64 * 2.0 ** -22 if passes == 3 \
+        else 2.0 ** -10 + (9 * 64 + 1) * 2.0 ** -22
     assert plan.splits == 1 and plan.slices == 4
-    return x, w, b, plan, emulate, bar
+    return x, w, b, plan, _emulate_fp32, bar
 
 
 @pytest.mark.parametrize("o", [8, 96])
 @pytest.mark.parametrize("passes", [3, 1])
 def test_split_walk_matches_plain(o, passes):
     """The kernels' walk with each tile's K split 2 and 4 ways (forced;
-    the one-pass design at O = 96, the split-TF32 walk elsewhere): the
+    the rows design at O = 8, at O = 96 the one-pass design at one pass and
+    the split-TF32 walk at three): the
     splits' fp32 partials, split 0's from the bias, summed in split order,
     are within the unsplit walk's bar of the plain fp32 conv: 9C 2^-22
     sum|x||w| (+|b|) at three passes, (2^-10 + (9C + 1) 2^-22) at one."""
     x, w, b, plan, emulate, bar = _split_case(o, passes, seed=21)
     assert isinstance(plan, Tf32x1Plan) == (passes == 1 and o > 32)
+    assert isinstance(plan, RowsPlan) == (o <= 32)
     tt = [torch.from_numpy(v) for v in (x, w, b)]
     want = conv3x3_implicit_gemm_plain(*tt).numpy()
     scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
@@ -1799,7 +1832,9 @@ def test_tf32_probe_edits_match_the_kernel_source(variant):
     """scripts/probe_tf32_conv.py builds each variant by editing the text
     of csrc/conv3x3.cu (the split-TF32 kernel's, and, ``x1_*``, the
     one-pass design's): every edit must find its text there exactly once,
-    or the probe's build refuses it."""
+    or the probe's build refuses it.  (Its PARENT_VARIANTS edit the parent
+    tree's source that ``--small-o --parent`` names, and the build checks
+    them there.)"""
     import importlib.util
     from pathlib import Path
 
@@ -1815,6 +1850,497 @@ def test_tf32_probe_edits_match_the_kernel_source(variant):
                                    "x1_loads_only", "x1_no_store",
                                    "x1_lockstep", "x1_no_fence",
                                    "x1_wait2"}
+    for old, new in probe.VARIANTS[variant]:
+        assert src.count(old) == 1
+        src = src.replace(old, new)
+
+
+# ---------------------------------------------------------------------------
+# The rows design (fp32, O <= 32, both pass counts; csrc/conv3x3_rows.cu)
+# ---------------------------------------------------------------------------
+
+#: A consumer warpgroup's 128 threads: warp, lane; gq, t of the wgmma
+#: fragment layouts; and rho, the thread's first fragment row (an
+#: accumulator block's row: pixels rho and rho + 8 of the block).
+_RW, _RL = (a.ravel() for a in np.meshgrid(np.arange(4), np.arange(32),
+                                           indexing="ij"))
+_RGQ, _RT = _RL // 4, _RL % 4
+_RHO = 16 * _RW + _RGQ
+
+
+def rows_offset(q, t, ks):
+    """csrc/conv3x3_rows.cu rows_offset: the byte offset of lane t's
+    channels of box pixel q (16 bytes at KS = 16, 8 at KS = 8)."""
+    q, t = np.asarray(q), np.asarray(t)
+    span = 4 * ks
+    sw = (q * span >> 7) & (span // 16 - 1)
+    if ks == 16:
+        return q * span + ((t ^ sw) << 4)
+    return q * span + (((t >> 1) ^ sw) << 4) + ((t & 1) << 3)
+
+
+def _rows_landing(box, ks):
+    """The box of x (pixels x ks channels) as TMA lands it in shared memory
+    with the 4 ks-byte swizzle, as fp32 words by byte offset / 4."""
+    flat = box.reshape(-1)
+    words = np.empty_like(flat)
+    logical = np.arange(flat.size) * 4
+    words[tma_swizzle(logical, 4 * ks) // 4] = flat
+    return words
+
+
+def _rows_weights(w, ks, passes):
+    """csrc/conv3x3_rows.cu conv3x3_rows_split_kernel: ws[plane][tap][o][p],
+    Cs = C rounded up to ks positions a slice-ordered row, position p
+    holding channel p - p % ks + rows_channel(p % ks, ks) (zero past C);
+    planes hi and lo (three passes) or the value rounded to TF32."""
+    c, o = w.shape[2], w.shape[3]
+    cs = -(-c // ks) * ks
+    p = np.arange(cs)
+    ch = p - p % ks + np.array([rows_channel(int(v), ks) for v in p % ks])
+    wf = np.zeros((9, cs, o), np.float32)
+    inside = ch < c
+    wf[:, inside] = w.reshape(9, c, o)[:, ch[inside]]
+    if passes == 1:
+        planes = [tf32_round_w(wf)]
+    else:
+        planes = list(tf32_split_w(wf))
+    ws = np.stack([pl.transpose(0, 2, 1) for pl in planes])
+    ws[:, :, :, ~inside] = 0
+    return ws  # [plane][tap][o][Cs]
+
+
+def _emulate_rows(x, w, b, plan):
+    """The rows kernel's order of work in numpy, thread by thread where
+    the index math is: x zero-padded to Cp = C rounded up to 4; the split
+    kernel's planes (_rows_weights); for each (tile, K split) unit, a
+    stage a slice: the box of x {KS, cols + 2, rows + 2} at (slice, x0 - 1,
+    y0 - 1), zero outside the image and past Cp, landed with TMA's swizzle
+    (_rows_landing); each warpgroup wg and phase t = 0 .. R + 1 and dx,
+    each thread loads its KS / 4 channels of box pixels q and q + 8, q =
+    (wg hr + t + R (rho // cols)) (cols + 2) + rho % cols + dx, from the
+    landed words at rows_offset (checked against the box itself); the
+    fragment of k8 step k gives rows rho, rho + 8 at K index t the loaded
+    channels 2 k, and at K index t + 4 channel 2 k + 1 (wgmma's register-A
+    layout); one pass rounds them (tf32_round_x), three split them (hi
+    truncated, tf32_lo); each tap (dy, dx) with block j = t - dy in 0 ..
+    R - 1 adds A B to block j's sums (from the bias, split 0) and at three
+    passes A_hi B_lo + A_lo B_hi to its corrections, B[K][n] the stage's
+    plane row n (zero past O) at position 8 k + K of tap 3 dy + dx.  The
+    epilogue: thread (rho, t), block j, h stores channels 8 jj + 2 t, + 1
+    of tile row wg hr + j + R (rho // cols), column rho % cols + 8 h, where
+    inside the image and O; each output stored once."""
+    bsz, h, wd, c = x.shape
+    o = w.shape[-1]
+    cp = -(-c // 4) * 4
+    xp = np.zeros((bsz, h, wd, cp), np.float32)
+    xp[..., :c] = x
+    ks, n, cols, r, passes = plan.ks, plan.n, plan.cols, plan.phases, \
+        plan.passes
+    hr, rows = 64 * r // cols, plan.rows
+    assert rows == 2 * hr and plan.m == rows * cols == 128 * r
+    ws = _rows_weights(w, ks, passes)
+    cs = ws.shape[-1]
+    assert plan.slices == cs // ks
+    bk = np.zeros(n, np.float32)
+    bk[:o] = b
+    rs = cols + 2
+    seg, col = _RHO // cols, _RHO % cols
+    assert (col + 8 < cols).all() and (_RHO % 16 < 8).all()
+    y = np.zeros((bsz, h, wd, o), np.float32)
+    stored = np.zeros(y.shape, np.int32)
+    partials = {}
+    for bx in range(plan.grid):
+        for u in plan.block_units(bx):
+            t_, sp = plan.unit(u)
+            bi, y0, x0, n0 = plan.tile(t_)
+            assert n0 == 0
+            acc = np.tile(bk * (sp == 0), (2, r, 64, 1))
+            cor = np.zeros_like(acc)
+            for sl in plan.split_slices(sp):
+                c0 = sl * ks
+                box = np.zeros((rows + 2, rs, ks), np.float32)
+                ys, xs = y0 - 1, x0 - 1
+                ylo, yhi = max(ys, 0), min(ys + rows + 2, h)
+                xlo, xhi = max(xs, 0), min(xs + rs, wd)
+                chi = min(c0 + ks, cp)
+                if ylo < yhi and xlo < xhi and chi > c0:
+                    box[ylo - ys:yhi - ys, xlo - xs:xhi - xs, :chi - c0] = \
+                        xp[bi, ylo:yhi, xlo:xhi, c0:chi]
+                words = _rows_landing(box, ks)
+                flat = box.reshape(-1, ks)
+                bw = np.zeros((ws.shape[0], 9, n, ks), np.float32)
+                bw[:, :, :min(n, o)] = ws[:, :, :min(n, o), c0:c0 + ks]
+                for wg in range(2):
+                    q0 = (wg * hr + seg * r) * rs + col
+                    for ph in range(r + 2):
+                        for dx in range(3):
+                            q = q0 + ph * rs + dx
+                            u = []
+                            for qq in (q, q + 8):
+                                off = rows_offset(qq, _RT, ks) // 4
+                                got = words[off[:, None]
+                                            + np.arange(ks // 4)]
+                                want = flat[qq[:, None], (ks // 4) * _RT[:, None]
+                                            + np.arange(ks // 4)]
+                                assert np.array_equal(got, want, equal_nan=True)
+                                u.append(got)
+                            for k in range(ks // 8):
+                                a = np.zeros((64, 8), np.float32)
+                                filled = np.zeros((64, 8), np.int32)
+                                for rr, uu in ((_RHO, u[0]), (_RHO + 8, u[1])):
+                                    a[rr, _RT] = uu[:, 2 * k]
+                                    a[rr, _RT + 4] = uu[:, 2 * k + 1]
+                                    filled[rr, _RT] += 1
+                                    filled[rr, _RT + 4] += 1
+                                assert (filled == 1).all()
+                                bits = _bits(a)
+                                if passes == 1:
+                                    ahi, alo = tf32_round_x(a), None
+                                else:
+                                    ahi = _floats(bits & MASK)
+                                    alo = _floats(tf32_lo(bits))
+                                for dy in range(3):
+                                    j = ph - dy
+                                    if not 0 <= j < r:
+                                        continue
+                                    tap = 3 * dy + dx
+                                    bhi = bw[0, tap, :, 8 * k:8 * k + 8].T
+                                    acc[wg, j] += ahi @ bhi
+                                    if passes == 3:
+                                        blo = bw[1, tap, :, 8 * k:8 * k + 8].T
+                                        cor[wg, j] += ahi @ blo + alo @ bhi
+            partials[t_, sp] = acc + cor
+    for t_ in range(plan.tiles):
+        bi, y0, x0, _ = plan.tile(t_)
+        s = _split_sum(partials, t_, plan.splits)
+        for wg in range(2):
+            for j in range(r):
+                for hh in range(2):
+                    yy = y0 + wg * hr + j + r * seg
+                    xx = x0 + col + 8 * hh
+                    for jj in range(n // 8):
+                        for e in range(2):
+                            oo = 8 * jj + 2 * _RT + e
+                            ok = (yy < h) & (xx < wd) & (oo < o)
+                            dst = (bi, yy[ok], xx[ok], oo[ok])
+                            np.add.at(stored, dst, 1)
+                            y[dst] = s[wg, j][(_RHO + 8 * hh)[ok], oo[ok]]
+    assert (stored == 1).all()
+    return y
+
+
+def _rows_bar(c, passes):
+    """The pass count's bar on sum|x||w| (+|b|): 9C 2^-22 at three passes,
+    2^-10 + (9C + 1) 2^-22 at one (x and w each rounded within 2^-11)."""
+    return 9 * c * 2.0 ** -22 if passes == 3 \
+        else 2.0 ** -10 + (9 * c + 1) * 2.0 ** -22
+
+
+def _rows_pallas(x, w, b):
+    """rerevst_tpu's conv3x3_implicit_gemm in interpret mode (fp32), in
+    row tiles of 8 where H allows, else one tile."""
+    import jax.numpy as jnp
+
+    from rerevst_tpu.kernels import conv3x3 as jconv
+
+    h = x.shape[1]
+    return np.asarray(jconv.conv3x3_implicit_gemm(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+        tile_h=8 if h % 8 == 0 else h, interpret=True))
+
+
+def test_tf32_rows_design_by_shape():
+    """Every fp32 call with O <= 32 takes the rows design at both pass
+    counts, whatever C; wider O the split-TF32 design (three passes) or the
+    one-pass design (one); 16-bit calls never take it."""
+    assert TF32_ROWS_MAX_O == 32
+    assert "tf32_rows" in DESIGNS and "tf32x1_sliced" not in DESIGNS
+    for c in (1, 3, 8, 13, 64, 512):
+        for o in (1, 3, 8, 9, 16, 17, 32):
+            for passes in (1, 3):
+                assert design(c, torch.float32, o, passes) == "tf32_rows"
+            assert design(c, torch.float16, o) != "tf32_rows"
+        for o in (33, 64, 512):
+            assert design(c, torch.float32, o, 3) == "tf32x3"
+            assert design(c, torch.float32, o, 1) == "tf32x1"
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("height", [1, 7, 32, 37, 80, 130])
+@pytest.mark.parametrize("width", [1, 7, 32, 80, 130, 640])
+def test_tf32_rows_plan_covers_every_output_once(batch, height, width):
+    """The rows plan at O = 3, 8, 16 and 32 (N 8, 16, 32, 32), C = 3, 64
+    and 512, both pass counts: tiles of 128 R pixels, two warpgroup columns
+    of cols x 64 R / cols rows (R = rows_phases: 64 fp32 sums a thread at
+    most, acc and cor together at three passes) with cols of ROWS_COLS, at
+    least 8 rows; every output pixel in exactly one tile; the blocks take
+    every (tile, split) unit once; the launch fits the shared memory with
+    at least two stages."""
+    for c in (3, 64, 512):
+        for o in (3, 8, 16, 32):
+            for passes in (1, 3):
+                plan = tf32_rows_plan(batch, height, width, c, o, H100_SMS,
+                                      passes)
+                assert isinstance(plan, RowsPlan)
+                assert plan.n == out_tile(o) and plan.ks == tf32_slice_width(c)
+                assert plan.phases == rows_phases(plan.n, passes) == {
+                    (8, 1): 8, (16, 1): 8, (32, 1): 4, (8, 3): 8,
+                    (16, 3): 4, (32, 3): 2}[plan.n, passes]
+                assert plan.phases * plan.n * (1 if passes == 1 else 2) \
+                    <= 128
+                assert plan.cols in ROWS_COLS and plan.rows >= 8
+                assert plan.rows * plan.cols == plan.m == 128 * plan.phases
+                assert plan.n_tiles == 1
+                stages, nbytes = plan.smem()
+                assert 2 <= stages <= MAX_STAGES and nbytes <= SMEM_MAX
+                assert 1 <= plan.grid == min(plan.units, H100_SMS)
+                taken = sorted(u for bx in range(plan.grid)
+                               for u in plan.block_units(bx))
+                assert taken == list(range(plan.units))
+                cover = np.zeros((batch, height, width), np.int32)
+                for t in range(plan.tiles):
+                    bi, y0, x0, n0 = plan.tile(t)
+                    assert n0 == 0 and y0 < height and x0 < width
+                    cover[bi, y0:y0 + plan.rows, x0:x0 + plan.cols] += 1
+                assert (cover == 1).all(), (c, o, passes)
+
+
+def _split_tf32_walk(shape, o):
+    """The split-TF32 walk's tiles at an O <= 32 shape, as its N <= 32
+    instances took them before the rows design (256-pixel tiles of the
+    widest fit, N = O rounded up to 8, 16 or 32; unsplit: a stage's
+    reckoning does not depend on the split)."""
+    return SlicedPlan(*shape[:3], o,
+                      wide_cols(*shape[1:3], SLICED_M, SLICED_COLS),
+                      out_tile(o), 1, shape[3], tf32_slice_width(shape[3]))
+
+
+def test_tf32_rows_plans_at_the_batch_and_step_shapes():
+    """The Pass-2 batch's and the train step's O <= 32 shapes: the filter
+    blocks' `down` [16,80,80,512] -> 32 takes 16 x 32 tiles at one pass
+    (240, one split) and 16 x 16 at three (400), the `out` conv
+    [16,640,640,64] -> 3 32 x 32 tiles (6400), the step's [4,32,32,512] ->
+    32 splits K 8 ways, [4,256,256,64] -> 3 not.  Each stage reckons below
+    the split-TF32 walk's per slice (three of its stages) in shared-memory
+    bytes and in clocks, and moves fewer shared-memory bytes per clock of
+    products at every N."""
+    want = {((16, 80, 80, 512), 32, 1): (16, 32, 240, 1),
+            ((16, 80, 80, 512), 32, 3): (16, 16, 400, 1),
+            ((16, 640, 640, 64), 3, 1): (32, 32, 6400, 1),
+            ((16, 640, 640, 64), 3, 3): (32, 32, 6400, 1),
+            ((4, 32, 32, 512), 32, 1): (16, 32, 8, 8),
+            ((4, 32, 32, 512), 32, 3): (16, 16, 16, 8),
+            ((4, 256, 256, 64), 3, 1): (32, 32, 256, 1),
+            ((4, 256, 256, 64), 3, 3): (32, 32, 256, 1)}
+    for (shape, o, passes), (cols, rows, tiles, splits) in want.items():
+        plan = tf32_rows_plan(*shape, o, H100_SMS, passes)
+        assert (plan.cols, plan.rows, plan.tiles, plan.splits) == \
+            (cols, rows, tiles, splits), (shape, o, passes)
+        old = _split_tf32_walk(shape, o)
+        new_c, new_b = tf32_rows_stage_reckoning(plan.n, plan.cols,
+                                                 plan.ks, passes)
+        old_c, old_b = tf32x3_stage_reckoning(old.n, old.cols, old.ks,
+                                              passes)
+        # a rows stage is one slice; the old walk's three stages are
+        # one slice (its tile is 256 pixels, the rows tile m)
+        per_px_new = max(new_c, new_b / 128) / plan.m
+        per_px_old = 3 * max(old_c, old_b / 128) / old.m
+        assert per_px_new < per_px_old
+        assert new_b / new_c < old_b / old_c
+    # The stage ratios (shared-memory clocks over product clocks) of the
+    # split-TF32 walk at N = 32 and 8, one and three passes, and the rows
+    # design's at the same N.
+    assert [round(b / 128 / c, 2) for c, b in (
+        tf32x3_stage_reckoning(32, 16, 16, 1),
+        tf32x3_stage_reckoning(8, 16, 16, 1),
+        tf32x3_stage_reckoning(32, 16, 16, 3),
+        tf32x3_stage_reckoning(8, 16, 16, 3))] == [2.75, 9.12, 1.96, 6.08]
+    assert [round(b / 128 / c, 2) for c, b in (
+        tf32_rows_stage_reckoning(32, 16, 16, 1),
+        tf32_rows_stage_reckoning(8, 32, 16, 1),
+        tf32_rows_stage_reckoning(32, 16, 16, 3),
+        tf32_rows_stage_reckoning(8, 32, 16, 3))] == [1.2, 2.7, 0.85, 1.24]
+
+
+def test_direct_fp32_reckoning_at_the_out_shapes():
+    """The CUDA-core candidate for O <= 8: at the decoder's `out` conv
+    (a batch's [16,640,640,64] -> 3 and a step's [4,256,256,64] -> 3) the
+    bytes bound it, its FMAs at 64% of them; at O = 8 and at the filter
+    blocks' `down` conv (O = 32) the FMAs do, at 1.6x and 6.8x the
+    bytes."""
+    got = {shape: tuple(round(v, 4) for v in direct_fp32_reckoning(*shape))
+           for shape in ((16, 640, 640, 64, 3), (4, 256, 256, 64, 3),
+                         (16, 640, 640, 64, 8), (16, 80, 80, 512, 32))}
+    assert got == {(16, 640, 640, 64, 3): (0.338, 0.5243),
+                   (4, 256, 256, 64, 3): (0.0135, 0.021),
+                   (16, 640, 640, 64, 8): (0.9015, 0.5634),
+                   (16, 80, 80, 512, 32): (0.4507, 0.0665)}
+
+
+@pytest.mark.parametrize("ks", [8, 16])
+def test_rows_channel_order_matches_the_lanes_loads(ks):
+    """The weights' planes put, at position 8 k + K of a slice, the channel
+    that wgmma's A has at K index K of step k: lane t's loaded channels (ks
+    / 4) t .. are its A values at K t (channels 2 k) and t + 4 (2 k + 1);
+    the order is a permutation of the slice."""
+    order = [rows_channel(p, ks) for p in range(ks)]
+    assert sorted(order) == list(range(ks))
+    per = ks // 4
+    for k in range(ks // 8):
+        for t in range(4):
+            assert order[8 * k + t] == per * t + 2 * k
+            assert order[8 * k + t + 4] == per * t + 2 * k + 1
+
+
+@pytest.mark.parametrize("ks", [8, 16])
+@pytest.mark.parametrize("cols", [16, 32, 64])
+def test_rows_loads_read_where_tma_lands_and_hit_distinct_banks(ks, cols):
+    """Lane t's load of box pixel q reads, at rows_offset, its channels
+    (ks / 4) t .. as TMA's swizzle landed them; every fragment's loads of a
+    warp (rows rho and rho + 8, any phase and dx) split into the hardware's
+    phases (8 lanes of 16-byte loads, 16 of 8-byte ones) that each touch
+    128 distinct bytes: no bank conflict."""
+    span = 4 * ks
+    rows = 2 * 64 * (4 if cols == 16 else 8) // cols
+    npx = (rows + 2) * (cols + 2)
+    for q in range(npx):
+        for t in range(4):
+            for i in range(ks // 4):
+                logical = (q * ks + (ks // 4) * t + i) * 4
+                assert rows_offset(q, t, ks) + 4 * i == \
+                    tma_swizzle(logical, span)
+    rs, width = cols + 2, 16 if ks == 16 else 8
+    per_phase = 128 // width
+    for q00 in (0, 1, 5, 2 * rs + 3):
+        for warp in range(4):
+            lanes = np.arange(32)
+            rho = 16 * warp + lanes // 4
+            for dq in (0, 8):
+                q = q00 + (rho // cols) * 4 * rs + rho % cols + dq
+                off = rows_offset(q, lanes % 4, ks)
+                for g in range(0, 32, per_phase):
+                    slots = (off[g:g + per_phase] % 128) // width
+                    assert len(set(slots)) == per_phase
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("o", [3, 8, 16, 32])
+@pytest.mark.parametrize("c,shape", [(3, (2, 19, 21)), (8, (2, 19, 21)),
+                                     (64, (1, 21, 37)), (512, (1, 9, 10))])
+def test_tf32_rows_walk_matches_plain_and_pallas(c, shape, o, passes):
+    """The rows walk at the wrapper's plan (a grid of 3 blocks), thread by
+    thread where its index math is (_emulate_rows): C = 3 in a padded copy
+    (Cp = 4, one 8-channel slice), 8 in one slice, 64 in four 16-channel
+    slices, 512 in 32 (a 9 x 10 image: most of a tile outside it); O = 3
+    (scalar stores), 8, 16, 32; ragged tiles.  Within the pass count's bar
+    of the plain fp32 conv and of the Pallas kernel in interpret mode."""
+    x, w, b = _sliced_case(c, o, shape, seed=31)
+    plan = dataclasses.replace(
+        tf32_rows_plan(*shape, c, o, H100_SMS, passes), grid=3)
+    got = _emulate_rows(x, w, b, plan)
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    want = conv3x3_implicit_gemm_plain(*tt).numpy()
+    scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
+    bar = _rows_bar(c, passes) * scale
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want) <= bar).all()
+    assert (np.abs(got - _rows_pallas(x, w, b)) <= bar).all()
+
+
+@pytest.mark.parametrize("cols", [16, 32, 64])
+@pytest.mark.parametrize("passes", [1, 3])
+def test_tf32_rows_every_tile_width(cols, passes):
+    """Each tile width the plan may take, [2,19,70,24] -> 17 (N = 32, R =
+    4; two slices, the second zero-filled past C), a grid of 2 blocks:
+    within the pass count's bar of the plain conv."""
+    x, w, b = _sliced_case(24, 17, (2, 19, 70), seed=32)
+    base = tf32_rows_plan(2, 19, 70, 24, 17, H100_SMS, passes)
+    plan = dataclasses.replace(base, cols=cols, grid=2)
+    got = _emulate_rows(x, w, b, plan)
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    want = conv3x3_implicit_gemm_plain(*tt).numpy()
+    scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
+    assert (np.abs(got - want) <= _rows_bar(24, passes) * scale).all()
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("splits", [2, 4])
+def test_tf32_rows_split_walk_matches_plain_and_pallas(passes, splits):
+    """[1,8,8,64] -> 16 and [1,9,10,512] -> 32 with each tile's K split
+    2 and 4 ways (forced): the splits' partials, split 0's from the bias,
+    summed in split order, within the pass count's bar of the plain conv
+    and of the Pallas kernel in interpret mode."""
+    for c, o, shape in ((64, 16, (1, 8, 8)), (512, 32, (1, 9, 10))):
+        x, w, b = _sliced_case(c, o, shape, seed=33)
+        base = tf32_rows_plan(*shape, c, o, 4, passes)
+        plan = with_splits(base, splits, 4)
+        assert plan.splits == splits and plan.units == plan.tiles * splits
+        got = _emulate_rows(x, w, b, plan)
+        tt = [torch.from_numpy(v) for v in (x, w, b)]
+        want = conv3x3_implicit_gemm_plain(*tt).numpy()
+        scale = conv3x3_implicit_gemm_plain(*(t.abs() for t in tt)).numpy()
+        bar = _rows_bar(c, passes) * scale
+        assert np.isfinite(got).all()
+        assert (np.abs(got - want) <= bar).all()
+        assert (np.abs(got - _rows_pallas(x, w, b)) <= bar).all()
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_tf32_rows_nonfinite_and_huge_inputs(passes):
+    """inf, -inf, NaN and +-FLT_MAX inside, on both sides of a tile's and a
+    warpgroup column's edges, at the image's edges and in the last channel
+    (C = 13: a padded copy), O = 24: the rows walk's NaN and inf outputs are
+    exactly the plain conv's, of the same sign, and the finite ones agree
+    within the pass count's bar (FLT_MAX's too: neither its rounding nor its
+    split overflows)."""
+    c, o = 13, 24
+    x, w, b = _sliced_case(c, o, (2, 19, 40), seed=34)
+    for idx, v in [((0, 3, 5, 7), np.inf), ((0, 10, 15, 1), -np.inf),
+                   ((0, 10, 16, c - 1), np.nan), ((0, 15, 30, 4), np.inf),
+                   ((0, 16, 31, 2), -np.inf), ((1, 0, 39, 0), np.nan),
+                   ((1, 18, 0, c - 1), -np.inf), ((0, 5, 25, 2), FLT_MAX),
+                   ((1, 9, 12, c - 1), -FLT_MAX)]:
+        x[idx] = v
+    plan = tf32_rows_plan(2, 19, 40, c, o, H100_SMS, passes)
+    with np.errstate(invalid="ignore", over="ignore"):
+        got = _emulate_rows(x, w, b, plan)
+    tt = [torch.from_numpy(v) for v in (x, w, b)]
+    want = conv3x3_implicit_gemm_plain(*tt).numpy()
+    assert (np.isnan(got) == np.isnan(want)).all()
+    assert (np.isinf(got) == np.isinf(want)).all()
+    assert (np.sign(got[np.isinf(want)]) == np.sign(want[np.isinf(want)])).all()
+    fin = np.isfinite(want)
+    assert not fin.all() and np.abs(want[fin]).max() > 1e36
+    xz = np.where(np.isfinite(x), x, 0).astype(np.float32)
+    scale = conv3x3_implicit_gemm_plain(
+        torch.from_numpy(np.abs(xz)), torch.from_numpy(np.abs(w)),
+        torch.from_numpy(np.abs(b))).numpy()
+    assert (np.abs(got[fin] - want[fin])
+            <= _rows_bar(c, passes) * scale[fin]).all()
+
+
+@pytest.mark.parametrize("variant", ["as_is", "no_wgmma", "no_round",
+                                     "one_dx", "three_dx", "no_store",
+                                     "one_group", "regs_40", "no_split_sum",
+                                     "no_group_fence", "no_lds"])
+def test_rows_probe_edits_match_the_kernel_source(variant):
+    """scripts/probe_rows_conv.py builds each variant by editing the text
+    of csrc/conv3x3_rows.cu: every edit must find its text there exactly
+    once, or the probe's build refuses it."""
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "probe_rows_conv", root / "scripts" / "probe_rows_conv.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    src = (root / "rerevst_torch" / "csrc" / "conv3x3_rows.cu").read_text()
+    assert set(probe.VARIANTS) == {"as_is", "no_wgmma", "no_round", "one_dx",
+                                   "three_dx", "no_store", "one_group",
+                                   "regs_40", "no_split_sum",
+                                   "no_group_fence", "no_lds"}
     for old, new in probe.VARIANTS[variant]:
         assert src.count(old) == 1
         src = src.replace(old, new)

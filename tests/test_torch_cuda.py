@@ -406,12 +406,20 @@ TF32X3 = [
 @pytest.mark.parametrize("shape,o", TF32X3)
 @pytest.mark.parametrize("bias", [True, False])
 def test_conv3x3_tf32x3_kernel_on_card(rng, cuda, shape, o, bias):
+    """Three passes at every C and O: one launch of the design ``design``
+    names (the split-TF32 kernel where O > 32, the rows kernel below),
+    within the fp32 bar of the plain conv."""
+    from rerevst_torch.kernels.conv3x3 import design
+
     x, w, b = _conv_on_card(rng, cuda, torch.float32, shape, o, bias)
+    kind = design(shape[-1], torch.float32, o, 3)
+    assert kind == ("tf32x3" if o > 32 else "tf32_rows")
     before = dict(conv3x3_implicit_gemm.launches_by_design)
     got = conv3x3_implicit_gemm(x, w, b)
     torch.cuda.synchronize()
     after = conv3x3_implicit_gemm.launches_by_design
-    assert after["tf32x3"] == before["tf32x3"] + 1
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == kind) for k in after}
     assert got.dtype == torch.float32 and tuple(got.shape) == shape[:3] + (o,)
     assert _conv_ok(got, conv3x3_implicit_gemm_plain(x, w, b), x, w, b)
 
@@ -463,14 +471,13 @@ def test_conv3x3_tf32x3_nonfinite_inputs_on_card(rng, cuda, name, c, o,
 def test_conv3x3_tf32x1_kernel_on_card(rng, cuda, shape, o, bias):
     """The one-pass conv (``passes=1``, the 'default' precision) at the
     three-pass shapes: one launch of the design ``design`` names (the
-    one-pass design ``tf32x1`` where O > 32, the split-TF32 kernel's
-    one-pass instance ``tf32x1_sliced`` below), within the one-pass bar of
-    the plain fp32 conv."""
+    one-pass design ``tf32x1`` where O > 32, the rows kernel ``tf32_rows``
+    below), within the one-pass bar of the plain fp32 conv."""
     from rerevst_torch.kernels.conv3x3 import design
 
     x, w, b = _conv_on_card(rng, cuda, torch.float32, shape, o, bias)
     kind = design(shape[-1], torch.float32, o, 1)
-    assert kind == ("tf32x1" if o > 32 else "tf32x1_sliced")
+    assert kind == ("tf32x1" if o > 32 else "tf32_rows")
     before = dict(conv3x3_implicit_gemm.launches_by_design)
     got = conv3x3_implicit_gemm(x, w, b, passes=1)
     torch.cuda.synchronize()
@@ -491,8 +498,8 @@ def test_conv3x3_tf32x1_kernel_on_card(rng, cuda, shape, o, bias):
 def test_conv3x3_tf32x1_nonfinite_inputs_on_card(rng, cuda, c, o, splits):
     """One pass under inf, -inf, NaN and +-FLT_MAX inputs: NaN and inf
     outputs exactly the plain version's, of the same sign; at the plan's
-    K split and at 4 splits a tile (both one-pass routes: O = 32 takes the
-    split-TF32 kernel's one-pass instance)."""
+    K split and at 4 splits a tile (both one-pass routes: O = 6 and 32 take
+    the rows kernel)."""
     x, w, b = _conv_on_card(rng, cuda, torch.float32, (2, 19, 70, c), o, True)
     fmax = torch.finfo(torch.float32).max
     for idx, v in [((0, 3, 5, 2 % c), float("inf")),
@@ -515,6 +522,93 @@ def test_conv3x3_tf32x1_nonfinite_inputs_on_card(rng, cuda, c, o, splits):
     xz = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
     assert _conv_ok(torch.where(fin, got, 0), torch.where(fin, want, 0),
                     xz, w, b, passes=1)
+
+
+#: Shapes of the rows kernel (fp32, O <= 32, both pass counts): C = 1, 3
+#: and 13 (a copy of x zero-padded to a multiple of 4, one 8- or 16-channel
+#: slice), 8, 24 (a zero-filled slice tail), 64 and 512; every tile width
+#: its plan picks, ragged tiles, W and H under a tile, B = 1 and 4; O = 1,
+#: 3, 5 (scalar stores), 8, 9, 16, 17, 24 and 32 (N = 8, 16, 32); the
+#: Pass-2 batch's `down` conv at a small batch and a train step's
+#: [4,32,32,512] -> 32 and [4,256,256,64] -> 3 at their own shapes.
+ROWS = [((1, 8, 20, 1), 3), ((2, 13, 45, 3), 5), ((2, 19, 21, 13), 6),
+        ((1, 5, 300, 8), 16), ((2, 19, 70, 24), 17), ((3, 37, 53, 64), 32),
+        ((1, 9, 11, 64), 1), ((2, 33, 130, 64), 8), ((1, 21, 100, 64), 9),
+        ((2, 11, 9, 512), 24), ((2, 80, 80, 512), 32),
+        ((4, 32, 32, 512), 32), ((4, 256, 256, 64), 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("shape,o", ROWS)
+def test_conv3x3_rows_kernel_on_card(rng, cuda, shape, o, passes):
+    """The rows kernel at three and one pass: one launch of design
+    ``tf32_rows`` at its plan, then with each tile's K split 2 and 4 ways
+    and one way a slice (forced, where there are that many slices): within
+    the pass count's bar of the plain fp32 conv, and two runs give the same
+    bits (split partials are summed in split order)."""
+    from rerevst_torch.kernels.conv3x3 import design, forced_splits, plan_for
+
+    x, w, b = _conv_on_card(rng, cuda, torch.float32, shape, o, True)
+    assert design(shape[-1], torch.float32, o, passes) == "tf32_rows"
+    want = conv3x3_implicit_gemm_plain(x, w, b)
+    before = dict(conv3x3_implicit_gemm.launches_by_design)
+    got = conv3x3_implicit_gemm(x, w, b, passes=passes)
+    torch.cuda.synchronize()
+    after = conv3x3_implicit_gemm.launches_by_design
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == "tf32_rows") for k in after}
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape[:3] + (o,)
+    assert _conv_ok(got, want, x, w, b, passes=passes)
+    assert torch.equal(got, conv3x3_implicit_gemm(x, w, b, passes=passes))
+    slices = plan_for(x, o, passes).slices
+    for splits in sorted({2, 4, slices} - {1}):
+        if splits > slices:
+            continue
+        with forced_splits(splits):
+            assert plan_for(x, o, passes).splits == splits
+            got = conv3x3_implicit_gemm(x, w, b, passes=passes)
+            again = conv3x3_implicit_gemm(x, w, b, passes=passes)
+        torch.cuda.synchronize()
+        assert _conv_ok(got, want, x, w, b, passes=passes), splits
+        assert torch.equal(got, again), splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("splits", [None, 2])
+@pytest.mark.parametrize("c,o", [(13, 6), (64, 3), (64, 32), (512, 17)])
+def test_conv3x3_rows_nonfinite_inputs_on_card(rng, cuda, c, o, splits,
+                                               passes):
+    """The rows kernel under inf, -inf, NaN and +-FLT_MAX inputs, inside,
+    on both sides of a tile's and a warpgroup column's edges, at the
+    image's edges and in the last channel: NaN and inf outputs exactly the
+    plain version's, of the same sign, finite ones within the pass count's
+    bar; at the plan's K split and at 2 (where C has two slices)."""
+    x, w, b = _conv_on_card(rng, cuda, torch.float32, (2, 19, 70, c), o, True)
+    fmax = torch.finfo(torch.float32).max
+    for idx, v in [((0, 3, 5, 2 % c), float("inf")),
+                   ((0, 10, 15, 1 % c), float("-inf")),
+                   ((0, 10, 16, c - 1), float("nan")),
+                   ((0, 15, 31, 3 % c), float("inf")),
+                   ((0, 16, 32, 4 % c), float("-inf")),
+                   ((1, 0, 69, 0), float("nan")),
+                   ((1, 18, 0, c - 1), float("inf")),
+                   ((0, 14, 40, c - 1), fmax), ((1, 6, 33, 0), -fmax)]:
+        x[idx] = v
+    with _splits(splits if splits is None or c > 16 else None):
+        got = conv3x3_implicit_gemm(x, w, b, passes=passes)
+    torch.cuda.synchronize()
+    want = conv3x3_implicit_gemm_plain(x, w, b)
+    fin = torch.isfinite(want)
+    assert not fin.all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.equal(torch.sign(got[torch.isinf(want)]),
+                       torch.sign(want[torch.isinf(want)]))
+    xz = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    assert _conv_ok(torch.where(fin, got, 0), torch.where(fin, want, 0),
+                    xz, w, b, passes=passes)
 
 
 def _splits(splits):
@@ -1287,8 +1381,10 @@ def test_conv3x3_fn_on_card(rng, cuda, shape, o, precision, passes):
     torch.cuda.synchronize()
     by_design = conv3x3_implicit_gemm.launches_by_design
     assert sum(v for k, v in by_design.items()
-               if k.startswith(f"tf32x{passes}")) == 2 == sum(
+               if k in (f"tf32x{passes}", "tf32_rows")) == 2 == sum(
                    by_design.values())
+    assert {key[-1] for key in conv3x3_implicit_gemm.launches_by_shape} \
+        == {passes}
     assert conv3x3_wgrad.launches == 1
     x, w = x.detach(), w.detach()
     with torch.no_grad(), exact_products():
